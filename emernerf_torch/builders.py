@@ -1,0 +1,202 @@
+"""Factories: config + dataset -> the port's models (port of ``emernerf_tpu/builders.py``).
+
+Takes the same config schema.  A knob that the port does not run raises
+instead of being ignored: any ``grid_backend`` other than ``brick``,
+``nerf.propnet.fine_level_skip > 0``, ``render.eval_sample_topk > 0``, a
+non-default ``nerf.model.perf.*`` formulation knob, unfused or lone
+dynamic/flow branches, the feature head, spherical-harmonics directions
+and temporal interpolation.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from emernerf_tpu.config import ConfigNode
+from emernerf_torch.data.dataset import SceneDataset
+from emernerf_torch.models.fields import DensityField, RadianceField
+from emernerf_torch.ops.brickgrid import BrickGridSpec
+from emernerf_torch.reuse import synthetic
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# nerf.model.perf.* at their defaults: TPU formulation choices that have no
+# meaning in the port (its kernels have one formulation each)
+_PERF_DEFAULTS = {
+    "scatter_mode": "wide", "reduce_mode": "unroll", "posgrad_mode": "fwd",
+    "gather_mode": "2d", "onehot_budget": 1 << 19, "grad_subsample": 1,
+    "time_pair": True,
+}
+
+
+def validate_cfg(cfg: ConfigNode) -> None:
+    """Raise on every configured knob the port does not run."""
+    backend = cfg.nerf.model.get("grid_backend", "brick")
+    if backend != "brick":
+        raise NotImplementedError(
+            f"nerf.model.grid_backend={backend!r}: only 'brick' is ported")
+    perf = cfg.nerf.model.get("perf", None) or {}
+    for k, v in perf.items():
+        if k not in _PERF_DEFAULTS or v != _PERF_DEFAULTS[k]:
+            raise NotImplementedError(
+                f"nerf.model.perf.{k}={v!r}: only the default formulation is ported")
+    if int(cfg.nerf.propnet.get("fine_level_skip", 0)) > 0:
+        raise NotImplementedError("nerf.propnet.fine_level_skip>0 is not ported")
+    if int(cfg.get_dotted("render.eval_sample_topk", 0)) > 0:
+        raise NotImplementedError("render.eval_sample_topk>0 is ported with training")
+    if cfg.nerf.model.get("fuse_flow_grid", True) is False:
+        raise NotImplementedError("nerf.model.fuse_flow_grid=false is not ported")
+    head = cfg.nerf.model.head
+    if head.enable_dynamic_branch != head.enable_flow_branch:
+        raise NotImplementedError(
+            "the dynamic and flow branches are ported together (fused grid) only")
+    if head.enable_feature_head:
+        raise NotImplementedError("the feature head and learnable PE are not ported yet")
+    if head.get("direction_encoding", "sinusoidal") != "sinusoidal":
+        raise NotImplementedError("only sinusoidal direction encoding is ported")
+    if head.get("enable_temporal_interpolation", False):
+        raise NotImplementedError("temporal interpolation is not ported yet")
+
+
+def make_grid_spec(n_input_dims: int, n_levels: int, base_resolution: int,
+                   max_resolution: int, log2_hashmap_size: int,
+                   n_features_per_level: int) -> BrickGridSpec:
+    """Brick-grid spec with the cell capacity of the configured hash table.
+
+    F=1 3D grids (proposal nets) use 4^3-cell bricks (125-corner rows, cell
+    capacity 64 per row); others 2^3-cell bricks.  4D rows store both time
+    corners."""
+    bs = 2 if n_features_per_level == 1 and n_input_dims == 3 else 1
+    return BrickGridSpec(
+        n_input_dims=n_input_dims,
+        n_levels=n_levels,
+        base_resolution=base_resolution,
+        max_resolution=max_resolution,
+        log2_bricks=max(log2_hashmap_size - 3 * bs, 4),
+        n_features_per_level=n_features_per_level,
+        log2_brick_size=bs,
+        time_pair=n_input_dims == 4,
+    )
+
+
+def _enc_spec(enc_cfg: ConfigNode) -> BrickGridSpec:
+    return make_grid_spec(
+        n_input_dims=enc_cfg.n_input_dims, n_levels=enc_cfg.n_levels,
+        base_resolution=enc_cfg.base_resolution,
+        max_resolution=enc_cfg.max_resolution,
+        log2_hashmap_size=enc_cfg.log2_hashmap_size,
+        n_features_per_level=enc_cfg.n_features_per_level,
+    )
+
+
+def flow_spec() -> BrickGridSpec:
+    """The flow encoder's structure is fixed in the reference."""
+    return make_grid_spec(n_input_dims=4, n_levels=10, base_resolution=16,
+                          max_resolution=4096, log2_hashmap_size=18,
+                          n_features_per_level=4)
+
+
+def _dtype(cfg: ConfigNode, key: str):
+    return _DTYPES[cfg.nerf.model.get(key, "float32")]
+
+
+def build_model_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
+                         device=None, generator=None, flow=None) -> RadianceField:
+    """The radiance field for ``cfg`` (``flow`` overrides the flow spec)."""
+    validate_cfg(cfg)
+    model_cfg = cfg.nerf.model
+    head = model_cfg.head
+    enable_cam, enable_img = head.enable_cam_embedding, head.enable_img_embedding
+    if dataset.has_test_split and enable_img:
+        # per-image embeddings can't generalize to held-out images
+        enable_cam, enable_img = True, False
+    dynamic = _enc_spec(model_cfg.dynamic_xyz_encoder) if head.enable_dynamic_branch else None
+    flow = (flow or flow_spec()) if head.enable_flow_branch else None
+    return RadianceField(
+        static_spec=_enc_spec(model_cfg.xyz_encoder),
+        dynamic_spec=dynamic,
+        flow_spec=flow,
+        temporal_agg_topk=int(head.get("temporal_agg_topk", 0)),
+        aabb=tuple(float(v) for v in dataset.aabb),
+        unbounded=cfg.nerf.unbounded,
+        geometry_feature_dim=model_cfg.neck.geometry_feature_dim,
+        base_mlp_layer_width=model_cfg.neck.base_mlp_layer_width,
+        head_mlp_layer_width=head.head_mlp_layer_width,
+        enable_cam_embedding=enable_cam,
+        enable_img_embedding=enable_img,
+        num_cams=dataset.num_cams,
+        appearance_embedding_dim=head.appearance_embedding_dim,
+        enable_sky_head=head.enable_sky_head,
+        enable_shadow_head=head.enable_shadow_head,
+        num_train_timesteps=dataset.num_img_timesteps,
+        time_diff=dataset.time_diff,
+        table_dtype=_dtype(cfg, "table_dtype"),
+        table_param_dtype=_dtype(cfg, "table_param_dtype"),
+        mlp_dtype=_dtype(cfg, "mlp_dtype"),
+        device=device,
+        generator=generator,
+    )
+
+
+def build_propnets_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
+                            device=None, generator=None) -> List[DensityField]:
+    """The proposal density fields, one per proposal level."""
+    validate_cfg(cfg)
+    pcfg = cfg.nerf.propnet
+    enc = pcfg.xyz_encoder
+    nets = []
+    for i in range(len(pcfg.num_samples_per_prop)):
+        spec = make_grid_spec(
+            n_input_dims=enc.n_input_dims,
+            n_levels=enc.n_levels_per_prop[i],
+            base_resolution=enc.base_resolutions_per_prop[i],
+            max_resolution=enc.max_resolution_per_prop[i],
+            log2_hashmap_size=enc.lgo2_hashmap_size_per_prop[i],
+            n_features_per_level=enc.n_features_per_level,
+        )
+        nets.append(DensityField(
+            spec=spec,
+            aabb=tuple(float(v) for v in dataset.aabb),
+            unbounded=cfg.nerf.unbounded,
+            table_dtype=_dtype(cfg, "table_dtype"),
+            table_param_dtype=_dtype(cfg, "table_param_dtype"),
+            mlp_dtype=_dtype(cfg, "mlp_dtype"),
+            device=device,
+            generator=generator,
+        ))
+    return nets
+
+
+def build_dataset_from_cfg(cfg: ConfigNode) -> SceneDataset:
+    """The synthetic scene; the Waymo and nuScenes loaders come later."""
+    name = cfg.data.dataset
+    if name != "synthetic":
+        raise NotImplementedError(f"data.dataset={name!r}: only 'synthetic' is ported")
+    syn = cfg.data.synthetic
+    s = synthetic.make_synthetic_scene(
+        num_frames=syn.num_frames,
+        num_cams=cfg.data.pixel_source.num_cams,
+        hw=(syn.image_height, syn.image_width),
+        dynamic=syn.dynamic,
+    )
+    lidar = None
+    if cfg.data.lidar_source.load_lidar:
+        frame_idx = np.round(
+            s["lidar_normed_timestamps"] * (s["num_frames"] - 1)).astype(np.int64)
+        lidar = dict(origins=s["lidar_origins"], viewdirs=s["lidar_viewdirs"],
+                     ranges=s["lidar_ranges"], frame_idx=frame_idx)
+    return SceneDataset(
+        images=s["images"],
+        c2w=s["c2w"],
+        intrinsics=s["intrinsics"],
+        frame_idx=np.repeat(np.arange(s["num_frames"]), s["num_cams"]),
+        cam_ids=s["cam_ids"],
+        sky_masks=s["sky_masks"] if cfg.data.pixel_source.load_sky_mask else None,
+        dynamic_masks=(s["dynamic_masks"]
+                       if cfg.data.pixel_source.load_dynamic_mask else None),
+        lidar=lidar,
+        aabb=s["aabb"],
+        test_image_stride=cfg.data.pixel_source.test_image_stride,
+    )

@@ -1,0 +1,130 @@
+"""Host-side scene dataset (port of ``emernerf_tpu/data/dataset.py``).
+
+Numpy only: split bookkeeping, joint timestamp normalization, the aabb, and
+whole-image eval rays.  The device-resident training scene comes with
+training.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+
+class SceneDataset:
+    """One driving scene: images + calibration + optional sky/dynamic masks
+    and lidar, with reference-compatible split logic."""
+
+    def __init__(
+        self,
+        images: np.ndarray,  # (N, H, W, 3) float32 [0,1]
+        c2w: np.ndarray,  # (N, 4, 4)
+        intrinsics: np.ndarray,  # (N, 3, 3)
+        frame_idx: np.ndarray,  # (N,) int  image -> frame/timestep index
+        cam_ids: np.ndarray,  # (N,) int
+        sky_masks: Optional[np.ndarray] = None,
+        dynamic_masks: Optional[np.ndarray] = None,
+        lidar: Optional[Dict[str, np.ndarray]] = None,
+        aabb: Optional[np.ndarray] = None,
+        test_image_stride: int = 0,
+    ):
+        self.images = images
+        self.c2w = c2w.astype(np.float32)
+        self.intrinsics = intrinsics.astype(np.float32)
+        self.frame_idx = np.asarray(frame_idx, np.int64)
+        self.cam_ids = np.asarray(cam_ids, np.int32)
+        self.sky_masks = sky_masks
+        self.dynamic_masks = dynamic_masks
+        self.lidar = lidar
+        self.num_frames = int(self.frame_idx.max()) + 1
+        self.num_cams = int(self.cam_ids.max()) + 1
+
+        # joint [0,1] timestamp normalization over image + lidar frames
+        all_frames = self.frame_idx.astype(np.float64)
+        if lidar is not None:
+            all_frames = np.concatenate([all_frames, lidar["frame_idx"].astype(np.float64)])
+        fmin, fmax = all_frames.min(), all_frames.max()
+        denom = max(fmax - fmin, 1.0)
+        self.normed_timestamps = ((self.frame_idx - fmin) / denom).astype(np.float32)
+        if lidar is not None:
+            self.lidar_normed_timestamps = (
+                (lidar["frame_idx"] - fmin) / denom).astype(np.float32)
+
+        # ---- splits: every Nth timestep -> test ----
+        frames = np.arange(self.num_frames)
+        test_frames = set(frames[::test_image_stride].tolist()) if test_image_stride > 0 else set()
+        self.test_frames = np.asarray(sorted(test_frames), np.int64)
+        is_test = np.isin(self.frame_idx, self.test_frames)
+        self.train_indices = np.nonzero(~is_test)[0].astype(np.int32)
+        self.test_indices = np.nonzero(is_test)[0].astype(np.int32)
+
+        # ---- aabb: given, else lidar percentiles, else camera-derived ----
+        if aabb is not None:
+            self.aabb = np.asarray(aabb, np.float32)
+        elif lidar is not None:
+            pts = lidar["origins"] + lidar["viewdirs"] * lidar["ranges"][:, None]
+            sub = pts[:: max(len(pts) // 100000, 1)]
+            amin = np.quantile(sub, 0.02, axis=0)
+            amax = np.quantile(sub, 0.98, axis=0)
+            amax[2] = max(amax[2], 20.0)
+            self.aabb = np.concatenate([amin, amax]).astype(np.float32)
+        else:
+            centers = self.c2w[:, :3, 3]
+            amin = centers.min(0) - np.array([40.0, 40.0, 5.0])
+            amax = centers.max(0) + np.array([40.0, 40.0, 20.0])
+            self.aabb = np.concatenate([amin, amax]).astype(np.float32)
+
+    @property
+    def image_hw(self):
+        return self.images.shape[1], self.images.shape[2]
+
+    @property
+    def has_test_split(self) -> bool:
+        return len(self.test_indices) > 0
+
+    @property
+    def num_img_timesteps(self) -> int:
+        return self.num_frames
+
+    @property
+    def time_diff(self) -> float:
+        return 1.0 / max(self.num_img_timesteps, 1)
+
+    def get_image_rays(self, img_idx: int, downscale: int = 1):
+        """Whole-image eval rays: a rays dict of shape (H*W, ...) plus
+        ground-truth maps."""
+        h, w = self.image_hw
+        hh, ww = h // downscale, w // downscale
+        ys, xs = np.meshgrid(np.arange(hh) * downscale, np.arange(ww) * downscale,
+                             indexing="ij")
+        x = xs.reshape(-1).astype(np.float32)
+        y = ys.reshape(-1).astype(np.float32)
+        intr = self.intrinsics[img_idx].copy()
+        cam_dirs = np.stack(
+            [(x - intr[0, 2] + 0.5) / intr[0, 0],
+             (y - intr[1, 2] + 0.5) / intr[1, 1],
+             np.ones_like(x)],
+            axis=-1,
+        )
+        c2w = self.c2w[img_idx]
+        dirs = cam_dirs @ c2w[:3, :3].T
+        dnorm = np.linalg.norm(dirs, axis=-1, keepdims=True)
+        viewdirs = dirs / (dnorm + 1e-8)
+        origins = np.broadcast_to(c2w[:3, 3], viewdirs.shape)
+        n = len(x)
+        rays = {
+            "origins": origins.astype(np.float32),
+            "viewdirs": viewdirs.astype(np.float32),
+            "direction_norms": dnorm.astype(np.float32),
+            "pixel_coords": np.stack([y / h, x / w], -1).astype(np.float32),
+            "normed_timestamps": np.full(n, self.normed_timestamps[img_idx], np.float32),
+            "img_idx": np.full(n, img_idx, np.int32),
+            "cam_idx": np.full(n, self.cam_ids[img_idx], np.int32),
+        }
+        gt = {"pixels": self.images[img_idx, ::downscale, ::downscale], "hw": (hh, ww)}
+        if self.sky_masks is not None:
+            gt["sky_masks"] = self.sky_masks[img_idx, ::downscale, ::downscale]
+        if self.dynamic_masks is not None:
+            gt["dynamic_masks"] = self.dynamic_masks[img_idx, ::downscale, ::downscale]
+        return rays, gt

@@ -1,0 +1,77 @@
+"""Flagship model setup (port of ``emernerf_tpu/flagship.py``): the full
+EmerNeRF configuration (static + dynamic + flow fields, sky + shadow heads,
+reference-scale grids) on the synthetic dynamic scene."""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from emernerf_tpu.config import from_dotlist, load_config, normalize_default_interactions
+from emernerf_torch.builders import (
+    build_dataset_from_cfg,
+    build_model_from_cfg,
+    build_propnets_from_cfg,
+    make_grid_spec,
+)
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEFAULT_CONFIG = os.path.join(_REPO_ROOT, "configs", "default_config.yaml")
+
+_FLAGSHIP_DOTLIST = (
+    "data.dataset=synthetic",
+    "data.synthetic.dynamic=true",
+    "data.pixel_source.num_cams=1",
+    "nerf.model.head.enable_dynamic_branch=true",
+    "nerf.model.head.enable_shadow_head=true",
+    "nerf.model.head.enable_flow_branch=true",
+)
+# tiny: small grids and sample counts for CPU runs, every branch kept on
+_TINY_DOTLIST = (
+    "data.ray_batch_size=64",
+    "data.synthetic.num_frames=3",
+    "data.synthetic.image_height=16",
+    "data.synthetic.image_width=24",
+    "nerf.model.xyz_encoder.n_levels=4",
+    "nerf.model.xyz_encoder.log2_hashmap_size=10",
+    "nerf.model.xyz_encoder.max_resolution=64",
+    "nerf.model.dynamic_xyz_encoder.n_levels=4",
+    "nerf.model.dynamic_xyz_encoder.log2_hashmap_size=10",
+    "nerf.model.dynamic_xyz_encoder.max_resolution=64",
+    "nerf.propnet.num_samples_per_prop=[8,4]",
+    "nerf.propnet.fine_level_skip=0",
+    "nerf.propnet.xyz_encoder.n_levels_per_prop=[2,2]",
+    "nerf.propnet.xyz_encoder.max_resolution_per_prop=[32,64]",
+    "nerf.propnet.xyz_encoder.lgo2_hashmap_size_per_prop=[10,10]",
+    "nerf.sampling.num_samples=4",
+    "nerf.model.neck.geometry_feature_dim=16",
+    "nerf.model.neck.base_mlp_layer_width=16",
+    "nerf.model.head.head_mlp_layer_width=16",
+    "nerf.model.head.temporal_agg_topk=2",
+)
+
+
+def flagship_config(tiny: bool = False, overrides=()):
+    """Full-feature config (dynamic + flow); ``tiny=True`` shrinks grids and
+    sample counts while keeping every branch enabled."""
+    cfg = load_config(DEFAULT_CONFIG)
+    dot = list(_FLAGSHIP_DOTLIST) + (list(_TINY_DOTLIST) if tiny else [])
+    user = from_dotlist(dot + list(overrides))
+    cfg.merge_(user)
+    normalize_default_interactions(cfg, user)
+    return cfg
+
+
+def build_flagship(tiny: bool = False, overrides=(), *, device=None, seed: int = 0):
+    """Returns (cfg, dataset, model, prop_models), initialized on ``device``
+    from ``seed``."""
+    cfg = flagship_config(tiny=tiny, overrides=overrides)
+    dataset = build_dataset_from_cfg(cfg)
+    gen = torch.Generator(device=device or "cpu")
+    gen.manual_seed(seed)
+    # tiny mode keeps the flow branch but shrinks its fixed spec
+    flow = make_grid_spec(4, 4, 8, 64, 10, 2) if tiny else None
+    model = build_model_from_cfg(cfg, dataset, device=device, generator=gen, flow=flow)
+    prop_models = build_propnets_from_cfg(cfg, dataset, device=device, generator=gen)
+    return cfg, dataset, model, prop_models

@@ -1,0 +1,310 @@
+"""EmerNeRF fields (port of ``emernerf_tpu/models/fields.py``), eval path.
+
+``RadianceField``: static brick-grid field; the fused dynamic+flow 4D grid
+(per level the lanes are ``[dyn F_d | flow F_f]``); the flow MLP; temporal
+aggregation of flow-warped features (Eq. 8), on all samples or on the K
+most dynamic samples per ray; the shared RGB head, shadow and sky heads,
+and the appearance embedding with its mean-embedding fallback.
+``DensityField``: the proposal network.
+
+Positions are (R, S, 3) and per-ray data is expanded to (R, S) by the
+renderer.  The config knobs the eval path does not take (feature head,
+spherical-harmonics directions, temporal interpolation, unfused grids,
+fine-level skipping) raise in ``emernerf_torch/builders.py``; the dynamic
+field exists here only as the fused dynamic+flow grid.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from emernerf_torch.models.init_utils import torch_embedding_init_
+from emernerf_torch.models.mlp import MLP, Sequential64
+from emernerf_torch.ops.activations import density_activation
+from emernerf_torch.ops.contraction import (
+    contract_merf,
+    inside_unit_cube_selector,
+    normalize_aabb,
+)
+from emernerf_torch.ops.grid import grid_encode, init_grid_table
+from emernerf_torch.ops.sinusoidal import sinusoidal_encode, sinusoidal_output_dim
+
+
+def _contract(positions, aabb, unbounded: bool):
+    """World -> [0,1]^3, out-of-box points zeroed."""
+    normed = contract_merf(positions, aabb) if unbounded else normalize_aabb(positions, aabb)
+    return normed * inside_unit_cube_selector(normed)[..., None]
+
+
+class DensityField(nn.Module):
+    """Proposal density network: brick-grid encoder + 2-layer MLP -> density."""
+
+    def __init__(self, spec, aabb: Tuple[float, ...] = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
+                 unbounded: bool = True, base_mlp_layer_width: int = 64,
+                 table_dtype=torch.float32, table_param_dtype=torch.float32,
+                 mlp_dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        self.spec = spec
+        self.unbounded = unbounded
+        self.table_dtype = table_dtype
+        self.register_buffer("aabb", torch.tensor(aabb, dtype=torch.float32,
+                                                  device=device), persistent=False)
+        self.hash_table = nn.Parameter(init_grid_table(
+            spec, table_param_dtype, device=device, generator=generator))
+        self.base_mlp = Sequential64(spec.n_output_dims, (base_mlp_layer_width, 1),
+                                     dtype=mlp_dtype, device=device, generator=generator)
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        """positions (..., 3) world coords -> density (...,)."""
+        normed = _contract(positions, self.aabb, self.unbounded)
+        table = self.hash_table.to(self.table_dtype)
+        enc = grid_encode(table, normed.contiguous(), self.spec).float()
+        return density_activation(self.base_mlp(enc)[..., 0])
+
+
+class RadianceField(nn.Module):
+    def __init__(self, static_spec, dynamic_spec=None, flow_spec=None,
+                 temporal_agg_topk: int = 0,
+                 aabb: Tuple[float, ...] = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
+                 unbounded: bool = True, geometry_feature_dim: int = 64,
+                 base_mlp_layer_width: int = 64, head_mlp_layer_width: int = 64,
+                 enable_cam_embedding: bool = False,
+                 enable_img_embedding: bool = False, num_cams: int = 3,
+                 appearance_embedding_dim: int = 16,
+                 enable_sky_head: bool = False, enable_shadow_head: bool = False,
+                 num_train_timesteps: int = 0, time_diff: float = 0.0,
+                 table_dtype=torch.float32, table_param_dtype=torch.float32,
+                 mlp_dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        if (dynamic_spec is None) != (flow_spec is None):
+            raise NotImplementedError(
+                "only static-only fields and the fused dynamic+flow grid are ported")
+        self.static_spec = static_spec
+        self.dynamic_spec = dynamic_spec
+        self.flow_spec = flow_spec
+        self.temporal_agg_topk = temporal_agg_topk
+        self.unbounded = unbounded
+        self.geometry_feature_dim = gf = geometry_feature_dim
+        self.enable_cam_embedding = enable_cam_embedding
+        self.enable_img_embedding = enable_img_embedding
+        self.appearance_embedding_dim = appearance_embedding_dim
+        self.enable_sky_head = enable_sky_head
+        self.enable_shadow_head = enable_shadow_head
+        self.time_diff = time_diff
+        self.table_dtype = table_dtype
+        kw = dict(dtype=mlp_dtype, device=device, generator=generator)
+        tkw = dict(device=device, generator=generator)
+        self.register_buffer("aabb", torch.tensor(aabb, dtype=torch.float32,
+                                                  device=device), persistent=False)
+
+        self.xyz_table = nn.Parameter(init_grid_table(static_spec, table_param_dtype, **tkw))
+        self.base_mlp = Sequential64(static_spec.n_output_dims, (base_mlp_layer_width, gf), **kw)
+        if self.has_dynamic:
+            self.dynflow_spec = dataclasses.replace(
+                dynamic_spec,
+                n_features_per_level=(dynamic_spec.n_features_per_level
+                                      + flow_spec.n_features_per_level))
+            self.dynflow_table = nn.Parameter(
+                init_grid_table(self.dynflow_spec, table_param_dtype, **tkw))
+            lvls = dynamic_spec.n_levels
+            self.dynamic_base_mlp = Sequential64(
+                lvls * dynamic_spec.n_features_per_level, (base_mlp_layer_width, gf), **kw)
+            # 3 layers of base width -> 6 (fwd + bwd flow), no final activation
+            self.flow_mlp = Sequential64(
+                lvls * flow_spec.n_features_per_level,
+                (base_mlp_layer_width, base_mlp_layer_width, 6), **kw)
+
+        if self.use_appearance_embedding:
+            n_embeds = num_cams if enable_cam_embedding else num_train_timesteps * num_cams
+            self.appearance_embedding = nn.Embedding(
+                max(n_embeds, 1), appearance_embedding_dim, device=device)
+            torch_embedding_init_(self.appearance_embedding, generator)
+        app = appearance_embedding_dim if self.use_appearance_embedding else 0
+        dir_dim = sinusoidal_output_dim(3)
+        self.rgb_head = MLP(dir_dim + app + gf, 3, num_layers=3,
+                            hidden_dims=head_mlp_layer_width, skip_connections=(1,), **kw)
+        if enable_shadow_head:
+            self.shadow_head = Sequential64(gf, (base_mlp_layer_width, 1),
+                                            final_sigmoid=True, **kw)
+        if enable_sky_head:
+            self.sky_head = MLP(dir_dim + app, 3, num_layers=3,
+                                hidden_dims=head_mlp_layer_width, skip_connections=(1,), **kw)
+
+    # ------------------------------------------------------------------ #
+    @property
+    def use_appearance_embedding(self) -> bool:
+        return self.enable_cam_embedding or self.enable_img_embedding
+
+    @property
+    def has_dynamic(self) -> bool:
+        return self.dynamic_spec is not None
+
+    def contract_points(self, positions):
+        return _contract(positions, self.aabb, self.unbounded)
+
+    def forward_static_hash(self, positions):
+        normed = self.contract_points(positions)
+        table = self.xyz_table.to(self.table_dtype)
+        enc = grid_encode(table, normed.contiguous(), self.static_spec)
+        return self.base_mlp(enc.float()), normed
+
+    def _dynflow_encode(self, normed_positions, normed_timestamps):
+        """ONE fused 4D query -> (dynamic enc (..., L*F_d), flow enc (..., L*F_f))."""
+        xyzt = torch.cat([normed_positions, normed_timestamps[..., None]], dim=-1)
+        table = self.dynflow_table.to(self.table_dtype)
+        enc = grid_encode(table, xyzt, self.dynflow_spec).float()
+        df = self.dynamic_spec.n_features_per_level
+        lanes = enc.reshape(*enc.shape[:-1], self.dynflow_spec.n_levels, -1)
+        return lanes[..., :df].flatten(-2), lanes[..., df:].flatten(-2)
+
+    # ------------------------------------------------------------------ #
+    def _appearance(self, shape_prefix, data: Dict[str, torch.Tensor]):
+        """Appearance embedding per (ray, sample); the mean embedding when
+        the indices are missing."""
+        if not self.use_appearance_embedding:
+            return None
+        if self.enable_cam_embedding and "cam_idx" in data:
+            return self.appearance_embedding(data["cam_idx"].long())
+        if self.enable_img_embedding and "img_idx" in data:
+            return self.appearance_embedding(data["img_idx"].long())
+        mean = self.appearance_embedding.weight.mean(dim=0)
+        return mean.expand(*shape_prefix, self.appearance_embedding_dim)
+
+    def query_rgb(self, directions, geo_feats, dynamic_geo_feats=None, data=None):
+        data = data or {}
+        directions = (directions + 1.0) / 2.0
+        h = sinusoidal_encode(directions, min_deg=0, max_deg=4)
+        app = self._appearance(directions.shape[:-1], data)
+        if app is not None:
+            h = torch.cat([h, app], dim=-1)
+        results = {"rgb": torch.sigmoid(self.rgb_head(torch.cat([h, geo_feats], -1)))}
+        if dynamic_geo_feats is not None:
+            results["dynamic_rgb"] = torch.sigmoid(
+                self.rgb_head(torch.cat([h, dynamic_geo_feats], -1)))
+        return results
+
+    def query_sky(self, directions_per_ray, data=None):
+        """Sky color from RAW per-ray directions (no (d+1)/2 remap, as in the
+        reference)."""
+        dd = sinusoidal_encode(directions_per_ray, min_deg=0, max_deg=4)
+        app = self._appearance(directions_per_ray.shape[:-1], data or {})
+        if app is not None:
+            dd = torch.cat([dd, app], dim=-1)
+        return {"rgb_sky": torch.sigmoid(self.sky_head(dd))}
+
+    def temporal_aggregation(self, positions, normed_timestamps, forward_flow,
+                             backward_flow, cur_feats):
+        """Flow-warped feature aggregation (Eq. 8) at eval, where the
+        aggregation noise is 1."""
+        noise = torch.ones((*forward_flow.shape[:-1], 1), dtype=forward_flow.dtype,
+                           device=forward_flow.device)
+        k = self.temporal_agg_topk
+        if positions.ndim == 3 and 0 < k < positions.shape[1]:
+            return self._topk_aggregation(positions, normed_timestamps, forward_flow,
+                                          backward_flow, cur_feats, noise, k)
+        fwd_pos = self.contract_points(positions + forward_flow * noise)
+        bwd_pos = self.contract_points(positions + backward_flow * noise)
+        noise_t = noise[..., 0]
+        fwd_time = (normed_timestamps + self.time_diff * noise_t).clamp(0.0, 1.0)
+        bwd_time = (normed_timestamps - self.time_diff * noise_t).clamp(0.0, 1.0)
+        dyn2, flow2 = self._dynflow_encode(torch.stack([fwd_pos, bwd_pos]),
+                                           torch.stack([fwd_time, bwd_time]))
+        feats2 = self.dynamic_base_mlp(dyn2)
+        pred2 = self.flow_mlp(flow2)
+        aggregated = (cur_feats + 0.5 * feats2[0] + 0.5 * feats2[1]) / 2.0
+        return {
+            "dynamic_feats": aggregated,
+            "forward_pred_backward_flow": pred2[0][..., 3:],
+            "backward_pred_forward_flow": pred2[1][..., :3],
+        }
+
+    def _topk_aggregation(self, positions, normed_timestamps, forward_flow,
+                          backward_flow, cur_feats, noise, k: int):
+        """Aggregation on the K most dynamic samples per ray (by current-time
+        dynamic density); the others keep their current-time features, and
+        ``agg_mask`` marks the selected samples.  Selection is a stable
+        descending sort, which breaks ties (e.g. the identical encodings of
+        every sample outside the unit cube) in index order as
+        ``jax.lax.top_k`` does; ``torch.topk`` does not."""
+        cur_density = density_activation(cur_feats[..., 0])  # (R, S)
+        idx = torch.sort(cur_density, dim=-1, descending=True, stable=True)[1][:, :k]
+
+        def sel(x):  # (R, S, ...) -> (R, K, ...)
+            if x.ndim == 2:
+                return torch.gather(x, 1, idx)
+            return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+        pos_k, t_k, noise_k = sel(positions), sel(normed_timestamps), sel(noise)
+        fwd_pos = self.contract_points(pos_k + sel(forward_flow) * noise_k)
+        bwd_pos = self.contract_points(pos_k + sel(backward_flow) * noise_k)
+        nt = noise_k[..., 0]
+        fwd_time = (t_k + self.time_diff * nt).clamp(0.0, 1.0)
+        bwd_time = (t_k - self.time_diff * nt).clamp(0.0, 1.0)
+        dyn2, flow2 = self._dynflow_encode(torch.stack([fwd_pos, bwd_pos]),
+                                           torch.stack([fwd_time, bwd_time]))
+        feats2 = self.dynamic_base_mlp(dyn2)  # (2, R, K, gf)
+        pred2 = self.flow_mlp(flow2)  # (2, R, K, 6)
+
+        def unsel(vals_k):  # (R, K, F) -> (R, S, F), zeros off-mask
+            out = vals_k.new_zeros((*positions.shape[:2], vals_k.shape[-1]))
+            return out.scatter(1, idx[..., None].expand(-1, -1, vals_k.shape[-1]), vals_k)
+
+        mask = torch.zeros_like(cur_density).scatter(1, idx, 1.0)
+        agg_k = (sel(cur_feats) + 0.5 * feats2[0] + 0.5 * feats2[1]) / 2.0
+        aggregated = cur_feats * (1.0 - mask)[..., None] + unsel(agg_k)
+        return {
+            "dynamic_feats": aggregated,
+            "forward_pred_backward_flow": unsel(pred2[0][..., 3:]),
+            "backward_pred_forward_flow": unsel(pred2[1][..., :3]),
+            "agg_mask": mask,
+        }
+
+    # ------------------------------------------------------------------ #
+    def forward(self, positions: torch.Tensor, directions: Optional[torch.Tensor] = None,
+                data: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """One eval field query; positions and directions are (R, S, 3)."""
+        data = data or {}
+        results: Dict[str, torch.Tensor] = {}
+        encoded, normed_positions = self.forward_static_hash(positions)
+        geo_feats = encoded[..., : self.geometry_feature_dim]
+        static_density = density_activation(geo_feats[..., 0])
+
+        if self.has_dynamic and "normed_timestamps" in data:
+            t = data["normed_timestamps"]
+            dyn_enc, flow_enc = self._dynflow_encode(normed_positions, t)
+            cur_feats = self.dynamic_base_mlp(dyn_enc)
+            flow = self.flow_mlp(flow_enc)
+            forward_flow, backward_flow = flow[..., :3], flow[..., 3:]
+            results["forward_flow"] = forward_flow
+            results["backward_flow"] = backward_flow
+            agg = self.temporal_aggregation(positions, t, forward_flow,
+                                            backward_flow, cur_feats)
+            dynamic_feats = agg.pop("dynamic_feats")
+            results.update(agg)
+
+            dynamic_geo_feats = dynamic_feats[..., : self.geometry_feature_dim]
+            dynamic_density = density_activation(dynamic_geo_feats[..., 0])
+            results.update(density=static_density + dynamic_density,
+                           static_density=static_density,
+                           dynamic_density=dynamic_density)
+            if directions is not None:
+                rgb = self.query_rgb(directions, geo_feats, dynamic_geo_feats, data=data)
+                results["static_rgb"] = rgb["rgb"]
+                results["dynamic_rgb"] = rgb["dynamic_rgb"]
+            if self.enable_shadow_head:
+                results["shadow_ratio"] = self.shadow_head(dynamic_geo_feats)
+        else:
+            results["density"] = static_density
+            results["static_density"] = static_density
+            if directions is not None:
+                results["rgb"] = self.query_rgb(directions, geo_feats, data=data)["rgb"]
+
+        if self.enable_sky_head and directions is not None:
+            per_ray_data = {k: v[:, 0] for k, v in data.items()
+                            if v.ndim >= 2 and k != "pixel_coords"}
+            results.update(self.query_sky(directions[:, 0], data=per_ray_data))
+        return results

@@ -1,0 +1,318 @@
+"""Brick-grid encoding (port of ``emernerf_tpu/ops/brickgrid.py``).
+
+A brick stores the (2^b + 1)^3 corner feature vectors of a 2^b x 2^b x 2^b
+cell block contiguously in one table row (27 corners for b=1, 125 for b=2):
+
+  cell   = floor(x * scale + 0.5);  frac in [0,1)
+  brick  = cell >> b;   o = cell & (2^b - 1)
+  row    = spatial_hash(brick) (or linear index when the brick grid fits)
+  corner (i,j,k) of the cell lives at brick-local (o+i, o+j, o+k)
+
+Lanes within a level's row are ``corner * F + f`` with the x digit fastest.
+4D grids brick space only; time-paired rows (``time_pair=True``) hold the
+time corners t and t+1 side by side, ``[:27F]`` and ``[27F:]``.
+
+``brickgrid_encode_ref`` is the plain PyTorch version: it reads only the 8
+corners with non-zero trilinear weight (the TPU reference densely weights
+the whole row; the zero-weight corners add nothing).  ``brickgrid_encode``
+is the wrapper around the CUDA kernel (``kernels/csrc/brickgrid.cu``): it
+takes the plain version for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from functools import cached_property
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from emernerf_torch import kernels
+
+# Instant-NGP spatial-hash primes (prime_0 = 1, as in tiny-cuda-nn)
+_PRIMES = (1, 2654435761, 805459861, 3674653429)
+_U32 = 0xFFFFFFFF
+MAX_LEVELS = 32
+
+
+@dataclass(frozen=True)
+class BrickGridSpec:
+    """Static description of a brick-grid encoder.
+
+    Level scales and resolutions follow Instant-NGP's geometric growth over
+    cells.  ``log2_bricks`` sizes each level's table slice."""
+
+    n_input_dims: int = 3
+    n_levels: int = 16
+    base_resolution: int = 16
+    max_resolution: int = 2048
+    log2_bricks: int = 16
+    n_features_per_level: int = 2
+    log2_brick_size: int = 1
+    time_pair: bool = False
+
+    @property
+    def brick_cells(self) -> int:
+        return 1 << self.log2_brick_size
+
+    @property
+    def CPA(self) -> int:
+        """Corners per axis inside one brick."""
+        return self.brick_cells + 1
+
+    @property
+    def spatial_dims(self) -> int:
+        return min(self.n_input_dims, 3)
+
+    @property
+    def has_time(self) -> bool:
+        return self.n_input_dims == 4
+
+    @property
+    def corners_per_brick(self) -> int:
+        return self.CPA ** self.spatial_dims
+
+    @property
+    def uses_time_pair(self) -> bool:
+        return self.has_time and self.time_pair
+
+    @property
+    def row_width(self) -> int:
+        w = self.corners_per_brick * self.n_features_per_level
+        return 2 * w if self.uses_time_pair else w
+
+    @property
+    def bricks_per_level(self) -> int:
+        return 1 << self.log2_bricks
+
+    @property
+    def table_shape(self) -> Tuple[int, int]:
+        return (self.n_levels * self.bricks_per_level, self.row_width)
+
+    @property
+    def n_output_dims(self) -> int:
+        return self.n_levels * self.n_features_per_level
+
+    @cached_property
+    def growth_factor(self) -> float:
+        if self.n_levels <= 1:
+            return 1.0
+        return math.exp(
+            (math.log(self.max_resolution) - math.log(self.base_resolution))
+            / (self.n_levels - 1)
+        )
+
+    @cached_property
+    def level_scales(self) -> np.ndarray:
+        log2g = math.log2(self.growth_factor)
+        return np.asarray(
+            [math.exp2(lv * log2g) * self.base_resolution - 1.0
+             for lv in range(self.n_levels)],
+            dtype=np.float64,
+        )
+
+    @cached_property
+    def level_resolutions(self) -> np.ndarray:
+        """Cell-grid resolutions (corners per axis)."""
+        return np.asarray(
+            [int(math.ceil(s)) + 1 for s in self.level_scales], dtype=np.int64
+        )
+
+    @cached_property
+    def brick_resolutions(self) -> np.ndarray:
+        """Bricks per axis: cell coord c -> brick coord c >> log2_brick_size."""
+        return np.asarray(
+            [((int(r) - 1) >> self.log2_brick_size) + 1
+             for r in self.level_resolutions],
+            dtype=np.int64,
+        )
+
+    @cached_property
+    def level_uses_hash(self) -> np.ndarray:
+        """True when the (spatial [* time]) brick grid exceeds the table."""
+        out = []
+        for li, r in enumerate(self.brick_resolutions):
+            cells = int(r) ** self.spatial_dims
+            if self.has_time:
+                cells *= int(self.level_resolutions[li])
+            out.append(cells > self.bricks_per_level)
+        return np.asarray(out, dtype=bool)
+
+
+def init_brickgrid_table(spec: BrickGridSpec, dtype=torch.float32,
+                         device=None, generator=None):
+    """U(-1e-4, 1e-4), matching tcnn's hash-table init."""
+    t = torch.empty(spec.table_shape, dtype=torch.float32, device=device)
+    t.uniform_(-1e-4, 1e-4, generator=generator)
+    return t.to(dtype)
+
+
+def level_constants(spec: BrickGridSpec):
+    """(scales float32 (L,), strides uint32 (L, D_s [+1]), uses_hash (L,))."""
+    d = spec.spatial_dims
+    scales = np.asarray(spec.level_scales, dtype=np.float32)
+    strides = []
+    for r in spec.brick_resolutions:
+        s = [(int(r) ** i) & _U32 for i in range(d)]
+        if spec.has_time:
+            s.append((int(r) ** d) & _U32)  # time stride
+        strides.append(s)
+    return scales, np.asarray(strides, dtype=np.uint32), np.asarray(
+        spec.level_uses_hash)
+
+
+def _brick_rows(spec, bricks, t_cell, lvl, strides, uses_hash):
+    """Level-local rows from int64 brick coords, with uint32 wraparound."""
+    if uses_hash[lvl]:
+        r = (bricks[0] * _PRIMES[0]) & _U32
+        for i in range(1, spec.spatial_dims):
+            r = r ^ ((bricks[i] * _PRIMES[i]) & _U32)
+        if t_cell is not None:
+            r = r ^ ((t_cell * _PRIMES[3]) & _U32)
+    else:
+        r = (bricks[0] * int(strides[lvl][0])) & _U32
+        for i in range(1, spec.spatial_dims):
+            r = (r + bricks[i] * int(strides[lvl][i])) & _U32
+        if t_cell is not None:
+            r = (r + t_cell * int(strides[lvl][spec.spatial_dims])) & _U32
+    return r & (spec.bricks_per_level - 1)
+
+
+def _cell(x: torch.Tensor, scale: float):
+    """floor(x * scale + 0.5) and the fraction, each op rounded separately."""
+    pos = x * scale
+    pos = pos + 0.5
+    cell = torch.floor(pos)
+    return cell.to(torch.int64), pos - cell
+
+
+def brickgrid_encode_ref(table: torch.Tensor, positions: torch.Tensor,
+                         spec: BrickGridSpec) -> torch.Tensor:
+    """Plain version: positions (..., D) in [0,1] -> (..., L*F) features in
+    the table's dtype, accumulated in fp32 over the 8 live corners."""
+    d, f, cpa = spec.n_input_dims, spec.n_features_per_level, spec.CPA
+    batch = positions.shape[:-1]
+    x = positions.reshape(-1, d).float()
+    scales, strides, uses_hash = level_constants(spec)
+    b, width, half = spec.bricks_per_level, spec.row_width, spec.corners_per_brick * f
+    flat = table.reshape(-1)
+    lanes = torch.arange(f, device=table.device)
+    bs = spec.log2_brick_size
+    outs = []
+    for lvl in range(spec.n_levels):
+        sc = float(scales[lvl])
+        offs, fracs, bricks = [], [], []
+        for i in range(3):
+            ci, fr = _cell(x[:, i], sc)
+            offs.append(ci & (spec.brick_cells - 1))
+            bricks.append((ci >> bs) & _U32)
+            fracs.append(fr)
+        t_cell = t_frac = None
+        if spec.has_time:
+            ti, t_frac = _cell(x[:, 3], sc)
+            t_cell = ti & _U32
+        base0 = (lvl * b + _brick_rows(spec, bricks, t_cell, lvl, strides,
+                                       uses_hash)) * width
+        base1 = None
+        if spec.uses_time_pair:
+            base1 = base0 + half
+        elif spec.has_time:
+            base1 = (lvl * b + _brick_rows(spec, bricks, (t_cell + 1) & _U32,
+                                           lvl, strides, uses_hash)) * width
+        acc0 = torch.zeros(x.shape[0], f, device=x.device)
+        acc1 = torch.zeros_like(acc0) if base1 is not None else None
+        for dz in range(2):
+            wz = fracs[2] if dz else 1.0 - fracs[2]
+            for dy in range(2):
+                wy = fracs[1] if dy else 1.0 - fracs[1]
+                for dx in range(2):
+                    wx = fracs[0] if dx else 1.0 - fracs[0]
+                    w = ((wx * wy) * wz)[:, None]
+                    corner = (offs[0] + dx) + cpa * ((offs[1] + dy) + cpa * (offs[2] + dz))
+                    lane = (corner * f)[:, None] + lanes
+                    acc0 = acc0 + w * flat[base0[:, None] + lane].float()
+                    if acc1 is not None:
+                        acc1 = acc1 + w * flat[base1[:, None] + lane].float()
+        if acc1 is not None:
+            tw = t_frac[:, None]
+            acc0 = acc0 * (1.0 - tw) + acc1 * tw
+        outs.append(acc0)
+    out = torch.cat(outs, dim=-1).to(table.dtype)
+    return out.reshape(*batch, spec.n_output_dims)
+
+
+class _BrickParams(ctypes.Structure):
+    """Mirror of ``BrickParams`` in kernels/csrc/brickgrid.cu."""
+
+    _fields_ = [
+        ("n_levels", ctypes.c_int),
+        ("n_features", ctypes.c_int),
+        ("n_dims", ctypes.c_int),
+        ("log2_brick_size", ctypes.c_int),
+        ("time_pair", ctypes.c_int),
+        ("row_width", ctypes.c_int),
+        ("bricks_per_level", ctypes.c_longlong),
+        ("scales", ctypes.c_float * MAX_LEVELS),
+        ("strides", ctypes.c_uint * (MAX_LEVELS * 4)),
+        ("uses_hash", ctypes.c_int * MAX_LEVELS),
+    ]
+
+
+def _kernel_params(spec: BrickGridSpec) -> _BrickParams:
+    scales, strides, uses_hash = level_constants(spec)
+    p = _BrickParams()
+    p.n_levels = spec.n_levels
+    p.n_features = spec.n_features_per_level
+    p.n_dims = spec.n_input_dims
+    p.log2_brick_size = spec.log2_brick_size
+    p.time_pair = int(spec.uses_time_pair)
+    p.row_width = spec.row_width
+    p.bricks_per_level = spec.bricks_per_level
+    for li in range(spec.n_levels):
+        p.scales[li] = float(scales[li])
+        p.uses_hash[li] = int(uses_hash[li])
+        for a, s in enumerate(strides[li]):
+            p.strides[4 * li + a] = int(s)
+    return p
+
+
+def brickgrid_encode(table: torch.Tensor, positions: torch.Tensor,
+                     spec: BrickGridSpec) -> torch.Tensor:
+    """Encode positions (..., D) in [0,1] -> (..., L*F) in the table's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the K1 kernel
+    (and raise if it cannot be built or launched)."""
+    name = "brickgrid_encode"
+    if tuple(table.shape) != spec.table_shape:
+        raise ValueError(f"{name}: table {tuple(table.shape)} != {spec.table_shape}")
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: table dtype {table.dtype}")
+    if positions.shape[-1] != spec.n_input_dims or positions.dtype != torch.float32:
+        raise ValueError(f"{name}: positions must be (..., {spec.n_input_dims}) float32")
+    if spec.n_features_per_level > 8 or spec.n_levels > MAX_LEVELS:
+        raise ValueError(f"{name}: F <= 8 and L <= {MAX_LEVELS} supported")
+    if kernels.dispatch_device(name, table) == "cpu":
+        return brickgrid_encode_ref(table, positions, spec)
+    kernels.require_cuda_inputs(name, table, positions)
+    lib = kernels.load()
+    batch = positions.shape[:-1]
+    n = positions.numel() // spec.n_input_dims
+    out = torch.empty((n, spec.n_output_dims), dtype=table.dtype,
+                      device=table.device)
+    if n == 0:
+        return out.reshape(*batch, spec.n_output_dims)
+    params = _kernel_params(spec)
+    err = lib.emt_brickgrid_encode(
+        table.data_ptr(), int(table.dtype == torch.bfloat16),
+        positions.data_ptr(), out.data_ptr(), n, ctypes.addressof(params),
+        kernels.stream_ptr(table.device),
+    )
+    kernels.check(err, name)
+    brickgrid_encode.launches += 1
+    return out.reshape(*batch, spec.n_output_dims)
+
+
+brickgrid_encode.launches = 0

@@ -1,0 +1,243 @@
+"""Volume rendering / alpha compositing (port of ``emernerf_tpu/render/volrend.py``).
+
+``composite_along_rays`` is the wrapper around the K3 CUDA kernel
+(``kernels/csrc/composite.cu``) and ``composite_along_rays_ref`` its plain
+version.  One call computes, for up to three density sets (total, static,
+dynamic), transmittance, weights, opacity and depth, the median depth of
+the first set, and the weighted sums of a packed (R, S, C) value tensor
+whose channel c is weighted by set ``chan_set[c]``.  ``composite_rays`` is
+the dict glue around it and keeps the reference's keys and formulas.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Optional, Sequence
+
+import torch
+
+from emernerf_torch import kernels
+from emernerf_torch.ops.stepfuns import exclusive_cumsum
+
+_MAX_SETS, _MAX_CHANNELS, _MAX_SAMPLES = 3, 64, 256
+
+
+class Composited(NamedTuple):
+    weights: torch.Tensor  # (R, S, D)
+    trans: torch.Tensor  # (R, S, D)
+    opacity: torch.Tensor  # (R, D), clipped to [1e-6, 1]
+    depth: torch.Tensor  # (R, D)
+    median_depth: torch.Tensor  # (R, 1), of density set 0
+    sums: torch.Tensor  # (R, C)
+
+
+def _check_composite_args(name, t_starts, t_ends, densities, values, chan_set):
+    if t_starts.ndim != 2 or t_ends.shape != t_starts.shape:
+        raise ValueError(f"{name}: t_starts and t_ends must both be (R, S)")
+    r, s = t_starts.shape
+    if densities.ndim != 3 or densities.shape[:2] != (r, s) or not (
+            1 <= densities.shape[2] <= _MAX_SETS):
+        raise ValueError(f"{name}: densities must be (R, S, D<={_MAX_SETS})")
+    n_ch = 0 if values is None else values.shape[-1]
+    if values is not None and (values.ndim != 3 or values.shape[:2] != (r, s)):
+        raise ValueError(f"{name}: values must be (R, S, C)")
+    if len(chan_set) != n_ch or n_ch > _MAX_CHANNELS or any(
+            not 0 <= c < densities.shape[2] for c in chan_set):
+        raise ValueError(f"{name}: one density set per value channel")
+    if s > _MAX_SAMPLES:
+        raise ValueError(f"{name}: at most {_MAX_SAMPLES} samples per ray")
+    for t in (t_starts, t_ends, densities) + (() if values is None else (values,)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: float32 inputs required")
+
+
+def composite_along_rays_ref(t_starts, t_ends, densities, values=None,
+                             chan_set: Sequence[int] = ()) -> Composited:
+    """Plain version of :func:`composite_along_rays`."""
+    r, s = t_starts.shape
+    sdt = densities * (t_ends - t_starts)[..., None]
+    trans = torch.exp(-exclusive_cumsum(sdt, dim=1))
+    weights = trans * (1.0 - torch.exp(-sdt))
+    opacity = weights.sum(dim=1).clamp(1e-6, 1.0)
+    steps = (t_starts + t_ends) / 2.0
+    depth = (weights * steps[..., None]).sum(dim=1) / opacity
+    cum = torch.cumsum(weights[..., 0], dim=-1)
+    median_index = (cum < 0.5).sum(dim=-1, keepdim=True).clamp(0, s - 1)
+    median_depth = torch.gather(steps, -1, median_index)
+    if values is None:
+        sums = weights.new_zeros((r, 0))
+    else:
+        sums = (weights[..., list(chan_set)] * values).sum(dim=1)
+    return Composited(weights, trans, opacity, depth, median_depth, sums)
+
+
+def composite_along_rays(t_starts: torch.Tensor, t_ends: torch.Tensor,
+                         densities: torch.Tensor,
+                         values: Optional[torch.Tensor] = None,
+                         chan_set: Sequence[int] = ()) -> Composited:
+    """Transmittance, weights and per-ray reductions for D density sets.
+
+    t_starts/t_ends (R, S); densities (R, S, D); values (R, S, C) or None;
+    chan_set: C ints, the density set that weights each value channel.
+    CPU tensors take the plain version; CUDA tensors launch the K3 kernel."""
+    name = "composite_along_rays"
+    _check_composite_args(name, t_starts, t_ends, densities, values, chan_set)
+    if kernels.dispatch_device(name, t_starts) == "cpu":
+        return composite_along_rays_ref(t_starts, t_ends, densities, values, chan_set)
+    extra = () if values is None else (values,)
+    kernels.require_cuda_inputs(name, t_starts, t_ends, densities, *extra)
+    lib = kernels.load()
+    r, s = t_starts.shape
+    d = densities.shape[2]
+    c = len(chan_set)
+    dev = t_starts.device
+    new = dict(dtype=torch.float32, device=dev)
+    out = Composited(
+        weights=torch.empty((r, s, d), **new), trans=torch.empty((r, s, d), **new),
+        opacity=torch.empty((r, d), **new), depth=torch.empty((r, d), **new),
+        median_depth=torch.empty((r, 1), **new), sums=torch.empty((r, c), **new),
+    )
+    if r == 0:
+        return out
+    sets = (ctypes.c_int * max(c, 1))(*chan_set)
+    err = lib.emt_composite(
+        t_starts.data_ptr(), t_ends.data_ptr(), densities.data_ptr(),
+        None if values is None else values.data_ptr(), ctypes.addressof(sets),
+        r, s, d, c, out.weights.data_ptr(), out.trans.data_ptr(),
+        out.opacity.data_ptr(), out.depth.data_ptr(),
+        out.median_depth.data_ptr(), out.sums.data_ptr(),
+        kernels.stream_ptr(dev),
+    )
+    kernels.check(err, name)
+    composite_along_rays.launches += 1
+    return out
+
+
+composite_along_rays.launches = 0
+
+
+def weights_opacity_depth_from_density(t_starts, t_ends, density):
+    """(weights (R, S), opacity (R, 1), depth (R, 1)) for one density."""
+    res = composite_along_rays(t_starts, t_ends, density[..., None])
+    return res.weights[..., 0], res.opacity, res.depth
+
+
+class _Packer:
+    """Collects (R, S, c) value blocks with their density set into one packed
+    (R, S, C) tensor, and splits the kernel's (R, C) sums back by name."""
+
+    def __init__(self):
+        self.blocks, self.sets, self.names = [], [], []
+
+    def add(self, name: str, values: torch.Tensor, dset: int) -> None:
+        self.names.append((name, values.shape[-1]))
+        self.blocks.append(values)
+        self.sets += [dset] * values.shape[-1]
+
+    def values(self):
+        return torch.cat(self.blocks, dim=-1).contiguous() if self.blocks else None
+
+    def split(self, sums: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out, i = {}, 0
+        for name, width in self.names:
+            out[name] = sums[:, i:i + width]
+            i += width
+        return out
+
+
+_EXTRA_KEYS = ("forward_flow", "backward_flow", "forward_pred_backward_flow",
+               "backward_pred_forward_flow", "agg_mask")
+
+
+def composite_rays(t_starts: torch.Tensor, t_ends: torch.Tensor,
+                   results: Dict[str, torch.Tensor],
+                   return_decomposition: bool = False) -> Dict[str, torch.Tensor]:
+    """Composite per-sample field outputs along rays.  ``results`` is the
+    field-query dict; returns per-ray quantities plus an ``extras`` dict."""
+    if "dino_feat" in results or "static_dino_feat" in results:
+        raise NotImplementedError("feature compositing is ported with the feature head")
+    t_starts, t_ends = t_starts.contiguous(), t_ends.contiguous()
+    density = results["density"]
+    has_decomp = "static_density" in results and "dynamic_density" in results
+    decomp = has_decomp and return_decomposition
+    sets = [density]
+    if decomp:
+        sets += [results["static_density"], results["dynamic_density"]]
+    densities = torch.stack(sets, dim=-1)
+    total, static, dynamic = 0, 1, 2
+
+    # ---------- value channels, each under its weight set ----------
+    pack = _Packer()
+    if has_decomp:
+        static_ratio = results["static_density"] / (density + 1e-6)
+        dynamic_ratio = results["dynamic_density"] / (density + 1e-6)
+    if "rgb" in results:
+        pack.add("rgb", results["rgb"], total)
+    elif "static_rgb" in results and "dynamic_rgb" in results:
+        shadow_ratio = 0.0
+        if "shadow_ratio" in results:
+            shadow_ratio = results["shadow_ratio"]
+            pack.add("shadow_ratio", shadow_ratio.square(), total)
+        rgb = (static_ratio[..., None] * results["static_rgb"] * (1.0 - shadow_ratio)
+               + dynamic_ratio[..., None] * results["dynamic_rgb"])
+        pack.add("rgb", rgb, total)
+        if decomp:
+            pack.add("static_rgb", results["static_rgb"], static)
+            if "shadow_ratio" in results:
+                pack.add("shadow_reduced_static_rgb",
+                         results["static_rgb"] * (1.0 - shadow_ratio), static)
+                pack.add("shadow_only", results["static_rgb"] * shadow_ratio, static)
+                pack.add("shadow", shadow_ratio, total)
+            pack.add("dynamic_rgb", results["dynamic_rgb"], dynamic)
+            if "forward_flow" in results:
+                pack.add("forward_flow", results["forward_flow"], dynamic)
+                pack.add("backward_flow", results["backward_flow"], dynamic)
+
+    res = composite_along_rays(t_starts, t_ends, densities.contiguous(),
+                               pack.values(), pack.sets)
+    sums = pack.split(res.sums)
+    weights = res.weights[..., total]
+
+    extras = {
+        "weights": weights,
+        "trans": res.trans[..., total],
+        "t_vals": (t_starts + t_ends) / 2.0,
+        "t_dist": t_ends - t_starts,
+        "density": density,
+    }
+    for k in _EXTRA_KEYS:
+        if k in results:
+            extras[k] = results[k]
+
+    # ---------- geometry ----------
+    opacity = res.opacity[:, total:total + 1]
+    out: Dict[str, torch.Tensor] = {
+        "depth": res.depth[:, total:total + 1],
+        "opacity": opacity,
+        "median_depth": res.median_depth,
+    }
+
+    # ---------- static / dynamic decomposition ----------
+    if has_decomp:
+        extras["static_density"] = results["static_density"]
+        extras["dynamic_density"] = results["dynamic_density"]
+        if decomp:
+            out["static_opacity"] = res.opacity[:, static:static + 1]
+            out["static_depth"] = res.depth[:, static:static + 1]
+            out["dynamic_opacity"] = res.opacity[:, dynamic:dynamic + 1]
+            out["dynamic_depth"] = res.depth[:, dynamic:dynamic + 1]
+
+    # ---------- rgb and the other weighted sums ----------
+    out.update(sums)
+    if "shadow" in sums:
+        out["shadow_only_static_rgb"] = out.pop("shadow_only") + (1.0 - sums["shadow"])
+
+    # ---------- sky composition ----------
+    if "rgb_sky" in results:
+        out["rgb"] = out["rgb"] + results["rgb_sky"] * (1.0 - opacity)
+        if "static_rgb" in out:
+            out["static_rgb"] = out["static_rgb"] + results["rgb_sky"] * (
+                1.0 - out["static_opacity"])
+
+    out["extras"] = extras
+    return out

@@ -1,0 +1,156 @@
+"""Port parity: emernerf_torch brick-grid encoder (plain version of kernel K1)
+against emernerf_tpu's ``brickgrid_encode_ref``, on the CPU in fp32.
+
+Points sit on, just below and just above cell and brick boundaries, where a
+differently rounded ``x * scale + 0.5`` would pick another cell (and, across
+a brick boundary, another table row).  Tolerance: atol 1e-6 on outputs of
+O(1) table values (sums of 8-16 fp32 products, different order).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from emernerf_tpu import builders as jax_builders
+from emernerf_tpu.ops.brickgrid import BrickGridSpec as JaxSpec
+from emernerf_tpu.ops.brickgrid import _level_constants as jax_level_constants
+from emernerf_tpu.ops.brickgrid import brickgrid_encode_ref as jax_encode_ref
+from emernerf_torch import builders, kernels
+from emernerf_torch.flagship import flagship_config
+from emernerf_torch.ops.brickgrid import (
+    BrickGridSpec,
+    brickgrid_encode,
+    brickgrid_encode_ref,
+    level_constants,
+)
+
+# (n_input_dims, F, log2_brick_size, time_pair); log2_bricks picked so the
+# coarse levels are dense (linear rows) and the fine ones hashed
+VARIANTS = {
+    "3d_b2cells_F4": (3, 4, 1, False),
+    "3d_b4cells_F1": (3, 1, 2, False),
+    "4d_pair_F8": (4, 8, 1, True),
+    "4d_unpaired_F2": (4, 2, 1, False),
+}
+
+
+def _spec(variant, log2_cells):
+    """Table sized by its cell capacity, as the builders size it."""
+    d, f, bs, pair = VARIANTS[variant]
+    return dict(n_input_dims=d, n_levels=4, base_resolution=4, max_resolution=64,
+                log2_bricks=log2_cells - 3 * bs, n_features_per_level=f,
+                log2_brick_size=bs, time_pair=pair)
+
+
+def _boundary_points(spec, rng, n_random=256):
+    """Random points plus points at cell / brick boundaries of every level,
+    nudged by -1, 0, +1 ulp (float32)."""
+    d = spec.n_input_dims
+    pts = [rng.uniform(0.0, 1.0, (n_random, d)).astype(np.float32)]
+    scales = np.asarray(spec.level_scales, np.float32)
+    for sc in scales:
+        # boundary of cell c: x * sc + 0.5 == c  ->  x = (c - 0.5) / sc
+        cells = rng.integers(1, int(sc) + 1, size=(64, d))
+        cells[:32] = (cells[:32] // (2 * spec.brick_cells)) * 2 * spec.brick_cells + spec.brick_cells
+        x = ((cells - 0.5) / sc).astype(np.float32)
+        for nudge in (-1, 0, 1):
+            xn = x.copy()
+            if nudge:
+                xn = np.nextafter(xn, np.float32(nudge * np.inf)).astype(np.float32)
+            pts.append(np.clip(xn, 0.0, 1.0))
+    return np.concatenate(pts).astype(np.float32)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("log2_cells", [9, 15], ids=["small_table", "large_table"])
+def test_encode_ref_matches_jax(variant, log2_cells):
+    kw = _spec(variant, log2_cells)
+    tspec, jspec = BrickGridSpec(**kw), JaxSpec(**kw)
+    rng = np.random.default_rng(100 * sorted(VARIANTS).index(variant) + log2_cells)
+    # both row kinds: dense (linear) coarse levels, hashed fine levels
+    assert tspec.level_uses_hash.any() and not tspec.level_uses_hash.all()
+    table = rng.uniform(-1.0, 1.0, tspec.table_shape).astype(np.float32)
+    pos = _boundary_points(tspec, rng).reshape(-1, 8, kw["n_input_dims"])
+    ours = brickgrid_encode(torch.from_numpy(table), torch.from_numpy(pos), tspec)
+    ref = np.asarray(jax_encode_ref(jnp.asarray(table), jnp.asarray(pos), jspec))
+    assert ours.shape == ref.shape == (*pos.shape[:-1], tspec.n_output_dims)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-6)
+
+
+def test_encode_bf16_table_rounds_once():
+    """A bf16 table is read exactly, accumulated in fp32 and the output
+    rounded once to bf16."""
+    spec = BrickGridSpec(**_spec("3d_b2cells_F4", 15))
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.uniform(-1, 1, spec.table_shape).astype(np.float32))
+    pos = torch.from_numpy(_boundary_points(spec, rng))
+    out = brickgrid_encode(table.bfloat16(), pos, spec)
+    want = brickgrid_encode_ref(table.bfloat16().float(), pos, spec).bfloat16()
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, want)
+
+
+def _flagship_specs(jax_side: bool):
+    cfg = flagship_config()
+    m = cfg.nerf.model
+    enc = cfg.nerf.propnet.xyz_encoder
+
+    def make(**kw):
+        if jax_side:
+            return jax_builders.make_grid_spec("brick", perf=jax_builders._perf_cfg(cfg), **kw)
+        return builders.make_grid_spec(**kw)
+
+    def from_enc(e):
+        return make(n_input_dims=e.n_input_dims, n_levels=e.n_levels,
+                    base_resolution=e.base_resolution, max_resolution=e.max_resolution,
+                    log2_hashmap_size=e.log2_hashmap_size,
+                    n_features_per_level=e.n_features_per_level)
+
+    flow = make(n_input_dims=4, n_levels=10, base_resolution=16, max_resolution=4096,
+                log2_hashmap_size=18, n_features_per_level=4)
+    dyn = from_enc(m.dynamic_xyz_encoder)
+    specs = {
+        "static": from_enc(m.xyz_encoder),
+        "dynflow": dataclasses.replace(
+            dyn, n_features_per_level=dyn.n_features_per_level + flow.n_features_per_level),
+    }
+    for i in range(2):
+        specs[f"prop{i}"] = make(
+            n_input_dims=enc.n_input_dims, n_levels=enc.n_levels_per_prop[i],
+            base_resolution=enc.base_resolutions_per_prop[i],
+            max_resolution=enc.max_resolution_per_prop[i],
+            log2_hashmap_size=enc.lgo2_hashmap_size_per_prop[i],
+            n_features_per_level=enc.n_features_per_level)
+    return specs
+
+
+@pytest.mark.parametrize("name", ["static", "dynflow", "prop0", "prop1"])
+def test_flagship_spec_geometry_matches_jax(name):
+    ours, ref = _flagship_specs(False)[name], _flagship_specs(True)[name]
+    assert ours.table_shape == ref.table_shape
+    np.testing.assert_array_equal(np.float32(ours.level_scales), np.float32(ref.level_scales))
+    np.testing.assert_array_equal(ours.level_resolutions, ref.level_resolutions)
+    np.testing.assert_array_equal(ours.level_uses_hash, ref.level_uses_hash)
+    for a, b in zip(level_constants(ours), jax_level_constants(ref)):
+        np.testing.assert_array_equal(a, b)
+    want_shapes = {"static": (1_310_720, 108), "dynflow": (327_680, 432),
+                   "prop0": (131_072, 125), "prop1": (131_072, 125)}
+    assert ours.table_shape == want_shapes[name]
+
+
+def test_wrapper_checks_and_non_cuda_devices():
+    spec = BrickGridSpec(**_spec("3d_b2cells_F4", 15))
+    table = torch.zeros(spec.table_shape)
+    with pytest.raises(ValueError):
+        brickgrid_encode(table[:-1], torch.zeros(4, 3), spec)
+    with pytest.raises(ValueError):
+        brickgrid_encode(table, torch.zeros(4, 3, dtype=torch.float64), spec)
+    with pytest.raises(ValueError):
+        brickgrid_encode(table.to("meta"), torch.zeros(4, 3, device="meta"), spec)
+    before = brickgrid_encode.launches
+    brickgrid_encode(table, torch.zeros(4, 3), spec)
+    assert brickgrid_encode.launches == before  # the plain version launches nothing
+    assert kernels.dispatch_device("x", table) == "cpu"

@@ -1,0 +1,109 @@
+"""Port parity: emernerf_torch compositing (plain version of kernel K3)
+against emernerf_tpu.render.volrend.composite_rays, on the CPU in fp32.
+
+Tolerance: atol 1e-5 (sums of 64 weighted fp32 terms, other order).
+Median depth is ``count(cumsum(w) < 0.5)``: where the cumsum sits within
+~1e-6 of 0.5, a different summation order may move it by one sample, so a
+ray may differ by one sample exactly there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from emernerf_tpu.render.volrend import composite_rays as jax_composite
+from emernerf_torch.render.volrend import (
+    composite_along_rays,
+    composite_rays,
+    weights_opacity_depth_from_density,
+)
+
+R, S = 48, 64
+
+
+def _field_outputs(rng, keys):
+    t = np.sort(rng.uniform(0.5, 80.0, (R, S + 1)).astype(np.float32), -1)
+    static = rng.exponential(0.05, (R, S)).astype(np.float32)
+    dynamic = rng.exponential(0.02, (R, S)).astype(np.float32)
+    static[:4] = 0.0  # empty rays: opacity clipped to 1e-6
+    dynamic[:6] = 0.0
+    res = {
+        "density": static + dynamic,
+        "static_density": static,
+        "dynamic_density": dynamic,
+        "static_rgb": rng.uniform(0, 1, (R, S, 3)),
+        "dynamic_rgb": rng.uniform(0, 1, (R, S, 3)),
+    }
+    if "shadow" in keys:
+        res["shadow_ratio"] = rng.uniform(0, 1, (R, S, 1))
+    if "sky" in keys:
+        res["rgb_sky"] = rng.uniform(0, 1, (R, 3))
+    if "flow" in keys:
+        for k in ("forward_flow", "backward_flow", "forward_pred_backward_flow",
+                  "backward_pred_forward_flow"):
+            res[k] = rng.normal(0, 1, (R, S, 3))
+        res["agg_mask"] = (rng.uniform(0, 1, (R, S)) < 0.3).astype(np.float32)
+    res = {k: np.asarray(v, np.float32) for k, v in res.items()}
+    return t[:, :-1].copy(), t[:, 1:].copy(), res
+
+
+def _check_median(ours, ref, t_starts, t_ends, weights):
+    steps = (t_starts + t_ends) / 2.0
+    cum = np.cumsum(weights, -1)
+    for r in np.nonzero(~np.isclose(ours, ref, rtol=1e-6, atol=1e-5))[0]:
+        i_ours = np.argmin(np.abs(steps[r] - ours[r]))
+        i_ref = np.argmin(np.abs(steps[r] - ref[r]))
+        assert abs(i_ours - i_ref) == 1, (r, i_ours, i_ref)
+        assert np.abs(cum[r, min(i_ours, i_ref)] - 0.5) < 1e-5
+
+
+@pytest.mark.parametrize("decomp", [False, True], ids=["plain", "decomposition"])
+@pytest.mark.parametrize("keys", [(), ("shadow", "sky", "flow")], ids=["base", "shadow_sky_flow"])
+def test_composite_rays_matches_jax(decomp, keys):
+    rng = np.random.default_rng(len(keys) * 2 + decomp)
+    ts, te, res = _field_outputs(rng, keys)
+    ref = jax_composite(jnp.asarray(ts), jnp.asarray(te),
+                        {k: jnp.asarray(v) for k, v in res.items()},
+                        return_decomposition=decomp)
+    ours = composite_rays(torch.from_numpy(ts), torch.from_numpy(te),
+                          {k: torch.from_numpy(v) for k, v in res.items()},
+                          return_decomposition=decomp)
+    ref_extras, ours_extras = ref.pop("extras"), ours.pop("extras")
+    assert set(ours) == set(ref)
+    assert set(ours_extras) == set(ref_extras)
+    for k in ref:
+        a, b = ours[k].numpy(), np.asarray(ref[k])
+        assert a.shape == b.shape, k
+        if k == "median_depth":
+            _check_median(a[:, 0], b[:, 0], ts, te, np.asarray(ref_extras["weights"]))
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg=k)
+    for k in ref_extras:
+        np.testing.assert_allclose(ours_extras[k].numpy(), np.asarray(ref_extras[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_weights_opacity_depth_matches_jax():
+    from emernerf_tpu.render.volrend import weights_opacity_depth_from_density as jax_wod
+
+    rng = np.random.default_rng(5)
+    ts, te, res = _field_outputs(rng, ())
+    ref = jax_wod(jnp.asarray(ts), jnp.asarray(te), jnp.asarray(res["density"]))
+    ours = weights_opacity_depth_from_density(
+        torch.from_numpy(ts), torch.from_numpy(te), torch.from_numpy(res["density"]))
+    for a, b in zip(ours, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
+
+
+def test_composite_along_rays_checks_inputs():
+    ts = torch.zeros(4, 8)
+    dens = torch.zeros(4, 8, 2)
+    with pytest.raises(ValueError):  # one density set per value channel
+        composite_along_rays(ts, ts, dens, torch.zeros(4, 8, 3), [0, 1])
+    with pytest.raises(ValueError):  # set index out of range
+        composite_along_rays(ts, ts, dens, torch.zeros(4, 8, 1), [2])
+    with pytest.raises(ValueError):
+        composite_along_rays(ts, ts, torch.zeros(4, 8, 4))
+    with pytest.raises(ValueError):
+        composite_along_rays(ts.to("meta"), ts.to("meta"), dens.to("meta"))

@@ -6,15 +6,30 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases (any failure exits non-zero; nothing is skipped):
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit;
-  2. build: compiles kernels/csrc/*.cu with nvcc into build/emernerf_torch/;
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     the flagship eval shapes (one 16,384-ray chunk), with max abs/rel
-     error, elements over tolerance and median times of both;
-  4. slice: the full-width flagship (default bf16 config, seeded random
+  2. build: compiles kernels/csrc/*.cu with nvcc (one process per source)
+     into build/emernerf_torch/;
+  3. kernels: each kernel against its plain PyTorch version on the card,
+     the forward kernels at the flagship eval shapes (one 16,384-ray
+     chunk), the training kernels (K1 and K3 backward, K5 interlevel loss,
+     K8 Adam) at the shapes of one 8,192-ray pixel branch and over the
+     flagship's parameter list, with max abs/rel error, elements over
+     tolerance and median times of both;
+  4. eval: the full-width flagship (default bf16 config, seeded random
      weights) renders 2 images of 160x240 through ImageRenderer.render_split;
-     every map must be finite and every kernel's launch counter above 0;
-     then a 2,048-ray chunk in fp32 on the card (kernels) against the same
-     params on the CPU (plain versions).
+     every map must be finite and every forward kernel's launch counter
+     above 0; then a 2,048-ray chunk in fp32 on the card (kernels) against
+     the same params on the CPU (plain versions);
+  5. train: emernerf_torch.train.trainer.Trainer trains the full-width
+     flagship (bf16 default config, seed 0): 3 warm-up and 12 timed
+     iterations, then iterations 2000 (an error-map refresh) and 2001 (the
+     line-of-sight loss live, buffered pixel sampling).  Every loss must be
+     finite, every parameter must change and every kernel's launch counter
+     must be above 0; prints ms/iteration, rays/s and peak memory;
+     It then traces 2 more iterations with torch.profiler (CUDA activity)
+     and writes the device time by kernel to chiprun_out/profile_train.json;
+  5b. one fp32 training step of the tiny flagship on the card (kernels)
+     against the CPU (plain versions), same params, batches and draws:
+     every loss and every parameter gradient of both branches.
 The last two lines are the card line and {"ok": true, "device": {...}}.
 """
 
@@ -32,8 +47,15 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_RAYS = 16384  # render.render_chunk_size
+N_TRAIN = 8192  # data.ray_batch_size: rays per branch and iteration
 PROP_SAMPLES, NUM_SAMPLES = (128, 64), 64
-TABLE_SCALE = 2000.0  # fp32 chunk: tables U(+-0.2) instead of U(+-1e-4)
+SAMPLE_TOPK, AGG_TOPK = 32, 16  # nerf.sampling.sample_topk, head.temporal_agg_topk
+TABLE_SCALE = 2000.0  # fp32 card-vs-CPU checks: tables U(+-0.2), not U(+-1e-4)
+# tiny flagship widened so that top-K pruning and both proposal levels
+# carry gradients (as tests/test_torch_train_step.py widens it)
+TINY_FP32 = ("nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32",
+             "nerf.propnet.num_samples_per_prop=[32,16]", "nerf.sampling.num_samples=8",
+             "nerf.sampling.sample_topk=6", "nerf.sampling.lidar_sample_topk=4")
 
 
 def fail(msg: str):
@@ -60,7 +82,7 @@ def compare(name, out, ref, rtol, atol):
     """(max abs err, max rel err, elements over atol + rtol*|ref|)."""
     out, ref = out.double(), ref.double()
     err = (out - ref).abs()
-    over = int((err > atol + rtol * ref.abs()).sum())
+    over = int((~(err <= atol + rtol * ref.abs())).sum())  # NaN counts as over
     rel = float((err / ref.abs().clamp_min(1e-12)).max()) if err.numel() else 0.0
     mx = float(err.max()) if err.numel() else 0.0
     print(f"  {name}: max_abs_err={mx:.3e} max_rel_err={rel:.3e} over_tol={over} "
@@ -68,13 +90,12 @@ def compare(name, out, ref, rtol, atol):
     return mx, over
 
 
-def phase_kernels(dev, kernels_entries):
-    from emernerf_torch.builders import flow_spec, make_grid_spec, _enc_spec
-    from emernerf_torch.flagship import flagship_config
-    from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_ref
-    from emernerf_torch.ops.stepfuns import importance_sampling, importance_sampling_ref
-    from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_ref
+def flagship_specs():
+    """The four grid specs of the full-width flagship."""
     import dataclasses
+
+    from emernerf_torch.builders import _enc_spec, flow_spec, make_grid_spec
+    from emernerf_torch.flagship import flagship_config
 
     cfg = flagship_config()
     m, enc = cfg.nerf.model, cfg.nerf.propnet.xyz_encoder
@@ -82,13 +103,23 @@ def phase_kernels(dev, kernels_entries):
     props = [make_grid_spec(3, enc.n_levels_per_prop[i], enc.base_resolutions_per_prop[i],
                             enc.max_resolution_per_prop[i], enc.lgo2_hashmap_size_per_prop[i], 1)
              for i in range(2)]
+    return {"prop0": props[0], "prop1": props[1], "static": _enc_spec(m.xyz_encoder),
+            "dynflow": dataclasses.replace(dyn, n_features_per_level=dyn.n_features_per_level
+                                           + flw.n_features_per_level)}
+
+
+def phase_kernels(dev, kernels_entries):
+    from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_ref
+    from emernerf_torch.ops.stepfuns import importance_sampling, importance_sampling_ref
+    from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_ref
+
+    specs = flagship_specs()
     # (name, spec, points per eval chunk)
     cases = [
-        ("prop0", props[0], N_RAYS * PROP_SAMPLES[0]),
-        ("prop1", props[1], N_RAYS * PROP_SAMPLES[1]),
-        ("static", _enc_spec(m.xyz_encoder), N_RAYS * NUM_SAMPLES),
-        ("dynflow", dataclasses.replace(dyn, n_features_per_level=dyn.n_features_per_level
-                                        + flw.n_features_per_level), N_RAYS * NUM_SAMPLES),
+        ("prop0", specs["prop0"], N_RAYS * PROP_SAMPLES[0]),
+        ("prop1", specs["prop1"], N_RAYS * PROP_SAMPLES[1]),
+        ("static", specs["static"], N_RAYS * NUM_SAMPLES),
+        ("dynflow", specs["dynflow"], N_RAYS * NUM_SAMPLES),
     ]
     g = torch.Generator(device=dev).manual_seed(0)
     print("phase 3: kernels vs plain versions at the flagship eval shapes")
@@ -177,13 +208,184 @@ def phase_kernels(dev, kernels_entries):
             max_abs_err=mx, ms=ms, plain_ms=plain_ms))
 
 
+def phase_train_kernels(dev, kernels_entries):
+    """The training kernels against their plain versions at the shapes of
+    one 8,192-ray pixel branch, and K8 over the flagship's parameters."""
+    from emernerf_torch.flagship import build_flagship
+    from emernerf_torch.ops.brickgrid import brickgrid_encode_bwd, brickgrid_encode_bwd_ref
+    from emernerf_torch.ops.stepfuns import (
+        _interlevel_forward, interlevel_loss, interlevel_loss_bwd, interlevel_loss_bwd_ref,
+        interlevel_loss_ref)
+    from emernerf_torch.render.volrend import (
+        composite_along_rays_bwd, composite_along_rays_bwd_ref)
+    from emernerf_torch.train.optim import adam_update, adam_update_ref, make_adam
+
+    def entry(name, source, replaces, fn, mx, ms, plain_ms):
+        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        kernels_entries.append(dict(name=name, route="cuda",
+                                    source=f"emernerf_torch/kernels/csrc/{source}",
+                                    replaces=replaces, fn=fn, max_abs_err=mx, ms=ms,
+                                    plain_ms=plain_ms))
+
+    def check(tag, out, ref, rtol, atol_rel):
+        """Over tolerance: |err| > atol_rel * max|ref| + rtol * |ref|."""
+        atol = atol_rel * float(ref.abs().max())
+        mx, over = compare(tag, out.float(), ref.float(), rtol, atol)
+        if over:
+            fail(f"{tag}: {over} elements over tolerance")
+        return mx
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    specs = flagship_specs()
+    print("phase 3 (training): K1 and K3 backward, K5, K8 vs plain versions at the shapes "
+          f"of one {N_TRAIN}-ray pixel branch")
+    # K1 backward, bf16 tables as the flagship trains them.  Tolerance: both
+    # sum the same fp32 products in another order (atomics) and round the
+    # table grad once to bf16: rtol 2^-7 (one bf16 ulp) + 1e-5 x max|grad|;
+    # position grads (fp32): rtol 1e-4 + 1e-5 x max|grad|
+    k1 = [("prop0", N_TRAIN * PROP_SAMPLES[0], False), ("prop1", N_TRAIN * PROP_SAMPLES[1], False),
+          ("static", N_TRAIN * SAMPLE_TOPK, False), ("dynflow", N_TRAIN * SAMPLE_TOPK, False),
+          ("dynflow", 2 * N_TRAIN * AGG_TOPK, True)]
+    for name, n, pos_grad in k1:
+        spec = specs[name]
+        pos = torch.rand((n, spec.n_input_dims), device=dev, generator=g)
+        table = (torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1).bfloat16()
+        cot = torch.randn((n, spec.n_output_dims), device=dev, generator=g).bfloat16()
+        out = brickgrid_encode_bwd(table, pos, cot, spec, pos_grad)
+        ref = brickgrid_encode_bwd_ref(table, pos, cot, spec, pos_grad)
+        tag = f"brickgrid_encode_bwd[{name}{',warped' if pos_grad else ''},bf16,N={n}]"
+        mx = check(tag + ".d_table", out[0], ref[0], 2 ** -7, 1e-5)
+        if pos_grad:
+            mx = max(mx, check(tag + ".d_pos", out[1], ref[1], 1e-4, 1e-5))
+        ms = cuda_ms(lambda: brickgrid_encode_bwd(table, pos, cot, spec, pos_grad), 5)
+        plain_ms = cuda_ms(lambda: brickgrid_encode_bwd_ref(table, pos, cot, spec, pos_grad), 2)
+        entry(tag, "brickgrid.cu", "emernerf_tpu/ops/brickgrid.py:733", brickgrid_encode_bwd,
+              mx, ms, plain_ms)
+        del pos, table, cot, out, ref
+    torch.cuda.empty_cache()
+
+    # K3 backward.  Tolerance: reverse suffix scans in another order than
+    # autograd's: rtol 1e-4 + 1e-5 x max|grad|
+    def rays(s):
+        t = torch.sort(torch.rand((N_TRAIN, s + 1), device=dev, generator=g) * 80, -1)[0] + 0.1
+        return t[:, :-1].contiguous(), t[:, 1:].contiguous()
+
+    for s_, with_vals in ((PROP_SAMPLES[0], False), (PROP_SAMPLES[1], False), (NUM_SAMPLES, True)):
+        ts, te = rays(s_)
+        dens = (torch.rand((N_TRAIN, s_, 1), device=dev, generator=g) ** 3 * 0.5).contiguous()
+        sets = [0] * 4 if with_vals else []  # shadow_ratio^2, rgb
+        vals = torch.rand((N_TRAIN, s_, 4), device=dev, generator=g) if with_vals else None
+        rnd = lambda *shape: torch.randn(shape, device=dev, generator=g)  # noqa: E731
+        grads = ((rnd(N_TRAIN, s_, 1), None, rnd(N_TRAIN, 1), rnd(N_TRAIN, 1), rnd(N_TRAIN, 4))
+                 if with_vals else (None, rnd(N_TRAIN, s_, 1), None, None, None))
+        out = composite_along_rays_bwd(ts, te, dens, vals, sets, grads)
+        ref = composite_along_rays_bwd_ref(ts, te, dens, vals, sets, grads)
+        tag = (f"composite_along_rays_bwd[R={N_TRAIN},S={s_},D=1,"
+               f"{'C=4,w/opacity/depth/sums' if with_vals else 'trans'}]")
+        mx = check(tag + ".d_dens", out[0], ref[0], 1e-4, 1e-5)
+        if with_vals:
+            mx = max(mx, check(tag + ".d_vals", out[1], ref[1], 1e-4, 1e-5))
+        ms = cuda_ms(lambda: composite_along_rays_bwd(ts, te, dens, vals, sets, grads), 20)
+        plain_ms = cuda_ms(lambda: composite_along_rays_bwd_ref(ts, te, dens, vals, sets, grads), 5)
+        entry(tag, "composite.cu", "emernerf_tpu/render/volrend.py:33",
+              composite_along_rays_bwd, mx, ms, plain_ms)
+
+    # K5 at both cache levels against the 65-edge final distribution, at
+    # both pulse widths.  Tolerance: the blurred pdf is a cumsum of jumps
+    # |y| / (2r) that cancel, so fp32 sums in any order sit far from the
+    # exact value (tests/test_torch_interlevel.py); w_s and the per-ray loss
+    # of the kernel must be as close to a float64 evaluation of the plain
+    # version as the fp32 plain version is (2x its max error + 1e-6 x max).
+    # The backward is elementwise on the same w_s: rtol 1e-5 + 1e-6 x max.
+    def edges(k1):  # strictly increasing from 0 to 1
+        s = torch.cumsum(torch.rand((N_TRAIN, k1), device=dev, generator=g) + 0.05, -1)
+        s = s - s[:, :1]
+        return (s / s[:, -1:]).contiguous()
+
+    def cdf(k1):
+        w = torch.rand((N_TRAIN, k1 - 1), device=dev, generator=g) ** 4
+        c = torch.cat([torch.zeros_like(w[:, :1]), torch.cumsum(w, -1)], -1)
+        return (c / c[:, -1:] * 0.99).contiguous()
+
+    s_final = edges(NUM_SAMPLES + 1)
+    trans_final = (1.0 - cdf(NUM_SAMPLES + 1)[:, :-1]).contiguous()
+    for m1 in (PROP_SAMPLES[0] + 1, PROP_SAMPLES[1] + 1):
+        cs, cc = edges(m1), cdf(m1)
+        for r in (0.03, 0.003):
+            tag = f"interlevel_loss[R={N_TRAIN},K+1={NUM_SAMPLES + 1},M+1={m1},r={r}]"
+            w_s, loss = _interlevel_forward(s_final, trans_final, r, cs, cc)
+            w_ref, loss_ref = interlevel_loss_ref(s_final, trans_final, r, cs, cc)
+            w64, loss64 = interlevel_loss_ref(s_final.double(), trans_final.double(), r,
+                                              cs.double(), cc.double())
+            mx = 0.0
+            for part, ours, plain, exact in (("w_s", w_s, w_ref, w64), ("loss", loss, loss_ref,
+                                                                         loss64)):
+                err = float((ours.double() - exact).abs().max())
+                plain_err = float((plain.double() - exact).abs().max())
+                mx = max(mx, float((ours - plain).abs().max()))
+                print(f"  {tag}.{part}: kernel vs float64 {err:.3e}, plain vs float64 "
+                      f"{plain_err:.3e}, kernel vs plain {float((ours - plain).abs().max()):.3e} "
+                      f"(max |float64| {float(exact.abs().max()):.3e})")
+                if not err <= 2 * plain_err + 1e-6 * float(exact.abs().max()):
+                    fail(f"{tag}.{part}: the kernel is further from float64 than the plain version")
+            gl = torch.rand((N_TRAIN,), device=dev, generator=g)
+            mxb = check(tag + ".d_cdfs", interlevel_loss_bwd(w_ref, cc, gl),
+                        interlevel_loss_bwd_ref(w_ref, cc, gl), 1e-5, 1e-6)
+            ms = cuda_ms(lambda: _interlevel_forward(s_final, trans_final, r, cs, cc), 20)
+            plain_ms = cuda_ms(lambda: interlevel_loss_ref(s_final, trans_final, r, cs, cc), 10)
+            entry(tag, "interlevel.cu", "emernerf_tpu/ops/stepfuns.py:161", interlevel_loss,
+                  mx, ms, plain_ms)
+            ms = cuda_ms(lambda: interlevel_loss_bwd(w_ref, cc, gl), 20)
+            plain_ms = cuda_ms(lambda: interlevel_loss_bwd_ref(w_ref, cc, gl), 10)
+            entry(tag.replace("loss[", "loss_bwd["), "interlevel.cu",
+                  "emernerf_tpu/render/prop_sampler.py:133", interlevel_loss_bwd, mxb, ms, plain_ms)
+
+    # K8 over every parameter of the full-width flagship, bit for bit
+    _, _, model, props, _ = build_flagship(device=dev, seed=0)
+    params = [p.detach() for m in (model, *props) for p in m.parameters()]
+    del model, props
+    adam = make_adam(1e-5)
+    h = adam.hyper(3, 0.005)
+    mom = adam.init(params)
+    pk = [p.clone() for p in params]
+    gr = [torch.randn(p.shape, device=dev, generator=g) * 1e-3 for p in params]
+    for m_, v_ in zip(mom.mu, mom.nu):
+        m_.copy_(torch.randn(m_.shape, device=dev, generator=g) * 1e-3)
+        v_.copy_(torch.rand(v_.shape, device=dev, generator=g) * 1e-6)
+    mk, vk = [m_.clone() for m_ in mom.mu], [v_.clone() for v_ in mom.nu]
+    for p, g_, m_, v_ in zip(pk, gr, mk, vk):
+        adam_update(p, g_, m_, v_, h)
+    for p, g_, m_, v_ in zip(params, gr, mom.mu, mom.nu):
+        adam_update_ref(p, g_, m_, v_, h)
+    n = sum(p.numel() for p in params)
+    tag = f"adam_update[{len(params)} tensors,{n} elements,bf16 moments for >=2^20]"
+    mx = 0.0
+    for a, b in ((pk, params), (mk, mom.mu), (vk, mom.nu)):
+        for x, y in zip(a, b):
+            mx = max(mx, float((x.float() - y.float()).abs().max()))
+    print(f"  {tag}: max_abs_err={mx:.3e} over params and moments (tolerance 0: bit for bit)")
+    if mx != 0.0:
+        fail(f"{tag}: kernel and plain version differ")
+
+    def run(fn):
+        def go():
+            for p, g_, m_, v_ in zip(pk, gr, mk, vk):
+                fn(p, g_, m_, v_, h)
+        return go
+
+    ms, plain_ms = cuda_ms(run(adam_update), 5), cuda_ms(run(adam_update_ref), 3)
+    entry(tag, "adam.cu", "emernerf_tpu/train/optim.py:33", adam_update, mx, ms, plain_ms)
+    del params, pk, gr, mom, mk, vk
+    torch.cuda.empty_cache()
+
+
 def phase_slice(dev, counted):
     from emernerf_torch.eval.renderer import ImageRenderer
     from emernerf_torch.flagship import build_flagship
 
     print("phase 4: full-width flagship eval render (bf16 default config)")
     t0 = time.perf_counter()
-    cfg, dataset, model, props = build_flagship(device=dev, seed=0)
+    cfg, dataset, model, props, _ = build_flagship(device=dev, seed=0)
     n_params = sum(p.numel() for p in model.parameters()) + sum(
         p.numel() for pm in props for p in pm.parameters())
     print(f"  built flagship: {n_params} params in {time.perf_counter() - t0:.1f} s; "
@@ -230,6 +432,19 @@ def _image_rays(dataset, idx):
     return rays, gt["hw"]
 
 
+def _scaled_twins(gpu, cpu):
+    """Scale the card models' tables up from their U(+-1e-4) init, so that
+    density varies along and across rays (random MLPs alone give a
+    near-constant depth), and copy every param to the CPU models."""
+    with torch.no_grad():
+        for pm in gpu:
+            for name, p in pm.named_parameters():
+                if name.endswith("table"):
+                    p.mul_(TABLE_SCALE)
+    for c, g in zip(cpu, gpu):
+        c.load_state_dict(g.state_dict())
+
+
 def phase_fp32_chunk(dev):
     from emernerf_torch.eval.renderer import ImageRenderer
     from emernerf_torch.flagship import build_flagship
@@ -238,18 +453,9 @@ def phase_fp32_chunk(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     fp32 = ["nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32"]
-    cfg, dataset, gmodel, gprops = build_flagship(overrides=fp32, device=dev, seed=1)
-    _, _, cmodel, cprops = build_flagship(overrides=fp32, device="cpu", seed=1)
-    # scale the tables up from their U(+-1e-4) init so that density varies
-    # along and across rays (random MLPs alone give a near-constant depth)
-    with torch.no_grad():
-        for pm in [gmodel, *gprops]:
-            for name, p in pm.named_parameters():
-                if name.endswith("table"):
-                    p.mul_(TABLE_SCALE)
-    cmodel.load_state_dict(gmodel.state_dict())
-    for cp, gp in zip(cprops, gprops):
-        cp.load_state_dict(gp.state_dict())
+    cfg, dataset, gmodel, gprops, _ = build_flagship(overrides=fp32, device=dev, seed=1)
+    _, _, cmodel, cprops, _ = build_flagship(overrides=fp32, device="cpu", seed=1)
+    _scaled_twins([gmodel, *gprops], [cmodel, *cprops])
     rays, _ = dataset.get_image_rays(0)
     h, w = dataset.image_hw
     sl = slice(w * (h // 2), w * (h // 2) + 2048)  # rays across the image's middle rows
@@ -276,6 +482,171 @@ def phase_fp32_chunk(dev):
         fail("fp32 chunk on the card disagrees with the CPU plain render")
 
 
+def _losses(metrics):
+    return {k: float(v) for k, v in metrics.items()
+            if "loss" in k or k in ("psnr", "lidar_line_of_sight")}
+
+
+def phase_train(dev, counted):
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.train.trainer import Trainer
+
+    print("phase 5: full-width flagship training through Trainer (bf16 default config, seed 0)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    trainer = Trainer(flagship_config(), device=dev)
+    params = trainer.state.params + trainer.state.prop_params
+    n_params = sum(p.numel() for p in params)
+    cfg = trainer.step_cfg
+    print(f"  built: {n_params} params in {time.perf_counter() - t0:.1f} s; "
+          f"{trainer.ray_batch_size} pixel + {trainer.ray_batch_size} lidar rays, "
+          f"sample_topk {cfg.sample_topk} (temp {cfg.sample_topk_temp}), lidar "
+          f"{cfg.lidar_sample_topk}, prop samples {cfg.prop_samples}, {cfg.num_samples} samples")
+    before = [p.detach().clone() for p in params]
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+    for step in range(3):  # warm-up: cuBLAS, allocator
+        history.append(trainer.train_iteration(step))
+    torch.cuda.synchronize()
+    n_timed = 12
+    t0 = time.perf_counter()
+    for step in range(3, 3 + n_timed):
+        history.append(trainer.train_iteration(step))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # an error-map refresh at iteration 2000, then the line-of-sight loss
+    # (live after supervision.depth.line_of_sight.start_iter) with buffered
+    # pixel sampling
+    trainer.state.step = 2000
+    history.append(trainer.train_iteration(2000))
+    history.append(trainer.train_iteration(2001))
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    profile_train(trainer, 2002, ms)
+    rays = 2 * trainer.ray_batch_size
+    print(f"  {ms:.2f} ms/iteration (mean over {n_timed} timed iterations), "
+          f"{rays / ms * 1e3:.1f} rays/s (pixel + lidar), peak device memory {peak:.2f} GiB")
+    for i, m in enumerate(history):
+        losses = _losses(m)
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"iteration {i}: non-finite loss {losses}")
+    rg = [(bool(m["pixel_rg"]), bool(m["lidar_rg"])) for m in history]
+    print(f"  requires-grad (pixel, lidar) per iteration: {rg}")
+    if not any(a or b for a, b in rg) or all(a and b for a, b in rg):
+        fail("the run needs both requires-grad and non-requires-grad renders")
+    if not trainer.error_map_buffered or float(history[-1]["lidar_line_of_sight"]) <= 0:
+        fail("the error-map refresh or the line-of-sight loss did not run")
+    print(f"  losses at iteration 0: {_losses(history[0])}")
+    print(f"  losses at iteration 2001: {_losses(history[-1])}")
+    unchanged = [i for i, (p, b) in enumerate(zip(params, before)) if torch.equal(p, b)]
+    if unchanged:
+        fail(f"{len(unchanged)} parameter tensors did not change")
+    print(f"  all {len(params)} parameter tensors changed; launch counts: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched by the training run")
+    del trainer, params, before
+    torch.cuda.empty_cache()
+    return launches, ms, rays / ms * 1e3, peak
+
+
+def profile_train(trainer, step, ms_iter):
+    """Device time by kernel over 2 training iterations (torch.profiler,
+    CUDA activity only: tracing CPU ops slows the iteration ~40x)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(2):
+            trainer.train_iteration(step + i)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 2
+    print(f"  profile of 2 iterations: device busy {busy:.2f} ms per iteration = "
+          f"{busy / ms_iter:.3f} of the unprofiled {ms_iter:.2f} ms (wall under the profiler "
+          f"{wall_ms / 2:.2f} ms); top device-time items per iteration:")
+    for key, t, n in rows[:25]:
+        print(f"    {t / 2:8.3f} ms {t / 2 / busy:6.1%} {n // 2:5d}x  {key[:100]}")
+    out = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "profile_train.json"), "w") as f:
+        json.dump(dict(ms_per_iteration=ms_iter, busy_ms_per_iteration=busy,
+                       profiled_wall_ms_per_iteration=wall_ms / 2,
+                       rows=[dict(name=k, ms_per_iteration=t / 2, count=n) for k, t, n in rows]),
+                  f, indent=1)
+
+
+def phase_train_fp32(dev):
+    from emernerf_torch.data.scene import draw_lidar, draw_pixel, sample_lidar_batch, sample_pixel_batch
+    from emernerf_torch.flagship import build_flagship
+    from emernerf_torch.train.step import build_train_step, draw_step
+
+    print("phase 5b: one fp32 training step of the tiny flagship, card (kernels) vs CPU (plain)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, dataset, gmodel, gprops, scfg = build_flagship(tiny=True, overrides=TINY_FP32,
+                                                      device=dev, seed=2)
+    _, _, cmodel, cprops, _ = build_flagship(tiny=True, overrides=TINY_FP32, device="cpu", seed=2)
+    _scaled_twins([gmodel, *gprops], [cmodel, *cprops])
+    gstep, cstep = build_train_step(gmodel, gprops, scfg), build_train_step(cmodel, cprops, scfg)
+    scene = dataset.scene_tensors("cpu")
+    gen = torch.Generator().manual_seed(5)
+    r = 256
+    pixel = sample_pixel_batch(scene, draw_pixel(scene, r, gen))
+    lidar = sample_lidar_batch(scene, draw_lidar(scene, r, gen))
+    to = lambda x: None if x is None else x.to(dev)  # noqa: E731
+
+    def on(batch, draws, device):
+        if device == "cpu":
+            return batch, draws
+        return ({k: v.to(dev) for k, v in batch.items()},
+                draws._replace(jitters=tuple(map(to, draws.jitters)), topk_u=to(draws.topk_u),
+                               agg_noise=to(draws.agg_noise)))
+
+    # tolerances as in tests/test_torch_train_step.py: losses rtol 1e-4
+    # (sky loss 1e-3); gradients rtol 1e-3 + 2e-3 x the tensor's max |grad|
+    worst = 0.0
+    for lidar_branch in (False, True):
+        batch = lidar if lidar_branch else pixel
+        draws = draw_step(r, gstep.render_kw(lidar_branch), True, gen)
+        got = []
+        for step, model, props, device in ((gstep, gmodel, gprops, dev),
+                                           (cstep, cmodel, cprops, "cpu")):
+            loss_fn = step.lidar_loss if lidar_branch else step.pixel_loss
+            b, d = on(batch, draws, device)
+            total, aux = loss_fn(b, d, 0, True)
+            total.backward()
+            named = [(f"{i}.{n}" if i >= 0 else n, p) for i, m in
+                     enumerate([model] + list(props), start=-1) for n, p in m.named_parameters()]
+            got.append(({k: float(v.detach()) for k, v in aux.items()},
+                        {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                         for n, p in named}))
+            for _, p in named:
+                p.grad = None
+        (gl, gg), (cl, cg) = got
+        branch = "lidar" if lidar_branch else "pixel"
+        for k, v in cl.items():
+            rtol = 1e-3 if k == "sky_loss" else 1e-4
+            if not np.isclose(gl[k], v, rtol=rtol, atol=1e-7):
+                fail(f"{branch} {k}: card {gl[k]} vs CPU {v}")
+        for name, ref in cg.items():
+            err = float((gg[name] - ref).abs().max())
+            scale = float(ref.abs().max())
+            worst = max(worst, err / max(scale, 1e-30))
+            if (gg[name] - ref).abs().gt(2e-3 * scale + 1e-3 * ref.abs()).any():
+                fail(f"{branch} gradient {name}: max abs err {err:.3e} (max |grad| {scale:.3e})")
+        print(f"  {branch} branch: losses {cl}")
+    print(f"  all losses and {len(cg)} gradients match; worst gradient error "
+          f"{worst:.3e} x the tensor's max |grad|")
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -292,9 +663,10 @@ def main():
 
     sys.path.insert(0, REPO)
     from emernerf_torch import kernels
-    from emernerf_torch.ops.brickgrid import brickgrid_encode
-    from emernerf_torch.ops.stepfuns import importance_sampling
-    from emernerf_torch.render.volrend import composite_along_rays
+    from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
+    from emernerf_torch.ops.stepfuns import importance_sampling, interlevel_loss, interlevel_loss_bwd
+    from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_bwd
+    from emernerf_torch.train.optim import adam_update
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -307,15 +679,22 @@ def main():
 
     entries = []
     phase_kernels(dev, entries)
-    counted = (brickgrid_encode, importance_sampling, composite_along_rays)
-    launches, rays_per_s = phase_slice(dev, counted)
+    phase_train_kernels(dev, entries)
+    forward = (brickgrid_encode, importance_sampling, composite_along_rays)
+    _, rays_per_s = phase_slice(dev, forward)
     phase_fp32_chunk(dev)
+    counted = forward + (brickgrid_encode_bwd, composite_along_rays_bwd, interlevel_loss,
+                         interlevel_loss_bwd, adam_update)
+    launches, ms_iter, train_rays_per_s, peak = phase_train(dev, counted)
+    phase_train_fp32(dev)
     if "jax" in sys.modules:
         fail("jax was imported")
 
+    # launches: the counts of the training run (phase 5), which drives every kernel
     report = [dict({k: v for k, v in e.items() if k != "fn"},
                    launches=launches[e["fn"].__name__]) for e in entries]
-    print(f"slice: {rays_per_s:.1f} rays/s on {card_line}")
+    print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
+          f"{train_rays_per_s:.1f} rays/s, peak {peak:.2f} GiB on {card_line}")
     print(json.dumps({"kernels": report}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,9 @@ Takes the same config schema.  A knob that the port does not run raises
 instead of being ignored: any ``grid_backend`` other than ``brick``,
 ``nerf.propnet.fine_level_skip > 0``, ``render.eval_sample_topk > 0``, a
 non-default ``nerf.model.perf.*`` formulation knob, unfused or lone
-dynamic/flow branches, the feature head, spherical-harmonics directions
-and temporal interpolation.
+dynamic/flow branches, the feature head, spherical-harmonics directions,
+temporal interpolation, ``optim.fused_lidar_branch`` (left behind) and
+``optim.remat``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from emernerf_torch.data.dataset import SceneDataset
 from emernerf_torch.models.fields import DensityField, RadianceField
 from emernerf_torch.ops.brickgrid import BrickGridSpec
 from emernerf_torch.reuse import synthetic
+from emernerf_torch.train.step import TrainStepConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # nerf.model.perf.* at their defaults: TPU formulation choices that have no
@@ -45,7 +47,7 @@ def validate_cfg(cfg: ConfigNode) -> None:
     if int(cfg.nerf.propnet.get("fine_level_skip", 0)) > 0:
         raise NotImplementedError("nerf.propnet.fine_level_skip>0 is not ported")
     if int(cfg.get_dotted("render.eval_sample_topk", 0)) > 0:
-        raise NotImplementedError("render.eval_sample_topk>0 is ported with training")
+        raise NotImplementedError("render.eval_sample_topk>0 is not ported yet")
     if cfg.nerf.model.get("fuse_flow_grid", True) is False:
         raise NotImplementedError("nerf.model.fuse_flow_grid=false is not ported")
     head = cfg.nerf.model.head
@@ -169,6 +171,66 @@ def build_propnets_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
     return nets
 
 
+def build_train_step_config(cfg: ConfigNode, dataset: SceneDataset) -> TrainStepConfig:
+    """The train step's static settings, as the reference derives them."""
+    validate_cfg(cfg)
+    if cfg.optim.get("fused_lidar_branch", False):
+        raise NotImplementedError("optim.fused_lidar_branch is left behind: the port "
+                                  "runs the reference's two-pass step")
+    if cfg.optim.get("remat", False):
+        raise NotImplementedError("optim.remat is not ported yet")
+    sup = cfg.supervision
+    head = cfg.nerf.model.head
+    has_lidar = (dataset.lidar is not None and cfg.data.lidar_source.load_lidar
+                 and sup.depth.enable)
+    lidar_prop = cfg.nerf.propnet.get("lidar_num_samples_per_prop", None)
+    if lidar_prop and len(lidar_prop) != len(cfg.nerf.propnet.num_samples_per_prop):
+        raise ValueError("nerf.propnet.lidar_num_samples_per_prop must have one entry "
+                         "per proposal model")
+    los = sup.depth.line_of_sight
+    return TrainStepConfig(
+        num_samples=cfg.nerf.sampling.num_samples,
+        prop_samples=tuple(cfg.nerf.propnet.num_samples_per_prop),
+        lidar_prop_samples=tuple(int(v) for v in lidar_prop) if lidar_prop else None,
+        near_plane=cfg.nerf.propnet.near_plane,
+        far_plane=cfg.nerf.propnet.far_plane,
+        sampling_type=cfg.nerf.propnet.sampling_type,
+        sample_topk=int(cfg.nerf.sampling.get("sample_topk", 0)),
+        sample_topk_temp=float(cfg.nerf.sampling.get("sample_topk_temp", 0.0)),
+        lidar_sample_topk=int(cfg.nerf.sampling.get("lidar_sample_topk", -1)),
+        lidar_topk_until=float(cfg.nerf.sampling.get("lidar_topk_until", 1.0)),
+        enable_anti_aliasing=cfg.nerf.propnet.enable_anti_aliasing_level_loss,
+        pulse_widths=tuple(cfg.nerf.propnet.anti_aliasing_pulse_width),
+        rgb_loss_type=sup.rgb.loss_type,
+        rgb_coef=sup.rgb.loss_coef,
+        use_sky_loss=bool(cfg.data.pixel_source.load_sky_mask and head.enable_sky_head
+                          and dataset.sky_masks is not None),
+        sky_loss_type=sup.sky.loss_type,
+        sky_coef=sup.sky.loss_coef,
+        use_dynamic_reg=head.enable_dynamic_branch,
+        dynamic_loss_type=sup.dynamic.loss_type,
+        dynamic_coef=sup.dynamic.loss_coef,
+        entropy_skewness=sup.dynamic.entropy_loss_skewness,
+        use_shadow_loss=head.enable_shadow_head,
+        shadow_loss_type=sup.shadow.loss_type,
+        shadow_coef=sup.shadow.loss_coef,
+        has_flow=head.enable_flow_branch,
+        has_lidar=has_lidar,
+        depth_loss_type=sup.depth.loss_type,
+        depth_coef=sup.depth.loss_coef,
+        los_enable=los.enable,
+        los_coef=los.loss_coef,
+        los_start_iter=los.start_iter,
+        los_start_epsilon=los.start_epsilon,
+        los_end_epsilon=los.end_epsilon,
+        los_decay_steps=los.decay_steps,
+        los_decay_rate=los.decay_rate,
+        lr=cfg.optim.lr,
+        weight_decay=float(cfg.optim.weight_decay),
+        num_iters=cfg.optim.num_iters,
+    )
+
+
 def build_dataset_from_cfg(cfg: ConfigNode) -> SceneDataset:
     """The synthetic scene; the Waymo and nuScenes loaders come later."""
     name = cfg.data.dataset
@@ -199,4 +261,6 @@ def build_dataset_from_cfg(cfg: ConfigNode) -> SceneDataset:
         lidar=lidar,
         aabb=s["aabb"],
         test_image_stride=cfg.data.pixel_source.test_image_stride,
+        buffer_downscale=cfg.data.pixel_source.sampler.buffer_downscale,
+        buffer_ratio=cfg.data.pixel_source.sampler.buffer_ratio,
     )

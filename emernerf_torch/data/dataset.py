@@ -1,8 +1,8 @@
 """Host-side scene dataset (port of ``emernerf_tpu/data/dataset.py``).
 
-Numpy only: split bookkeeping, joint timestamp normalization, the aabb, and
-whole-image eval rays.  The device-resident training scene comes with
-training.
+Numpy split bookkeeping, joint timestamp normalization, the aabb,
+whole-image eval rays, and the upload of the training scene to the device
+(:meth:`SceneDataset.scene_tensors`).
 """
 
 from __future__ import annotations
@@ -10,6 +10,9 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+
+from emernerf_torch.data.scene import SceneTensors
 
 
 class SceneDataset:
@@ -28,6 +31,8 @@ class SceneDataset:
         lidar: Optional[Dict[str, np.ndarray]] = None,
         aabb: Optional[np.ndarray] = None,
         test_image_stride: int = 0,
+        buffer_downscale: int = 16,
+        buffer_ratio: float = 0.25,
     ):
         self.images = images
         self.c2w = c2w.astype(np.float32)
@@ -37,6 +42,8 @@ class SceneDataset:
         self.sky_masks = sky_masks
         self.dynamic_masks = dynamic_masks
         self.lidar = lidar
+        self.buffer_downscale = buffer_downscale
+        self.buffer_ratio = buffer_ratio
         self.num_frames = int(self.frame_idx.max()) + 1
         self.num_cams = int(self.cam_ids.max()) + 1
 
@@ -58,6 +65,7 @@ class SceneDataset:
         is_test = np.isin(self.frame_idx, self.test_frames)
         self.train_indices = np.nonzero(~is_test)[0].astype(np.int32)
         self.test_indices = np.nonzero(is_test)[0].astype(np.int32)
+        self.full_indices = np.arange(len(images), dtype=np.int32)
 
         # ---- aabb: given, else lidar percentiles, else camera-derived ----
         if aabb is not None:
@@ -80,6 +88,10 @@ class SceneDataset:
         return self.images.shape[1], self.images.shape[2]
 
     @property
+    def num_images(self) -> int:
+        return len(self.images)
+
+    @property
     def has_test_split(self) -> bool:
         return len(self.test_indices) > 0
 
@@ -90,6 +102,38 @@ class SceneDataset:
     @property
     def time_diff(self) -> float:
         return 1.0 / max(self.num_img_timesteps, 1)
+
+    def scene_tensors(self, device=None) -> SceneTensors:
+        """Upload the training scene; lidar rays restricted to training frames,
+        the error buffer (all ones) present when ``buffer_ratio > 0``."""
+        def dev(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+        h, w = self.image_hw
+        lidar_kw = {}
+        if self.lidar is not None:
+            keep = ~np.isin(self.lidar["frame_idx"], self.test_frames)
+            lidar_kw = dict(
+                lidar_origins=dev(self.lidar["origins"][keep], torch.float32),
+                lidar_viewdirs=dev(self.lidar["viewdirs"][keep], torch.float32),
+                lidar_ranges=dev(self.lidar["ranges"][keep], torch.float32),
+                lidar_normed_timestamps=dev(self.lidar_normed_timestamps[keep]),
+            )
+        error_map = None
+        if self.buffer_ratio > 0:
+            bd = self.buffer_downscale
+            error_map = torch.ones((self.num_images, h // bd, w // bd), device=device)
+        return SceneTensors(
+            images=dev(self.images, torch.float32),
+            c2w=dev(self.c2w),
+            intrinsics=dev(self.intrinsics),
+            normed_timestamps=dev(self.normed_timestamps),
+            cam_ids=dev(self.cam_ids, torch.int64),
+            train_indices=dev(self.train_indices, torch.int64),
+            sky_masks=None if self.sky_masks is None else dev(self.sky_masks, torch.float32),
+            pixel_error_map=error_map,
+            **lidar_kw,
+        )
 
     def get_image_rays(self, img_idx: int, downscale: int = 1):
         """Whole-image eval rays: a rays dict of shape (H*W, ...) plus

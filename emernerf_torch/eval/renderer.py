@@ -59,7 +59,7 @@ class ImageRenderer:
     @torch.no_grad()
     def render_chunk(self, rays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One ray batch on the device; per-ray outputs without ``extras``."""
-        out = render_ray_batch(self.model, self.prop_models, rays, **self.kw)
+        out = render_ray_batch(self.model, self.prop_models, rays, **self.kw).out
         out.pop("extras", None)
         return out
 

@@ -13,6 +13,7 @@ from emernerf_torch.builders import (
     build_dataset_from_cfg,
     build_model_from_cfg,
     build_propnets_from_cfg,
+    build_train_step_config,
     make_grid_spec,
 )
 
@@ -63,15 +64,20 @@ def flagship_config(tiny: bool = False, overrides=()):
     return cfg
 
 
+def flagship_flow_spec(tiny: bool = False):
+    """The flow grid's spec: the reference's fixed one, or (tiny) a small
+    one that keeps the flow branch."""
+    return make_grid_spec(4, 4, 8, 64, 10, 2) if tiny else None
+
+
 def build_flagship(tiny: bool = False, overrides=(), *, device=None, seed: int = 0):
-    """Returns (cfg, dataset, model, prop_models), initialized on ``device``
-    from ``seed``."""
+    """Returns (cfg, dataset, model, prop_models, step_cfg), initialized on
+    ``device`` from ``seed``."""
     cfg = flagship_config(tiny=tiny, overrides=overrides)
     dataset = build_dataset_from_cfg(cfg)
     gen = torch.Generator(device=device or "cpu")
     gen.manual_seed(seed)
-    # tiny mode keeps the flow branch but shrinks its fixed spec
-    flow = make_grid_spec(4, 4, 8, 64, 10, 2) if tiny else None
-    model = build_model_from_cfg(cfg, dataset, device=device, generator=gen, flow=flow)
+    model = build_model_from_cfg(cfg, dataset, device=device, generator=gen,
+                                 flow=flagship_flow_spec(tiny))
     prop_models = build_propnets_from_cfg(cfg, dataset, device=device, generator=gen)
-    return cfg, dataset, model, prop_models
+    return cfg, dataset, model, prop_models, build_train_step_config(cfg, dataset)

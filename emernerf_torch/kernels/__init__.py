@@ -1,11 +1,11 @@
 """Build, bind and count the port's hand-written Hopper kernels.
 
 All kernels live in ``csrc/*.cu`` with a plain C interface.  On first use
-``load()`` compiles them with ``nvcc`` into ONE shared library under
-``build/emernerf_torch/`` at the repository root and binds it with
-``ctypes``.  Every pointer and the stream go over as ``c_void_p``; every C
-entry returns ``cudaGetLastError()`` and :func:`check` raises on a
-non-zero code.  There is no fallback: a CUDA tensor that reaches a wrapper
+``load()`` compiles them with ``nvcc`` (one process per source, all started
+together), links ONE shared library under ``build/emernerf_torch/`` at the
+repository root and binds it with ``ctypes``.  Every pointer and the stream
+go over as ``c_void_p``; every C entry returns ``cudaGetLastError()`` and
+:func:`check` raises on a non-zero code.  There is no fallback: a CUDA tensor that reaches a wrapper
 whose kernel does not build or launch raises.
 
 Nothing here runs at import time, so the CPU tests can import every module.
@@ -24,12 +24,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "emernerf_torch"
 LIB_NAME = "libemernerf_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (all return cudaError_t as int)
 _SIGNATURES = {
     # table, table_is_bf16, positions, out, n_points, params (host struct), stream
@@ -40,6 +38,22 @@ _SIGNATURES = {
     # n_rays, S, D, C, weights, trans, opacity, depth, median, sums, stream
     "emt_composite": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P),
+    # t_starts, t_ends, dens, vals|NULL, chan_set host, n_rays, S, D, C,
+    # g_weights, g_trans, g_opacity, g_depth, g_sums (each |NULL),
+    # d_dens, d_vals|NULL, stream
+    "emt_composite_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _P, _P, _P, _P, _P, _P, _P, _P),
+    # table, table_is_bf16, positions, grad_out, d_table (fp32), d_pos|NULL,
+    # n_points, params (host struct), stream
+    "emt_brickgrid_backward": (_P, _I, _P, _P, _P, _P, _L, _P, _P),
+    # s_final (R,K+1), trans_final (R,K), half-width r, cache_s (R,M+1),
+    # cache_cdfs (R,M+1), w_s out (R,M), loss out (R,), n_rays, K+1, M+1, stream
+    "emt_interlevel_forward": (_P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _P),
+    # w_s (R,M), cache_cdfs (R,M+1), g_loss (R,), d_cdfs out (R,M+1),
+    # n_rays, M+1, stream
+    "emt_interlevel_backward": (_P, _P, _P, _P, _I, _I, _P),
+    # param, grad|NULL, mu, nu, moments_bf16, n, hyper (host struct), stream
+    "emt_adam": (_P, _P, _P, _P, _I, _L, _P, _P),
 }
 
 
@@ -70,16 +84,25 @@ def build(force: bool = False) -> Path:
     if not (os.path.isfile(nvcc) and os.access(nvcc, os.X_OK)):
         raise KernelBuildError(f"nvcc not found (looked for {nvcc!r}); "
                                "the CUDA kernels cannot be built")
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+    sources = sorted(CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objects = [BUILD_DIR / (src.stem + ".o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    logs = [p.communicate()[0] for p in procs]
+    _State.build_log = "".join(logs)
+    failed = [src.name for src, p in zip(sources, procs) if p.returncode != 0]
     tmp = BUILD_DIR / (LIB_NAME + ".tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _State.build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objects)], capture_output=True, text=True)
+        _State.build_log += link.stdout + link.stderr
+        failed = ["link"] if link.returncode != 0 else []
+    if failed:
         tmp.unlink(missing_ok=True)
         raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{_State.build_log[-4000:]}")
+            f"nvcc failed on {failed}:\n{_State.build_log[-4000:]}")
     tmp.replace(out)
     return out
 
@@ -111,18 +134,14 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def require_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
-    """Common wrapper checks for the kernel path: one CUDA device, contiguous
-    inputs, and no autograd graph (the backward kernels come with training)."""
+    """Common wrapper checks for the kernel path: one CUDA device and
+    contiguous inputs.  Gradients are the autograd.Functions' business."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError(
-                f"{name}: the CUDA kernel is forward-only; run it under "
-                "torch.no_grad() (its backward is ported with training)")
 
 
 def dispatch_device(name: str, t: torch.Tensor) -> str:

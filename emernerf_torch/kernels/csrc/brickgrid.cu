@@ -1,4 +1,4 @@
-// Brick-grid encoder forward (K1).
+// Brick-grid encoder forward and backward (K1).
 //
 // Replaces: emernerf_tpu/ops/brickgrid.py:brickgrid_encode (forward,
 // _encode_impl).  The TPU version gathers one whole brick row per
@@ -72,6 +72,57 @@ __device__ __forceinline__ unsigned brick_row(const BrickParams& p, int lvl,
   return r & static_cast<unsigned>(p.bricks_per_level - 1);
 }
 
+// Per (point, level): the cell fraction per axis, the corner offset inside
+// the brick, the time fraction and the element offsets of the row(s) that
+// hold the point's corners (r1 < 0 when the level has no time corner).
+// Forward and backward share it, so a boundary point scatters into the very
+// row it gathered from.
+struct Geo {
+  float frac[3];
+  int off[3];
+  float tfrac;
+  long long r0, r1;
+};
+
+__device__ __forceinline__ Geo level_geo(const BrickParams& p, const float* x,
+                                         int lvl) {
+  Geo g;
+  const float sc = p.scales[lvl];
+  const int cells = 1 << p.log2_brick_size;
+  unsigned brick[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float ps = __fadd_rn(__fmul_rn(__ldg(x + a), sc), 0.5f);
+    const float c = floorf(ps);
+    g.frac[a] = __fsub_rn(ps, c);
+    const int ci = static_cast<int>(c);
+    g.off[a] = ci & (cells - 1);
+    brick[a] = static_cast<unsigned>(ci >> p.log2_brick_size);
+  }
+  const bool has_t = p.n_dims == 4;
+  g.tfrac = 0.f;
+  unsigned tcell = 0u;
+  if (has_t) {
+    const float ps = __fadd_rn(__fmul_rn(__ldg(x + 3), sc), 0.5f);
+    const float c = floorf(ps);
+    g.tfrac = __fsub_rn(ps, c);
+    tcell = static_cast<unsigned>(static_cast<int>(c));
+  }
+  const long long level_base = static_cast<long long>(lvl) * p.bricks_per_level;
+  const unsigned row0 = brick_row(p, lvl, brick, has_t, tcell);
+  g.r0 = (level_base + row0) * p.row_width;
+  g.r1 = -1;  // the t+1 time corner, when the level has time
+  if (has_t) {
+    if (p.time_pair) {
+      g.r1 = g.r0 + p.row_width / 2;
+    } else {
+      const unsigned row1 = brick_row(p, lvl, brick, true, tcell + 1u);
+      g.r1 = (level_base + row1) * p.row_width;
+    }
+  }
+  return g;
+}
+
 template <typename T, int F>
 __global__ void brickgrid_encode_kernel(const T* __restrict__ table,
                                         const float* __restrict__ pos,
@@ -82,58 +133,25 @@ __global__ void brickgrid_encode_kernel(const T* __restrict__ table,
   if (tid >= n * L) return;
   const long long i = tid / L;
   const int lvl = static_cast<int>(tid - i * L);
-  const float sc = p.scales[lvl];
-  const int cells = 1 << p.log2_brick_size;
-  const int cpa = cells + 1;
-
-  float frac[3];
-  int off[3];
-  unsigned brick[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float ps = __fadd_rn(__fmul_rn(__ldg(pos + i * p.n_dims + a), sc), 0.5f);
-    const float c = floorf(ps);
-    frac[a] = __fsub_rn(ps, c);
-    const int ci = static_cast<int>(c);
-    off[a] = ci & (cells - 1);
-    brick[a] = static_cast<unsigned>(ci >> p.log2_brick_size);
-  }
-  const bool has_t = p.n_dims == 4;
-  float tfrac = 0.f;
-  unsigned tcell = 0u;
-  if (has_t) {
-    const float ps = __fadd_rn(__fmul_rn(__ldg(pos + i * p.n_dims + 3), sc), 0.5f);
-    const float c = floorf(ps);
-    tfrac = __fsub_rn(ps, c);
-    tcell = static_cast<unsigned>(static_cast<int>(c));
-  }
-  const long long level_base = static_cast<long long>(lvl) * p.bricks_per_level;
-  const unsigned row0 = brick_row(p, lvl, brick, has_t, tcell);
-  const T* r0 = table + (level_base + row0) * p.row_width;
-  const T* r1 = nullptr;  // the t+1 time corner, when the level has time
-  if (has_t) {
-    if (p.time_pair) {
-      r1 = r0 + p.row_width / 2;
-    } else {
-      const unsigned row1 = brick_row(p, lvl, brick, true, tcell + 1u);
-      r1 = table + (level_base + row1) * p.row_width;
-    }
-  }
+  const int cpa = (1 << p.log2_brick_size) + 1;
+  const Geo g = level_geo(p, pos + i * p.n_dims, lvl);
+  const T* r0 = table + g.r0;
+  const T* r1 = g.r1 >= 0 ? table + g.r1 : nullptr;
 
   float acc0[F], acc1[F];
 #pragma unroll
   for (int f = 0; f < F; ++f) { acc0[f] = 0.f; acc1[f] = 0.f; }
 #pragma unroll
   for (int dz = 0; dz < 2; ++dz) {
-    const float wz = dz ? frac[2] : __fsub_rn(1.f, frac[2]);
+    const float wz = dz ? g.frac[2] : __fsub_rn(1.f, g.frac[2]);
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy) {
-      const float wy = dy ? frac[1] : __fsub_rn(1.f, frac[1]);
+      const float wy = dy ? g.frac[1] : __fsub_rn(1.f, g.frac[1]);
 #pragma unroll
       for (int dx = 0; dx < 2; ++dx) {
-        const float wx = dx ? frac[0] : __fsub_rn(1.f, frac[0]);
+        const float wx = dx ? g.frac[0] : __fsub_rn(1.f, g.frac[0]);
         const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
-        const int corner = (off[0] + dx) + cpa * ((off[1] + dy) + cpa * (off[2] + dz));
+        const int corner = (g.off[0] + dx) + cpa * ((g.off[1] + dy) + cpa * (g.off[2] + dz));
         const int lane = corner * F;
 #pragma unroll
         for (int f = 0; f < F; ++f)
@@ -147,14 +165,112 @@ __global__ void brickgrid_encode_kernel(const T* __restrict__ table,
     }
   }
   T* o = out + i * static_cast<long long>(L) * F + lvl * F;
-  if (has_t) {
-    const float tw0 = __fsub_rn(1.f, tfrac);
+  if (r1 != nullptr) {
+    const float tw0 = __fsub_rn(1.f, g.tfrac);
 #pragma unroll
     for (int f = 0; f < F; ++f)
-      store_f(o + f, __fadd_rn(__fmul_rn(acc0[f], tw0), __fmul_rn(acc1[f], tfrac)));
+      store_f(o + f, __fadd_rn(__fmul_rn(acc0[f], tw0), __fmul_rn(acc1[f], g.tfrac)));
   } else {
 #pragma unroll
     for (int f = 0; f < F; ++f) store_f(o + f, acc0[f]);
+  }
+}
+
+// Backward (K1 bwd).  Replaces emernerf_tpu/ops/brickgrid.py:_brickgrid_bwd,
+// which scatter-adds one dense (N, 27F) weight-row update per level (wide
+// scatters or one-hot MXU contractions, whichever the TPU measured faster).
+//
+// What bounds it on the H100: atomic read-modify-writes into the fp32
+// gradient table, 8 corners x F lanes (x 2 time slices) per (point, level).
+// Fine levels spread them over ~10^5-10^6 rows; the coarse dense levels
+// (a 16^3 grid is 512 bricks) put tens of thousands of points on each row,
+// and those atomics serialize in L2.  That contention is measured, not
+// fixed, here.
+//
+// Design: one thread per (point, level), the forward's geometry (same
+// FMA-free cell math, same rows), atomicAdd(float) of w * tw * g into a
+// zeroed fp32 buffer (L*B, W); the wrapper casts it to the table's dtype,
+// as the reference casts each level's fp32 buffer.  When the positions need
+// a gradient (only the flow-warped queries), the same thread re-reads its
+// 8 live corners (and the t+1 slice) and accumulates
+//   d/dx_a = scale * sum_c dW_c/dfrac_a * (feats_c . g)   (time-lerped)
+//   d/dt   = scale * sum_c W_c * ((feats1_c - feats0_c) . g)
+// into d_pos with atomicAdd (the L levels of a point share its row).  The
+// reference reads forward-saved reductions instead; the math is the same,
+// the rounding is not.
+template <typename T, int F>
+__global__ void brickgrid_backward_kernel(const T* __restrict__ table,
+                                          const float* __restrict__ pos,
+                                          const T* __restrict__ grad,
+                                          float* __restrict__ d_table,
+                                          float* __restrict__ d_pos, long long n,
+                                          const BrickParams p) {
+  const long long tid = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  const int L = p.n_levels;
+  if (tid >= n * L) return;
+  const long long i = tid / L;
+  const int lvl = static_cast<int>(tid - i * L);
+  const int cpa = (1 << p.log2_brick_size) + 1;
+  const Geo g = level_geo(p, pos + i * p.n_dims, lvl);
+  const bool has_t = g.r1 >= 0;
+  const float tw0 = has_t ? __fsub_rn(1.f, g.tfrac) : 1.f;
+
+  float gf[F];
+  const T* gi = grad + i * static_cast<long long>(L) * F + lvl * F;
+#pragma unroll
+  for (int f = 0; f < F; ++f) gf[f] = load_f(gi + f);
+
+  float dfr[3] = {0.f, 0.f, 0.f};
+  float dtt = 0.f;
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const float wz = dz ? g.frac[2] : __fsub_rn(1.f, g.frac[2]);
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const float wy = dy ? g.frac[1] : __fsub_rn(1.f, g.frac[1]);
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx) {
+        const float wx = dx ? g.frac[0] : __fsub_rn(1.f, g.frac[0]);
+        const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
+        const int corner = (g.off[0] + dx) + cpa * ((g.off[1] + dy) + cpa * (g.off[2] + dz));
+        const long long lane = corner * F;
+        const float w0 = __fmul_rn(w, tw0);
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          atomicAdd(d_table + g.r0 + lane + f, __fmul_rn(w0, gf[f]));
+        if (has_t) {
+          const float w1 = __fmul_rn(w, g.tfrac);
+#pragma unroll
+          for (int f = 0; f < F; ++f)
+            atomicAdd(d_table + g.r1 + lane + f, __fmul_rn(w1, gf[f]));
+        }
+        if (d_pos != nullptr) {
+          float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+          for (int f = 0; f < F; ++f)
+            dot0 = __fadd_rn(dot0, __fmul_rn(gf[f], load_f(table + g.r0 + lane + f)));
+          if (has_t) {
+#pragma unroll
+            for (int f = 0; f < F; ++f)
+              dot1 = __fadd_rn(dot1, __fmul_rn(gf[f], load_f(table + g.r1 + lane + f)));
+          }
+          const float gl = has_t ? __fadd_rn(__fmul_rn(dot0, tw0), __fmul_rn(dot1, g.tfrac))
+                                 : dot0;
+          // dW/dfrac_a: the axis' own weight becomes +-1
+          dfr[0] += (dx ? 1.f : -1.f) * __fmul_rn(wy, wz) * gl;
+          dfr[1] += (dy ? 1.f : -1.f) * __fmul_rn(wx, wz) * gl;
+          dfr[2] += (dz ? 1.f : -1.f) * __fmul_rn(wx, wy) * gl;
+          if (has_t) dtt += w * __fsub_rn(dot1, dot0);
+        }
+      }
+    }
+  }
+  if (d_pos != nullptr) {
+    const float sc = p.scales[lvl];
+    float* dp = d_pos + i * p.n_dims;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) atomicAdd(dp + a, dfr[a] * sc);
+    if (p.n_dims == 4) atomicAdd(dp + 3, dtt * sc);
   }
 }
 
@@ -180,7 +296,50 @@ cudaError_t launch_typed(const void* table, const float* pos, void* out,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_backward_typed(const void* table, const float* pos,
+                                  const void* grad, float* d_table, float* d_pos,
+                                  long long n, const BrickParams& p, cudaStream_t s) {
+  const long long total = n * p.n_levels;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  const T* tab = static_cast<const T*>(table);
+  const T* g = static_cast<const T*>(grad);
+  switch (p.n_features) {
+#define EMT_CASE(FV)                                                          \
+  case FV:                                                                    \
+    brickgrid_backward_kernel<T, FV><<<blocks, threads, 0, s>>>(tab, pos, g,  \
+                                                               d_table, d_pos, \
+                                                               n, p);          \
+    break;
+    EMT_CASE(1) EMT_CASE(2) EMT_CASE(3) EMT_CASE(4)
+    EMT_CASE(5) EMT_CASE(6) EMT_CASE(7) EMT_CASE(8)
+#undef EMT_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int emt_brickgrid_backward(const void* table, int table_is_bf16,
+                                      const void* positions, const void* grad,
+                                      void* d_table, void* d_pos,
+                                      long long n_points, const void* params,
+                                      void* stream) {
+  const BrickParams p = *static_cast<const BrickParams*>(params);
+  if (p.n_levels < 1 || p.n_levels > kMaxLevels) return cudaErrorInvalidValue;
+  if (n_points == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pos = static_cast<const float*>(positions);
+  float* dt = static_cast<float*>(d_table);
+  float* dp = static_cast<float*>(d_pos);
+  cudaError_t err = table_is_bf16
+      ? launch_backward_typed<__nv_bfloat16>(table, pos, grad, dt, dp, n_points, p, s)
+      : launch_backward_typed<float>(table, pos, grad, dt, dp, n_points, p, s);
+  return static_cast<int>(err);
+}
 
 extern "C" int emt_brickgrid_encode(const void* table, int table_is_bf16,
                                     const void* positions, void* out,

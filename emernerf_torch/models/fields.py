@@ -1,4 +1,5 @@
-"""EmerNeRF fields (port of ``emernerf_tpu/models/fields.py``), eval path.
+"""EmerNeRF fields (port of ``emernerf_tpu/models/fields.py``), eval and
+train paths.
 
 ``RadianceField``: static brick-grid field; the fused dynamic+flow 4D grid
 (per level the lanes are ``[dyn F_d | flow F_f]``); the flow MLP; temporal
@@ -8,10 +9,14 @@ and the appearance embedding with its mean-embedding fallback.
 ``DensityField``: the proposal network.
 
 Positions are (R, S, 3) and per-ray data is expanded to (R, S) by the
-renderer.  The config knobs the eval path does not take (feature head,
-spherical-harmonics directions, temporal interpolation, unfused grids,
-fine-level skipping) raise in ``emernerf_torch/builders.py``; the dynamic
-field exists here only as the fused dynamic+flow grid.
+renderer.  Training differs from eval in two inputs only: the aggregation
+noise (a tensor of uniform draws instead of 1) and ``return_density_only``
+for the lidar render.  The flow-warped 4D query is the one grid query
+whose positions carry a gradient (they depend on the flow MLP).  The config
+knobs the port does not take (feature head, spherical-harmonics directions,
+temporal interpolation, unfused grids, fine-level skipping) raise in
+``emernerf_torch/builders.py``; the dynamic field exists here only as the
+fused dynamic+flow grid.
 """
 
 from __future__ import annotations
@@ -197,11 +202,15 @@ class RadianceField(nn.Module):
         return {"rgb_sky": torch.sigmoid(self.sky_head(dd))}
 
     def temporal_aggregation(self, positions, normed_timestamps, forward_flow,
-                             backward_flow, cur_feats):
-        """Flow-warped feature aggregation (Eq. 8) at eval, where the
-        aggregation noise is 1."""
-        noise = torch.ones((*forward_flow.shape[:-1], 1), dtype=forward_flow.dtype,
-                           device=forward_flow.device)
+                             backward_flow, cur_feats, noise=None):
+        """Flow-warped feature aggregation (Eq. 8).  ``noise`` (R, S, 1) is
+        the training-time uniform draw that scales the flow; None is the
+        eval's 1."""
+        shape = (*forward_flow.shape[:-1], 1)
+        if noise is None:
+            noise = torch.ones(shape, dtype=forward_flow.dtype, device=forward_flow.device)
+        elif tuple(noise.shape) != shape:
+            raise ValueError(f"aggregation noise {tuple(noise.shape)} != {shape}")
         k = self.temporal_agg_topk
         if positions.ndim == 3 and 0 < k < positions.shape[1]:
             return self._topk_aggregation(positions, normed_timestamps, forward_flow,
@@ -265,8 +274,12 @@ class RadianceField(nn.Module):
 
     # ------------------------------------------------------------------ #
     def forward(self, positions: torch.Tensor, directions: Optional[torch.Tensor] = None,
-                data: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        """One eval field query; positions and directions are (R, S, 3)."""
+                data: Optional[Dict[str, torch.Tensor]] = None,
+                return_density_only: bool = False,
+                agg_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One field query; positions and directions are (R, S, 3).
+        ``agg_noise`` (R, S, 1): training-time aggregation noise (None at
+        eval); ``return_density_only``: densities (and flow) only."""
         data = data or {}
         results: Dict[str, torch.Tensor] = {}
         encoded, normed_positions = self.forward_static_hash(positions)
@@ -282,7 +295,7 @@ class RadianceField(nn.Module):
             results["forward_flow"] = forward_flow
             results["backward_flow"] = backward_flow
             agg = self.temporal_aggregation(positions, t, forward_flow,
-                                            backward_flow, cur_feats)
+                                            backward_flow, cur_feats, agg_noise)
             dynamic_feats = agg.pop("dynamic_feats")
             results.update(agg)
 
@@ -291,6 +304,8 @@ class RadianceField(nn.Module):
             results.update(density=static_density + dynamic_density,
                            static_density=static_density,
                            dynamic_density=dynamic_density)
+            if return_density_only:
+                return results
             if directions is not None:
                 rgb = self.query_rgb(directions, geo_feats, dynamic_geo_feats, data=data)
                 results["static_rgb"] = rgb["rgb"]
@@ -300,6 +315,8 @@ class RadianceField(nn.Module):
         else:
             results["density"] = static_density
             results["static_density"] = static_density
+            if return_density_only:
+                return results
             if directions is not None:
                 results["rgb"] = self.query_rgb(directions, geo_feats, data=data)["rgb"]
 

@@ -15,8 +15,12 @@ time corners t and t+1 side by side, ``[:27F]`` and ``[27F:]``.
 ``brickgrid_encode_ref`` is the plain PyTorch version: it reads only the 8
 corners with non-zero trilinear weight (the TPU reference densely weights
 the whole row; the zero-weight corners add nothing).  ``brickgrid_encode``
-is the wrapper around the CUDA kernel (``kernels/csrc/brickgrid.cu``): it
-takes the plain version for CPU tensors only.
+is the differentiable wrapper around the CUDA kernels
+(``kernels/csrc/brickgrid.cu``, forward and backward): it takes the plain
+versions for CPU tensors only.  The backward returns the table gradient in
+the table's dtype (accumulated in fp32, cast once, as the reference casts
+each level) and the position gradient only where the positions need one
+(the flow-warped queries).
 """
 
 from __future__ import annotations
@@ -279,13 +283,7 @@ def _kernel_params(spec: BrickGridSpec) -> _BrickParams:
     return p
 
 
-def brickgrid_encode(table: torch.Tensor, positions: torch.Tensor,
-                     spec: BrickGridSpec) -> torch.Tensor:
-    """Encode positions (..., D) in [0,1] -> (..., L*F) in the table's dtype.
-
-    CPU tensors take the plain version; CUDA tensors launch the K1 kernel
-    (and raise if it cannot be built or launched)."""
-    name = "brickgrid_encode"
+def _check_encode_args(name, table, positions, spec):
     if tuple(table.shape) != spec.table_shape:
         raise ValueError(f"{name}: table {tuple(table.shape)} != {spec.table_shape}")
     if table.dtype not in (torch.float32, torch.bfloat16):
@@ -294,6 +292,11 @@ def brickgrid_encode(table: torch.Tensor, positions: torch.Tensor,
         raise ValueError(f"{name}: positions must be (..., {spec.n_input_dims}) float32")
     if spec.n_features_per_level > 8 or spec.n_levels > MAX_LEVELS:
         raise ValueError(f"{name}: F <= 8 and L <= {MAX_LEVELS} supported")
+
+
+def _encode_forward(table, positions, spec):
+    """The K1 forward: plain version for CPU tensors, the kernel for CUDA."""
+    name = "brickgrid_encode"
     if kernels.dispatch_device(name, table) == "cpu":
         return brickgrid_encode_ref(table, positions, spec)
     kernels.require_cuda_inputs(name, table, positions)
@@ -313,6 +316,77 @@ def brickgrid_encode(table: torch.Tensor, positions: torch.Tensor,
     kernels.check(err, name)
     brickgrid_encode.launches += 1
     return out.reshape(*batch, spec.n_output_dims)
+
+
+def brickgrid_encode_bwd_ref(table, positions, grad_out, spec: BrickGridSpec,
+                             needs_pos_grad: bool):
+    """Plain version of :func:`brickgrid_encode_bwd`: autograd of the plain
+    forward on an fp32 copy of the table, cast back to the table's dtype."""
+    with torch.enable_grad():
+        t32 = table.detach().float().requires_grad_(True)
+        x = positions.detach().requires_grad_(needs_pos_grad)
+        out = brickgrid_encode_ref(t32, x, spec)
+        inputs = [t32, x] if needs_pos_grad else [t32]
+        got = torch.autograd.grad(out, inputs, grad_out.float())
+    return got[0].to(table.dtype), (got[1] if needs_pos_grad else None)
+
+
+def brickgrid_encode_bwd(table: torch.Tensor, positions: torch.Tensor,
+                         grad_out: torch.Tensor, spec: BrickGridSpec,
+                         needs_pos_grad: bool):
+    """K1 backward: (d table in the table's dtype, d positions or None).
+
+    grad_out is the cotangent of the (..., L*F) encoding.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    name = "brickgrid_encode_bwd"
+    if kernels.dispatch_device(name, table) == "cpu":
+        return brickgrid_encode_bwd_ref(table, positions, grad_out, spec, needs_pos_grad)
+    grad_out = grad_out.to(table.dtype).contiguous()
+    kernels.require_cuda_inputs(name, table, positions, grad_out)
+    lib = kernels.load()
+    n = positions.numel() // spec.n_input_dims
+    d_table = torch.zeros(spec.table_shape, dtype=torch.float32, device=table.device)
+    d_pos = torch.zeros_like(positions) if needs_pos_grad else None
+    if n > 0:
+        params = _kernel_params(spec)
+        err = lib.emt_brickgrid_backward(
+            table.data_ptr(), int(table.dtype == torch.bfloat16),
+            positions.data_ptr(), grad_out.data_ptr(), d_table.data_ptr(),
+            None if d_pos is None else d_pos.data_ptr(), n,
+            ctypes.addressof(params), kernels.stream_ptr(table.device),
+        )
+        kernels.check(err, name)
+        brickgrid_encode_bwd.launches += 1
+    return d_table.to(table.dtype), d_pos
+
+
+brickgrid_encode_bwd.launches = 0
+
+
+class _BrickGridEncode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, positions, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(table, positions)
+        return _encode_forward(table, positions, spec)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        table, positions = ctx.saved_tensors
+        d_table, d_pos = brickgrid_encode_bwd(table, positions, grad_out, ctx.spec,
+                                              ctx.needs_input_grad[1])
+        return (d_table if ctx.needs_input_grad[0] else None), d_pos, None
+
+
+def brickgrid_encode(table: torch.Tensor, positions: torch.Tensor,
+                     spec: BrickGridSpec) -> torch.Tensor:
+    """Encode positions (..., D) in [0,1] -> (..., L*F) in the table's dtype.
+
+    Differentiable in the table and the positions.  CPU tensors take the
+    plain versions; CUDA tensors launch the K1 kernels (and raise if they
+    cannot be built or launched)."""
+    _check_encode_args("brickgrid_encode", table, positions, spec)
+    return _BrickGridEncode.apply(table, positions, spec)
 
 
 brickgrid_encode.launches = 0

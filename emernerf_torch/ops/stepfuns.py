@@ -1,11 +1,12 @@
 """Step-function math for proposal sampling (port of ``emernerf_tpu/ops/stepfuns.py``).
 
 The s<->t ray warps (with the piecewise linear/inverse split at 200 m),
-transmittance from density, and inverse-CDF importance sampling on dense
-(n_rays, n_edges) tensors.  ``importance_sampling`` is the wrapper around
-the K2 CUDA kernel (``kernels/csrc/importance_sampling.cu``);
-``importance_sampling_ref`` is its plain version.  The interlevel-loss
-pieces come with training.
+transmittance from density, inverse-CDF importance sampling and the
+zip-NeRF interlevel-loss pieces on dense (n_rays, n_edges) tensors.
+``importance_sampling`` is the wrapper around the K2 CUDA kernel
+(``kernels/csrc/importance_sampling.cu``); ``interlevel_loss`` the
+differentiable wrapper around K5 (``kernels/csrc/interlevel.cu``).  Each has
+its plain version beside it (``*_ref``).
 """
 
 from __future__ import annotations
@@ -141,3 +142,157 @@ def importance_sampling(s_vals: torch.Tensor, cdfs: torch.Tensor,
 
 
 importance_sampling.launches = 0
+
+
+# --------------------------------------------------------------------------
+# zip-NeRF anti-aliased interlevel loss (K5)
+# --------------------------------------------------------------------------
+
+def blur_stepfun(x, y, r: float):
+    """Convolve a step function (edges x (R, K+1), values y (R, K)) with a box
+    of half-width r: new edges (R, 2K+2) and piecewise-linear values there."""
+    xr_cat = torch.cat([x - r, x + r], dim=-1)
+    zeros = torch.zeros_like(y[..., :1])
+    y1 = (torch.cat([y, zeros], dim=-1) - torch.cat([zeros, y], dim=-1)) / (2.0 * r)
+    xr, order = torch.sort(xr_cat, dim=-1, stable=True)
+    y2 = torch.gather(torch.cat([y1, -y1], dim=-1), -1, order)[..., :-1]
+    yr = torch.cumsum((xr[..., 1:] - xr[..., :-1]) * torch.cumsum(y2, dim=-1),
+                      dim=-1).clamp_min(0.0)
+    return xr, torch.cat([torch.zeros_like(yr[..., :1]), yr], dim=-1)
+
+
+def sorted_interp_quad(x, xp, fpdf, fcdf):
+    """Quadratic interpolation of the integral of a piecewise-linear pdf at
+    sorted queries x (R, M); knots xp/fpdf/fcdf (R, K)."""
+    k = xp.shape[-1]
+    j = torch.searchsorted(xp.contiguous(), x.contiguous(), right=True)
+    idx0 = (j - 1).clamp(0, k - 1)
+    idx1 = j.clamp(0, k - 1)
+    xp0, xp1 = xp.gather(-1, idx0), xp.gather(-1, idx1)
+    fcdf0 = fcdf.gather(-1, idx0)
+    fpdf0, fpdf1 = fpdf.gather(-1, idx0), fpdf.gather(-1, idx1)
+    offset = torch.nan_to_num((x - xp0) / (xp1 - xp0), nan=0.0).clamp(0.0, 1.0)
+    return fcdf0 + (x - xp0) * (fpdf0 + fpdf1 * offset + fpdf0 * (1.0 - offset)) / 2.0
+
+
+def pdf_outer_loss(s_query, cdfs_query, s_key, cdfs_key, eps: float = 1e-7):
+    """Mip-NeRF 360 interlevel loss (the non-anti-aliased branch): proposal
+    mass under the outer envelope of the final distribution."""
+    k = s_key.shape[-1]
+    j_right = torch.searchsorted(s_key.contiguous(), s_query.contiguous(), right=True)
+    j_left = (j_right - 1).clamp(0, k - 1)
+    j_right = j_right.clamp(0, k - 1)
+    w = cdfs_query[..., 1:] - cdfs_query[..., :-1]
+    w_outer = cdfs_key.gather(-1, j_right[..., 1:]) - cdfs_key.gather(-1, j_left[..., :-1])
+    return (w - w_outer).clamp_min(0.0) ** 2 / (w + eps)
+
+
+_MAX_EDGES = 257
+
+
+def interlevel_loss_ref(s_final, trans_final, r: float, cache_s, cache_cdfs):
+    """Plain version of the K5 forward: (w_s (R, M), per-ray loss sum (R,))."""
+    zeros = torch.zeros_like(trans_final[..., :1])
+    cdfs = 1.0 - torch.cat([trans_final, zeros], dim=-1)
+    w_normalize = (cdfs[..., 1:] - cdfs[..., :-1]) / (s_final[..., 1:] - s_final[..., :-1])
+    c, w = blur_stepfun(s_final, w_normalize, r)
+    area = 0.5 * (w[..., 1:] + w[..., :-1]) * (c[..., 1:] - c[..., :-1])
+    blurred = torch.cat([torch.zeros_like(area[..., :1]), torch.cumsum(area, dim=-1)], dim=-1)
+    cdf_interp = sorted_interp_quad(cache_s, c, w, blurred)
+    w_s = cdf_interp[..., 1:] - cdf_interp[..., :-1]
+    wp = cache_cdfs[..., 1:] - cache_cdfs[..., :-1]
+    loss = ((w_s - wp).clamp_min(0.0) ** 2 / (wp + 1e-5)).sum(dim=-1)
+    return w_s, loss
+
+
+def _interlevel_forward(s_final, trans_final, r, cache_s, cache_cdfs):
+    name = "interlevel_loss"
+    if kernels.dispatch_device(name, cache_cdfs) == "cpu":
+        return interlevel_loss_ref(s_final, trans_final, r, cache_s, cache_cdfs)
+    kernels.require_cuda_inputs(name, s_final, trans_final, cache_s, cache_cdfs)
+    lib = kernels.load()
+    n, m1 = cache_s.shape
+    w_s = torch.empty((n, m1 - 1), dtype=torch.float32, device=cache_s.device)
+    loss = torch.empty((n,), dtype=torch.float32, device=cache_s.device)
+    if n > 0:
+        err = lib.emt_interlevel_forward(
+            s_final.data_ptr(), trans_final.data_ptr(), float(r), cache_s.data_ptr(),
+            cache_cdfs.data_ptr(), w_s.data_ptr(), loss.data_ptr(), n,
+            s_final.shape[1], m1, kernels.stream_ptr(cache_s.device))
+        kernels.check(err, name)
+        interlevel_loss.launches += 1
+    return w_s, loss
+
+
+def interlevel_loss_bwd_ref(w_s, cache_cdfs, g_loss):
+    """Plain version of :func:`interlevel_loss_bwd`."""
+    wp = cache_cdfs[..., 1:] - cache_cdfs[..., :-1]
+    c = (w_s - wp).clamp_min(0.0)
+    den = wp + 1e-5
+    d_wp = g_loss[:, None] * (-2.0 * c / den - c * c / (den * den))
+    d = torch.zeros_like(cache_cdfs)
+    d[:, :-1] -= d_wp
+    d[:, 1:] += d_wp
+    return d
+
+
+def interlevel_loss_bwd(w_s, cache_cdfs, g_loss):
+    """K5 backward: d cache_cdfs (R, M+1) from the per-ray loss cotangent
+    (R,) and the forward's w_s residual.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    name = "interlevel_loss_bwd"
+    if kernels.dispatch_device(name, cache_cdfs) == "cpu":
+        return interlevel_loss_bwd_ref(w_s, cache_cdfs, g_loss)
+    g_loss = g_loss.contiguous()
+    kernels.require_cuda_inputs(name, w_s, cache_cdfs, g_loss)
+    lib = kernels.load()
+    n, m1 = cache_cdfs.shape
+    d = torch.empty_like(cache_cdfs)
+    if n > 0:
+        err = lib.emt_interlevel_backward(w_s.data_ptr(), cache_cdfs.data_ptr(),
+                                          g_loss.data_ptr(), d.data_ptr(), n, m1,
+                                          kernels.stream_ptr(cache_cdfs.device))
+        kernels.check(err, name)
+        interlevel_loss_bwd.launches += 1
+    return d
+
+
+interlevel_loss_bwd.launches = 0
+
+
+class _Interlevel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cache_cdfs, cache_s, s_final, trans_final, r):
+        w_s, loss = _interlevel_forward(s_final, trans_final, r, cache_s, cache_cdfs)
+        ctx.save_for_backward(w_s, cache_cdfs)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g_loss):
+        w_s, cache_cdfs = ctx.saved_tensors
+        return interlevel_loss_bwd(w_s, cache_cdfs, g_loss), None, None, None, None
+
+
+def interlevel_loss(cache_s: torch.Tensor, cache_cdfs: torch.Tensor,
+                    s_final: torch.Tensor, trans_final: torch.Tensor,
+                    r: float) -> torch.Tensor:
+    """Per-ray sum over the M proposal intervals of the anti-aliased
+    interlevel loss, clip(w_s - wp, 0)^2 / (wp + 1e-5), where w_s is the
+    final distribution (edges s_final (R, K+1), transmittance trans_final
+    (R, K)) blurred with half-width r and integrated over the cache edges
+    cache_s (R, M+1), and wp = diff(cache_cdfs).  Differentiable in
+    cache_cdfs only (the rest is detached, as in the reference)."""
+    name = "interlevel_loss"
+    for t in (cache_s, cache_cdfs, s_final, trans_final):
+        if t.dtype != torch.float32 or t.ndim != 2:
+            raise ValueError(f"{name}: (R, n) float32 inputs required")
+    if cache_s.shape != cache_cdfs.shape or trans_final.shape[1] + 1 != s_final.shape[1]:
+        raise ValueError(f"{name}: cache (R, M+1) x2, s_final (R, K+1), trans (R, K)")
+    if max(s_final.shape[1], cache_s.shape[1]) > _MAX_EDGES:
+        raise ValueError(f"{name}: at most {_MAX_EDGES} edges per ray")
+    if any(t.requires_grad for t in (cache_s, s_final, trans_final)):
+        raise ValueError(f"{name}: only cache_cdfs takes a gradient")
+    return _Interlevel.apply(cache_cdfs, cache_s, s_final, trans_final, float(r))
+
+
+interlevel_loss.launches = 0

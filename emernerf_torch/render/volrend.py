@@ -1,12 +1,15 @@
 """Volume rendering / alpha compositing (port of ``emernerf_tpu/render/volrend.py``).
 
-``composite_along_rays`` is the wrapper around the K3 CUDA kernel
-(``kernels/csrc/composite.cu``) and ``composite_along_rays_ref`` its plain
-version.  One call computes, for up to three density sets (total, static,
-dynamic), transmittance, weights, opacity and depth, the median depth of
-the first set, and the weighted sums of a packed (R, S, C) value tensor
-whose channel c is weighted by set ``chan_set[c]``.  ``composite_rays`` is
-the dict glue around it and keeps the reference's keys and formulas.
+``composite_along_rays`` is the differentiable wrapper around the K3 CUDA
+kernels (``kernels/csrc/composite.cu``, forward and backward);
+``composite_along_rays_ref`` and ``composite_along_rays_bwd_ref`` are their
+plain versions.  One call computes, for up to three density sets (total,
+static, dynamic), transmittance, weights, opacity and depth, the median
+depth of the first set, and the weighted sums of a packed (R, S, C) value
+tensor whose channel c is weighted by set ``chan_set[c]``.  Gradients flow
+to the densities and the values (never to the sample edges).
+``composite_rays`` is the dict glue around it and keeps the reference's
+keys and formulas.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 
 from emernerf_torch import kernels
+from emernerf_torch.ops.clip import clip
 from emernerf_torch.ops.stepfuns import exclusive_cumsum
 
 _MAX_SETS, _MAX_CHANNELS, _MAX_SAMPLES = 3, 64, 256
@@ -58,7 +62,7 @@ def composite_along_rays_ref(t_starts, t_ends, densities, values=None,
     sdt = densities * (t_ends - t_starts)[..., None]
     trans = torch.exp(-exclusive_cumsum(sdt, dim=1))
     weights = trans * (1.0 - torch.exp(-sdt))
-    opacity = weights.sum(dim=1).clamp(1e-6, 1.0)
+    opacity = clip(weights.sum(dim=1), 1e-6, 1.0)
     steps = (t_starts + t_ends) / 2.0
     depth = (weights * steps[..., None]).sum(dim=1) / opacity
     cum = torch.cumsum(weights[..., 0], dim=-1)
@@ -71,17 +75,9 @@ def composite_along_rays_ref(t_starts, t_ends, densities, values=None,
     return Composited(weights, trans, opacity, depth, median_depth, sums)
 
 
-def composite_along_rays(t_starts: torch.Tensor, t_ends: torch.Tensor,
-                         densities: torch.Tensor,
-                         values: Optional[torch.Tensor] = None,
-                         chan_set: Sequence[int] = ()) -> Composited:
-    """Transmittance, weights and per-ray reductions for D density sets.
-
-    t_starts/t_ends (R, S); densities (R, S, D); values (R, S, C) or None;
-    chan_set: C ints, the density set that weights each value channel.
-    CPU tensors take the plain version; CUDA tensors launch the K3 kernel."""
+def _composite_forward(t_starts, t_ends, densities, values, chan_set) -> Composited:
+    """The K3 forward: plain version for CPU tensors, the kernel for CUDA."""
     name = "composite_along_rays"
-    _check_composite_args(name, t_starts, t_ends, densities, values, chan_set)
     if kernels.dispatch_device(name, t_starts) == "cpu":
         return composite_along_rays_ref(t_starts, t_ends, densities, values, chan_set)
     extra = () if values is None else (values,)
@@ -111,6 +107,103 @@ def composite_along_rays(t_starts: torch.Tensor, t_ends: torch.Tensor,
     kernels.check(err, name)
     composite_along_rays.launches += 1
     return out
+
+
+def composite_along_rays_bwd_ref(t_starts, t_ends, densities, values, chan_set,
+                                 grads: Sequence[Optional[torch.Tensor]]):
+    """Plain version of :func:`composite_along_rays_bwd`: autograd of the
+    plain forward.  ``grads`` are the cotangents of (weights, trans, opacity,
+    depth, sums), None for zeros; returns (d densities, d values or None)."""
+    with torch.enable_grad():
+        dens = densities.detach().requires_grad_(True)
+        vals = None if values is None else values.detach().requires_grad_(True)
+        out = composite_along_rays_ref(t_starts, t_ends, dens, vals, chan_set)
+        pairs = [(o, g) for o, g in zip((out.weights, out.trans, out.opacity,
+                                         out.depth, out.sums), grads) if g is not None]
+        inputs = [dens] + ([vals] if vals is not None else [])
+        if not pairs:
+            return torch.zeros_like(densities), (
+                None if values is None else torch.zeros_like(values))
+        got = torch.autograd.grad([o for o, _ in pairs], inputs,
+                                  [g for _, g in pairs], allow_unused=True)
+    got = [torch.zeros_like(x) if g is None else g for g, x in zip(got, inputs)]
+    return got[0], (got[1] if values is not None else None)
+
+
+def composite_along_rays_bwd(t_starts, t_ends, densities, values, chan_set,
+                             grads: Sequence[Optional[torch.Tensor]]):
+    """K3 backward: d densities (R, S, D) and d values (R, S, C) from the
+    cotangents of (weights, trans, opacity, depth, sums), None for zeros.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    name = "composite_along_rays_bwd"
+    if kernels.dispatch_device(name, t_starts) == "cpu":
+        return composite_along_rays_bwd_ref(t_starts, t_ends, densities, values,
+                                            chan_set, grads)
+    grads = [None if g is None else g.contiguous() for g in grads]
+    extra = () if values is None else (values,)
+    kernels.require_cuda_inputs(name, t_starts, t_ends, densities, *extra,
+                                *[g for g in grads if g is not None])
+    lib = kernels.load()
+    r, s = t_starts.shape
+    d_dens = torch.empty_like(densities)
+    d_vals = None if values is None else torch.zeros_like(values)
+    if r == 0:
+        return d_dens, d_vals
+    c = len(chan_set)
+    sets = (ctypes.c_int * max(c, 1))(*chan_set)
+    ptr = [None if g is None else g.data_ptr() for g in grads]
+    err = lib.emt_composite_backward(
+        t_starts.data_ptr(), t_ends.data_ptr(), densities.data_ptr(),
+        None if values is None else values.data_ptr(), ctypes.addressof(sets),
+        r, s, densities.shape[2], c, *ptr, d_dens.data_ptr(),
+        None if d_vals is None else d_vals.data_ptr(), kernels.stream_ptr(t_starts.device),
+    )
+    kernels.check(err, name)
+    composite_along_rays_bwd.launches += 1
+    return d_dens, d_vals
+
+
+composite_along_rays_bwd.launches = 0
+
+
+class _Composite(torch.autograd.Function):
+    """K3 forward and backward; the median depth carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, t_starts, t_ends, densities, values, chan_set):
+        ctx.set_materialize_grads(False)
+        out = _composite_forward(t_starts, t_ends, densities, values, chan_set)
+        ctx.save_for_backward(t_starts, t_ends, densities, values)
+        ctx.chan_set = tuple(chan_set)
+        ctx.mark_non_differentiable(out.median_depth)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, g_w, g_t, g_o, g_d, _g_median, g_s):
+        t_starts, t_ends, densities, values = ctx.saved_tensors
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            raise NotImplementedError("composite_along_rays: no gradient w.r.t. "
+                                      "the sample edges (they are detached)")
+        d_dens, d_vals = composite_along_rays_bwd(
+            t_starts, t_ends, densities, values, ctx.chan_set, (g_w, g_t, g_o, g_d, g_s))
+        return (None, None, d_dens if ctx.needs_input_grad[2] else None,
+                d_vals if ctx.needs_input_grad[3] else None, None)
+
+
+def composite_along_rays(t_starts: torch.Tensor, t_ends: torch.Tensor,
+                         densities: torch.Tensor,
+                         values: Optional[torch.Tensor] = None,
+                         chan_set: Sequence[int] = ()) -> Composited:
+    """Transmittance, weights and per-ray reductions for D density sets.
+
+    t_starts/t_ends (R, S); densities (R, S, D); values (R, S, C) or None;
+    chan_set: C ints, the density set that weights each value channel.
+    Differentiable in densities and values.  CPU tensors take the plain
+    versions; CUDA tensors launch the K3 kernels."""
+    _check_composite_args("composite_along_rays", t_starts, t_ends, densities,
+                          values, chan_set)
+    return Composited(*_Composite.apply(t_starts, t_ends, densities, values,
+                                        tuple(chan_set)))
 
 
 composite_along_rays.launches = 0

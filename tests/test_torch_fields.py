@@ -43,7 +43,7 @@ def pair():
         jax.random.PRNGKey(0))
     params = _scale_tables(jax.tree.map(np.asarray, state.params))
     prop_params = tuple(_scale_tables(jax.tree.map(np.asarray, p)) for p in state.prop_params)
-    _, _, tmodel, tprops = build_flagship(tiny=True, overrides=FP32)
+    _, _, tmodel, tprops, _ = build_flagship(tiny=True, overrides=FP32)
     load_jax_params(tmodel, tprops, params, prop_params)
     return dict(cfg=cfg, dataset=dataset, jmodel=jmodel, jprops=jprops, params=params,
                 prop_params=prop_params, tmodel=tmodel, tprops=tprops)

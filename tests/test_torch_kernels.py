@@ -3,7 +3,8 @@ kernel against its plain PyTorch version on the card.
 
 The card tests skip where ``torch.cuda.is_available()`` is false; on a
 machine with an H100 run them with
-``python -m pytest tests/test_torch_kernels.py``.
+``python -m pytest tests/test_torch_kernels.py --noconftest`` (the test
+configuration imports JAX, which the port's machines need not have).
 """
 
 import stat
@@ -12,9 +13,28 @@ import pytest
 import torch
 
 from emernerf_torch import kernels
-from emernerf_torch.ops.brickgrid import BrickGridSpec, brickgrid_encode, brickgrid_encode_ref
-from emernerf_torch.ops.stepfuns import importance_sampling, importance_sampling_ref
-from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_ref
+from emernerf_torch.ops.brickgrid import (
+    BrickGridSpec,
+    brickgrid_encode,
+    brickgrid_encode_bwd,
+    brickgrid_encode_bwd_ref,
+    brickgrid_encode_ref,
+)
+from emernerf_torch.ops.stepfuns import (
+    _interlevel_forward,
+    importance_sampling,
+    importance_sampling_ref,
+    interlevel_loss_bwd,
+    interlevel_loss_bwd_ref,
+    interlevel_loss_ref,
+)
+from emernerf_torch.render.volrend import (
+    composite_along_rays,
+    composite_along_rays_bwd,
+    composite_along_rays_bwd_ref,
+    composite_along_rays_ref,
+)
+from emernerf_torch.train.optim import adam_update, adam_update_ref, make_adam
 
 
 @pytest.fixture
@@ -110,3 +130,110 @@ def test_composite_kernel_matches_plain(cuda):
         if name != "median_depth":
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
     assert (out.median_depth != ref.median_depth).float().mean() < 0.01
+
+
+@pytest.mark.parametrize("dims,f,bs,pair", [(3, 1, 2, False), (3, 4, 1, False), (4, 8, 1, True),
+                                            (4, 2, 1, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_brickgrid_backward_kernel_matches_plain(cuda, dims, f, bs, pair, dtype):
+    spec = BrickGridSpec(n_input_dims=dims, n_levels=6, base_resolution=8,
+                         max_resolution=512, log2_bricks=14 - 3 * bs,
+                         n_features_per_level=f, log2_brick_size=bs, time_pair=pair)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    table = torch.rand(spec.table_shape, device=cuda, generator=g).to(dtype)
+    pos = torch.rand((4096, dims), device=cuda, generator=g)
+    cot = torch.randn((4096, spec.n_output_dims), device=cuda, generator=g).to(dtype)
+    d_t, d_x = brickgrid_encode_bwd(table, pos, cot, spec, True)
+    r_t, r_x = brickgrid_encode_bwd_ref(table, pos, cot, spec, True)
+    torch.cuda.synchronize()
+    # fp32 atomics in another order; bf16 grads round once
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert d_t.dtype == dtype
+    torch.testing.assert_close(d_t.float(), r_t.float(), rtol=rtol,
+                               atol=1e-5 * float(r_t.float().abs().max()))
+    torch.testing.assert_close(d_x, r_x, rtol=1e-4, atol=1e-5 * float(r_x.abs().max()))
+
+
+def test_composite_backward_kernel_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    r, s = 2048, 64
+    t = torch.sort(torch.rand((r, s + 1), device=cuda, generator=g) * 50, -1)[0]
+    ts, te = t[:, :-1].contiguous(), t[:, 1:].contiguous()
+    dens = torch.rand((r, s, 3), device=cuda, generator=g) * 0.2
+    vals = torch.rand((r, s, 7), device=cuda, generator=g)
+    sets = [0, 0, 0, 1, 1, 2, 2]
+    rnd = lambda *shape: torch.randn(shape, device=cuda, generator=g)  # noqa: E731
+    for grads in ((rnd(r, s, 3), rnd(r, s, 3), rnd(r, 3), rnd(r, 3), rnd(r, 7)),
+                  (None, rnd(r, s, 3), None, None, None)):
+        out = composite_along_rays_bwd(ts, te, dens, vals, sets, grads)
+        ref = composite_along_rays_bwd_ref(ts, te, dens, vals, sets, grads)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+def test_composite_backward_kernel_tie_gradient(cuda):
+    """Two rays whose weights sum to exactly 1.0 (sigma*dt = 17 then 3): the
+    opacity clip sits on its bound and passes half its gradient, in the
+    kernel as in the plain version (tests/test_torch_volrend.py pins the
+    plain version against jax.grad)."""
+    ts = torch.tensor([[1.0, 3.0], [0.0, 0.5]], device=cuda)
+    te = torch.tensor([[3.0, 4.0], [2.0, 1.5]], device=cuda)
+    dens = (torch.tensor([[17.0, 3.0], [17.0, 3.0]], device=cuda) / (te - ts))[..., None]
+    grads = (None, None, torch.ones((2, 1), device=cuda), torch.ones((2, 1), device=cuda), None)
+    out = composite_along_rays(ts, te, dens.contiguous())
+    assert torch.equal(out.opacity, torch.ones_like(out.opacity))
+    d, _ = composite_along_rays_bwd(ts, te, dens.contiguous(), None, [], grads)
+    ref, _ = composite_along_rays_bwd_ref(ts, te, dens.contiguous(), None, [], grads)
+    torch.testing.assert_close(d, ref, rtol=1e-3, atol=0)
+
+
+def test_interlevel_kernels_match_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    r = 1024
+
+    def edges(k1):  # strictly increasing from 0 to 1
+        s = torch.cumsum(torch.rand((r, k1), device=cuda, generator=g) + 0.05, -1)
+        s = s - s[:, :1]
+        return (s / s[:, -1:]).contiguous()
+
+    def cdf(k1):
+        c = torch.cumsum(torch.rand((r, k1), device=cuda, generator=g) ** 4, -1)
+        c = c - c[:, :1]
+        return (c / c[:, -1:] * 0.98).contiguous()
+
+    s_final, trans = edges(65), (1.0 - cdf(65)[:, :-1]).contiguous()
+    cs, cc = edges(129), cdf(129)
+    for rad in (0.03, 0.003):
+        w_s, loss = _interlevel_forward(s_final, trans, rad, cs, cc)
+        w_ref, loss_ref = interlevel_loss_ref(s_final, trans, rad, cs, cc)
+        # the blurred pdf sums jumps |y| / (2r) that cancel: fp32 sums in
+        # any order sit far from the exact value, so the kernel is held to
+        # be as close to a float64 evaluation as the fp32 plain version
+        w64, loss64 = interlevel_loss_ref(*(x.double() for x in (s_final, trans)), rad,
+                                          cs.double(), cc.double())
+        for ours, plain, exact in ((w_s, w_ref, w64), (loss, loss_ref, loss64)):
+            err = float((ours.double() - exact).abs().max())
+            plain_err = float((plain.double() - exact).abs().max())
+            assert err <= 2 * plain_err + 1e-6 * float(exact.abs().max()), (err, plain_err)
+            assert torch.isfinite(ours).all()
+        gl = torch.rand((r,), device=cuda, generator=g)
+        d, d_ref = interlevel_loss_bwd(w_ref, cc, gl), interlevel_loss_bwd_ref(w_ref, cc, gl)
+        torch.testing.assert_close(d, d_ref, rtol=1e-3, atol=1e-4 * float(d_ref.abs().max()))
+
+
+@pytest.mark.parametrize("numel", [1000, 1 << 20])
+def test_adam_kernel_matches_plain_bit_for_bit(cuda, numel):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    p = torch.randn((numel,), device=cuda, generator=g)
+    adam = make_adam(1e-5)
+    state = adam.init([p])
+    h = adam.hyper(2, 0.003)
+    grad = torch.randn((numel,), device=cuda, generator=g) * 1e-2
+    copies = [(p.clone(), state.mu[0].clone(), state.nu[0].clone()) for _ in range(2)]
+    for (pp, m, v), fn in zip(copies, (adam_update, adam_update_ref)):
+        fn(pp, grad, m, v, h)
+        fn(pp, None, m, v, h)  # a step without a gradient
+    torch.cuda.synchronize()
+    for a, b in zip(*copies):
+        assert torch.equal(a, b)
+    assert copies[0][1].dtype == (torch.bfloat16 if numel >= 1 << 20 else torch.float32)

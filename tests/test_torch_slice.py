@@ -57,7 +57,7 @@ def renders():
     rays, gt = dataset.get_image_rays(img)
     ref = JaxImageRenderer(jmodel, jprops, **kw).render_image(params, prop_params, rays, gt["hw"])
 
-    tcfg, tdataset, tmodel, tprops = build_flagship(tiny=True, overrides=FP32)
+    tcfg, tdataset, tmodel, tprops, _ = build_flagship(tiny=True, overrides=FP32)
     load_jax_params(tmodel, tprops, params, prop_params)
     trays, tgt = tdataset.get_image_rays(img)
     for k in rays:
@@ -111,12 +111,13 @@ def test_stratified_batch_with_injected_jitter_matches_jax(renders):
     with torch.no_grad():
         ours = render_ray_batch(m["tmodel"], m["tprops"],
                                 {k: torch.from_numpy(np.array(v)) for k, v in rays.items()},
-                                jitters=jitters, **kw)
+                                jitters=jitters, **kw).out
     for key_ in ("rgb", "depth", "opacity", "static_rgb", "dynamic_rgb", "forward_flow"):
         np.testing.assert_allclose(ours[key_].numpy(), np.asarray(ref[key_]), rtol=1e-4,
                                    atol=1e-5, err_msg=key_)
     # the jitter moved the samples: an unjittered render differs
     with torch.no_grad():
         plain = render_ray_batch(m["tmodel"], m["tprops"],
-                                 {k: torch.from_numpy(np.array(v)) for k, v in rays.items()}, **kw)
+                                 {k: torch.from_numpy(np.array(v)) for k, v in rays.items()},
+                                 **kw).out
     assert not torch.allclose(plain["extras"]["t_vals"], ours["extras"]["t_vals"])

@@ -5,14 +5,21 @@ Tolerance: atol 1e-5 (sums of 64 weighted fp32 terms, other order).
 Median depth is ``count(cumsum(w) < 0.5)``: where the cumsum sits within
 ~1e-6 of 0.5, a different summation order may move it by one sample, so a
 ray may differ by one sample exactly there.
+
+The clip's tie gradient: an opaque ray whose opacity is exactly 1.0 in
+fp32, and a sky ray at opacity 1e-6, against ``jax.grad`` (jnp.clip passes
+half the cotangent at a bound, torch.clamp all of it); rtol 1e-3.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from emernerf_tpu.losses.losses import sky_loss_opacity as jax_sky_loss
 from emernerf_tpu.render.volrend import composite_rays as jax_composite
+from emernerf_torch.losses.losses import sky_loss_opacity
 from emernerf_torch.render.volrend import (
     composite_along_rays,
     composite_rays,
@@ -107,3 +114,47 @@ def test_composite_along_rays_checks_inputs():
         composite_along_rays(ts, ts, torch.zeros(4, 8, 4))
     with pytest.raises(ValueError):
         composite_along_rays(ts.to("meta"), ts.to("meta"), dens.to("meta"))
+
+
+def _tie_ray(equal_midpoints: bool):
+    """Two samples whose weights sum to exactly 1.0 in fp32: the opacity
+    clip sits on its upper bound.  sigma*dt = 17 then 3, so the remaining
+    transmittance exp(-20) ~ 2e-9 is below half an ulp of 1.0."""
+    if equal_midpoints:
+        ts, te = np.array([[0.0, 0.5]], np.float32), np.array([[2.0, 1.5]], np.float32)
+    else:
+        ts, te = np.array([[1.0, 3.0]], np.float32), np.array([[3.0, 4.0]], np.float32)
+    dens = np.array([[17.0, 3.0]], np.float32) / (te - ts)
+    return ts, te, dens
+
+
+@pytest.mark.parametrize("output", ["opacity", "depth"])
+def test_composite_tie_gradient_matches_jax(output):
+    """jnp.clip passes half the cotangent at a bound; torch.clamp passes
+    all of it.  d(opacity)/d(density) of an opaque ray is halved there, and
+    d(depth)/d(density) of a ray whose samples share a midpoint is nonzero
+    only through that half."""
+    ts, te, dens = _tie_ray(equal_midpoints=output == "depth")
+
+    def jax_out(dn):
+        return jax_composite(jnp.asarray(ts), jnp.asarray(te), {"density": dn})[output].sum()
+
+    ref = np.asarray(jax.grad(jax_out)(jnp.asarray(dens)))
+    d = torch.from_numpy(dens).requires_grad_(True)
+    out = composite_rays(torch.from_numpy(ts), torch.from_numpy(te), {"density": d})
+    assert out["opacity"].item() == 1.0  # the tie this test is about
+    out[output].sum().backward()
+    assert np.abs(ref).max() > 0
+    np.testing.assert_allclose(d.grad.numpy(), ref, rtol=1e-3, atol=0)
+
+
+def test_sky_loss_tie_gradient_matches_jax():
+    """An empty sky ray's opacity is clipped to 1e-6, where the loss clips
+    it again at eps = 1e-6: JAX's gradient is half of torch.clamp's."""
+    o = np.array([[1e-6], [0.3], [1e-6], [1.0]], np.float32)
+    sky = np.array([0.0, 1.0, 1.0, 0.0], np.float32)
+    ref = np.asarray(jax.grad(lambda x: jax_sky_loss(x, jnp.asarray(sky), 0.001))(
+        jnp.asarray(o)))
+    x = torch.from_numpy(o).requires_grad_(True)
+    sky_loss_opacity(x, torch.from_numpy(sky), 0.001).backward()
+    np.testing.assert_allclose(x.grad.numpy(), ref, rtol=1e-6, atol=0)

@@ -29,13 +29,32 @@ Phases (any failure exits non-zero; nothing is skipped):
      and writes the device time by kernel to chiprun_out/profile_train.json;
   5b. one fp32 training step of the tiny flagship on the card (kernels)
      against the CPU (plain versions), same params, batches and draws:
-     every loss and every parameter gradient of both branches.
+     every loss and every parameter gradient of both branches;
+  3 (K4). the hash-grid kernel, forward and backward, against its plain
+     versions at the grids and shapes of one 8,192-ray pixel branch of the
+     reference-hash flagship (configs/reference_semantics.yaml with
+     nerf.model.grid_backend=hash), in bf16 and fp32;
+  6. train: Trainer trains the full-width reference-hash flagship (bf16
+     default dtypes, seed 0): 3 warm-up and 8 timed iterations, then
+     iterations 2000 and 2001.  Every loss finite, every parameter changed,
+     K4's counters above 0 and K1's unmoved; ms/iteration, rays/s, peak
+     memory and a torch.profiler table (chiprun_out/profile_train_hash.json);
+  6b. eval: 2 images of that model through ImageRenderer: finite maps, K4's
+     forward counter above 0, K1's unmoved;
+  6c. one fp32 training step of the tiny reference-hash flagship, card vs
+     CPU, as in 5b.
+Every kernel's entry in the {"kernels": ...} line carries its bound: the
+larger of the bytes the call must move (inputs read once, outputs written
+once; for a grid, the table entries these points touch) over the HBM rate
+and its operations over the fp32 rate (H100 SXM data sheet).  Its launches
+are those of the training run of its path (phase 5, or phase 6 for K4).
 The last two lines are the card line and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -56,6 +75,12 @@ TABLE_SCALE = 2000.0  # fp32 card-vs-CPU checks: tables U(+-0.2), not U(+-1e-4)
 TINY_FP32 = ("nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32",
              "nerf.propnet.num_samples_per_prop=[32,16]", "nerf.sampling.num_samples=8",
              "nerf.sampling.sample_topk=6", "nerf.sampling.lidar_sample_topk=4")
+# the same for the reference-hash profile, which shades every sample
+HASH_TINY_FP32 = TINY_FP32[:4]
+# NVIDIA H100 SXM (data sheet, at the 700 W limit): HBM rate and the fp32
+# rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def fail(msg: str):
@@ -90,6 +115,97 @@ def compare(name, out, ref, rtol, atol):
     return mx, over
 
 
+def check(tag, out, ref, rtol, atol_rel):
+    """Fails where |err| > atol_rel * max|ref| + rtol * |ref|; max abs err."""
+    atol = atol_rel * float(ref.abs().max())
+    mx, over = compare(tag, out.float(), ref.float(), rtol, atol)
+    if over:
+        fail(f"{tag}: {over} elements over tolerance")
+    return mx
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the fp32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def add_entry(entries, name, source, replaces, fn, mx, ms, plain_ms, n_bytes, n_ops,
+              library_ms=None, path="brick"):
+    """One kernel line: its times, its bound, and the training run (path)
+    whose launches it reports."""
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} Gop)"
+          + ("" if library_ms is None else f", library {library_ms:.3f} ms"))
+    entries.append(dict(name=name, route="cuda", source=f"emernerf_torch/kernels/csrc/{source}",
+                        replaces=replaces, fn=fn, path=path, max_abs_err=mx, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=library_ms))
+
+
+def brick_touched(spec, pos) -> int:
+    """Table elements that the points read: the distinct (row, corner)
+    slots of the 8 live corners (both time slices) per level, times F."""
+    from emernerf_torch.ops.brickgrid import _U32, _brick_rows, _cell, level_constants
+
+    scales, strides, uses_hash = level_constants(spec)
+    x = pos.reshape(-1, spec.n_input_dims)
+    cpa, f = spec.CPA, spec.n_features_per_level
+    per_row = spec.row_width // f
+    n = 0
+    for lvl in range(spec.n_levels):
+        sc = float(scales[lvl])
+        cells = [_cell(x[:, i], sc)[0] for i in range(spec.n_input_dims)]
+        offs = [c & (spec.brick_cells - 1) for c in cells[:3]]
+        bricks = [(c >> spec.log2_brick_size) & _U32 for c in cells[:3]]
+        t_cell = cells[3] & _U32 if spec.has_time else None
+        row = _brick_rows(spec, bricks, t_cell, lvl, strides, uses_hash)
+        starts = [row * per_row]
+        if spec.uses_time_pair:
+            starts.append(row * per_row + spec.corners_per_brick)
+        elif spec.has_time:
+            starts.append(_brick_rows(spec, bricks, (t_cell + 1) & _U32, lvl, strides,
+                                      uses_hash) * per_row)
+        corner0 = offs[0] + cpa * (offs[1] + cpa * offs[2])
+        slots = [s0 + corner0 + dx + cpa * (dy + cpa * dz)
+                 for s0 in starts for dz in range(2) for dy in range(2) for dx in range(2)]
+        n += int(torch.unique(torch.cat(slots)).numel())
+    return n * f
+
+
+def hash_touched(spec, pos) -> int:
+    """Table elements that the points read: the distinct corner rows per
+    level, times F."""
+    from emernerf_torch.ops.hashgrid import _level_geometry, level_constants
+
+    consts = level_constants(spec)
+    x = pos.reshape(-1, spec.n_input_dims)
+    n = sum(int(torch.unique(torch.cat(_level_geometry(x, spec, lvl, consts)[0])).numel())
+            for lvl in range(spec.n_levels))
+    return n * spec.n_features_per_level
+
+
+def grid_ops(spec, n: int, backward: bool, pos_grad: bool) -> float:
+    """The least operation count of one grid encode call.  Per (point,
+    level): the cell math (4 per dimension), then per corner of the 2^D
+    (a 4D brick cell: 8 spatial corners x 2 time slices) the weight, D - 1
+    multiplies, and F multiply-adds (forward) or F multiplies w*g (the
+    backward's table gradient); the position gradient adds per corner the F
+    multiply-adds of gdotf and, per dimension, D - 2 multiplies of the
+    partial product, one by gdotf and one add."""
+    d, f, lv = spec.n_input_dims, spec.n_features_per_level, spec.n_levels
+    per_corner = (d - 1) + (f if backward else 2 * f)
+    if backward and pos_grad:
+        per_corner += 2 * f + d * d
+    return float(n) * lv * (4 * d + (1 << d) * per_corner)
+
+
 def flagship_specs():
     """The four grid specs of the full-width flagship."""
     import dataclasses
@@ -99,13 +215,31 @@ def flagship_specs():
 
     cfg = flagship_config()
     m, enc = cfg.nerf.model, cfg.nerf.propnet.xyz_encoder
-    dyn, flw = _enc_spec(m.dynamic_xyz_encoder), flow_spec()
-    props = [make_grid_spec(3, enc.n_levels_per_prop[i], enc.base_resolutions_per_prop[i],
-                            enc.max_resolution_per_prop[i], enc.lgo2_hashmap_size_per_prop[i], 1)
+    dyn, flw = _enc_spec(m.dynamic_xyz_encoder, "brick"), flow_spec("brick")
+    props = [make_grid_spec("brick", 3, enc.n_levels_per_prop[i],
+                            enc.base_resolutions_per_prop[i], enc.max_resolution_per_prop[i],
+                            enc.lgo2_hashmap_size_per_prop[i], 1)
              for i in range(2)]
-    return {"prop0": props[0], "prop1": props[1], "static": _enc_spec(m.xyz_encoder),
+    return {"prop0": props[0], "prop1": props[1], "static": _enc_spec(m.xyz_encoder, "brick"),
             "dynflow": dataclasses.replace(dyn, n_features_per_level=dyn.n_features_per_level
                                            + flw.n_features_per_level)}
+
+
+def hash_specs():
+    """The five grid specs of the full-width reference-hash flagship."""
+    from emernerf_torch.builders import _enc_spec, flow_spec, make_grid_spec
+    from emernerf_torch.flagship import REFERENCE_HASH, flagship_config
+
+    cfg = flagship_config(profile=REFERENCE_HASH)
+    m, enc = cfg.nerf.model, cfg.nerf.propnet.xyz_encoder
+    specs = {f"prop{i}": make_grid_spec("hash", 3, enc.n_levels_per_prop[i],
+                                        enc.base_resolutions_per_prop[i],
+                                        enc.max_resolution_per_prop[i],
+                                        enc.lgo2_hashmap_size_per_prop[i], 1)
+             for i in range(2)}
+    specs.update(static=_enc_spec(m.xyz_encoder, "hash"),
+                 dynamic=_enc_spec(m.dynamic_xyz_encoder, "hash"), flow=flow_spec("hash"))
+    return specs
 
 
 def phase_kernels(dev, kernels_entries):
@@ -127,6 +261,7 @@ def phase_kernels(dev, kernels_entries):
         for name, spec, n in cases:
             pos = torch.rand((n, spec.n_input_dims), device=dev, generator=g)
             table32 = torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1
+            touched = brick_touched(spec, pos)
             for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-6),
                                       (torch.bfloat16, 2 ** -7, 1e-6)):
                 table = table32.to(dtype)
@@ -138,11 +273,10 @@ def phase_kernels(dev, kernels_entries):
                     fail(f"{tag}: {over} elements over tolerance")
                 ms = cuda_ms(lambda: brickgrid_encode(table, pos, spec), 10)
                 plain_ms = cuda_ms(lambda: brickgrid_encode_ref(table, pos, spec), 3)
-                print(f"  {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-                kernels_entries.append(dict(
-                    name=tag, route="cuda", source="emernerf_torch/kernels/csrc/brickgrid.cu",
-                    replaces="emernerf_tpu/ops/brickgrid.py:581", fn=brickgrid_encode,
-                    max_abs_err=mx, ms=ms, plain_ms=plain_ms))
+                n_bytes = nbytes(pos, out) + touched * table.element_size()
+                add_entry(kernels_entries, tag, "brickgrid.cu",
+                          "emernerf_tpu/ops/brickgrid.py:581", brickgrid_encode, mx, ms,
+                          plain_ms, n_bytes, grid_ops(spec, n, False, False))
             del table32, table, pos
 
         # K2: the three sampling steps of one chunk, plus a jittered one
@@ -164,11 +298,11 @@ def phase_kernels(dev, kernels_entries):
                 fail(f"{tag}: {over} elements over tolerance")
             ms = cuda_ms(lambda: importance_sampling(s, cdf, n, jitter), 20)
             plain_ms = cuda_ms(lambda: importance_sampling_ref(s, cdf, n, jitter), 10)
-            print(f"  {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            kernels_entries.append(dict(
-                name=tag, route="cuda", source="emernerf_torch/kernels/csrc/importance_sampling.cu",
-                replaces="emernerf_tpu/ops/stepfuns.py:115", fn=importance_sampling,
-                max_abs_err=mx, ms=ms, plain_ms=plain_ms))
+            # a binary search over K+1 edges and an interpolation per output edge
+            n_ops = N_RAYS * (n + 1) * (2 * math.ceil(math.log2(k1)) + 8)
+            add_entry(kernels_entries, tag, "importance_sampling.cu",
+                      "emernerf_tpu/ops/stepfuns.py:115", importance_sampling, mx, ms, plain_ms,
+                      nbytes(s, cdf, jitter, out), n_ops)
 
         # K3: the full eval key set: 3 density sets, 23 value channels laid
         # out as render/volrend.py:composite_rays packs them
@@ -201,11 +335,11 @@ def phase_kernels(dev, kernels_entries):
                 fail(f"{tag}.{field}: {over} elements over tolerance")
         ms = cuda_ms(lambda: composite_along_rays(ts, te, dens, vals, sets), 20)
         plain_ms = cuda_ms(lambda: composite_along_rays_ref(ts, te, dens, vals, sets), 10)
-        print(f"  {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        kernels_entries.append(dict(
-            name=tag, route="cuda", source="emernerf_torch/kernels/csrc/composite.cu",
-            replaces="emernerf_tpu/render/volrend.py:33", fn=composite_along_rays,
-            max_abs_err=mx, ms=ms, plain_ms=plain_ms))
+        # per sample and density set: alpha, transmittance, weight, depth;
+        # a multiply-add per value channel
+        n_ops = N_RAYS * s_ * (12 * dens.shape[-1] + 2 * len(sets))
+        add_entry(kernels_entries, tag, "composite.cu", "emernerf_tpu/render/volrend.py:33",
+                  composite_along_rays, mx, ms, plain_ms, nbytes(ts, te, dens, vals, *out), n_ops)
 
 
 def phase_train_kernels(dev, kernels_entries):
@@ -219,21 +353,6 @@ def phase_train_kernels(dev, kernels_entries):
     from emernerf_torch.render.volrend import (
         composite_along_rays_bwd, composite_along_rays_bwd_ref)
     from emernerf_torch.train.optim import adam_update, adam_update_ref, make_adam
-
-    def entry(name, source, replaces, fn, mx, ms, plain_ms):
-        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        kernels_entries.append(dict(name=name, route="cuda",
-                                    source=f"emernerf_torch/kernels/csrc/{source}",
-                                    replaces=replaces, fn=fn, max_abs_err=mx, ms=ms,
-                                    plain_ms=plain_ms))
-
-    def check(tag, out, ref, rtol, atol_rel):
-        """Over tolerance: |err| > atol_rel * max|ref| + rtol * |ref|."""
-        atol = atol_rel * float(ref.abs().max())
-        mx, over = compare(tag, out.float(), ref.float(), rtol, atol)
-        if over:
-            fail(f"{tag}: {over} elements over tolerance")
-        return mx
 
     g = torch.Generator(device=dev).manual_seed(3)
     specs = flagship_specs()
@@ -259,8 +378,13 @@ def phase_train_kernels(dev, kernels_entries):
             mx = max(mx, check(tag + ".d_pos", out[1], ref[1], 1e-4, 1e-5))
         ms = cuda_ms(lambda: brickgrid_encode_bwd(table, pos, cot, spec, pos_grad), 5)
         plain_ms = cuda_ms(lambda: brickgrid_encode_bwd_ref(table, pos, cot, spec, pos_grad), 2)
-        entry(tag, "brickgrid.cu", "emernerf_tpu/ops/brickgrid.py:733", brickgrid_encode_bwd,
-              mx, ms, plain_ms)
+        # positions and cotangent in, the dense table gradient out (and the
+        # touched table entries in, d_pos out, for the position gradient)
+        n_bytes = nbytes(pos, cot, out[0], out[1]) + (
+            brick_touched(spec, pos) * table.element_size() if pos_grad else 0)
+        add_entry(kernels_entries, tag, "brickgrid.cu", "emernerf_tpu/ops/brickgrid.py:733",
+                  brickgrid_encode_bwd, mx, ms, plain_ms, n_bytes,
+                  grid_ops(spec, n, True, pos_grad))
         del pos, table, cot, out, ref
     torch.cuda.empty_cache()
 
@@ -287,8 +411,11 @@ def phase_train_kernels(dev, kernels_entries):
             mx = max(mx, check(tag + ".d_vals", out[1], ref[1], 1e-4, 1e-5))
         ms = cuda_ms(lambda: composite_along_rays_bwd(ts, te, dens, vals, sets, grads), 20)
         plain_ms = cuda_ms(lambda: composite_along_rays_bwd_ref(ts, te, dens, vals, sets, grads), 5)
-        entry(tag, "composite.cu", "emernerf_tpu/render/volrend.py:33",
-              composite_along_rays_bwd, mx, ms, plain_ms)
+        # the forward recomputed, then the reverse scan: ~3x its operations
+        n_ops = 3 * N_TRAIN * s_ * (12 + 2 * len(sets))
+        add_entry(kernels_entries, tag, "composite.cu", "emernerf_tpu/render/volrend.py:33",
+                  composite_along_rays_bwd, mx, ms, plain_ms,
+                  nbytes(ts, te, dens, vals, *grads, *out), n_ops)
 
     # K5 at both cache levels against the 65-edge final distribution, at
     # both pulse widths.  Tolerance: the blurred pdf is a cumsum of jumps
@@ -333,12 +460,17 @@ def phase_train_kernels(dev, kernels_entries):
                         interlevel_loss_bwd_ref(w_ref, cc, gl), 1e-5, 1e-6)
             ms = cuda_ms(lambda: _interlevel_forward(s_final, trans_final, r, cs, cc), 20)
             plain_ms = cuda_ms(lambda: interlevel_loss_ref(s_final, trans_final, r, cs, cc), 10)
-            entry(tag, "interlevel.cu", "emernerf_tpu/ops/stepfuns.py:161", interlevel_loss,
-                  mx, ms, plain_ms)
+            # a merge of 2K+2 blurred edges, three scans and an interpolation
+            k2 = 2 * (NUM_SAMPLES + 1)
+            n_ops = N_TRAIN * (k2 * (math.ceil(math.log2(k2)) + 12) + 10 * m1)
+            add_entry(kernels_entries, tag, "interlevel.cu", "emernerf_tpu/ops/stepfuns.py:161",
+                      interlevel_loss, mx, ms, plain_ms,
+                      nbytes(s_final, trans_final, cs, cc, w_s, loss), n_ops)
             ms = cuda_ms(lambda: interlevel_loss_bwd(w_ref, cc, gl), 20)
             plain_ms = cuda_ms(lambda: interlevel_loss_bwd_ref(w_ref, cc, gl), 10)
-            entry(tag.replace("loss[", "loss_bwd["), "interlevel.cu",
-                  "emernerf_tpu/render/prop_sampler.py:133", interlevel_loss_bwd, mxb, ms, plain_ms)
+            add_entry(kernels_entries, tag.replace("loss[", "loss_bwd["), "interlevel.cu",
+                      "emernerf_tpu/render/prop_sampler.py:133", interlevel_loss_bwd, mxb, ms,
+                      plain_ms, nbytes(w_ref, cc, gl, cc), 4 * N_TRAIN * m1)
 
     # K8 over every parameter of the full-width flagship, bit for bit
     _, _, model, props, _ = build_flagship(device=dev, seed=0)
@@ -374,18 +506,114 @@ def phase_train_kernels(dev, kernels_entries):
         return go
 
     ms, plain_ms = cuda_ms(run(adam_update), 5), cuda_ms(run(adam_update_ref), 3)
-    entry(tag, "adam.cu", "emernerf_tpu/train/optim.py:33", adam_update, mx, ms, plain_ms)
-    del params, pk, gr, mom, mk, vk
+    # the library's fused Adam (L2 weight decay before the moments, as
+    # here) on a copy of the params; it keeps fp32 moments, so it moves
+    # 4 bytes more per table element than K8
+    lib_params = [p.clone() for p in params]
+    for p, g_ in zip(lib_params, gr):
+        p.grad = g_
+    lib_opt = torch.optim.Adam(lib_params, lr=0.005, betas=(0.9, 0.99), eps=1e-15,
+                               weight_decay=1e-5, fused=True)
+    library_ms = cuda_ms(lib_opt.step, 5)
+    # param, grad and moments read, param and moments written
+    n_bytes = sum(nbytes(p, g_, m_, v_) + nbytes(p, m_, v_) for p, g_, m_, v_ in
+                  zip(pk, gr, mk, vk))
+    add_entry(kernels_entries, tag, "adam.cu", "emernerf_tpu/train/optim.py:33", adam_update,
+              mx, ms, plain_ms, n_bytes, 16.0 * n, library_ms=library_ms)
+    del params, pk, gr, mom, mk, vk, lib_params, lib_opt
     torch.cuda.empty_cache()
 
 
-def phase_slice(dev, counted):
-    from emernerf_torch.eval.renderer import ImageRenderer
-    from emernerf_torch.flagship import build_flagship
+def phase_hash_kernels(dev, kernels_entries):
+    """K4 forward and backward against their plain versions at the grids and
+    point counts of one 8,192-ray pixel branch of the reference-hash
+    flagship (every one of the 64 samples shaded; the current, +warp and
+    -warp dynamic queries in one 3N batch with position gradients; the flow
+    grid's 3N queries likewise), in bf16 and fp32."""
+    from emernerf_torch.ops.hashgrid import (
+        hashgrid_encode, hashgrid_encode_bwd, hashgrid_encode_bwd_plain, hashgrid_encode_plain)
 
-    print("phase 4: full-width flagship eval render (bf16 default config)")
+    specs = hash_specs()
+    n_pts = N_TRAIN * NUM_SAMPLES
+    cases = [("static", n_pts, False), ("dynamic", 3 * n_pts, True), ("flow", 3 * n_pts, True),
+             ("prop0", N_TRAIN * PROP_SAMPLES[0], False),
+             ("prop1", N_TRAIN * PROP_SAMPLES[1], False)]
+    g = torch.Generator(device=dev).manual_seed(11)
+    print("phase 3 (K4): hash-grid encode forward and backward vs plain versions at the "
+          f"reference-hash shapes of one {N_TRAIN}-ray pixel branch")
+    # Tolerances: the forward does the plain version's explicitly rounded
+    # fp32 operations in its order (fp32: rtol 1e-5; bf16: one rounding,
+    # rtol 2^-7), atol 1e-6; the table gradient sums the same fp32 products
+    # with atomics in another order (rtol 1e-5 fp32, 2^-7 bf16, + 1e-5 x
+    # max|grad|); the position gradient repeats the plain version's order
+    # (rtol 1e-5 + 1e-6 x max|grad|)
+    for name, n, pos_grad in cases:
+        spec = specs[name]
+        pos = torch.rand((n, spec.n_input_dims), device=dev, generator=g)
+        touched = hash_touched(spec, pos)
+        table32 = torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1
+        cot32 = torch.randn((n, spec.n_output_dims), device=dev, generator=g)
+        print(f"  {name}: {spec.n_input_dims}D, F={spec.n_features_per_level}, "
+              f"{spec.n_levels} levels ({int((~spec.level_uses_hash).sum())} linear), "
+              f"T=2^{spec.log2_hashmap_size}; {touched} of {spec.num_parameters} table "
+              "elements touched")
+        for dtype, rtol in ((torch.bfloat16, 2 ** -7), (torch.float32, 1e-5)):
+            table, cot = table32.to(dtype), cot32.to(dtype)
+            dt = str(dtype)[6:]
+            tag = f"hashgrid_encode[{name},{dt},N={n}]"
+            with torch.no_grad():
+                out = hashgrid_encode(table, pos, spec)
+                ref = hashgrid_encode_plain(table, pos, spec)
+                mx, over = compare(tag, out.float(), ref.float(), rtol, 1e-6)
+                if over:
+                    fail(f"{tag}: {over} elements over tolerance")
+                ms = cuda_ms(lambda: hashgrid_encode(table, pos, spec), 10)
+                plain_ms = cuda_ms(lambda: hashgrid_encode_plain(table, pos, spec), 3)
+            add_entry(kernels_entries, tag, "hashgrid.cu", "emernerf_tpu/ops/hashgrid.py:408",
+                      hashgrid_encode, mx, ms, plain_ms,
+                      nbytes(pos, out) + touched * table.element_size(),
+                      grid_ops(spec, n, False, False), path="hash")
+            tag = f"hashgrid_encode_bwd[{name}{',pos_grad' if pos_grad else ''},{dt},N={n}]"
+            got = hashgrid_encode_bwd(table, pos, cot, spec, pos_grad)
+            want = hashgrid_encode_bwd_plain(table, pos, cot, spec, pos_grad)
+            mx = check(tag + ".d_table", got[0], want[0], rtol, 1e-5)
+            if pos_grad:
+                mx = max(mx, check(tag + ".d_pos", got[1], want[1], 1e-5, 1e-6))
+            ms = cuda_ms(lambda: hashgrid_encode_bwd(table, pos, cot, spec, pos_grad), 5)
+            plain_ms = cuda_ms(lambda: hashgrid_encode_bwd_plain(table, pos, cot, spec,
+                                                                 pos_grad), 2)
+            n_bytes = nbytes(pos, cot, *got) + (touched * table.element_size() if pos_grad else 0)
+            add_entry(kernels_entries, tag, "hashgrid.cu", "emernerf_tpu/ops/hashgrid.py:415",
+                      hashgrid_encode_bwd, mx, ms, plain_ms, n_bytes,
+                      grid_ops(spec, n, True, pos_grad), path="hash")
+            del out, ref, got, want
+        del pos, table32, cot32, table, cot
+        torch.cuda.empty_cache()
+
+
+def _profile_name(profile) -> str:
+    cfile = os.path.relpath(profile.config_file, REPO) if profile.config_file else "defaults"
+    return " ".join([cfile, *profile.overrides])
+
+
+def _check_launches(launches, zero, what):
+    """Every counted kernel launched, none of ``zero`` did."""
+    for name, n in launches.items():
+        if name in zero and n != 0:
+            fail(f"kernel {name} was launched {n} times by the {what}; its path must not run it")
+        if name not in zero and n <= 0:
+            fail(f"kernel {name} was not launched by the {what}")
+
+
+def phase_slice(dev, counted, zero=(), profile=None, label="phase 4"):
+    from emernerf_torch.eval.renderer import ImageRenderer
+    from emernerf_torch.flagship import DEFAULT_PROFILE, build_flagship
+
+    profile = profile or DEFAULT_PROFILE
+    print(f"{label}: full-width flagship eval render (bf16 default dtypes, profile "
+          f"{_profile_name(profile)})")
     t0 = time.perf_counter()
-    cfg, dataset, model, props, _ = build_flagship(device=dev, seed=0)
+    cfg, dataset, model, props, _ = build_flagship(profile=profile, device=dev, seed=0)
     n_params = sum(p.numel() for p in model.parameters()) + sum(
         p.numel() for pm in props for p in pm.parameters())
     print(f"  built flagship: {n_params} params in {time.perf_counter() - t0:.1f} s; "
@@ -399,13 +627,13 @@ def phase_slice(dev, counted):
     indices = [0, 1]
     renderer.render_image(*_image_rays(dataset, 0))  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
-    for fn in counted:
+    for fn in counted + tuple(zero):
         fn.launches = 0
     t0 = time.perf_counter()
     frames, metrics = renderer.render_split(dataset, indices)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
     h, w = dataset.image_hw
     n_rays = len(indices) * h * w
     print(f"  render_split: {len(indices)} images of {h}x{w} = {n_rays} rays in {secs:.3f} s "
@@ -419,9 +647,7 @@ def phase_slice(dev, counted):
         if maps["rgb"].shape != (h, w, 3) or maps["depth"].shape != (h, w):
             fail(f"image {indices[i]}: unexpected map shapes")
     print(f"  maps finite: {sorted(frames[0])}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched by the render")
+    _check_launches(launches, {fn.__name__ for fn in zero}, "render")
     del model, props, renderer
     torch.cuda.empty_cache()
     return launches, n_rays / secs
@@ -487,14 +713,17 @@ def _losses(metrics):
             if "loss" in k or k in ("psnr", "lidar_line_of_sight")}
 
 
-def phase_train(dev, counted):
-    from emernerf_torch.flagship import flagship_config
+def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5",
+                profile_file="profile_train.json"):
+    from emernerf_torch.flagship import DEFAULT_PROFILE, flagship_config
     from emernerf_torch.train.trainer import Trainer
 
-    print("phase 5: full-width flagship training through Trainer (bf16 default config, seed 0)")
+    profile = profile or DEFAULT_PROFILE
+    print(f"{label}: full-width flagship training through Trainer (bf16 default dtypes, "
+          f"seed 0, profile {_profile_name(profile)})")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    trainer = Trainer(flagship_config(), device=dev)
+    trainer = Trainer(flagship_config(profile=profile), device=dev)
     params = trainer.state.params + trainer.state.prop_params
     n_params = sum(p.numel() for p in params)
     cfg = trainer.step_cfg
@@ -503,14 +732,13 @@ def phase_train(dev, counted):
           f"sample_topk {cfg.sample_topk} (temp {cfg.sample_topk_temp}), lidar "
           f"{cfg.lidar_sample_topk}, prop samples {cfg.prop_samples}, {cfg.num_samples} samples")
     before = [p.detach().clone() for p in params]
-    for fn in counted:
+    for fn in counted + tuple(zero):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     history = []
     for step in range(3):  # warm-up: cuBLAS, allocator
         history.append(trainer.train_iteration(step))
     torch.cuda.synchronize()
-    n_timed = 12
     t0 = time.perf_counter()
     for step in range(3, 3 + n_timed):
         history.append(trainer.train_iteration(step))
@@ -524,8 +752,8 @@ def phase_train(dev, counted):
     history.append(trainer.train_iteration(2000))
     history.append(trainer.train_iteration(2001))
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counted}
-    profile_train(trainer, 2002, ms)
+    launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
+    profile_train(trainer, 2002, ms, profile_file)
     rays = 2 * trainer.ray_batch_size
     print(f"  {ms:.2f} ms/iteration (mean over {n_timed} timed iterations), "
           f"{rays / ms * 1e3:.1f} rays/s (pixel + lidar), peak device memory {peak:.2f} GiB")
@@ -545,15 +773,13 @@ def phase_train(dev, counted):
     if unchanged:
         fail(f"{len(unchanged)} parameter tensors did not change")
     print(f"  all {len(params)} parameter tensors changed; launch counts: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched by the training run")
+    _check_launches(launches, {fn.__name__ for fn in zero}, "training run")
     del trainer, params, before
     torch.cuda.empty_cache()
     return launches, ms, rays / ms * 1e3, peak
 
 
-def profile_train(trainer, step, ms_iter):
+def profile_train(trainer, step, ms_iter, file_name):
     """Device time by kernel over 2 training iterations (torch.profiler,
     CUDA activity only: tracing CPU ops slows the iteration ~40x)."""
     from torch.profiler import ProfilerActivity, profile
@@ -576,24 +802,27 @@ def profile_train(trainer, step, ms_iter):
         print(f"    {t / 2:8.3f} ms {t / 2 / busy:6.1%} {n // 2:5d}x  {key[:100]}")
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_train.json"), "w") as f:
+    with open(os.path.join(out, file_name), "w") as f:
         json.dump(dict(ms_per_iteration=ms_iter, busy_ms_per_iteration=busy,
                        profiled_wall_ms_per_iteration=wall_ms / 2,
                        rows=[dict(name=k, ms_per_iteration=t / 2, count=n) for k, t, n in rows]),
                   f, indent=1)
 
 
-def phase_train_fp32(dev):
+def phase_train_fp32(dev, profile=None, overrides=TINY_FP32, label="phase 5b"):
     from emernerf_torch.data.scene import draw_lidar, draw_pixel, sample_lidar_batch, sample_pixel_batch
-    from emernerf_torch.flagship import build_flagship
+    from emernerf_torch.flagship import DEFAULT_PROFILE, build_flagship
     from emernerf_torch.train.step import build_train_step, draw_step
 
-    print("phase 5b: one fp32 training step of the tiny flagship, card (kernels) vs CPU (plain)")
+    profile = profile or DEFAULT_PROFILE
+    print(f"{label}: one fp32 training step of the tiny flagship (profile "
+          f"{_profile_name(profile)}), card (kernels) vs CPU (plain)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _, dataset, gmodel, gprops, scfg = build_flagship(tiny=True, overrides=TINY_FP32,
-                                                      device=dev, seed=2)
-    _, _, cmodel, cprops, _ = build_flagship(tiny=True, overrides=TINY_FP32, device="cpu", seed=2)
+    _, dataset, gmodel, gprops, scfg = build_flagship(tiny=True, overrides=overrides,
+                                                      profile=profile, device=dev, seed=2)
+    _, _, cmodel, cprops, _ = build_flagship(tiny=True, overrides=overrides, profile=profile,
+                                             device="cpu", seed=2)
     _scaled_twins([gmodel, *gprops], [cmodel, *cprops])
     gstep, cstep = build_train_step(gmodel, gprops, scfg), build_train_step(cmodel, cprops, scfg)
     scene = dataset.scene_tensors("cpu")
@@ -663,7 +892,9 @@ def main():
 
     sys.path.insert(0, REPO)
     from emernerf_torch import kernels
+    from emernerf_torch.flagship import REFERENCE_HASH
     from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
+    from emernerf_torch.ops.hashgrid import hashgrid_encode, hashgrid_encode_bwd
     from emernerf_torch.ops.stepfuns import importance_sampling, interlevel_loss, interlevel_loss_bwd
     from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_bwd
     from emernerf_torch.train.optim import adam_update
@@ -680,21 +911,33 @@ def main():
     entries = []
     phase_kernels(dev, entries)
     phase_train_kernels(dev, entries)
-    forward = (brickgrid_encode, importance_sampling, composite_along_rays)
-    _, rays_per_s = phase_slice(dev, forward)
+    phase_hash_kernels(dev, entries)
+    brick, hashed = (brickgrid_encode, brickgrid_encode_bwd), (hashgrid_encode, hashgrid_encode_bwd)
+    forward = (importance_sampling, composite_along_rays)
+    _, rays_per_s = phase_slice(dev, (brickgrid_encode,) + forward, zero=hashed)
     phase_fp32_chunk(dev)
-    counted = forward + (brickgrid_encode_bwd, composite_along_rays_bwd, interlevel_loss,
-                         interlevel_loss_bwd, adam_update)
-    launches, ms_iter, train_rays_per_s, peak = phase_train(dev, counted)
+    shared = forward + (composite_along_rays_bwd, interlevel_loss, interlevel_loss_bwd,
+                        adam_update)
+    launches, ms_iter, train_rays_per_s, peak = phase_train(dev, brick + shared, zero=hashed)
     phase_train_fp32(dev)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    # the reference-hash profile: K4 in place of K1
+    hash_launches, hash_ms, hash_rays_per_s, hash_peak = phase_train(
+        dev, hashed + shared, zero=brick, profile=REFERENCE_HASH, n_timed=8, label="phase 6",
+        profile_file="profile_train_hash.json")
+    _, hash_eval_rays_per_s = phase_slice(dev, (hashgrid_encode,) + forward, zero=brick,
+                                          profile=REFERENCE_HASH, label="phase 6b")
+    phase_train_fp32(dev, REFERENCE_HASH, HASH_TINY_FP32, label="phase 6c")
+    if "jax" in sys.modules or any(m.split(".")[0] == "emernerf_tpu" for m in sys.modules):
+        fail("jax or the JAX package was imported")
 
-    # launches: the counts of the training run (phase 5), which drives every kernel
-    report = [dict({k: v for k, v in e.items() if k != "fn"},
-                   launches=launches[e["fn"].__name__]) for e in entries]
+    # launches: the counts of the training run of each kernel's path
+    runs = {"brick": launches, "hash": hash_launches}
+    report = [dict({k: v for k, v in e.items() if k not in ("fn", "path")},
+                   launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
           f"{train_rays_per_s:.1f} rays/s, peak {peak:.2f} GiB on {card_line}")
+    print(f"reference-hash: eval {hash_eval_rays_per_s:.1f} rays/s; train {hash_ms:.2f} "
+          f"ms/iteration, {hash_rays_per_s:.1f} rays/s, peak {hash_peak:.2f} GiB on {card_line}")
     print(json.dumps({"kernels": report}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,17 @@
 """Factories: config + dataset -> the port's models (port of ``emernerf_tpu/builders.py``).
 
-Takes the same config schema.  A knob that the port does not run raises
-instead of being ignored: any ``grid_backend`` other than ``brick``,
-``nerf.propnet.fine_level_skip > 0``, ``render.eval_sample_topk > 0``, a
-non-default ``nerf.model.perf.*`` formulation knob, unfused or lone
-dynamic/flow branches, the feature head, spherical-harmonics directions,
-temporal interpolation, ``optim.fused_lidar_branch`` (left behind) and
+Takes the same config schema, with ``grid_backend`` ``brick`` (the default
+profile) or ``hash`` (the exact tiny-cuda-nn grid, the reference-exact
+profile with ``configs/reference_semantics.yaml``).  The dynamic and flow
+grids are fused by default on the brick backend and separate on the hash
+backend, as in the JAX package; ``nerf.model.fuse_flow_grid`` overrides
+that.  A knob that the port does not run raises instead of being ignored:
+``grid_backend=mx`` (rejected on quality), ``nerf.propnet.fine_level_skip
+> 0``, ``render.eval_sample_topk > 0``, a non-default ``nerf.model.perf.*``
+formulation knob (``perf.time_pair=false`` is taken with ``hash`` only,
+where rows are never paired), a dynamic branch without the flow branch or
+the reverse, the feature head, spherical-harmonics directions, temporal
+interpolation, ``optim.fused_lidar_branch`` (left behind) and
 ``optim.remat``.
 """
 
@@ -16,14 +22,16 @@ from typing import List
 import numpy as np
 import torch
 
-from emernerf_tpu.config import ConfigNode
+from emernerf_torch.config import ConfigNode
+from emernerf_torch.data import synthetic
 from emernerf_torch.data.dataset import SceneDataset
 from emernerf_torch.models.fields import DensityField, RadianceField
 from emernerf_torch.ops.brickgrid import BrickGridSpec
-from emernerf_torch.reuse import synthetic
+from emernerf_torch.ops.hashgrid import HashGridSpec
 from emernerf_torch.train.step import TrainStepConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_BACKENDS = ("brick", "hash")
 # nerf.model.perf.* at their defaults: TPU formulation choices that have no
 # meaning in the port (its kernels have one formulation each)
 _PERF_DEFAULTS = {
@@ -33,27 +41,35 @@ _PERF_DEFAULTS = {
 }
 
 
+def _grid_backend(cfg: ConfigNode) -> str:
+    return cfg.nerf.model.get("grid_backend", "brick")
+
+
 def validate_cfg(cfg: ConfigNode) -> None:
     """Raise on every configured knob the port does not run."""
-    backend = cfg.nerf.model.get("grid_backend", "brick")
-    if backend != "brick":
+    backend = _grid_backend(cfg)
+    if backend not in _BACKENDS:
         raise NotImplementedError(
-            f"nerf.model.grid_backend={backend!r}: only 'brick' is ported")
+            f"nerf.model.grid_backend={backend!r}: only {_BACKENDS} are ported")
     perf = cfg.nerf.model.get("perf", None) or {}
     for k, v in perf.items():
+        if k == "time_pair" and backend == "hash":
+            continue  # hash rows hold one time corner each: nothing to pair
         if k not in _PERF_DEFAULTS or v != _PERF_DEFAULTS[k]:
             raise NotImplementedError(
                 f"nerf.model.perf.{k}={v!r}: only the default formulation is ported")
-    if int(cfg.nerf.propnet.get("fine_level_skip", 0)) > 0:
+    skip = int(cfg.nerf.propnet.get("fine_level_skip", 0))
+    if skip > 0 and backend != "brick":
+        raise ValueError(
+            f"nerf.propnet.fine_level_skip={skip} requires grid_backend=brick (got "
+            f"{backend!r}): the hash/mx specs have no coarse-view support")
+    if skip > 0:
         raise NotImplementedError("nerf.propnet.fine_level_skip>0 is not ported")
     if int(cfg.get_dotted("render.eval_sample_topk", 0)) > 0:
         raise NotImplementedError("render.eval_sample_topk>0 is not ported yet")
-    if cfg.nerf.model.get("fuse_flow_grid", True) is False:
-        raise NotImplementedError("nerf.model.fuse_flow_grid=false is not ported")
     head = cfg.nerf.model.head
     if head.enable_dynamic_branch != head.enable_flow_branch:
-        raise NotImplementedError(
-            "the dynamic and flow branches are ported together (fused grid) only")
+        raise NotImplementedError("the dynamic and flow branches are ported together only")
     if head.enable_feature_head:
         raise NotImplementedError("the feature head and learnable PE are not ported yet")
     if head.get("direction_encoding", "sinusoidal") != "sinusoidal":
@@ -62,14 +78,21 @@ def validate_cfg(cfg: ConfigNode) -> None:
         raise NotImplementedError("temporal interpolation is not ported yet")
 
 
-def make_grid_spec(n_input_dims: int, n_levels: int, base_resolution: int,
-                   max_resolution: int, log2_hashmap_size: int,
-                   n_features_per_level: int) -> BrickGridSpec:
-    """Brick-grid spec with the cell capacity of the configured hash table.
+def make_grid_spec(backend: str, n_input_dims: int, n_levels: int, base_resolution: int,
+                   max_resolution: int, log2_hashmap_size: int, n_features_per_level: int):
+    """Grid spec for the configured backend.
 
-    F=1 3D grids (proposal nets) use 4^3-cell bricks (125-corner rows, cell
-    capacity 64 per row); others 2^3-cell bricks.  4D rows store both time
-    corners."""
+    "brick": cell capacity of the configured hash table.  F=1 3D grids
+    (proposal nets) use 4^3-cell bricks (125-corner rows, cell capacity 64
+    per row); others 2^3-cell bricks.  4D rows store both time corners.
+    "hash": the exact tiny-cuda-nn layout."""
+    if backend == "hash":
+        return HashGridSpec(
+            n_input_dims=n_input_dims, n_levels=n_levels, base_resolution=base_resolution,
+            max_resolution=max_resolution, log2_hashmap_size=log2_hashmap_size,
+            n_features_per_level=n_features_per_level)
+    if backend != "brick":
+        raise ValueError(f"Unknown grid backend: {backend}")
     bs = 2 if n_features_per_level == 1 and n_input_dims == 3 else 1
     return BrickGridSpec(
         n_input_dims=n_input_dims,
@@ -83,9 +106,9 @@ def make_grid_spec(n_input_dims: int, n_levels: int, base_resolution: int,
     )
 
 
-def _enc_spec(enc_cfg: ConfigNode) -> BrickGridSpec:
+def _enc_spec(enc_cfg: ConfigNode, backend: str):
     return make_grid_spec(
-        n_input_dims=enc_cfg.n_input_dims, n_levels=enc_cfg.n_levels,
+        backend, n_input_dims=enc_cfg.n_input_dims, n_levels=enc_cfg.n_levels,
         base_resolution=enc_cfg.base_resolution,
         max_resolution=enc_cfg.max_resolution,
         log2_hashmap_size=enc_cfg.log2_hashmap_size,
@@ -93,9 +116,9 @@ def _enc_spec(enc_cfg: ConfigNode) -> BrickGridSpec:
     )
 
 
-def flow_spec() -> BrickGridSpec:
+def flow_spec(backend: str):
     """The flow encoder's structure is fixed in the reference."""
-    return make_grid_spec(n_input_dims=4, n_levels=10, base_resolution=16,
+    return make_grid_spec(backend, n_input_dims=4, n_levels=10, base_resolution=16,
                           max_resolution=4096, log2_hashmap_size=18,
                           n_features_per_level=4)
 
@@ -114,13 +137,19 @@ def build_model_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
     if dataset.has_test_split and enable_img:
         # per-image embeddings can't generalize to held-out images
         enable_cam, enable_img = True, False
-    dynamic = _enc_spec(model_cfg.dynamic_xyz_encoder) if head.enable_dynamic_branch else None
-    flow = (flow or flow_spec()) if head.enable_flow_branch else None
+    backend = _grid_backend(cfg)
+    dynamic = (_enc_spec(model_cfg.dynamic_xyz_encoder, backend)
+               if head.enable_dynamic_branch else None)
+    flow = (flow or flow_spec(backend)) if head.enable_flow_branch else None
+    # fused dynamic+flow grid by default on the brick backend; the hash
+    # backend keeps the reference's separate grids
+    fuse = bool(model_cfg.get("fuse_flow_grid", backend == "brick")) and dynamic is not None
     return RadianceField(
-        static_spec=_enc_spec(model_cfg.xyz_encoder),
+        static_spec=_enc_spec(model_cfg.xyz_encoder, backend),
         dynamic_spec=dynamic,
         flow_spec=flow,
-        temporal_agg_topk=int(head.get("temporal_agg_topk", 0)),
+        fuse_flow_grid=fuse,
+        temporal_agg_topk=int(head.get("temporal_agg_topk", 0)) if fuse else 0,
         aabb=tuple(float(v) for v in dataset.aabb),
         unbounded=cfg.nerf.unbounded,
         geometry_feature_dim=model_cfg.neck.geometry_feature_dim,
@@ -151,6 +180,7 @@ def build_propnets_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
     nets = []
     for i in range(len(pcfg.num_samples_per_prop)):
         spec = make_grid_spec(
+            _grid_backend(cfg),
             n_input_dims=enc.n_input_dims,
             n_levels=enc.n_levels_per_prop[i],
             base_resolution=enc.base_resolutions_per_prop[i],

@@ -5,7 +5,9 @@ numpy arrays, as ``emernerf_tpu/train/step.py:init_train_state`` builds
 them.  Flax ``TorchDense_i/Dense_0/{kernel,bias}`` becomes
 ``layers.i.{weight,bias}`` with the kernel ``(in, out)`` transposed to the
 ``Linear.weight`` ``(out, in)``; ``Embed.embedding`` becomes
-``Embedding.weight``; ``*_table`` params map straight across.
+``Embedding.weight``; ``*_table`` params (brick rows, or the hash grids'
+feature-major ``(F, L*T)``) map straight across.  Any other leaf raises, as
+does a state dict that does not cover the modules exactly.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 from torch import nn
 
 _DENSE = re.compile(r"TorchDense_(\d+)")
+_LEAVES = ("kernel", "bias", "embedding",
+           "xyz_table", "dynflow_table", "dynamic_table", "flow_table", "hash_table")
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -33,6 +37,8 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     ``load_state_dict`` casts to each param's dtype)."""
     out = {}
     for path, leaf in _flatten(tree):
+        if path[-1] not in _LEAVES:
+            raise ValueError(f"unmapped JAX param {'/'.join(path)}")
         arr = np.asarray(leaf).astype(np.float32)  # bf16 -> fp32 is exact
         names = []
         for p in path:

@@ -3,8 +3,7 @@
 Renders a dataset split image by image through fixed-size ray chunks (the
 last chunk is padded by repeating its final ray), collects the per-ray maps
 and computes PSNR/SSIM (+ dynamic- and static-masked variants) with the
-numpy metrics of ``emernerf_tpu/eval/metrics.py`` (loaded by
-``emernerf_torch.reuse``).
+numpy metrics of ``emernerf_torch/eval/metrics.py``.
 """
 
 from __future__ import annotations
@@ -14,8 +13,9 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from emernerf_torch import resolve_device
+from emernerf_torch.eval import metrics
 from emernerf_torch.render.renderer import render_ray_batch
-from emernerf_torch.reuse import metrics
 
 # per-ray outputs worth reshaping into image maps
 _MAP_KEYS = (
@@ -30,7 +30,8 @@ _RAY_KEYS = ("origins", "viewdirs", "normed_timestamps", "img_idx", "cam_idx",
 
 
 class ImageRenderer:
-    """Chunked full-image renderer on one device."""
+    """Chunked full-image renderer on one device: the card unless the caller
+    asks for another (raises where there is no card)."""
 
     def __init__(
         self,
@@ -44,12 +45,12 @@ class ImageRenderer:
         sampling_type: str = "uniform_lindisp",
         chunk_size: int = 16384,
         return_decomposition: bool = False,
-        device=None,
+        device="cuda",
     ):
         self.model = model
         self.prop_models = list(prop_models)
         self.chunk_size = chunk_size
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.kw = dict(
             num_samples=num_samples, prop_samples=tuple(prop_samples),
             near_plane=near_plane, far_plane=far_plane,

@@ -1,14 +1,22 @@
 """Flagship model setup (port of ``emernerf_tpu/flagship.py``): the full
 EmerNeRF configuration (static + dynamic + flow fields, sky + shadow heads,
-reference-scale grids) on the synthetic dynamic scene."""
+reference-scale grids) on the synthetic dynamic scene.
+
+Two profiles: the default (``configs/default_config.yaml``: brick grids,
+top-K sample pruning and aggregation) and ``REFERENCE_HASH``, the work per
+ray of the original CUDA EmerNeRF (``configs/reference_semantics.yaml`` with
+the exact tiny-cuda-nn hash grid: every sample shaded and flow-warped,
+separate dynamic and flow tables).
+"""
 
 from __future__ import annotations
 
 import os
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from emernerf_tpu.config import from_dotlist, load_config, normalize_default_interactions
+from emernerf_torch import resolve_device
 from emernerf_torch.builders import (
     build_dataset_from_cfg,
     build_model_from_cfg,
@@ -16,9 +24,22 @@ from emernerf_torch.builders import (
     build_train_step_config,
     make_grid_spec,
 )
+from emernerf_torch.config import load_config
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_CONFIG = os.path.join(_REPO_ROOT, "configs", "default_config.yaml")
+
+
+class Profile(NamedTuple):
+    """A config file and a dotlist merged over the defaults."""
+
+    config_file: Optional[str]
+    overrides: Sequence[str]
+
+
+DEFAULT_PROFILE = Profile(None, ())
+REFERENCE_HASH = Profile(os.path.join(_REPO_ROOT, "configs", "reference_semantics.yaml"),
+                         ("nerf.model.grid_backend=hash",))
 
 _FLAGSHIP_DOTLIST = (
     "data.dataset=synthetic",
@@ -53,31 +74,33 @@ _TINY_DOTLIST = (
 )
 
 
-def flagship_config(tiny: bool = False, overrides=()):
-    """Full-feature config (dynamic + flow); ``tiny=True`` shrinks grids and
-    sample counts while keeping every branch enabled."""
-    cfg = load_config(DEFAULT_CONFIG)
-    dot = list(_FLAGSHIP_DOTLIST) + (list(_TINY_DOTLIST) if tiny else [])
-    user = from_dotlist(dot + list(overrides))
-    cfg.merge_(user)
-    normalize_default_interactions(cfg, user)
-    return cfg
+def flagship_config(tiny: bool = False, overrides=(), profile: Profile = DEFAULT_PROFILE):
+    """Full-feature config (dynamic + flow) of ``profile``; ``tiny=True``
+    shrinks grids and sample counts while keeping every branch enabled.
+    Merged as the CLI merges: defaults <- the profile's config file <- the
+    flagship dotlist, the profile's overrides and ``overrides``."""
+    dot = (list(_FLAGSHIP_DOTLIST) + (list(_TINY_DOTLIST) if tiny else [])
+           + list(profile.overrides) + list(overrides))
+    return load_config(DEFAULT_CONFIG, profile.config_file, dot)
 
 
-def flagship_flow_spec(tiny: bool = False):
-    """The flow grid's spec: the reference's fixed one, or (tiny) a small
-    one that keeps the flow branch."""
-    return make_grid_spec(4, 4, 8, 64, 10, 2) if tiny else None
+def flagship_flow_spec(tiny: bool = False, backend: str = "brick"):
+    """The flow grid's spec: the reference's fixed one (None), or (tiny) a
+    small one of the configured backend that keeps the flow branch."""
+    return make_grid_spec(backend, 4, 4, 8, 64, 10, 2) if tiny else None
 
 
-def build_flagship(tiny: bool = False, overrides=(), *, device=None, seed: int = 0):
-    """Returns (cfg, dataset, model, prop_models, step_cfg), initialized on
-    ``device`` from ``seed``."""
-    cfg = flagship_config(tiny=tiny, overrides=overrides)
+def build_flagship(tiny: bool = False, overrides=(), *, profile: Profile = DEFAULT_PROFILE,
+                   device="cuda", seed: int = 0):
+    """Returns (cfg, dataset, model, prop_models, step_cfg) of ``profile``,
+    initialized on ``device`` (the card unless the caller asks for the CPU)
+    from ``seed``."""
+    dev = resolve_device(device)
+    cfg = flagship_config(tiny, overrides, profile)
     dataset = build_dataset_from_cfg(cfg)
-    gen = torch.Generator(device=device or "cpu")
+    gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    model = build_model_from_cfg(cfg, dataset, device=device, generator=gen,
-                                 flow=flagship_flow_spec(tiny))
-    prop_models = build_propnets_from_cfg(cfg, dataset, device=device, generator=gen)
+    flow = flagship_flow_spec(tiny, cfg.nerf.model.get("grid_backend", "brick"))
+    model = build_model_from_cfg(cfg, dataset, device=dev, generator=gen, flow=flow)
+    prop_models = build_propnets_from_cfg(cfg, dataset, device=dev, generator=gen)
     return cfg, dataset, model, prop_models, build_train_step_config(cfg, dataset)

@@ -54,6 +54,12 @@ _SIGNATURES = {
     "emt_interlevel_backward": (_P, _P, _P, _P, _I, _I, _P),
     # param, grad|NULL, mu, nu, moments_bf16, n, hyper (host struct), stream
     "emt_adam": (_P, _P, _P, _P, _I, _L, _P, _P),
+    # table (F, L*T), table_is_bf16, positions, out, n_points, params (host
+    # struct), stream
+    "emt_hashgrid_encode": (_P, _I, _P, _P, _L, _P, _P),
+    # table, table_is_bf16, positions, grad_out, d_table (fp32), d_pos|NULL,
+    # n_points, params (host struct), stream
+    "emt_hashgrid_backward": (_P, _I, _P, _P, _P, _P, _L, _P, _P),
 }
 
 

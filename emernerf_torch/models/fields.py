@@ -1,22 +1,24 @@
 """EmerNeRF fields (port of ``emernerf_tpu/models/fields.py``), eval and
 train paths.
 
-``RadianceField``: static brick-grid field; the fused dynamic+flow 4D grid
-(per level the lanes are ``[dyn F_d | flow F_f]``); the flow MLP; temporal
-aggregation of flow-warped features (Eq. 8), on all samples or on the K
-most dynamic samples per ray; the shared RGB head, shadow and sky heads,
-and the appearance embedding with its mean-embedding fallback.
-``DensityField``: the proposal network.
+``RadianceField``: the static grid field; the dynamic and flow grids, fused
+into one 4D grid (per level the lanes are ``[dyn F_d | flow F_f]``, the
+brick profile's default) or separate (``dynamic_table`` and ``flow_table``,
+the reference-exact hash profile); the flow MLP; temporal aggregation of
+flow-warped features (Eq. 8), on all samples or, fused, on the K most
+dynamic samples per ray; the shared RGB head, shadow and sky heads, and the
+appearance embedding with its mean-embedding fallback.  ``DensityField``:
+the proposal network.  Every grid is a brick grid (K1) or an exact hash
+grid (K4), by its spec's type.
 
 Positions are (R, S, 3) and per-ray data is expanded to (R, S) by the
 renderer.  Training differs from eval in two inputs only: the aggregation
 noise (a tensor of uniform draws instead of 1) and ``return_density_only``
-for the lidar render.  The flow-warped 4D query is the one grid query
+for the lidar render.  The flow-warped 4D queries are the grid queries
 whose positions carry a gradient (they depend on the flow MLP).  The config
 knobs the port does not take (feature head, spherical-harmonics directions,
-temporal interpolation, unfused grids, fine-level skipping) raise in
-``emernerf_torch/builders.py``; the dynamic field exists here only as the
-fused dynamic+flow grid.
+temporal interpolation, fine-level skipping, a dynamic branch without the
+flow branch) raise in ``emernerf_torch/builders.py``.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def _contract(positions, aabb, unbounded: bool):
 
 
 class DensityField(nn.Module):
-    """Proposal density network: brick-grid encoder + 2-layer MLP -> density."""
+    """Proposal density network: grid encoder + 2-layer MLP -> density."""
 
     def __init__(self, spec, aabb: Tuple[float, ...] = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
                  unbounded: bool = True, base_mlp_layer_width: int = 64,
@@ -73,7 +75,7 @@ class DensityField(nn.Module):
 
 class RadianceField(nn.Module):
     def __init__(self, static_spec, dynamic_spec=None, flow_spec=None,
-                 temporal_agg_topk: int = 0,
+                 fuse_flow_grid: bool = True, temporal_agg_topk: int = 0,
                  aabb: Tuple[float, ...] = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
                  unbounded: bool = True, geometry_feature_dim: int = 64,
                  base_mlp_layer_width: int = 64, head_mlp_layer_width: int = 64,
@@ -87,10 +89,11 @@ class RadianceField(nn.Module):
         super().__init__()
         if (dynamic_spec is None) != (flow_spec is None):
             raise NotImplementedError(
-                "only static-only fields and the fused dynamic+flow grid are ported")
+                "the dynamic and flow branches are ported together only")
         self.static_spec = static_spec
         self.dynamic_spec = dynamic_spec
         self.flow_spec = flow_spec
+        self.fuse_flow_grid = fuse_flow_grid
         self.temporal_agg_topk = temporal_agg_topk
         self.unbounded = unbounded
         self.geometry_feature_dim = gf = geometry_feature_dim
@@ -109,18 +112,24 @@ class RadianceField(nn.Module):
         self.xyz_table = nn.Parameter(init_grid_table(static_spec, table_param_dtype, **tkw))
         self.base_mlp = Sequential64(static_spec.n_output_dims, (base_mlp_layer_width, gf), **kw)
         if self.has_dynamic:
-            self.dynflow_spec = dataclasses.replace(
-                dynamic_spec,
-                n_features_per_level=(dynamic_spec.n_features_per_level
-                                      + flow_spec.n_features_per_level))
-            self.dynflow_table = nn.Parameter(
-                init_grid_table(self.dynflow_spec, table_param_dtype, **tkw))
-            lvls = dynamic_spec.n_levels
+            if self.fused:
+                self.dynflow_spec = dataclasses.replace(
+                    dynamic_spec,
+                    n_features_per_level=(dynamic_spec.n_features_per_level
+                                          + flow_spec.n_features_per_level))
+                self.dynflow_table = nn.Parameter(
+                    init_grid_table(self.dynflow_spec, table_param_dtype, **tkw))
+            else:
+                self.dynamic_table = nn.Parameter(
+                    init_grid_table(dynamic_spec, table_param_dtype, **tkw))
+                self.flow_table = nn.Parameter(
+                    init_grid_table(flow_spec, table_param_dtype, **tkw))
             self.dynamic_base_mlp = Sequential64(
-                lvls * dynamic_spec.n_features_per_level, (base_mlp_layer_width, gf), **kw)
+                dynamic_spec.n_output_dims, (base_mlp_layer_width, gf), **kw)
             # 3 layers of base width -> 6 (fwd + bwd flow), no final activation
+            flow_levels = (dynamic_spec if self.fused else flow_spec).n_levels
             self.flow_mlp = Sequential64(
-                lvls * flow_spec.n_features_per_level,
+                flow_levels * flow_spec.n_features_per_level,
                 (base_mlp_layer_width, base_mlp_layer_width, 6), **kw)
 
         if self.use_appearance_embedding:
@@ -148,6 +157,11 @@ class RadianceField(nn.Module):
     def has_dynamic(self) -> bool:
         return self.dynamic_spec is not None
 
+    @property
+    def fused(self) -> bool:
+        """One fused dynamic+flow grid (else separate dynamic and flow grids)."""
+        return self.fuse_flow_grid and self.has_dynamic
+
     def contract_points(self, positions):
         return _contract(positions, self.aabb, self.unbounded)
 
@@ -159,12 +173,31 @@ class RadianceField(nn.Module):
 
     def _dynflow_encode(self, normed_positions, normed_timestamps):
         """ONE fused 4D query -> (dynamic enc (..., L*F_d), flow enc (..., L*F_f))."""
-        xyzt = torch.cat([normed_positions, normed_timestamps[..., None]], dim=-1)
-        table = self.dynflow_table.to(self.table_dtype)
-        enc = grid_encode(table, xyzt, self.dynflow_spec).float()
+        enc = self._encode_4d(self.dynflow_table, self.dynflow_spec, normed_positions,
+                              normed_timestamps)
         df = self.dynamic_spec.n_features_per_level
         lanes = enc.reshape(*enc.shape[:-1], self.dynflow_spec.n_levels, -1)
         return lanes[..., :df].flatten(-2), lanes[..., df:].flatten(-2)
+
+    def _encode_4d(self, table, spec, normed_positions, normed_timestamps):
+        xyzt = torch.cat([normed_positions, normed_timestamps[..., None]], dim=-1)
+        return grid_encode(table.to(self.table_dtype), xyzt, spec).float()
+
+    def forward_dynamic_hash(self, normed_positions, normed_timestamps):
+        """The separate dynamic grid's 4D query + the dynamic base MLP ->
+        (features, encoding)."""
+        enc = self._encode_4d(self.dynamic_table, self.dynamic_spec, normed_positions,
+                              normed_timestamps)
+        return self.dynamic_base_mlp(enc), enc
+
+    def forward_flow_hash(self, normed_positions, normed_timestamps):
+        """The separate flow grid's 4D query + the flow MLP -> (..., 6) =
+        (forward flow, backward flow)."""
+        return self.flow_mlp(self._flow_encode(normed_positions, normed_timestamps))
+
+    def _flow_encode(self, normed_positions, normed_timestamps):
+        return self._encode_4d(self.flow_table, self.flow_spec, normed_positions,
+                               normed_timestamps)
 
     # ------------------------------------------------------------------ #
     def _appearance(self, shape_prefix, data: Dict[str, torch.Tensor]):
@@ -201,18 +234,24 @@ class RadianceField(nn.Module):
             dd = torch.cat([dd, app], dim=-1)
         return {"rgb_sky": torch.sigmoid(self.sky_head(dd))}
 
-    def temporal_aggregation(self, positions, normed_timestamps, forward_flow,
-                             backward_flow, cur_feats, noise=None):
+    def temporal_aggregation(self, positions, normed_positions, normed_timestamps,
+                             forward_flow, backward_flow, cur_feats=None, noise=None):
         """Flow-warped feature aggregation (Eq. 8).  ``noise`` (R, S, 1) is
         the training-time uniform draw that scales the flow; None is the
-        eval's 1."""
+        eval's 1.
+
+        Fused, ``cur_feats`` (the current-time dynamic features) come from
+        the caller's fused query and the two warped points are ONE batched
+        2N fused encode.  Unfused (``cur_feats`` None), the current, +warp
+        and -warp dynamic queries are ONE batched 3N encode and the two
+        warped flow queries ONE 2N encode."""
         shape = (*forward_flow.shape[:-1], 1)
         if noise is None:
             noise = torch.ones(shape, dtype=forward_flow.dtype, device=forward_flow.device)
         elif tuple(noise.shape) != shape:
             raise ValueError(f"aggregation noise {tuple(noise.shape)} != {shape}")
         k = self.temporal_agg_topk
-        if positions.ndim == 3 and 0 < k < positions.shape[1]:
+        if self.fused and positions.ndim == 3 and 0 < k < positions.shape[1]:
             return self._topk_aggregation(positions, normed_timestamps, forward_flow,
                                           backward_flow, cur_feats, noise, k)
         fwd_pos = self.contract_points(positions + forward_flow * noise)
@@ -220,11 +259,18 @@ class RadianceField(nn.Module):
         noise_t = noise[..., 0]
         fwd_time = (normed_timestamps + self.time_diff * noise_t).clamp(0.0, 1.0)
         bwd_time = (normed_timestamps - self.time_diff * noise_t).clamp(0.0, 1.0)
-        dyn2, flow2 = self._dynflow_encode(torch.stack([fwd_pos, bwd_pos]),
-                                           torch.stack([fwd_time, bwd_time]))
-        feats2 = self.dynamic_base_mlp(dyn2)
-        pred2 = self.flow_mlp(flow2)
-        aggregated = (cur_feats + 0.5 * feats2[0] + 0.5 * feats2[1]) / 2.0
+        pos2, t2 = torch.stack([fwd_pos, bwd_pos]), torch.stack([fwd_time, bwd_time])
+        if self.fused:
+            dyn2, flow2 = self._dynflow_encode(pos2, t2)
+            fwd_feats, bwd_feats = self.dynamic_base_mlp(dyn2).unbind(0)
+            pred2 = self.flow_mlp(flow2)
+        else:
+            feats3, _ = self.forward_dynamic_hash(
+                torch.stack([normed_positions, fwd_pos, bwd_pos]),
+                torch.stack([normed_timestamps, fwd_time, bwd_time]))
+            cur_feats, fwd_feats, bwd_feats = feats3.unbind(0)
+            pred2 = self.forward_flow_hash(pos2, t2)
+        aggregated = (cur_feats + 0.5 * fwd_feats + 0.5 * bwd_feats) / 2.0
         return {
             "dynamic_feats": aggregated,
             "forward_pred_backward_flow": pred2[0][..., 3:],
@@ -288,13 +334,19 @@ class RadianceField(nn.Module):
 
         if self.has_dynamic and "normed_timestamps" in data:
             t = data["normed_timestamps"]
-            dyn_enc, flow_enc = self._dynflow_encode(normed_positions, t)
-            cur_feats = self.dynamic_base_mlp(dyn_enc)
-            flow = self.flow_mlp(flow_enc)
+            if self.fused:
+                dyn_enc, flow_enc = self._dynflow_encode(normed_positions, t)
+                cur_feats = self.dynamic_base_mlp(dyn_enc)
+                flow = self.flow_mlp(flow_enc)
+            else:
+                # the current-time dynamic query is batched inside
+                # temporal_aggregation with the two warped ones
+                cur_feats = None
+                flow = self.forward_flow_hash(normed_positions, t)
             forward_flow, backward_flow = flow[..., :3], flow[..., 3:]
             results["forward_flow"] = forward_flow
             results["backward_flow"] = backward_flow
-            agg = self.temporal_aggregation(positions, t, forward_flow,
+            agg = self.temporal_aggregation(positions, normed_positions, t, forward_flow,
                                             backward_flow, cur_feats, agg_noise)
             dynamic_feats = agg.pop("dynamic_feats")
             results.update(agg)

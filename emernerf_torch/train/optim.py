@@ -3,7 +3,8 @@
 Adam with L2 weight decay added to the gradient before the moments (torch
 ``Adam(weight_decay=...)``, not AdamW), betas (0.9, 0.99), eps 1e-15, fp32
 update math, and bf16 moment STORAGE for fp32 params of 2^20 elements or
-more (the four grid tables); every other param keeps fp32 moments.  The
+more (the grid tables: four in the brick flagship, five with separate
+dynamic and flow grids); every other param keeps fp32 moments.  The
 update runs per parameter tensor in the K8 kernel (``kernels/csrc/adam.cu``)
 on the card and in :func:`adam_update_ref` on the CPU.  No ``torch.optim``.
 

@@ -20,13 +20,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from emernerf_tpu.config import ConfigNode
+from emernerf_torch import resolve_device
 from emernerf_torch.builders import (
     build_dataset_from_cfg,
     build_model_from_cfg,
     build_propnets_from_cfg,
     build_train_step_config,
 )
+from emernerf_torch.config import ConfigNode
 from emernerf_torch.data.scene import (
     draw_lidar,
     draw_pixel,
@@ -51,12 +52,13 @@ def raise_on_nonfinite(scalars: Dict[str, float], step: int) -> None:
 
 
 class Trainer:
-    """One scene's training run on one device.  ``flow`` overrides the flow
-    grid's spec (the tiny flagship's)."""
+    """One scene's training run on one device: the card unless the caller
+    asks for another (raises where there is no card).  ``flow`` overrides
+    the flow grid's spec (the tiny flagship's)."""
 
-    def __init__(self, cfg: ConfigNode, device=None, flow=None):
+    def __init__(self, cfg: ConfigNode, device="cuda", flow=None):
         self.cfg = cfg
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         seed = int(cfg.optim.seed)
         init_gen = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)

@@ -101,7 +101,7 @@ def _flagship_specs(jax_side: bool):
     def make(**kw):
         if jax_side:
             return jax_builders.make_grid_spec("brick", perf=jax_builders._perf_cfg(cfg), **kw)
-        return builders.make_grid_spec(**kw)
+        return builders.make_grid_spec("brick", **kw)
 
     def from_enc(e):
         return make(n_input_dims=e.n_input_dims, n_levels=e.n_levels,

@@ -1,5 +1,7 @@
 """Port parity: emernerf_torch fields against emernerf_tpu fields, eval path,
-on the CPU in fp32.
+on the CPU in fp32: the tiny flagship (brick grids, fused dynamic+flow
+grid), its reference-hash profile (exact hash grids, separate dynamic and
+flow grids) and its brick profile with unfused grids.
 
 The JAX params come from ``init_train_state`` on the tiny flagship with
 fp32 tables and MLPs, go through ``emernerf_torch.convert`` and are loaded
@@ -16,14 +18,32 @@ import numpy as np
 import pytest
 import torch
 
+from emernerf_tpu import config as jax_config
+from emernerf_tpu import flagship as jax_flagship
 from emernerf_tpu.flagship import build_flagship as jax_build_flagship
 from emernerf_tpu.train.step import init_train_state
 from emernerf_torch.builders import validate_cfg
 from emernerf_torch.convert import load_jax_params, state_dict_from_jax
-from emernerf_torch.flagship import build_flagship, flagship_config
+from emernerf_torch.flagship import (
+    DEFAULT_PROFILE,
+    REFERENCE_HASH,
+    build_flagship,
+    flagship_config,
+)
+from emernerf_torch.ops.hashgrid import HashGridSpec
 
 FP32 = ["nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32"]
 TABLE_SCALE = 2000.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tiny tensors gain little from more, and the
+    suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _scale_tables(tree):
@@ -32,9 +52,20 @@ def _scale_tables(tree):
             for k, v in tree.items()}
 
 
-@pytest.fixture(scope="module")
-def pair():
-    cfg, dataset, jmodel, jprops, step_cfg = jax_build_flagship(tiny=True, overrides=FP32)
+def jax_build_profile(profile, overrides):
+    """The JAX tiny flagship of a profile: the JAX package's flagship
+    dotlist merged over the defaults and the profile's config file."""
+    if profile.config_file is None:
+        return jax_build_flagship(tiny=True, overrides=list(profile.overrides) + overrides)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(jax_flagship, "load_config",
+                  lambda path: jax_config.load_config(path, profile.config_file))
+        return jax_build_flagship(tiny=True, overrides=list(profile.overrides) + overrides)
+
+
+def _make_pair(profile=DEFAULT_PROFILE, overrides=()):
+    overrides = FP32 + list(overrides)
+    cfg, dataset, jmodel, jprops, step_cfg = jax_build_profile(profile, overrides)
     r = cfg.data.ray_batch_size
     batch = {"origins": jnp.zeros((r, 3)), "normed_timestamps": jnp.zeros((r,)),
              "img_idx": jnp.zeros((r,), jnp.int32), "cam_idx": jnp.zeros((r,), jnp.int32),
@@ -43,10 +74,45 @@ def pair():
         jax.random.PRNGKey(0))
     params = _scale_tables(jax.tree.map(np.asarray, state.params))
     prop_params = tuple(_scale_tables(jax.tree.map(np.asarray, p)) for p in state.prop_params)
-    _, _, tmodel, tprops, _ = build_flagship(tiny=True, overrides=FP32)
+    tcfg, _, tmodel, tprops, _ = build_flagship(tiny=True, overrides=overrides,
+                                                 profile=profile, device="cpu")
+    assert tcfg.to_dict() == cfg.to_dict()
     load_jax_params(tmodel, tprops, params, prop_params)
     return dict(cfg=cfg, dataset=dataset, jmodel=jmodel, jprops=jprops, params=params,
                 prop_params=prop_params, tmodel=tmodel, tprops=tprops)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _make_pair()
+
+
+@pytest.fixture(scope="module")
+def hash_pair():
+    return _make_pair(REFERENCE_HASH)
+
+
+@pytest.fixture(scope="module")
+def unfused_pair():
+    return _make_pair(overrides=["nerf.model.fuse_flow_grid=false"])
+
+
+def _radiance_matches(p, seed, topk=None):
+    jmodel, tmodel = p["jmodel"], p["tmodel"]
+    if topk is not None:
+        jmodel = jmodel.clone(temporal_agg_topk=topk)
+        tmodel.temporal_agg_topk = topk
+    pos, dirs, data = _inputs(p["dataset"], seed=seed)
+    ref = jax.jit(lambda prm, x, d, dd: jmodel.apply({"params": prm}, x, d, dd, train=False))(
+        p["params"], pos, dirs, data)
+    with torch.no_grad():
+        ours = tmodel(torch.from_numpy(pos), torch.from_numpy(dirs),
+                      {k: torch.from_numpy(v) for k, v in data.items()})
+    assert set(ours) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    return ours, pos
 
 
 def _inputs(dataset, r=24, s=6, seed=0):
@@ -84,22 +150,47 @@ def test_density_field_matches_jax(pair, level):
 
 @pytest.mark.parametrize("topk", [2, 0], ids=["topk_agg", "all_samples_agg"])
 def test_radiance_field_matches_jax(pair, topk):
-    jmodel, tmodel = pair["jmodel"], pair["tmodel"]
-    jmodel = jmodel.clone(temporal_agg_topk=topk)
-    tmodel.temporal_agg_topk = topk
-    pos, dirs, data = _inputs(pair["dataset"], seed=7)
-    ref = jax.jit(lambda p, x, d, dd: jmodel.apply({"params": p}, x, d, dd, train=False))(
-        pair["params"], pos, dirs, data)
-    with torch.no_grad():
-        ours = tmodel(torch.from_numpy(pos), torch.from_numpy(dirs),
-                      {k: torch.from_numpy(v) for k, v in data.items()})
-    tmodel.temporal_agg_topk = 2
-    assert set(ours) == set(ref)
+    ours, pos = _radiance_matches(pair, 7, topk)
+    pair["tmodel"].temporal_agg_topk = 2
     if topk:
         assert "agg_mask" in ours and float(ours["agg_mask"].sum()) == topk * pos.shape[0]
-    for k in ref:
-        np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]), rtol=1e-4,
-                                   atol=1e-5, err_msg=k)
+
+
+def test_reference_hash_state_dict_names(hash_pair):
+    tmodel = hash_pair["tmodel"]
+    sd = state_dict_from_jax(hash_pair["params"])
+    assert set(sd) == set(tmodel.state_dict())
+    assert {"xyz_table", "dynamic_table", "flow_table"} <= set(sd) and "dynflow_table" not in sd
+    assert not tmodel.fused and tmodel.temporal_agg_topk == 0
+    for name in ("static_spec", "dynamic_spec", "flow_spec"):
+        spec = getattr(tmodel, name)
+        assert isinstance(spec, HashGridSpec)
+        assert tuple(getattr(tmodel, name.replace("spec", "table").replace("static", "xyz"))
+                     .shape) == spec.table_shape  # feature-major (F, L*T)
+    for pm in hash_pair["tprops"]:
+        assert isinstance(pm.spec, HashGridSpec) and pm.hash_table.shape == pm.spec.table_shape
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_reference_hash_density_field_matches_jax(hash_pair, level):
+    pos, _, _ = _inputs(hash_pair["dataset"], seed=20 + level)
+    ref = jax.jit(hash_pair["jprops"][level].apply)({"params": hash_pair["prop_params"][level]},
+                                                   pos)
+    with torch.no_grad():
+        ours = hash_pair["tprops"][level](torch.from_numpy(pos))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
+def test_reference_hash_radiance_field_matches_jax(hash_pair):
+    ours, _ = _radiance_matches(hash_pair, 8)
+    assert "agg_mask" not in ours  # every sample is flow-warped
+
+
+def test_brick_unfused_radiance_field_matches_jax(unfused_pair):
+    tmodel = unfused_pair["tmodel"]
+    assert not tmodel.fused and tmodel.temporal_agg_topk == 0
+    assert set(state_dict_from_jax(unfused_pair["params"])) == set(tmodel.state_dict())
+    _radiance_matches(unfused_pair, 9)
 
 
 def test_appearance_mean_embedding_fallback(pair):
@@ -117,12 +208,12 @@ def test_appearance_mean_embedding_fallback(pair):
 
 
 @pytest.mark.parametrize("knob", [
-    "nerf.model.grid_backend=hash",
+    "nerf.model.grid_backend=mx",
     "nerf.propnet.fine_level_skip=1",
     "render.eval_sample_topk=16",
     "nerf.model.perf.scatter_mode=flat",
     "nerf.model.perf.time_pair=false",
-    "nerf.model.fuse_flow_grid=false",
+    "nerf.model.perf.gather_mode=1d",
     "nerf.model.head.enable_flow_branch=false",
     "nerf.model.head.enable_feature_head=true",
     "nerf.model.head.direction_encoding=sh",
@@ -132,3 +223,14 @@ def test_unported_knob_raises(knob):
     validate_cfg(flagship_config(tiny=True))  # the flagship itself is ported
     with pytest.raises(NotImplementedError):
         validate_cfg(flagship_config(tiny=True, overrides=[knob]))
+
+
+def test_reference_profiles_validate():
+    """The reference-hash profile and unfused brick grids are ported; with
+    the hash grid, fine-level skipping raises the JAX package's ValueError."""
+    validate_cfg(flagship_config(profile=REFERENCE_HASH))
+    validate_cfg(flagship_config(tiny=True, profile=REFERENCE_HASH))
+    validate_cfg(flagship_config(tiny=True, overrides=["nerf.model.fuse_flow_grid=false"]))
+    with pytest.raises(ValueError, match="requires grid_backend=brick"):
+        validate_cfg(flagship_config(overrides=["nerf.propnet.fine_level_skip=1"],
+                                     profile=REFERENCE_HASH))

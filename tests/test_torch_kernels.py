@@ -1,10 +1,11 @@
 """The port's CUDA kernels: build and binding rules on the CPU, and each
 kernel against its plain PyTorch version on the card.
 
-The card tests skip where ``torch.cuda.is_available()`` is false; on a
-machine with an H100 run them with
-``python -m pytest tests/test_torch_kernels.py --noconftest`` (the test
-configuration imports JAX, which the port's machines need not have).
+The card tests carry the ``cuda`` marker and skip where
+``torch.cuda.is_available()`` is false; on a machine with an H100 run them
+with ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``
+(the test configuration imports JAX, which the port's machines need not
+have).
 """
 
 import stat
@@ -19,6 +20,13 @@ from emernerf_torch.ops.brickgrid import (
     brickgrid_encode_bwd,
     brickgrid_encode_bwd_ref,
     brickgrid_encode_ref,
+)
+from emernerf_torch.ops.hashgrid import (
+    HashGridSpec,
+    hashgrid_encode,
+    hashgrid_encode_bwd,
+    hashgrid_encode_bwd_plain,
+    hashgrid_encode_plain,
 )
 from emernerf_torch.ops.stepfuns import (
     _interlevel_forward,
@@ -84,6 +92,7 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("dims,f,bs,pair", [(3, 4, 1, False), (3, 1, 2, False),
                                             (4, 8, 1, True), (4, 2, 1, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -103,6 +112,7 @@ def test_brickgrid_kernel_matches_plain(cuda, dims, f, bs, pair, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-6)
 
 
+@pytest.mark.cuda
 def test_importance_sampling_kernel_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     r, k1, n = 1024, 65, 64
@@ -116,6 +126,7 @@ def test_importance_sampling_kernel_matches_plain(cuda):
         torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
 
 
+@pytest.mark.cuda
 def test_composite_kernel_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(2)
     r, s = 2048, 64
@@ -132,6 +143,7 @@ def test_composite_kernel_matches_plain(cuda):
     assert (out.median_depth != ref.median_depth).float().mean() < 0.01
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("dims,f,bs,pair", [(3, 1, 2, False), (3, 4, 1, False), (4, 8, 1, True),
                                             (4, 2, 1, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -154,6 +166,7 @@ def test_brickgrid_backward_kernel_matches_plain(cuda, dims, f, bs, pair, dtype)
     torch.testing.assert_close(d_x, r_x, rtol=1e-4, atol=1e-5 * float(r_x.abs().max()))
 
 
+@pytest.mark.cuda
 def test_composite_backward_kernel_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(5)
     r, s = 2048, 64
@@ -171,6 +184,7 @@ def test_composite_backward_kernel_matches_plain(cuda):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
 
 
+@pytest.mark.cuda
 def test_composite_backward_kernel_tie_gradient(cuda):
     """Two rays whose weights sum to exactly 1.0 (sigma*dt = 17 then 3): the
     opacity clip sits on its bound and passes half its gradient, in the
@@ -187,6 +201,7 @@ def test_composite_backward_kernel_tie_gradient(cuda):
     torch.testing.assert_close(d, ref, rtol=1e-3, atol=0)
 
 
+@pytest.mark.cuda
 def test_interlevel_kernels_match_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(6)
     r = 1024
@@ -221,6 +236,7 @@ def test_interlevel_kernels_match_plain(cuda):
         torch.testing.assert_close(d, d_ref, rtol=1e-3, atol=1e-4 * float(d_ref.abs().max()))
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("numel", [1000, 1 << 20])
 def test_adam_kernel_matches_plain_bit_for_bit(cuda, numel):
     g = torch.Generator(device=cuda).manual_seed(7)
@@ -237,3 +253,70 @@ def test_adam_kernel_matches_plain_bit_for_bit(cuda, numel):
     for a, b in zip(*copies):
         assert torch.equal(a, b)
     assert copies[0][1].dtype == (torch.bfloat16 if numel >= 1 << 20 else torch.float32)
+
+
+def _hash_inputs(cuda, dims, f, dtype, seed, n=4096):
+    # 6 levels of R = 8 .. 512, T = 2^14: linear coarse levels, hashed fine ones
+    spec = HashGridSpec(n_input_dims=dims, n_levels=6, base_resolution=8, max_resolution=512,
+                        log2_hashmap_size=14, n_features_per_level=f)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    table = (torch.rand(spec.table_shape, device=cuda, generator=g) * 2 - 1).to(dtype)
+    pos = torch.rand((n, dims), device=cuda, generator=g)
+    pos[:2] = torch.tensor([0.0, 1.0], device=cuda)[:, None]  # corners reach R at x = 1
+    return spec, table, pos, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f", [(3, 4), (3, 1), (4, 4), (4, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hashgrid_kernel_matches_plain(cuda, dims, f, dtype):
+    spec, table, pos, _ = _hash_inputs(cuda, dims, f, dtype, 8)
+    assert spec.level_uses_hash.any() and not spec.level_uses_hash.all()
+    with torch.no_grad():
+        out = hashgrid_encode(table, pos, spec)
+        ref = hashgrid_encode_plain(table, pos, spec)
+    torch.cuda.synchronize()
+    # same explicitly rounded fp32 ops in the same order: equal, but for
+    # bf16's one rounding of a value whose last fp32 bits may differ
+    if dtype == torch.float32:
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f", [(3, 4), (3, 1), (4, 4), (4, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos_grad", [False, True], ids=["table_only", "with_pos_grad"])
+def test_hashgrid_backward_kernel_matches_plain(cuda, dims, f, dtype, pos_grad):
+    spec, table, pos, g = _hash_inputs(cuda, dims, f, dtype, 9)
+    cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda, generator=g).to(dtype)
+    d_t, d_x = hashgrid_encode_bwd(table, pos, cot, spec, pos_grad)
+    r_t, r_x = hashgrid_encode_bwd_plain(table, pos, cot, spec, pos_grad)
+    torch.cuda.synchronize()
+    # fp32 atomics in another order than index_add_; bf16 grads round once
+    assert d_t.dtype == dtype
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(d_t.float(), r_t.float(), rtol=rtol,
+                               atol=1e-5 * float(r_t.float().abs().max()))
+    if pos_grad:
+        # the same fp32 operations in the same order (no atomics)
+        torch.testing.assert_close(d_x, r_x, rtol=1e-6, atol=1e-6 * float(r_x.abs().max()))
+    else:
+        assert d_x is None and r_x is None
+
+
+@pytest.mark.cuda
+def test_hashgrid_autograd_on_the_card(cuda):
+    """hashgrid_encode's backward launches K4's backward and gives the
+    plain version's gradients."""
+    spec, table, pos, g = _hash_inputs(cuda, 4, 4, torch.float32, 10)
+    t = table.clone().requires_grad_(True)
+    x = pos.clone().requires_grad_(True)
+    cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda, generator=g)
+    before = hashgrid_encode_bwd.launches
+    hashgrid_encode(t, x, spec).backward(cot)
+    assert hashgrid_encode_bwd.launches == before + 1
+    r_t, r_x = hashgrid_encode_bwd_plain(table, pos, cot, spec, True)
+    torch.testing.assert_close(t.grad, r_t, rtol=1e-5, atol=1e-5 * float(r_t.abs().max()))
+    torch.testing.assert_close(x.grad, r_x, rtol=1e-6, atol=1e-6 * float(r_x.abs().max()))

@@ -1,6 +1,8 @@
 """Port parity for the whole eval slice: the tiny flagship scene rendered by
 emernerf_tpu's ``ImageRenderer.render_image`` and by the port's, with the
-same converted params, on the CPU in fp32.
+same converted params, on the CPU in fp32; and the same for the tiny
+flagship's reference-hash profile (exact hash grids, separate dynamic and
+flow grids, every sample flow-warped).
 
 Every map (rgb, depth, opacity, median depth, the static and dynamic
 decomposition, shadow and flow) must match with rtol 1e-4, atol 1e-5; the
@@ -15,13 +17,15 @@ import numpy as np
 import pytest
 import torch
 
+from emernerf_tpu import config as jax_config
+from emernerf_tpu import flagship as jax_flagship
 from emernerf_tpu.eval.renderer import ImageRenderer as JaxImageRenderer
 from emernerf_tpu.flagship import build_flagship as jax_build_flagship
 from emernerf_tpu.render.renderer import render_ray_batch as jax_render_ray_batch
 from emernerf_tpu.train.step import init_train_state
 from emernerf_torch.convert import load_jax_params
 from emernerf_torch.eval.renderer import ImageRenderer
-from emernerf_torch.flagship import build_flagship
+from emernerf_torch.flagship import DEFAULT_PROFILE, REFERENCE_HASH, build_flagship
 from emernerf_torch.render.renderer import render_ray_batch
 
 FP32 = ["nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32"]
@@ -31,15 +35,35 @@ MAPS = ("rgb", "depth", "opacity", "static_rgb", "dynamic_rgb", "static_depth",
         "shadow_only_static_rgb", "shadow", "shadow_ratio", "forward_flow", "backward_flow")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tiny tensors gain little from more, and the
+    suite's parallel workers would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scale_tables(tree):
     return {k: (_scale_tables(v) if isinstance(v, dict)
                 else np.asarray(v) * TABLE_SCALE if k.endswith("table") else np.asarray(v))
             for k, v in tree.items()}
 
 
-@pytest.fixture(scope="module")
-def renders():
-    cfg, dataset, jmodel, jprops, step_cfg = jax_build_flagship(tiny=True, overrides=FP32)
+def jax_build_profile(profile, overrides):
+    """The JAX tiny flagship of a profile: the JAX package's flagship
+    dotlist merged over the defaults and the profile's config file."""
+    if profile.config_file is None:
+        return jax_build_flagship(tiny=True, overrides=list(profile.overrides) + overrides)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(jax_flagship, "load_config",
+                  lambda path: jax_config.load_config(path, profile.config_file))
+        return jax_build_flagship(tiny=True, overrides=list(profile.overrides) + overrides)
+
+
+def _render_both(profile=DEFAULT_PROFILE):
+    cfg, dataset, jmodel, jprops, step_cfg = jax_build_profile(profile, FP32)
     r = cfg.data.ray_batch_size
     batch = {"origins": jnp.zeros((r, 3)), "normed_timestamps": jnp.zeros((r,)),
              "img_idx": jnp.zeros((r,), jnp.int32), "cam_idx": jnp.zeros((r,), jnp.int32),
@@ -57,15 +81,26 @@ def renders():
     rays, gt = dataset.get_image_rays(img)
     ref = JaxImageRenderer(jmodel, jprops, **kw).render_image(params, prop_params, rays, gt["hw"])
 
-    tcfg, tdataset, tmodel, tprops, _ = build_flagship(tiny=True, overrides=FP32)
+    tcfg, tdataset, tmodel, tprops, _ = build_flagship(tiny=True, overrides=FP32,
+                                                       profile=profile, device="cpu")
     load_jax_params(tmodel, tprops, params, prop_params)
     trays, tgt = tdataset.get_image_rays(img)
     for k in rays:
         np.testing.assert_array_equal(trays[k], rays[k])
-    ours = ImageRenderer(tmodel, tprops, **kw).render_image(trays, tgt["hw"])
+    ours = ImageRenderer(tmodel, tprops, device="cpu", **kw).render_image(trays, tgt["hw"])
     return ours, ref, dict(jmodel=jmodel, jprops=jprops, params=params,
                            prop_params=prop_params, tmodel=tmodel, tprops=tprops,
                            rays=rays, kw=kw)
+
+
+@pytest.fixture(scope="module")
+def renders():
+    return _render_both()
+
+
+@pytest.fixture(scope="module")
+def hash_renders():
+    return _render_both(REFERENCE_HASH)
 
 
 @pytest.mark.parametrize("key", MAPS)
@@ -73,6 +108,17 @@ def test_slice_map_matches_jax(renders, key):
     ours, ref, _ = renders
     assert ours[key].shape == ref[key].shape
     np.testing.assert_allclose(ours[key], ref[key], rtol=1e-4, atol=1e-5, err_msg=key)
+
+
+def test_reference_hash_slice_matches_jax(hash_renders):
+    ours, ref, m = hash_renders
+    assert not m["tmodel"].fused
+    for key in MAPS:
+        assert ours[key].shape == ref[key].shape
+        np.testing.assert_allclose(ours[key], ref[key], rtol=1e-4, atol=1e-5, err_msg=key)
+    assert np.ptp(ours["rgb"]) > 1e-2 and np.ptp(ours["depth"]) > 1e-2
+    a, b = ours["median_depth"].reshape(-1), ref["median_depth"].reshape(-1)
+    assert (~np.isclose(a, b, rtol=1e-4, atol=1e-5)).sum() <= max(1, a.size // 100)
 
 
 def test_slice_median_depth_matches_jax(renders):

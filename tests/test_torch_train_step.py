@@ -1,6 +1,8 @@
 """Port parity for the training step: ``emernerf_tpu.train.step`` and
 ``emernerf_torch.train.step`` take the same iterations on the tiny flagship
-on the CPU in fp32, from the same params, batches and random draws.
+on the CPU in fp32, from the same params, batches and random draws; and one
+iteration of the tiny flagship's reference-hash profile (exact hash grids,
+separate dynamic and flow grids, every sample shaded and flow-warped).
 
 The draws: the jitted JAX step runs with ``jax.random.uniform`` wrapped,
 in this test only, so that every draw it makes is passed out through a
@@ -49,13 +51,15 @@ import torch
 
 import emernerf_tpu.train.step as jax_step_mod
 import emernerf_torch.train.step as step_mod
+from emernerf_tpu import config as jax_config
+from emernerf_tpu import flagship as jax_flagship
 from emernerf_tpu.data.scene import sample_lidar_batch as jax_sample_lidar
 from emernerf_tpu.data.scene import sample_pixel_batch as jax_sample_pixel
 from emernerf_tpu.flagship import build_flagship as jax_build_flagship
 from emernerf_tpu.train.step import build_train_step as jax_build_train_step
 from emernerf_tpu.train.step import init_train_state as jax_init_train_state
 from emernerf_torch.convert import load_jax_params, state_dict_from_jax
-from emernerf_torch.flagship import build_flagship
+from emernerf_torch.flagship import DEFAULT_PROFILE, REFERENCE_HASH, build_flagship
 from emernerf_torch.train.state import init_train_state
 from emernerf_torch.train.step import StepDraws, build_train_step
 
@@ -63,6 +67,8 @@ FP32 = ["nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32"]
 WIDE = ["nerf.propnet.num_samples_per_prop=[32,16]",
         "nerf.sampling.num_samples=8", "nerf.sampling.sample_topk=6",
         "nerf.sampling.lidar_sample_topk=4"]
+# the reference-hash profile shades every sample: no top-K
+HASH_WIDE = ["nerf.propnet.num_samples_per_prop=[32,16]", "nerf.sampling.num_samples=8"]
 TABLE_SCALE = 2000.0
 LOSS_RTOL = {"sky_loss": 1e-3}
 GRAD_ATOL, GRAD_RTOL = 2e-3, 1e-3
@@ -131,10 +137,22 @@ def _named(tree, prop: bool):
     return {f"{i}.{k}": v for i, t in enumerate(tree) for k, v in state_dict_from_jax(t).items()}
 
 
+def jax_build_profile(profile, overrides):
+    """The JAX tiny flagship of a profile: the JAX package's flagship
+    dotlist merged over the defaults and the profile's config file."""
+    if profile.config_file is None:
+        return jax_build_flagship(tiny=True, overrides=list(profile.overrides) + overrides)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(jax_flagship, "load_config",
+                  lambda path: jax_config.load_config(path, profile.config_file))
+        return jax_build_flagship(tiny=True, overrides=list(profile.overrides) + overrides)
+
+
 @pytest.fixture(scope="module")
-def jax_side():
-    """The jitted JAX step with taps on its random draws and on the
-    gradients it hands to apply_update, plus the scaled initial params."""
+def taps():
+    """Taps on every ``jax.random.uniform`` draw and on the gradients the
+    JAX step hands to apply_update, for as long as the module runs (one
+    step runs between two ``take`` calls, so the profiles can share them)."""
     draws, grads = _Tap(), _Tap()
     uniform, apply_update = jax.random.uniform, jax_step_mod.apply_update
 
@@ -150,21 +168,38 @@ def jax_side():
     with pytest.MonkeyPatch.context() as m:
         m.setattr(jax.random, "uniform", tapped_uniform)
         m.setattr(jax_step_mod, "apply_update", tapped_apply_update)
-        cfg, dataset, jmodel, jprops, step_cfg = jax_build_flagship(tiny=True,
-                                                                      overrides=FP32 + WIDE)
-        scene = dataset.scene_tensors()
-        r = cfg.data.ray_batch_size
-        pb = jax_sample_pixel(scene, jax.random.PRNGKey(3), r, use_timestamps=True)
-        state = jax.jit(lambda k: jax_init_train_state(jmodel, jprops, step_cfg, k, pb))(
-            jax.random.PRNGKey(1))
-        params = _scale_tables(jax.tree.map(np.asarray, state.params))
-        prop_params = tuple(_scale_tables(jax.tree.map(np.asarray, p))
-                            for p in state.prop_params)
-        state = jax.tree.map(np.asarray, state)
-        draws.take()  # the initializers' draws
-        yield dict(step=jax_build_train_step(jmodel, jprops, step_cfg), state=state,
-                   params=params, prop_params=prop_params, scene=scene, r=r,
-                   step_cfg=step_cfg, draws=draws, grads=grads)
+        yield draws, grads
+
+
+def _jax_side(taps, profile, overrides):
+    """The jitted JAX step of a profile, the scaled initial params and the
+    taps."""
+    draws, grads = taps
+    cfg, dataset, jmodel, jprops, step_cfg = jax_build_profile(profile, overrides)
+    scene = dataset.scene_tensors()
+    r = cfg.data.ray_batch_size
+    pb = jax_sample_pixel(scene, jax.random.PRNGKey(3), r, use_timestamps=True)
+    state = jax.jit(lambda k: jax_init_train_state(jmodel, jprops, step_cfg, k, pb))(
+        jax.random.PRNGKey(1))
+    params = _scale_tables(jax.tree.map(np.asarray, state.params))
+    prop_params = tuple(_scale_tables(jax.tree.map(np.asarray, p))
+                        for p in state.prop_params)
+    state = jax.tree.map(np.asarray, state)
+    draws.take()  # the initializers' draws
+    return dict(step=jax_build_train_step(jmodel, jprops, step_cfg), state=state,
+                params=params, prop_params=prop_params, scene=scene, r=r,
+                step_cfg=step_cfg, draws=draws, grads=grads, profile=profile,
+                overrides=overrides)
+
+
+@pytest.fixture(scope="module")
+def jax_side(taps):
+    return _jax_side(taps, DEFAULT_PROFILE, FP32 + WIDE)
+
+
+@pytest.fixture(scope="module")
+def hash_jax_side(taps):
+    return _jax_side(taps, REFERENCE_HASH, FP32 + HASH_WIDE)
 
 
 class Pair:
@@ -177,7 +212,8 @@ class Pair:
             params=jax.tree.map(jnp.asarray, js["params"]),
             prop_params=jax.tree.map(jnp.asarray, js["prop_params"]),
             step=jnp.asarray(step, jnp.int32))
-        _, _, tmodel, tprops, tcfg = build_flagship(tiny=True, overrides=FP32 + WIDE)
+        _, _, tmodel, tprops, tcfg = build_flagship(tiny=True, overrides=js["overrides"],
+                                                    profile=js["profile"], device="cpu")
         load_jax_params(tmodel, tprops, js["params"], js["prop_params"])
         self.tstate = init_train_state(tmodel, tprops)
         self.tstate.step = step
@@ -258,6 +294,22 @@ def test_one_iteration_matches_jax(jax_side, variant, monkeypatch):
                             atol=GRAD_ATOL if i < len(pixel) else lidar_atol)
 
 
+def test_reference_hash_iteration_matches_jax(hash_jax_side, monkeypatch):
+    """One iteration of the reference-hash profile, both branches with
+    proposal gradients: every loss and every gradient handed to Adam."""
+    pair = Pair(hash_jax_side)
+    assert not pair.tstate.model.fused and pair.tstep.cfg.sample_topk == 0
+    pb, lb = pair.batches(0)
+    jm, tm, jgrads, tgrads = pair.run(pb, lb, True, True, seed=7, monkeypatch=monkeypatch)
+    _assert_losses_close(tm, jm)
+    assert jm["prop_loss"] > 0 and jm["cycle_loss"] > 0
+    order = ["prop", "model", "prop", "model"]
+    assert len(jgrads) == len(tgrads) == len(order)
+    for kind, jg, tg in zip(order, jgrads, tgrads):
+        _assert_grads_close(_named(jg, kind == "prop"), tg,
+                            pair.prop_names if kind == "prop" else pair.names)
+
+
 def test_loss_trajectory_matches_jax(jax_side, monkeypatch):
     """Five iterations (steps 1-5, every render with proposal gradients):
     every loss of every iteration, then every parameter."""
@@ -280,7 +332,7 @@ def test_loss_trajectory_matches_jax(jax_side, monkeypatch):
 
 def test_step_config_matches_jax():
     *_, jcfg = jax_build_flagship(tiny=False)
-    *_, tcfg = build_flagship(tiny=True)
+    *_, tcfg = build_flagship(tiny=True, device="cpu")
     *_, tcfg_full = jax_build_flagship(tiny=True)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(tcfg_full)
     assert set(dataclasses.asdict(tcfg)) == set(dataclasses.asdict(jcfg))

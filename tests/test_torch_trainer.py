@@ -18,7 +18,13 @@ from emernerf_tpu.data import scene as jscene
 from emernerf_tpu.flagship import build_flagship as jax_build_flagship
 from emernerf_torch.builders import build_dataset_from_cfg
 from emernerf_torch.data import scene as tscene
-from emernerf_torch.flagship import flagship_config, flagship_flow_spec
+from emernerf_torch.eval.renderer import ImageRenderer
+from emernerf_torch.flagship import (
+    REFERENCE_HASH,
+    build_flagship,
+    flagship_config,
+    flagship_flow_spec,
+)
 from emernerf_torch.train.trainer import Trainer, raise_on_nonfinite
 
 
@@ -99,7 +105,7 @@ def test_lidar_batch_matches_jax(scenes):
 def test_trainer_runs_the_tiny_flagship():
     cfg = flagship_config(tiny=True, overrides=["optim.cache_rgb_freq=2",
                                                 "optim.check_nan=true", "logging.print_freq=1"])
-    trainer = Trainer(cfg, flow=flagship_flow_spec(tiny=True))
+    trainer = Trainer(cfg, device="cpu", flow=flagship_flow_spec(tiny=True))
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     metrics = [trainer.train_iteration(step) for step in range(4)]
     assert trainer.error_map_buffered  # refreshed at step 2; step 3 sampled from it
@@ -116,3 +122,33 @@ def test_trainer_runs_the_tiny_flagship():
         assert not torch.equal(p, before[name]), name
     with pytest.raises(RuntimeError, match="Non-finite"):
         raise_on_nonfinite({"rgb_loss": float("nan"), "lr": 1.0}, 7)
+
+
+def test_trainer_runs_the_tiny_reference_hash_flagship():
+    """The reference-hash profile through Trainer: hash grids, separate
+    dynamic and flow grids, an error-map refresh through the eval render."""
+    cfg = flagship_config(tiny=True, overrides=["optim.cache_rgb_freq=2"], profile=REFERENCE_HASH)
+    trainer = Trainer(cfg, device="cpu", flow=flagship_flow_spec(True, "hash"))
+    assert not trainer.model.fused and trainer.step_cfg.sample_topk == 0
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    metrics = [trainer.train_iteration(step) for step in range(3)]
+    assert trainer.error_map_buffered
+    for m in metrics:
+        assert all(np.isfinite(float(v)) for v in m.values())
+    for name, p in trainer.model.named_parameters():
+        assert not torch.equal(p, before[name]), name
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device given the entry points run on the card, and on a host
+    without one they raise instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = flagship_config(tiny=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_flagship(tiny=True)
+    _, _, model, props, _ = build_flagship(tiny=True, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ImageRenderer(model, props)
+    assert ImageRenderer(model, props, device="cpu").device.type == "cpu"

@@ -42,12 +42,28 @@ Phases (any failure exits non-zero; nothing is skipped):
   6b. eval: 2 images of that model through ImageRenderer: finite maps, K4's
      forward counter above 0, K1's unmoved;
   6c. one fp32 training step of the tiny reference-hash flagship, card vs
-     CPU, as in 5b.
+     CPU, as in 5b;
+  7. the gather/scatter probes P1-P4: both probe entry points
+     (emernerf_torch.perf.pallas_experiments, .bench_scatter_alts, every
+     case at full size) with the launch counters zeroed before and read
+     after; then each probe kernel at every shape they run against its plain
+     version (P1, P2 bit for bit; P3, P4 within 1e-5 of the largest |value|)
+     with kernel, plain and library times (index_select / index_add_, and
+     for P4 the chunked one-hot torch.matmul), rows/s, GB/s and the bound;
+  8. the training CLI (emernerf_torch.train_emernerf.main) on the full-width
+     brick flagship in a temporary run directory: a few iterations with a
+     periodic checkpoint, SIGTERM during an iteration (the preemption
+     checkpoint), --auto_resume to the end (a periodic checkpoint again, the
+     end-of-training evaluation: lowres and test metric JSONs, lidar depth
+     RMSE), the restored state against the saved one bit for bit on the
+     card, and --eval_only; prints the CLI's ms/iteration beside phase 5's,
+     the checkpoint's size and its save and load seconds.
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
 and its operations over the fp32 rate (H100 SXM data sheet).  Its launches
-are those of the training run of its path (phase 5, or phase 6 for K4).
+are those of the run of its path (phase 5, phase 6 for K4, phase 7's probe
+run for P1-P4).
 The last two lines are the card line and {"ok": true, "device": {...}}.
 """
 
@@ -876,6 +892,251 @@ def phase_train_fp32(dev, profile=None, overrides=TINY_FP32, label="phase 5b"):
           f"{worst:.3e} x the tensor's max |grad|")
 
 
+def phase_probes(dev, entries):
+    """P1-P4: both probe entry points at their full sizes (the launches of
+    the probe path), then each kernel against its plain version at every
+    shape the entry points run."""
+    from emernerf_torch.ops import gather_scatter as gs
+    from emernerf_torch.perf import bench_scatter_alts, pallas_experiments as pe
+
+    fns = (gs.row_gather_loop, gs.row_gather_take, gs.scatter_add_rmw, gs.scatter_add_onehot)
+    print("phase 7: the gather/scatter probe entry points (P1-P4), full sizes")
+    for fn in fns:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pe.main([])
+    bench_scatter_alts.main([])
+    launches = {fn.__name__: fn.launches for fn in fns}
+    print(f"  both entry points in {time.perf_counter() - t0:.1f} s; launch counts: {launches}")
+    _check_launches(launches, (), "probe run")
+
+    def add(tag, fn, replaces, mx, run, plain, library, n, n_bytes, n_ops, extra=None):
+        ms, plain_ms, library_ms = cuda_ms(run, 10), cuda_ms(plain, 10), cuda_ms(library, 10)
+        print(f"  {tag}: {n / ms / 1e3:.1f} Mrows/s, {n_bytes / ms / 1e6:.1f} GB/s")
+        add_entry(entries, tag, "gather_scatter.cu", replaces, fn, mx, ms, plain_ms, n_bytes,
+                  n_ops, library_ms=library_ms, path="probe")
+        entries[-1].update(extra or {})
+
+    print("phase 7 (kernels): P1-P4 vs plain versions at every shape of the entry points")
+    n = pe.N
+    gathers = [(gs.row_gather_loop, "perf/pallas_experiments.py:60", 1 << 14, torch.float32),
+               (gs.row_gather_loop, "perf/pallas_experiments.py:60", 1 << 15, torch.bfloat16),
+               (gs.row_gather_take, "perf/pallas_experiments.py:94", 1 << 14, torch.float32)]
+    for fn, replaces, t, dtype in gathers:
+        table, idx = pe.make_table(t, 128, dtype, dev), pe.make_indices(n, t, dev)
+        tag = f"{fn.__name__}[t={t},w=128,{str(dtype)[6:]},n={n}]"
+        out, ref = fn(table, idx), gs.row_gather_plain(table, idx)
+        exact = torch.equal(out, ref)
+        print(f"  {tag}: bit for bit with index_select: {exact}")
+        if not exact:
+            fail(f"{tag}: kernel and plain version differ")
+        n_bytes = nbytes(table, idx, out)
+        del out, ref
+        add(tag, fn, replaces, 0.0, lambda: fn(table, idx), lambda: gs.row_gather_plain(table, idx),
+            lambda: table.index_select(0, idx), n, n_bytes, 0.0)
+        del table, idx
+        torch.cuda.empty_cache()
+
+    # P3 and P4: fp32 sums in another order (atomics, tensor cores) than
+    # index_add_'s: within 1e-5 of the largest |value|
+    t = 1 << 13
+    idx = pe.make_indices(n, t, dev)
+    upd = torch.randn((n, 128), device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    tag = f"scatter_add_rmw[t={t},w=128,f32,n={n}]"
+    out = gs.scatter_add_rmw(idx, upd, t)
+    mx = check(tag, out, gs.scatter_add_plain(idx, upd, t), 0.0, 1e-5)
+    add(tag, gs.scatter_add_rmw, "perf/pallas_experiments.py:124", mx,
+        lambda: gs.scatter_add_rmw(idx, upd, t), lambda: gs.scatter_add_plain(idx, upd, t),
+        lambda: torch.zeros((t, 128), device=dev).index_add_(0, idx, upd), n,
+        nbytes(idx, upd, out), float(n * 128))
+    print(f"  {tag}: {n * 128 / entries[-1]['ms'] / 1e6:.1f} G fp32 atomics/s")
+    del idx, upd, out
+    nn = bench_scatter_alts.N
+    for t, w, tile_n in bench_scatter_alts.PALLAS_SHAPES:
+        rows, upd = bench_scatter_alts.make_inputs(nn, t, w, dev)
+        tag = f"scatter_add_onehot[T={t},W={w},tile_n={tile_n},N={nn}]"
+        out = gs.scatter_add_onehot(rows, upd, t, tile_n)
+        mx = check(tag, out, gs.scatter_add_onehot_plain(rows, upd, t), 0.0, 1e-5)
+        upd_bf = upd.bfloat16().float()
+        matmul_ms = cuda_ms(lambda: bench_scatter_alts.onehot_matmul(rows, upd, t), 5)
+        print(f"  {tag}: library one-hot torch.matmul (bf16, fp32 sums) {matmul_ms:.3f} ms")
+        # the bound of the work, a scatter-add of these rows, not of the
+        # route's 2*T*N*W one-hot FLOPs
+        add(tag, gs.scatter_add_onehot, "perf/bench_scatter_alts.py:196", mx,
+            lambda: gs.scatter_add_onehot(rows, upd, t, tile_n),
+            lambda: gs.scatter_add_onehot_plain(rows, upd, t),
+            lambda: torch.zeros((t, w), device=dev).index_add_(0, rows, upd_bf), nn,
+            nbytes(rows, upd, out), float(nn * w), {"library_onehot_matmul_ms": matmul_ms})
+        del rows, upd, out, upd_bf
+    torch.cuda.empty_cache()
+    return launches
+
+
+N_CLI = 13  # optim.num_iters of the CLI run
+# iterations of the resumed run before its timed window (cuBLAS, allocator),
+# as phase 5 warms up before it times
+CLI_WARMUP = 2
+CLI_SIGTERM_AT = 5  # iteration during which SIGTERM arrives
+CLI_SAVE_FREQ = 4  # logging.saveckpt_freq
+
+
+def _state_diff(a, b):
+    """Names of the params, moments, counts and step that differ (values
+    bit for bit, moments also in dtype)."""
+    bad = [] if a.step == b.step else ["step"]
+    for tag, ma, mb in (("model", a.model, b.model),) + tuple(
+            (f"prop{i}", x, y) for i, (x, y) in enumerate(zip(a.prop_models, b.prop_models))):
+        sa, sb = ma.state_dict(), mb.state_dict()
+        bad += [f"{tag}.{k}" for k in sa if not torch.equal(sa[k], sb[k])]
+    for tag, oa, ob in (("opt", a.opt_state, b.opt_state),
+                        ("prop_opt", a.prop_opt_state, b.prop_opt_state)):
+        if oa.count != ob.count:
+            bad.append(f"{tag}.count")
+        bad += [f"{tag}.moment{i}" for i, (x, y) in enumerate(zip(oa.mu + oa.nu, ob.mu + ob.nu))
+                if x.dtype != y.dtype or not torch.equal(x, y)]
+    return bad
+
+
+def phase_cli(dev, train_ms):
+    """The training CLI on the full-width brick flagship: train with a
+    periodic checkpoint, SIGTERM, --auto_resume, evaluate, --eval_only."""
+    import logging
+    import shutil
+    import signal
+    import tempfile
+
+    from emernerf_torch import train_emernerf
+    from emernerf_torch.flagship import _FLAGSHIP_DOTLIST, flagship_config
+    from emernerf_torch.train.checkpoints import load_checkpoint
+    from emernerf_torch.train.trainer import Trainer
+
+    print("phase 8: the training CLI (python -m emernerf_torch.train_emernerf) on the full-width "
+          "brick flagship")
+    root = tempfile.mkdtemp(prefix="emernerf_cli_")
+    run_dir = os.path.join(root, "p", "r")
+    os.makedirs(run_dir)
+    print(f"  run directory {run_dir}; free disk {shutil.disk_usage(root).free / 2 ** 30:.1f} GiB")
+    # the CLI's log goes to the run's log.txt only (setup_logging keeps an
+    # existing handler), not to this script's output
+    log = logging.getLogger("emernerf_torch")
+    handler = logging.FileHandler(os.path.join(run_dir, "log.txt"))
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    opts = list(_FLAGSHIP_DOTLIST) + [
+        f"optim.num_iters={N_CLI}", f"logging.saveckpt_freq={CLI_SAVE_FREQ}",
+        "logging.print_freq=1000", "data.pixel_source.test_image_stride=4"]
+    argv = ["--output_root", root, "--project", "p", "--run_name", "r"]
+    timed = {"save_s": []}
+    orig = {k: getattr(Trainer, k) for k in ("save", "train", "train_iteration")}
+
+    def save(self):
+        t0 = time.perf_counter()
+        path = orig["save"](self)
+        timed["save_s"].append(time.perf_counter() - t0)
+        return path
+
+    def train(self, num_iters=None):
+        try:
+            return orig["train"](self, num_iters)
+        finally:
+            torch.cuda.synchronize()
+            timed["end"] = (time.perf_counter(), self.start_step)
+
+    def train_iteration(self, step):
+        if timed.get("sigterm") == step:
+            os.kill(os.getpid(), signal.SIGTERM)
+        if step == self.start_step + CLI_WARMUP:  # the timed window opens
+            torch.cuda.synchronize()
+            timed["start"] = (time.perf_counter(), len(timed["save_s"]))
+        return orig["train_iteration"](self, step)
+
+    def ckpts():
+        return sorted(d for d in os.listdir(run_dir) if d.startswith("checkpoint_"))
+
+    Trainer.save, Trainer.train, Trainer.train_iteration = save, train, train_iteration
+    try:
+        # 1. train with a periodic checkpoint; 2. SIGTERM during an iteration
+        timed["sigterm"] = CLI_SIGTERM_AT
+        t1 = train_emernerf.main(argv + opts)
+        timed.pop("sigterm")
+        want = [f"checkpoint_{CLI_SAVE_FREQ + 1:05d}", f"checkpoint_{CLI_SIGTERM_AT + 1:05d}"]
+        print(f"  run 1: preempted={t1.preempted} at step {t1.state.step}; checkpoints {ckpts()}; "
+              f"SIGTERM handler restored: {signal.getsignal(signal.SIGTERM) is signal.SIG_DFL}")
+        if not t1.preempted or ckpts() != want or t1.state.step != CLI_SIGTERM_AT + 1:
+            fail(f"CLI run 1: expected preemption at step {CLI_SIGTERM_AT + 1} and {want}")
+        if signal.getsignal(signal.SIGTERM) is not signal.SIG_DFL:
+            fail("CLI run 1: the SIGTERM handler was not restored")
+        path = os.path.join(run_dir, want[1])
+        size = os.path.getsize(path)
+        os.remove(os.path.join(run_dir, want[0]))
+        # 4. the restored state against the saved one, bit for bit
+        check_trainer = Trainer(flagship_config(overrides=opts[len(_FLAGSHIP_DOTLIST):]),
+                                device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_checkpoint(path, check_trainer.state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        bad = _state_diff(check_trainer.state, t1.state)
+        n_tensors = len(check_trainer.state.params) + len(check_trainer.state.prop_params)
+        print(f"  restored {path.rsplit('/', 1)[-1]} vs the preempted run's state: "
+              f"{n_tensors} params, their moments (dtypes kept), counts and step; differ: {bad}")
+        if bad:
+            fail(f"restored checkpoint differs from the saved state: {bad[:10]}")
+        del check_trainer, t1
+        torch.cuda.empty_cache()
+        # 3. --auto_resume to the end, then the end-of-training evaluation
+        t2 = train_emernerf.main(argv[:6] + ["--auto_resume"] + opts)
+        (t_end, start), (t_start, saves_before) = timed["end"], timed["start"]
+        n_iters = N_CLI - start + 1 - CLI_WARMUP
+        saves_in_run = len(timed["save_s"]) - 2  # run 1: periodic + preemption
+        cli_ms = (t_end - t_start - sum(timed["save_s"][saves_before:])) * 1e3 / n_iters
+        final = f"checkpoint_{N_CLI + 1:05d}"
+        print(f"  run 2 (--auto_resume): from step {start} to {t2.state.step}, {saves_in_run} "
+              f"checkpoints saved; checkpoints {ckpts()}")
+        periodic = f"checkpoint_{(N_CLI // CLI_SAVE_FREQ) * CLI_SAVE_FREQ + 1:05d}"
+        if start != CLI_SIGTERM_AT + 1 or t2.preempted or not {periodic, final} <= set(ckpts()):
+            fail(f"CLI run 2: expected a resume at {CLI_SIGTERM_AT + 1}, {periodic} and {final}")
+        results = _cli_metrics(run_dir, N_CLI + 1)
+        # 6. --eval_only from the newest checkpoint
+        t3 = train_emernerf.main(argv + ["--eval_only"] + opts)
+        again = _cli_metrics(run_dir, N_CLI + 1)
+        print(f"  --eval_only from {t3.cfg.resume_from.rsplit('/', 1)[-1]}: lowres/psnr "
+              f"{again['lowres/psnr']!r} (end of training {results['lowres/psnr']!r})")
+        if not math.isclose(again["lowres/psnr"], results["lowres/psnr"], rel_tol=1e-4):
+            fail("--eval_only of the final checkpoint disagrees with the end-of-training eval")
+        del t2, t3
+        print(f"  CLI: {cli_ms:.2f} ms/iteration over the last {n_iters} iterations of run 2 "
+              f"(after {CLI_WARMUP} warm-up ones), checkpoint saves excluded (phase 5, "
+              f"Trainer.train_iteration: {train_ms:.2f} ms/iteration)")
+        print(f"  checkpoint {size / 2 ** 30:.3f} GiB ({size} bytes); save "
+              f"{', '.join(f'{s:.2f}' for s in timed['save_s'])} s; load {load_s:.2f} s")
+    finally:
+        for k, v in orig.items():
+            setattr(Trainer, k, v)
+        log.removeHandler(handler)
+        handler.close()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return cli_ms
+
+
+def _cli_metrics(run_dir, step):
+    """The evaluation's metric JSONs at ``step``: lowres and test splits and
+    a finite lidar depth RMSE."""
+    with open(os.path.join(run_dir, f"metrics_all_{step}.json")) as f:
+        results = json.load(f)
+    for split in ("lowres", "test"):
+        if not os.path.exists(os.path.join(run_dir, f"metrics_{split}_{step}.json")):
+            fail(f"metrics_{split}_{step}.json missing")
+    keys = ("lowres/psnr", "test/psnr", "lidar/depth_rmse")
+    print(f"  evaluation at step {step}: {({k: results.get(k) for k in keys})}")
+    if not all(np.isfinite(results.get(k, float("nan"))) for k in keys):
+        fail(f"evaluation metrics missing or not finite: {results}")
+    return results
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -927,17 +1188,21 @@ def main():
     _, hash_eval_rays_per_s = phase_slice(dev, (hashgrid_encode,) + forward, zero=brick,
                                           profile=REFERENCE_HASH, label="phase 6b")
     phase_train_fp32(dev, REFERENCE_HASH, HASH_TINY_FP32, label="phase 6c")
-    if "jax" in sys.modules or any(m.split(".")[0] == "emernerf_tpu" for m in sys.modules):
-        fail("jax or the JAX package was imported")
+    probe_launches = phase_probes(dev, entries)
+    cli_ms = phase_cli(dev, ms_iter)
+    if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
+                                   for m in sys.modules):
+        fail("jax, the JAX package or the repository's perf/ scripts were imported")
 
     # launches: the counts of the training run of each kernel's path
-    runs = {"brick": launches, "hash": hash_launches}
+    runs = {"brick": launches, "hash": hash_launches, "probe": probe_launches}
     report = [dict({k: v for k, v in e.items() if k not in ("fn", "path")},
                    launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
           f"{train_rays_per_s:.1f} rays/s, peak {peak:.2f} GiB on {card_line}")
     print(f"reference-hash: eval {hash_eval_rays_per_s:.1f} rays/s; train {hash_ms:.2f} "
           f"ms/iteration, {hash_rays_per_s:.1f} rays/s, peak {hash_peak:.2f} GiB on {card_line}")
+    print(f"CLI (brick): {cli_ms:.2f} ms/iteration on {card_line}")
     print(json.dumps({"kernels": report}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -172,3 +172,15 @@ class SceneDataset:
         if self.dynamic_masks is not None:
             gt["dynamic_masks"] = self.dynamic_masks[img_idx, ::downscale, ::downscale]
         return rays, gt
+
+    def get_lidar_render_rays(self, frame: int):
+        """All lidar rays of one frame, for depth/flow eval."""
+        if self.lidar is None:
+            return None
+        mask = self.lidar["frame_idx"] == frame
+        return {
+            "origins": self.lidar["origins"][mask],
+            "viewdirs": self.lidar["viewdirs"][mask],
+            "ranges": self.lidar["ranges"][mask],
+            "normed_timestamps": self.lidar_normed_timestamps[mask],
+        }

@@ -58,14 +58,19 @@ class ImageRenderer:
         )
 
     @torch.no_grad()
-    def render_chunk(self, rays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """One ray batch on the device; per-ray outputs without ``extras``."""
-        out = render_ray_batch(self.model, self.prop_models, rays, **self.kw).out
+    def render_chunk(self, rays: Dict[str, torch.Tensor],
+                     is_lidar: bool = False) -> Dict[str, torch.Tensor]:
+        """One ray batch on the device; per-ray outputs without ``extras``.
+        ``is_lidar``: the density-only lidar render, without decomposition."""
+        kw = dict(self.kw, return_decomposition=False, is_lidar=True) if is_lidar else self.kw
+        out = render_ray_batch(self.model, self.prop_models, rays, **kw).out
         out.pop("extras", None)
         return out
 
-    def render_rays_chunked(self, rays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """Render an arbitrary-length ray dict by padding to chunk_size."""
+    def render_rays_chunked(self, rays: Dict[str, np.ndarray],
+                            is_lidar: bool = False) -> Dict[str, np.ndarray]:
+        """Render an arbitrary-length ray dict by padding to chunk_size
+        (``is_lidar``: lidar rays, density only)."""
         n = rays["origins"].shape[0]
         chunk = self.chunk_size
         n_chunks = max((n + chunk - 1) // chunk, 1)
@@ -80,7 +85,7 @@ class ImageRenderer:
         outs: List[Dict[str, np.ndarray]] = []
         for i in range(n_chunks):
             sl = {k: v[i * chunk:(i + 1) * chunk].to(self.device) for k, v in padded.items()}
-            out = self.render_chunk(sl)
+            out = self.render_chunk(sl, is_lidar)
             outs.append({k: v.cpu().numpy() for k, v in out.items()})
         return {k: np.concatenate([o[k] for o in outs], axis=0)[:n] for k in outs[0]}
 

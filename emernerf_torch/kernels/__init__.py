@@ -60,6 +60,14 @@ _SIGNATURES = {
     # table, table_is_bf16, positions, grad_out, d_table (fp32), d_pos|NULL,
     # n_points, params (host struct), stream
     "emt_hashgrid_backward": (_P, _I, _P, _P, _P, _P, _L, _P, _P),
+    # table, elem_bytes (4 or 2), idx (int32), out, n, w, stream
+    "emt_gather_loop": (_P, _I, _P, _P, _L, _I, _P),
+    # table, idx (int32), out, n, row_bytes, stream
+    "emt_gather_take": (_P, _P, _P, _L, _I, _P),
+    # idx (int32), upd (fp32), out (zeroed fp32), n, w, stream
+    "emt_scatter_rmw": (_P, _P, _P, _L, _I, _P),
+    # rows (int32), upd (fp32), out (zeroed fp32), n, t, w, tile_n, stream
+    "emt_scatter_onehot": (_P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 
@@ -81,10 +89,18 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def _stale(lib: Path) -> bool:
+    """Whether a source is newer than the library: a library built before a
+    source changed (or was added) lacks its entry points or runs old code."""
+    built = lib.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in CSRC.glob("*.cu"))
+
+
 def build(force: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into the shared library; returns its path."""
+    """Compile ``csrc/*.cu`` into the shared library, unless one newer than
+    every source exists; returns its path."""
     out = BUILD_DIR / LIB_NAME
-    if out.exists() and not force:
+    if out.exists() and not force and not _stale(out):
         return out
     nvcc = nvcc_path()
     if not (os.path.isfile(nvcc) and os.access(nvcc, os.X_OK)):

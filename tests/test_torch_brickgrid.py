@@ -16,6 +16,7 @@ import torch
 
 from emernerf_tpu import builders as jax_builders
 from emernerf_tpu.ops.brickgrid import BrickGridSpec as JaxSpec
+from emernerf_tpu.ops.brickgrid import brickgrid_encode as jax_encode
 from emernerf_tpu.ops.brickgrid import _level_constants as jax_level_constants
 from emernerf_tpu.ops.brickgrid import brickgrid_encode_ref as jax_encode_ref
 from emernerf_torch import builders, kernels
@@ -91,6 +92,40 @@ def test_encode_bf16_table_rounds_once():
     want = brickgrid_encode_ref(table.bfloat16().float(), pos, spec).bfloat16()
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, want)
+
+
+def bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 numbers (8 significant bits) at |x|."""
+    a = np.maximum(np.abs(x.astype(np.float32)), np.float32(2.0 ** -126))
+    return (2.0 ** (np.floor(np.log2(a)) - 7)).astype(np.float32)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_encode_bf16_within_rounding_of_jax(variant):
+    """bf16 tables: the port accumulates the live corners in fp32 and
+    rounds once; JAX's ``_reduce_row`` sums the corner products in bf16, in
+    an order XLA picks (queue 3, "bf16 accumulation", by design).  Bound,
+    per output: (2^D / 2 + 2) bf16 ulps of s = sum_c w_c |f_c|, the largest
+    any partial sum can reach: half an ulp for each of the 2^D - 1 bf16
+    additions, one for the bf16 weights and products, half for the port's
+    rounding.  Measured: 3 ulps (4D) and 2 (3D).  The port stays within
+    half an ulp of its own fp32 encode of the same bf16 values."""
+    kw = _spec(variant, 15)
+    tspec, jspec = BrickGridSpec(**kw), JaxSpec(**kw)
+    rng = np.random.default_rng(7 + sorted(VARIANTS).index(variant))
+    table = torch.from_numpy(rng.uniform(-1.0, 1.0, tspec.table_shape).astype(np.float32))
+    pos = torch.from_numpy(_boundary_points(tspec, rng))
+    ours = brickgrid_encode(table.bfloat16(), pos, tspec)
+    ref = np.asarray(jax_encode(jnp.asarray(table.numpy(), jnp.bfloat16), jnp.asarray(pos.numpy()),
+                                jspec)).astype(np.float32)
+    assert ours.dtype == torch.bfloat16 and ours.shape == ref.shape
+    ours = ours.float().numpy()
+    s = brickgrid_encode_ref(table.bfloat16().float().abs(), pos, tspec).numpy()
+    ulps = np.abs(ours - ref) / bf16_ulp(s)
+    assert ulps.max() <= 2 ** kw["n_input_dims"] / 2 + 2, ulps.max()
+    assert (ulps > 0).any()  # the two packages do round differently
+    exact = brickgrid_encode_ref(table.bfloat16().float(), pos, tspec).numpy()
+    assert (np.abs(ours - exact) <= bf16_ulp(exact) / 2).all()
 
 
 def _flagship_specs(jax_side: bool):

@@ -1,0 +1,248 @@
+"""The port's training CLI and trainer plumbing on the CPU: the
+counterparts of ``tests/test_cli.py`` (dotlist and ``setup``, a
+train-and-eval run, ``--auto_resume``) and ``tests/test_train.py`` (SIGTERM
+preemption, the NaN tripwire restoring the signal handlers, the wall-clock
+``log_every``, wandb's retries), run through
+``emernerf_torch.train_emernerf.main(["--device", "cpu", ...])`` on the
+tiny synthetic config of ``tests/test_cli.py``.  ``utils/logging.py`` is
+held to the JAX package's original.
+"""
+
+import inspect
+import json
+import os
+import signal
+import sys
+import time
+import types
+
+import numpy as np
+import pytest
+import torch
+from test_cli import TINY_OVERRIDES
+
+from emernerf_torch.config import from_dotlist
+from emernerf_torch.flagship import flagship_config, flagship_flow_spec
+from emernerf_torch.train import trainer as trainer_mod
+from emernerf_torch.train.trainer import Trainer
+from emernerf_torch.train_emernerf import get_args_parser, main, setup
+from emernerf_torch.utils import logging as port_logging
+from emernerf_tpu.utils import logging as jax_logging
+
+# a few iterations: the CPU runs the kernels' plain versions
+SHORT = ["optim.num_iters=4", "logging.print_freq=2"]
+NO_EVAL = ["render.render_low_res=false"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _signal_handlers():
+    """Every test leaves the process's handlers as it found them."""
+    before = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    yield before
+    for s, h in before.items():
+        assert signal.getsignal(s) is h, s
+        signal.signal(s, h)
+
+
+def _argv(tmp_path, run, *flags):
+    return ["--device", "cpu", "--output_root", str(tmp_path), "--project", "p",
+            "--run_name", run, *flags]
+
+
+def _ckpts(run_dir):
+    return sorted(p.name for p in run_dir.glob("checkpoint_*"))
+
+
+def test_cli_dotlist_overrides(tmp_path):
+    args = get_args_parser().parse_args(
+        _argv(tmp_path, "r2") + ["optim.lr=0.123", "data.scene_idx=42"])
+    cfg = setup(args)
+    assert cfg.optim.lr == 0.123 and cfg.data.scene_idx == 42
+    run_dir = tmp_path / "p" / "r2"
+    assert (run_dir / "config.yaml").exists()
+    assert len(list((run_dir / "configs_bk").glob("config_*.yaml"))) == 1
+    assert cfg.log_dir == str(run_dir) and cfg.project == "p" and cfg.run_name == "r2"
+    assert args.device == "cpu" and get_args_parser().parse_args([]).device == "cuda"
+
+
+def test_cli_train_eval_and_eval_only(tmp_path):
+    """Train with the profiler window and an error-map refresh, evaluate at
+    the end, then --eval_only from the newest checkpoint."""
+    extra = SHORT + ["optim.cache_rgb_freq=2", "logging.profiling_start_iter=1",
+                     "logging.profiling_num_iters=1"]
+    trainer = main(_argv(tmp_path, "r") + TINY_OVERRIDES + extra)
+    run_dir = tmp_path / "p" / "r"
+    assert not trainer.preempted and trainer.state.step == 5
+    assert (run_dir / "config.yaml").exists()
+    records = [json.loads(x) for x in (run_dir / "metrics.json").read_text().splitlines()]
+    assert records and all("iter_time" in r for r in records)
+    assert "rgb_loss" in records[-1]
+    assert _ckpts(run_dir) == ["checkpoint_00005"]  # saveckpt_freq=0: the final one only
+    assert (run_dir / "profile" / "trace_00002.json").exists()
+    assert sorted(p.name for p in (run_dir / "buffer_maps").glob("*.npy")) == [
+        "buffer_00003.npy", "buffer_00005.npy"]
+    results = json.loads((run_dir / "metrics_all_5.json").read_text())
+    assert np.isfinite(results["lowres/psnr"])
+    assert np.isfinite(results["lidar/depth_rmse"])
+    assert (run_dir / "metrics_lowres_5.json").exists()
+
+    os.remove(run_dir / "metrics_all_5.json")
+    again = main(_argv(tmp_path, "r", "--eval_only") + TINY_OVERRIDES + extra)
+    assert again.cfg.resume_from.endswith("checkpoint_00005") and again.state.step == 5
+    rerun = json.loads((run_dir / "metrics_all_5.json").read_text())
+    assert rerun["lowres/psnr"] == pytest.approx(results["lowres/psnr"], rel=1e-6)
+
+
+def test_cli_eval_only_needs_a_checkpoint(tmp_path):
+    with pytest.raises(FileNotFoundError, match="needs a checkpoint"):
+        main(_argv(tmp_path, "none", "--eval_only") + TINY_OVERRIDES)
+
+
+def test_cli_auto_resume_continues_and_keeps_checkpointing(tmp_path):
+    """--auto_resume resumes from the newest checkpoint and keeps periodic
+    saves on; a hand-set resume_from never saves a periodic one (the
+    reference's quirk), only the final checkpoint."""
+    base = TINY_OVERRIDES + NO_EVAL + ["logging.print_freq=2"]
+    main(_argv(tmp_path, "ar") + base + ["optim.num_iters=2"])
+    run_dir = tmp_path / "p" / "ar"
+    assert _ckpts(run_dir) == ["checkpoint_00003"]
+    more = ["optim.num_iters=5", "logging.saveckpt_freq=4"]
+    t = main(_argv(tmp_path, "ar", "--auto_resume") + base + more)
+    assert t.start_step == 3 and t.state.step == 6
+    assert _ckpts(run_dir) == ["checkpoint_00003", "checkpoint_00005", "checkpoint_00006"]
+    # --auto_resume with an empty run directory starts from scratch
+    fresh = main(_argv(tmp_path, "new", "--auto_resume") + base + ["optim.num_iters=0"])
+    assert fresh.start_step == 0 and _ckpts(tmp_path / "p" / "new") == ["checkpoint_00001"]
+
+    hand = f"resume_from={run_dir / 'checkpoint_00003'}"
+    t = main(_argv(tmp_path, "hand") + base + more + [hand])
+    assert t.start_step == 3
+    assert _ckpts(tmp_path / "p" / "hand") == ["checkpoint_00006"]
+
+
+def _tiny_trainer(tmp_path, *overrides):
+    cfg = flagship_config(tiny=True, overrides=["optim.num_iters=50", "logging.print_freq=10",
+                                                "logging.saveckpt_freq=0", *overrides])
+    return Trainer(cfg, str(tmp_path), device="cpu", flow=flagship_flow_spec(tiny=True))
+
+
+def test_preemption_saves_checkpoint_and_exits_cleanly(tmp_path, monkeypatch, _signal_handlers):
+    """The first SIGTERM lets the in-flight iteration finish, saves
+    checkpoint_{step}, restores the previous handlers and returns."""
+    trainer = _tiny_trainer(tmp_path)
+    real = trainer.train_iteration
+    seen = {}
+
+    def signaling_iteration(step):
+        out = real(step)
+        if step == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+            # restored on first receipt: a second signal acts the old way
+            seen["handler"] = signal.getsignal(signal.SIGTERM)
+        return out
+
+    monkeypatch.setattr(trainer, "train_iteration", signaling_iteration)
+    state = trainer.train()
+    assert trainer.preempted and state.step == 4
+    assert _ckpts(tmp_path) == ["checkpoint_00004"]
+    assert seen["handler"] is _signal_handlers[signal.SIGTERM]
+
+
+def test_nan_tripwire_halts_training_and_restores_handlers(tmp_path, monkeypatch,
+                                                           _signal_handlers):
+    trainer = _tiny_trainer(tmp_path, "optim.check_nan=true", "logging.print_freq=1")
+    real = trainer.train_step
+
+    class PoisonedStep:
+        render_kw = real.render_kw
+
+        def __call__(self, *args):
+            metrics = real(*args)
+            metrics["rgb_loss"] = torch.tensor(float("nan"))
+            return metrics
+
+    monkeypatch.setattr(trainer, "train_step", PoisonedStep())
+    with pytest.raises(RuntimeError, match="Non-finite loss"):
+        trainer.train()
+    for s, h in _signal_handlers.items():
+        assert signal.getsignal(s) is h
+    assert not _ckpts(tmp_path)
+
+
+@pytest.mark.parametrize("flag", ["--visualize_voxel", "--render_data_video",
+                                  "--render_data_video_only"])
+def test_unported_flags_raise(tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        main(_argv(tmp_path, "x", flag) + TINY_OVERRIDES)
+
+
+@pytest.mark.parametrize("key", ["eval.eval_occ", "eval.eval_lidar_flow",
+                                 "render.render_novel_trajectory"])
+def test_unported_settings_raise(key):
+    cfg = flagship_config(tiny=True, overrides=[f"{key}=true"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(cfg, device="cpu", flow=flagship_flow_spec(tiny=True))
+
+
+def test_log_every_reports_wall_clock(tmp_path):
+    """The dumped per-step time is wall clock between prints, not the
+    per-loop average (tests/test_train.py's check, on the port's copy)."""
+    out = tmp_path / "metrics.json"
+    ml = port_logging.MetricLogger(output_file=str(out))
+    n, print_freq, fetch_sleep = 40, 20, 0.2
+    t0 = time.time()
+    for i in ml.log_every(list(range(n)), print_freq):
+        if i % print_freq == print_freq - 1:
+            time.sleep(fetch_sleep)
+    wall_per_step = (time.time() - t0) / n
+    records = [json.loads(x) for x in out.read_text().splitlines()]
+    rec = next(r for r in records if r["iteration"] == 20)
+    assert rec["iter_time"] == pytest.approx(wall_per_step, rel=0.5)
+    assert rec["iter_time"] < fetch_sleep / 2
+    assert "dispatch_time" in rec
+
+
+def test_logging_copy_equals_jax():
+    """utils/logging.py is the JAX package's, but for the logger's name."""
+    for name in ("_GlogFormatter", "setup_logging", "SmoothedValue", "MetricLogger"):
+        ours = inspect.getsource(getattr(port_logging, name))
+        ref = inspect.getsource(getattr(jax_logging, name))
+        assert ours == ref.replace('"emernerf_tpu"', '"emernerf_torch"'), name
+    name = inspect.signature(port_logging.setup_logging).parameters["name"]
+    assert name.default == "emernerf_torch"
+
+
+def test_wandb_init_retries_then_succeeds(tmp_path, monkeypatch):
+    calls = {"n": 0}
+
+    def flaky_init(**kwargs):
+        calls["n"] += 1
+        if calls["n"] < 3:
+            raise ConnectionError("transient")
+
+    fake = types.ModuleType("wandb")
+    fake.init = flaky_init
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    cfg = from_dotlist(["project=test"])
+    assert trainer_mod.init_wandb(cfg, str(tmp_path), retries=10, sleep_s=0.0) is fake
+    assert calls["n"] == 3
+    calls["n"] = 0
+
+    def always_fail(**kwargs):
+        calls["n"] += 1
+        raise ConnectionError("down")
+
+    fake.init = always_fail
+    assert trainer_mod.init_wandb(cfg, str(tmp_path), retries=4, sleep_s=0.0) is None
+    assert calls["n"] == 4
+    # without the package: off at once, no retry
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    assert trainer_mod.init_wandb(cfg, str(tmp_path), retries=4, sleep_s=0.0) is None

@@ -1,0 +1,207 @@
+"""The gather/scatter probes P1-P4 on the CPU: the port's plain versions
+against the JAX package's Pallas TPU kernel bodies run in interpret mode,
+the wrappers' checks, and both probe entry points at tiny sizes.
+
+- P1, P2: ``perf/pallas_experiments.py``'s ``gather_loop_kernel`` and
+  ``gather_take_kernel`` through ``pl.pallas_call(..., interpret=True)``
+  with plain ``BlockSpec``s; the plain gather equals them bit for bit.
+- P3: ``bench_pallas_scatter_rmw``'s body is a closure, so it is written
+  again here (the same per-row read-modify-write into a table-sized
+  scratch); the plain ``index_add_`` sums the same fp32 terms, in index
+  order as the body does: atol 1e-6 x the largest |value| (measured 0).
+- P4: ``case_pallas_onehot``'s body written again (a bf16 one-hot times
+  the bf16 updates, ``dot_general`` with fp32 accumulation, summed over
+  the tiles); the plain ``index_add_`` of the bf16-rounded updates sums the
+  same fp32 terms in another order: atol 1e-5 x the largest |value|, the
+  bound chip_smoke holds the card kernel to.
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from emernerf_torch.ops import gather_scatter as gs
+from emernerf_torch.perf import bench_scatter_alts as bsa
+from emernerf_torch.perf import pallas_experiments as pe
+from perf.pallas_experiments import gather_loop_kernel, gather_take_kernel
+
+TILE = 128  # rows per grid step here (2048 in the probes)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rows(n, t, seed):
+    return np.random.default_rng(seed).integers(0, t, n).astype(np.int32)
+
+
+def _normal(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _jax_gather(body, table, idx):
+    n, (t, w) = idx.shape[0], table.shape
+    return pl.pallas_call(
+        body, out_shape=jax.ShapeDtypeStruct((n, w), table.dtype), grid=(n // TILE,),
+        in_specs=[pl.BlockSpec((TILE,), lambda i: (i,)), pl.BlockSpec((t, w), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((TILE, w), lambda i: (i, 0)), interpret=True)(idx, table)
+
+
+@pytest.mark.parametrize("body", [gather_loop_kernel, gather_take_kernel],
+                         ids=["P1_loop", "P2_take"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_gather_equals_jax_kernel_body(body, dtype):
+    table = _normal((96, 128), 0)
+    idx = _rows(4 * TILE, 96, 1)
+    ref = np.asarray(_jax_gather(body, jnp.asarray(table, dtype), jnp.asarray(idx)))
+    t = torch.from_numpy(table).to(getattr(torch, dtype))
+    for fn in (gs.row_gather_loop, gs.row_gather_take):
+        ours = fn(t, torch.from_numpy(idx))
+        assert ours.dtype == t.dtype
+        np.testing.assert_array_equal(ours.float().numpy(), ref.astype(np.float32))
+
+
+def test_plain_scatter_rmw_matches_jax_kernel_body():
+    n, t, w = 4 * TILE, 64, 128
+    idx, upd = _rows(n, t, 2), _normal((n, w), 3)
+
+    def kernel(idx_ref, upd_ref, out_ref, acc_ref):  # the body of :128
+        @pl.when(pl.program_id(0) == 0)
+        def _():
+            acc_ref[:] = jnp.zeros_like(acc_ref)
+
+        def body(i, _):
+            r = idx_ref[i]
+            acc_ref[r, :] += upd_ref[i, :]
+            return 0
+
+        jax.lax.fori_loop(0, TILE, body, 0)
+
+        @pl.when(pl.program_id(0) == pl.num_programs(0) - 1)
+        def _():
+            out_ref[:] = acc_ref[:]
+
+    ref = np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((t, w), jnp.float32), grid=(n // TILE,),
+        in_specs=[pl.BlockSpec((TILE,), lambda i: (i,)), pl.BlockSpec((TILE, w), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((t, w), lambda i: (0, 0)),
+        scratch_shapes=[pltpu.VMEM((t, w), jnp.float32)], interpret=True)(
+            jnp.asarray(idx), jnp.asarray(upd)))
+    # whole tiles of 2048 rows, as the TPU grid: the plain version itself
+    idx2, upd2 = _rows(2 * gs.TILE, t, 4), _normal((2 * gs.TILE, w), 5)
+    ours = gs.scatter_add_rmw(torch.from_numpy(idx2), torch.from_numpy(upd2), t)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(jnp.zeros((t, w)).at[idx2].add(upd2)),
+                               rtol=0, atol=1e-6 * np.abs(ours.numpy()).max())
+    plain = gs.scatter_add_plain(torch.from_numpy(idx), torch.from_numpy(upd), t).numpy()
+    np.testing.assert_allclose(plain, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("t,w", [(64, 108), (256, 40)])
+def test_plain_scatter_onehot_matches_jax_kernel_body(t, w):
+    tile_n, n = 256, 1024
+    rows, upd = _rows(n, t, 6), _normal((n, w), 7)
+
+    def kernel(rows_ref, upd_ref, out_ref):  # the body of :203
+        i = pl.program_id(0)
+
+        @pl.when(i == 0)
+        def _():
+            out_ref[...] = jnp.zeros_like(out_ref)
+
+        r, u = rows_ref[...], upd_ref[...]
+        iota_t = jax.lax.broadcasted_iota(jnp.int32, (tile_n, t), 1)
+        oh = (r[:, None] == iota_t).astype(jnp.bfloat16)
+        out_ref[...] += jax.lax.dot_general(oh, u.astype(jnp.bfloat16), (((0,), (0,)), ((), ())),
+                                            preferred_element_type=jnp.float32)
+
+    ref = np.asarray(pl.pallas_call(
+        kernel, grid=(n // tile_n,),
+        in_specs=[pl.BlockSpec((tile_n,), lambda i: (i,)),
+                  pl.BlockSpec((tile_n, w), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((t, w), lambda i: (0, 0)),
+        out_shape=jax.ShapeDtypeStruct((t, w), jnp.float32), interpret=True)(
+            jnp.asarray(rows), jnp.asarray(upd)))
+    ours = gs.scatter_add_onehot(torch.from_numpy(rows), torch.from_numpy(upd), t, tile_n)
+    assert ours.dtype == torch.float32 and ours.shape == (t, w)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    # the bf16 rounding of the updates is part of the function
+    exact = gs.scatter_add_plain(torch.from_numpy(rows), torch.from_numpy(upd), t).numpy()
+    assert np.abs(exact - ref).max() > 1e-3 * np.abs(ref).max()
+
+
+def test_wrapper_checks_and_cpu_dispatch():
+    idx, upd = torch.zeros(gs.TILE, dtype=torch.int32), torch.ones(gs.TILE, 8)
+    with pytest.raises(ValueError, match="whole tiles"):
+        gs.scatter_add_rmw(idx[:-1], upd[:-1], 4)
+    with pytest.raises(ValueError, match="float32"):
+        gs.scatter_add_rmw(idx, upd.bfloat16(), 4)
+    with pytest.raises(ValueError, match="int32"):
+        gs.scatter_add_rmw(idx.long(), upd, 4)
+    with pytest.raises(ValueError, match="tile_n"):
+        gs.scatter_add_onehot(idx, upd, 4, tile_n=100)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gs.row_gather_loop(upd.double(), idx)
+    with pytest.raises(ValueError, match="int32"):
+        gs.row_gather_take(upd, idx[:, None])
+    fns = (gs.row_gather_loop, gs.row_gather_take, gs.scatter_add_rmw, gs.scatter_add_onehot)
+    before = [fn.launches for fn in fns]
+    gs.row_gather_loop(upd, idx)
+    gs.row_gather_take(upd, idx)
+    assert torch.equal(gs.scatter_add_rmw(idx, upd, 4)[0], torch.full((8,), float(gs.TILE)))
+    gs.scatter_add_onehot(idx, upd, 4)
+    assert [fn.launches for fn in fns] == before  # the plain versions launch nothing
+
+
+_PE_LINE = re.compile(r"^(.{45}) +\d+\.\d Mrows/s +\d+\.\d\d ms$")
+_BSA_LINE = re.compile(r"^\S.*? +\d+\.\d\d ms +\d+\.\d Mrows/s +\d+\.\d GB/s\(upd\)$")
+
+
+@pytest.mark.parametrize("only", ["g1 loop-gather t=2^14", "g1 loop-gather t=2^15", "g2", "s1"])
+def test_pallas_experiments_entry_point_on_cpu(only, monkeypatch, capsys):
+    monkeypatch.setattr(pe, "N_QUICK", 2 * gs.TILE)
+    monkeypatch.setattr(pe, "ITERS", 1)
+    pe.main(["--device", "cpu", "--quick", "--only", only])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1 and _PE_LINE.match(lines[0]), lines
+    assert lines[0].startswith(only)
+
+
+# lines each --case prints, as perf/bench_scatter_alts.py's main
+_BSA_CASES = {"base": 3, "width": 4, "sorted": 4, "merged": 1, "onehot": 3, "onehot2": 5,
+              "pallas": 4, "sub": 3}
+
+
+@pytest.mark.parametrize("case", sorted(_BSA_CASES))
+def test_bench_scatter_alts_entry_point_on_cpu(case, monkeypatch, capsys):
+    monkeypatch.setattr(bsa, "N", gs.TILE)
+    monkeypatch.setattr(bsa, "NW", gs.TILE)
+    bsa.main(["--device", "cpu", "--case", case, "--iters", "1"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == _BSA_CASES[case] and all(_BSA_LINE.match(x) for x in lines), lines
+    if case == "pallas":
+        assert all(x.startswith("pallas_onehot N=2048 ") for x in lines)
+
+
+def test_onehot_matmul_is_the_scatter_add_of_bf16_updates():
+    rows, upd = bsa.make_inputs(1024, 96, 40, torch.device("cpu"))
+    torch.testing.assert_close(bsa.onehot_matmul(rows, upd, 96, chunk=300),
+                               gs.scatter_add_onehot_plain(rows, upd, 96), rtol=0, atol=1e-5)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pe.main(["--quick"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bsa.main(["--case", "pallas"])

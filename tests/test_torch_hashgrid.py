@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from test_ops import _hashgrid_oracle
+from test_torch_brickgrid import bf16_ulp
 
 from emernerf_tpu import builders as jax_builders
 from emernerf_tpu.ops import hashgrid as jhg
@@ -187,6 +188,26 @@ def test_bf16_table_rounds_once():
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, hashgrid_encode_plain(t.bfloat16().float(), torch.from_numpy(pos),
                                                   tspec).bfloat16())
+
+
+@pytest.mark.parametrize("d,f", CASES)
+def test_bf16_within_rounding_of_jax(d, f):
+    """bf16 tables: the port sums the 2^D corners in fp32 and rounds once;
+    JAX casts the weights to bf16 and sums the corner products in bf16
+    (queue 3, "bf16 accumulation", by design).  The bound of
+    tests/test_torch_brickgrid.py, (2^D / 2 + 2) bf16 ulps of
+    s = sum_c w_c |f_c| per output; measured: 1 ulp."""
+    tspec, jspec, table, pos, _ = _inputs(d, f, 20 + 10 * d + f)
+    t16, x = torch.from_numpy(table).bfloat16(), torch.from_numpy(pos)
+    ours = hashgrid_encode(t16, x, tspec)
+    ref = np.asarray(jhg.hashgrid_encode(jnp.asarray(table, jnp.bfloat16), jnp.asarray(pos),
+                                         jspec))
+    assert ours.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    ours, ref = ours.float().numpy(), ref.astype(np.float32)
+    s = hashgrid_encode_plain(t16.float().abs(), x, tspec).numpy()
+    ulps = np.abs(ours - ref) / bf16_ulp(s)
+    assert ulps.max() <= 2 ** d / 2 + 2, ulps.max()
+    assert (ulps > 0).any()
 
 
 def test_wrapper_checks_and_non_cuda_devices():

@@ -33,12 +33,16 @@ Phases (any failure exits non-zero; nothing is skipped):
   3 (K4). the hash-grid kernel, forward and backward, against its plain
      versions at the grids and shapes of one 8,192-ray pixel branch of the
      reference-hash flagship (configs/reference_semantics.yaml with
-     nerf.model.grid_backend=hash), in bf16 and fp32;
+     nerf.model.grid_backend=hash), in bf16 and fp32, at uniform random
+     positions; then the backward in bf16 on ray-ordered samples (8,192
+     rays through the unit cube; the dynamic grid's 3N batch and the flow
+     grid's warped 2N), with each level's distinct rows per warp;
   6. train: Trainer trains the full-width reference-hash flagship (bf16
      default dtypes, seed 0): 3 warm-up and 8 timed iterations, then
      iterations 2000 and 2001.  Every loss finite, every parameter changed,
      K4's counters above 0 and K1's unmoved; ms/iteration, rays/s, peak
-     memory and a torch.profiler table (chiprun_out/profile_train_hash.json);
+     memory and a torch.profiler table (chiprun_out/profile_train_hash.json)
+     with K4 backward's share of the device time;
   6b. eval: 2 images of that model through ImageRenderer: finite maps, K4's
      forward counter above 0, K1's unmoved;
   6c. one fp32 training step of the tiny reference-hash flagship, card vs
@@ -50,6 +54,8 @@ Phases (any failure exits non-zero; nothing is skipped):
      version (P1, P2 bit for bit; P3, P4 within 1e-5 of the largest |value|)
      with kernel, plain and library times (index_select / index_add_, and
      for P4 the chunked one-hot torch.matmul), rows/s, GB/s and the bound;
+     for P4 also the route the wrapper takes (gather_scatter.cu), bound /
+     time and the route's kernel-only device time;
   8. the training CLI (emernerf_torch.train_emernerf.main) on the full-width
      brick flagship in a temporary run directory: a few iterations with a
      periodic checkpoint, SIGTERM during an iteration (the preemption
@@ -97,6 +103,11 @@ HASH_TINY_FP32 = TINY_FP32[:4]
 # rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# K4 backward's kernels by name in a profiler table: the scatter and its
+# transpose-and-cast pass (kernels/csrc/hashgrid.cu)
+K4_BACKWARD_KERNELS = ("hashgrid_backward_kernel", "transpose_cast_kernel")
+# P4's kernels (kernels/csrc/gather_scatter.cu), both routes
+P4_KERNELS = ("scatter_shared_table_kernel", "scatter_red_kernel")
 
 
 def fail(msg: str):
@@ -205,6 +216,45 @@ def hash_touched(spec, pos) -> int:
     n = sum(int(torch.unique(torch.cat(_level_geometry(x, spec, lvl, consts)[0])).numel())
             for lvl in range(spec.n_levels))
     return n * spec.n_features_per_level
+
+
+def warp_rows(spec, pos):
+    """Per level, the mean over warps (32 consecutive points) and corners
+    of (distinct rows, runs of equal rows in neighbouring lanes) among the
+    32 lanes: K4 backward issues one atomic per run."""
+    from emernerf_torch.ops.hashgrid import _level_geometry, level_constants
+
+    consts = level_constants(spec)
+    x = pos.reshape(-1, spec.n_input_dims)
+    x = x[:x.shape[0] // 32 * 32]
+    out = []
+    for lvl in range(spec.n_levels):
+        rows = torch.stack(_level_geometry(x, spec, lvl, consts)[0]).reshape(-1, 32)
+        runs = 1 + (rows[:, 1:] != rows[:, :-1]).sum(1)
+        srt = torch.sort(rows, 1)[0]
+        distinct = 1 + (srt[:, 1:] != srt[:, :-1]).sum(1)
+        out.append((float(distinct.float().mean()), float(runs.float().mean())))
+    return out
+
+
+def ray_batches(dev, g, n_rays, n_samples):
+    """Positions of n_rays x n_samples samples along straight rays through
+    the unit cube, ray-major, as the fields stack them: 3D (N, 3); and the
+    4D (3N, 4) dynamic batch [current; +warp; -warp] (each ray at its own
+    time, warped by a per-ray displacement and one frame of 8 in time),
+    whose last two thirds are the flow grid's 2N batch."""
+    start = torch.rand((n_rays, 1, 3), device=dev, generator=g)
+    end = torch.rand((n_rays, 1, 3), device=dev, generator=g)
+    start[..., 0], end[..., 0] = 0.0, 1.0
+    s = torch.linspace(0.0, 1.0, n_samples, device=dev)[None, :, None]
+    xyz = start + s * (end - start)
+    t = torch.rand((n_rays, 1, 1), device=dev, generator=g).expand(-1, n_samples, 1)
+    shift = (torch.rand((n_rays, 1, 3), device=dev, generator=g) - 0.5) * 0.04
+    cur = torch.cat([xyz, t], -1)
+    fwd = torch.cat([(xyz + shift).clamp(0, 1), (t + 1 / 8).clamp(0, 1)], -1)
+    bwd = torch.cat([(xyz - shift).clamp(0, 1), (t - 1 / 8).clamp(0, 1)], -1)
+    return (xyz.reshape(-1, 3).contiguous(),
+            torch.cat([cur, fwd, bwd]).reshape(-1, 4).contiguous())
 
 
 def grid_ops(spec, n: int, backward: bool, pos_grad: bool) -> float:
@@ -602,8 +652,45 @@ def phase_hash_kernels(dev, kernels_entries):
             add_entry(kernels_entries, tag, "hashgrid.cu", "emernerf_tpu/ops/hashgrid.py:415",
                       hashgrid_encode_bwd, mx, ms, plain_ms, n_bytes,
                       grid_ops(spec, n, True, pos_grad), path="hash")
+            if pos_grad:  # the share of the position gradient's table re-read
+                kernels_entries[-1]["table_grad_only_ms"] = cuda_ms(
+                    lambda: hashgrid_encode_bwd(table, pos, cot, spec, False), 5)
+                print(f"  {tag}: without the position gradient "
+                      f"{kernels_entries[-1]['table_grad_only_ms']:.3f} ms")
             del out, ref, got, want
         del pos, table32, cot32, table, cot
+        torch.cuda.empty_cache()
+
+    # the same grids on ray-ordered samples (8,192 rays; the dynamic grid's
+    # 3N batch, the flow grid's warped 2N), bf16 as the flagship trains:
+    # the warp merge of K4 backward at work
+    print(f"phase 3 (K4, rays): K4 backward on ray-ordered samples of {N_TRAIN} rays, bf16")
+    xyz, xyzt = ray_batches(dev, g, N_TRAIN, NUM_SAMPLES)
+    rays = {"static": (xyz, False), "dynamic": (xyzt, True),
+            "flow": (xyzt[n_pts:].contiguous(), True),
+            "prop0": (ray_batches(dev, g, N_TRAIN, PROP_SAMPLES[0])[0], False),
+            "prop1": (ray_batches(dev, g, N_TRAIN, PROP_SAMPLES[1])[0], False)}
+    del xyz, xyzt
+    for name, (pos, pos_grad) in rays.items():
+        spec, n = specs[name], pos.shape[0]
+        stats = warp_rows(spec, pos)
+        print(f"  {name}: per level, distinct rows / runs of equal rows per warp and corner "
+              f"(of 32 lanes): " + ", ".join(f"{d:.1f}/{r:.1f}" for d, r in stats))
+        table = (torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1).bfloat16()
+        cot = torch.randn((n, spec.n_output_dims), device=dev, generator=g).bfloat16()
+        tag = f"hashgrid_encode_bwd[{name}{',pos_grad' if pos_grad else ''},rays,bf16,N={n}]"
+        got = hashgrid_encode_bwd(table, pos, cot, spec, pos_grad)
+        want = hashgrid_encode_bwd_plain(table, pos, cot, spec, pos_grad)
+        mx = check(tag + ".d_table", got[0], want[0], 2 ** -7, 1e-5)
+        if pos_grad:
+            mx = max(mx, check(tag + ".d_pos", got[1], want[1], 1e-5, 1e-6))
+        ms = cuda_ms(lambda: hashgrid_encode_bwd(table, pos, cot, spec, pos_grad), 5)
+        plain_ms = cuda_ms(lambda: hashgrid_encode_bwd_plain(table, pos, cot, spec, pos_grad), 2)
+        touched = hash_touched(spec, pos) * table.element_size() if pos_grad else 0
+        add_entry(kernels_entries, tag, "hashgrid.cu", "emernerf_tpu/ops/hashgrid.py:415",
+                  hashgrid_encode_bwd, mx, ms, plain_ms, nbytes(pos, cot, *got) + touched,
+                  grid_ops(spec, n, True, pos_grad), path="hash")
+        del got, want, table, cot
         torch.cuda.empty_cache()
 
 
@@ -730,7 +817,11 @@ def _losses(metrics):
 
 
 def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5",
-                profile_file="profile_train.json"):
+                profile_file="profile_train.json", shares=()):
+    """Trains the full-width flagship of ``profile`` through Trainer;
+    returns (launches, ms/iteration, rays/s, peak GiB, {label: share of the
+    profiled device time}) for each (label, kernel-name substrings) of
+    ``shares``."""
     from emernerf_torch.flagship import DEFAULT_PROFILE, flagship_config
     from emernerf_torch.train.trainer import Trainer
 
@@ -769,7 +860,11 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
     history.append(trainer.train_iteration(2001))
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
-    profile_train(trainer, 2002, ms, profile_file)
+    rows, busy = profile_train(trainer, 2002, ms, profile_file)
+    share = {}
+    for what, keys in shares:
+        share[what] = sum(t for k, t, _ in rows if any(x in k for x in keys)) / 2 / busy
+        print(f"  {what}: {share[what]:.1%} of the device time (kernels {', '.join(keys)})")
     rays = 2 * trainer.ray_batch_size
     print(f"  {ms:.2f} ms/iteration (mean over {n_timed} timed iterations), "
           f"{rays / ms * 1e3:.1f} rays/s (pixel + lidar), peak device memory {peak:.2f} GiB")
@@ -792,7 +887,7 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
     _check_launches(launches, {fn.__name__ for fn in zero}, "training run")
     del trainer, params, before
     torch.cuda.empty_cache()
-    return launches, ms, rays / ms * 1e3, peak
+    return launches, ms, rays / ms * 1e3, peak, share
 
 
 def profile_train(trainer, step, ms_iter, file_name):
@@ -823,6 +918,7 @@ def profile_train(trainer, step, ms_iter, file_name):
                        profiled_wall_ms_per_iteration=wall_ms / 2,
                        rows=[dict(name=k, ms_per_iteration=t / 2, count=n) for k, t, n in rows]),
                   f, indent=1)
+    return rows, busy
 
 
 def phase_train_fp32(dev, profile=None, overrides=TINY_FP32, label="phase 5b"):
@@ -892,6 +988,21 @@ def phase_train_fp32(dev, profile=None, overrides=TINY_FP32, label="phase 5b"):
           f"{worst:.3e} x the tensor's max |grad|")
 
 
+def kernel_device_ms(fn, keys, iters=10) -> float:
+    """Device time per call of fn() spent in kernels whose names contain one
+    of keys (torch.profiler, CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if any(k in e.key for k in keys)) / iters / 1e3
+
+
 def phase_probes(dev, entries):
     """P1-P4: both probe entry points at their full sizes (the launches of
     the probe path), then each kernel against its plain version at every
@@ -937,8 +1048,8 @@ def phase_probes(dev, entries):
         del table, idx
         torch.cuda.empty_cache()
 
-    # P3 and P4: fp32 sums in another order (atomics, tensor cores) than
-    # index_add_'s: within 1e-5 of the largest |value|
+    # P3 and P4: fp32 sums in another order (atomics) than index_add_'s:
+    # within 1e-5 of the largest |value|
     t = 1 << 13
     idx = pe.make_indices(n, t, dev)
     upd = torch.randn((n, 128), device=dev, generator=torch.Generator(device=dev).manual_seed(2))
@@ -954,19 +1065,30 @@ def phase_probes(dev, entries):
     nn = bench_scatter_alts.N
     for t, w, tile_n in bench_scatter_alts.PALLAS_SHAPES:
         rows, upd = bench_scatter_alts.make_inputs(nn, t, w, dev)
+        route = gs.p4_plan(t, w)
         tag = f"scatter_add_onehot[T={t},W={w},tile_n={tile_n},N={nn}]"
         out = gs.scatter_add_onehot(rows, upd, t, tile_n)
         mx = check(tag, out, gs.scatter_add_onehot_plain(rows, upd, t), 0.0, 1e-5)
         upd_bf = upd.bfloat16().float()
         matmul_ms = cuda_ms(lambda: bench_scatter_alts.onehot_matmul(rows, upd, t), 5)
         print(f"  {tag}: library one-hot torch.matmul (bf16, fp32 sums) {matmul_ms:.3f} ms")
+        print(f"  {tag}: route {route} (table {4 * t * w} bytes, shared memory "
+              f"{gs.SMEM_BYTES})")
         # the bound of the work, a scatter-add of these rows, not of the
-        # route's 2*T*N*W one-hot FLOPs
+        # one-hot product's 2*T*N*W FLOPs
         add(tag, gs.scatter_add_onehot, "perf/bench_scatter_alts.py:196", mx,
             lambda: gs.scatter_add_onehot(rows, upd, t, tile_n),
             lambda: gs.scatter_add_onehot_plain(rows, upd, t),
             lambda: torch.zeros((t, w), device=dev).index_add_(0, rows, upd_bf), nn,
-            nbytes(rows, upd, out), float(nn * w), {"library_onehot_matmul_ms": matmul_ms})
+            nbytes(rows, upd, out), float(nn * w),
+            {"library_onehot_matmul_ms": matmul_ms, "p4_route": route})
+        e = entries[-1]
+        e["kernel_only_ms"] = kernel_device_ms(
+            lambda: gs.scatter_add_onehot(rows, upd, t, tile_n), P4_KERNELS)
+        print(f"  {tag}: route {route}: bound_ms / ms = {e['bound_ms'] / e['ms']:.3f}; "
+              f"index_add_ / ms = {e['library_ms'] / e['ms']:.2f}; the route's kernels "
+              f"{e['kernel_only_ms']:.4f} ms of the call's {e['ms']:.4f} ms (the rest: the range "
+              "check's aminmax and host sync, the zeroed output)")
         del rows, upd, out, upd_bf
     torch.cuda.empty_cache()
     return launches
@@ -1179,12 +1301,12 @@ def main():
     phase_fp32_chunk(dev)
     shared = forward + (composite_along_rays_bwd, interlevel_loss, interlevel_loss_bwd,
                         adam_update)
-    launches, ms_iter, train_rays_per_s, peak = phase_train(dev, brick + shared, zero=hashed)
+    launches, ms_iter, train_rays_per_s, peak, _ = phase_train(dev, brick + shared, zero=hashed)
     phase_train_fp32(dev)
     # the reference-hash profile: K4 in place of K1
-    hash_launches, hash_ms, hash_rays_per_s, hash_peak = phase_train(
+    hash_launches, hash_ms, hash_rays_per_s, hash_peak, hash_share = phase_train(
         dev, hashed + shared, zero=brick, profile=REFERENCE_HASH, n_timed=8, label="phase 6",
-        profile_file="profile_train_hash.json")
+        profile_file="profile_train_hash.json", shares=[("K4 backward", K4_BACKWARD_KERNELS)])
     _, hash_eval_rays_per_s = phase_slice(dev, (hashgrid_encode,) + forward, zero=brick,
                                           profile=REFERENCE_HASH, label="phase 6b")
     phase_train_fp32(dev, REFERENCE_HASH, HASH_TINY_FP32, label="phase 6c")
@@ -1201,7 +1323,8 @@ def main():
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
           f"{train_rays_per_s:.1f} rays/s, peak {peak:.2f} GiB on {card_line}")
     print(f"reference-hash: eval {hash_eval_rays_per_s:.1f} rays/s; train {hash_ms:.2f} "
-          f"ms/iteration, {hash_rays_per_s:.1f} rays/s, peak {hash_peak:.2f} GiB on {card_line}")
+          f"ms/iteration, {hash_rays_per_s:.1f} rays/s, peak {hash_peak:.2f} GiB, K4 backward "
+          f"{hash_share['K4 backward']:.1%} of device time on {card_line}")
     print(f"CLI (brick): {cli_ms:.2f} ms/iteration on {card_line}")
     print(json.dumps({"kernels": report}))
     print(card_line)

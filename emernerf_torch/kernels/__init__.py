@@ -57,17 +57,19 @@ _SIGNATURES = {
     # table (F, L*T), table_is_bf16, positions, out, n_points, params (host
     # struct), stream
     "emt_hashgrid_encode": (_P, _I, _P, _P, _L, _P, _P),
-    # table, table_is_bf16, positions, grad_out, d_table (fp32), d_pos|NULL,
-    # n_points, params (host struct), stream
-    "emt_hashgrid_backward": (_P, _I, _P, _P, _P, _P, _L, _P, _P),
+    # table, table_is_bf16, positions, grad_out, scratch (zeroed fp32 (L*T,
+    # F)), d_table ((F, L*T) in the table's dtype), d_pos|NULL, n_points,
+    # params (host struct), stream
+    "emt_hashgrid_backward": (_P, _I, _P, _P, _P, _P, _P, _L, _P, _P),
     # table, elem_bytes (4 or 2), idx (int32), out, n, w, stream
     "emt_gather_loop": (_P, _I, _P, _P, _L, _I, _P),
     # table, idx (int32), out, n, row_bytes, stream
     "emt_gather_take": (_P, _P, _P, _L, _I, _P),
     # idx (int32), upd (fp32), out (zeroed fp32), n, w, stream
     "emt_scatter_rmw": (_P, _P, _P, _L, _I, _P),
-    # rows (int32), upd (fp32), out (zeroed fp32), n, t, w, tile_n, stream
-    "emt_scatter_onehot": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # rows (int32), upd (fp32), out (zeroed fp32), n, t, w, tile_n,
+    # shared_table, stream
+    "emt_scatter_onehot": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
 }
 
 

@@ -12,15 +12,15 @@
 //   P4 perf/bench_scatter_alts.py:196 case_pallas_onehot (body :203):
 //      out = onehot(rows)^T . bf16(upd), bf16 operands, fp32 accumulation.
 // They measure the row gather and scatter-add rates that the grid encoders
-// (K1, K4) live on: P3's atomics are K4 backward's, P4 asks whether a
-// tensor-core one-hot product beats atomics for small tables.
+// (K1, K4) live on: P3's atomics are K4 backward's; P4 (the TPU's one-hot
+// MXU product) sizes a scatter-add that accumulates in on-chip memory.
 //
 // What bounds it on the H100: bytes.  A gather writes n rows and reads the
 // indices and, at least once, the table; a scatter-add reads n rows and
 // indices and writes the table.  Their arithmetic (none, or n*w adds) is
-// far below the fp32 rate.  P4's one-hot product does 2*T*n*w tensor-core
-// FLOPs for n*w adds of work: its route, not its work, can make it
-// operation-bound.
+// far below the fp32 rate.  A one-hot product would do 2*T*n*w tensor-core
+// FLOPs for P4's n*w adds of work (a WMMA version of it took time in T, not
+// in bytes), so P4 here adds and multiplies nothing.
 //
 // Design.  On the TPU the "fast memory" that holds the 4-8 MiB tables of
 // P1-P3 is VMEM; on Hopper it is the 50 MB L2, not shared memory (at most
@@ -33,17 +33,22 @@
 //       vector loads and stores.
 //   P3: one thread per update element, atomicAdd into a zeroed fp32
 //       table (the wrapper zeroes it).
-//   P4: a block owns a 128 x 64 tile of the (T, W) output and a range of
-//       whole row tiles.  Per step of 64 update rows it stages the rows'
-//       one-hot (128 x 64, bf16, set and cleared entry by entry) and the
-//       bf16-rounded update tile (64 x 64, columns past W zero-padded) in
-//       shared memory; 8 warps each multiply their 16 output rows with
-//       WMMA bf16 16x16x16 fragments, accumulating in fp32 registers.  At
-//       the end the partial tile is atomically added into the output.
+//   P4: no one-hot product: the scatter-add itself, at N*W adds, reading
+//       each update byte once.  Where the fp32 (T, W) table fits one
+//       block's shared memory ((512, 108) is 221,184 of the 232,448
+//       bytes), one block per SM takes a range of whole tiles of update
+//       rows, one warp per row, lanes across the columns, rounds each value
+//       to bf16 and adds it into its own copy of the table with
+//       shared-memory atomics; then it flushes the copy with coalesced
+//       global atomics (blocks x T x W adds, ~3% of N x W).  Larger tables
+//       (up to 7.1 MB, L2-resident) take one vector reduction (atomicAdd on
+//       float4) per 4 columns of an update row straight into the zeroed
+//       table.  Column slabs in shared memory and rows binned by
+//       destination row tile were measured against it and did not win
+//       (PERF.md, P4).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <cstdint>
 
 namespace {
@@ -91,82 +96,123 @@ __global__ void scatter_rmw_kernel(const int* __restrict__ idx, const float* __r
   }
 }
 
-// P4 tile sizes: output rows (8 warps x 16), output columns (4 fragments
-// of 16), update rows per step
-constexpr int kBT = 128, kBW = 64, kBK = 64;
-
-__global__ void __launch_bounds__(kThreads)
-onehot_scatter_kernel(const int* __restrict__ rows, const float* __restrict__ upd,
-                      float* __restrict__ out, long long n, int t, int w,
-                      long long rows_per_block, int w_blocks) {
-  using namespace nvcuda;
-  // one-hot A (kBT x kBK bf16, 16 KB) and update tile B (kBK x kBW bf16,
-  // 8 KB); the fp32 partial C (kBT x kBW, 32 KB) reuses the same bytes at
-  // the end
-  __shared__ __align__(128) unsigned char smem[kBT * kBW * sizeof(float)];
-  __shared__ int s_rows[kBK];
-  __nv_bfloat16* A = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* B = A + kBT * kBK;
-  float* C = reinterpret_cast<float*>(smem);
-
-  const int t0 = (blockIdx.x / w_blocks) * kBT;
-  const int w0 = (blockIdx.x % w_blocks) * kBW;
-  const long long n0 = static_cast<long long>(blockIdx.y) * rows_per_block;
-  const long long n1 = n0 + rows_per_block < n ? n0 + rows_per_block : n;
-  const int warp = threadIdx.x >> 5;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f), one = __float2bfloat16_rn(1.f);
-
-  for (int e = threadIdx.x; e < kBT * kBK; e += kThreads) A[e] = zero;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBW / 16];
-  for (int f = 0; f < kBW / 16; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  for (long long k0 = n0; k0 < n1; k0 += kBK) {
-    // column threadIdx.x of A is only ever written by thread threadIdx.x
-    if (threadIdx.x < kBK) {
-      const long long r = k0 + threadIdx.x;
-      s_rows[threadIdx.x] = r < n1 ? rows[r] - t0 : -1;
-    }
-    for (int e = threadIdx.x; e < kBK * kBW; e += kThreads) {
-      const int kk = e / kBW, c = e % kBW;
-      const long long r = k0 + kk;
-      B[e] = __float2bfloat16_rn(r < n1 && w0 + c < w ? upd[r * w + w0 + c] : 0.f);
-    }
-    __syncthreads();
-    if (threadIdx.x < kBK) {
-      const int row = s_rows[threadIdx.x];
-      if (row >= 0 && row < kBT) A[row * kBK + threadIdx.x] = one;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + warp * 16 * kBK + kk, kBK);
-      for (int f = 0; f < kBW / 16; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + kk * kBW + f * 16, kBW);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < kBK) {
-      const int row = s_rows[threadIdx.x];
-      if (row >= 0 && row < kBT) A[row * kBK + threadIdx.x] = zero;
-    }
-  }
-  __syncthreads();
-  for (int f = 0; f < kBW / 16; ++f)
-    wmma::store_matrix_sync(C + warp * 16 * kBW + f * 16, acc[f], kBW, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kBT * kBW; e += kThreads) {
-    const int r = e / kBW, c = e % kBW;
-    if (t0 + r < t && w0 + c < w)
-      atomicAdd(out + static_cast<long long>(t0 + r) * w + w0 + c, C[e]);
-  }
-}
-
 unsigned grid_stride_blocks(long long total) {
   const long long want = (total + kThreads - 1) / kThreads;
   return static_cast<unsigned>(want < 132 * 32 ? want : 132 * 32);
 }
+
+// P4.
+constexpr int kP4Threads = 1024;
+constexpr int kP4Unroll = 4;  // update rows in flight per warp; 8 spill
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float4 bf16_round(float4 x) {
+  return make_float4(bf16_round(x.x), bf16_round(x.y), bf16_round(x.z), bf16_round(x.w));
+}
+
+__device__ __forceinline__ float component(const float4& v, int q) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+
+// Shared-table kernel: block b adds update rows [b * per_block, ...),
+// rounded to bf16, into its own copy s_tab of the whole (t, w) fp32 table:
+// one warp per update row, kP4Unroll rows in flight, the lanes across the
+// columns (coalesced reads).  Where w % 4 == 0 (upd 16-byte aligned) a
+// lane reads 4 columns at once and adds them in an order rotated by lane /
+// 8, so that the warp's 32 shared atomics of one row hit 32 different
+// banks.  Then the block flushes its copy with coalesced global atomics,
+// each block from its own offset, so that the blocks flushing at once hit
+// different rows.
+__global__ void __launch_bounds__(kP4Threads)
+scatter_shared_table_kernel(const int* __restrict__ rows, const float* __restrict__ upd,
+                            float* __restrict__ out, long long n, int t, int w,
+                            long long per_block) {
+  extern __shared__ float s_tab[];
+  const int count = t * w;
+  for (int e = threadIdx.x; e < count; e += blockDim.x) s_tab[e] = 0.f;
+  __syncthreads();
+  const long long k0 = blockIdx.x * per_block;
+  const long long k1 = k0 + per_block < n ? k0 + per_block : n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const int rot = lane >> 3;
+  for (long long k = k0 + static_cast<long long>(warp) * kP4Unroll; k < k1;
+       k += static_cast<long long>(n_warps) * kP4Unroll) {
+    int src[kP4Unroll], dst[kP4Unroll];  // 32-bit: registers, not the stack
+#pragma unroll
+    for (int u = 0; u < kP4Unroll; ++u) {
+      src[u] = k + u < k1 ? static_cast<int>(k + u) : -1;
+      dst[u] = src[u] >= 0 ? __ldg(rows + src[u]) * w : 0;
+    }
+    if (w % 4 == 0) {
+      for (int c = 4 * lane; c < w; c += 128) {
+        float4 v[kP4Unroll];
+#pragma unroll
+        for (int u = 0; u < kP4Unroll; ++u) {
+          const float* r = upd + static_cast<long long>(src[u]) * w + c;
+          v[u] = src[u] >= 0 ? __ldg(reinterpret_cast<const float4*>(r))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < kP4Unroll; ++u) {
+          if (src[u] < 0) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int q = (j + rot) & 3;
+            atomicAdd(s_tab + dst[u] + c + q, bf16_round(component(v[u], q)));
+          }
+        }
+      }
+    } else {
+      for (int c = lane; c < w; c += 32) {
+        float v[kP4Unroll];
+#pragma unroll
+        for (int u = 0; u < kP4Unroll; ++u)
+          v[u] = src[u] >= 0 ? __ldg(upd + static_cast<long long>(src[u]) * w + c) : 0.f;
+#pragma unroll
+        for (int u = 0; u < kP4Unroll; ++u)
+          if (src[u] >= 0) atomicAdd(s_tab + dst[u] + c, bf16_round(v[u]));
+      }
+    }
+  }
+  __syncthreads();
+  const int shift = (count / gridDim.x / 32 * 32) * blockIdx.x % count;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const int e = i + shift < count ? i + shift : i + shift - count;
+    const float v = s_tab[e];
+    if (v != 0.f) atomicAdd(out + e, v);
+  }
+}
+
+// Reduction kernel: one thread per vector of an update row, one global
+// reduction each into the L2-resident table (V = float4 where w % 4 == 0).
+template <typename V>
+__global__ void scatter_red_kernel(const int* __restrict__ rows, const V* __restrict__ upd,
+                                   V* __restrict__ out, long long n, int wv) {
+  const long long total = n * wv;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < total;
+       e += stride) {
+    const long long i = e / wv;
+    atomicAdd(out + static_cast<long long>(__ldg(rows + i)) * wv + (e - i * wv),
+              bf16_round(__ldg(upd + e)));
+  }
+}
+
+int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+template <typename K>
+cudaError_t allow_shared(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 
 }  // namespace
 
@@ -208,22 +254,34 @@ extern "C" int emt_scatter_rmw(const void* idx, const void* upd, void* out, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// P4.  out: a zeroed fp32 (t, w) table; n a multiple of tile_n (a multiple
-// of 64).  Each block takes whole tiles of tile_n rows, as many as keep
-// about four blocks per SM over the output tiles.
-extern "C" int emt_scatter_onehot(const void* rows, const void* upd, void* out, long long n,
-                                  int t, int w, int tile_n, void* stream) {
-  if (n == 0) return cudaSuccess;
-  const int t_blocks = (t + kBT - 1) / kBT, w_blocks = (w + kBW - 1) / kBW;
-  const long long tiles = n / tile_n;
-  const long long out_blocks = static_cast<long long>(t_blocks) * w_blocks;
-  long long splits = (4 * 132 + out_blocks - 1) / out_blocks;
-  if (splits > tiles) splits = tiles;
-  const long long tiles_per_block = (tiles + splits - 1) / splits;
-  splits = (tiles + tiles_per_block - 1) / tiles_per_block;
-  const dim3 grid(static_cast<unsigned>(out_blocks), static_cast<unsigned>(splits));
-  onehot_scatter_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(rows), static_cast<const float*>(upd), static_cast<float*>(out),
-      n, t, w, tiles_per_block * tile_n, w_blocks);
+// P4.  out: a zeroed fp32 (t, w) table; tile_n > 0; shared_table: whether
+// the table goes through one block's shared memory (4 * t * w bytes at
+// most the opt-in limit, ops/gather_scatter.py:p4_plan), else the global
+// reductions; upd 16-byte aligned.
+extern "C" int emt_scatter_onehot(const void* rows_, const void* upd_, void* out_, long long n,
+                                  int t, int w, int tile_n, int shared_table, void* stream) {
+  if (n == 0 || w == 0) return cudaSuccess;
+  if (n > 0x7fffffffLL || tile_n <= 0) return cudaErrorInvalidValue;  // 32-bit row numbers
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* rows = static_cast<const int*>(rows_);
+  const float* upd = static_cast<const float*>(upd_);
+  float* out = static_cast<float*>(out_);
+  if (shared_table) {  // blocks take whole tiles, one block per SM
+    const size_t smem = sizeof(float) * t * w;
+    const cudaError_t err = allow_shared(scatter_shared_table_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int sms = sm_count();
+    const long long tiles = (n + tile_n - 1) / tile_n;
+    const long long per = (tiles + sms - 1) / sms;
+    const long long blocks = (tiles + per - 1) / per;
+    scatter_shared_table_kernel<<<static_cast<unsigned>(blocks), kP4Threads, smem, s>>>(
+        rows, upd, out, n, t, w, per * tile_n);
+  } else if (w % 4 == 0) {
+    scatter_red_kernel<float4><<<grid_stride_blocks(n * (w / 4)), kThreads, 0, s>>>(
+        rows, reinterpret_cast<const float4*>(upd), reinterpret_cast<float4*>(out), n, w / 4);
+  } else {
+    scatter_red_kernel<float><<<grid_stride_blocks(n * w), kThreads, 0, s>>>(rows, upd, out, n,
+                                                                            w);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,9 @@ repository that reach ``pl.pallas_call``:
 - P3 :func:`scatter_add_rmw` (``:124``): ``out[idx[i]] += upd[i]`` into a
   zeroed fp32 table, whole tiles of 2048 rows only, as the TPU grid;
 - P4 :func:`scatter_add_onehot` (``perf/bench_scatter_alts.py:196``): the
-  same scatter-add as a one-hot product with bf16 operands and fp32
-  accumulation, i.e. of the bf16-rounded updates.
+  function of a one-hot product with bf16 operands and fp32 accumulation,
+  i.e. the scatter-add of the bf16-rounded updates, computed on the card
+  as that scatter-add (:func:`p4_plan` picks its route).
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors (no fallback); each counts its launches.  The
@@ -51,8 +52,8 @@ def _check_rows(name: str, idx: torch.Tensor, n: int = None):
 def _check_range(name: str, idx: torch.Tensor, t: int):
     """On the card, where an index out of range would fault the kernel."""
     if idx.numel():
-        lo, hi = torch.aminmax(idx)
-        if int(lo) < 0 or int(hi) >= t:
+        lo, hi = torch.stack(torch.aminmax(idx)).tolist()  # one host sync
+        if lo < 0 or hi >= t:
             raise ValueError(f"{name}: indices must lie in [0, {t})")
 
 
@@ -140,23 +141,44 @@ def scatter_add_rmw(idx: torch.Tensor, upd: torch.Tensor, t: int) -> torch.Tenso
 scatter_add_rmw.launches = 0
 
 
-def scatter_add_onehot(rows: torch.Tensor, upd: torch.Tensor, t: int,
-                       tile_n: int = TILE) -> torch.Tensor:
-    """P4: ``onehot(rows)^T . bf16(upd)`` (t, w) in fp32, by WMMA bf16
-    tensor-core products on the card.  Takes whole tiles of ``tile_n``
-    rows (a multiple of 64), as the TPU grid."""
-    name = "scatter_add_onehot"
+# P4 on the card (kernels/csrc/gather_scatter.cu): the whole fp32 (t, w)
+# table in one block's shared memory where it fits, else vector global
+# reductions into the L2-resident table ("red")
+SMEM_BYTES = 232_448  # shared memory one H100 block may opt into
+
+
+def _check_onehot(name, rows, upd, tile_n):
     if tile_n <= 0 or tile_n % 64:
         raise ValueError(f"{name}: tile_n must be a positive multiple of 64")
     _check_scatter(name, rows, upd, tile_n)
+
+
+def p4_plan(t: int, w: int) -> str:
+    """P4's route on the card for a (t, w) fp32 table: "shared_table" where
+    it fits one block's shared memory, else "red"."""
+    return "shared_table" if 4 * t * w <= SMEM_BYTES else "red"
+
+
+def scatter_add_onehot(rows: torch.Tensor, upd: torch.Tensor, t: int,
+                       tile_n: int = TILE) -> torch.Tensor:
+    """P4: ``onehot(rows)^T . bf16(upd)`` (t, w) in fp32, i.e. the
+    scatter-add of the bf16-rounded update rows, on the card by the route
+    :func:`p4_plan` picks (no one-hot product).  Takes whole tiles of
+    ``tile_n`` rows (a multiple of 64), as the TPU grid."""
+    name = "scatter_add_onehot"
+    _check_onehot(name, rows, upd, tile_n)
     if kernels.dispatch_device(name, upd) == "cpu":
         return scatter_add_onehot_plain(rows, upd, t)
     kernels.require_cuda_inputs(name, rows, upd)
-    _check_range(name, rows, t)
-    out = torch.zeros((t, upd.shape[1]), dtype=torch.float32, device=upd.device)
-    err = kernels.load().emt_scatter_onehot(rows.data_ptr(), upd.data_ptr(), out.data_ptr(),
-                                            upd.shape[0], t, upd.shape[1], tile_n,
-                                            kernels.stream_ptr(upd.device))
+    n, w = upd.shape
+    if upd.data_ptr() % 16:  # both routes read 16-byte vectors
+        upd = upd.clone()
+    out = torch.zeros((t, w), dtype=torch.float32, device=upd.device)
+    lib = kernels.load()
+    _check_range(name, rows, t)  # last: only the launch waits on its host sync
+    err = lib.emt_scatter_onehot(rows.data_ptr(), upd.data_ptr(), out.data_ptr(), n, t, w,
+                                 tile_n, int(p4_plan(t, w) == "shared_table"),
+                                 kernels.stream_ptr(upd.device))
     kernels.check(err, name)
     scatter_add_onehot.launches += 1
     return out

@@ -33,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from functools import cached_property
+from functools import cache, cached_property
 from typing import List, Tuple
 
 import numpy as np
@@ -241,7 +241,10 @@ class _HashParams(ctypes.Structure):
     ]
 
 
+@cache
 def _kernel_params(spec: HashGridSpec) -> _HashParams:
+    """The kernels' level constants, built once per spec (host time before
+    each launch; the struct is read, never written, by the callers)."""
     scales, strides, uses_hash = level_constants(spec)
     p = _HashParams()
     p.n_levels = spec.n_levels
@@ -304,20 +307,27 @@ def hashgrid_encode_bwd(table: torch.Tensor, positions: torch.Tensor,
     if kernels.dispatch_device(name, table) == "cpu":
         return hashgrid_encode_bwd_plain(table, positions, grad_out, spec, needs_pos_grad)
     grad_out = grad_out.to(table.dtype).contiguous()
+    if grad_out.data_ptr() % 16:  # the kernel loads a point's F values at once
+        grad_out = grad_out.clone()
     params = _cuda_params(name, spec, table, positions, grad_out)
     lib = kernels.load()
     n = positions.numel() // spec.n_input_dims
-    d_table = torch.zeros(spec.table_shape, dtype=torch.float32, device=table.device)
-    d_pos = torch.zeros_like(positions) if needs_pos_grad else None
-    if n > 0:
-        err = lib.emt_hashgrid_backward(
-            table.data_ptr(), int(table.dtype == torch.bfloat16), positions.data_ptr(),
-            grad_out.data_ptr(), d_table.data_ptr(),
-            None if d_pos is None else d_pos.data_ptr(), n, ctypes.addressof(params),
-            kernels.stream_ptr(table.device))
-        kernels.check(err, name)
-        hashgrid_encode_bwd.launches += 1
-    return d_table.to(table.dtype), d_pos
+    if n == 0:
+        return (torch.zeros(spec.table_shape, dtype=table.dtype, device=table.device),
+                torch.zeros_like(positions) if needs_pos_grad else None)
+    f, rows = spec.table_shape
+    # the features-minor fp32 sum, transposed and cast into d_table
+    scratch = torch.zeros((rows, f), dtype=torch.float32, device=table.device)
+    d_table = torch.empty(spec.table_shape, dtype=table.dtype, device=table.device)
+    d_pos = torch.empty_like(positions) if needs_pos_grad else None
+    err = lib.emt_hashgrid_backward(
+        table.data_ptr(), int(table.dtype == torch.bfloat16), positions.data_ptr(),
+        grad_out.data_ptr(), scratch.data_ptr(), d_table.data_ptr(),
+        None if d_pos is None else d_pos.data_ptr(), n, ctypes.addressof(params),
+        kernels.stream_ptr(table.device))
+    kernels.check(err, name)
+    hashgrid_encode_bwd.launches += 1
+    return d_table, d_pos
 
 
 hashgrid_encode_bwd.launches = 0

@@ -1,0 +1,56 @@
+"""Host-side helpers of ``chip_smoke.py`` that size and explain the K4
+backward measurements: the ray-ordered sample batches and the count of
+distinct rows (and runs of equal rows) per warp that K4 backward's warp
+merge acts on."""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from emernerf_torch.ops.hashgrid import HashGridSpec, _level_geometry, level_constants
+
+
+@pytest.mark.parametrize("dims", [3, 4])
+def test_warp_rows_matches_a_count_by_hand(dims):
+    spec = HashGridSpec(n_input_dims=dims, n_levels=3, base_resolution=4, max_resolution=64,
+                        log2_hashmap_size=10, n_features_per_level=2)
+    rng = np.random.default_rng(0)
+    pos = torch.from_numpy(rng.random((100, dims), dtype=np.float32))
+    pos[32:64] = pos[32]  # one warp of equal points: one run per corner
+    pos[64:96:2] = pos[65:96:2]  # pairs of equal neighbours
+    stats = chip_smoke.warp_rows(spec, pos)
+    consts = level_constants(spec)
+    assert len(stats) == spec.n_levels
+    for lvl, (distinct, runs) in enumerate(stats):
+        d, r = [], []
+        for corner in _level_geometry(pos[:96], spec, lvl, consts)[0]:
+            for w in range(3):  # the last 4 points fill no warp
+                seg = corner[32 * w:32 * (w + 1)].tolist()
+                d.append(len(set(seg)))
+                r.append(1 + sum(seg[i] != seg[i - 1] for i in range(1, 32)))
+        assert distinct == pytest.approx(np.mean(d))
+        assert runs == pytest.approx(np.mean(r))
+        assert distinct <= runs
+    # the equal warp: one row per corner on every level
+    one = chip_smoke.warp_rows(spec, pos[32:64])
+    assert all(d == 1.0 and r == 1.0 for d, r in one)
+
+
+def test_ray_batches_are_ray_major_and_stack_the_warped_thirds():
+    g = torch.Generator().manual_seed(0)
+    xyz, xyzt = chip_smoke.ray_batches("cpu", g, 5, 16)
+    assert xyz.shape == (80, 3) and xyzt.shape == (240, 4)
+    assert xyz.is_contiguous() and xyzt.is_contiguous()
+    assert float(xyz.min()) >= 0.0 and float(xyz.max()) <= 1.0
+    assert float(xyzt.min()) >= 0.0 and float(xyzt.max()) <= 1.0
+    rays = xyz.reshape(5, 16, 3)
+    # each ray crosses the cube from x = 0 to x = 1, its samples in order
+    assert torch.all(rays[:, 0, 0] == 0.0) and torch.all(rays[:, -1, 0] == 1.0)
+    assert torch.all(rays[:, 1:, 0] > rays[:, :-1, 0])
+    cur, fwd, bwd = xyzt.reshape(3, 5, 16, 4).unbind(0)
+    assert torch.equal(cur[..., :3], rays)
+    assert torch.all(cur[..., 3] == cur[:, :1, 3])  # one time per ray
+    assert torch.allclose(fwd[..., 3], (cur[..., 3] + 1 / 8).clamp(0, 1))
+    assert torch.allclose(bwd[..., 3], (cur[..., 3] - 1 / 8).clamp(0, 1))
+    assert float((fwd[..., :3] - rays).abs().max()) <= 0.02 + 1e-6

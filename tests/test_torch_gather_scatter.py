@@ -163,6 +163,23 @@ def test_wrapper_checks_and_cpu_dispatch():
     assert [fn.launches for fn in fns] == before  # the plain versions launch nothing
 
 
+@pytest.mark.parametrize("t,w,route", [
+    (512, 108, "shared_table"),  # 221,184 bytes: fits one block's shared memory
+    (4096, 108, "red"),
+    (2048, 432, "red"),
+    (4096, 432, "red"),
+    (538, 108, "shared_table"),  # 232,416 bytes: the largest T that fits
+    (539, 108, "red"),
+    (1, 58_112, "shared_table"),  # exactly SMEM_BYTES
+    (1, 58_113, "red"),
+])
+def test_p4_plan_picks_the_route_by_table_size(t, w, route):
+    """The wrapper's route: the shared-memory table up to SMEM_BYTES, else
+    vector reductions into the L2-resident table."""
+    assert gs.p4_plan(t, w) == route
+    assert (4 * t * w <= gs.SMEM_BYTES) == (route == "shared_table")
+
+
 _PE_LINE = re.compile(r"^(.{45}) +\d+\.\d Mrows/s +\d+\.\d\d ms$")
 _BSA_LINE = re.compile(r"^\S.*? +\d+\.\d\d ms +\d+\.\d Mrows/s +\d+\.\d GB/s\(upd\)$")
 

@@ -316,19 +316,14 @@ def test_hashgrid_kernel_matches_plain(cuda, dims, f, dtype):
         torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-6)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dims,f", [(3, 4), (3, 1), (4, 4), (4, 2)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("pos_grad", [False, True], ids=["table_only", "with_pos_grad"])
-def test_hashgrid_backward_kernel_matches_plain(cuda, dims, f, dtype, pos_grad):
-    spec, table, pos, g = _hash_inputs(cuda, dims, f, dtype, 9)
-    cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda, generator=g).to(dtype)
+def _check_hash_backward(spec, table, pos, cot, pos_grad):
     d_t, d_x = hashgrid_encode_bwd(table, pos, cot, spec, pos_grad)
     r_t, r_x = hashgrid_encode_bwd_plain(table, pos, cot, spec, pos_grad)
     torch.cuda.synchronize()
-    # fp32 atomics in another order than index_add_; bf16 grads round once
-    assert d_t.dtype == dtype
-    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    # fp32 atomics (and warp merges) in another order than index_add_; bf16
+    # grads round once
+    assert d_t.dtype == table.dtype and d_t.shape == r_t.shape
+    rtol = 1e-5 if table.dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(d_t.float(), r_t.float(), rtol=rtol,
                                atol=1e-5 * float(r_t.float().abs().max()))
     if pos_grad:
@@ -336,6 +331,64 @@ def test_hashgrid_backward_kernel_matches_plain(cuda, dims, f, dtype, pos_grad):
         torch.testing.assert_close(d_x, r_x, rtol=1e-6, atol=1e-6 * float(r_x.abs().max()))
     else:
         assert d_x is None and r_x is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f", [(3, 4), (3, 1), (4, 4), (4, 2), (3, 2), (4, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos_grad", [False, True], ids=["table_only", "with_pos_grad"])
+def test_hashgrid_backward_kernel_matches_plain(cuda, dims, f, dtype, pos_grad):
+    spec, table, pos, g = _hash_inputs(cuda, dims, f, dtype, 9)
+    cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda, generator=g).to(dtype)
+    _check_hash_backward(spec, table, pos, cot, pos_grad)
+
+
+def _ray_positions(cuda, g, n_rays, n_samples, dims):
+    """Samples along straight rays through the unit cube, ray-major: each
+    ray from a point on the cube's x = 0 face towards the x = 1 face; a 4D
+    point carries its ray's time."""
+    start = torch.rand((n_rays, 1, 3), device=cuda, generator=g)
+    end = torch.rand((n_rays, 1, 3), device=cuda, generator=g)
+    start[..., 0], end[..., 0] = 0.0, 1.0
+    s = torch.linspace(0.0, 1.0, n_samples, device=cuda)[None, :, None]
+    pts = start + s * (end - start)
+    if dims == 4:
+        t = torch.rand((n_rays, 1, 1), device=cuda, generator=g).expand(-1, n_samples, 1)
+        pts = torch.cat([pts, t], -1)
+    return pts.reshape(-1, dims).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f", [(3, 4), (4, 4), (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hashgrid_backward_kernel_on_ray_ordered_points(cuda, dims, f, dtype):
+    """Ray-major samples: neighbouring lanes share rows on the coarse
+    levels, so the warp merges runs before its atomics."""
+    spec, table, _, g = _hash_inputs(cuda, dims, f, dtype, 13)
+    pos = _ray_positions(cuda, g, 96, 64, dims)
+    cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda, generator=g).to(dtype)
+    _check_hash_backward(spec, table, pos, cot, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_cell", "equal_rows_per_warp", "n_not_multiple_of_32"])
+@pytest.mark.parametrize("dims,f", [(4, 4), (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hashgrid_backward_kernel_worst_contention(cuda, case, dims, f, dtype):
+    """Every point in one coarse cell (every lane of every warp on the same
+    rows of the coarse levels); each warp's 32 points equal (one run of 32
+    on every level); and 1,000 points (a last warp of 8 live lanes).  F = 1
+    also pairs neighbouring corners into one float2 atomic."""
+    spec, table, pos, g = _hash_inputs(cuda, dims, f, dtype, 14)
+    if case == "one_cell":
+        pos = 0.5 + 0.01 * torch.rand(pos.shape, device=cuda, generator=g)
+    elif case == "equal_rows_per_warp":
+        pos = pos[::32].repeat_interleave(32, 0).contiguous()
+    else:
+        pos = pos[:1000].contiguous()
+    cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda, generator=g).to(dtype)
+    for pos_grad in (False, True):
+        _check_hash_backward(spec, table, pos, cot, pos_grad)
 
 
 @pytest.mark.cuda
@@ -372,9 +425,9 @@ def test_row_gather_kernels_match_plain_bit_for_bit(cuda, fn, dtype):
 @pytest.mark.parametrize("t,w,tile_n", [(1 << 13, 128, gs.TILE), (512, 108, 2048),
                                         (4096, 432, 1024), (200, 40, 64)])
 def test_scatter_add_kernels_match_plain(cuda, t, w, tile_n):
-    """P3 (atomics) and P4 (bf16 tensor-core one-hot products) against
-    index_add_: fp32 sums in another order, within 1e-5 of the largest
-    |value|."""
+    """P3 (atomics) and P4 (the scatter-add of bf16-rounded rows, by the
+    route p4_plan picks) against index_add_: fp32 sums in another order,
+    within 1e-5 of the largest |value|."""
     g = torch.Generator(device=cuda).manual_seed(12)
     n = 4 * max(tile_n, gs.TILE)
     rows = torch.randint(0, t, (n,), device=cuda, generator=g, dtype=torch.int32)
@@ -386,6 +439,33 @@ def test_scatter_add_kernels_match_plain(cuda, t, w, tile_n):
         assert fn.launches == before + 1
         ref = plain(rows, upd, t)
         torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+# (t, w, rows): a table that fits shared memory (221,184 bytes), one that
+# does not (259,200 bytes), the largest probe table, every update row on
+# one table row on each side of the limit, w not a multiple of 4
+_P4_CASES = [(512, 108, "random"), (600, 108, "random"), (4096, 432, "random"),
+             (700, 60, "all_equal"), (4096, 432, "all_equal"), (131, 7, "random")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,w,rows_kind", _P4_CASES)
+def test_scatter_onehot_routes_match_plain(cuda, t, w, rows_kind):
+    """P4 by the route p4_plan picks for the table, with several tiles per
+    block (n = 1,024 tiles of 64 rows over the card's blocks), within 1e-5
+    of the largest |value| of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    n = 1024 * 64
+    rows = torch.randint(0, t, (n,), device=cuda, generator=g, dtype=torch.int32)
+    if rows_kind == "all_equal":
+        rows.fill_(t // 2)
+    upd = torch.randn((n, w), device=cuda, generator=g)
+    before = gs.scatter_add_onehot.launches
+    out = gs.scatter_add_onehot(rows, upd, t, 64)
+    assert gs.scatter_add_onehot.launches == before + 1
+    ref = gs.scatter_add_onehot_plain(rows, upd, t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
 
 
 @pytest.mark.cuda

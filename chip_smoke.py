@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; nothing is skipped):
      chunk), the training kernels (K1 and K3 backward, K5 interlevel loss,
      K8 Adam) at the shapes of one 8,192-ray pixel branch and over the
      flagship's parameter list, with max abs/rel error, elements over
-     tolerance and median times of both;
+     tolerance and median times of both; K1 backward also on ray-ordered
+     top-K-like samples (32 per ray; the warped fused queries 16 per ray),
+     its position gradients bit for bit with the plain version and with a
+     second run;
   4. eval: the full-width flagship (default bf16 config, seeded random
      weights) renders 2 images of 160x240 through ImageRenderer.render_split;
      every map must be finite and every forward kernel's launch counter
@@ -25,8 +28,10 @@ Phases (any failure exits non-zero; nothing is skipped):
      line-of-sight loss live, buffered pixel sampling).  Every loss must be
      finite, every parameter must change and every kernel's launch counter
      must be above 0; prints ms/iteration, rays/s and peak memory;
-     It then traces 2 more iterations with torch.profiler (CUDA activity)
-     and writes the device time by kernel to chiprun_out/profile_train.json;
+     It then traces 2 more iterations with torch.profiler (CUDA activity),
+     writes the device time by kernel to chiprun_out/profile_train.json and
+     prints the share of K1 and K4 forward and backward and of the
+     transposes;
   5b. one fp32 training step of the tiny flagship on the card (kernels)
      against the CPU (plain versions), same params, batches and draws:
      every loss and every parameter gradient of both branches;
@@ -34,15 +39,17 @@ Phases (any failure exits non-zero; nothing is skipped):
      versions at the grids and shapes of one 8,192-ray pixel branch of the
      reference-hash flagship (configs/reference_semantics.yaml with
      nerf.model.grid_backend=hash), in bf16 and fp32, at uniform random
-     positions; then the backward in bf16 on ray-ordered samples (8,192
-     rays through the unit cube; the dynamic grid's 3N batch and the flow
-     grid's warped 2N), with each level's distinct rows per warp;
+     positions, with the features-minor copy the forward reads timed alone
+     (features_minor, bit for bit with table.t().contiguous()); then
+     forward and backward in bf16 on ray-ordered samples (8,192 rays
+     through the unit cube; the dynamic grid's 3N batch and the flow grid's
+     warped 2N), with each level's distinct rows per warp;
   6. train: Trainer trains the full-width reference-hash flagship (bf16
      default dtypes, seed 0): 3 warm-up and 8 timed iterations, then
      iterations 2000 and 2001.  Every loss finite, every parameter changed,
      K4's counters above 0 and K1's unmoved; ms/iteration, rays/s, peak
      memory and a torch.profiler table (chiprun_out/profile_train_hash.json)
-     with K4 backward's share of the device time;
+     with the grid kernels' shares of the device time, as in phase 5;
   6b. eval: 2 images of that model through ImageRenderer: finite maps, K4's
      forward counter above 0, K1's unmoved;
   6c. one fp32 training step of the tiny reference-hash flagship, card vs
@@ -103,9 +110,14 @@ HASH_TINY_FP32 = TINY_FP32[:4]
 # rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# K4 backward's kernels by name in a profiler table: the scatter and its
-# transpose-and-cast pass (kernels/csrc/hashgrid.cu)
-K4_BACKWARD_KERNELS = ("hashgrid_backward_kernel", "transpose_cast_kernel")
+# the grid kernels by name in a profiler table (kernels/csrc/brickgrid.cu,
+# hashgrid.cu): the share of each in phases 5 and 6
+GRID_SHARES = (("K1 backward", ("brickgrid_backward_kernel",)),
+               ("K1 forward", ("brickgrid_encode_kernel",)),
+               ("K4 forward", ("hashgrid_encode_kernel",)),
+               ("K4 backward", ("hashgrid_backward_kernel",)),
+               ("transposes (features_minor, transpose_cast)",
+                ("features_minor_kernel", "transpose_cast_kernel")))
 # P4's kernels (kernels/csrc/gather_scatter.cu), both routes
 P4_KERNELS = ("scatter_shared_table_kernel", "scatter_red_kernel")
 
@@ -424,24 +436,45 @@ def phase_train_kernels(dev, kernels_entries):
     specs = flagship_specs()
     print("phase 3 (training): K1 and K3 backward, K5, K8 vs plain versions at the shapes "
           f"of one {N_TRAIN}-ray pixel branch")
-    # K1 backward, bf16 tables as the flagship trains them.  Tolerance: both
-    # sum the same fp32 products in another order (atomics) and round the
-    # table grad once to bf16: rtol 2^-7 (one bf16 ulp) + 1e-5 x max|grad|;
-    # position grads (fp32): rtol 1e-4 + 1e-5 x max|grad|
-    k1 = [("prop0", N_TRAIN * PROP_SAMPLES[0], False), ("prop1", N_TRAIN * PROP_SAMPLES[1], False),
-          ("static", N_TRAIN * SAMPLE_TOPK, False), ("dynflow", N_TRAIN * SAMPLE_TOPK, False),
-          ("dynflow", 2 * N_TRAIN * AGG_TOPK, True)]
-    for name, n, pos_grad in k1:
+    # K1 backward, bf16 tables as the flagship trains them, at uniform
+    # points and on ray-ordered top-K-like samples (32 per ray, ray-major;
+    # the fused grid's warped queries: 16 per ray, the +warp then the -warp
+    # third).  Tolerance: the table gradient sums the same fp32 products in
+    # another order (atomics) and rounds once to bf16: rtol 2^-7 (one bf16
+    # ulp) + 1e-5 x max|grad|; the position gradient repeats the plain
+    # version's operations in its order: bit for bit, and bit for bit
+    # between two runs
+    xyz, xyzt = ray_batches(dev, g, N_TRAIN, SAMPLE_TOPK)
+    warped = ray_batches(dev, g, N_TRAIN, AGG_TOPK)[1][N_TRAIN * AGG_TOPK:]
+    k1 = [("prop0", None, N_TRAIN * PROP_SAMPLES[0], False),
+          ("prop1", None, N_TRAIN * PROP_SAMPLES[1], False),
+          ("static", None, N_TRAIN * SAMPLE_TOPK, False),
+          ("dynflow", None, N_TRAIN * SAMPLE_TOPK, False),
+          ("dynflow", None, 2 * N_TRAIN * AGG_TOPK, True),
+          ("static", xyz, N_TRAIN * SAMPLE_TOPK, False),
+          ("dynflow", xyzt[:N_TRAIN * SAMPLE_TOPK].contiguous(), N_TRAIN * SAMPLE_TOPK, False),
+          ("dynflow", warped.contiguous(), 2 * N_TRAIN * AGG_TOPK, True)]
+    del xyzt
+    for name, rays, n, pos_grad in k1:
         spec = specs[name]
-        pos = torch.rand((n, spec.n_input_dims), device=dev, generator=g)
+        pos = (torch.rand((n, spec.n_input_dims), device=dev, generator=g) if rays is None
+               else rays)
         table = (torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1).bfloat16()
         cot = torch.randn((n, spec.n_output_dims), device=dev, generator=g).bfloat16()
         out = brickgrid_encode_bwd(table, pos, cot, spec, pos_grad)
         ref = brickgrid_encode_bwd_ref(table, pos, cot, spec, pos_grad)
-        tag = f"brickgrid_encode_bwd[{name}{',warped' if pos_grad else ''},bf16,N={n}]"
+        tag = (f"brickgrid_encode_bwd[{name}{',warped' if pos_grad else ''}"
+               f"{',rays' if rays is not None else ''},bf16,N={n}]")
         mx = check(tag + ".d_table", out[0], ref[0], 2 ** -7, 1e-5)
         if pos_grad:
-            mx = max(mx, check(tag + ".d_pos", out[1], ref[1], 1e-4, 1e-5))
+            again = brickgrid_encode_bwd(table, pos, cot, spec, pos_grad)[1]
+            mx = max(mx, float((out[1] - ref[1]).abs().max()))
+            exact, repeat = torch.equal(out[1], ref[1]), torch.equal(out[1], again)
+            print(f"  {tag}.d_pos: bit for bit with the plain version: {exact}; "
+                  f"with a second run: {repeat} (tolerance 0)")
+            if not (exact and repeat):
+                fail(f"{tag}.d_pos: not bit for bit (plain {exact}, second run {repeat})")
+            del again
         ms = cuda_ms(lambda: brickgrid_encode_bwd(table, pos, cot, spec, pos_grad), 5)
         plain_ms = cuda_ms(lambda: brickgrid_encode_bwd_ref(table, pos, cot, spec, pos_grad), 2)
         # positions and cotangent in, the dense table gradient out (and the
@@ -452,6 +485,7 @@ def phase_train_kernels(dev, kernels_entries):
                   brickgrid_encode_bwd, mx, ms, plain_ms, n_bytes,
                   grid_ops(spec, n, True, pos_grad))
         del pos, table, cot, out, ref
+    del xyz, warped, k1
     torch.cuda.empty_cache()
 
     # K3 backward.  Tolerance: reverse suffix scans in another order than
@@ -597,7 +631,8 @@ def phase_hash_kernels(dev, kernels_entries):
     -warp dynamic queries in one 3N batch with position gradients; the flow
     grid's 3N queries likewise), in bf16 and fp32."""
     from emernerf_torch.ops.hashgrid import (
-        hashgrid_encode, hashgrid_encode_bwd, hashgrid_encode_bwd_plain, hashgrid_encode_plain)
+        features_minor, features_minor_plain, hashgrid_encode, hashgrid_encode_bwd,
+        hashgrid_encode_bwd_plain, hashgrid_encode_plain)
 
     specs = hash_specs()
     n_pts = N_TRAIN * NUM_SAMPLES
@@ -639,6 +674,19 @@ def phase_hash_kernels(dev, kernels_entries):
                       hashgrid_encode, mx, ms, plain_ms,
                       nbytes(pos, out) + touched * table.element_size(),
                       grid_ops(spec, n, False, False), path="hash")
+            if spec.n_features_per_level > 1:  # the copy inside that call, alone
+                copy_tag = f"features_minor[{name},{dt},{tuple(table.shape)}]"
+                exact = torch.equal(features_minor(table), features_minor_plain(table))
+                print(f"  {copy_tag}: bit for bit with table.t().contiguous(): {exact}")
+                if not exact:
+                    fail(f"{copy_tag}: kernel and plain version differ")
+                copy_ms = cuda_ms(lambda: features_minor(table), 10)
+                # the plain version is one PyTorch call: also the library's
+                plain_copy_ms = cuda_ms(lambda: features_minor_plain(table), 10)
+                add_entry(kernels_entries, copy_tag, "hashgrid.cu",
+                          "emernerf_tpu/ops/hashgrid.py:408", features_minor, 0.0, copy_ms,
+                          plain_copy_ms, 2 * nbytes(table), 0.0, library_ms=plain_copy_ms,
+                          path="hash")
             tag = f"hashgrid_encode_bwd[{name}{',pos_grad' if pos_grad else ''},{dt},N={n}]"
             got = hashgrid_encode_bwd(table, pos, cot, spec, pos_grad)
             want = hashgrid_encode_bwd_plain(table, pos, cot, spec, pos_grad)
@@ -663,8 +711,10 @@ def phase_hash_kernels(dev, kernels_entries):
 
     # the same grids on ray-ordered samples (8,192 rays; the dynamic grid's
     # 3N batch, the flow grid's warped 2N), bf16 as the flagship trains:
-    # the warp merge of K4 backward at work
-    print(f"phase 3 (K4, rays): K4 backward on ray-ordered samples of {N_TRAIN} rays, bf16")
+    # neighbouring lanes on the same rows, K4 forward's shared sectors and
+    # K4 backward's warp merge at work
+    print(f"phase 3 (K4, rays): K4 forward and backward on ray-ordered samples of {N_TRAIN} "
+          "rays, bf16")
     xyz, xyzt = ray_batches(dev, g, N_TRAIN, NUM_SAMPLES)
     rays = {"static": (xyz, False), "dynamic": (xyzt, True),
             "flow": (xyzt[n_pts:].contiguous(), True),
@@ -678,6 +728,19 @@ def phase_hash_kernels(dev, kernels_entries):
               f"(of 32 lanes): " + ", ".join(f"{d:.1f}/{r:.1f}" for d, r in stats))
         table = (torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1).bfloat16()
         cot = torch.randn((n, spec.n_output_dims), device=dev, generator=g).bfloat16()
+        touched = hash_touched(spec, pos) * table.element_size()
+        tag = f"hashgrid_encode[{name},rays,bf16,N={n}]"
+        with torch.no_grad():
+            out = hashgrid_encode(table, pos, spec)
+            mx, over = compare(tag, out.float(), hashgrid_encode_plain(table, pos, spec).float(),
+                               2 ** -7, 1e-6)
+            if over:
+                fail(f"{tag}: {over} elements over tolerance")
+            ms = cuda_ms(lambda: hashgrid_encode(table, pos, spec), 10)
+            plain_ms = cuda_ms(lambda: hashgrid_encode_plain(table, pos, spec), 3)
+        add_entry(kernels_entries, tag, "hashgrid.cu", "emernerf_tpu/ops/hashgrid.py:408",
+                  hashgrid_encode, mx, ms, plain_ms, nbytes(pos, out) + touched,
+                  grid_ops(spec, n, False, False), path="hash")
         tag = f"hashgrid_encode_bwd[{name}{',pos_grad' if pos_grad else ''},rays,bf16,N={n}]"
         got = hashgrid_encode_bwd(table, pos, cot, spec, pos_grad)
         want = hashgrid_encode_bwd_plain(table, pos, cot, spec, pos_grad)
@@ -686,11 +749,11 @@ def phase_hash_kernels(dev, kernels_entries):
             mx = max(mx, check(tag + ".d_pos", got[1], want[1], 1e-5, 1e-6))
         ms = cuda_ms(lambda: hashgrid_encode_bwd(table, pos, cot, spec, pos_grad), 5)
         plain_ms = cuda_ms(lambda: hashgrid_encode_bwd_plain(table, pos, cot, spec, pos_grad), 2)
-        touched = hash_touched(spec, pos) * table.element_size() if pos_grad else 0
         add_entry(kernels_entries, tag, "hashgrid.cu", "emernerf_tpu/ops/hashgrid.py:415",
-                  hashgrid_encode_bwd, mx, ms, plain_ms, nbytes(pos, cot, *got) + touched,
+                  hashgrid_encode_bwd, mx, ms, plain_ms,
+                  nbytes(pos, cot, *got) + (touched if pos_grad else 0),
                   grid_ops(spec, n, True, pos_grad), path="hash")
-        del got, want, table, cot
+        del out, got, want, table, cot
         torch.cuda.empty_cache()
 
 
@@ -1277,7 +1340,7 @@ def main():
     from emernerf_torch import kernels
     from emernerf_torch.flagship import REFERENCE_HASH
     from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
-    from emernerf_torch.ops.hashgrid import hashgrid_encode, hashgrid_encode_bwd
+    from emernerf_torch.ops.hashgrid import features_minor, hashgrid_encode, hashgrid_encode_bwd
     from emernerf_torch.ops.stepfuns import importance_sampling, interlevel_loss, interlevel_loss_bwd
     from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_bwd
     from emernerf_torch.train.optim import adam_update
@@ -1295,19 +1358,22 @@ def main():
     phase_kernels(dev, entries)
     phase_train_kernels(dev, entries)
     phase_hash_kernels(dev, entries)
-    brick, hashed = (brickgrid_encode, brickgrid_encode_bwd), (hashgrid_encode, hashgrid_encode_bwd)
+    brick = (brickgrid_encode, brickgrid_encode_bwd)
+    hashed = (hashgrid_encode, hashgrid_encode_bwd, features_minor)
     forward = (importance_sampling, composite_along_rays)
     _, rays_per_s = phase_slice(dev, (brickgrid_encode,) + forward, zero=hashed)
     phase_fp32_chunk(dev)
     shared = forward + (composite_along_rays_bwd, interlevel_loss, interlevel_loss_bwd,
                         adam_update)
-    launches, ms_iter, train_rays_per_s, peak, _ = phase_train(dev, brick + shared, zero=hashed)
+    launches, ms_iter, train_rays_per_s, peak, share = phase_train(
+        dev, brick + shared, zero=hashed, shares=GRID_SHARES)
     phase_train_fp32(dev)
     # the reference-hash profile: K4 in place of K1
     hash_launches, hash_ms, hash_rays_per_s, hash_peak, hash_share = phase_train(
         dev, hashed + shared, zero=brick, profile=REFERENCE_HASH, n_timed=8, label="phase 6",
-        profile_file="profile_train_hash.json", shares=[("K4 backward", K4_BACKWARD_KERNELS)])
-    _, hash_eval_rays_per_s = phase_slice(dev, (hashgrid_encode,) + forward, zero=brick,
+        profile_file="profile_train_hash.json", shares=GRID_SHARES)
+    _, hash_eval_rays_per_s = phase_slice(dev, (hashgrid_encode, features_minor) + forward,
+                                          zero=brick,
                                           profile=REFERENCE_HASH, label="phase 6b")
     phase_train_fp32(dev, REFERENCE_HASH, HASH_TINY_FP32, label="phase 6c")
     probe_launches = phase_probes(dev, entries)
@@ -1321,10 +1387,12 @@ def main():
     report = [dict({k: v for k, v in e.items() if k not in ("fn", "path")},
                    launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
-          f"{train_rays_per_s:.1f} rays/s, peak {peak:.2f} GiB on {card_line}")
+          f"{train_rays_per_s:.1f} rays/s, peak {peak:.2f} GiB, K1 backward "
+          f"{share['K1 backward']:.1%} of device time on {card_line}")
     print(f"reference-hash: eval {hash_eval_rays_per_s:.1f} rays/s; train {hash_ms:.2f} "
-          f"ms/iteration, {hash_rays_per_s:.1f} rays/s, peak {hash_peak:.2f} GiB, K4 backward "
-          f"{hash_share['K4 backward']:.1%} of device time on {card_line}")
+          f"ms/iteration, {hash_rays_per_s:.1f} rays/s, peak {hash_peak:.2f} GiB, K4 forward "
+          f"{hash_share['K4 forward']:.1%} and backward {hash_share['K4 backward']:.1%} of "
+          f"device time on {card_line}")
     print(f"CLI (brick): {cli_ms:.2f} ms/iteration on {card_line}")
     print(json.dumps({"kernels": report}))
     print(card_line)

@@ -54,12 +54,14 @@ _SIGNATURES = {
     "emt_interlevel_backward": (_P, _P, _P, _P, _I, _I, _P),
     # param, grad|NULL, mu, nu, moments_bf16, n, hyper (host struct), stream
     "emt_adam": (_P, _P, _P, _P, _I, _L, _P, _P),
-    # table (F, L*T), table_is_bf16, positions, out, n_points, params (host
-    # struct), stream
-    "emt_hashgrid_encode": (_P, _I, _P, _P, _L, _P, _P),
-    # table, table_is_bf16, positions, grad_out, scratch (zeroed fp32 (L*T,
-    # F)), d_table ((F, L*T) in the table's dtype), d_pos|NULL, n_points,
+    # table (F, rows), elem_bytes (2 or 4), out (rows, F), rows, F, stream
+    "emt_hashgrid_features_minor": (_P, _I, _P, _L, _I, _P),
+    # table (L*T, F) features-minor, table_is_bf16, positions, out, n_points,
     # params (host struct), stream
+    "emt_hashgrid_encode": (_P, _I, _P, _P, _L, _P, _P),
+    # table (L*T, F) features-minor, table_is_bf16, positions, grad_out,
+    # scratch (zeroed fp32 (L*T, F)), d_table ((F, L*T) in the table's
+    # dtype), d_pos|NULL, n_points, params (host struct), stream
     "emt_hashgrid_backward": (_P, _I, _P, _P, _P, _P, _P, _L, _P, _P),
     # table, elem_bytes (4 or 2), idx (int32), out, n, w, stream
     "emt_gather_loop": (_P, _I, _P, _P, _L, _I, _P),
@@ -92,10 +94,12 @@ def nvcc_path() -> str:
 
 
 def _stale(lib: Path) -> bool:
-    """Whether a source is newer than the library: a library built before a
-    source changed (or was added) lacks its entry points or runs old code."""
+    """Whether a source or header is newer than the library: a library built
+    before a source changed (or was added) lacks its entry points or runs
+    old code."""
     built = lib.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in CSRC.glob("*.cu"))
+    return any(src.stat().st_mtime > built
+               for src in (*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")))
 
 
 def build(force: bool = False) -> Path:

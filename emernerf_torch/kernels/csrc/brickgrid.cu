@@ -27,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <cstdint>
 
+#include "grid_common.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 32;
@@ -48,14 +50,8 @@ struct BrickParams {
   int uses_hash[kMaxLevels];
 };
 
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(p[0]);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using emt::load_f;
+using emt::store_f;
 
 __device__ __forceinline__ unsigned brick_row(const BrickParams& p, int lvl,
                                               const unsigned b[3], bool has_t,
@@ -183,21 +179,35 @@ __global__ void brickgrid_encode_kernel(const T* __restrict__ table,
 // What bounds it on the H100: atomic read-modify-writes into the fp32
 // gradient table, 8 corners x F lanes (x 2 time slices) per (point, level).
 // Fine levels spread them over ~10^5-10^6 rows; the coarse dense levels
-// (a 16^3 grid is 512 bricks) put tens of thousands of points on each row,
-// and those atomics serialize in L2.  That contention is measured, not
-// fixed, here.
+// (a 16^3 grid is 512 bricks) put thousands of points on each row, and
+// those atomics serialise in L2.  One scalar atomic per feature was 128 per
+// (point, level) on the fused F = 8 time-paired grid.
 //
-// Design: one thread per (point, level), the forward's geometry (same
-// FMA-free cell math, same rows), atomicAdd(float) of w * tw * g into a
-// zeroed fp32 buffer (L*B, W); the wrapper casts it to the table's dtype,
-// as the reference casts each level's fp32 buffer.  When the positions need
-// a gradient (only the flow-warped queries), the same thread re-reads its
-// 8 live corners (and the t+1 slice) and accumulates
-//   d/dx_a = scale * sum_c dW_c/dfrac_a * (feats_c . g)   (time-lerped)
-//   d/dt   = scale * sum_c W_c * ((feats1_c - feats0_c) . g)
-// into d_pos with atomicAdd (the L levels of a point share its row).  The
-// reference reads forward-saved reductions instead; the math is the same,
-// the rounding is not.
+// Design (K4 backward's, hashgrid.cu, without a layout change: a brick
+// corner's F features are already contiguous):
+//   - one warp per (32 consecutive points, level); a block holds the L warps
+//     of 32 points.  In training, consecutive points are consecutive samples
+//     of a ray, so on the coarse levels neighbouring lanes hit the same
+//     brick row and corner slot;
+//   - the two corners that differ in dimension 0 are neighbouring slots of
+//     one row (corner index + 1), so each (dy, dz, time slice) is one span
+//     of 2F floats.  Before its atomics the warp merges runs of lanes whose
+//     spans start at the same slot (emt::merge_runs, a segmented shuffle
+//     sum; skipped after one ballot where all 32 differ), and the run's
+//     first lane adds the span with the widest aligned vector atomics
+//     (emt::add_span: F = 8 and F = 4 spans are float4s, an F = 1 span a
+//     float2 where its slot is even), into the zeroed fp32 (L*B, W) buffer;
+//   - position gradients (only the flow-warped queries): each lane re-reads
+//     its corners' F features with one vector load per time slice, in a
+//     loop of its own before the atomics, and forms in corner order
+//       acc_a = sum_c dW_c/dfrac_a * gl_c,  acc_t = sum_c W_c * (dot1_c - dot0_c)
+//     (gl_c the time-lerped feats . g); each level's acc goes to shared
+//     memory and the block's first warp sums d_pos = d_pos + acc_l * scale_l
+//     over the levels in order: no atomics on d_pos, every product and sum
+//     rounded explicitly, the plain version's order of operations exactly
+//     (emernerf_torch/ops/brickgrid.py:brickgrid_encode_bwd_ref).  The JAX
+//     reference reads forward-saved reductions instead: the math is the
+//     same, the rounding is not.
 template <typename T, int F>
 __global__ void brickgrid_backward_kernel(const T* __restrict__ table,
                                           const float* __restrict__ pos,
@@ -205,73 +215,103 @@ __global__ void brickgrid_backward_kernel(const T* __restrict__ table,
                                           float* __restrict__ d_table,
                                           float* __restrict__ d_pos, long long n,
                                           const BrickParams p) {
-  const long long tid = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  extern __shared__ float s_acc[];  // [level][axis (4)][lane]
+  const int lane = threadIdx.x & 31, lvl = threadIdx.x >> 5;
   const int L = p.n_levels;
-  if (tid >= n * L) return;
-  const long long i = tid / L;
-  const int lvl = static_cast<int>(tid - i * L);
+  const long long i = static_cast<long long>(blockIdx.x) * 32 + lane;
+  const bool live = i < n;
+  const bool has_t = p.n_dims == 4;
   const int cpa = (1 << p.log2_brick_size) + 1;
-  const Geo g = level_geo(p, pos + i * p.n_dims, lvl);
-  const bool has_t = g.r1 >= 0;
+  Geo g = {};
+  float gf[F];
+  if (live) {
+    g = level_geo(p, pos + i * p.n_dims, lvl);
+    emt::load_vec<T, F>(grad + (i * L + lvl) * F, gf);
+  } else {
+#pragma unroll
+    for (int f = 0; f < F; ++f) gf[f] = 0.f;
+  }
   const float tw0 = has_t ? __fsub_rn(1.f, g.tfrac) : 1.f;
 
-  float gf[F];
-  const T* gi = grad + i * static_cast<long long>(L) * F + lvl * F;
+  // the position gradient first: a loop of loads and arithmetic only,
+  // whose loads the compiler can keep in flight across corners
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (d_pos != nullptr && live) {
 #pragma unroll
-  for (int f = 0; f < F; ++f) gf[f] = load_f(gi + f);
+    for (int dz = 0; dz < 2; ++dz) {
+      const float wz = dz ? g.frac[2] : __fsub_rn(1.f, g.frac[2]);
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        const float wy = dy ? g.frac[1] : __fsub_rn(1.f, g.frac[1]);
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx) {
+          const float wx = dx ? g.frac[0] : __fsub_rn(1.f, g.frac[0]);
+          const long long slot =
+              ((g.off[0] + dx) + cpa * ((g.off[1] + dy) + cpa * (g.off[2] + dz))) * F;
+          float feat[F];
+          emt::load_vec<T, F>(table + g.r0 + slot, feat);
+          float dot0 = 0.f;
+#pragma unroll
+          for (int f = 0; f < F; ++f) dot0 = __fadd_rn(dot0, __fmul_rn(gf[f], feat[f]));
+          float gl = dot0;
+          if (has_t) {
+            emt::load_vec<T, F>(table + g.r1 + slot, feat);
+            float dot1 = 0.f;
+#pragma unroll
+            for (int f = 0; f < F; ++f) dot1 = __fadd_rn(dot1, __fmul_rn(gf[f], feat[f]));
+            gl = __fadd_rn(__fmul_rn(dot0, tw0), __fmul_rn(dot1, g.tfrac));
+            const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
+            acc[3] = __fadd_rn(acc[3], __fmul_rn(w, __fsub_rn(dot1, dot0)));
+          }
+          // dW/dfrac_a: the axis' own weight becomes +-1
+          const float pyz = __fmul_rn(wy, wz), pxz = __fmul_rn(wx, wz), pxy = __fmul_rn(wx, wy);
+          acc[0] = __fadd_rn(acc[0], __fmul_rn(dx ? pyz : -pyz, gl));
+          acc[1] = __fadd_rn(acc[1], __fmul_rn(dy ? pxz : -pxz, gl));
+          acc[2] = __fadd_rn(acc[2], __fmul_rn(dz ? pxy : -pxy, gl));
+        }
+      }
+    }
+  }
 
-  float dfr[3] = {0.f, 0.f, 0.f};
-  float dtt = 0.f;
+  // the table gradient: per (dz, dy, time slice) one merged span of the
+  // dx = 0 and dx = 1 corners' 2F values
+  const float wx0 = __fsub_rn(1.f, g.frac[0]), wx1 = g.frac[0];
 #pragma unroll
   for (int dz = 0; dz < 2; ++dz) {
     const float wz = dz ? g.frac[2] : __fsub_rn(1.f, g.frac[2]);
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy) {
       const float wy = dy ? g.frac[1] : __fsub_rn(1.f, g.frac[1]);
+      const float w0 = __fmul_rn(__fmul_rn(wx0, wy), wz);
+      const float w1 = __fmul_rn(__fmul_rn(wx1, wy), wz);
+      const long long slot = (g.off[0] + cpa * ((g.off[1] + dy) + cpa * (g.off[2] + dz))) * F;
+#pragma unroll 2
+      for (int s = 0; s < (has_t ? 2 : 1); ++s) {
+        const float tw = s ? g.tfrac : tw0;
+        const long long key = live ? (s ? g.r1 : g.r0) + slot : -1LL;
+        float v[2 * F];
+        const float a0 = __fmul_rn(w0, tw), a1 = __fmul_rn(w1, tw);
 #pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const float wx = dx ? g.frac[0] : __fsub_rn(1.f, g.frac[0]);
-        const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
-        const int corner = (g.off[0] + dx) + cpa * ((g.off[1] + dy) + cpa * (g.off[2] + dz));
-        const long long lane = corner * F;
-        const float w0 = __fmul_rn(w, tw0);
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          atomicAdd(d_table + g.r0 + lane + f, __fmul_rn(w0, gf[f]));
-        if (has_t) {
-          const float w1 = __fmul_rn(w, g.tfrac);
-#pragma unroll
-          for (int f = 0; f < F; ++f)
-            atomicAdd(d_table + g.r1 + lane + f, __fmul_rn(w1, gf[f]));
-        }
-        if (d_pos != nullptr) {
-          float dot0 = 0.f, dot1 = 0.f;
-#pragma unroll
-          for (int f = 0; f < F; ++f)
-            dot0 = __fadd_rn(dot0, __fmul_rn(gf[f], load_f(table + g.r0 + lane + f)));
-          if (has_t) {
-#pragma unroll
-            for (int f = 0; f < F; ++f)
-              dot1 = __fadd_rn(dot1, __fmul_rn(gf[f], load_f(table + g.r1 + lane + f)));
-          }
-          const float gl = has_t ? __fadd_rn(__fmul_rn(dot0, tw0), __fmul_rn(dot1, g.tfrac))
-                                 : dot0;
-          // dW/dfrac_a: the axis' own weight becomes +-1
-          dfr[0] += (dx ? 1.f : -1.f) * __fmul_rn(wy, wz) * gl;
-          dfr[1] += (dy ? 1.f : -1.f) * __fmul_rn(wx, wz) * gl;
-          dfr[2] += (dz ? 1.f : -1.f) * __fmul_rn(wx, wy) * gl;
-          if (has_t) dtt += w * __fsub_rn(dot1, dot0);
-        }
+        for (int f = 0; f < F; ++f) v[f] = __fmul_rn(a0, gf[f]), v[F + f] = __fmul_rn(a1, gf[f]);
+        if (emt::merge_runs<2 * F>(key, -1LL, v, lane)) emt::add_span<2 * F>(d_table + key, v);
       }
     }
   }
-  if (d_pos != nullptr) {
-    const float sc = p.scales[lvl];
-    float* dp = d_pos + i * p.n_dims;
+  if (d_pos == nullptr) return;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) atomicAdd(dp + a, dfr[a] * sc);
-    if (p.n_dims == 4) atomicAdd(dp + 3, dtt * sc);
+  for (int a = 0; a < 4; ++a) s_acc[(lvl * 4 + a) * 32 + lane] = acc[a];
+  __syncthreads();
+  if (lvl != 0 || !live) return;
+  float dp[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int l = 0; l < L; ++l) {
+    const float sc = p.scales[l];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      dp[a] = __fadd_rn(dp[a], __fmul_rn(s_acc[(l * 4 + a) * 32 + lane], sc));
   }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    if (a < p.n_dims) d_pos[i * p.n_dims + a] = dp[a];
 }
 
 template <typename T>
@@ -300,17 +340,17 @@ template <typename T>
 cudaError_t launch_backward_typed(const void* table, const float* pos,
                                   const void* grad, float* d_table, float* d_pos,
                                   long long n, const BrickParams& p, cudaStream_t s) {
-  const long long total = n * p.n_levels;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  const int threads = 32 * p.n_levels;
+  const size_t smem = d_pos != nullptr ? sizeof(float) * p.n_levels * 4 * 32 : 0;
+  const unsigned blocks = static_cast<unsigned>((n + 31) / 32);
   const T* tab = static_cast<const T*>(table);
   const T* g = static_cast<const T*>(grad);
   switch (p.n_features) {
-#define EMT_CASE(FV)                                                          \
-  case FV:                                                                    \
-    brickgrid_backward_kernel<T, FV><<<blocks, threads, 0, s>>>(tab, pos, g,  \
-                                                               d_table, d_pos, \
-                                                               n, p);          \
+#define EMT_CASE(FV)                                                              \
+  case FV:                                                                        \
+    brickgrid_backward_kernel<T, FV><<<blocks, threads, smem, s>>>(tab, pos, g,   \
+                                                                   d_table, d_pos, \
+                                                                   n, p);          \
     break;
     EMT_CASE(1) EMT_CASE(2) EMT_CASE(3) EMT_CASE(4)
     EMT_CASE(5) EMT_CASE(6) EMT_CASE(7) EMT_CASE(8)

@@ -6,9 +6,10 @@
 // feature-major (F, L*T) table, chunked along the points to bound the
 // lane-padded gather temporaries, and XLA scatter-adds in the backward.
 //
-// What bounds it on the H100: random 2- or 4-byte reads (forward) and fp32
-// atomic adds (backward) at 2^D corners x F features per (point, level),
-// scattered over tables of 8-84 MB that only partly fit the 50 MB L2.  One
+// What bounds it on the H100: random reads (forward) and fp32 atomic adds
+// (backward) at 2^D corners x F features per (point, level), scattered over
+// tables of 8-84 MB that only partly fit the 50 MB L2: the rate of L2
+// sector requests, one per corner row and load.  One
 // call's least time is the bytes it must move over 3.35 TB/s: positions in,
 // encodings out, the table entries the points touch (forward and position
 // gradient) and, in the backward, the dense gradient table written once in
@@ -16,15 +17,20 @@
 // level) in the forward and ~2^D (D - 1 + 3F + D^2) in the backward with position
 // gradients, is below the card's fp32 rate except for the latter on 4D.
 //
-// Design.  Forward: one thread per (point, level), levels fastest, so the L
-// threads of a point share its position load and write one contiguous
-// output row.  The thread loops over the 2^D corners in corner order (bit
-// i of the corner index is dimension i), forms each weight as a product in
-// dimension order, reads the F features of the corner's row (F separate
-// loads: the table is feature-major, the JAX package's layout) and
-// accumulates them in fp32; the encoding is written once in the table's
-// dtype (bf16 or fp32).  F is 1, 2 or 4 (the grids of every profile);
-// any other F is refused.
+// Design.  Forward: the wrapper hands the kernels a FEATURES-MINOR (L*T, F)
+// copy of the feature-major (F, L*T) table (the JAX package's layout, kept
+// for the parameter; F = 1 tables are both layouts at once and are not
+// copied), so that a corner's F features are one vector load (8 bytes for
+// bf16 F = 4) instead of F separate 2-byte loads L*T elements apart, each
+// its own 32-byte sector request.  One warp per (32 consecutive points,
+// level): a block holds the L warps of 32 points, so on the coarse levels
+// neighbouring samples of a ray share the load instructions' sectors.  Each
+// lane forms its 2^D corner rows, issues all corners' loads in a loop before
+// the arithmetic, then sums w_c * feat_c in corner order (bit i of the corner
+// index is dimension i; each weight a product in dimension order) in fp32.
+// The block's 32 x L x F encodings are staged in shared memory, rounded once
+// to the table's dtype, and written as one contiguous tile.  F is 1, 2 or 4
+// (the grids of every profile); any other F is refused.
 //
 // Backward.  What bounds it on this card is the pattern of its atomics, not
 // their number: 2^D corners per (point, level) each add F values w * g_f
@@ -49,9 +55,9 @@
 //     skips the merge after one ballot, so the merge costs nothing on the
 //     fine hashed levels where it cannot pay;
 //   - position gradients: each warp re-reads its corners' F features from
-//     the feature-major table (F 2-byte loads, in a loop of their own
-//     before the atomics, so that the loads of all corners can be in
-//     flight at once), forms gdotf = sum_f feat_f * g_f and its level's
+//     the forward's features-minor copy (one vector load per corner, in a
+//     loop of its own before the atomics, so that the loads of all corners
+//     can be in flight at once), forms gdotf = sum_f feat_f * g_f and its level's
 //       acc_i = sum_c gdotf_c * dW_c/dfrac_i
 //     (dW_c/dfrac_i the signed product of the other dimensions' factors) in
 //     corner order, writes acc to shared memory, and the block's first warp
@@ -71,6 +77,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+
+#include "grid_common.cuh"
 
 namespace {
 
@@ -92,14 +100,7 @@ struct HashParams {
   int uses_hash[kMaxLevels];
 };
 
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(p[0]);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using emt::store_f;
 
 // The cell coordinates and fractions of one point on one level.
 template <int D>
@@ -154,108 +155,55 @@ __device__ __forceinline__ float factor_product(const float* frac, int c, int sk
   return w;
 }
 
+// Block: L warps x 32 points; warp l takes level l of the block's 32
+// consecutive points.  table: the features-minor (L*T, F) copy.  Needs
+// 32 * L * F * sizeof(T) bytes of dynamic shared memory (the output tile).
 template <typename T, int D, int F>
 __global__ void hashgrid_encode_kernel(const T* __restrict__ table,
                                        const float* __restrict__ pos,
                                        T* __restrict__ out, long long n,
                                        const HashParams p) {
-  const long long tid = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  T* s_out = reinterpret_cast<T*>(s_raw);  // [lane][level][feature]
+  const int lane = threadIdx.x & 31, lvl = threadIdx.x >> 5;
   const int L = p.n_levels;
-  if (tid >= n * L) return;
-  const long long i = tid / L;
-  const int lvl = static_cast<int>(tid - i * L);
-  unsigned grid[D];
-  float frac[D];
-  level_cell<D>(p, pos + i * D, lvl, grid, frac);
-  const long long lt = static_cast<long long>(L) << p.log2_table;  // feature stride
-  const T* tab = table + (static_cast<long long>(lvl) << p.log2_table);
-
-  float acc[F];
+  const long long first = static_cast<long long>(blockIdx.x) * 32;
+  const long long i = first + lane;
+  if (i < n) {
+    unsigned grid[D];
+    float frac[D];
+    level_cell<D>(p, pos + i * D, lvl, grid, frac);
+    const T* tab = table + (static_cast<long long>(lvl) << p.log2_table) * F;
+    float feat[1 << D][F];
 #pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.f;
+    for (int c = 0; c < (1 << D); ++c)
+      emt::load_vec<T, F>(tab + static_cast<long long>(corner_row<D>(p, lvl, grid, c)) * F,
+                           feat[c]);
+    float acc[F];
 #pragma unroll
-  for (int c = 0; c < (1 << D); ++c) {
-    const float w = factor_product<D>(frac, c, -1);
-    const T* row = tab + corner_row<D>(p, lvl, grid, c);
+    for (int f = 0; f < F; ++f) acc[f] = 0.f;
 #pragma unroll
-    for (int f = 0; f < F; ++f)
-      acc[f] = __fadd_rn(acc[f], __fmul_rn(w, load_f(row + f * lt)));
-  }
-  T* o = out + tid * F;  // (i * L + lvl) * F
+    for (int c = 0; c < (1 << D); ++c) {
+      const float w = factor_product<D>(frac, c, -1);
 #pragma unroll
-  for (int f = 0; f < F; ++f) store_f(o + f, acc[f]);
-}
-
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// Read-only loads through the non-coherent path (the backward's table).
-__device__ __forceinline__ float load_nc(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_nc(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-constexpr unsigned kNoRow = 0xffffffffu;  // lanes past the last point (rows < 2^30)
-
-// The F values of one (point, level) of the cotangent, in one load where F
-// values of T fill 4, 8 or 16 aligned bytes.
-template <typename T, int F>
-__device__ __forceinline__ void load_grad(const T* p, float (&g)[F]) {
-  if constexpr (sizeof(T) == 4 && F == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    g[0] = v.x, g[1] = v.y, g[2] = v.z, g[3] = v.w;
-  } else if constexpr (sizeof(T) == 4 && F == 2) {
-    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-    g[0] = v.x, g[1] = v.y;
-  } else if constexpr (sizeof(T) == 2 && F == 4) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-    g[0] = __low2float(a), g[1] = __high2float(a), g[2] = __low2float(b), g[3] = __high2float(b);
-  } else if constexpr (sizeof(T) == 2 && F == 2) {
-    const unsigned v = __ldg(reinterpret_cast<const unsigned*>(p));
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v);
-    g[0] = __low2float(a), g[1] = __high2float(a);
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) g[f] = load_f(p + f);
-  }
-}
-
-// One vector atomic of a corner's F values into its features-minor row.
-template <int F>
-__device__ __forceinline__ void add_row(float* p, const float (&v)[F]) {
-  if constexpr (F == 4) {
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (F == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-  } else {
-    atomicAdd(p, v[0]);
-  }
-}
-
-// Sums the F values v of runs of neighbouring lanes with equal rows into
-// the run's first lane (a segmented suffix sum by shuffles, as many steps
-// as the longest run needs).  Returns whether this lane must add its v to
-// `row` (the first lane of its run, and a row: not kNoRow).  The whole
-// warp must call it.  Equal rows that are not neighbours stay separate.
-template <int F>
-__device__ __forceinline__ bool merge_runs(unsigned row, float (&v)[F], int lane) {
-  const unsigned left = __shfl_up_sync(kFullMask, row, 1);
-  const bool head = lane == 0 || left != row;
-  const unsigned heads = __ballot_sync(kFullMask, head);
-  if (heads != kFullMask) {
-    const unsigned later = heads & (0xfffffffeu << lane);  // heads after this lane
-    const int last = later ? __ffs(later) - 2 : 31;        // the run's last lane
-    const int span = __reduce_max_sync(kFullMask, static_cast<unsigned>(last - lane));
-    for (int off = 1; off <= span; off <<= 1) {
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const float o = __shfl_down_sync(kFullMask, v[f], off);
-        if (lane + off <= last) v[f] += o;
-      }
+      for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(w, feat[c][f]));
     }
+    T* o = s_out + (lane * L + lvl) * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) store_f(o + f, acc[f]);
   }
-  return head && row != kNoRow;
+  __syncthreads();
+  // the block's rows of the (n, L * F) output are one contiguous tile
+  const long long rows = n - first < 32 ? n - first : 32;
+  const int count = static_cast<int>(rows) * L * F;
+  constexpr int kVec = 16 / sizeof(T);
+  T* dst = out + first * L * F;
+  for (int k = threadIdx.x; k < count / kVec; k += blockDim.x)
+    reinterpret_cast<uint4*>(dst)[k] = reinterpret_cast<const uint4*>(s_out)[k];
+  for (int k = count / kVec * kVec + threadIdx.x; k < count; k += blockDim.x) dst[k] = s_out[k];
 }
+
+constexpr unsigned kNoRow = 0xffffffffu;  // lanes past the last point (rows < 2^30)
 
 // Adds the merged values of two corners that differ in dimension 0 (rows
 // r0 != r1), F <= 2.  Where the two rows are the halves of one aligned
@@ -269,21 +217,20 @@ __device__ __forceinline__ void add_corner_pair(float* __restrict__ dst, unsigne
   if (add0 && add1 && (r0 ^ r1) == 1u) {
     const float(&lo)[F] = (r0 & 1u) ? v1 : v0;
     const float(&hi)[F] = (r0 & 1u) ? v0 : v1;
-    float* p = dst + static_cast<long long>(r0 & ~1u) * F;
-    if constexpr (F == 1)
-      atomicAdd(reinterpret_cast<float2*>(p), make_float2(lo[0], hi[0]));
-    else
-      atomicAdd(reinterpret_cast<float4*>(p), make_float4(lo[0], lo[1], hi[0], hi[1]));
+    float both[2 * F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) both[f] = lo[f], both[F + f] = hi[f];
+    emt::add_span<2 * F>(dst + static_cast<long long>(r0 & ~1u) * F, both);
     return;
   }
-  if (add0) add_row<F>(dst + static_cast<long long>(r0) * F, v0);
-  if (add1) add_row<F>(dst + static_cast<long long>(r1) * F, v1);
+  if (add0) emt::add_span<F>(dst + static_cast<long long>(r0) * F, v0);
+  if (add1) emt::add_span<F>(dst + static_cast<long long>(r1) * F, v1);
 }
 
 // Block: L warps x 32 points; warp l takes level l of the block's 32
 // consecutive points.  d_table: the zeroed fp32 features-minor (L*T, F)
 // scratch.  d_pos (or nullptr) needs L*D*32 floats of dynamic shared
-// memory.
+// memory.  table: the forward's features-minor (L*T, F) copy.
 template <typename T, int D, int F>
 __global__ void hashgrid_backward_kernel(const T* __restrict__ table,
                                          const float* __restrict__ pos,
@@ -296,15 +243,14 @@ __global__ void hashgrid_backward_kernel(const T* __restrict__ table,
   const int L = p.n_levels;
   const long long i = static_cast<long long>(blockIdx.x) * 32 + lane;
   const bool live = i < n;
-  const long long lt = static_cast<long long>(L) << p.log2_table;  // feature stride
-  const T* tab = table + (static_cast<long long>(lvl) << p.log2_table);
+  const T* tab = table + (static_cast<long long>(lvl) << p.log2_table) * F;
   float* dst = d_table + (static_cast<long long>(lvl) << p.log2_table) * F;
 
   unsigned grid[D];
   float frac[D], gf[F];
   if (live) {
     level_cell<D>(p, pos + i * D, lvl, grid, frac);
-    load_grad<T, F>(grad + (i * L + lvl) * F, gf);
+    emt::load_vec<T, F>(grad + (i * L + lvl) * F, gf);
   } else {
 #pragma unroll
     for (int a = 0; a < D; ++a) grid[a] = 0u, frac[a] = 0.f;
@@ -319,11 +265,11 @@ __global__ void hashgrid_backward_kernel(const T* __restrict__ table,
   if (d_pos != nullptr && live) {
 #pragma unroll
     for (int c = 0; c < (1 << D); ++c) {
-      const T* row = tab + corner_row<D>(p, lvl, grid, c);
+      float feat[F];
+      emt::load_vec<T, F>(tab + static_cast<long long>(corner_row<D>(p, lvl, grid, c)) * F, feat);
       float gdotf = 0.f;
 #pragma unroll
-      for (int f = 0; f < F; ++f)
-        gdotf = __fadd_rn(gdotf, __fmul_rn(load_nc(row + f * lt), gf[f]));
+      for (int f = 0; f < F; ++f) gdotf = __fadd_rn(gdotf, __fmul_rn(feat[f], gf[f]));
 #pragma unroll
       for (int a = 0; a < D; ++a) {
         const float dw = factor_product<D>(frac, c, a);
@@ -346,12 +292,12 @@ __global__ void hashgrid_backward_kernel(const T* __restrict__ table,
       const float w = factor_product<D>(frac, c + k, -1);
 #pragma unroll
       for (int f = 0; f < F; ++f) v[k][f] = __fmul_rn(w, gf[f]);
-      add[k] = merge_runs<F>(row[k], v[k], lane);
+      add[k] = emt::merge_runs<F>(row[k], kNoRow, v[k], lane);
     }
     if constexpr (K == 2)
       add_corner_pair<F>(dst, row[0], row[1], v[0], v[1], add[0], add[1]);
     else if (add[0])
-      add_row<F>(dst + static_cast<long long>(row[0]) * F, v[0]);
+      emt::add_span<F>(dst + static_cast<long long>(row[0]) * F, v[0]);
   }
   if (d_pos == nullptr) return;
 #pragma unroll
@@ -395,18 +341,50 @@ __global__ void transpose_cast_kernel(const float* __restrict__ src, T* __restri
   }
 }
 
+// The feature-major (F, rows) table -> its features-minor (rows, F) copy,
+// bits unchanged (W: a 2- or 4-byte word), one row per thread: coalesced
+// reads of each feature plane, one F * sizeof(W)-byte vector store per row.
+template <typename W, int F>
+__global__ void features_minor_kernel(const W* __restrict__ src, W* __restrict__ out,
+                                      long long rows) {
+  struct alignas(F * sizeof(W)) Row { W v[F]; };
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long r = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; r < rows;
+       r += stride) {
+    Row row;
+#pragma unroll
+    for (int f = 0; f < F; ++f) row.v[f] = __ldg(src + f * rows + r);
+    reinterpret_cast<Row*>(out)[r] = row;
+  }
+}
+
+template <typename W>
+cudaError_t launch_features_minor(const void* table, void* out, long long rows, int f,
+                                  cudaStream_t s) {
+  const long long want = (rows + 255) / 256;
+  const unsigned blocks = static_cast<unsigned>(want < 132 * 16 ? want : 132 * 16);
+  const W* src = static_cast<const W*>(table);
+  W* dst = static_cast<W*>(out);
+  switch (f) {
+    case 2: features_minor_kernel<W, 2><<<blocks, 256, 0, s>>>(src, dst, rows); break;
+    case 4: features_minor_kernel<W, 4><<<blocks, 256, 0, s>>>(src, dst, rows); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_forward(const void* table, const float* pos, void* out, long long n,
                            const HashParams& p, cudaStream_t s) {
-  const long long total = n * p.n_levels;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  const int threads = 32 * p.n_levels;
+  const unsigned blocks = static_cast<unsigned>((n + 31) / 32);
+  const size_t smem = sizeof(T) * 32 * p.n_levels * p.n_features;
   const T* tab = static_cast<const T*>(table);
   T* o = static_cast<T*>(out);
   switch (p.n_features) {
-#define EMT_CASE(FV)                                                                  \
-  case FV:                                                                            \
-    hashgrid_encode_kernel<T, D, FV><<<blocks, threads, 0, s>>>(tab, pos, o, n, p);  \
+#define EMT_CASE(FV)                                                                     \
+  case FV:                                                                               \
+    hashgrid_encode_kernel<T, D, FV><<<blocks, threads, smem, s>>>(tab, pos, o, n, p);  \
     break;
     EMT_CASE(1) EMT_CASE(2) EMT_CASE(4)
 #undef EMT_CASE
@@ -459,6 +437,23 @@ bool valid(const HashParams& p) {
 
 }  // namespace
 
+// out (rows, F) <- table (F, rows), elements of elem_bytes (2 or 4) bytes,
+// F in {2, 4}; out aligned to F * elem_bytes bytes.
+extern "C" int emt_hashgrid_features_minor(const void* table, int elem_bytes, void* out,
+                                           long long rows, int n_features, void* stream) {
+  if (rows == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (elem_bytes == 2)
+    err = launch_features_minor<uint16_t>(table, out, rows, n_features, s);
+  else if (elem_bytes == 4)
+    err = launch_features_minor<uint32_t>(table, out, rows, n_features, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// table: the features-minor (L*T, F) copy, 16-byte aligned.
 extern "C" int emt_hashgrid_encode(const void* table, int table_is_bf16,
                                    const void* positions, void* out, long long n_points,
                                    const void* params, void* stream) {
@@ -478,8 +473,9 @@ extern "C" int emt_hashgrid_encode(const void* table, int table_is_bf16,
   return static_cast<int>(err);
 }
 
-// scratch: a zeroed fp32 (L*T, F) buffer; d_table: the (F, L*T) gradient
-// in the table's dtype, written whole; grad: 16-byte aligned.
+// table: the features-minor (L*T, F) copy; scratch: a zeroed fp32 (L*T, F)
+// buffer; d_table: the (F, L*T) gradient in the table's dtype, written
+// whole; table and grad: 16-byte aligned.
 extern "C" int emt_hashgrid_backward(const void* table, int table_is_bf16,
                                      const void* positions, const void* grad, void* scratch,
                                      void* d_table, void* d_pos, long long n_points,

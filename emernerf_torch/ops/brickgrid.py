@@ -193,53 +193,69 @@ def _cell(x: torch.Tensor, scale: float):
     return cell.to(torch.int64), pos - cell
 
 
+def _level_geometry(x: torch.Tensor, spec: BrickGridSpec, lvl: int, consts):
+    """Per level: the corner offsets inside the brick and the fractions per
+    axis (3 each, (N,)), the time fraction (or None), and the flat element
+    offsets of the row(s) that hold the point's corners: base0, and base1
+    for the t+1 time corner (None without time)."""
+    scales, strides, uses_hash = consts
+    b, width = spec.bricks_per_level, spec.row_width
+    sc = float(scales[lvl])
+    offs, fracs, bricks = [], [], []
+    for i in range(3):
+        ci, fr = _cell(x[:, i], sc)
+        offs.append(ci & (spec.brick_cells - 1))
+        bricks.append((ci >> spec.log2_brick_size) & _U32)
+        fracs.append(fr)
+    t_cell = t_frac = None
+    if spec.has_time:
+        ti, t_frac = _cell(x[:, 3], sc)
+        t_cell = ti & _U32
+    base0 = (lvl * b + _brick_rows(spec, bricks, t_cell, lvl, strides, uses_hash)) * width
+    base1 = None
+    if spec.uses_time_pair:
+        base1 = base0 + spec.corners_per_brick * spec.n_features_per_level
+    elif spec.has_time:
+        base1 = (lvl * b + _brick_rows(spec, bricks, (t_cell + 1) & _U32, lvl, strides,
+                                       uses_hash)) * width
+    return offs, fracs, t_frac, base0, base1
+
+
+def _corners(spec: BrickGridSpec, offs, fracs):
+    """The 8 live corners in the kernels' order (dz, dy, dx; x fastest):
+    (dx, dy, dz, wx, wy, wz, w = (wx * wy) * wz, lane offset of the corner's
+    first feature in the row)."""
+    cpa, f = spec.CPA, spec.n_features_per_level
+    for dz in range(2):
+        wz = fracs[2] if dz else 1.0 - fracs[2]
+        for dy in range(2):
+            wy = fracs[1] if dy else 1.0 - fracs[1]
+            for dx in range(2):
+                wx = fracs[0] if dx else 1.0 - fracs[0]
+                corner = (offs[0] + dx) + cpa * ((offs[1] + dy) + cpa * (offs[2] + dz))
+                yield dx, dy, dz, wx, wy, wz, (wx * wy) * wz, corner * f
+
+
 def brickgrid_encode_ref(table: torch.Tensor, positions: torch.Tensor,
                          spec: BrickGridSpec) -> torch.Tensor:
     """Plain version: positions (..., D) in [0,1] -> (..., L*F) features in
     the table's dtype, accumulated in fp32 over the 8 live corners."""
-    d, f, cpa = spec.n_input_dims, spec.n_features_per_level, spec.CPA
+    d, f = spec.n_input_dims, spec.n_features_per_level
     batch = positions.shape[:-1]
     x = positions.reshape(-1, d).float()
-    scales, strides, uses_hash = level_constants(spec)
-    b, width, half = spec.bricks_per_level, spec.row_width, spec.corners_per_brick * f
+    consts = level_constants(spec)
     flat = table.reshape(-1)
     lanes = torch.arange(f, device=table.device)
-    bs = spec.log2_brick_size
     outs = []
     for lvl in range(spec.n_levels):
-        sc = float(scales[lvl])
-        offs, fracs, bricks = [], [], []
-        for i in range(3):
-            ci, fr = _cell(x[:, i], sc)
-            offs.append(ci & (spec.brick_cells - 1))
-            bricks.append((ci >> bs) & _U32)
-            fracs.append(fr)
-        t_cell = t_frac = None
-        if spec.has_time:
-            ti, t_frac = _cell(x[:, 3], sc)
-            t_cell = ti & _U32
-        base0 = (lvl * b + _brick_rows(spec, bricks, t_cell, lvl, strides,
-                                       uses_hash)) * width
-        base1 = None
-        if spec.uses_time_pair:
-            base1 = base0 + half
-        elif spec.has_time:
-            base1 = (lvl * b + _brick_rows(spec, bricks, (t_cell + 1) & _U32,
-                                           lvl, strides, uses_hash)) * width
+        offs, fracs, t_frac, base0, base1 = _level_geometry(x, spec, lvl, consts)
         acc0 = torch.zeros(x.shape[0], f, device=x.device)
         acc1 = torch.zeros_like(acc0) if base1 is not None else None
-        for dz in range(2):
-            wz = fracs[2] if dz else 1.0 - fracs[2]
-            for dy in range(2):
-                wy = fracs[1] if dy else 1.0 - fracs[1]
-                for dx in range(2):
-                    wx = fracs[0] if dx else 1.0 - fracs[0]
-                    w = ((wx * wy) * wz)[:, None]
-                    corner = (offs[0] + dx) + cpa * ((offs[1] + dy) + cpa * (offs[2] + dz))
-                    lane = (corner * f)[:, None] + lanes
-                    acc0 = acc0 + w * flat[base0[:, None] + lane].float()
-                    if acc1 is not None:
-                        acc1 = acc1 + w * flat[base1[:, None] + lane].float()
+        for *_, w, lane in _corners(spec, offs, fracs):
+            lane = lane[:, None] + lanes
+            acc0 = acc0 + w[:, None] * flat[base0[:, None] + lane].float()
+            if acc1 is not None:
+                acc1 = acc1 + w[:, None] * flat[base1[:, None] + lane].float()
         if acc1 is not None:
             tw = t_frac[:, None]
             acc0 = acc0 * (1.0 - tw) + acc1 * tw
@@ -320,15 +336,64 @@ def _encode_forward(table, positions, spec):
 
 def brickgrid_encode_bwd_ref(table, positions, grad_out, spec: BrickGridSpec,
                              needs_pos_grad: bool):
-    """Plain version of :func:`brickgrid_encode_bwd`: autograd of the plain
-    forward on an fp32 copy of the table, cast back to the table's dtype."""
-    with torch.enable_grad():
-        t32 = table.detach().float().requires_grad_(True)
-        x = positions.detach().requires_grad_(needs_pos_grad)
-        out = brickgrid_encode_ref(t32, x, spec)
-        inputs = [t32, x] if needs_pos_grad else [t32]
-        got = torch.autograd.grad(out, inputs, grad_out.float())
-    return got[0].to(table.dtype), (got[1] if needs_pos_grad else None)
+    """Plain version of :func:`brickgrid_encode_bwd`, in the kernel's order
+    of operations: (d table in the table's dtype, d positions (..., D)
+    float32 or None).
+
+    The table gradient adds w * tw * g of every live corner and time slice
+    into a zeroed fp32 buffer and casts it once.  The position gradient
+    re-reads the corners: per level, in corner order,
+      acc_a += dW/dfrac_a * gl  (gl = the time-lerped feats . g),
+      acc_t += W * (feats1 . g - feats0 . g),
+    then d_pos = d_pos + acc * scale over the levels in order.  Every
+    product and sum is one fp32 operation, so the kernel's position
+    gradient equals this one bit for bit."""
+    d, f = spec.n_input_dims, spec.n_features_per_level
+    batch = positions.shape[:-1]
+    x = positions.reshape(-1, d).float()
+    n = x.shape[0]
+    g = grad_out.reshape(n, spec.n_levels, f).to(table.dtype).float()
+    consts = level_constants(spec)
+    flat = table.reshape(-1)
+    lanes = torch.arange(f, device=table.device)
+    d_flat = torch.zeros(flat.numel(), dtype=torch.float32, device=x.device)
+    d_pos = [torch.zeros(n, device=x.device) for _ in range(d)] if needs_pos_grad else None
+    for lvl in range(spec.n_levels):
+        offs, fracs, t_frac, base0, base1 = _level_geometry(x, spec, lvl, consts)
+        g_l = g[:, lvl]  # (N, F)
+        tw0 = None if base1 is None else 1.0 - t_frac
+        acc = [torch.zeros(n, device=x.device) for _ in range(d)]
+        for dx, dy, dz, wx, wy, wz, w, lane in _corners(spec, offs, fracs):
+            idx0 = base0[:, None] + (lane[:, None] + lanes)
+            w0 = w if tw0 is None else w * tw0
+            d_flat.index_add_(0, idx0.reshape(-1), (w0[:, None] * g_l).reshape(-1))
+            if base1 is not None:
+                idx1 = base1[:, None] + (lane[:, None] + lanes)
+                d_flat.index_add_(0, idx1.reshape(-1), ((w * t_frac)[:, None] * g_l).reshape(-1))
+            if not needs_pos_grad:
+                continue
+            feats = flat[idx0].float()
+            dot0 = torch.zeros(n, device=x.device)
+            for fi in range(f):
+                dot0 = dot0 + g_l[:, fi] * feats[:, fi]
+            gl = dot0
+            if base1 is not None:
+                feats = flat[idx1].float()
+                dot1 = torch.zeros(n, device=x.device)
+                for fi in range(f):
+                    dot1 = dot1 + g_l[:, fi] * feats[:, fi]
+                gl = dot0 * tw0 + dot1 * t_frac
+                acc[3] = acc[3] + w * (dot1 - dot0)
+            # dW/dfrac_a: the axis' own weight becomes +-1
+            for a, (bit, p) in enumerate(((dx, wy * wz), (dy, wx * wz), (dz, wx * wy))):
+                acc[a] = acc[a] + (p if bit else -p) * gl
+        if needs_pos_grad:
+            sc = float(consts[0][lvl])
+            d_pos = [dp + acc_a * sc for dp, acc_a in zip(d_pos, acc)]
+    d_table = d_flat.reshape(spec.table_shape).to(table.dtype)
+    if d_pos is None:
+        return d_table, None
+    return d_table, torch.stack(d_pos, -1).reshape(*batch, d)
 
 
 def brickgrid_encode_bwd(table: torch.Tensor, positions: torch.Tensor,
@@ -342,11 +407,15 @@ def brickgrid_encode_bwd(table: torch.Tensor, positions: torch.Tensor,
     if kernels.dispatch_device(name, table) == "cpu":
         return brickgrid_encode_bwd_ref(table, positions, grad_out, spec, needs_pos_grad)
     grad_out = grad_out.to(table.dtype).contiguous()
+    if grad_out.data_ptr() % 16:  # the kernel loads a point's F values at once
+        grad_out = grad_out.clone()
     kernels.require_cuda_inputs(name, table, positions, grad_out)
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name}: the table must be 16-byte aligned (vector loads)")
     lib = kernels.load()
     n = positions.numel() // spec.n_input_dims
     d_table = torch.zeros(spec.table_shape, dtype=torch.float32, device=table.device)
-    d_pos = torch.zeros_like(positions) if needs_pos_grad else None
+    d_pos = torch.empty_like(positions) if needs_pos_grad else None
     if n > 0:
         params = _kernel_params(spec)
         err = lib.emt_brickgrid_backward(

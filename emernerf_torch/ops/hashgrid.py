@@ -25,7 +25,10 @@ accumulates in the table's dtype (ROADMAP queue 3, "bf16 accumulation").
 ``hashgrid_encode`` is the differentiable wrapper around the CUDA kernels
 (``kernels/csrc/hashgrid.cu``): plain versions for CPU tensors only.  It
 saves only the table and the positions and recomputes the rest in the
-backward, as the JAX custom VJP does.
+backward, as the JAX custom VJP does.  On the card the kernels read a
+features-minor ``(L*T, F)`` copy of the table (:func:`features_minor`, made
+once per forward and saved in place of the table); the parameter, its
+gradient and everything outside the wrapper keep ``(F, L*T)``.
 """
 
 from __future__ import annotations
@@ -277,23 +280,82 @@ def _cuda_params(name, spec, *tensors):
     return _kernel_params(spec)
 
 
-def _encode_forward(table, positions, spec):
-    """The K4 forward: plain version for CPU tensors, the kernel for CUDA."""
-    name = "hashgrid_encode"
+def features_minor_plain(table: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`features_minor`."""
+    return table.t().contiguous()
+
+
+def features_minor(table: torch.Tensor) -> torch.Tensor:
+    """The (L*T, F) features-minor copy of a feature-major (F, L*T) table,
+    in its dtype, that K4's kernels read: a corner's F features in one
+    vector load.  An F = 1 table is both layouts at once: a view, no copy.
+    CPU tensors take the plain version; CUDA tensors launch
+    ``features_minor_kernel`` (kernels/csrc/hashgrid.cu)."""
+    name = "features_minor"
+    if table.shape[0] == 1:
+        return table.reshape(-1, 1)
     if kernels.dispatch_device(name, table) == "cpu":
-        return hashgrid_encode_plain(table, positions, spec)
-    params = _cuda_params(name, spec, table, positions)
+        return features_minor_plain(table)
+    kernels.require_cuda_inputs(name, table)
+    if table.shape[0] not in (2, 4):
+        raise ValueError(f"{name}: F in (1, 2, 4) supported")
+    f, rows = table.shape
+    out = torch.empty((rows, f), dtype=table.dtype, device=table.device)
+    err = kernels.load().emt_hashgrid_features_minor(
+        table.data_ptr(), table.element_size(), out.data_ptr(), rows, f,
+        kernels.stream_ptr(table.device))
+    kernels.check(err, name)
+    features_minor.launches += 1
+    return out
+
+
+features_minor.launches = 0
+
+
+def _launch_forward(table_fm, positions, spec):
+    """K4 forward on the card from the features-minor table."""
+    name = "hashgrid_encode"
+    params = _cuda_params(name, spec, table_fm, positions)
     lib = kernels.load()
     batch = positions.shape[:-1]
     n = positions.numel() // spec.n_input_dims
-    out = torch.empty((n, spec.n_output_dims), dtype=table.dtype, device=table.device)
+    out = torch.empty((n, spec.n_output_dims), dtype=table_fm.dtype, device=table_fm.device)
     if n > 0:
         err = lib.emt_hashgrid_encode(
-            table.data_ptr(), int(table.dtype == torch.bfloat16), positions.data_ptr(),
-            out.data_ptr(), n, ctypes.addressof(params), kernels.stream_ptr(table.device))
+            table_fm.data_ptr(), int(table_fm.dtype == torch.bfloat16), positions.data_ptr(),
+            out.data_ptr(), n, ctypes.addressof(params), kernels.stream_ptr(table_fm.device))
         kernels.check(err, name)
         hashgrid_encode.launches += 1
     return out.reshape(*batch, spec.n_output_dims)
+
+
+def _launch_backward(table_fm, positions, grad_out, spec, needs_pos_grad):
+    """K4 backward on the card from the features-minor table: (d table
+    (F, L*T) in the table's dtype, d positions or None)."""
+    name = "hashgrid_encode_bwd"
+    dtype, device = table_fm.dtype, table_fm.device
+    grad_out = grad_out.to(dtype).contiguous()
+    if grad_out.data_ptr() % 16:  # the kernel loads a point's F values at once
+        grad_out = grad_out.clone()
+    params = _cuda_params(name, spec, table_fm, positions, grad_out)
+    lib = kernels.load()
+    n = positions.numel() // spec.n_input_dims
+    if n == 0:
+        return (torch.zeros(spec.table_shape, dtype=dtype, device=device),
+                torch.zeros_like(positions) if needs_pos_grad else None)
+    f, rows = spec.table_shape
+    # the features-minor fp32 sum, transposed and cast into d_table
+    scratch = torch.zeros((rows, f), dtype=torch.float32, device=device)
+    d_table = torch.empty(spec.table_shape, dtype=dtype, device=device)
+    d_pos = torch.empty_like(positions) if needs_pos_grad else None
+    err = lib.emt_hashgrid_backward(
+        table_fm.data_ptr(), int(dtype == torch.bfloat16), positions.data_ptr(),
+        grad_out.data_ptr(), scratch.data_ptr(), d_table.data_ptr(),
+        None if d_pos is None else d_pos.data_ptr(), n, ctypes.addressof(params),
+        kernels.stream_ptr(device))
+    kernels.check(err, name)
+    hashgrid_encode_bwd.launches += 1
+    return d_table, d_pos
 
 
 def hashgrid_encode_bwd(table: torch.Tensor, positions: torch.Tensor,
@@ -302,49 +364,39 @@ def hashgrid_encode_bwd(table: torch.Tensor, positions: torch.Tensor,
     """K4 backward: (d table in the table's dtype, d positions or None).
 
     grad_out is the cotangent of the (..., L*F) encoding.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
-    name = "hashgrid_encode_bwd"
-    if kernels.dispatch_device(name, table) == "cpu":
+    the plain version; CUDA tensors launch the kernel on the table's
+    features-minor copy."""
+    if kernels.dispatch_device("hashgrid_encode_bwd", table) == "cpu":
         return hashgrid_encode_bwd_plain(table, positions, grad_out, spec, needs_pos_grad)
-    grad_out = grad_out.to(table.dtype).contiguous()
-    if grad_out.data_ptr() % 16:  # the kernel loads a point's F values at once
-        grad_out = grad_out.clone()
-    params = _cuda_params(name, spec, table, positions, grad_out)
-    lib = kernels.load()
-    n = positions.numel() // spec.n_input_dims
-    if n == 0:
-        return (torch.zeros(spec.table_shape, dtype=table.dtype, device=table.device),
-                torch.zeros_like(positions) if needs_pos_grad else None)
-    f, rows = spec.table_shape
-    # the features-minor fp32 sum, transposed and cast into d_table
-    scratch = torch.zeros((rows, f), dtype=torch.float32, device=table.device)
-    d_table = torch.empty(spec.table_shape, dtype=table.dtype, device=table.device)
-    d_pos = torch.empty_like(positions) if needs_pos_grad else None
-    err = lib.emt_hashgrid_backward(
-        table.data_ptr(), int(table.dtype == torch.bfloat16), positions.data_ptr(),
-        grad_out.data_ptr(), scratch.data_ptr(), d_table.data_ptr(),
-        None if d_pos is None else d_pos.data_ptr(), n, ctypes.addressof(params),
-        kernels.stream_ptr(table.device))
-    kernels.check(err, name)
-    hashgrid_encode_bwd.launches += 1
-    return d_table, d_pos
+    return _launch_backward(features_minor(table), positions, grad_out, spec, needs_pos_grad)
 
 
 hashgrid_encode_bwd.launches = 0
 
 
 class _HashGridEncode(torch.autograd.Function):
+    """On the card the forward reads the table's features-minor copy and
+    saves it, in place of the table, for the backward's position-gradient
+    re-read."""
+
     @staticmethod
     def forward(ctx, table, positions, spec):
         ctx.spec = spec
-        ctx.save_for_backward(table, positions)
-        return _encode_forward(table, positions, spec)
+        if kernels.dispatch_device("hashgrid_encode", table) == "cpu":
+            ctx.save_for_backward(table, positions)
+            return hashgrid_encode_plain(table, positions, spec)
+        table_fm = features_minor(table)
+        ctx.save_for_backward(table_fm, positions)
+        return _launch_forward(table_fm, positions, spec)
 
     @staticmethod
     def backward(ctx, grad_out):
-        table, positions = ctx.saved_tensors
-        d_table, d_pos = hashgrid_encode_bwd(table, positions, grad_out, ctx.spec,
-                                             ctx.needs_input_grad[1])
+        saved, positions = ctx.saved_tensors
+        args = (positions, grad_out, ctx.spec, ctx.needs_input_grad[1])
+        if saved.device.type == "cpu":
+            d_table, d_pos = hashgrid_encode_bwd_plain(saved, *args)
+        else:
+            d_table, d_pos = _launch_backward(saved, *args)
         return (d_table if ctx.needs_input_grad[0] else None), d_pos, None
 
 

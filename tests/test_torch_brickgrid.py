@@ -1,5 +1,6 @@
-"""Port parity: emernerf_torch brick-grid encoder (plain version of kernel K1)
-against emernerf_tpu's ``brickgrid_encode_ref``, on the CPU in fp32.
+"""Port parity: emernerf_torch brick-grid encoder (plain versions of kernel
+K1, forward and backward) against emernerf_tpu's ``brickgrid_encode_ref``
+and the VJP of its custom-VJP ``brickgrid_encode``, on the CPU in fp32.
 
 Points sit on, just below and just above cell and brick boundaries, where a
 differently rounded ``x * scale + 0.5`` would pick another cell (and, across
@@ -9,6 +10,7 @@ O(1) table values (sums of 8-16 fp32 products, different order).
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from emernerf_torch.flagship import flagship_config
 from emernerf_torch.ops.brickgrid import (
     BrickGridSpec,
     brickgrid_encode,
+    brickgrid_encode_bwd_ref,
     brickgrid_encode_ref,
     level_constants,
 )
@@ -36,6 +39,14 @@ VARIANTS = {
     "4d_pair_F8": (4, 8, 1, True),
     "4d_unpaired_F2": (4, 2, 1, False),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _spec(variant, log2_cells):
@@ -79,6 +90,73 @@ def test_encode_ref_matches_jax(variant, log2_cells):
     ref = np.asarray(jax_encode_ref(jnp.asarray(table), jnp.asarray(pos), jspec))
     assert ours.shape == ref.shape == (*pos.shape[:-1], tspec.n_output_dims)
     np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-6)
+
+
+def _bwd_inputs(variant, seed):
+    kw = _spec(variant, 15)
+    tspec, jspec = BrickGridSpec(**kw), JaxSpec(**kw)
+    rng = np.random.default_rng(seed)
+    table = rng.uniform(-1.0, 1.0, tspec.table_shape).astype(np.float32)
+    pos = _boundary_points(tspec, rng)
+    cot = rng.normal(size=(pos.shape[0], tspec.n_output_dims)).astype(np.float32)
+    return tspec, jspec, table, pos, cot
+
+
+def _bwd_ref(tspec, table, pos, cot, needs_pos_grad=True):
+    return brickgrid_encode_bwd_ref(torch.from_numpy(table), torch.from_numpy(pos),
+                                    torch.from_numpy(cot), tspec, needs_pos_grad)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_bwd_ref_matches_jax_vjp(variant):
+    """The explicit plain backward (the kernel's order of operations)
+    against jax.vjp of the custom-VJP encode with position gradients, on
+    points at +-1 ulp of cell and brick boundaries.  Tolerance, x the
+    largest |grad|: table 1e-5 (JAX scatters its dense weight-row updates
+    in another order; measured 3.8e-6), positions 1e-6 (JAX reads
+    forward-saved reductions, the port re-reads the corners; measured
+    2.0e-7)."""
+    tspec, jspec, table, pos, cot = _bwd_inputs(variant, 30 + sorted(VARIANTS).index(variant))
+    d_t, d_x = _bwd_ref(tspec, table, pos, cot)
+    _, vjp = jax.vjp(lambda t, x: jax_encode(t, x, jspec, True), jnp.asarray(table),
+                     jnp.asarray(pos))
+    ref_t, ref_x = (np.asarray(g) for g in vjp(jnp.asarray(cot)))
+    assert d_t.dtype == torch.float32 and d_t.shape == ref_t.shape
+    assert d_x.shape == ref_x.shape == pos.shape
+    np.testing.assert_allclose(d_t.numpy(), ref_t, rtol=0, atol=1e-5 * np.abs(ref_t).max())
+    np.testing.assert_allclose(d_x.numpy(), ref_x, rtol=0, atol=1e-6 * np.abs(ref_x).max())
+    assert np.abs(ref_x).max() > 1.0  # the position gradient is exercised
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_bwd_ref_matches_autograd_of_the_forward(variant):
+    """The explicit plain backward against autograd of the plain forward
+    (the earlier oracle), which rounds the time lerp and the weights in
+    another order: atol 1e-6 x the largest |grad| (measured 2.2e-7).
+    Without position gradients the table gradient is the same tensor."""
+    tspec, _, table, pos, cot = _bwd_inputs(variant, 40 + sorted(VARIANTS).index(variant))
+    d_t, d_x = _bwd_ref(tspec, table, pos, cot)
+    t = torch.from_numpy(table).requires_grad_(True)
+    x = torch.from_numpy(pos).requires_grad_(True)
+    want_t, want_x = torch.autograd.grad(brickgrid_encode_ref(t, x, tspec), [t, x],
+                                         torch.from_numpy(cot))
+    for ours, want in ((d_t, want_t), (d_x, want_x)):
+        torch.testing.assert_close(ours, want, rtol=0, atol=1e-6 * float(want.abs().max()))
+    t_only, none = _bwd_ref(tspec, table, pos, cot, needs_pos_grad=False)
+    assert none is None and torch.equal(t_only, d_t)
+
+
+def test_bwd_ref_bf16_table_casts_once():
+    """A bf16 table: the cotangent in the table's dtype, fp32 sums, the
+    table gradient cast once (as the kernel's wrapper casts its buffer)."""
+    tspec, _, table, pos, cot = _bwd_inputs("4d_pair_F8", 5)
+    t16 = torch.from_numpy(table).bfloat16()
+    c16 = torch.from_numpy(cot).bfloat16()
+    d_t, d_x = brickgrid_encode_bwd_ref(t16, torch.from_numpy(pos), c16, tspec, True)
+    w_t, w_x = brickgrid_encode_bwd_ref(t16.float(), torch.from_numpy(pos), c16.float(), tspec,
+                                        True)
+    assert d_t.dtype == torch.bfloat16 and d_x.dtype == torch.float32
+    assert torch.equal(d_t, w_t.bfloat16()) and torch.equal(d_x, w_x)
 
 
 def test_encode_bf16_table_rounds_once():

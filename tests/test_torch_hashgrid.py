@@ -32,6 +32,7 @@ from emernerf_torch import builders, kernels
 from emernerf_torch.flagship import REFERENCE_HASH, flagship_config
 from emernerf_torch.ops.hashgrid import (
     HashGridSpec,
+    features_minor,
     hashgrid_encode,
     hashgrid_encode_bwd_plain,
     hashgrid_encode_plain,
@@ -223,3 +224,22 @@ def test_wrapper_checks_and_non_cuda_devices():
     hashgrid_encode(table, torch.zeros(4, 3), spec)
     assert hashgrid_encode.launches == before  # the plain version launches nothing
     assert kernels.dispatch_device("x", table) == "cpu"
+
+
+@pytest.mark.parametrize("f", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_features_minor_copy(f, dtype):
+    """The table K4's kernels read: element [r, f] is table[f, r], in the
+    table's dtype and contiguous; an F = 1 table is already features-minor
+    and is viewed, not copied."""
+    spec = HashGridSpec(**_spec_kw(4, f))
+    rng = np.random.default_rng(f)
+    table = torch.from_numpy(rng.uniform(-1, 1, spec.table_shape).astype(np.float32)).to(dtype)
+    fm = features_minor(table)
+    rows = spec.table_shape[1]
+    assert fm.shape == (rows, f) and fm.dtype == dtype and fm.is_contiguous()
+    r = torch.from_numpy(rng.integers(0, rows, 500))
+    for fi in range(f):
+        assert torch.equal(fm[r, fi], table[fi, r])
+    assert torch.equal(fm.flatten(), table.t().flatten())
+    assert (fm.data_ptr() == table.data_ptr()) == (f == 1)

@@ -25,6 +25,8 @@ from emernerf_torch.ops.brickgrid import (
 )
 from emernerf_torch.ops.hashgrid import (
     HashGridSpec,
+    features_minor,
+    features_minor_plain,
     hashgrid_encode,
     hashgrid_encode_bwd,
     hashgrid_encode_bwd_plain,
@@ -79,9 +81,10 @@ def test_launch_error_raises():
 
 
 def test_stale_library_is_rebuilt(fresh_build, monkeypatch):
-    """A library older than any source (one built before a source changed
-    or was added) is rebuilt; one newer than every source is reused.  nvcc
-    never runs: a missing nvcc shows that a rebuild was attempted."""
+    """A library older than any source or header (one built before a source
+    changed or was added) is rebuilt; one newer than every source is
+    reused.  nvcc never runs: a missing nvcc shows that a rebuild was
+    attempted."""
     csrc = fresh_build / "csrc"
     csrc.mkdir()
     for name in ("a.cu", "b.cu"):
@@ -104,6 +107,11 @@ def test_stale_library_is_rebuilt(fresh_build, monkeypatch):
     with pytest.raises(kernels.KernelBuildError, match="nvcc not found"):
         kernels.load()
     assert kernels._State.lib is None
+    os.utime(csrc / "c.cu", (1000, 1000))
+    (csrc / "shared.cuh").write_text("// a header the sources include\n")
+    os.utime(csrc / "shared.cuh", (3000, 3000))  # changed after the build
+    with pytest.raises(kernels.KernelBuildError, match="nvcc not found"):
+        kernels.build()
 
 
 def test_sources_name_the_tpu_op_they_replace():
@@ -175,27 +183,86 @@ def test_composite_kernel_matches_plain(cuda):
     assert (out.median_depth != ref.median_depth).float().mean() < 0.01
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dims,f,bs,pair", [(3, 1, 2, False), (3, 4, 1, False), (4, 8, 1, True),
-                                            (4, 2, 1, False)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_brickgrid_backward_kernel_matches_plain(cuda, dims, f, bs, pair, dtype):
-    spec = BrickGridSpec(n_input_dims=dims, n_levels=6, base_resolution=8,
+def _brick_spec(dims, f, bs, pair):
+    return BrickGridSpec(n_input_dims=dims, n_levels=6, base_resolution=8,
                          max_resolution=512, log2_bricks=14 - 3 * bs,
                          n_features_per_level=f, log2_brick_size=bs, time_pair=pair)
+
+
+def _check_brick_backward(spec, table, pos, cot, pos_grad=True):
+    """The kernel against the plain version: the table gradient within one
+    rounding (fp32 atomics and warp merges in another order than
+    index_add_; bf16 grads round once); the position gradient bit for bit
+    (the same fp32 operations in the same order, levels summed in order, no
+    atomics) and equal between two runs."""
+    d_t, d_x = brickgrid_encode_bwd(table, pos, cot, spec, pos_grad)
+    again = brickgrid_encode_bwd(table, pos, cot, spec, pos_grad)[1]
+    r_t, r_x = brickgrid_encode_bwd_ref(table, pos, cot, spec, pos_grad)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if table.dtype == torch.float32 else 2 ** -7
+    assert d_t.dtype == table.dtype and d_t.shape == r_t.shape
+    torch.testing.assert_close(d_t.float(), r_t.float(), rtol=rtol,
+                               atol=1e-5 * float(r_t.float().abs().max()))
+    if pos_grad:
+        assert torch.equal(d_x, r_x) and torch.equal(d_x, again)
+    else:
+        assert d_x is None and r_x is None
+
+
+# (dims, F, log2_brick_size, time_pair): the proposal grids' F = 1 in 4^3
+# cells (odd 125-wide rows), the static F = 4, the fused grid's time-paired
+# F = 8 and unpaired 4D rows
+_BRICK_LAYOUTS = [(3, 1, 2, False), (3, 4, 1, False), (4, 8, 1, True), (4, 2, 1, False),
+                  (4, 4, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f,bs,pair", _BRICK_LAYOUTS[:4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_brickgrid_backward_kernel_matches_plain(cuda, dims, f, bs, pair, dtype):
+    spec = _brick_spec(dims, f, bs, pair)
     g = torch.Generator(device=cuda).manual_seed(4)
     table = torch.rand(spec.table_shape, device=cuda, generator=g).to(dtype)
     pos = torch.rand((4096, dims), device=cuda, generator=g)
     cot = torch.randn((4096, spec.n_output_dims), device=cuda, generator=g).to(dtype)
-    d_t, d_x = brickgrid_encode_bwd(table, pos, cot, spec, True)
-    r_t, r_x = brickgrid_encode_bwd_ref(table, pos, cot, spec, True)
-    torch.cuda.synchronize()
-    # fp32 atomics in another order; bf16 grads round once
-    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
-    assert d_t.dtype == dtype
-    torch.testing.assert_close(d_t.float(), r_t.float(), rtol=rtol,
-                               atol=1e-5 * float(r_t.float().abs().max()))
-    torch.testing.assert_close(d_x, r_x, rtol=1e-4, atol=1e-5 * float(r_x.abs().max()))
+    _check_brick_backward(spec, table, pos, cot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_cell", "equal_rows_per_warp", "n_not_multiple_of_32"])
+@pytest.mark.parametrize("dims,f,bs,pair", [_BRICK_LAYOUTS[i] for i in (0, 1, 2, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_brickgrid_backward_kernel_worst_contention(cuda, case, dims, f, bs, pair, dtype):
+    """Every point in one coarse cell (every lane of every warp on the same
+    slots of the coarse levels); each warp's 32 points equal (one run of 32
+    on every level); and 1,000 points (a last warp of 8 live lanes)."""
+    spec = _brick_spec(dims, f, bs, pair)
+    g = torch.Generator(device=cuda).manual_seed(16)
+    table = (torch.rand(spec.table_shape, device=cuda, generator=g) * 2 - 1).to(dtype)
+    pos = torch.rand((4096, dims), device=cuda, generator=g)
+    if case == "one_cell":
+        pos = 0.5 + 0.01 * pos
+    elif case == "equal_rows_per_warp":
+        pos = pos[::32].repeat_interleave(32, 0).contiguous()
+    else:
+        pos = pos[:1000].contiguous()
+    cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda, generator=g).to(dtype)
+    for pos_grad in (False, True):
+        _check_brick_backward(spec, table, pos, cot, pos_grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f,bs,pair", _BRICK_LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_brickgrid_backward_kernel_on_ray_ordered_points(cuda, dims, f, bs, pair, dtype):
+    """Ray-major samples, as training's top-K samples come: neighbouring
+    lanes share slots on the coarse levels, so the warp merges runs."""
+    spec = _brick_spec(dims, f, bs, pair)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    table = (torch.rand(spec.table_shape, device=cuda, generator=g) * 2 - 1).to(dtype)
+    pos = _ray_positions(cuda, g, 96, 32, dims)
+    cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda, generator=g).to(dtype)
+    _check_brick_backward(spec, table, pos, cot)
 
 
 @pytest.mark.cuda
@@ -298,22 +365,26 @@ def _hash_inputs(cuda, dims, f, dtype, seed, n=4096):
     return spec, table, pos, g
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dims,f", [(3, 4), (3, 1), (4, 4), (4, 2)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_hashgrid_kernel_matches_plain(cuda, dims, f, dtype):
-    spec, table, pos, _ = _hash_inputs(cuda, dims, f, dtype, 8)
-    assert spec.level_uses_hash.any() and not spec.level_uses_hash.all()
+def _check_hash_forward(spec, table, pos):
     with torch.no_grad():
         out = hashgrid_encode(table, pos, spec)
         ref = hashgrid_encode_plain(table, pos, spec)
     torch.cuda.synchronize()
     # same explicitly rounded fp32 ops in the same order: equal, but for
     # bf16's one rounding of a value whose last fp32 bits may differ
-    if dtype == torch.float32:
+    if table.dtype == torch.float32:
         assert torch.equal(out, ref)
     else:
         torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f", [(3, 4), (3, 1), (4, 4), (4, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hashgrid_kernel_matches_plain(cuda, dims, f, dtype):
+    spec, table, pos, _ = _hash_inputs(cuda, dims, f, dtype, 8)
+    assert spec.level_uses_hash.any() and not spec.level_uses_hash.all()
+    _check_hash_forward(spec, table, pos)
 
 
 def _check_hash_backward(spec, table, pos, cot, pos_grad):
@@ -392,19 +463,56 @@ def test_hashgrid_backward_kernel_worst_contention(cuda, case, dims, f, dtype):
 
 
 @pytest.mark.cuda
-def test_hashgrid_autograd_on_the_card(cuda):
-    """hashgrid_encode's backward launches K4's backward and gives the
-    plain version's gradients."""
-    spec, table, pos, g = _hash_inputs(cuda, 4, 4, torch.float32, 10)
+@pytest.mark.parametrize("case", ["rays", "one_cell", "n_not_multiple_of_32"])
+@pytest.mark.parametrize("dims,f", [(3, 4), (4, 4), (3, 1), (4, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hashgrid_kernel_on_rays_and_contended_points(cuda, case, dims, f, dtype):
+    """K4 forward on ray-major samples (neighbouring lanes on the same
+    rows), on points all in one coarse cell, and on 1,000 points (the last
+    block's output tile holds 8 rows)."""
+    spec, table, pos, g = _hash_inputs(cuda, dims, f, dtype, 18)
+    if case == "rays":
+        pos = _ray_positions(cuda, g, 96, 64, dims)
+    elif case == "one_cell":
+        pos = 0.5 + 0.01 * torch.rand(pos.shape, device=cuda, generator=g)
+    else:
+        pos = pos[:1000].contiguous()
+    _check_hash_forward(spec, table, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_features_minor_kernel_matches_plain(cuda, f, dtype):
+    g = torch.Generator(device=cuda).manual_seed(19)
+    table = torch.randn((f, (1 << 16) + 37), device=cuda, generator=g).to(dtype)
+    before = features_minor.launches
+    out = features_minor(table)
+    assert features_minor.launches == before + 1
+    assert torch.equal(out, features_minor_plain(table))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f", [(4, 4), (3, 1)])
+def test_hashgrid_autograd_on_the_card(cuda, dims, f):
+    """hashgrid_encode's forward reads the table's features-minor copy
+    (made by features_minor_kernel for F > 1, a view for F = 1), saves it
+    and its backward launches K4's backward on it: the plain version's
+    encoding and position gradient bit for bit, its table gradient within
+    the atomics' order."""
+    spec, table, pos, g = _hash_inputs(cuda, dims, f, torch.float32, 10)
     t = table.clone().requires_grad_(True)
     x = pos.clone().requires_grad_(True)
     cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda, generator=g)
-    before = hashgrid_encode_bwd.launches
-    hashgrid_encode(t, x, spec).backward(cot)
-    assert hashgrid_encode_bwd.launches == before + 1
+    before = (hashgrid_encode.launches, hashgrid_encode_bwd.launches, features_minor.launches)
+    out = hashgrid_encode(t, x, spec)
+    out.backward(cot)
+    after = (hashgrid_encode.launches, hashgrid_encode_bwd.launches, features_minor.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + (f > 1))
+    assert torch.equal(out.detach(), hashgrid_encode_plain(table, pos, spec))
     r_t, r_x = hashgrid_encode_bwd_plain(table, pos, cot, spec, True)
     torch.testing.assert_close(t.grad, r_t, rtol=1e-5, atol=1e-5 * float(r_t.abs().max()))
-    torch.testing.assert_close(x.grad, r_x, rtol=1e-6, atol=1e-6 * float(r_x.abs().max()))
+    assert torch.equal(x.grad, r_x)
 
 
 @pytest.mark.cuda

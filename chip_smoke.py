@@ -10,7 +10,10 @@ Phases (any failure exits non-zero; nothing is skipped):
      into build/emernerf_torch/;
   3. kernels: each kernel against its plain PyTorch version on the card,
      the forward kernels at the flagship eval shapes (one 16,384-ray
-     chunk), the training kernels (K1 and K3 backward, K5 interlevel loss,
+     chunk; K1 forward bit for bit in fp32, on the fp32 table with a bf16
+     computation (the flagship's route, beside the route it replaced: the
+     table cast to bf16, then the bf16 kernel) and on a bf16 table; K2
+     with the wrapper's time and the kernel's alone), the training kernels (K1 and K3 backward, K5 interlevel loss,
      K8 Adam) at the shapes of one 8,192-ray pixel branch and over the
      flagship's parameter list, with max abs/rel error, elements over
      tolerance and median times of both; K1 backward also on ray-ordered
@@ -30,8 +33,10 @@ Phases (any failure exits non-zero; nothing is skipped):
      must be above 0; prints ms/iteration, rays/s and peak memory;
      It then traces 2 more iterations with torch.profiler (CUDA activity),
      writes the device time by kernel to chiprun_out/profile_train.json and
-     prints the share of K1 and K4 forward and backward and of the
-     transposes;
+     prints the share of K1 and K4 forward and backward, of the transposes
+     and of copies, casts and fills; then lists, over one more iteration,
+     every dtype cast of a tensor the size of a grid table (none may cast
+     a brick table);
   5b. one fp32 training step of the tiny flagship on the card (kernels)
      against the CPU (plain versions), same params, batches and draws:
      every loss and every parameter gradient of both branches;
@@ -110,14 +115,20 @@ HASH_TINY_FP32 = TINY_FP32[:4]
 # rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# the grid kernels by name in a profiler table (kernels/csrc/brickgrid.cu,
-# hashgrid.cu): the share of each in phases 5 and 6
-GRID_SHARES = (("K1 backward", ("brickgrid_backward_kernel",)),
-               ("K1 forward", ("brickgrid_encode_kernel",)),
-               ("K4 forward", ("hashgrid_encode_kernel",)),
-               ("K4 backward", ("hashgrid_backward_kernel",)),
-               ("transposes (features_minor, transpose_cast)",
-                ("features_minor_kernel", "transpose_cast_kernel")))
+# kernels by name in a profiler table (the grid kernels of
+# kernels/csrc/brickgrid.cu and hashgrid.cu, Adam, the GEMMs, copies):
+# the share of each in phases 5 and 6
+PROFILE_SHARES = (("K1 backward", ("brickgrid_backward_kernel",)),
+                  ("K1 backward's bf16 rounding pass", ("round_to_bf16_kernel",)),
+                  ("K1 forward", ("brickgrid_encode_kernel",)),
+                  ("K4 forward", ("hashgrid_encode_kernel",)),
+                  ("K4 backward", ("hashgrid_backward_kernel",)),
+                  ("transposes (features_minor, transpose_cast)",
+                   ("features_minor_kernel", "transpose_cast_kernel")),
+                  ("Adam (K8)", ("adam_kernel",)),
+                  ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
+                  # PyTorch's copy (and dtype cast) and fill kernels, memcpy, memset
+                  ("copies, casts and fills", ("copy_kernel", "FillFunctor", "Memcpy", "Memset")))
 # P4's kernels (kernels/csrc/gather_scatter.cu), both routes
 P4_KERNELS = ("scatter_shared_table_kernel", "scatter_red_kernel")
 
@@ -320,7 +331,7 @@ def hash_specs():
     return specs
 
 
-def phase_kernels(dev, kernels_entries):
+def phase_kernels(dev, kernels_entries, after_timed):
     from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_ref
     from emernerf_torch.ops.stepfuns import importance_sampling, importance_sampling_ref
     from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_ref
@@ -339,23 +350,38 @@ def phase_kernels(dev, kernels_entries):
         for name, spec, n in cases:
             pos = torch.rand((n, spec.n_input_dims), device=dev, generator=g)
             table32 = torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1
+            table16 = table32.bfloat16()
             touched = brick_touched(spec, pos)
-            for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-6),
-                                      (torch.bfloat16, 2 ** -7, 1e-6)):
-                table = table32.to(dtype)
-                out = brickgrid_encode(table, pos, spec)
-                ref = brickgrid_encode_ref(table, pos, spec)
-                tag = f"brickgrid_encode[{name},{str(dtype)[6:]},N={n}]"
-                mx, over = compare(tag, out.float(), ref.float(), rtol, atol)
-                if over:
-                    fail(f"{tag}: {over} elements over tolerance")
-                ms = cuda_ms(lambda: brickgrid_encode(table, pos, spec), 10)
-                plain_ms = cuda_ms(lambda: brickgrid_encode_ref(table, pos, spec), 3)
+            # (label, stored table, compute dtype): fp32; the flagship's route,
+            # the fp32 parameter with a bf16 computation; a bf16 table.  Each
+            # bit for bit with the plain version (the same explicitly rounded
+            # fp32 operations in the same order, one rounding to the compute
+            # dtype)
+            for label, table, compute in (("fp32", table32, torch.float32),
+                                          ("fp32->bf16", table32, torch.bfloat16),
+                                          ("bf16", table16, torch.bfloat16)):
+                out = brickgrid_encode(table, pos, spec, compute)
+                ref = brickgrid_encode_ref(table, pos, spec, compute)
+                tag = f"brickgrid_encode[{name},{label},N={n}]"
+                exact = torch.equal(out, ref)
+                mx = float((out.float() - ref.float()).abs().max())
+                print(f"  {tag}: bit for bit with the plain version: {exact} (tolerance 0)")
+                if not exact:
+                    fail(f"{tag}: kernel and plain version differ (max abs err {mx:.3e})")
+                ms = cuda_ms(lambda: brickgrid_encode(table, pos, spec, compute), 10)
+                plain_ms = cuda_ms(lambda: brickgrid_encode_ref(table, pos, spec, compute), 3)
+                # the touched entries in the table's storage dtype
                 n_bytes = nbytes(pos, out) + touched * table.element_size()
                 add_entry(kernels_entries, tag, "brickgrid.cu",
                           "emernerf_tpu/ops/brickgrid.py:581", brickgrid_encode, mx, ms,
                           plain_ms, n_bytes, grid_ops(spec, n, False, False))
-            del table32, table, pos
+                if label == "fp32->bf16":  # the route it replaced, in the same run
+                    cast_ms = cuda_ms(lambda: brickgrid_encode(table.bfloat16(), pos, spec), 10)
+                    kernels_entries[-1]["cast_route_ms"] = cast_ms
+                    print(f"  {tag}: the route it replaced, the table cast to bf16 "
+                          f"({table.numel()} elements) then the bf16 kernel: {cast_ms:.3f} ms")
+                del out, ref
+            del table32, table16, table, pos
 
         # K2: the three sampling steps of one chunk, plus a jittered one
         for k1, n, jittered in ((2, 128, False), (129, 64, False), (65, 64, False),
@@ -366,6 +392,7 @@ def phase_kernels(dev, kernels_entries):
             cdf = torch.cumsum(pdf, -1)
             cdf = cdf / cdf[:, -1:] * 0.97
             cdf[:64] = 0.0  # zero-opacity rays
+            cdf[64:128] = 0.5  # flat CDFs
             jitter = ((torch.rand((N_RAYS, 1), device=dev, generator=g) - 0.5) / (n + 1)
                       if jittered else None)
             out = importance_sampling(s, cdf, n, jitter)
@@ -381,6 +408,11 @@ def phase_kernels(dev, kernels_entries):
             add_entry(kernels_entries, tag, "importance_sampling.cu",
                       "emernerf_tpu/ops/stepfuns.py:115", importance_sampling, mx, ms, plain_ms,
                       nbytes(s, cdf, jitter, out), n_ops)
+            # the kernel's device time alone, without the wrapper's host time:
+            # a profiler session, run after the timed phases (see kernel_only)
+            after_timed.append((kernels_entries[-1], ("importance_sampling_kernel",),
+                                lambda s=s, cdf=cdf, n=n, jitter=jitter:
+                                importance_sampling(s, cdf, n, jitter)))
 
         # K3: the full eval key set: 3 density sets, 23 value channels laid
         # out as render/volrend.py:composite_rays packs them
@@ -879,12 +911,48 @@ def _losses(metrics):
             if "loss" in k or k in ("psnr", "lidar_line_of_sight")}
 
 
+def profile_shares(rows, busy, shares=PROFILE_SHARES):
+    """{label: share of the device busy time} for each (label, kernel-name
+    substrings) of ``shares``; rows are (name, ms, count) over the profiled
+    iterations, busy the device ms per iteration (2 iterations)."""
+    return {what: sum(t for k, t, _ in rows if any(x in k for x in keys)) / 2 / busy
+            for what, keys in shares}
+
+
+def table_casts(trainer, step, numels):
+    """Every dtype cast, during one training iteration, of a tensor with as
+    many elements as a grid table: (op, elements, from dtype, to dtype).
+    An aten-level dispatch mode sees the forward's and the backward's ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+    ops = (torch.ops.aten._to_copy.default, torch.ops.aten.copy_.default)
+
+    class Casts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in ops:
+                src, dst = (args[0], out) if func is ops[0] else (args[1], args[0])
+                if (src.dtype != dst.dtype and src.dtype.is_floating_point
+                        and dst.dtype.is_floating_point and src.numel() in numels):
+                    seen.append((func.__name__, src.numel(), str(src.dtype)[6:],
+                                 str(dst.dtype)[6:]))
+            return out
+
+    with Casts():  # the mode sees each op as the host issues it
+        trainer.train_iteration(step)
+    return seen
+
+
 def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5",
-                profile_file="profile_train.json", shares=()):
+                profile_file="profile_train.json", shares=(), table_numels=(),
+                table_casts_allowed=True):
     """Trains the full-width flagship of ``profile`` through Trainer;
     returns (launches, ms/iteration, rays/s, peak GiB, {label: share of the
     profiled device time}) for each (label, kernel-name substrings) of
-    ``shares``."""
+    ``shares``.  Lists the casts of tensors the size of a grid table
+    (``table_numels``) in one more iteration, and fails on any unless
+    ``table_casts_allowed``."""
     from emernerf_torch.flagship import DEFAULT_PROFILE, flagship_config
     from emernerf_torch.train.trainer import Trainer
 
@@ -924,10 +992,15 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
     rows, busy = profile_train(trainer, 2002, ms, profile_file)
-    share = {}
+    share = profile_shares(rows, busy, shares)
     for what, keys in shares:
-        share[what] = sum(t for k, t, _ in rows if any(x in k for x in keys)) / 2 / busy
-        print(f"  {what}: {share[what]:.1%} of the device time (kernels {', '.join(keys)})")
+        print(f"  {what}: {share[what]:.1%} of the device time, {share[what] * busy:.3f} ms "
+              f"per iteration (kernels {', '.join(keys)})")
+    casts = table_casts(trainer, 2004, set(table_numels))
+    print(f"  dtype casts of tensors the size of a grid table ({sorted(set(table_numels))} "
+          f"elements) in one iteration: {len(casts)} {casts[:12]}")
+    if casts and not table_casts_allowed:
+        fail(f"{len(casts)} casts of a grid table in one training iteration: {casts[:6]}")
     rays = 2 * trainer.ray_batch_size
     print(f"  {ms:.2f} ms/iteration (mean over {n_timed} timed iterations), "
           f"{rays / ms * 1e3:.1f} rays/s (pixel + lidar), peak device memory {peak:.2f} GiB")
@@ -1049,6 +1122,18 @@ def phase_train_fp32(dev, profile=None, overrides=TINY_FP32, label="phase 5b"):
         print(f"  {branch} branch: losses {cl}")
     print(f"  all losses and {len(cg)} gradients match; worst gradient error "
           f"{worst:.3e} x the tensor's max |grad|")
+
+
+def kernel_only(after_timed):
+    """Each (entry, kernel-name substrings, call) of ``after_timed``: the
+    device time of the kernels alone in the call, a torch.profiler session
+    each, run after every timed phase so that no profiler session precedes
+    the eval, training and CLI timings."""
+    print("kernels alone (torch.profiler, after the timed phases)")
+    for entry, keys, fn in after_timed:
+        entry["kernel_only_ms"] = kernel_device_ms(fn, keys, iters=20)
+        print(f"  {entry['name']}: the wrapper's call {entry['ms']:.4f} ms, the kernel alone "
+              f"{entry['kernel_only_ms']:.4f} ms")
 
 
 def kernel_device_ms(fn, keys, iters=10) -> float:
@@ -1354,8 +1439,8 @@ def main():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    entries = []
-    phase_kernels(dev, entries)
+    entries, after_timed = [], []
+    phase_kernels(dev, entries, after_timed)
     phase_train_kernels(dev, entries)
     phase_hash_kernels(dev, entries)
     brick = (brickgrid_encode, brickgrid_encode_bwd)
@@ -1366,18 +1451,22 @@ def main():
     shared = forward + (composite_along_rays_bwd, interlevel_loss, interlevel_loss_bwd,
                         adam_update)
     launches, ms_iter, train_rays_per_s, peak, share = phase_train(
-        dev, brick + shared, zero=hashed, shares=GRID_SHARES)
+        dev, brick + shared, zero=hashed, shares=PROFILE_SHARES,
+        table_numels=[math.prod(sp.table_shape) for sp in flagship_specs().values()],
+        table_casts_allowed=False)
     phase_train_fp32(dev)
     # the reference-hash profile: K4 in place of K1
     hash_launches, hash_ms, hash_rays_per_s, hash_peak, hash_share = phase_train(
         dev, hashed + shared, zero=brick, profile=REFERENCE_HASH, n_timed=8, label="phase 6",
-        profile_file="profile_train_hash.json", shares=GRID_SHARES)
+        profile_file="profile_train_hash.json", shares=PROFILE_SHARES,
+        table_numels=[math.prod(sp.table_shape) for sp in hash_specs().values()])
     _, hash_eval_rays_per_s = phase_slice(dev, (hashgrid_encode, features_minor) + forward,
                                           zero=brick,
                                           profile=REFERENCE_HASH, label="phase 6b")
     phase_train_fp32(dev, REFERENCE_HASH, HASH_TINY_FP32, label="phase 6c")
     probe_launches = phase_probes(dev, entries)
     cli_ms = phase_cli(dev, ms_iter)
+    kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):
         fail("jax, the JAX package or the repository's perf/ scripts were imported")
@@ -1388,7 +1477,8 @@ def main():
                    launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
           f"{train_rays_per_s:.1f} rays/s, peak {peak:.2f} GiB, K1 backward "
-          f"{share['K1 backward']:.1%} of device time on {card_line}")
+          f"{share['K1 backward']:.1%}, K1 forward {share['K1 forward']:.1%}, copies, casts and "
+          f"fills {share['copies, casts and fills']:.1%} of device time on {card_line}")
     print(f"reference-hash: eval {hash_eval_rays_per_s:.1f} rays/s; train {hash_ms:.2f} "
           f"ms/iteration, {hash_rays_per_s:.1f} rays/s, peak {hash_peak:.2f} GiB, K4 forward "
           f"{hash_share['K4 forward']:.1%} and backward {hash_share['K4 backward']:.1%} of "

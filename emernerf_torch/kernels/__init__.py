@@ -30,8 +30,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (all return cudaError_t as int)
 _SIGNATURES = {
-    # table, table_is_bf16, positions, out, n_points, params (host struct), stream
-    "emt_brickgrid_encode": (_P, _I, _P, _P, _L, _P, _P),
+    # table, table_is_bf16, compute_is_bf16, positions, out, n_points,
+    # params (host struct), stream
+    "emt_brickgrid_encode": (_P, _I, _I, _P, _P, _L, _P, _P),
     # s_vals, cdfs, u_base, jitter|NULL, out, n_rays, n_in_edges, n_out_edges, stream
     "emt_importance_sampling": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # t_starts, t_ends, dens (R,S,D), vals (R,S,C)|NULL, chan_set (C) host,
@@ -43,9 +44,9 @@ _SIGNATURES = {
     # d_dens, d_vals|NULL, stream
     "emt_composite_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P),
-    # table, table_is_bf16, positions, grad_out, d_table (fp32), d_pos|NULL,
-    # n_points, params (host struct), stream
-    "emt_brickgrid_backward": (_P, _I, _P, _P, _P, _P, _L, _P, _P),
+    # table, table_is_bf16, compute_is_bf16, positions, grad_out, d_table
+    # (fp32), d_pos|NULL, n_points, params (host struct), stream
+    "emt_brickgrid_backward": (_P, _I, _I, _P, _P, _P, _P, _L, _P, _P),
     # s_final (R,K+1), trans_final (R,K), half-width r, cache_s (R,M+1),
     # cache_cdfs (R,M+1), w_s out (R,M), loss out (R,), n_rays, K+1, M+1, stream
     "emt_interlevel_forward": (_P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -6,22 +6,38 @@
 // because TPU gathers are bound by the row rate, not by the bytes.
 //
 // What bounds it on the H100: random reads of table rows that mostly miss
-// L2 (the static and fused tables are ~0.3-0.6 GB), i.e. memory latency and
-// DRAM sector traffic; the arithmetic is a few dozen FLOPs per (point, level).
+// L2 (the static and fused tables are ~0.3-0.6 GB in fp32), i.e. memory
+// latency and DRAM sector traffic; the arithmetic is a few dozen FLOPs per
+// (point, level).
 //
-// Design: one thread per (point, level), levels fastest so the L threads of
-// one point share its position load and write one contiguous output row.
-// Only the 8 corners with a non-zero trilinear weight are read (F values
-// each, doubled for time-paired rows), not the dense weight row: that cuts
-// the bytes per query from 27F (or 125F) to 8F.  Accumulation is fp32; the
-// table may be fp32 or bf16 and the output is written in the table's dtype.
+// Forward design (K4 forward's recipe, hashgrid.cu):
+//   - one warp per (32 consecutive points, level); a block holds the L
+//     warps of the same 32 points, so in eval and training neighbouring
+//     lanes are neighbouring samples of a ray and share rows on the coarse
+//     levels;
+//   - only the 8 corners with a non-zero trilinear weight are read, not the
+//     dense weight row.  The two corners that differ in x are neighbouring
+//     slots of one row, so each (dy, dz, time slice) is ONE span of 2F
+//     contiguous values, read with the widest aligned vector loads
+//     (emt::load_span: 16-byte loads for F = 8 and F = 4, a float2 or a
+//     bf16 pair for F = 1 where the slot is even, else two scalars);
+//     time-paired rows read the t+1 slice at r0 + row_width / 2;
+//   - storage and compute types are separate: the table may be the fp32
+//     parameter itself with a bf16 computation.  Each loaded value is then
+//     rounded to bf16 in registers (emt::round_loaded), which is what a read
+//     of table.to(torch.bfloat16) gives, bit for bit, without that copy:
+//     the kernel reads only the fp32 entries its points touch, where the
+//     cast read the whole table and wrote half of it again;
+//   - accumulation is fp32; the block's output tile is staged in shared
+//     memory and written as one coalesced tile in the compute type.
 //
 // Rounding: the cell and fraction math uses __fmul_rn / __fadd_rn so that
 // nvcc cannot fuse x*scale+0.5 into an FMA.  A fused product moves points
 // that sit next to a cell boundary into the neighbouring cell, and across a
 // brick boundary that is a different table row.  The reduction uses the
-// same explicitly rounded mul/add in the same corner order as the plain
-// PyTorch version (emernerf_torch/ops/brickgrid.py:brickgrid_encode_ref).
+// same explicitly rounded mul/add in the same corner order (dz, dy, dx) as
+// the plain PyTorch version (emernerf_torch/ops/brickgrid.py:
+// brickgrid_encode_ref), so the two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -119,57 +135,76 @@ __device__ __forceinline__ Geo level_geo(const BrickParams& p, const float* x,
   return g;
 }
 
-template <typename T, int F>
+// Block: L warps x 32 points; warp l takes level l of the block's 32
+// consecutive points.  T is the table's storage type, C the compute type
+// (the output's and the load policy's); 32 * L * F values of C of dynamic
+// shared memory hold the output tile.  The table is 16-byte aligned.
+template <typename T, typename C, int F>
 __global__ void brickgrid_encode_kernel(const T* __restrict__ table,
                                         const float* __restrict__ pos,
-                                        T* __restrict__ out, long long n,
+                                        C* __restrict__ out, long long n,
                                         const BrickParams p) {
-  const long long tid = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  C* s_out = reinterpret_cast<C*>(s_raw);  // [lane][level][feature]
+  const int lane = threadIdx.x & 31, lvl = threadIdx.x >> 5;
   const int L = p.n_levels;
-  if (tid >= n * L) return;
-  const long long i = tid / L;
-  const int lvl = static_cast<int>(tid - i * L);
-  const int cpa = (1 << p.log2_brick_size) + 1;
-  const Geo g = level_geo(p, pos + i * p.n_dims, lvl);
-  const T* r0 = table + g.r0;
-  const T* r1 = g.r1 >= 0 ? table + g.r1 : nullptr;
-
-  float acc0[F], acc1[F];
+  const long long first = static_cast<long long>(blockIdx.x) * 32;
+  const long long i = first + lane;
+  if (i < n) {
+    const Geo g = level_geo(p, pos + i * p.n_dims, lvl);
+    const bool has_t = g.r1 >= 0;
+    const int cpa = (1 << p.log2_brick_size) + 1;
+    const float wx0 = __fsub_rn(1.f, g.frac[0]), wx1 = g.frac[0];
+    float acc0[F], acc1[F];
 #pragma unroll
-  for (int f = 0; f < F; ++f) { acc0[f] = 0.f; acc1[f] = 0.f; }
+    for (int f = 0; f < F; ++f) acc0[f] = 0.f, acc1[f] = 0.f;
 #pragma unroll
-  for (int dz = 0; dz < 2; ++dz) {
-    const float wz = dz ? g.frac[2] : __fsub_rn(1.f, g.frac[2]);
+    for (int dz = 0; dz < 2; ++dz) {
+      const float wz = dz ? g.frac[2] : __fsub_rn(1.f, g.frac[2]);
 #pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const float wy = dy ? g.frac[1] : __fsub_rn(1.f, g.frac[1]);
+      for (int dy = 0; dy < 2; ++dy) {
+        const float wy = dy ? g.frac[1] : __fsub_rn(1.f, g.frac[1]);
+        // the dx = 0 and dx = 1 corners: one span of 2F values per slice
+        const long long slot = (g.off[0] + cpa * ((g.off[1] + dy) + cpa * (g.off[2] + dz))) * F;
+        float v0[2 * F], v1[2 * F];
+        emt::load_span<T, 2 * F, F, C>(table + g.r0 + slot, v0);
+        if (has_t) emt::load_span<T, 2 * F, F, C>(table + g.r1 + slot, v1);
+        const float w0 = __fmul_rn(__fmul_rn(wx0, wy), wz);
+        const float w1 = __fmul_rn(__fmul_rn(wx1, wy), wz);
 #pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const float wx = dx ? g.frac[0] : __fsub_rn(1.f, g.frac[0]);
-        const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
-        const int corner = (g.off[0] + dx) + cpa * ((g.off[1] + dy) + cpa * (g.off[2] + dz));
-        const int lane = corner * F;
+        for (int f = 0; f < F; ++f) {
+          acc0[f] = __fadd_rn(acc0[f], __fmul_rn(w0, v0[f]));
+          acc0[f] = __fadd_rn(acc0[f], __fmul_rn(w1, v0[F + f]));
+        }
+        if (has_t) {
 #pragma unroll
-        for (int f = 0; f < F; ++f)
-          acc0[f] = __fadd_rn(acc0[f], __fmul_rn(w, load_f(r0 + lane + f)));
-        if (r1 != nullptr) {
-#pragma unroll
-          for (int f = 0; f < F; ++f)
-            acc1[f] = __fadd_rn(acc1[f], __fmul_rn(w, load_f(r1 + lane + f)));
+          for (int f = 0; f < F; ++f) {
+            acc1[f] = __fadd_rn(acc1[f], __fmul_rn(w0, v1[f]));
+            acc1[f] = __fadd_rn(acc1[f], __fmul_rn(w1, v1[F + f]));
+          }
         }
       }
     }
-  }
-  T* o = out + i * static_cast<long long>(L) * F + lvl * F;
-  if (r1 != nullptr) {
-    const float tw0 = __fsub_rn(1.f, g.tfrac);
+    C* o = s_out + (lane * L + lvl) * F;
+    if (has_t) {
+      const float tw0 = __fsub_rn(1.f, g.tfrac);
 #pragma unroll
-    for (int f = 0; f < F; ++f)
-      store_f(o + f, __fadd_rn(__fmul_rn(acc0[f], tw0), __fmul_rn(acc1[f], g.tfrac)));
-  } else {
+      for (int f = 0; f < F; ++f)
+        store_f(o + f, __fadd_rn(__fmul_rn(acc0[f], tw0), __fmul_rn(acc1[f], g.tfrac)));
+    } else {
 #pragma unroll
-    for (int f = 0; f < F; ++f) store_f(o + f, acc0[f]);
+      for (int f = 0; f < F; ++f) store_f(o + f, acc0[f]);
+    }
   }
+  __syncthreads();
+  // the block's rows of the (n, L * F) output are one contiguous tile
+  const long long rows = n - first < 32 ? n - first : 32;
+  const int count = static_cast<int>(rows) * L * F;
+  constexpr int kVec = 16 / sizeof(C);
+  C* dst = out + first * L * F;
+  for (int k = threadIdx.x; k < count / kVec; k += blockDim.x)
+    reinterpret_cast<uint4*>(dst)[k] = reinterpret_cast<const uint4*>(s_out)[k];
+  for (int k = count / kVec * kVec + threadIdx.x; k < count; k += blockDim.x) dst[k] = s_out[k];
 }
 
 // Backward (K1 bwd).  Replaces emernerf_tpu/ops/brickgrid.py:_brickgrid_bwd,
@@ -207,11 +242,17 @@ __global__ void brickgrid_encode_kernel(const T* __restrict__ table,
 //     rounded explicitly, the plain version's order of operations exactly
 //     (emernerf_torch/ops/brickgrid.py:brickgrid_encode_bwd_ref).  The JAX
 //     reference reads forward-saved reductions instead: the math is the
-//     same, the rounding is not.
-template <typename T, int F>
+//     same, the rounding is not.  The re-read takes the forward's load
+//     policy: an fp32 table of a bf16 computation is rounded in registers;
+//   - an fp32 table of a bf16 computation gets its gradient back rounded to
+//     bf16 precision, float(bf16(sum)), by one in-place pass over the fp32
+//     buffer (round_to_bf16_kernel): what autograd of table.to(bf16) gave,
+//     and JAX's astype VJP gives, with no bf16 gradient tensor.
+// T is the table's storage type, C the compute type (the cotangent's).
+template <typename T, typename C, int F>
 __global__ void brickgrid_backward_kernel(const T* __restrict__ table,
                                           const float* __restrict__ pos,
-                                          const T* __restrict__ grad,
+                                          const C* __restrict__ grad,
                                           float* __restrict__ d_table,
                                           float* __restrict__ d_pos, long long n,
                                           const BrickParams p) {
@@ -226,7 +267,7 @@ __global__ void brickgrid_backward_kernel(const T* __restrict__ table,
   float gf[F];
   if (live) {
     g = level_geo(p, pos + i * p.n_dims, lvl);
-    emt::load_vec<T, F>(grad + (i * L + lvl) * F, gf);
+    emt::load_vec<C, F>(grad + (i * L + lvl) * F, gf);
   } else {
 #pragma unroll
     for (int f = 0; f < F; ++f) gf[f] = 0.f;
@@ -249,13 +290,13 @@ __global__ void brickgrid_backward_kernel(const T* __restrict__ table,
           const long long slot =
               ((g.off[0] + dx) + cpa * ((g.off[1] + dy) + cpa * (g.off[2] + dz))) * F;
           float feat[F];
-          emt::load_vec<T, F>(table + g.r0 + slot, feat);
+          emt::load_vec<T, F, C>(table + g.r0 + slot, feat);
           float dot0 = 0.f;
 #pragma unroll
           for (int f = 0; f < F; ++f) dot0 = __fadd_rn(dot0, __fmul_rn(gf[f], feat[f]));
           float gl = dot0;
           if (has_t) {
-            emt::load_vec<T, F>(table + g.r1 + slot, feat);
+            emt::load_vec<T, F, C>(table + g.r1 + slot, feat);
             float dot1 = 0.f;
 #pragma unroll
             for (int f = 0; f < F; ++f) dot1 = __fadd_rn(dot1, __fmul_rn(gf[f], feat[f]));
@@ -314,21 +355,39 @@ __global__ void brickgrid_backward_kernel(const T* __restrict__ table,
     if (a < p.n_dims) d_pos[i * p.n_dims + a] = dp[a];
 }
 
-template <typename T>
+// d <- float(bf16(d)) in place, n floats, d 16-byte aligned.  Most of a
+// gradient buffer stays zero (rows no point touched), and a zero rounds to
+// itself, so a vector is written back only where rounding changed it.
+__global__ void round_to_bf16_kernel(float* __restrict__ d, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  float4* d4 = reinterpret_cast<float4*>(d);
+  for (long long k = t; k < n / 4; k += stride) {
+    const float4 v = d4[k];
+    const float4 r = make_float4(
+        emt::to_compute<__nv_bfloat16>(v.x), emt::to_compute<__nv_bfloat16>(v.y),
+        emt::to_compute<__nv_bfloat16>(v.z), emt::to_compute<__nv_bfloat16>(v.w));
+    if (r.x != v.x || r.y != v.y || r.z != v.z || r.w != v.w) d4[k] = r;
+  }
+  for (long long k = n / 4 * 4 + t; k < n; k += stride) d[k] = emt::to_compute<__nv_bfloat16>(d[k]);
+}
+
+#define EMT_F_CASES(CASE) CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+
+template <typename T, typename C>
 cudaError_t launch_typed(const void* table, const float* pos, void* out,
                          long long n, const BrickParams& p, cudaStream_t s) {
-  const long long total = n * p.n_levels;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  const int threads = 32 * p.n_levels;
+  const unsigned blocks = static_cast<unsigned>((n + 31) / 32);
+  const size_t smem = sizeof(C) * 32 * p.n_levels * p.n_features;
   const T* tab = static_cast<const T*>(table);
-  T* o = static_cast<T*>(out);
+  C* o = static_cast<C*>(out);
   switch (p.n_features) {
-#define EMT_CASE(FV)                                                        \
-  case FV:                                                                  \
-    brickgrid_encode_kernel<T, FV><<<blocks, threads, 0, s>>>(tab, pos, o, n, p); \
+#define EMT_CASE(FV)                                                                   \
+  case FV:                                                                             \
+    brickgrid_encode_kernel<T, C, FV><<<blocks, threads, smem, s>>>(tab, pos, o, n, p); \
     break;
-    EMT_CASE(1) EMT_CASE(2) EMT_CASE(3) EMT_CASE(4)
-    EMT_CASE(5) EMT_CASE(6) EMT_CASE(7) EMT_CASE(8)
+    EMT_F_CASES(EMT_CASE)
 #undef EMT_CASE
     default:
       return cudaErrorInvalidValue;
@@ -336,7 +395,7 @@ cudaError_t launch_typed(const void* table, const float* pos, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename C>
 cudaError_t launch_backward_typed(const void* table, const float* pos,
                                   const void* grad, float* d_table, float* d_pos,
                                   long long n, const BrickParams& p, cudaStream_t s) {
@@ -344,16 +403,15 @@ cudaError_t launch_backward_typed(const void* table, const float* pos,
   const size_t smem = d_pos != nullptr ? sizeof(float) * p.n_levels * 4 * 32 : 0;
   const unsigned blocks = static_cast<unsigned>((n + 31) / 32);
   const T* tab = static_cast<const T*>(table);
-  const T* g = static_cast<const T*>(grad);
+  const C* g = static_cast<const C*>(grad);
   switch (p.n_features) {
-#define EMT_CASE(FV)                                                              \
-  case FV:                                                                        \
-    brickgrid_backward_kernel<T, FV><<<blocks, threads, smem, s>>>(tab, pos, g,   \
-                                                                   d_table, d_pos, \
-                                                                   n, p);          \
+#define EMT_CASE(FV)                                                                 \
+  case FV:                                                                           \
+    brickgrid_backward_kernel<T, C, FV><<<blocks, threads, smem, s>>>(tab, pos, g,   \
+                                                                      d_table, d_pos, \
+                                                                      n, p);          \
     break;
-    EMT_CASE(1) EMT_CASE(2) EMT_CASE(3) EMT_CASE(4)
-    EMT_CASE(5) EMT_CASE(6) EMT_CASE(7) EMT_CASE(8)
+    EMT_F_CASES(EMT_CASE)
 #undef EMT_CASE
     default:
       return cudaErrorInvalidValue;
@@ -361,37 +419,70 @@ cudaError_t launch_backward_typed(const void* table, const float* pos,
   return cudaGetLastError();
 }
 
+// The four (storage, compute) pairs: T in {fp32, bf16} x C in {fp32, bf16}.
+template <template <typename, typename> class Launch, typename... Args>
+cudaError_t by_types(int table_is_bf16, int compute_is_bf16, Args... args) {
+  using bf16 = __nv_bfloat16;
+  if (table_is_bf16)
+    return compute_is_bf16 ? Launch<bf16, bf16>::run(args...) : Launch<bf16, float>::run(args...);
+  return compute_is_bf16 ? Launch<float, bf16>::run(args...) : Launch<float, float>::run(args...);
+}
+
+template <typename T, typename C>
+struct Forward {
+  static cudaError_t run(const void* table, const float* pos, void* out, long long n,
+                         const BrickParams& p, cudaStream_t s) {
+    return launch_typed<T, C>(table, pos, out, n, p, s);
+  }
+};
+
+template <typename T, typename C>
+struct Backward {
+  static cudaError_t run(const void* table, const float* pos, const void* grad, float* d_table,
+                         float* d_pos, long long n, const BrickParams& p, cudaStream_t s) {
+    return launch_backward_typed<T, C>(table, pos, grad, d_table, d_pos, n, p, s);
+  }
+};
+
 }  // namespace
 
+// table: (L*B, W) in its storage dtype, 16-byte aligned; grad: (n, L*F) in
+// the compute dtype; d_table: the zeroed fp32 (L*B, W) buffer, returned
+// rounded to bf16 precision when an fp32 table serves a bf16 computation.
 extern "C" int emt_brickgrid_backward(const void* table, int table_is_bf16,
-                                      const void* positions, const void* grad,
-                                      void* d_table, void* d_pos,
+                                      int compute_is_bf16, const void* positions,
+                                      const void* grad, void* d_table, void* d_pos,
                                       long long n_points, const void* params,
                                       void* stream) {
   const BrickParams p = *static_cast<const BrickParams*>(params);
   if (p.n_levels < 1 || p.n_levels > kMaxLevels) return cudaErrorInvalidValue;
-  if (n_points == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* pos = static_cast<const float*>(positions);
   float* dt = static_cast<float*>(d_table);
-  float* dp = static_cast<float*>(d_pos);
-  cudaError_t err = table_is_bf16
-      ? launch_backward_typed<__nv_bfloat16>(table, pos, grad, dt, dp, n_points, p, s)
-      : launch_backward_typed<float>(table, pos, grad, dt, dp, n_points, p, s);
-  return static_cast<int>(err);
+  if (n_points > 0) {
+    const cudaError_t err = by_types<Backward>(
+        table_is_bf16, compute_is_bf16, table, static_cast<const float*>(positions), grad, dt,
+        static_cast<float*>(d_pos), n_points, p, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (!table_is_bf16 && compute_is_bf16) {
+    const long long numel = p.n_levels * p.bricks_per_level * p.row_width;
+    const long long want = (numel / 4 + 255) / 256;
+    const unsigned blocks = static_cast<unsigned>(want < 1 ? 1 : want < 132 * 16 ? want : 132 * 16);
+    round_to_bf16_kernel<<<blocks, 256, 0, s>>>(dt, numel);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
+// table: (L*B, W) in its storage dtype, 16-byte aligned; out: (n, L*F) in
+// the compute dtype.
 extern "C" int emt_brickgrid_encode(const void* table, int table_is_bf16,
-                                    const void* positions, void* out,
+                                    int compute_is_bf16, const void* positions, void* out,
                                     long long n_points, const void* params,
                                     void* stream) {
   const BrickParams p = *static_cast<const BrickParams*>(params);
   if (p.n_levels < 1 || p.n_levels > kMaxLevels) return cudaErrorInvalidValue;
   if (n_points == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* pos = static_cast<const float*>(positions);
-  cudaError_t err = table_is_bf16
-      ? launch_typed<__nv_bfloat16>(table, pos, out, n_points, p, s)
-      : launch_typed<float>(table, pos, out, n_points, p, s);
-  return static_cast<int>(err);
+  return static_cast<int>(by_types<Forward>(
+      table_is_bf16, compute_is_bf16, table, static_cast<const float*>(positions), out,
+      n_points, p, static_cast<cudaStream_t>(stream)));
 }

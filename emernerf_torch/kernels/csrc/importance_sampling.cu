@@ -7,44 +7,58 @@
 // lower to serialized gathers.
 //
 // What bounds it on the H100: reading the (R, K+1) CDF and edges and writing
-// the (R, M) result, ~1-2 MB per call at the eval chunk; the arithmetic
-// (a log2(K)-step binary search per output edge) is small.  Launch latency
-// matters as much as the bytes at these sizes.
+// the (R, M) result, ~1-2 MB per call at the eval chunk, a few microseconds
+// at the HBM rate; the arithmetic (a log2(K)-step search per output edge)
+// is small.  So the launch and the wrapper's host time are what is left to
+// cut, and the work per block must be large enough to fill the card.
 //
-// Design: one block per ray.  The block normalizes the ray's CDF into
-// shared memory once (cdf / max(cdf[-1], 1e-7), as the reference does),
-// stages the edges beside it, and each thread then produces output edges
-// with a binary search with searchsorted(side="right") semantics, the same
-// index clipping, and nan_to_num(nan=0) followed by clip(0, 1) on the
-// interpolation fraction: 0/0 gives t = 0, x/0 with x > 0 gives t = 1.
-// The per-ray jitter is an input (or NULL), never drawn in the kernel.
-// Arithmetic is explicitly rounded (no FMA) to match the plain version.
+// Design: one warp per ray, kRaysPerBlock rays per block, no block-wide
+// barrier.  The warp reads its ray's K+1 CDF values and edges with
+// coalesced loads, normalizes the CDF into its own slice of shared memory
+// once (cdf / max(cdf[-1], 1e-7) with __fdiv_rn, as the reference divides),
+// and after a __syncwarp each lane produces output edges j = lane, lane+32,
+// ...: the count of CDF entries <= u (searchsorted(side="right") on the
+// sorted row) by a binary search in shared memory, the same index clipping,
+// and nan_to_num(nan=0) followed by clip(0, 1) on the interpolation
+// fraction (0/0 gives t = 0, x/0 with x > 0 gives t = 1).  Neighbouring
+// lanes write neighbouring output edges: coalesced stores.  The evenly
+// spaced positions u_base are an input that the wrapper builds once per
+// (M, device); the per-ray jitter is an input (or NULL), never drawn in the
+// kernel.  Arithmetic is explicitly rounded (no FMA) to match the plain
+// version.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kRaysPerBlock = 8;
+
+// Dynamic shared memory: 2 * k1 floats per warp (the normalized CDF, then
+// the edges).
 __global__ void importance_sampling_kernel(const float* __restrict__ s_vals,
                                            const float* __restrict__ cdfs,
                                            const float* __restrict__ u_base,
                                            const float* __restrict__ jitter,
-                                           float* __restrict__ out, int k1,
+                                           float* __restrict__ out, int n_rays, int k1,
                                            int m) {
   extern __shared__ float smem[];
-  float* cdf = smem;       // (k1,) normalized CDF
-  float* sv = smem + k1;   // (k1,) edges
-  const long long r = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r = static_cast<long long>(blockIdx.x) * kRaysPerBlock + warp;
+  if (r >= n_rays) return;  // no block-wide barrier follows
+  float* cdf = smem + 2 * k1 * warp;
+  float* sv = cdf + k1;
   const float* crow = cdfs + r * k1;
   const float* srow = s_vals + r * k1;
-  const float denom = fmaxf(crow[k1 - 1], 1e-7f);
-  for (int k = threadIdx.x; k < k1; k += blockDim.x) {
-    cdf[k] = __fdiv_rn(crow[k], denom);
-    sv[k] = srow[k];
+  const float denom = fmaxf(__ldg(crow + k1 - 1), 1e-7f);
+  for (int k = lane; k < k1; k += 32) {
+    cdf[k] = __fdiv_rn(__ldg(crow + k), denom);
+    sv[k] = __ldg(srow + k);
   }
-  __syncthreads();
-  const float jit = jitter != nullptr ? jitter[r] : 0.f;
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const float u = jitter != nullptr ? __fadd_rn(u_base[j], jit) : u_base[j];
+  __syncwarp();
+  const float jit = jitter != nullptr ? __ldg(jitter + r) : 0.f;
+  float* orow = out + r * m;
+  for (int j = lane; j < m; j += 32) {
+    const float u = jitter != nullptr ? __fadd_rn(__ldg(u_base + j), jit) : __ldg(u_base + j);
     // count of cdf entries <= u (upper bound on a sorted row)
     int lo = 0, hi = k1;
     while (lo < hi) {
@@ -52,13 +66,13 @@ __global__ void importance_sampling_kernel(const float* __restrict__ s_vals,
       if (cdf[mid] <= u) lo = mid + 1; else hi = mid;
     }
     const int i0 = min(max(lo - 1, 0), k1 - 1);
-    const int i1 = min(max(lo, 0), k1 - 1);
+    const int i1 = min(lo, k1 - 1);
     const float c0 = cdf[i0], c1 = cdf[i1];
     const float s0 = sv[i0], s1 = sv[i1];
     float t = __fdiv_rn(__fsub_rn(u, c0), __fsub_rn(c1, c0));
     if (isnan(t)) t = 0.f;
     t = fminf(fmaxf(t, 0.f), 1.f);
-    out[r * m + j] = __fadd_rn(s0, __fmul_rn(t, __fsub_rn(s1, s0)));
+    orow[j] = __fadd_rn(s0, __fmul_rn(t, __fsub_rn(s1, s0)));
   }
 }
 
@@ -70,13 +84,13 @@ extern "C" int emt_importance_sampling(const void* s_vals, const void* cdfs,
                                        int n_out_edges, void* stream) {
   if (n_rays == 0) return cudaSuccess;
   if (n_in_edges < 1 || n_out_edges < 1) return cudaErrorInvalidValue;
-  const size_t smem = 2 * static_cast<size_t>(n_in_edges) * sizeof(float);
+  const size_t smem = 2 * static_cast<size_t>(n_in_edges) * sizeof(float) * kRaysPerBlock;
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const int threads = n_out_edges >= 128 ? 128 : ((n_out_edges + 31) / 32) * 32;
-  importance_sampling_kernel<<<n_rays, threads, smem,
+  const unsigned blocks = static_cast<unsigned>((n_rays + kRaysPerBlock - 1) / kRaysPerBlock);
+  importance_sampling_kernel<<<blocks, 32 * kRaysPerBlock, smem,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s_vals), static_cast<const float*>(cdfs),
       static_cast<const float*>(u_base), static_cast<const float*>(jitter),
-      static_cast<float*>(out), n_in_edges, n_out_edges);
+      static_cast<float*>(out), n_rays, n_in_edges, n_out_edges);
   return static_cast<int>(cudaGetLastError());
 }

@@ -68,8 +68,8 @@ class DensityField(nn.Module):
     def forward(self, positions: torch.Tensor) -> torch.Tensor:
         """positions (..., 3) world coords -> density (...,)."""
         normed = _contract(positions, self.aabb, self.unbounded)
-        table = self.hash_table.to(self.table_dtype)
-        enc = grid_encode(table, normed.contiguous(), self.spec).float()
+        enc = grid_encode(self.hash_table, normed.contiguous(), self.spec,
+                          self.table_dtype).float()
         return density_activation(self.base_mlp(enc)[..., 0])
 
 
@@ -167,8 +167,8 @@ class RadianceField(nn.Module):
 
     def forward_static_hash(self, positions):
         normed = self.contract_points(positions)
-        table = self.xyz_table.to(self.table_dtype)
-        enc = grid_encode(table, normed.contiguous(), self.static_spec)
+        enc = grid_encode(self.xyz_table, normed.contiguous(), self.static_spec,
+                          self.table_dtype)
         return self.base_mlp(enc.float()), normed
 
     def _dynflow_encode(self, normed_positions, normed_timestamps):
@@ -181,7 +181,7 @@ class RadianceField(nn.Module):
 
     def _encode_4d(self, table, spec, normed_positions, normed_timestamps):
         xyzt = torch.cat([normed_positions, normed_timestamps[..., None]], dim=-1)
-        return grid_encode(table.to(self.table_dtype), xyzt, spec).float()
+        return grid_encode(table, xyzt, spec, self.table_dtype).float()
 
     def forward_dynamic_hash(self, normed_positions, normed_timestamps):
         """The separate dynamic grid's 4D query + the dynamic base MLP ->

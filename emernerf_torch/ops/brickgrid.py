@@ -17,10 +17,20 @@ corners with non-zero trilinear weight (the TPU reference densely weights
 the whole row; the zero-weight corners add nothing).  ``brickgrid_encode``
 is the differentiable wrapper around the CUDA kernels
 (``kernels/csrc/brickgrid.cu``, forward and backward): it takes the plain
-versions for CPU tensors only.  The backward returns the table gradient in
-the table's dtype (accumulated in fp32, cast once, as the reference casts
-each level) and the position gradient only where the positions need one
-(the flow-warped queries).
+versions for CPU tensors only.
+
+The table's storage dtype and the compute dtype are separate:
+``brickgrid_encode(table, positions, spec, compute_dtype)`` takes the fp32
+parameter itself and computes as ``brickgrid_encode(table.to(compute_dtype),
+...)`` would, bit for bit, without that copy: the kernels round each
+value they read to the compute dtype in registers, and the autograd
+Function saves the parameter, not a cast of it.  The encoding comes out in
+the compute dtype.  The backward accumulates in fp32 and returns the table
+gradient in the table's dtype, rounded once to the compute dtype first
+(``float(bf16(sum))`` for an fp32 table of a bf16 computation, as the
+reference casts each level and autograd of the cast would return it), and
+the position gradient only where the positions need one (the flow-warped
+queries).  The plain versions cast first.
 """
 
 from __future__ import annotations
@@ -237,9 +247,12 @@ def _corners(spec: BrickGridSpec, offs, fracs):
 
 
 def brickgrid_encode_ref(table: torch.Tensor, positions: torch.Tensor,
-                         spec: BrickGridSpec) -> torch.Tensor:
+                         spec: BrickGridSpec, compute_dtype=None) -> torch.Tensor:
     """Plain version: positions (..., D) in [0,1] -> (..., L*F) features in
-    the table's dtype, accumulated in fp32 over the 8 live corners."""
+    the compute dtype (default: the table's), accumulated in fp32 over the
+    8 live corners of ``table.to(compute_dtype)``."""
+    if compute_dtype is not None:
+        table = table.to(compute_dtype)
     d, f = spec.n_input_dims, spec.n_features_per_level
     batch = positions.shape[:-1]
     x = positions.reshape(-1, d).float()
@@ -299,33 +312,46 @@ def _kernel_params(spec: BrickGridSpec) -> _BrickParams:
     return p
 
 
-def _check_encode_args(name, table, positions, spec):
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_encode_args(name, table, positions, spec, compute_dtype):
     if tuple(table.shape) != spec.table_shape:
         raise ValueError(f"{name}: table {tuple(table.shape)} != {spec.table_shape}")
-    if table.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: table dtype {table.dtype}")
+    if table.dtype not in _DTYPES or compute_dtype not in _DTYPES:
+        raise ValueError(f"{name}: table dtype {table.dtype}, compute dtype {compute_dtype}")
     if positions.shape[-1] != spec.n_input_dims or positions.dtype != torch.float32:
         raise ValueError(f"{name}: positions must be (..., {spec.n_input_dims}) float32")
     if spec.n_features_per_level > 8 or spec.n_levels > MAX_LEVELS:
         raise ValueError(f"{name}: F <= 8 and L <= {MAX_LEVELS} supported")
 
 
-def _encode_forward(table, positions, spec):
+def _require_aligned_table(name, table):
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name}: the table must be 16-byte aligned (vector loads)")
+
+
+def _is_bf16(dtype) -> int:
+    return int(dtype == torch.bfloat16)
+
+
+def _encode_forward(table, positions, spec, compute_dtype):
     """The K1 forward: plain version for CPU tensors, the kernel for CUDA."""
     name = "brickgrid_encode"
     if kernels.dispatch_device(name, table) == "cpu":
-        return brickgrid_encode_ref(table, positions, spec)
+        return brickgrid_encode_ref(table, positions, spec, compute_dtype)
     kernels.require_cuda_inputs(name, table, positions)
+    _require_aligned_table(name, table)
     lib = kernels.load()
     batch = positions.shape[:-1]
     n = positions.numel() // spec.n_input_dims
-    out = torch.empty((n, spec.n_output_dims), dtype=table.dtype,
+    out = torch.empty((n, spec.n_output_dims), dtype=compute_dtype,
                       device=table.device)
     if n == 0:
         return out.reshape(*batch, spec.n_output_dims)
     params = _kernel_params(spec)
     err = lib.emt_brickgrid_encode(
-        table.data_ptr(), int(table.dtype == torch.bfloat16),
+        table.data_ptr(), _is_bf16(table.dtype), _is_bf16(compute_dtype),
         positions.data_ptr(), out.data_ptr(), n, ctypes.addressof(params),
         kernels.stream_ptr(table.device),
     )
@@ -335,19 +361,23 @@ def _encode_forward(table, positions, spec):
 
 
 def brickgrid_encode_bwd_ref(table, positions, grad_out, spec: BrickGridSpec,
-                             needs_pos_grad: bool):
+                             needs_pos_grad: bool, compute_dtype=None):
     """Plain version of :func:`brickgrid_encode_bwd`, in the kernel's order
-    of operations: (d table in the table's dtype, d positions (..., D)
-    float32 or None).
+    of operations, on ``table.to(compute_dtype)``: (d table in the table's
+    dtype, d positions (..., D) float32 or None).
 
     The table gradient adds w * tw * g of every live corner and time slice
-    into a zeroed fp32 buffer and casts it once.  The position gradient
+    into a zeroed fp32 buffer, rounds it once to the compute dtype and
+    returns it in the table's.  The position gradient
     re-reads the corners: per level, in corner order,
       acc_a += dW/dfrac_a * gl  (gl = the time-lerped feats . g),
       acc_t += W * (feats1 . g - feats0 . g),
     then d_pos = d_pos + acc * scale over the levels in order.  Every
     product and sum is one fp32 operation, so the kernel's position
     gradient equals this one bit for bit."""
+    stored = table.dtype
+    if compute_dtype is not None:
+        table = table.to(compute_dtype)
     d, f = spec.n_input_dims, spec.n_features_per_level
     batch = positions.shape[:-1]
     x = positions.reshape(-1, d).float()
@@ -390,7 +420,7 @@ def brickgrid_encode_bwd_ref(table, positions, grad_out, spec: BrickGridSpec,
         if needs_pos_grad:
             sc = float(consts[0][lvl])
             d_pos = [dp + acc_a * sc for dp, acc_a in zip(d_pos, acc)]
-    d_table = d_flat.reshape(spec.table_shape).to(table.dtype)
+    d_table = d_flat.reshape(spec.table_shape).to(table.dtype).to(stored)
     if d_pos is None:
         return d_table, None
     return d_table, torch.stack(d_pos, -1).reshape(*batch, d)
@@ -398,20 +428,22 @@ def brickgrid_encode_bwd_ref(table, positions, grad_out, spec: BrickGridSpec,
 
 def brickgrid_encode_bwd(table: torch.Tensor, positions: torch.Tensor,
                          grad_out: torch.Tensor, spec: BrickGridSpec,
-                         needs_pos_grad: bool):
+                         needs_pos_grad: bool, compute_dtype=None):
     """K1 backward: (d table in the table's dtype, d positions or None).
 
-    grad_out is the cotangent of the (..., L*F) encoding.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    grad_out is the cotangent of the (..., L*F) encoding; ``compute_dtype``
+    (default: the table's) the forward's.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     name = "brickgrid_encode_bwd"
     if kernels.dispatch_device(name, table) == "cpu":
-        return brickgrid_encode_bwd_ref(table, positions, grad_out, spec, needs_pos_grad)
-    grad_out = grad_out.to(table.dtype).contiguous()
+        return brickgrid_encode_bwd_ref(table, positions, grad_out, spec, needs_pos_grad,
+                                        compute_dtype)
+    compute_dtype = compute_dtype or table.dtype
+    grad_out = grad_out.to(compute_dtype).contiguous()
     if grad_out.data_ptr() % 16:  # the kernel loads a point's F values at once
         grad_out = grad_out.clone()
     kernels.require_cuda_inputs(name, table, positions, grad_out)
-    if table.data_ptr() % 16:
-        raise ValueError(f"{name}: the table must be 16-byte aligned (vector loads)")
+    _require_aligned_table(name, table)
     lib = kernels.load()
     n = positions.numel() // spec.n_input_dims
     d_table = torch.zeros(spec.table_shape, dtype=torch.float32, device=table.device)
@@ -419,13 +451,15 @@ def brickgrid_encode_bwd(table: torch.Tensor, positions: torch.Tensor,
     if n > 0:
         params = _kernel_params(spec)
         err = lib.emt_brickgrid_backward(
-            table.data_ptr(), int(table.dtype == torch.bfloat16),
+            table.data_ptr(), _is_bf16(table.dtype), _is_bf16(compute_dtype),
             positions.data_ptr(), grad_out.data_ptr(), d_table.data_ptr(),
             None if d_pos is None else d_pos.data_ptr(), n,
             ctypes.addressof(params), kernels.stream_ptr(table.device),
         )
         kernels.check(err, name)
         brickgrid_encode_bwd.launches += 1
+    # an fp32 table's gradient is the buffer itself, which the kernels round
+    # to bf16 precision in place for a bf16 computation
     return d_table.to(table.dtype), d_pos
 
 
@@ -434,28 +468,30 @@ brickgrid_encode_bwd.launches = 0
 
 class _BrickGridEncode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, positions, spec):
-        ctx.spec = spec
-        ctx.save_for_backward(table, positions)
-        return _encode_forward(table, positions, spec)
+    def forward(ctx, table, positions, spec, compute_dtype):
+        ctx.spec, ctx.compute_dtype = spec, compute_dtype
+        ctx.save_for_backward(table, positions)  # the table as stored: no cast is kept
+        return _encode_forward(table, positions, spec, compute_dtype)
 
     @staticmethod
     def backward(ctx, grad_out):
         table, positions = ctx.saved_tensors
         d_table, d_pos = brickgrid_encode_bwd(table, positions, grad_out, ctx.spec,
-                                              ctx.needs_input_grad[1])
-        return (d_table if ctx.needs_input_grad[0] else None), d_pos, None
+                                              ctx.needs_input_grad[1], ctx.compute_dtype)
+        return (d_table if ctx.needs_input_grad[0] else None), d_pos, None, None
 
 
 def brickgrid_encode(table: torch.Tensor, positions: torch.Tensor,
-                     spec: BrickGridSpec) -> torch.Tensor:
-    """Encode positions (..., D) in [0,1] -> (..., L*F) in the table's dtype.
+                     spec: BrickGridSpec, compute_dtype=None) -> torch.Tensor:
+    """Encode positions (..., D) in [0,1] -> (..., L*F) in the compute dtype
+    (default: the table's), as ``table.to(compute_dtype)`` would encode them.
 
     Differentiable in the table and the positions.  CPU tensors take the
     plain versions; CUDA tensors launch the K1 kernels (and raise if they
     cannot be built or launched)."""
-    _check_encode_args("brickgrid_encode", table, positions, spec)
-    return _BrickGridEncode.apply(table, positions, spec)
+    compute_dtype = compute_dtype or table.dtype
+    _check_encode_args("brickgrid_encode", table, positions, spec, compute_dtype)
+    return _BrickGridEncode.apply(table, positions, spec, compute_dtype)
 
 
 brickgrid_encode.launches = 0

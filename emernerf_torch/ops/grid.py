@@ -3,6 +3,11 @@
 ``BrickGridSpec`` -> the brick grid (K1), ``HashGridSpec`` -> the exact
 tiny-cuda-nn hash grid (K4).  The MX grid was rejected on quality and is not
 ported.
+
+``grid_encode(table, positions, spec, compute_dtype)`` takes the table as
+stored (the fp32 parameter) and encodes as ``table.to(compute_dtype)``
+would.  K1 reads the stored table and rounds in registers; K4 reads a
+features-minor copy of the table, so its backend casts the table first.
 """
 
 from __future__ import annotations
@@ -16,9 +21,16 @@ from emernerf_torch.ops.brickgrid import (
 )
 from emernerf_torch.ops.hashgrid import HashGridSpec, hashgrid_encode, init_hashgrid_table
 
+
+
+def _hash_encode(table, positions, spec, compute_dtype=None):
+    return hashgrid_encode(table if compute_dtype is None else table.to(compute_dtype),
+                           positions, spec)
+
+
 _BACKENDS = {
     BrickGridSpec: (brickgrid_encode, init_brickgrid_table),
-    HashGridSpec: (hashgrid_encode, init_hashgrid_table),
+    HashGridSpec: (_hash_encode, init_hashgrid_table),
 }
 
 
@@ -30,8 +42,10 @@ def _backend(spec):
             f"{type(spec).__name__}: only the brick and hash grids are ported") from None
 
 
-def grid_encode(table: torch.Tensor, positions: torch.Tensor, spec) -> torch.Tensor:
-    return _backend(spec)[0](table, positions, spec)
+def grid_encode(table: torch.Tensor, positions: torch.Tensor, spec,
+                compute_dtype=None) -> torch.Tensor:
+    """(..., L*F) encoding in ``compute_dtype`` (default: the table's)."""
+    return _backend(spec)[0](table, positions, spec, compute_dtype)
 
 
 def init_grid_table(spec, dtype=torch.float32, device=None,

@@ -4,13 +4,16 @@ The s<->t ray warps (with the piecewise linear/inverse split at 200 m),
 transmittance from density, inverse-CDF importance sampling and the
 zip-NeRF interlevel-loss pieces on dense (n_rays, n_edges) tensors.
 ``importance_sampling`` is the wrapper around the K2 CUDA kernel
-(``kernels/csrc/importance_sampling.cu``); ``interlevel_loss`` the
+(``kernels/csrc/importance_sampling.cu``: a warp per ray; the evenly spaced
+CDF positions it inverts at are built once per (count, device) by
+``cached_sample_positions``); ``interlevel_loss`` the
 differentiable wrapper around K5 (``kernels/csrc/interlevel.cu``).  Each has
 its plain version beside it (``*_ref``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -81,6 +84,18 @@ def sample_positions(n_edges: int, device=None) -> torch.Tensor:
     return torch.cat([out, torch.full((1,), stop, **f32)])
 
 
+@functools.lru_cache(maxsize=None)
+def cached_sample_positions(n_edges: int, device: torch.device) -> torch.Tensor:
+    """:func:`sample_positions` built once per (n_edges, device): K2's
+    wrapper reads it on every call and nothing writes it."""
+    return sample_positions(n_edges, device)
+
+
+# K2 stages 2 * (K+1) floats per ray in shared memory, 8 rays per block,
+# within 48 KiB
+_MAX_IN_EDGES = 768
+
+
 def _check_sampling_args(name, s_vals, cdfs, jitter):
     if s_vals.shape != cdfs.shape or s_vals.ndim != 2:
         raise ValueError(f"{name}: s_vals and cdfs must both be (R, K+1)")
@@ -94,7 +109,7 @@ def _check_sampling_args(name, s_vals, cdfs, jitter):
 def importance_sampling_ref(s_vals, cdfs, n_intervals: int,
                             jitter: Optional[torch.Tensor] = None):
     """Plain version of :func:`importance_sampling`."""
-    u = sample_positions(n_intervals + 1, s_vals.device)[None, :]
+    u = cached_sample_positions(n_intervals + 1, s_vals.device)[None, :]
     u = u + jitter if jitter is not None else u.expand(s_vals.shape[0], -1)
     # normalize the cdf in case opacity saturates below 1
     cdfs = cdfs / cdfs[..., -1:].clamp_min(1e-7)
@@ -124,10 +139,12 @@ def importance_sampling(s_vals: torch.Tensor, cdfs: torch.Tensor,
         return importance_sampling_ref(s_vals, cdfs, n_intervals, jitter)
     extra = () if jitter is None else (jitter,)
     kernels.require_cuda_inputs(name, s_vals, cdfs, *extra)
-    lib = kernels.load()
     r, k1 = s_vals.shape
+    if k1 > _MAX_IN_EDGES:
+        raise ValueError(f"{name}: at most {_MAX_IN_EDGES} input edges per ray on the card")
+    lib = kernels.load()
     m = n_intervals + 1
-    u_base = sample_positions(m, s_vals.device)
+    u_base = cached_sample_positions(m, s_vals.device)
     out = torch.empty((r, m), dtype=torch.float32, device=s_vals.device)
     if r == 0:
         return out

@@ -1,8 +1,12 @@
 #!/usr/bin/env python
-"""Times the grid encoders' training kernels on the card: K1 backward
-(brick grids) and K4 forward and backward (hash grids), bf16 tables, at the
-shapes of one 8,192-ray pixel branch, on uniform random points and on
-ray-ordered samples (``chip_smoke.ray_batches``).
+"""Times the grid encoders' kernels on the card: K1 forward (brick grids,
+at the flagship eval shapes of one 16,384-ray chunk), K1 backward and K4
+forward and backward (hash grids, at the shapes of one 8,192-ray pixel
+branch), bf16 tables or computations, on uniform random points and on
+ray-ordered samples (``chip_smoke.ray_batches``).  K1 forward is timed on
+each route a checkout has: the table cast to bf16 then the bf16 kernel
+(every checkout), the bf16 kernel alone, and the fp32 table with a bf16
+computation (where ``brickgrid_encode`` takes ``compute_dtype``).
 
 It uses only the wrappers' public functions and ``chip_smoke.py``'s shape
 helpers, so the same file times another checkout of the port when copied
@@ -18,6 +22,7 @@ holds the kernels against their plain versions.
 
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 
@@ -29,7 +34,7 @@ ITERS = 10
 def main():
     import chip_smoke as cs
     from emernerf_torch.ops import hashgrid
-    from emernerf_torch.ops.brickgrid import brickgrid_encode_bwd
+    from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_grid_kernels: needs a CUDA device")
@@ -46,6 +51,29 @@ def main():
     def table_and_cot(spec, n):
         table = (torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1).bfloat16()
         return table, torch.randn((n, spec.n_output_dims), device=dev, generator=g).bfloat16()
+
+    bspecs = cs.flagship_specs()
+    compute_arg = "compute_dtype" in inspect.signature(brickgrid_encode).parameters
+    for name, samples in (("prop0", cs.PROP_SAMPLES[0]), ("prop1", cs.PROP_SAMPLES[1]),
+                          ("static", cs.NUM_SAMPLES), ("dynflow", cs.NUM_SAMPLES)):
+        spec = bspecs[name]
+        xyz, xyzt = cs.ray_batches(dev, g, cs.N_RAYS, samples)
+        rays = xyzt[:xyz.shape[0]].contiguous() if spec.n_input_dims == 4 else xyz
+        del xyz, xyzt
+        table32 = torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1
+        table16 = table32.bfloat16()
+        for kind, pos in (("uniform", torch.rand(rays.shape, device=dev, generator=g)),
+                          ("rays", rays)):
+            n = pos.shape[0]
+            with torch.no_grad():
+                time(f"K1 fwd {name} {kind} N={n} cast+bf16",
+                     lambda: brickgrid_encode(table32.bfloat16(), pos, spec))
+                time(f"K1 fwd {name} {kind} N={n} bf16", lambda: brickgrid_encode(table16, pos, spec))
+                if compute_arg:
+                    time(f"K1 fwd {name} {kind} N={n} fp32->bf16",
+                         lambda: brickgrid_encode(table32, pos, spec, torch.bfloat16))
+        del table32, table16, rays, pos
+        torch.cuda.empty_cache()
 
     xyz, xyzt = cs.ray_batches(dev, g, cs.N_TRAIN, cs.NUM_SAMPLES)
     hspecs = cs.hash_specs()
@@ -66,7 +94,6 @@ def main():
     del xyz, xyzt
     torch.cuda.empty_cache()
 
-    bspecs = cs.flagship_specs()
     n = cs.N_TRAIN * cs.SAMPLE_TOPK
     xyz, xyzt = cs.ray_batches(dev, g, cs.N_TRAIN, cs.SAMPLE_TOPK)
     warped = cs.ray_batches(dev, g, cs.N_TRAIN, cs.AGG_TOPK)[1][cs.N_TRAIN * cs.AGG_TOPK:]

@@ -206,6 +206,93 @@ def test_encode_bf16_within_rounding_of_jax(variant):
     assert (np.abs(ours - exact) <= bf16_ulp(exact) / 2).all()
 
 
+def _bf16_route_inputs(variant, seed):
+    """fp32 table, boundary points and a bf16 cotangent of a variant."""
+    tspec, jspec, table, pos, cot = _bwd_inputs(variant, seed)
+    return tspec, jspec, torch.from_numpy(table), torch.from_numpy(pos), \
+        torch.from_numpy(cot).bfloat16()
+
+
+def _encode_and_grads(table, pos, cot, spec, compute_dtype, cast_first):
+    """(encoding, table grad, position grad) through autograd: the fp32
+    table with ``compute_dtype``, or ``table.to(compute_dtype)`` encoded
+    (the route that made a bf16 copy of the table per call)."""
+    t = table.clone().requires_grad_(True)
+    x = pos.clone().requires_grad_(True)
+    out = (brickgrid_encode(t.to(compute_dtype), x, spec) if cast_first
+           else brickgrid_encode(t, x, spec, compute_dtype))
+    out.backward(cot)
+    return out.detach(), t.grad, x.grad
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_fp32_table_with_bf16_compute_equals_cast_then_encode(variant):
+    """The fp32 table with a bf16 computation gives, bit for bit, what
+    encoding its bf16 cast gave: the encoding (bf16), the table gradient
+    (fp32, already rounded to bf16 precision: float(bf16(.))) and the
+    position gradient; so does the backward called directly."""
+    tspec, _, table, pos, cot = _bf16_route_inputs(variant, 50 + sorted(VARIANTS).index(variant))
+    out, d_t, d_x = _encode_and_grads(table, pos, cot, tspec, torch.bfloat16, False)
+    want, w_t, w_x = _encode_and_grads(table, pos, cot, tspec, torch.bfloat16, True)
+    assert out.dtype == torch.bfloat16 and d_t.dtype == torch.float32
+    assert torch.equal(out, want)
+    assert torch.equal(d_t, w_t) and torch.equal(d_t, d_t.bfloat16().float())
+    assert torch.equal(d_x, w_x)
+    direct_t, direct_x = brickgrid_encode_bwd_ref(table, pos, cot, tspec, True, torch.bfloat16)
+    assert direct_t.dtype == torch.float32
+    assert torch.equal(direct_t, d_t) and torch.equal(direct_x, d_x)
+    assert (d_t != 0).any() and (d_x != 0).any()
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_bf16_compute_from_fp32_table_within_rounding_of_jax(variant):
+    """The fp32 table with a bf16 computation against JAX's
+    ``brickgrid_encode(table.astype(bf16))`` and its VJP (through the cast),
+    with position gradients.  Encoding: the pinned bound of
+    test_encode_bf16_within_rounding_of_jax.  Table gradient: both sum the
+    same fp32 products (in another order) and round once to bf16, so they
+    differ by at most one bf16 ulp of the larger plus the fp32 order bound
+    of test_bwd_ref_matches_jax_vjp (1e-5 x max|grad|).  Position gradient:
+    JAX forms it from bf16 reductions saved by the forward (bf16 weight
+    derivatives, bf16 sums over the corners, the level scale in bf16), the
+    port from fp32 sums of the same bf16 values; within 2^-5 x max|grad|.
+    Measured: encodings 2-3 ulps, position gradients 3.8e-3 to 1.04e-2 x
+    max|grad|."""
+    tspec, jspec, table, pos, cot = _bf16_route_inputs(variant,
+                                                       60 + sorted(VARIANTS).index(variant))
+    out, d_t, d_x = _encode_and_grads(table, pos, cot, tspec, torch.bfloat16, False)
+    ref, vjp = jax.vjp(lambda t, x: jax_encode(t.astype(jnp.bfloat16), x, jspec, True),
+                       jnp.asarray(table.numpy()), jnp.asarray(pos.numpy()))
+    # JAX's 3D F = 1 reduction returns fp32 (_reduce_row_lane), the others bf16
+    r_t, r_x = (np.asarray(g) for g in vjp(jnp.asarray(cot.float().numpy(), ref.dtype)))
+    assert r_t.dtype == np.float32 and r_t.shape == d_t.shape and r_x.shape == d_x.shape
+    s = brickgrid_encode_ref(table.bfloat16().float().abs(), pos, tspec).numpy()
+    ulps = np.abs(out.float().numpy() - np.asarray(ref).astype(np.float32)) / bf16_ulp(s)
+    assert ulps.max() <= 2 ** tspec.n_input_dims / 2 + 2, ulps.max()
+    d_t, d_x = d_t.numpy(), d_x.numpy()
+    bound_t = bf16_ulp(np.maximum(np.abs(d_t), np.abs(r_t))) + 1e-5 * np.abs(r_t).max()
+    assert (np.abs(d_t - r_t) <= bound_t).all(), np.abs(d_t - r_t).max()
+    np.testing.assert_allclose(d_x, r_x, rtol=0, atol=2 ** -5 * np.abs(r_x).max())
+    assert np.abs(r_x).max() > 1.0  # the position gradient is exercised
+
+
+def test_encode_saves_the_stored_table_and_no_bf16_tensor():
+    """With a bf16 computation on an fp32 table, the autograd graph keeps
+    the table itself (no bf16 copy lives until the backward)."""
+    tspec, _, table, pos, cot = _bf16_route_inputs("4d_pair_F8", 70)
+    t = table.clone().requires_grad_(True)
+    x = pos.clone().requires_grad_(True)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda v: saved.append(v) or v, lambda v: v):
+        out = brickgrid_encode(t, x, tspec, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    assert [v.dtype for v in saved] == [torch.float32, torch.float32]
+    assert saved[0].data_ptr() == t.data_ptr() and saved[1].data_ptr() == x.data_ptr()
+    out.backward(cot)
+    assert t.grad.dtype == torch.float32 and x.grad is not None
+
+
 def _flagship_specs(jax_side: bool):
     cfg = flagship_config()
     m = cfg.nerf.model

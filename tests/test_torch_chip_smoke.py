@@ -1,7 +1,8 @@
-"""Host-side helpers of ``chip_smoke.py`` that size and explain the K4
-backward measurements: the ray-ordered sample batches and the count of
-distinct rows (and runs of equal rows) per warp that K4 backward's warp
-merge acts on."""
+"""Host-side helpers of ``chip_smoke.py`` that size and explain its
+measurements: the ray-ordered sample batches, the count of distinct rows
+(and runs of equal rows) per warp that K4 backward's warp merge acts on,
+the shares of a training profile, and the census of casts of tensors the
+size of a grid table."""
 
 import numpy as np
 import pytest
@@ -54,3 +55,40 @@ def test_ray_batches_are_ray_major_and_stack_the_warped_thirds():
     assert torch.allclose(fwd[..., 3], (cur[..., 3] + 1 / 8).clamp(0, 1))
     assert torch.allclose(bwd[..., 3], (cur[..., 3] - 1 / 8).clamp(0, 1))
     assert float((fwd[..., :3] - rays).abs().max()) <= 0.02 + 1e-6
+
+
+def test_profile_shares_sums_the_matching_kernels():
+    rows = [("void brickgrid_encode_kernel<float, __nv_bfloat16, 8>", 4.0, 20),
+            ("void at::native::vectorized_elementwise_kernel<4, direct_copy_kernel_cuda>", 2.0, 8),
+            ("void at::native::vectorized_elementwise_kernel<4, FillFunctor<float>>", 1.0, 4),
+            ("Memset (Device)", 1.0, 4), ("void round_to_bf16_kernel", 0.5, 6),
+            ("sgemm", 11.5, 40)]
+    busy = sum(t for _, t, _ in rows) / 2  # ms per iteration over 2 profiled ones
+    shares = chip_smoke.profile_shares(rows, busy)
+    assert shares["K1 forward"] == pytest.approx(4.0 / 20.0)
+    assert shares["copies, casts and fills"] == pytest.approx(4.0 / 20.0)
+    assert shares["K1 backward's bf16 rounding pass"] == pytest.approx(0.5 / 20.0)
+    assert shares["K4 forward"] == 0.0
+
+
+class _Step:
+    """A stand-in for Trainer: one iteration casts a 'table' of 6 elements
+    to bf16 and back in the forward, and its backward casts the gradient."""
+
+    def __init__(self):
+        self.table = torch.ones(2, 3, requires_grad=True)
+
+    def train_iteration(self, step):
+        out = self.table.to(torch.bfloat16).float() * 2.0
+        out.sum().backward()
+        torch.arange(6).to(torch.float32)  # an integer cast is no table cast
+        torch.ones(5).to(torch.bfloat16)  # another size
+
+
+def test_table_casts_lists_forward_and_backward_casts_of_table_sized_tensors():
+    casts = chip_smoke.table_casts(_Step(), 0, {6})
+    assert casts and all(n == 6 for _, n, _, _ in casts)
+    pairs = [(a, b) for _, _, a, b in casts]
+    # the forward's two casts, then the backward's through both of them
+    assert pairs.count(("float32", "bfloat16")) == 2
+    assert pairs.count(("bfloat16", "float32")) == 2

@@ -11,6 +11,7 @@ have).
 import os
 import stat
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +35,7 @@ from emernerf_torch.ops.hashgrid import (
 )
 from emernerf_torch.ops.stepfuns import (
     _interlevel_forward,
+    cached_sample_positions,
     importance_sampling,
     importance_sampling_ref,
     interlevel_loss_bwd,
@@ -133,40 +135,6 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims,f,bs,pair", [(3, 4, 1, False), (3, 1, 2, False),
-                                            (4, 8, 1, True), (4, 2, 1, False)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_brickgrid_kernel_matches_plain(cuda, dims, f, bs, pair, dtype):
-    spec = BrickGridSpec(n_input_dims=dims, n_levels=6, base_resolution=8,
-                         max_resolution=512, log2_bricks=14 - 3 * bs,
-                         n_features_per_level=f, log2_brick_size=bs, time_pair=pair)
-    g = torch.Generator(device=cuda).manual_seed(0)
-    table = torch.rand(spec.table_shape, device=cuda, generator=g).to(dtype)
-    pos = torch.rand((4096, dims), device=cuda, generator=g)
-    with torch.no_grad():
-        out = brickgrid_encode(table, pos, spec)
-        ref = brickgrid_encode_ref(table, pos, spec)
-    torch.cuda.synchronize()
-    # same explicitly rounded fp32 ops in the same order; bf16 rounds once
-    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
-    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-6)
-
-
-@pytest.mark.cuda
-def test_importance_sampling_kernel_matches_plain(cuda):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    r, k1, n = 1024, 65, 64
-    s = torch.sort(torch.rand((r, k1), device=cuda, generator=g), -1)[0]
-    cdf = torch.cumsum(torch.rand((r, k1), device=cuda, generator=g), -1)
-    cdf[:16] = 0.0
-    jitter = (torch.rand((r, 1), device=cuda, generator=g) - 0.5) / (n + 1)
-    for jit in (None, jitter):
-        out = importance_sampling(s, cdf, n, jit)
-        ref = importance_sampling_ref(s, cdf, n, jit)
-        torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
-
-
-@pytest.mark.cuda
 def test_composite_kernel_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(2)
     r, s = 2048, 64
@@ -263,6 +231,182 @@ def test_brickgrid_backward_kernel_on_ray_ordered_points(cuda, dims, f, bs, pair
     pos = _ray_positions(cuda, g, 96, 32, dims)
     cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda, generator=g).to(dtype)
     _check_brick_backward(spec, table, pos, cot)
+
+
+# K1's (storage, compute) dtype pairs: the fp32 parameter with an fp32 or a
+# bf16 computation (the flagship's), and a bf16 table
+_K1_TYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.bfloat16)]
+_K1_TYPE_IDS = ["fp32", "fp32_stored_bf16_compute", "bf16"]
+
+
+def _cell_boundary_points(cuda, spec, seed):
+    """Points on cell and brick boundaries of every level, nudged by -1, 0
+    and +1 ulp, where a differently rounded x * scale + 0.5 picks another
+    cell (and, across a brick boundary, another row)."""
+    rng = np.random.default_rng(seed)
+    d, pts = spec.n_input_dims, []
+    for sc in np.asarray(spec.level_scales, np.float32):
+        cells = rng.integers(1, int(sc) + 1, size=(64, d))
+        cells[:32] = (cells[:32] // (2 * spec.brick_cells)) * 2 * spec.brick_cells \
+            + spec.brick_cells
+        x = ((cells - 0.5) / sc).astype(np.float32)
+        for nudge in (-1, 0, 1):
+            xn = np.nextafter(x, np.float32(nudge * np.inf)) if nudge else x
+            pts.append(np.clip(xn, 0.0, 1.0).astype(np.float32))
+    return torch.from_numpy(np.concatenate(pts)).to(cuda)
+
+
+def _k1_points(cuda, g, spec, case):
+    dims = spec.n_input_dims
+    pos = torch.rand((4096, dims), device=cuda, generator=g)
+    if case == "rays":
+        return _ray_positions(cuda, g, 128, 32, dims)
+    if case == "one_cell":
+        return 0.5 + 0.01 * pos
+    if case == "cell_boundaries":
+        return _cell_boundary_points(cuda, spec, 21)
+    if case == "n_not_multiple_of_32":
+        return pos[:1000].contiguous()
+    return pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "rays", "one_cell", "cell_boundaries",
+                                  "n_not_multiple_of_32"])
+@pytest.mark.parametrize("dims,f,bs,pair", _BRICK_LAYOUTS)
+@pytest.mark.parametrize("stored,compute", _K1_TYPES, ids=_K1_TYPE_IDS)
+def test_brickgrid_kernel_matches_plain(cuda, case, dims, f, bs, pair, stored, compute):
+    """K1 forward against the plain version bit for bit (the same
+    explicitly rounded fp32 operations in the same corner order, one
+    rounding to the compute dtype), on uniform, ray-ordered and
+    worst-contention points (all in one coarse cell: every lane on the same
+    slots), on cell boundaries +-1 ulp, and on 1,000 points (the last
+    block's tile holds 8 rows).  An fp32 table with a bf16 computation also
+    equals the kernel on the table's bf16 cast."""
+    spec = _brick_spec(dims, f, bs, pair)
+    g = torch.Generator(device=cuda).manual_seed(20)
+    table = (torch.rand(spec.table_shape, device=cuda, generator=g) * 2 - 1).to(stored)
+    pos = _k1_points(cuda, g, spec, case)
+    before = brickgrid_encode.launches
+    with torch.no_grad():
+        out = brickgrid_encode(table, pos, spec, compute)
+        ref = brickgrid_encode_ref(table, pos, spec, compute)
+    torch.cuda.synchronize()
+    assert brickgrid_encode.launches == before + 1
+    assert out.dtype == compute and torch.equal(out, ref)
+    if stored != compute:
+        with torch.no_grad():
+            assert torch.equal(out, brickgrid_encode(table.to(compute), pos, spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "rays", "one_cell", "cell_boundaries"])
+@pytest.mark.parametrize("dims,f,bs,pair", _BRICK_LAYOUTS)
+def test_brickgrid_backward_kernel_fp32_table_bf16_compute(cuda, case, dims, f, bs, pair):
+    """K1 backward on the fp32 table of a bf16 computation: the position
+    gradient re-reads the table rounded to bf16 in registers, bit for bit
+    with the plain version (which casts first), with a second run and with
+    the kernel on the table's bf16 cast; the table gradient comes back fp32
+    and already rounded to bf16 precision, within one bf16 rounding of the
+    plain version (atomics in another order)."""
+    spec = _brick_spec(dims, f, bs, pair)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    table = torch.rand(spec.table_shape, device=cuda, generator=g) * 2 - 1
+    pos = _k1_points(cuda, g, spec, case)
+    cot = torch.randn((pos.shape[0], spec.n_output_dims), device=cuda,
+                      generator=g).bfloat16()
+    d_t, d_x = brickgrid_encode_bwd(table, pos, cot, spec, True, torch.bfloat16)
+    again = brickgrid_encode_bwd(table, pos, cot, spec, True, torch.bfloat16)[1]
+    cast_t, cast_x = brickgrid_encode_bwd(table.bfloat16(), pos, cot, spec, True)
+    r_t, r_x = brickgrid_encode_bwd_ref(table, pos, cot, spec, True, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert d_t.dtype == torch.float32 and torch.equal(d_t, d_t.bfloat16().float())
+    assert torch.equal(d_x, r_x) and torch.equal(d_x, again) and torch.equal(d_x, cast_x)
+    for want in (r_t, cast_t.float()):
+        torch.testing.assert_close(d_t, want, rtol=2 ** -7,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f,bs,pair", [_BRICK_LAYOUTS[i] for i in (0, 1, 2)])
+def test_brickgrid_autograd_fp32_table_bf16_compute_on_the_card(cuda, dims, f, bs, pair):
+    """brickgrid_encode on the fp32 parameter with a bf16 computation:
+    one forward and one backward launch, no bf16 tensor saved for the
+    backward, the encoding and the position gradient bit for bit with the
+    plain versions, the table gradient fp32 at bf16 precision."""
+    spec = _brick_spec(dims, f, bs, pair)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    table = torch.rand(spec.table_shape, device=cuda, generator=g) * 2 - 1
+    pos = torch.rand((4096, dims), device=cuda, generator=g)
+    cot = torch.randn((4096, spec.n_output_dims), device=cuda, generator=g).bfloat16()
+    t = table.clone().requires_grad_(True)
+    x = pos.clone().requires_grad_(True)
+    before = (brickgrid_encode.launches, brickgrid_encode_bwd.launches)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda v: saved.append(v) or v,
+                                                  lambda v: v):
+        out = brickgrid_encode(t, x, spec, torch.bfloat16)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert (brickgrid_encode.launches, brickgrid_encode_bwd.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    assert all(v.dtype == torch.float32 for v in saved) and len(saved) == 2
+    assert torch.equal(out.detach(), brickgrid_encode_ref(table, pos, spec, torch.bfloat16))
+    r_t, r_x = brickgrid_encode_bwd_ref(table, pos, cot, spec, True, torch.bfloat16)
+    assert torch.equal(x.grad, r_x)
+    assert t.grad.dtype == torch.float32 and torch.equal(t.grad, t.grad.bfloat16().float())
+    torch.testing.assert_close(t.grad, r_t, rtol=2 ** -7, atol=1e-5 * float(r_t.abs().max()))
+
+
+def _sampling_rows(cuda, g, r, k1):
+    """Sorted edges and monotone CDFs: normal rows, rows with flat runs
+    (ties for the search), rows saturating below 1, zero-opacity rows and
+    flat rows (every CDF value equal)."""
+    s = torch.sort(torch.rand((r, k1), device=cuda, generator=g), -1)[0]
+    pdf = torch.rand((r, k1), device=cuda, generator=g) ** 4
+    pdf[:, 0] = 0.0
+    pdf[r // 5: 2 * r // 5, ::3] = 0.0
+    cdf = torch.cumsum(pdf, -1)
+    cdf = cdf / cdf[:, -1:]
+    cdf[2 * r // 5: 3 * r // 5] *= 0.3
+    cdf[3 * r // 5: 4 * r // 5] = 0.0
+    cdf[4 * r // 5:] = 0.7
+    return s.contiguous(), cdf.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k1,n", [(2, 128), (129, 64), (65, 64)])
+@pytest.mark.parametrize("r", [16384, 8195], ids=["eval_chunk", "train_branch_plus_3"])
+@pytest.mark.parametrize("jitter", ["none", "plus_pad", "minus_pad", "random"])
+def test_importance_sampling_kernel_matches_plain(cuda, k1, n, r, jitter):
+    """K2 at the three sampling steps of an eval chunk (16,384 rays) and of
+    a training branch (8,192 rays; 8,195 leaves the last block 3 rays),
+    with zero, flat and saturating CDFs and the jitter at +-pad: within
+    atol 1e-6 of the plain version (rtol 0).  The cached positions are
+    never written."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    s, cdf = _sampling_rows(cuda, g, r, k1)
+    pad = 1.0 / (2 * (n + 1))
+    jit = {"none": None, "plus_pad": torch.full((r, 1), pad, device=cuda),
+           "minus_pad": torch.full((r, 1), -pad, device=cuda),
+           "random": (torch.rand((r, 1), device=cuda, generator=g) * 2 - 1) * pad}[jitter]
+    u = cached_sample_positions(n + 1, s.device)
+    version = u._version
+    before = importance_sampling.launches
+    out = importance_sampling(s, cdf, n, jit)
+    ref = importance_sampling_ref(s, cdf, n, jit)
+    torch.cuda.synchronize()
+    assert importance_sampling.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+    assert u._version == version and cached_sample_positions(n + 1, s.device) is u
+
+
+@pytest.mark.cuda
+def test_importance_sampling_refuses_rows_beyond_shared_memory(cuda):
+    s = torch.zeros((4, 769), device=cuda)
+    with pytest.raises(ValueError, match="input edges"):
+        importance_sampling(s, s, 8)
 
 
 @pytest.mark.cuda

@@ -92,6 +92,26 @@ def test_transmittance_matches_jax():
                                np.asarray(jsf.exclusive_cumsum(jnp.asarray(x))), atol=ATOL)
 
 
+@pytest.mark.parametrize("k1,n", [(2, 128), (129, 64), (65, 64)])
+def test_cached_sample_positions_bit_equal_and_never_written(k1, n):
+    """K2's evenly spaced positions, built once per (count, device), are
+    bit-equal to a fresh sample_positions; the sampling reads them and
+    never writes them (the tensor's version counter does not move) with
+    and without jitter, and every call gets the same tensor."""
+    cached = tsf.cached_sample_positions(n + 1, torch.device("cpu"))
+    version = cached._version
+    assert torch.equal(cached, tsf.sample_positions(n + 1))
+    rng = np.random.default_rng(k1 + n)
+    s, cdf = (torch.from_numpy(a) for a in _cdf_rows(rng, 16, k1))
+    pad = 1.0 / (2 * (n + 1))
+    for jitter in (None, torch.full((16, 1), pad), torch.full((16, 1), -pad)):
+        out = tsf.importance_sampling(s, cdf, n, jitter)
+        assert out.shape == (16, n + 1) and torch.isfinite(out).all()
+    assert tsf.cached_sample_positions(n + 1, torch.device("cpu")) is cached
+    assert cached._version == version
+    assert torch.equal(cached, tsf.sample_positions(n + 1))
+
+
 def test_importance_sampling_checks_inputs():
     s = torch.zeros(4, 3)
     with pytest.raises(ValueError):

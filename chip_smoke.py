@@ -12,8 +12,9 @@ Phases (any failure exits non-zero; nothing is skipped):
      the forward kernels at the flagship eval shapes (one 16,384-ray
      chunk; K1 forward bit for bit in fp32, on the fp32 table with a bf16
      computation (the flagship's route, beside the route it replaced: the
-     table cast to bf16, then the bf16 kernel) and on a bf16 table; K2
-     with the wrapper's time and the kernel's alone), the training kernels (K1 and K3 backward, K5 interlevel loss,
+     table cast to bf16, then the bf16 kernel) and on a bf16 table; K2 and
+     K3 forward with the wrapper's time and the kernel's alone), the
+     training kernels (K1 and K3 backward, K5 interlevel loss,
      K8 Adam) at the shapes of one 8,192-ray pixel branch and over the
      flagship's parameter list, with max abs/rel error, elements over
      tolerance and median times of both; K1 backward also on ray-ordered
@@ -23,8 +24,9 @@ Phases (any failure exits non-zero; nothing is skipped):
   4. eval: the full-width flagship (default bf16 config, seeded random
      weights) renders 2 images of 160x240 through ImageRenderer.render_split;
      every map must be finite and every forward kernel's launch counter
-     above 0; then a 2,048-ray chunk in fp32 on the card (kernels) against
-     the same params on the CPU (plain versions);
+     above 0; the K3 forward calls of one more image by (R, S, D, C);
+     then a 2,048-ray chunk in fp32 on the card (kernels) against the same
+     params on the CPU (plain versions);
   5. train: emernerf_torch.train.trainer.Trainer trains the full-width
      flagship (bf16 default config, seed 0): 3 warm-up and 12 timed
      iterations, then iterations 2000 (an error-map refresh) and 2001 (the
@@ -36,7 +38,7 @@ Phases (any failure exits non-zero; nothing is skipped):
      prints the share of K1 and K4 forward and backward, of the transposes
      and of copies, casts and fills; then lists, over one more iteration,
      every dtype cast of a tensor the size of a grid table (none may cast
-     a brick table);
+     a brick table), and the K3 forward calls of another by (R, S, D, C);
   5b. one fp32 training step of the tiny flagship on the card (kernels)
      against the CPU (plain versions), same params, batches and draws:
      every loss and every parameter gradient of both branches;
@@ -59,6 +61,10 @@ Phases (any failure exits non-zero; nothing is skipped):
      forward counter above 0, K1's unmoved;
   6c. one fp32 training step of the tiny reference-hash flagship, card vs
      CPU, as in 5b;
+  6d. K3 forward against its plain version at every (R, S, D, C) that the
+     training runs of phases 5 and 6 launched, called as training calls it
+     (densities that require a gradient), with the wrapper's time and the
+     kernel's alone;
   7. the gather/scatter probes P1-P4: both probe entry points
      (emernerf_torch.perf.pallas_experiments, .bench_scatter_alts, every
      case at full size) with the launch counters zeroed before and read
@@ -67,7 +73,8 @@ Phases (any failure exits non-zero; nothing is skipped):
      with kernel, plain and library times (index_select / index_add_, and
      for P4 the chunked one-hot torch.matmul), rows/s, GB/s and the bound;
      for P4 also the route the wrapper takes (gather_scatter.cu), bound /
-     time and the route's kernel-only device time;
+     time and the route's kernel-only device time, for P1 the kernel's
+     device time alone;
   8. the training CLI (emernerf_torch.train_emernerf.main) on the full-width
      brick flagship in a temporary run directory: a few iterations with a
      periodic checkpoint, SIGTERM during an iteration (the preemption
@@ -82,6 +89,8 @@ once; for a grid, the table entries these points touch) over the HBM rate
 and its operations over the fp32 rate (H100 SXM data sheet).  Its launches
 are those of the run of its path (phase 5, phase 6 for K4, phase 7's probe
 run for P1-P4).
+The kernels' device times alone (torch.profiler: K2, K3 forward, P1) are
+taken after phase 8, so that no profiler session precedes a timed phase.
 The last two lines are the card line and {"ok": true, "device": {...}}.
 """
 
@@ -416,40 +425,105 @@ def phase_kernels(dev, kernels_entries, after_timed):
 
         # K3: the full eval key set: 3 density sets, 23 value channels laid
         # out as render/volrend.py:composite_rays packs them
-        s_ = NUM_SAMPLES
-        t = torch.sort(torch.rand((N_RAYS, s_ + 1), device=dev, generator=g) * 100, -1)[0] + 0.1
-        ts, te = t[:, :-1].contiguous(), t[:, 1:].contiguous()
-        dens = torch.rand((N_RAYS, s_, 3), device=dev, generator=g) ** 3 * 0.5
-        dens[:, :, 0] = dens[:, :, 1] + dens[:, :, 2]
         sets = [0] * 4 + [1] * 9 + [0] + [2] * 9
-        vals = torch.rand((N_RAYS, s_, len(sets)), device=dev, generator=g)
-        out = composite_along_rays(ts, te, dens, vals, sets)
-        ref = composite_along_rays_ref(ts, te, dens, vals, sets)
-        tag = f"composite_along_rays[R={N_RAYS},S={s_},D=3,C={len(sets)}]"
-        mx = 0.0
-        for field, a, b in zip(out._fields, out, ref):
-            if field == "median_depth":
-                moved = (a != b).squeeze(-1)
-                frac = float(moved.float().mean())
-                print(f"  {tag}.median_depth: {int(moved.sum())} of {N_RAYS} rays moved "
-                      f"({frac:.2e}); allowed: one sample where cumsum(w) is within 1e-5 of 0.5")
-                if moved.any():
-                    cum = torch.cumsum(ref.weights[..., 0], -1)[moved]
-                    if float((cum - 0.5).abs().min(-1)[0].max()) > 1e-5:
-                        fail(f"{tag}: median depth moved away from a 0.5 crossing")
-                continue
-            rtol = 1e-4 if field == "depth" else 1e-5
-            e, over = compare(f"{tag}.{field}", a, b, rtol, 1e-5)
-            mx = max(mx, e)
-            if over:
-                fail(f"{tag}.{field}: {over} elements over tolerance")
-        ms = cuda_ms(lambda: composite_along_rays(ts, te, dens, vals, sets), 20)
-        plain_ms = cuda_ms(lambda: composite_along_rays_ref(ts, te, dens, vals, sets), 10)
-        # per sample and density set: alpha, transmittance, weight, depth;
-        # a multiply-add per value channel
-        n_ops = N_RAYS * s_ * (12 * dens.shape[-1] + 2 * len(sets))
-        add_entry(kernels_entries, tag, "composite.cu", "emernerf_tpu/render/volrend.py:33",
-                  composite_along_rays, mx, ms, plain_ms, nbytes(ts, te, dens, vals, *out), n_ops)
+        composite_row(dev, 7, kernels_entries, after_timed, N_RAYS, NUM_SAMPLES, 3, sets, 100.0,
+                      path="eval")
+
+
+def composite_inputs(dev, seed, r, s_, d, n_ch, t_far, grad):
+    """Seeded K3 inputs: sorted edges in [0.1, t_far), densities U^3 / 2
+    (set 0 the sum of sets 1 and 2 where D = 3), values U(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.sort(torch.rand((r, s_ + 1), device=dev, generator=g) * t_far, -1)[0] + 0.1
+    dens = torch.rand((r, s_, d), device=dev, generator=g) ** 3 * 0.5
+    if d == 3:
+        dens[:, :, 0] = dens[:, :, 1] + dens[:, :, 2]
+    vals = torch.rand((r, s_, n_ch), device=dev, generator=g) if n_ch else None
+    return t[:, :-1].contiguous(), t[:, 1:].contiguous(), dens.requires_grad_(grad), vals
+
+
+# the device kernels of K3 forward's two routes (composite.cu)
+K3_FORWARD_KERNELS = ("composite_kernel", "composite_warp_kernel")
+
+
+def remade(make, call):
+    """A call for ``after_timed``: call(*make()), its inputs made on its
+    first use (after the timed phases) rather than held through them."""
+    held = []
+
+    def run():
+        if not held:
+            held.append(make())
+        return call(*held[0])
+
+    return run
+
+
+def composite_row(dev, seed, kernels_entries, after_timed, r, s_, d, sets, t_far, path="brick"):
+    """K3 forward at (r, s_, d, len(sets)) against its plain version, with
+    the wrapper's time (as the path calls it: eval under no_grad, training
+    with densities that require a gradient) and, after the timed phases,
+    the kernel's alone (on the same inputs made again then, so that they
+    do not stay allocated through the phases in between).  Tolerance: rtol
+    1e-5 (depth 1e-4), atol 1e-5; a median depth may move one sample only
+    at a 0.5 crossing."""
+    from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_ref
+
+    grad = path != "eval"
+    args = (dev, seed, r, s_, d, len(sets), t_far, grad)
+    ts, te, dens, vals = composite_inputs(*args)
+    out = composite_along_rays(ts, te, dens, vals, sets)
+    ref = composite_along_rays_ref(ts, te, dens.detach(), vals, sets)
+    tag = (f"composite_along_rays[R={r},S={s_},D={d},C={len(sets)}"
+           f"{',grad' if grad else ''}]")
+    mx = 0.0
+    for field, a, b in zip(out._fields, out, ref):
+        a = a.detach()
+        if field == "median_depth":
+            moved = (a != b).squeeze(-1)
+            frac = float(moved.float().mean())
+            print(f"  {tag}.median_depth: {int(moved.sum())} of {r} rays moved "
+                  f"({frac:.2e}); allowed: one sample where cumsum(w) is within 1e-5 of 0.5")
+            if moved.any():
+                cum = torch.cumsum(ref.weights[..., 0], -1)[moved]
+                if float((cum - 0.5).abs().min(-1)[0].max()) > 1e-5:
+                    fail(f"{tag}: median depth moved away from a 0.5 crossing")
+            continue
+        rtol = 1e-4 if field == "depth" else 1e-5
+        e, over = compare(f"{tag}.{field}", a, b, rtol, 1e-5)
+        mx = max(mx, e)
+        if over:
+            fail(f"{tag}.{field}: {over} elements over tolerance")
+    ms = cuda_ms(lambda: composite_along_rays(ts, te, dens, vals, sets), 20)
+    plain_ms = cuda_ms(lambda: composite_along_rays_ref(ts, te, dens.detach(), vals, sets), 10)
+    # per sample and density set: alpha, transmittance, weight, depth;
+    # a multiply-add per value channel
+    n_ops = r * s_ * (12 * d + 2 * len(sets))
+    add_entry(kernels_entries, tag, "composite.cu", "emernerf_tpu/render/volrend.py:33",
+              composite_along_rays, mx, ms, plain_ms, nbytes(ts, te, dens, vals, *out), n_ops,
+              path="brick" if path == "eval" else path)
+    after_timed.append((kernels_entries[-1], K3_FORWARD_KERNELS,
+                        remade(lambda: composite_inputs(*args),
+                               lambda *a: composite_along_rays(*a, sets))))
+
+
+def composite_tally(fn):
+    """{(R, S, D, C): K3 forward calls} while fn() runs."""
+    from emernerf_torch.render import volrend
+
+    tally, inner = {}, volrend._composite_forward
+
+    def counted(t_starts, t_ends, densities, values, chan_set):
+        key = (*t_starts.shape, densities.shape[2], len(chan_set))
+        tally[key] = tally.get(key, 0) + 1
+        return inner(t_starts, t_ends, densities, values, chan_set)
+
+    volrend._composite_forward = counted
+    try:
+        fn()
+    finally:
+        volrend._composite_forward = inner
+    return tally
 
 
 def phase_train_kernels(dev, kernels_entries):
@@ -846,6 +920,8 @@ def phase_slice(dev, counted, zero=(), profile=None, label="phase 4"):
             fail(f"image {indices[i]}: unexpected map shapes")
     print(f"  maps finite: {sorted(frames[0])}")
     _check_launches(launches, {fn.__name__ for fn in zero}, "render")
+    tally = composite_tally(lambda: renderer.render_image(*_image_rays(dataset, 0)))
+    print(f"  K3 forward calls by (R, S, D, C) in one more image: {tally}")
     del model, props, renderer
     torch.cuda.empty_cache()
     return launches, n_rays / secs
@@ -949,10 +1025,10 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
                 table_casts_allowed=True):
     """Trains the full-width flagship of ``profile`` through Trainer;
     returns (launches, ms/iteration, rays/s, peak GiB, {label: share of the
-    profiled device time}) for each (label, kernel-name substrings) of
-    ``shares``.  Lists the casts of tensors the size of a grid table
-    (``table_numels``) in one more iteration, and fails on any unless
-    ``table_casts_allowed``."""
+    profiled device time} for each (label, kernel-name substrings) of
+    ``shares``, {(R, S, D, C): K3 forward calls in one iteration}).  Lists
+    the casts of tensors the size of a grid table (``table_numels``) in one
+    more iteration, and fails on any unless ``table_casts_allowed``."""
     from emernerf_torch.flagship import DEFAULT_PROFILE, flagship_config
     from emernerf_torch.train.trainer import Trainer
 
@@ -1001,6 +1077,8 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
           f"elements) in one iteration: {len(casts)} {casts[:12]}")
     if casts and not table_casts_allowed:
         fail(f"{len(casts)} casts of a grid table in one training iteration: {casts[:6]}")
+    tally = composite_tally(lambda: trainer.train_iteration(2005))
+    print(f"  K3 forward calls by (R, S, D, C) in one more iteration: {tally}")
     rays = 2 * trainer.ray_batch_size
     print(f"  {ms:.2f} ms/iteration (mean over {n_timed} timed iterations), "
           f"{rays / ms * 1e3:.1f} rays/s (pixel + lidar), peak device memory {peak:.2f} GiB")
@@ -1023,7 +1101,19 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
     _check_launches(launches, {fn.__name__ for fn in zero}, "training run")
     del trainer, params, before
     torch.cuda.empty_cache()
-    return launches, ms, rays / ms * 1e3, peak, share
+    return launches, ms, rays / ms * 1e3, peak, share, tally
+
+
+def phase_train_composite(dev, entries, after_timed, tally, hash_tally):
+    """K3 forward against its plain version at every (R, S, D, C) that the
+    training runs of phases 5 and 6 launched, as training calls it."""
+    print("phase 6d: K3 forward vs plain version at every shape the training runs launched")
+    shapes = {k: "brick" for k in tally}
+    shapes.update({k: "hash" for k in hash_tally if k not in tally})
+    for i, ((r, s_, d, c), path) in enumerate(sorted(shapes.items())):
+        composite_row(dev, 8 + i, entries, after_timed, r, s_, d, [j % d for j in range(c)],
+                      80.0, path=path)
+    torch.cuda.empty_cache()
 
 
 def profile_train(trainer, step, ms_iter, file_name):
@@ -1130,7 +1220,8 @@ def kernel_only(after_timed):
     each, run after every timed phase so that no profiler session precedes
     the eval, training and CLI timings."""
     print("kernels alone (torch.profiler, after the timed phases)")
-    for entry, keys, fn in after_timed:
+    while after_timed:  # each call's inputs go with it
+        entry, keys, fn = after_timed.pop(0)
         entry["kernel_only_ms"] = kernel_device_ms(fn, keys, iters=20)
         print(f"  {entry['name']}: the wrapper's call {entry['ms']:.4f} ms, the kernel alone "
               f"{entry['kernel_only_ms']:.4f} ms")
@@ -1151,7 +1242,7 @@ def kernel_device_ms(fn, keys, iters=10) -> float:
                if any(k in e.key for k in keys)) / iters / 1e3
 
 
-def phase_probes(dev, entries):
+def phase_probes(dev, entries, after_timed):
     """P1-P4: both probe entry points at their full sizes (the launches of
     the probe path), then each kernel against its plain version at every
     shape the entry points run."""
@@ -1193,6 +1284,10 @@ def phase_probes(dev, entries):
         del out, ref
         add(tag, fn, replaces, 0.0, lambda: fn(table, idx), lambda: gs.row_gather_plain(table, idx),
             lambda: table.index_select(0, idx), n, n_bytes, 0.0)
+        if fn is gs.row_gather_loop:
+            after_timed.append((entries[-1], ("gather_loop_kernel",), remade(
+                lambda t=t, dtype=dtype: (pe.make_table(t, 128, dtype, dev),
+                                          pe.make_indices(n, t, dev)), fn)))
         del table, idx
         torch.cuda.empty_cache()
 
@@ -1450,13 +1545,13 @@ def main():
     phase_fp32_chunk(dev)
     shared = forward + (composite_along_rays_bwd, interlevel_loss, interlevel_loss_bwd,
                         adam_update)
-    launches, ms_iter, train_rays_per_s, peak, share = phase_train(
+    launches, ms_iter, train_rays_per_s, peak, share, tally = phase_train(
         dev, brick + shared, zero=hashed, shares=PROFILE_SHARES,
         table_numels=[math.prod(sp.table_shape) for sp in flagship_specs().values()],
         table_casts_allowed=False)
     phase_train_fp32(dev)
     # the reference-hash profile: K4 in place of K1
-    hash_launches, hash_ms, hash_rays_per_s, hash_peak, hash_share = phase_train(
+    hash_launches, hash_ms, hash_rays_per_s, hash_peak, hash_share, hash_tally = phase_train(
         dev, hashed + shared, zero=brick, profile=REFERENCE_HASH, n_timed=8, label="phase 6",
         profile_file="profile_train_hash.json", shares=PROFILE_SHARES,
         table_numels=[math.prod(sp.table_shape) for sp in hash_specs().values()])
@@ -1464,7 +1559,8 @@ def main():
                                           zero=brick,
                                           profile=REFERENCE_HASH, label="phase 6b")
     phase_train_fp32(dev, REFERENCE_HASH, HASH_TINY_FP32, label="phase 6c")
-    probe_launches = phase_probes(dev, entries)
+    phase_train_composite(dev, entries, after_timed, tally, hash_tally)
+    probe_launches = phase_probes(dev, entries, after_timed)
     cli_ms = phase_cli(dev, ms_iter)
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")

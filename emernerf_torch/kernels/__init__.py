@@ -28,6 +28,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_ulonglong
 # C signatures of the entry points (all return cudaError_t as int)
 _SIGNATURES = {
     # table, table_is_bf16, compute_is_bf16, positions, out, n_points,
@@ -35,10 +36,10 @@ _SIGNATURES = {
     "emt_brickgrid_encode": (_P, _I, _I, _P, _P, _L, _P, _P),
     # s_vals, cdfs, u_base, jitter|NULL, out, n_rays, n_in_edges, n_out_edges, stream
     "emt_importance_sampling": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # t_starts, t_ends, dens (R,S,D), vals (R,S,C)|NULL, chan_set (C) host,
-    # n_rays, S, D, C, weights, trans, opacity, depth, median, sums, stream
-    "emt_composite": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _P, _P, _P, _P, _P, _P, _P),
+    # t_starts, t_ends, dens (R,S,D), vals (R,S,C)|NULL, packed channel
+    # sets (channels 0-31, 32-63), n_rays, S, D, C, out (weights, trans,
+    # opacity, depth, median, sums one after the other), stream
+    "emt_composite": (_P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _P, _P),
     # t_starts, t_ends, dens, vals|NULL, chan_set host, n_rays, S, D, C,
     # g_weights, g_trans, g_opacity, g_depth, g_sums (each |NULL),
     # d_dens, d_vals|NULL, stream
@@ -64,8 +65,8 @@ _SIGNATURES = {
     # scratch (zeroed fp32 (L*T, F)), d_table ((F, L*T) in the table's
     # dtype), d_pos|NULL, n_points, params (host struct), stream
     "emt_hashgrid_backward": (_P, _I, _P, _P, _P, _P, _P, _L, _P, _P),
-    # table, elem_bytes (4 or 2), idx (int32), out, n, w, stream
-    "emt_gather_loop": (_P, _I, _P, _P, _L, _I, _P),
+    # table, idx (int32), out, n, row_bytes, vec_bytes, stream
+    "emt_gather_loop": (_P, _P, _P, _L, _I, _I, _P),
     # table, idx (int32), out, n, row_bytes, stream
     "emt_gather_take": (_P, _P, _P, _L, _I, _P),
     # idx (int32), upd (fp32), out (zeroed fp32), n, w, stream

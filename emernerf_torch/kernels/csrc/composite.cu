@@ -1,28 +1,56 @@
 // Transmittance and compositing along rays (K3).
 //
-// Replaces: emernerf_tpu/ops/stepfuns.py:render_transmittance_from_density
-// together with emernerf_tpu/render/volrend.py:composite_rays,
+// Replaces: emernerf_tpu/ops/stepfuns.py:64 (render_transmittance_from_density)
+// together with emernerf_tpu/render/volrend.py:33 (composite_rays),
 // weights_opacity_depth_from_density and _row_searchsorted (median depth).
 // On the TPU these are dense (R, S) XLA cumsums, exps and weighted
 // reductions that fuse into a handful of passes.
 //
-// What bounds it on the H100: bytes.  Per ray it reads S samples of up to
-// three densities and C packed value channels and writes weights and
-// transmittance; there are ~10 FLOPs per byte at most, so the kernel is
-// memory- and launch-bound, and the win over the plain PyTorch version is
-// doing in one pass what eager PyTorch does in ~30 kernels with (R, S)
-// intermediates in device memory.
+// What bounds it on the H100: bytes.  Per ray it reads S samples of two
+// edges, up to three densities and C packed value channels (at the eval
+// shape, S = 64, D = 3, C = 23, the values are 96 of the call's 145 MB)
+// and writes weights and transmittance; there are ~10 FLOPs per byte at
+// most.  At the training shapes (8,192 rays, D = 1) the bound is a few
+// microseconds, so the wrapper's host time and the launch matter as much.
 //
-// Design: one warp per ray, K = ceil(S/32) consecutive samples per lane
-// (two at S = 64).  sigma*dt is summed within the lane, a warp shuffle scan
-// gives each lane its exclusive offset, and T = exp(-exclusive cumsum),
-// alpha = 1 - exp(-sigma*dt), w = T*alpha follow in registers for every
-// density set (total, static, dynamic).  Opacity (clipped to [1e-6, 1]),
-// depth, the median depth (count of cumsum(w) < 0.5, clipped to S-1) and
-// the weighted sums of every value channel, each under the weight set its
-// channel names, are warp reductions.  Nothing but the outputs touches
-// device memory.
+// Forward design.  The first version of this file ran one warp per ray on
+// direct loads and read the C value channels one channel at a time, each
+// pass spanning the ray's whole value tile, and densities and weights with
+// stride D.  emt_composite now picks one of two routes by shape:
+//
+// Wide or long rays (D > 1, C > 4 or S > 64: the eval shape, 5,888 bytes
+// of values a ray, and the 128-sample proposal level).
+// A persistent block of rb <= 4 warps walks stages of rb rays: the stage's
+// inputs are contiguous runs (S edges twice, S*D densities, S*C values),
+// staged in shared memory with 16-byte cp.async copies, double-buffered,
+// so the next stage's copies fly while this one computes.  Each warp scans
+// one ray in registers in the order that composite_bwd_kernel recomputes
+// it: K consecutive samples per lane (ceil(S/32) rounded up to 1, 2, 4 or
+// 8), sigma*dt summed within the lane, then a warp shuffle scan; T =
+// exp(-exclusive cumsum), alpha = 1 - exp(-sigma*dt), w = T*alpha for
+// every density set, bit for bit with the kernel it replaces.  Opacity
+// (clipped to [1e-6, 1]), depth and the median depth (count of cumsum(w)
+// < 0.5, clipped to S-1) are warp reductions; weights and transmittance go
+// to shared memory.  The weighted sums then read the staged values with
+// lanes across channels: lane (g, c) sums channel c over samples g, g + G,
+// ... (G = 32 / C sample groups), so consecutive lanes read consecutive
+// words, and the G partial sums meet by shuffles.  Weights and
+// transmittance leave as one contiguous run per stage with float4 stores.
+//
+// Narrow, short rays (D = 1, C <= 4 and S <= 64: the 64-sample levels of
+// training and eval, a few hundred bytes a ray).  There the staging's
+// barriers and shared-memory round trip cost more than the strided reads
+// they remove (1-3 us of a 5-9 us kernel on the card), so the first
+// version's warp per ray stays, with the same scan: with D = 1 its loads
+// and stores are contiguous runs already.  At S = 128 (K = 4) the warp
+// per ray lost to the staging on the card, so those rays are staged.
+//
+// The value channels' density sets come by value, 2 bits per channel.
+//
+// Backward design: one warp per ray, reading its inputs from device
+// memory; see composite_bwd_kernel.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,23 +87,24 @@ __device__ __forceinline__ float warp_exclusive_scan(float total, int lane) {
   return lane == 0 ? 0.f : ex;
 }
 
+// ---- forward, narrow rays (D = 1, C <= 4, S <= 64): one warp per ray ----
+//
+// The lanes load their K consecutive samples straight from device memory (a
+// warp's loads are one contiguous run, since D = 1) and write weights and
+// transmittance the same way (see the header).
+
+constexpr int kWarpRouteMaxC = 4;
+
 template <int K>
-__global__ void composite_kernel(const float* __restrict__ ts,
-                                 const float* __restrict__ te,
-                                 const float* __restrict__ dens,
-                                 const float* __restrict__ vals, int n_rays,
-                                 int S, int D, int C, const ChanSets cs,
-                                 float* __restrict__ weights,
-                                 float* __restrict__ trans,
-                                 float* __restrict__ opacity,
-                                 float* __restrict__ depth,
-                                 float* __restrict__ median,
-                                 float* __restrict__ sums) {
-  const long long warp_id =
-      (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+__global__ void composite_warp_kernel(const float* __restrict__ ts, const float* __restrict__ te,
+                                      const float* __restrict__ dens,
+                                      const float* __restrict__ vals, int n_rays, int S, int C,
+                                      float* __restrict__ weights, float* __restrict__ trans,
+                                      float* __restrict__ opacity, float* __restrict__ depth,
+                                      float* __restrict__ median, float* __restrict__ sums) {
+  const long long r = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (warp_id >= n_rays) return;  // uniform across the warp
-  const long long r = warp_id;
+  if (r >= n_rays) return;  // uniform across the warp
   const long long row = r * S;
   const int s0 = lane * K;
 
@@ -90,75 +119,291 @@ __global__ void composite_kernel(const float* __restrict__ ts,
     dt[i] = __fsub_rn(b, a);
     step[i] = __fmul_rn(__fadd_rn(a, b), 0.5f);
   }
-
-  float w[kMaxD][K];
+  float sdt[K], pre[K], w[K];
+  float run = 0.f;
 #pragma unroll
-  for (int d = 0; d < kMaxD; ++d) {
-    if (d >= D) break;
-    float sdt[K], pre[K];
-    float run = 0.f;
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      sdt[i] = valid[i] ? __fmul_rn(dens[(row + s0 + i) * D + d], dt[i]) : 0.f;
-      pre[i] = run;
-      run = __fadd_rn(run, sdt[i]);
-    }
-    const float off = warp_exclusive_scan(run, lane);
-    float wsum = 0.f, dsum = 0.f;
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const float tr = expf(-__fadd_rn(off, pre[i]));
-      const float alpha = __fsub_rn(1.f, expf(-sdt[i]));
-      const float wi = valid[i] ? __fmul_rn(tr, alpha) : 0.f;
-      w[d][i] = wi;
-      if (valid[i]) {
-        const long long o = (row + s0 + i) * D + d;
-        weights[o] = wi;
-        trans[o] = tr;
-      }
-      wsum += wi;
-      dsum += wi * step[i];
-    }
-    wsum = warp_sum(wsum);
-    dsum = warp_sum(dsum);
-    const float opc = fminf(fmaxf(wsum, 1e-6f), 1.f);
-    if (lane == 0) {
-      opacity[r * D + d] = opc;
-      depth[r * D + d] = __fdiv_rn(dsum, opc);
-    }
-    if (d == 0) {
-      // median depth: count(inclusive cumsum(w) < 0.5), clipped to S-1
-      float cw[K];
-      float crun = 0.f;
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        crun = __fadd_rn(crun, w[0][i]);
-        cw[i] = crun;
-      }
-      const float coff = warp_exclusive_scan(crun, lane);
-      int cnt = 0;
-#pragma unroll
-      for (int i = 0; i < K; ++i)
-        cnt += (valid[i] && __fadd_rn(coff, cw[i]) < 0.5f) ? 1 : 0;
-      cnt = warp_sum_int(cnt);
-      if (lane == 0) {
-        const int idx = min(cnt, S - 1);
-        median[r] = __fmul_rn(__fadd_rn(ts[row + idx], te[row + idx]), 0.5f);
-      }
-    }
+  for (int i = 0; i < K; ++i) {
+    sdt[i] = valid[i] ? __fmul_rn(dens[row + s0 + i], dt[i]) : 0.f;
+    pre[i] = run;
+    run = __fadd_rn(run, sdt[i]);
   }
-
+  const float off = warp_exclusive_scan(run, lane);
+  float wsum = 0.f, dsum = 0.f;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const float tr = expf(-__fadd_rn(off, pre[i]));
+    const float alpha = __fsub_rn(1.f, expf(-sdt[i]));
+    const float wi = valid[i] ? __fmul_rn(tr, alpha) : 0.f;
+    w[i] = wi;
+    if (valid[i]) {
+      weights[row + s0 + i] = wi;
+      trans[row + s0 + i] = tr;
+    }
+    wsum += wi;
+    dsum += wi * step[i];
+  }
+  wsum = warp_sum(wsum);
+  dsum = warp_sum(dsum);
+  const float opc = fminf(fmaxf(wsum, 1e-6f), 1.f);
+  if (lane == 0) {
+    opacity[r] = opc;
+    depth[r] = __fdiv_rn(dsum, opc);
+  }
+  // median depth: count(inclusive cumsum(w) < 0.5), clipped to S-1
+  float cw[K];
+  float crun = 0.f;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    crun = __fadd_rn(crun, w[i]);
+    cw[i] = crun;
+  }
+  const float coff = warp_exclusive_scan(crun, lane);
+  int cnt = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) cnt += (valid[i] && __fadd_rn(coff, cw[i]) < 0.5f) ? 1 : 0;
+  cnt = warp_sum_int(cnt);
+  if (lane == 0) {
+    const int idx = min(cnt, S - 1);
+    median[r] = __fmul_rn(__fadd_rn(ts[row + idx], te[row + idx]), 0.5f);
+  }
   for (int c = 0; c < C; ++c) {
-    const int set = cs.set[c];
     float acc = 0.f;
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      if (!valid[i]) continue;
-      const float wi = set == 0 ? w[0][i] : (set == 1 ? w[1][i] : w[2][i]);
-      acc += wi * vals[(row + s0 + i) * C + c];
-    }
+    for (int i = 0; i < K; ++i)
+      if (valid[i]) acc += w[i] * vals[(row + s0 + i) * C + c];
     acc = warp_sum(acc);
     if (lane == 0) sums[r * C + c] = acc;
+  }
+}
+
+// ---- forward, wide rays: rays staged in shared memory (see the header) ----
+
+constexpr int kMaxRaysPerStage = 4;  // warps per block: one ray each per stage
+constexpr int kStageBudget = 75 * 1024;  // bytes per block: 3 blocks per SM at the eval shape
+
+// floats of a shared region for a run of x floats: room for the run's
+// misalignment (up to 3 floats) and a 16-byte-aligned end
+__host__ __device__ __forceinline__ int region(int x) { return (x + 7) & ~3; }
+
+// the place of global address g in a region: the same offset modulo 16
+// bytes, so that the run's 16-byte-aligned middle maps to aligned shared
+// memory
+template <typename T>
+__device__ __forceinline__ T* shifted(T* base, const void* g) {
+  return base + ((reinterpret_cast<uintptr_t>(g) >> 2) & 3);
+}
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// copy n floats from global src to shared dst (= shifted(region, src)):
+// 4-byte head and tail, 16-byte cp.async in between
+__device__ __forceinline__ void stage_run(float* dst, const float* src, int n) {
+  const int head = min(n, static_cast<int>((4 - ((reinterpret_cast<uintptr_t>(src) >> 2) & 3)) & 3));
+  const int body = (n - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(shared_addr(dst + i)),
+                 "l"(src + i));
+  for (int i = threadIdx.x; i < body; i += blockDim.x)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     shared_addr(dst + head + 4 * i)),
+                 "l"(src + head + 4 * i));
+  for (int i = head + 4 * body + threadIdx.x; i < n; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(shared_addr(dst + i)),
+                 "l"(src + i));
+}
+
+// store n floats from shared src (= shifted(region, dst)) to global dst:
+// scalar head and tail, float4 in between
+__device__ __forceinline__ void store_run(float* dst, const float* src, int n) {
+  const int head = min(n, static_cast<int>((4 - ((reinterpret_cast<uintptr_t>(dst) >> 2) & 3)) & 3));
+  const int body = (n - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  for (int i = threadIdx.x; i < body; i += blockDim.x)
+    reinterpret_cast<float4*>(dst + head)[i] = reinterpret_cast<const float4*>(src + head)[i];
+  for (int i = head + 4 * body + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// shared floats of one stage of rb rays: two input buffers, one output
+__host__ __device__ __forceinline__ int stage_in_floats(int rb, int S, int D, int C) {
+  return 2 * region(rb * S) + region(rb * S * D) + region(rb * S * C);
+}
+__host__ __device__ __forceinline__ int stage_floats(int rb, int S, int D, int C) {
+  return 2 * stage_in_floats(rb, S, D, C) + 2 * region(rb * S * D);
+}
+
+// density set of value channel c, 2 bits per channel
+__device__ __forceinline__ int chan_set(unsigned long long lo, unsigned long long hi, int c) {
+  return static_cast<int>(((c < 32 ? lo : hi) >> (2 * (c & 31))) & 3ull);
+}
+
+template <int K>
+__global__ void __launch_bounds__(32 * kMaxRaysPerStage)
+composite_kernel(const float* __restrict__ ts, const float* __restrict__ te,
+                 const float* __restrict__ dens, const float* __restrict__ vals, int n_rays,
+                 int S, int D, int C, unsigned long long sets_lo, unsigned long long sets_hi,
+                 float* __restrict__ weights, float* __restrict__ trans,
+                 float* __restrict__ opacity, float* __restrict__ depth,
+                 float* __restrict__ median, float* __restrict__ sums) {
+  extern __shared__ __align__(16) float smem[];
+  const int rb = blockDim.x >> 5;  // rays per stage
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_stages = (n_rays + rb - 1) / rb;
+  const int in_floats = stage_in_floats(rb, S, D, C);
+  float* out_w = smem + 2 * in_floats;
+  float* out_t = out_w + region(rb * S * D);
+  // the value channels' lanes: G samples of C <= 32 channels per step
+  const int G = C > 0 && C <= 32 ? 32 / C : 1;
+  const int g = C > 0 && C <= 32 ? lane / C : 0;
+  const int cl = lane - g * (C > 0 && C <= 32 ? C : 0);
+
+  auto stage_inputs = [&](int stage, int buf) {
+    float* base = smem + buf * in_floats;
+    const long long ray0 = static_cast<long long>(stage) * rb;
+    const int nr = static_cast<int>(min(static_cast<long long>(rb), n_rays - ray0));
+    const float* a = ts + ray0 * S;
+    const float* b = te + ray0 * S;
+    const float* dn = dens + ray0 * S * D;
+    stage_run(shifted(base, a), a, nr * S);
+    base += region(rb * S);
+    stage_run(shifted(base, b), b, nr * S);
+    base += region(rb * S);
+    stage_run(shifted(base, dn), dn, nr * S * D);
+    if (C > 0) {
+      base += region(rb * S * D);
+      const float* v = vals + ray0 * S * C;
+      stage_run(shifted(base, v), v, nr * S * C);
+    }
+  };
+
+  int stage = blockIdx.x;
+  if (stage >= n_stages) return;
+  stage_inputs(stage, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int k = 0; stage < n_stages; ++k, stage += gridDim.x) {
+    const int next = stage + gridDim.x;
+    if (next < n_stages) stage_inputs(next, (k + 1) & 1);
+    asm volatile("cp.async.commit_group;\n" ::);  // possibly empty: one group per stage
+    asm volatile("cp.async.wait_group 1;\n" ::);  // this stage's copies are done
+    __syncthreads();
+
+    const long long ray0 = static_cast<long long>(stage) * rb;
+    const int nr = static_cast<int>(min(static_cast<long long>(rb), n_rays - ray0));
+    const float* base = smem + (k & 1) * in_floats;
+    const float* s_ts = shifted(base, ts + ray0 * S);
+    base += region(rb * S);
+    const float* s_te = shifted(base, te + ray0 * S);
+    base += region(rb * S);
+    const float* s_dn = shifted(base, dens + ray0 * S * D);
+    base += region(rb * S * D);
+    const float* s_v = C > 0 ? shifted(base, vals + ray0 * S * C) : nullptr;
+    float* s_w = shifted(out_w, weights + ray0 * S * D);
+    float* s_t = shifted(out_t, trans + ray0 * S * D);
+
+    if (warp < nr) {
+      // the transmittance scan of ray r, in registers, in the order of
+      // composite_bwd_kernel's recomputation: a lane's K consecutive
+      // samples, then the warp's exclusive scan
+      const long long r = ray0 + warp;
+      const int row = warp * S;
+      const int s0 = lane * K;
+      bool valid[K];
+      float step[K], dt[K];
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int s = s0 + i;
+        valid[i] = s < S;
+        const float a = valid[i] ? s_ts[row + s] : 0.f;
+        const float b = valid[i] ? s_te[row + s] : 0.f;
+        dt[i] = __fsub_rn(b, a);
+        step[i] = __fmul_rn(__fadd_rn(a, b), 0.5f);
+      }
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) {
+        if (d >= D) break;
+        float sdt[K], pre[K], w0[K];
+        float run = 0.f;
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+          sdt[i] = valid[i] ? __fmul_rn(s_dn[(row + s0 + i) * D + d], dt[i]) : 0.f;
+          pre[i] = run;
+          run = __fadd_rn(run, sdt[i]);
+        }
+        const float off = warp_exclusive_scan(run, lane);
+        float wsum = 0.f, dsum = 0.f;
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+          const float tr = expf(-__fadd_rn(off, pre[i]));
+          const float alpha = __fsub_rn(1.f, expf(-sdt[i]));
+          const float wi = valid[i] ? __fmul_rn(tr, alpha) : 0.f;
+          w0[i] = wi;
+          if (valid[i]) {
+            s_w[(row + s0 + i) * D + d] = wi;
+            s_t[(row + s0 + i) * D + d] = tr;
+          }
+          wsum += wi;
+          dsum += wi * step[i];
+        }
+        wsum = warp_sum(wsum);
+        dsum = warp_sum(dsum);
+        const float opc = fminf(fmaxf(wsum, 1e-6f), 1.f);
+        if (lane == 0) {
+          opacity[r * D + d] = opc;
+          depth[r * D + d] = __fdiv_rn(dsum, opc);
+        }
+        if (d == 0) {
+          // median depth: count(inclusive cumsum(w) < 0.5), clipped to S-1
+          float cw[K];
+          float crun = 0.f;
+#pragma unroll
+          for (int i = 0; i < K; ++i) {
+            crun = __fadd_rn(crun, w0[i]);
+            cw[i] = crun;
+          }
+          const float coff = warp_exclusive_scan(crun, lane);
+          int cnt = 0;
+#pragma unroll
+          for (int i = 0; i < K; ++i)
+            cnt += (valid[i] && __fadd_rn(coff, cw[i]) < 0.5f) ? 1 : 0;
+          cnt = warp_sum_int(cnt);
+          if (lane == 0) {
+            const int idx = min(cnt, S - 1);
+            median[r] = __fmul_rn(__fadd_rn(s_ts[row + idx], s_te[row + idx]), 0.5f);
+          }
+        }
+      }
+      __syncwarp();
+
+      // the weighted sums from the staged values: lane (g, c) sums channel
+      // c over the samples g, g + G, ... (consecutive lanes on consecutive
+      // words), then the G partial sums meet by shuffles
+      if (C > 0 && C <= 32) {
+        float acc = 0.f;
+        if (g < G) {
+          const int set = chan_set(sets_lo, sets_hi, cl);
+          const float* v = s_v + row * C + cl;
+          const float* w = s_w + row * D + set;
+          for (int s = g; s < S; s += G) acc += w[s * D] * v[s * C];
+        }
+        for (int o = 1; o < G; o <<= 1) {
+          const float t = __shfl_down_sync(kFull, acc, o * C);
+          if (g + o < G) acc += t;
+        }
+        if (g == 0) sums[r * C + cl] = acc;
+      } else if (C > 32) {
+        for (int c = lane; c < C; c += 32) {
+          const int set = chan_set(sets_lo, sets_hi, c);
+          float acc = 0.f;
+          for (int s = 0; s < S; ++s) acc += s_w[(row + s) * D + set] * s_v[(row + s) * C + c];
+          sums[r * C + c] = acc;
+        }
+      }
+    }
+    __syncthreads();
+    // weights and transmittance of the stage: one contiguous run each
+    store_run(weights + ray0 * S * D, s_w, nr * S * D);
+    store_run(trans + ray0 * S * D, s_t, nr * S * D);
   }
 }
 
@@ -331,43 +576,92 @@ extern "C" int emt_composite_backward(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int emt_composite(const void* t_starts, const void* t_ends,
-                             const void* dens, const void* vals,
-                             const void* chan_set, int n_rays, int S, int D,
-                             int C, void* weights, void* trans, void* opacity,
-                             void* depth, void* median, void* sums,
-                             void* stream) {
+// Forward.  sets_lo / sets_hi: the density set of value channel c in bits
+// 2c, 2c+1 of channels 0-31 / 32-63 (render/volrend.py:pack_chan_sets).
+// out: weights (R,S,D), trans (R,S,D), opacity (R,D), depth (R,D), median
+// (R,1), sums (R,C), one after the other.
+template <int K>
+cudaError_t launch_composite(const float* a, const float* b, const float* dn, const float* v,
+                             int n_rays, int S, int D, int C, unsigned long long lo,
+                             unsigned long long hi, float* out, cudaStream_t s) {
+  const long long rs = static_cast<long long>(n_rays) * S;
+  float* w = out;
+  float* tr = w + rs * D;
+  float* op = tr + rs * D;
+  float* dp = op + static_cast<long long>(n_rays) * D;
+  float* md = dp + static_cast<long long>(n_rays) * D;
+  float* sm = md + n_rays;
+  if constexpr (K <= 2) {  // narrow, short rays: one warp each, 4 per block
+    if (D == 1 && C <= kWarpRouteMaxC) {
+      const unsigned blocks = static_cast<unsigned>((static_cast<long long>(n_rays) + 3) / 4);
+      composite_warp_kernel<K><<<blocks, 128, 0, s>>>(a, b, dn, v, n_rays, S, C, w, tr, op, dp,
+                                                       md, sm);
+      return cudaGetLastError();
+    }
+  }
+  // rays per stage: the most, up to kMaxRaysPerStage, within the budget
+  int rb = kMaxRaysPerStage;
+  while (rb > 1 && stage_floats(rb, S, D, C) * 4 > kStageBudget) --rb;
+  const int smem = stage_floats(rb, S, D, C) * 4;
+  static bool opted_in = false;
+  if (!opted_in) {
+    int dev = 0, most = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(composite_kernel<K>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  // resident blocks per SM for (rb, smem): a few shapes recur, so remember them
+  static int memo[16][3];
+  static int n_memo = 0;
+  int per_sm = 0;
+  for (int i = 0; i < n_memo; ++i)
+    if (memo[i][0] == rb && memo[i][1] == smem) per_sm = memo[i][2];
+  if (per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, composite_kernel<K>, 32 * rb, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+    if (n_memo < 16) {
+      memo[n_memo][0] = rb;
+      memo[n_memo][1] = smem;
+      memo[n_memo][2] = per_sm;
+      ++n_memo;
+    }
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long long n_stages = (static_cast<long long>(n_rays) + rb - 1) / rb;
+  const long long most = static_cast<long long>(per_sm) * sms;
+  composite_kernel<K><<<static_cast<unsigned>(n_stages < most ? n_stages : most), 32 * rb,
+                        smem, s>>>(a, b, dn, v, n_rays, S, D, C, lo, hi, w, tr, op, dp, md, sm);
+  return cudaGetLastError();
+}
+
+extern "C" int emt_composite(const void* t_starts, const void* t_ends, const void* dens,
+                             const void* vals, unsigned long long sets_lo,
+                             unsigned long long sets_hi, int n_rays, int S, int D, int C,
+                             void* out, void* stream) {
   if (n_rays == 0) return cudaSuccess;
   if (S < 1 || S > 256 || D < 1 || D > kMaxD || C < 0 || C > kMaxC)
     return cudaErrorInvalidValue;
-  ChanSets cs = {};
-  const int* sets = static_cast<const int*>(chan_set);
-  for (int c = 0; c < C; ++c) {
-    if (sets[c] < 0 || sets[c] >= D) return cudaErrorInvalidValue;
-    cs.set[c] = sets[c];
-  }
-  const int threads = 128;  // 4 rays per block
-  const long long total = static_cast<long long>(n_rays) * 32;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(t_starts);
   const float* b = static_cast<const float*>(t_ends);
   const float* dn = static_cast<const float*>(dens);
   const float* v = static_cast<const float*>(vals);
-  float* w = static_cast<float*>(weights);
-  float* tr = static_cast<float*>(trans);
-  float* op = static_cast<float*>(opacity);
-  float* dp = static_cast<float*>(depth);
-  float* md = static_cast<float*>(median);
-  float* sm = static_cast<float*>(sums);
+  float* o = static_cast<float*>(out);
   const int k = (S + 31) / 32;
-#define EMT_LAUNCH(KV)                                                      \
-  composite_kernel<KV><<<blocks, threads, 0, s>>>(a, b, dn, v, n_rays, S, D, \
-                                                 C, cs, w, tr, op, dp, md, sm)
-  if (k == 1) EMT_LAUNCH(1);
-  else if (k == 2) EMT_LAUNCH(2);
-  else if (k <= 4) EMT_LAUNCH(4);
-  else EMT_LAUNCH(8);
-#undef EMT_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  if (k == 1) return launch_composite<1>(a, b, dn, v, n_rays, S, D, C, sets_lo, sets_hi, o, s);
+  if (k == 2) return launch_composite<2>(a, b, dn, v, n_rays, S, D, C, sets_lo, sets_hi, o, s);
+  if (k <= 4) return launch_composite<4>(a, b, dn, v, n_rays, S, D, C, sets_lo, sets_hi, o, s);
+  return launch_composite<8>(a, b, dn, v, n_rays, S, D, C, sets_lo, sets_hi, o, s);
 }

@@ -26,8 +26,25 @@
 // P1-P3 is VMEM; on Hopper it is the 50 MB L2, not shared memory (at most
 // 227 KB per block), so the tables stay in device memory and L2 serves
 // the repeated rows.
-//   P1: one thread per output element in a grid-stride loop (the
-//       straightforward counterpart of the TPU's one-row-per-step loop).
+//   P1 (redesigned; it replaces the thread-per-element grid-stride loop of
+//       this file's first version, whose per-element 64-bit division,
+//       re-read index and 2- or 4-byte accesses reached 21-40% of the
+//       bound): a warp per tile of 32 output rows, one coalesced load of
+//       the tile's 32 indices, each broadcast with __shfl_sync; the warp
+//       copies the tile's rows as one run of V-byte vectors, lane l moving
+//       vectors l, l + 32, ... of the run, so a 512-byte fp32 row is one
+//       16-byte-per-lane instruction and a 256-byte bf16 row half of one.
+//       Each lane keeps kGatherUnroll loads in flight before it stores;
+//       table reads take the read-only path (__ldg), output stores the
+//       streaming hint (__stcs: the output is written once and must not
+//       push the L2-resident table out).  One warp per tile, all tiles in
+//       one grid.  A persistent grid, plain stores and Hopper bulk copies
+//       (cp.async.bulk of each row into shared memory, one bulk store of
+//       the tile) all ran slower: 63-81% of the bound against 84%
+//       (PERF.md).  V is the widest of 16, 8, 4, 2 bytes that divides the
+//       row and both pointers' alignment (ops/gather_scatter.py:p1_plan),
+//       so odd widths and table views at an offset take narrower vectors.  Row and column of each vector
+//       follow by carries, with no division.
 //   P2: one block per tile of 2048 rows (the TPU tile) stages its indices
 //       in shared memory; then each warp copies whole rows with 16-byte
 //       vector loads and stores.
@@ -55,17 +72,43 @@ namespace {
 
 constexpr int kTakeTile = 2048;  // rows per block of the take gather
 constexpr int kThreads = 256;
+constexpr int kGatherUnroll = 8;  // P1: vector loads in flight per lane
 
-template <typename T>
-__global__ void gather_loop_kernel(const T* __restrict__ table, const int* __restrict__ idx,
-                                   T* __restrict__ out, long long n, int w) {
-  const long long total = n * w;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       e < total; e += stride) {
-    const long long i = e / w;
-    const int j = static_cast<int>(e - i * w);
-    out[e] = table[static_cast<long long>(idx[i]) * w + j];
+// P1: a warp per tile of 32 rows of vpr V-vectors each (see the header).
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+gather_loop_kernel(const V* __restrict__ table, const int* __restrict__ idx, V* __restrict__ out,
+                   long long n, int vpr) {
+  const int lane = threadIdx.x & 31;
+  const long long row0 =
+      (blockIdx.x * static_cast<long long>(blockDim.x >> 5) + (threadIdx.x >> 5)) << 5;
+  if (row0 >= n) return;  // uniform across the warp
+  const int rows = n - row0 < 32 ? static_cast<int>(n - row0) : 32;
+  const int my_idx = lane < rows ? __ldg(idx + row0 + lane) : 0;
+  const int total = rows * vpr;
+  V* dst = out + row0 * vpr;
+  // a step of 32 vectors moves a lane by dq rows and dr vectors
+  const int dq = 32 / vpr, dr = 32 - dq * vpr;
+  int r = lane / vpr, c = lane - r * vpr;
+  for (int base = 0; base < total; base += 32 * kGatherUnroll) {
+    V v[kGatherUnroll];
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const int src = __shfl_sync(0xffffffffu, my_idx, r & 31);
+      if (base + 32 * u + lane < total)
+        v[u] = __ldg(table + static_cast<long long>(src) * vpr + c);
+      r += dq;
+      c += dr;
+      if (c >= vpr) {
+        c -= vpr;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const int e = base + 32 * u + lane;
+      if (e < total) __stcs(dst + e, v[u]);
+    }
   }
 }
 
@@ -216,20 +259,31 @@ cudaError_t allow_shared(K kernel, size_t bytes) {
 
 }  // namespace
 
-// P1.  elem_bytes 4 (fp32) or 2 (bf16: rows are copied as bits).
-extern "C" int emt_gather_loop(const void* table, int elem_bytes, const void* idx, void* out,
-                               long long n, int w, void* stream) {
-  if (n == 0) return cudaSuccess;
+// P1.  vec_bytes (16, 8, 4 or 2) divides row_bytes and the alignment of
+// table and out (ops/gather_scatter.py:p1_plan); rows are copied as bits.
+template <typename V>
+cudaError_t launch_gather_loop(const void* table, const int* idx, void* out, long long n,
+                               int vpr, cudaStream_t s) {
+  const long long blocks = ((n + 31) / 32 + kThreads / 32 - 1) / (kThreads / 32);
+  gather_loop_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const V*>(table), idx, static_cast<V*>(out), n, vpr);
+  return cudaGetLastError();
+}
+
+extern "C" int emt_gather_loop(const void* table, const void* idx, void* out, long long n,
+                               int row_bytes, int vec_bytes, void* stream) {
+  if (n == 0 || row_bytes == 0) return cudaSuccess;
+  if (vec_bytes <= 0 || row_bytes % vec_bytes) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = grid_stride_blocks(n * w);
   const int* i = static_cast<const int*>(idx);
-  if (elem_bytes == 4)
-    gather_loop_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(table), i, static_cast<float*>(out), n, w);
-  else
-    gather_loop_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(table), i, static_cast<uint16_t*>(out), n, w);
-  return static_cast<int>(cudaGetLastError());
+  const int vpr = row_bytes / vec_bytes;
+  switch (vec_bytes) {
+    case 16: return launch_gather_loop<uint4>(table, i, out, n, vpr, s);
+    case 8: return launch_gather_loop<uint2>(table, i, out, n, vpr, s);
+    case 4: return launch_gather_loop<unsigned int>(table, i, out, n, vpr, s);
+    case 2: return launch_gather_loop<unsigned short>(table, i, out, n, vpr, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // P2.  row_bytes a multiple of 16; table and out 16-byte aligned.

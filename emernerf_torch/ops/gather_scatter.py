@@ -79,16 +79,28 @@ def _launch_gather(name, table, idx):
     return kernels.load(), out
 
 
+def p1_plan(row_bytes: int, table_ptr: int, out_ptr: int) -> int:
+    """P1's vector width on the card in bytes: the widest of 16, 8, 4 and 2
+    that divides the row and the alignment of both pointers."""
+    for v in (16, 8, 4, 2):
+        if row_bytes % v == 0 and table_ptr % v == 0 and out_ptr % v == 0:
+            return v
+    raise ValueError("row_gather_loop: rows and pointers must be 2-byte aligned")
+
+
 def row_gather_loop(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """P1: ``table[idx]`` (n, w) in the table's dtype, one thread per
-    output element on the card."""
+    """P1: ``table[idx]`` (n, w) in the table's dtype; on the card a warp
+    per 32 rows with the vector width :func:`p1_plan` picks."""
     name = "row_gather_loop"
     _check_gather(name, table, idx)
     if kernels.dispatch_device(name, table) == "cpu":
         return row_gather_plain(table, idx)
     lib, out = _launch_gather(name, table, idx)
-    err = lib.emt_gather_loop(table.data_ptr(), table.element_size(), idx.data_ptr(),
-                              out.data_ptr(), idx.shape[0], table.shape[1],
+    if out.numel() == 0:
+        return out
+    row_bytes = table.shape[1] * table.element_size()
+    err = lib.emt_gather_loop(table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+                              row_bytes, p1_plan(row_bytes, table.data_ptr(), out.data_ptr()),
                               kernels.stream_ptr(table.device))
     kernels.check(err, name)
     row_gather_loop.launches += 1

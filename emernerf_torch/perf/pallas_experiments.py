@@ -5,7 +5,7 @@
 The same cases, names and line per case as the TPU probes, each through
 the port's hand-written kernel (``kernels/csrc/gather_scatter.cu``):
 
-  g1: loop gather, one thread per output element (P1)
+  g1: loop gather, a warp per 32 rows with the widest aligned vectors (P1)
   g2: take gather, 2048 indices per block staged in shared memory, one
       warp per row (P2)
   s1: scatter-add by fp32 atomics into a zeroed table (P3)

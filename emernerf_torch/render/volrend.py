@@ -15,7 +15,8 @@ keys and formulas.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Sequence
+import functools
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,6 +36,20 @@ class Composited(NamedTuple):
     sums: torch.Tensor  # (R, C)
 
 
+@functools.lru_cache(maxsize=256)
+def pack_chan_sets(chan_set: Tuple[int, ...], n_sets: int) -> Tuple[int, int]:
+    """The density set of each value channel, 2 bits per channel, as the K3
+    forward kernel takes them: (channels 0-31, channels 32-63).  Cached per
+    distinct tuple; raises on a set outside [0, n_sets) or over 64 channels."""
+    if len(chan_set) > _MAX_CHANNELS or not 1 <= n_sets <= _MAX_SETS or any(
+            not 0 <= c < n_sets for c in chan_set):
+        raise ValueError("composite_along_rays: one density set per value channel")
+    words = [0, 0]
+    for c, dset in enumerate(chan_set):
+        words[c >> 5] |= dset << (2 * (c & 31))
+    return words[0], words[1]
+
+
 def _check_composite_args(name, t_starts, t_ends, densities, values, chan_set):
     if t_starts.ndim != 2 or t_ends.shape != t_starts.shape:
         raise ValueError(f"{name}: t_starts and t_ends must both be (R, S)")
@@ -42,17 +57,16 @@ def _check_composite_args(name, t_starts, t_ends, densities, values, chan_set):
     if densities.ndim != 3 or densities.shape[:2] != (r, s) or not (
             1 <= densities.shape[2] <= _MAX_SETS):
         raise ValueError(f"{name}: densities must be (R, S, D<={_MAX_SETS})")
-    n_ch = 0 if values is None else values.shape[-1]
     if values is not None and (values.ndim != 3 or values.shape[:2] != (r, s)):
         raise ValueError(f"{name}: values must be (R, S, C)")
-    if len(chan_set) != n_ch or n_ch > _MAX_CHANNELS or any(
-            not 0 <= c < densities.shape[2] for c in chan_set):
+    if len(chan_set) != (0 if values is None else values.shape[2]):
         raise ValueError(f"{name}: one density set per value channel")
+    pack_chan_sets(chan_set, densities.shape[2])  # validates each set once per tuple
     if s > _MAX_SAMPLES:
         raise ValueError(f"{name}: at most {_MAX_SAMPLES} samples per ray")
-    for t in (t_starts, t_ends, densities) + (() if values is None else (values,)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: float32 inputs required")
+    if not (t_starts.dtype == t_ends.dtype == densities.dtype == torch.float32 and (
+            values is None or values.dtype == torch.float32)):
+        raise ValueError(f"{name}: float32 inputs required")
 
 
 def composite_along_rays_ref(t_starts, t_ends, densities, values=None,
@@ -76,34 +90,33 @@ def composite_along_rays_ref(t_starts, t_ends, densities, values=None,
 
 
 def _composite_forward(t_starts, t_ends, densities, values, chan_set) -> Composited:
-    """The K3 forward: plain version for CPU tensors, the kernel for CUDA."""
+    """The K3 forward: plain version for CPU tensors, the kernel for CUDA.
+    ``chan_set`` is a tuple that :func:`_check_composite_args` accepted."""
     name = "composite_along_rays"
     if kernels.dispatch_device(name, t_starts) == "cpu":
         return composite_along_rays_ref(t_starts, t_ends, densities, values, chan_set)
     extra = () if values is None else (values,)
     kernels.require_cuda_inputs(name, t_starts, t_ends, densities, *extra)
-    lib = kernels.load()
     r, s = t_starts.shape
-    d = densities.shape[2]
-    c = len(chan_set)
-    dev = t_starts.device
-    new = dict(dtype=torch.float32, device=dev)
-    out = Composited(
-        weights=torch.empty((r, s, d), **new), trans=torch.empty((r, s, d), **new),
-        opacity=torch.empty((r, d), **new), depth=torch.empty((r, d), **new),
-        median_depth=torch.empty((r, 1), **new), sums=torch.empty((r, c), **new),
-    )
+    d, c = densities.shape[2], len(chan_set)
+    # one buffer in the kernel's layout: weights, trans (R, S, D), opacity,
+    # depth (R, D), median (R, 1), sums (R, C); as_strided is the cheapest
+    # view on the host
+    rsd, rd = r * s * d, r * d
+    buf = torch.empty(r * (2 * s * d + 2 * d + 1 + c), dtype=torch.float32,
+                      device=t_starts.device)
+    view = buf.as_strided
+    out = Composited(view((r, s, d), (s * d, d, 1)), view((r, s, d), (s * d, d, 1), rsd),
+                     view((r, d), (d, 1), 2 * rsd), view((r, d), (d, 1), 2 * rsd + rd),
+                     view((r, 1), (1, 1), 2 * rsd + 2 * rd),
+                     view((r, c), (c, 1), 2 * rsd + 2 * rd + r))
     if r == 0:
         return out
-    sets = (ctypes.c_int * max(c, 1))(*chan_set)
-    err = lib.emt_composite(
+    lo, hi = pack_chan_sets(chan_set, d)
+    err = kernels.load().emt_composite(
         t_starts.data_ptr(), t_ends.data_ptr(), densities.data_ptr(),
-        None if values is None else values.data_ptr(), ctypes.addressof(sets),
-        r, s, d, c, out.weights.data_ptr(), out.trans.data_ptr(),
-        out.opacity.data_ptr(), out.depth.data_ptr(),
-        out.median_depth.data_ptr(), out.sums.data_ptr(),
-        kernels.stream_ptr(dev),
-    )
+        None if values is None else values.data_ptr(), lo, hi, r, s, d, c, buf.data_ptr(),
+        kernels.stream_ptr(t_starts.device))
     kernels.check(err, name)
     composite_along_rays.launches += 1
     return out
@@ -200,10 +213,13 @@ def composite_along_rays(t_starts: torch.Tensor, t_ends: torch.Tensor,
     chan_set: C ints, the density set that weights each value channel.
     Differentiable in densities and values.  CPU tensors take the plain
     versions; CUDA tensors launch the K3 kernels."""
+    chan_set = tuple(chan_set)
     _check_composite_args("composite_along_rays", t_starts, t_ends, densities,
                           values, chan_set)
-    return Composited(*_Composite.apply(t_starts, t_ends, densities, values,
-                                        tuple(chan_set)))
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in (
+            t_starts, t_ends, densities, values)):
+        return Composited(*_Composite.apply(t_starts, t_ends, densities, values, chan_set))
+    return _composite_forward(t_starts, t_ends, densities, values, chan_set)
 
 
 composite_along_rays.launches = 0

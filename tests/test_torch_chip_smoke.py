@@ -92,3 +92,17 @@ def test_table_casts_lists_forward_and_backward_casts_of_table_sized_tensors():
     # the forward's two casts, then the backward's through both of them
     assert pairs.count(("float32", "bfloat16")) == 2
     assert pairs.count(("bfloat16", "float32")) == 2
+
+
+def test_remade_makes_its_inputs_on_first_use_and_once():
+    made = []
+
+    def make():
+        made.append(1)
+        return torch.arange(3.0), 2.0
+
+    run = chip_smoke.remade(make, lambda x, k: x * k)
+    assert made == []  # nothing is held before the first call
+    assert torch.equal(run(), torch.tensor([0.0, 2.0, 4.0]))
+    assert torch.equal(run(), torch.tensor([0.0, 2.0, 4.0]))
+    assert made == [1]

@@ -163,6 +163,32 @@ def test_wrapper_checks_and_cpu_dispatch():
     assert [fn.launches for fn in fns] == before  # the plain versions launch nothing
 
 
+# a 256-byte-aligned device address, as the caching allocator returns
+_BASE_PTR = 0x7F00_0000_0000
+
+
+@pytest.mark.parametrize("out_offset", [0, 2, 4, 8])
+@pytest.mark.parametrize("table_offset", [0, 2, 4, 8])
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["fp32", "bf16"])
+def test_p1_plan_picks_the_widest_aligned_vector(elem_bytes, table_offset, out_offset):
+    """P1's vector width over row widths 1-257 and pointers offset by 0, 2,
+    4 or 8 bytes (table views at an element offset): it divides the row
+    and both alignments, and no wider width of 16, 8, 4, 2 does."""
+    table_ptr, out_ptr = _BASE_PTR + table_offset, _BASE_PTR + out_offset
+    for w in range(1, 258):
+        row_bytes = w * elem_bytes
+        v = gs.p1_plan(row_bytes, table_ptr, out_ptr)
+        assert v in (16, 8, 4, 2)
+        assert row_bytes % v == 0 and table_ptr % v == 0 and out_ptr % v == 0, (w, v)
+        wider = [u for u in (16, 8, 4) if u > v]
+        assert not any(row_bytes % u == 0 and table_ptr % u == 0 and out_ptr % u == 0
+                       for u in wider), (w, v)
+    if (elem_bytes, table_offset, out_offset) == (4, 0, 0):
+        assert gs.p1_plan(128 * 4, table_ptr, out_ptr) == 16  # the probe's fp32 rows
+    with pytest.raises(ValueError, match="2-byte aligned"):
+        gs.p1_plan(3, table_ptr, out_ptr)
+
+
 @pytest.mark.parametrize("t,w,route", [
     (512, 108, "shared_table"),  # 221,184 bytes: fits one block's shared memory
     (4096, 108, "red"),

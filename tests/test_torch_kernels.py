@@ -151,6 +151,50 @@ def test_composite_kernel_matches_plain(cuda):
     assert (out.median_depth != ref.median_depth).float().mean() < 0.01
 
 
+def _check_composite_forward(out, ref, t_starts, t_ends):
+    """The kernel against the plain version: rtol 1e-5 (depth 1e-4, a
+    division by the opacity), atol 1e-5 (sums of S weighted fp32 terms in
+    another order); a median depth may move by one sample only where the
+    plain cumsum of the weights lies within 1e-5 of 0.5."""
+    for name, a, b in zip(out._fields, out, ref):
+        assert a.shape == b.shape, name
+        if name == "median_depth":
+            moved = (a != b).squeeze(-1)
+            if moved.any():
+                cum = torch.cumsum(ref.weights[..., 0], -1)[moved]
+                assert float((cum - 0.5).abs().min(-1)[0].max()) <= 1e-5
+            continue
+        torch.testing.assert_close(a, b, rtol=1e-4 if name == "depth" else 1e-5, atol=1e-5,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [0, 1, 4, 23, 64])
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 64, 128, 256])
+def test_composite_forward_kernel_shapes_match_plain(cuda, s, d, c):
+    """K3 forward at every sample count class (one, two, four and eight
+    samples per lane, ragged lanes), density set count and value width up
+    to 64 channels, over 9,001 rays (no multiple of the rays per stage,
+    several stages per persistent block); two runs bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(31 + s + 7 * d + 13 * c)
+    r = 9001
+    t = torch.sort(torch.rand((r, s + 1), device=cuda, generator=g) * 50, -1)[0] + 0.1
+    ts, te = t[:, :-1].contiguous(), t[:, 1:].contiguous()
+    dens = torch.rand((r, s, d), device=cuda, generator=g) ** 3 * 0.2
+    dens[:7] = 0.0  # empty rays: opacity clipped to 1e-6
+    vals = torch.rand((r, s, c), device=cuda, generator=g) if c else None
+    sets = [int(x) for x in torch.randint(0, d, (c,), generator=torch.Generator().manual_seed(c))]
+    before = composite_along_rays.launches
+    out = composite_along_rays(ts, te, dens, vals, sets)
+    again = composite_along_rays(ts, te, dens, vals, sets)
+    assert composite_along_rays.launches == before + 2
+    ref = composite_along_rays_ref(ts, te, dens, vals, sets)
+    torch.cuda.synchronize()
+    _check_composite_forward(out, ref, ts, te)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
 def _brick_spec(dims, f, bs, pair):
     return BrickGridSpec(n_input_dims=dims, n_levels=6, base_resolution=8,
                          max_resolution=512, log2_bricks=14 - 3 * bs,
@@ -671,6 +715,29 @@ def test_row_gather_kernels_match_plain_bit_for_bit(cuda, fn, dtype):
     out = fn(table, idx)
     assert fn.launches == before + 1
     assert torch.equal(out, gs.row_gather_plain(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [1, 3, 8, 127, 128, 129, 512])
+def test_row_gather_loop_widths_and_offsets_bit_for_bit(cuda, w, dtype):
+    """P1 at odd and wide rows, on table views at an element offset (the
+    vector width p1_plan picks drops with the alignment), with row counts
+    that leave a ragged last tile of 32 rows, none, and thousands of
+    blocks; bit for bit with index_select and between two runs."""
+    g = torch.Generator(device=cuda).manual_seed(40 + w)
+    t = 1000
+    flat = torch.randn((t * w + 8,), device=cuda, generator=g).to(dtype)
+    for offset in (0, 1, 2, 4):
+        table = flat[offset:offset + t * w].view(t, w)
+        for n in (0, 1, 31, 33, 200_003):
+            idx = torch.randint(0, t, (n,), device=cuda, generator=g, dtype=torch.int32)
+            before = gs.row_gather_loop.launches
+            out = gs.row_gather_loop(table, idx)
+            assert gs.row_gather_loop.launches == before + (n > 0)
+            assert out.shape == (n, w) and out.dtype == dtype
+            assert torch.equal(out, gs.row_gather_plain(table, idx)), (offset, n)
+    assert torch.equal(gs.row_gather_loop(table, idx), out)
 
 
 @pytest.mark.cuda

@@ -23,6 +23,7 @@ from emernerf_torch.losses.losses import sky_loss_opacity
 from emernerf_torch.render.volrend import (
     composite_along_rays,
     composite_rays,
+    pack_chan_sets,
     weights_opacity_depth_from_density,
 )
 
@@ -114,6 +115,52 @@ def test_composite_along_rays_checks_inputs():
         composite_along_rays(ts, ts, torch.zeros(4, 8, 4))
     with pytest.raises(ValueError):
         composite_along_rays(ts.to("meta"), ts.to("meta"), dens.to("meta"))
+
+
+def _unpack_chan_sets(packed, n_channels):
+    """Channel c's set from bits 2c, 2c + 1 of word c // 32, as the K3
+    forward kernel reads them (composite.cu:chan_set)."""
+    return tuple((packed[c >> 5] >> (2 * (c & 31))) & 3 for c in range(n_channels))
+
+
+@pytest.mark.parametrize("n_sets", [1, 2, 3])
+def test_packed_chan_sets_round_trip(n_sets):
+    """K3 forward takes the density set of each value channel as 2 bits: every
+    assignment of up to 3 channels exhaustively, and 200 random assignments
+    of each count up to 64, come back unchanged."""
+    assignments = [tuple(int(x) for x in np.unravel_index(i, (n_sets,) * c))
+                   for c in range(4) for i in range(n_sets ** c)]
+    rng = np.random.default_rng(n_sets)
+    assignments += [tuple(int(x) for x in rng.integers(0, n_sets, c))
+                    for c in range(65) for _ in range(200)]
+    for sets in assignments:
+        lo, hi = pack_chan_sets(sets, n_sets)
+        assert 0 <= lo < 2 ** 64 and 0 <= hi < 2 ** 64
+        assert _unpack_chan_sets((lo, hi), len(sets)) == sets
+    assert pack_chan_sets((n_sets - 1,) * 64, n_sets) == (
+        (sum((n_sets - 1) << (2 * c) for c in range(32)),) * 2)
+
+
+@pytest.mark.parametrize("n_sets", [1, 2, 3])
+def test_packed_chan_sets_reject_a_set_outside_the_densities(n_sets):
+    for bad in ((n_sets,), (0,) * 40 + (n_sets,), (3,), (-1,), (0,) * 65):
+        with pytest.raises(ValueError, match="one density set per value channel"):
+            pack_chan_sets(bad, n_sets)
+    dens = torch.zeros(2, 4, n_sets)
+    with pytest.raises(ValueError, match="one density set per value channel"):
+        composite_along_rays(dens[..., 0], dens[..., 0], dens, torch.zeros(2, 4, 1), [n_sets])
+
+
+def test_equal_chan_sets_reuse_the_cached_packing():
+    sets = (0, 1, 2, 2, 1, 0, 2)
+    packed = pack_chan_sets(sets, 3)
+    hits = pack_chan_sets.cache_info().hits
+    assert pack_chan_sets(tuple(list(sets)), 3) is packed  # an equal tuple, another object
+    assert pack_chan_sets.cache_info().hits == hits + 1
+    ts = torch.sort(torch.rand(3, 5), -1)[0]
+    hits = pack_chan_sets.cache_info().hits
+    composite_along_rays(ts, ts + 0.1, torch.rand(3, 5, 3), torch.rand(3, 5, 7), list(sets))
+    assert pack_chan_sets.cache_info().hits == hits + 1
 
 
 def _tie_ray(equal_midpoints: bool):

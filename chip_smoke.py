@@ -14,13 +14,19 @@ Phases (any failure exits non-zero; nothing is skipped):
      computation (the flagship's route, beside the route it replaced: the
      table cast to bf16, then the bf16 kernel) and on a bf16 table; K2 and
      K3 forward with the wrapper's time and the kernel's alone), the
-     training kernels (K1 and K3 backward, K5 interlevel loss,
-     K8 Adam) at the shapes of one 8,192-ray pixel branch and over the
-     flagship's parameter list, with max abs/rel error, elements over
-     tolerance and median times of both; K1 backward also on ray-ordered
-     top-K-like samples (32 per ray; the warped fused queries 16 per ray),
-     its position gradients bit for bit with the plain version and with a
-     second run;
+     training kernels (K1 backward, K8 Adam) at the shapes of one
+     8,192-ray pixel branch and over the flagship's parameter list, with
+     max abs/rel error, elements over tolerance and median times of both;
+     K1 backward also on ray-ordered top-K-like samples (32 per ray; the
+     warped fused queries 16 per ray), its position gradients bit for bit
+     with the plain version and with a second run; then K3 backward at the
+     three calls of a training branch (the proposal levels' (8192, 128, 1)
+     and (8192, 64, 1) with the transmittance's cotangent, the pixel
+     composite's (8192, 64, 1) with four value channels and every
+     cotangent) and K5 forward and backward grouped as training calls them
+     (both cache levels, 129 and 65 edges, in one launch; each radius at
+     each level), each with the wrapper's time and, after phase 8, the
+     kernel's alone;
   4. eval: the full-width flagship (default bf16 config, seeded random
      weights) renders 2 images of 160x240 through ImageRenderer.render_split;
      every map must be finite and every forward kernel's launch counter
@@ -32,7 +38,11 @@ Phases (any failure exits non-zero; nothing is skipped):
      iterations, then iterations 2000 (an error-map refresh) and 2001 (the
      line-of-sight loss live, buffered pixel sampling).  Every loss must be
      finite, every parameter must change and every kernel's launch counter
-     must be above 0; prints ms/iteration, rays/s and peak memory;
+     must be above 0; prints ms/iteration, rays/s and peak memory, and the
+     launches of K5 and K3 backward over the timed steps (where every
+     render after the first takes proposal gradients) and over iterations
+     2000-2001 (where one render in six does), failing unless K5 launched
+     once forward and once backward per such render;
      It then traces 2 more iterations with torch.profiler (CUDA activity),
      writes the device time by kernel to chiprun_out/profile_train.json and
      prints the share of K1 and K4 forward and backward, of the transposes
@@ -89,8 +99,9 @@ once; for a grid, the table entries these points touch) over the HBM rate
 and its operations over the fp32 rate (H100 SXM data sheet).  Its launches
 are those of the run of its path (phase 5, phase 6 for K4, phase 7's probe
 run for P1-P4).
-The kernels' device times alone (torch.profiler: K2, K3 forward, P1) are
-taken after phase 8, so that no profiler session precedes a timed phase.
+The kernels' device times alone (torch.profiler: K2, K3 forward and
+backward, K5, P1) are taken after phase 8, so that no profiler session
+precedes a timed phase.
 The last two lines are the card line and {"ok": true, "device": {...}}.
 """
 
@@ -526,21 +537,71 @@ def composite_tally(fn):
     return tally
 
 
+# the device kernels of K3 backward (composite.cu), both instances
+K3_BACKWARD_KERNELS = ("composite_bwd_kernel",)
+
+
+def composite_bwd_inputs(dev, seed, s_, with_vals):
+    """Seeded arguments of one K3 backward call of training, 8,192 rays of
+    s_ samples and one density set: the pixel branch's final composite
+    (four value channels; cotangents of the weights, opacity, depth and
+    sums) or a proposal level's (the transmittance's cotangent alone)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.sort(torch.rand((N_TRAIN, s_ + 1), device=dev, generator=g) * 80, -1)[0] + 0.1
+    dens = (torch.rand((N_TRAIN, s_, 1), device=dev, generator=g) ** 3 * 0.5).contiguous()
+    vals = torch.rand((N_TRAIN, s_, 4), device=dev, generator=g) if with_vals else None
+    rnd = lambda *shape: torch.randn(shape, device=dev, generator=g)  # noqa: E731
+    grads = ((rnd(N_TRAIN, s_, 1), None, rnd(N_TRAIN, 1), rnd(N_TRAIN, 1), rnd(N_TRAIN, 4))
+             if with_vals else (None, rnd(N_TRAIN, s_, 1), None, None, None))
+    sets = [0] * 4 if with_vals else []  # shadow_ratio^2, rgb
+    return t[:, :-1].contiguous(), t[:, 1:].contiguous(), dens, vals, sets, grads
+
+
+def interlevel_inputs(dev, seed):
+    """Seeded K5 inputs of one 8,192-ray branch: (cache edges, cache CDFs)
+    of both proposal levels (129 and 65 edges), the final distribution's
+    edges (65) and transmittance, and a loss cotangent (2, R).  Edges rise
+    strictly from 0 to 1; CDFs are cumsums of U^4 weights scaled to 0.99."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def edges(k1):
+        s = torch.cumsum(torch.rand((N_TRAIN, k1), device=dev, generator=g) + 0.05, -1)
+        s = s - s[:, :1]
+        return (s / s[:, -1:]).contiguous()
+
+    def cdf(k1):
+        w = torch.rand((N_TRAIN, k1 - 1), device=dev, generator=g) ** 4
+        c = torch.cat([torch.zeros_like(w[:, :1]), torch.cumsum(w, -1)], -1)
+        return (c / c[:, -1:] * 0.99).contiguous()
+
+    s_final = edges(NUM_SAMPLES + 1)
+    trans_final = (1.0 - cdf(NUM_SAMPLES + 1)[:, :-1]).contiguous()
+    caches_s = [edges(n + 1) for n in PROP_SAMPLES]
+    cdfs = [cdf(n + 1) for n in PROP_SAMPLES]
+    gl = torch.rand((len(PROP_SAMPLES), N_TRAIN), device=dev, generator=g)
+    return caches_s, cdfs, s_final, trans_final, gl
+
+
+def interlevel_bwd_inputs(dev, seed, radii):
+    """K5 backward's arguments on interlevel_inputs(dev, seed): the plain
+    forward's w_s, the cache CDFs and the loss cotangent."""
+    from emernerf_torch.ops.stepfuns import interlevel_loss_levels_ref
+
+    caches_s, cdfs, s_final, trans_final, gl = interlevel_inputs(dev, seed)
+    w_s, _ = interlevel_loss_levels_ref(caches_s, cdfs, s_final, trans_final, radii)
+    return w_s, cdfs, gl
+
+
 def phase_train_kernels(dev, kernels_entries):
     """The training kernels against their plain versions at the shapes of
     one 8,192-ray pixel branch, and K8 over the flagship's parameters."""
     from emernerf_torch.flagship import build_flagship
     from emernerf_torch.ops.brickgrid import brickgrid_encode_bwd, brickgrid_encode_bwd_ref
-    from emernerf_torch.ops.stepfuns import (
-        _interlevel_forward, interlevel_loss, interlevel_loss_bwd, interlevel_loss_bwd_ref,
-        interlevel_loss_ref)
-    from emernerf_torch.render.volrend import (
-        composite_along_rays_bwd, composite_along_rays_bwd_ref)
     from emernerf_torch.train.optim import adam_update, adam_update_ref, make_adam
 
     g = torch.Generator(device=dev).manual_seed(3)
     specs = flagship_specs()
-    print("phase 3 (training): K1 and K3 backward, K5, K8 vs plain versions at the shapes "
+    print("phase 3 (training): K1 backward and K8 vs plain versions at the shapes "
           f"of one {N_TRAIN}-ray pixel branch")
     # K1 backward, bf16 tables as the flagship trains them, at uniform
     # points and on ray-ordered top-K-like samples (32 per ray, ray-major;
@@ -594,90 +655,6 @@ def phase_train_kernels(dev, kernels_entries):
     del xyz, warped, k1
     torch.cuda.empty_cache()
 
-    # K3 backward.  Tolerance: reverse suffix scans in another order than
-    # autograd's: rtol 1e-4 + 1e-5 x max|grad|
-    def rays(s):
-        t = torch.sort(torch.rand((N_TRAIN, s + 1), device=dev, generator=g) * 80, -1)[0] + 0.1
-        return t[:, :-1].contiguous(), t[:, 1:].contiguous()
-
-    for s_, with_vals in ((PROP_SAMPLES[0], False), (PROP_SAMPLES[1], False), (NUM_SAMPLES, True)):
-        ts, te = rays(s_)
-        dens = (torch.rand((N_TRAIN, s_, 1), device=dev, generator=g) ** 3 * 0.5).contiguous()
-        sets = [0] * 4 if with_vals else []  # shadow_ratio^2, rgb
-        vals = torch.rand((N_TRAIN, s_, 4), device=dev, generator=g) if with_vals else None
-        rnd = lambda *shape: torch.randn(shape, device=dev, generator=g)  # noqa: E731
-        grads = ((rnd(N_TRAIN, s_, 1), None, rnd(N_TRAIN, 1), rnd(N_TRAIN, 1), rnd(N_TRAIN, 4))
-                 if with_vals else (None, rnd(N_TRAIN, s_, 1), None, None, None))
-        out = composite_along_rays_bwd(ts, te, dens, vals, sets, grads)
-        ref = composite_along_rays_bwd_ref(ts, te, dens, vals, sets, grads)
-        tag = (f"composite_along_rays_bwd[R={N_TRAIN},S={s_},D=1,"
-               f"{'C=4,w/opacity/depth/sums' if with_vals else 'trans'}]")
-        mx = check(tag + ".d_dens", out[0], ref[0], 1e-4, 1e-5)
-        if with_vals:
-            mx = max(mx, check(tag + ".d_vals", out[1], ref[1], 1e-4, 1e-5))
-        ms = cuda_ms(lambda: composite_along_rays_bwd(ts, te, dens, vals, sets, grads), 20)
-        plain_ms = cuda_ms(lambda: composite_along_rays_bwd_ref(ts, te, dens, vals, sets, grads), 5)
-        # the forward recomputed, then the reverse scan: ~3x its operations
-        n_ops = 3 * N_TRAIN * s_ * (12 + 2 * len(sets))
-        add_entry(kernels_entries, tag, "composite.cu", "emernerf_tpu/render/volrend.py:33",
-                  composite_along_rays_bwd, mx, ms, plain_ms,
-                  nbytes(ts, te, dens, vals, *grads, *out), n_ops)
-
-    # K5 at both cache levels against the 65-edge final distribution, at
-    # both pulse widths.  Tolerance: the blurred pdf is a cumsum of jumps
-    # |y| / (2r) that cancel, so fp32 sums in any order sit far from the
-    # exact value (tests/test_torch_interlevel.py); w_s and the per-ray loss
-    # of the kernel must be as close to a float64 evaluation of the plain
-    # version as the fp32 plain version is (2x its max error + 1e-6 x max).
-    # The backward is elementwise on the same w_s: rtol 1e-5 + 1e-6 x max.
-    def edges(k1):  # strictly increasing from 0 to 1
-        s = torch.cumsum(torch.rand((N_TRAIN, k1), device=dev, generator=g) + 0.05, -1)
-        s = s - s[:, :1]
-        return (s / s[:, -1:]).contiguous()
-
-    def cdf(k1):
-        w = torch.rand((N_TRAIN, k1 - 1), device=dev, generator=g) ** 4
-        c = torch.cat([torch.zeros_like(w[:, :1]), torch.cumsum(w, -1)], -1)
-        return (c / c[:, -1:] * 0.99).contiguous()
-
-    s_final = edges(NUM_SAMPLES + 1)
-    trans_final = (1.0 - cdf(NUM_SAMPLES + 1)[:, :-1]).contiguous()
-    for m1 in (PROP_SAMPLES[0] + 1, PROP_SAMPLES[1] + 1):
-        cs, cc = edges(m1), cdf(m1)
-        for r in (0.03, 0.003):
-            tag = f"interlevel_loss[R={N_TRAIN},K+1={NUM_SAMPLES + 1},M+1={m1},r={r}]"
-            w_s, loss = _interlevel_forward(s_final, trans_final, r, cs, cc)
-            w_ref, loss_ref = interlevel_loss_ref(s_final, trans_final, r, cs, cc)
-            w64, loss64 = interlevel_loss_ref(s_final.double(), trans_final.double(), r,
-                                              cs.double(), cc.double())
-            mx = 0.0
-            for part, ours, plain, exact in (("w_s", w_s, w_ref, w64), ("loss", loss, loss_ref,
-                                                                         loss64)):
-                err = float((ours.double() - exact).abs().max())
-                plain_err = float((plain.double() - exact).abs().max())
-                mx = max(mx, float((ours - plain).abs().max()))
-                print(f"  {tag}.{part}: kernel vs float64 {err:.3e}, plain vs float64 "
-                      f"{plain_err:.3e}, kernel vs plain {float((ours - plain).abs().max()):.3e} "
-                      f"(max |float64| {float(exact.abs().max()):.3e})")
-                if not err <= 2 * plain_err + 1e-6 * float(exact.abs().max()):
-                    fail(f"{tag}.{part}: the kernel is further from float64 than the plain version")
-            gl = torch.rand((N_TRAIN,), device=dev, generator=g)
-            mxb = check(tag + ".d_cdfs", interlevel_loss_bwd(w_ref, cc, gl),
-                        interlevel_loss_bwd_ref(w_ref, cc, gl), 1e-5, 1e-6)
-            ms = cuda_ms(lambda: _interlevel_forward(s_final, trans_final, r, cs, cc), 20)
-            plain_ms = cuda_ms(lambda: interlevel_loss_ref(s_final, trans_final, r, cs, cc), 10)
-            # a merge of 2K+2 blurred edges, three scans and an interpolation
-            k2 = 2 * (NUM_SAMPLES + 1)
-            n_ops = N_TRAIN * (k2 * (math.ceil(math.log2(k2)) + 12) + 10 * m1)
-            add_entry(kernels_entries, tag, "interlevel.cu", "emernerf_tpu/ops/stepfuns.py:161",
-                      interlevel_loss, mx, ms, plain_ms,
-                      nbytes(s_final, trans_final, cs, cc, w_s, loss), n_ops)
-            ms = cuda_ms(lambda: interlevel_loss_bwd(w_ref, cc, gl), 20)
-            plain_ms = cuda_ms(lambda: interlevel_loss_bwd_ref(w_ref, cc, gl), 10)
-            add_entry(kernels_entries, tag.replace("loss[", "loss_bwd["), "interlevel.cu",
-                      "emernerf_tpu/render/prop_sampler.py:133", interlevel_loss_bwd, mxb, ms,
-                      plain_ms, nbytes(w_ref, cc, gl, cc), 4 * N_TRAIN * m1)
-
     # K8 over every parameter of the full-width flagship, bit for bit
     _, _, model, props, _ = build_flagship(device=dev, seed=0)
     params = [p.detach() for m in (model, *props) for p in m.parameters()]
@@ -727,6 +704,104 @@ def phase_train_kernels(dev, kernels_entries):
     add_entry(kernels_entries, tag, "adam.cu", "emernerf_tpu/train/optim.py:33", adam_update,
               mx, ms, plain_ms, n_bytes, 16.0 * n, library_ms=library_ms)
     del params, pk, gr, mom, mk, vk, lib_params, lib_opt
+    torch.cuda.empty_cache()
+
+
+def phase_loss_kernels(dev, kernels_entries, after_timed):
+    """K3 backward and K5 (forward and backward, all cache levels in one
+    launch) against their plain versions at the calls of one 8,192-ray
+    training branch, each also alone after the timed phases."""
+    from emernerf_torch.ops.stepfuns import (
+        _levels_forward, interlevel_loss_levels, interlevel_loss_levels_bwd,
+        interlevel_loss_levels_bwd_ref, interlevel_loss_levels_ref)
+    from emernerf_torch.render.volrend import (
+        composite_along_rays_bwd, composite_along_rays_bwd_ref)
+
+    print("phase 3 (training): K3 backward and K5 vs plain versions at the calls of one "
+          f"{N_TRAIN}-ray branch")
+    # K3 backward at the three training calls (composite_bwd_inputs).
+    # Tolerance: reverse suffix scans in another order than autograd's: rtol
+    # 1e-4 + 1e-5 x max|grad|
+    for i, (s_, with_vals) in enumerate(((PROP_SAMPLES[0], False), (PROP_SAMPLES[1], False),
+                                         (NUM_SAMPLES, True))):
+        args = composite_bwd_inputs(dev, 30 + i, s_, with_vals)
+        out = composite_along_rays_bwd(*args)
+        ref = composite_along_rays_bwd_ref(*args)
+        tag = (f"composite_along_rays_bwd[R={N_TRAIN},S={s_},D=1,"
+               f"{'C=4,w/opacity/depth/sums' if with_vals else 'trans'}]")
+        mx = check(tag + ".d_dens", out[0], ref[0], 1e-4, 1e-5)
+        if with_vals:
+            mx = max(mx, check(tag + ".d_vals", out[1], ref[1], 1e-4, 1e-5))
+        ms = cuda_ms(lambda: composite_along_rays_bwd(*args), 20)
+        plain_ms = cuda_ms(lambda: composite_along_rays_bwd_ref(*args), 5)
+        # the forward recomputed, then the reverse scan: ~3x its operations
+        n_ops = 3 * N_TRAIN * s_ * (12 + 2 * len(args[4]))
+        add_entry(kernels_entries, tag, "composite.cu", "emernerf_tpu/render/volrend.py:33",
+                  composite_along_rays_bwd, mx, ms, plain_ms,
+                  nbytes(*args[:4], *args[5], *out), n_ops)
+        after_timed.append((kernels_entries[-1], K3_BACKWARD_KERNELS,
+                            remade(lambda i=i, s_=s_, v=with_vals:
+                                   composite_bwd_inputs(dev, 30 + i, s_, v),
+                                   composite_along_rays_bwd)))
+        del args, out, ref
+
+    # K5, grouped as compute_prop_loss calls it: both cache levels (129 and
+    # 65 edges) against the 65-edge final distribution in one launch, each
+    # radius at each level.  Tolerance: the blurred pdf is a cumsum of jumps
+    # |y| / (2r) that cancel, so fp32 sums in any order sit far from the
+    # exact value (tests/test_torch_interlevel.py); each level's w_s and the
+    # per-ray losses of the kernel must be as close to a float64 evaluation
+    # of the plain version as the fp32 plain version is (2x its max error +
+    # 1e-6 x max).  The backward is elementwise on the same w_s: rtol 1e-5 +
+    # 1e-6 x max.
+    m1s = tuple(n + 1 for n in PROP_SAMPLES)
+    for i, radii in enumerate(((0.03, 0.003), (0.003, 0.03))):
+        caches_s, cdfs, s_final, trans_final, gl = interlevel_inputs(dev, 20 + i)
+        tag = (f"interlevel_loss_levels[R={N_TRAIN},K+1={NUM_SAMPLES + 1},M+1={m1s},"
+               f"r={radii}]")
+        w_s, loss = _levels_forward(caches_s, cdfs, s_final, trans_final, radii)
+        w_ref, loss_ref = interlevel_loss_levels_ref(caches_s, cdfs, s_final, trans_final, radii)
+        w64, loss64 = interlevel_loss_levels_ref(
+            [x.double() for x in caches_s], [x.double() for x in cdfs], s_final.double(),
+            trans_final.double(), radii)
+        parts = [(f"w_s[M+1={m1},r={rad}]", *t)
+                 for m1, rad, t in zip(m1s, radii, zip(w_s, w_ref, w64))]
+        mx = 0.0
+        for part, ours, plain, exact in parts + [("loss", loss, loss_ref, loss64)]:
+            err = float((ours.double() - exact).abs().max())
+            plain_err = float((plain.double() - exact).abs().max())
+            mx = max(mx, float((ours - plain).abs().max()))
+            print(f"  {tag}.{part}: kernel vs float64 {err:.3e}, plain vs float64 "
+                  f"{plain_err:.3e}, kernel vs plain {float((ours - plain).abs().max()):.3e} "
+                  f"(max |float64| {float(exact.abs().max()):.3e})")
+            if not err <= 2 * plain_err + 1e-6 * float(exact.abs().max()):
+                fail(f"{tag}.{part}: the kernel is further from float64 than the plain version")
+        mxb = max(check(f"{tag}.d_cdfs[M+1={m1}]", a, b, 1e-5, 1e-6) for m1, a, b in zip(
+            m1s, interlevel_loss_levels_bwd(w_ref, cdfs, gl),
+            interlevel_loss_levels_bwd_ref(w_ref, cdfs, gl)))
+        fwd = (caches_s, cdfs, s_final, trans_final, radii)
+        ms = cuda_ms(lambda: interlevel_loss_levels(*fwd), 20)
+        plain_ms = cuda_ms(lambda: interlevel_loss_levels_ref(*fwd), 10)
+        # per level, a merge of 2K+2 blurred edges, three scans and an
+        # interpolation
+        k2 = 2 * (NUM_SAMPLES + 1)
+        n_ops = sum(N_TRAIN * (k2 * (math.ceil(math.log2(k2)) + 12) + 10 * m1) for m1 in m1s)
+        add_entry(kernels_entries, tag, "interlevel.cu", "emernerf_tpu/ops/stepfuns.py:161",
+                  interlevel_loss_levels, mx, ms, plain_ms,
+                  nbytes(s_final, trans_final, *caches_s, *cdfs, *w_s, loss), n_ops)
+        after_timed.append((kernels_entries[-1], ("interlevel_fwd_kernel",),
+                            remade(lambda i=i, radii=radii:
+                                   interlevel_inputs(dev, 20 + i)[:4] + (radii,),
+                                   interlevel_loss_levels)))
+        ms = cuda_ms(lambda: interlevel_loss_levels_bwd(w_ref, cdfs, gl), 20)
+        plain_ms = cuda_ms(lambda: interlevel_loss_levels_bwd_ref(w_ref, cdfs, gl), 10)
+        add_entry(kernels_entries, tag.replace("levels[", "levels_bwd["), "interlevel.cu",
+                  "emernerf_tpu/render/prop_sampler.py:133", interlevel_loss_levels_bwd, mxb, ms,
+                  plain_ms, nbytes(*w_ref, *cdfs, gl, *cdfs), 4 * N_TRAIN * sum(m1s))
+        after_timed.append((kernels_entries[-1], ("interlevel_bwd_kernel",),
+                            remade(lambda i=i, radii=radii: interlevel_bwd_inputs(
+                                dev, 20 + i, radii), interlevel_loss_levels_bwd)))
+        del caches_s, cdfs, s_final, trans_final, gl, w_s, loss, w_ref, loss_ref, w64, loss64
     torch.cuda.empty_cache()
 
 
@@ -1020,6 +1095,37 @@ def table_casts(trainer, step, numels):
     return seen
 
 
+# the launch counters that phase 5 and 6 read per window of iterations:
+# K5 forward and backward, K3 backward
+LOSS_LAUNCHES = ("interlevel_loss_levels", "interlevel_loss_levels_bwd",
+                 "composite_along_rays_bwd")
+
+
+def _launch_snapshot(counted):
+    return {fn.__name__: fn.launches for fn in counted if fn.__name__ in LOSS_LAUNCHES}
+
+
+def _check_loss_launches(windows, history, n_timed):
+    """Prints the K5 and K3 backward launches of the timed steps 3-14 (on
+    the proposal-gradient schedule's ramp, every render after the first
+    takes proposal gradients) and of iterations 2000-2001 (steady state:
+    one render in six does), beside the renders that took them; fails
+    unless K5 launched once forward and once backward per such render (all
+    cache levels in one launch)."""
+    names = [("timed steps 3-14" if n_timed == 12 else f"timed steps 3-{2 + n_timed}",
+              history[3:3 + n_timed]), ("iterations 2000-2001", history[3 + n_timed:])]
+    for (label, its), before, after in zip(names, windows, windows[1:]):
+        rg = sum(int(bool(m["pixel_rg"])) + int(bool(m["lidar_rg"])) for m in its)
+        got = {k: after[k] - before[k] for k in after}
+        print(f"  launches over {label} ({len(its)} iterations, {rg} renders with proposal "
+              f"gradients): {got}; K3 backward expected 2 per iteration + 2 per such render "
+              f"= {2 * len(its) + 2 * rg}")
+        for k in LOSS_LAUNCHES[:2]:
+            if k in got and got[k] != rg:
+                fail(f"{k}: {got[k]} launches over {label}, {rg} renders with proposal "
+                     "gradients (one launch per render for all cache levels)")
+
+
 def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5",
                 profile_file="profile_train.json", shares=(), table_numels=(),
                 table_casts_allowed=True):
@@ -1053,12 +1159,14 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
     for step in range(3):  # warm-up: cuBLAS, allocator
         history.append(trainer.train_iteration(step))
     torch.cuda.synchronize()
+    windows = [_launch_snapshot(counted)]
     t0 = time.perf_counter()
     for step in range(3, 3 + n_timed):
         history.append(trainer.train_iteration(step))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n_timed
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    windows.append(_launch_snapshot(counted))
     # an error-map refresh at iteration 2000, then the line-of-sight loss
     # (live after supervision.depth.line_of_sight.start_iter) with buffered
     # pixel sampling
@@ -1066,6 +1174,8 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
     history.append(trainer.train_iteration(2000))
     history.append(trainer.train_iteration(2001))
     torch.cuda.synchronize()
+    windows.append(_launch_snapshot(counted))
+    _check_loss_launches(windows, history, n_timed)
     launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
     rows, busy = profile_train(trainer, 2002, ms, profile_file)
     share = profile_shares(rows, busy, shares)
@@ -1521,7 +1631,8 @@ def main():
     from emernerf_torch.flagship import REFERENCE_HASH
     from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
     from emernerf_torch.ops.hashgrid import features_minor, hashgrid_encode, hashgrid_encode_bwd
-    from emernerf_torch.ops.stepfuns import importance_sampling, interlevel_loss, interlevel_loss_bwd
+    from emernerf_torch.ops.stepfuns import (
+        importance_sampling, interlevel_loss_levels, interlevel_loss_levels_bwd)
     from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_bwd
     from emernerf_torch.train.optim import adam_update
 
@@ -1537,14 +1648,15 @@ def main():
     entries, after_timed = [], []
     phase_kernels(dev, entries, after_timed)
     phase_train_kernels(dev, entries)
+    phase_loss_kernels(dev, entries, after_timed)
     phase_hash_kernels(dev, entries)
     brick = (brickgrid_encode, brickgrid_encode_bwd)
     hashed = (hashgrid_encode, hashgrid_encode_bwd, features_minor)
     forward = (importance_sampling, composite_along_rays)
     _, rays_per_s = phase_slice(dev, (brickgrid_encode,) + forward, zero=hashed)
     phase_fp32_chunk(dev)
-    shared = forward + (composite_along_rays_bwd, interlevel_loss, interlevel_loss_bwd,
-                        adam_update)
+    shared = forward + (composite_along_rays_bwd, interlevel_loss_levels,
+                        interlevel_loss_levels_bwd, adam_update)
     launches, ms_iter, train_rays_per_s, peak, share, tally = phase_train(
         dev, brick + shared, zero=hashed, shares=PROFILE_SHARES,
         table_numels=[math.prod(sp.table_shape) for sp in flagship_specs().values()],

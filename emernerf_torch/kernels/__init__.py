@@ -27,7 +27,7 @@ LIB_NAME = "libemernerf_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U = ctypes.c_ulonglong
 # C signatures of the entry points (all return cudaError_t as int)
 _SIGNATURES = {
@@ -40,20 +40,21 @@ _SIGNATURES = {
     # sets (channels 0-31, 32-63), n_rays, S, D, C, out (weights, trans,
     # opacity, depth, median, sums one after the other), stream
     "emt_composite": (_P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _P, _P),
-    # t_starts, t_ends, dens, vals|NULL, chan_set host, n_rays, S, D, C,
-    # g_weights, g_trans, g_opacity, g_depth, g_sums (each |NULL),
-    # d_dens, d_vals|NULL, stream
-    "emt_composite_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+    # t_starts, t_ends, dens, vals|NULL, packed channel sets (as
+    # emt_composite), n_rays, S, D, C, g_weights, g_trans, g_opacity,
+    # g_depth, g_sums (each |NULL), d_dens, d_vals|NULL, stream
+    "emt_composite_backward": (_P, _P, _P, _P, _U, _U, _I, _I, _I, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P),
     # table, table_is_bf16, compute_is_bf16, positions, grad_out, d_table
     # (fp32), d_pos|NULL, n_points, params (host struct), stream
     "emt_brickgrid_backward": (_P, _I, _I, _P, _P, _P, _P, _L, _P, _P),
-    # s_final (R,K+1), trans_final (R,K), half-width r, cache_s (R,M+1),
-    # cache_cdfs (R,M+1), w_s out (R,M), loss out (R,), n_rays, K+1, M+1, stream
-    "emt_interlevel_forward": (_P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _P),
-    # w_s (R,M), cache_cdfs (R,M+1), g_loss (R,), d_cdfs out (R,M+1),
-    # n_rays, M+1, stream
-    "emt_interlevel_backward": (_P, _P, _P, _P, _I, _I, _P),
+    # s_final (R,K+1), trans_final (R,K), levels (host array of
+    # ops/stepfuns.py:_Level: cache_s (R,M+1), cache_cdfs (R,M+1), w_s out
+    # (R,M), half-width r, M+1), n_levels, loss out (L,R), n_rays, K+1, stream
+    "emt_interlevel_forward": (_P, _P, _P, _I, _P, _I, _I, _P),
+    # levels (w_s (R,M), cache_cdfs (R,M+1), d_cdfs out (R,M+1), -, M+1),
+    # n_levels, g_loss (L,R), its two strides, n_rays, stream
+    "emt_interlevel_backward": (_P, _I, _P, _L, _L, _I, _P),
     # param, grad|NULL, mu, nu, moments_bf16, n, hyper (host struct), stream
     "emt_adam": (_P, _P, _P, _P, _I, _L, _P, _P),
     # table (F, rows), elem_bytes (2 or 4), out (rows, F), rows, F, stream

@@ -48,7 +48,8 @@
 // The value channels' density sets come by value, 2 bits per channel.
 //
 // Backward design: one warp per ray, reading its inputs from device
-// memory; see composite_bwd_kernel.
+// memory with vector loads where its rows are aligned; see
+// composite_bwd_kernel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,10 +59,6 @@ namespace {
 constexpr int kMaxD = 3;
 constexpr int kMaxC = 64;
 constexpr unsigned kFull = 0xffffffffu;
-
-struct ChanSets {
-  int set[kMaxC];
-};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -410,26 +407,130 @@ composite_kernel(const float* __restrict__ ts, const float* __restrict__ te,
 // Backward (K3 bwd): the reverse of the scan above, one warp per ray.
 // Replaces the XLA autodiff of the same reference functions.  Forward
 // quantities are recomputed in registers with the forward's exact ops
-// (nothing but the inputs is saved).  Per density set d, with q_i =
-// gw_i * w_i + gT_i * T_i:
+// (nothing but the inputs is saved), so T and w are bit for bit with K3
+// forward's.  Per density set d, with q_i = gw_i * w_i + gT_i * T_i:
 //   d(sigma dt)_k = gw_k * T_k * exp(-sigma_k dt_k) - sum_{i>k} q_i
 // where gw gathers every cotangent that reaches the weights: the weights'
 // own, the per-channel sums' (times the value), depth (through /opacity)
 // and opacity (through the clip to [1e-6, 1], whose gradient is 0.5 at a
 // tie, as jnp.clip's).  The suffix sum is a per-lane reverse loop on top
-// of a warp suffix scan (shuffles down, never total minus prefix).  d values[k, c] = g_sums[c] * w_{set(c), k}.
-// Null cotangent pointers stand for zeros.
+// of a warp suffix scan (shuffles down, never total minus prefix).  d
+// values[k, c] = g_sums[c] * w_{set(c), k}.  Null cotangent pointers stand
+// for zeros.
+//
+// Loads and stores.  A lane's K consecutive samples of a row are one
+// contiguous run.  Where every row starts 16-byte aligned (D = 1, S a
+// multiple of 4 and aligned pointers: `vec`), the lane moves its run of
+// t_starts, t_ends, densities, the weights' and transmittance's cotangents
+// and d densities as one float2 (K = 2), one float4 (K = 4) or two float4
+// (K = 8), else as scalars, in the same kernel.  Where also C <= 4
+// (`narrow`), a sample's C values and their gradients move as one C-wide
+// vector.  The proposal levels' calls carry the transmittance's cotangent
+// alone: kTransOnly drops the weights' terms (gw = 0) and their branches.
 __device__ __forceinline__ float clip_tie_grad(float x, float lo, float hi) {
   const float a = x > lo ? 1.f : (x == lo ? 0.5f : 0.f);
   const float b = x < hi ? 1.f : (x == hi ? 0.5f : 0.f);
   return a * b;
 }
 
+// p[s0 .. s0+K) of a row of S floats, zeros past its end: vectors where
+// vec (a vector is then wholly inside the row or past it), else scalars
 template <int K>
+__device__ __forceinline__ void load_lane_run(float (&v)[K], const float* __restrict__ p, int s0,
+                                              int S, bool vec) {
+  if constexpr (K >= 2) {
+    if (vec) {
+      constexpr int W = K >= 4 ? 4 : 2;
+#pragma unroll
+      for (int h = 0; h < K; h += W) {
+        if (s0 + h >= S) {
+#pragma unroll
+          for (int i = 0; i < W; ++i) v[h + i] = 0.f;
+        } else if constexpr (W == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(p + s0 + h);
+          v[h] = t.x;
+          v[h + 1] = t.y;
+          v[h + 2] = t.z;
+          v[h + 3] = t.w;
+        } else {
+          const float2 t = *reinterpret_cast<const float2*>(p + s0 + h);
+          v[h] = t.x;
+          v[h + 1] = t.y;
+        }
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) v[i] = s0 + i < S ? p[s0 + i] : 0.f;
+}
+
+template <int K>
+__device__ __forceinline__ void store_lane_run(float* __restrict__ p, const float (&v)[K], int s0,
+                                               int S, bool vec) {
+  if constexpr (K >= 2) {
+    if (vec) {
+      constexpr int W = K >= 4 ? 4 : 2;
+#pragma unroll
+      for (int h = 0; h < K; h += W) {
+        if (s0 + h >= S) continue;
+        if constexpr (W == 4)
+          *reinterpret_cast<float4*>(p + s0 + h) = make_float4(v[h], v[h + 1], v[h + 2], v[h + 3]);
+        else
+          *reinterpret_cast<float2*>(p + s0 + h) = make_float2(v[h], v[h + 1]);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    if (s0 + i < S) p[s0 + i] = v[i];
+}
+
+// density set d's values of a lane's K samples (stride D), zeros past the row
+template <int K>
+__device__ __forceinline__ void load_set(float (&v)[K], const float* __restrict__ p,
+                                         long long row, int s0, int S, int D, int d, bool vec) {
+  if (vec) {  // D = 1
+    load_lane_run<K>(v, p + row, s0, S, true);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) v[i] = s0 + i < S ? p[(row + s0 + i) * D + d] : 0.f;
+}
+
+// the C <= 4 values of one sample as one vector (C = 1, 3: scalars)
+__device__ __forceinline__ void load_sample(float (&v)[4], const float* __restrict__ p, int C) {
+  if (C == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if (C == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = c < C ? p[c] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_sample(float* __restrict__ p, const float (&v)[4], int C) {
+  if (C == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if (C == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < C) p[c] = v[c];
+  }
+}
+
+template <int K, bool kTransOnly>
 __global__ void composite_bwd_kernel(
     const float* __restrict__ ts, const float* __restrict__ te,
     const float* __restrict__ dens, const float* __restrict__ vals,
-    int n_rays, int S, int D, int C, const ChanSets cs,
+    int n_rays, int S, int D, int C, unsigned long long sets_lo, unsigned long long sets_hi,
+    bool vec, bool narrow,
     const float* __restrict__ g_weights, const float* __restrict__ g_trans,
     const float* __restrict__ g_opacity, const float* __restrict__ g_depth,
     const float* __restrict__ g_sums, float* __restrict__ d_dens,
@@ -444,74 +545,116 @@ __global__ void composite_bwd_kernel(
 
   bool valid[K];
   float step[K], dt[K];
+  {
+    float a[K], b[K];
+    load_lane_run<K>(a, ts + row, s0, S, vec);
+    load_lane_run<K>(b, te + row, s0, S, vec);
 #pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const int s = s0 + i;
-    valid[i] = s < S;
-    const float a = valid[i] ? ts[row + s] : 0.f;
-    const float b = valid[i] ? te[row + s] : 0.f;
-    dt[i] = __fsub_rn(b, a);
-    step[i] = __fmul_rn(__fadd_rn(a, b), 0.5f);
+    for (int i = 0; i < K; ++i) {
+      valid[i] = s0 + i < S;
+      dt[i] = __fsub_rn(b[i], a[i]);
+      step[i] = __fmul_rn(__fadd_rn(a[i], b[i]), 0.5f);
+    }
   }
 
   for (int d = 0; d < D; ++d) {
-    float sdt[K], pre[K], tr[K], ex[K], w[K], gw[K];
+    float sdt[K], pre[K], tr[K], gt[K], q[K];
     float run = 0.f;
+    {
+      float dn[K];
+      load_set<K>(dn, dens, row, s0, S, D, d, vec);
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      sdt[i] = valid[i] ? __fmul_rn(dens[(row + s0 + i) * D + d], dt[i]) : 0.f;
-      pre[i] = run;
-      run = __fadd_rn(run, sdt[i]);
+      for (int i = 0; i < K; ++i) {
+        sdt[i] = valid[i] ? __fmul_rn(dn[i], dt[i]) : 0.f;
+        pre[i] = run;
+        run = __fadd_rn(run, sdt[i]);
+      }
     }
     const float off = warp_exclusive_scan(run, lane);
-    float wsum = 0.f, dsum = 0.f;
+    if (g_trans) {
+      load_set<K>(gt, g_trans, row, s0, S, D, d, vec);
+    } else {
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      tr[i] = expf(-__fadd_rn(off, pre[i]));
-      ex[i] = expf(-sdt[i]);
-      w[i] = valid[i] ? __fmul_rn(tr[i], __fsub_rn(1.f, ex[i])) : 0.f;
-      wsum += w[i];
-      dsum += w[i] * step[i];
+      for (int i = 0; i < K; ++i) gt[i] = 0.f;
     }
-    wsum = warp_sum(wsum);
-    dsum = warp_sum(dsum);
-    const float opc = fminf(fmaxf(wsum, 1e-6f), 1.f);
-    const float depth = __fdiv_rn(dsum, opc);
-    const float g_op = g_opacity ? g_opacity[r * D + d] : 0.f;
-    const float g_dp = g_depth ? g_depth[r * D + d] : 0.f;
-    const float d_num = g_dp / opc;                 // d depth / d sum(w t)
-    const float d_opc = g_op - g_dp * depth / opc;  // total d / d opacity
-    const float d_wsum = d_opc * clip_tie_grad(wsum, 1e-6f, 1.f);
+    float lane_q = 0.f;
+    float gw[K], ex[K];  // the weights' cotangent and exp(-sigma dt); unused if kTransOnly
+    if constexpr (kTransOnly) {
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const long long o = (row + s0 + i) * D + d;
-      gw[i] = (valid[i] && g_weights) ? g_weights[o] : 0.f;
-      gw[i] += d_wsum + d_num * step[i];
-    }
-    if (g_sums) {
-      for (int c = 0; c < C; ++c) {
-        if (cs.set[c] != d) continue;
-        const float gs = g_sums[r * C + c];
+      for (int i = K - 1; i >= 0; --i) {
+        tr[i] = expf(-__fadd_rn(off, pre[i]));
+        q[i] = valid[i] ? gt[i] * tr[i] : 0.f;
+        lane_q += q[i];
+      }
+    } else {
+      float w[K];
+      float wsum = 0.f, dsum = 0.f;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        tr[i] = expf(-__fadd_rn(off, pre[i]));
+        ex[i] = expf(-sdt[i]);
+        w[i] = valid[i] ? __fmul_rn(tr[i], __fsub_rn(1.f, ex[i])) : 0.f;
+        wsum += w[i];
+        dsum += w[i] * step[i];
+      }
+      wsum = warp_sum(wsum);
+      dsum = warp_sum(dsum);
+      const float opc = fminf(fmaxf(wsum, 1e-6f), 1.f);
+      const float depth = __fdiv_rn(dsum, opc);
+      const float g_op = g_opacity ? g_opacity[r * D + d] : 0.f;
+      const float g_dp = g_depth ? g_depth[r * D + d] : 0.f;
+      const float d_num = g_dp / opc;                 // d depth / d sum(w t)
+      const float d_opc = g_op - g_dp * depth / opc;  // total d / d opacity
+      const float d_wsum = d_opc * clip_tie_grad(wsum, 1e-6f, 1.f);
+      if (g_weights) {
+        load_set<K>(gw, g_weights, row, s0, S, D, d, vec);
+      } else {
+#pragma unroll
+        for (int i = 0; i < K; ++i) gw[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < K; ++i) gw[i] += d_wsum + d_num * step[i];
+      if (g_sums && narrow) {  // D = 1: every channel is weighted by set 0
+        float gs[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) gs[c] = c < C ? g_sums[r * C + c] : 0.f;
 #pragma unroll
         for (int i = 0; i < K; ++i) {
           if (!valid[i]) continue;
-          const long long o = (row + s0 + i) * C + c;
-          gw[i] += gs * vals[o];
-          d_vals[o] = gs * w[i];
+          const long long o = (row + s0 + i) * C;
+          float v[4], dv[4];
+          load_sample(v, vals + o, C);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (c >= C) break;
+            gw[i] += gs[c] * v[c];
+            dv[c] = gs[c] * w[i];
+          }
+          store_sample(d_vals + o, dv, C);
         }
+      } else if (g_sums) {
+        for (int c = 0; c < C; ++c) {
+          if (chan_set(sets_lo, sets_hi, c) != d) continue;
+          const float gs = g_sums[r * C + c];
+#pragma unroll
+          for (int i = 0; i < K; ++i) {
+            if (!valid[i]) continue;
+            const long long o = (row + s0 + i) * C + c;
+            gw[i] += gs * vals[o];
+            d_vals[o] = gs * w[i];
+          }
+        }
+      }
+#pragma unroll
+      for (int i = K - 1; i >= 0; --i) {
+        q[i] = valid[i] ? gw[i] * w[i] + gt[i] * tr[i] : 0.f;
+        lane_q += q[i];
       }
     }
     // suffix sums of q over the samples after each one, accumulated from
     // the ray's end as a reverse cumsum does: behind an opaque surface q is
     // ~1e-8 of the q in front of it, and total - prefix would leave an ulp
     // of the total there in place of the true suffix
-    float q[K], lane_q = 0.f;
-#pragma unroll
-    for (int i = K - 1; i >= 0; --i) {
-      const float gt = (valid[i] && g_trans) ? g_trans[(row + s0 + i) * D + d] : 0.f;
-      q[i] = valid[i] ? gw[i] * w[i] + gt * tr[i] : 0.f;
-      lane_q += q[i];
-    }
     float suffix = lane_q;  // over this lane and the lanes after it
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -520,34 +663,48 @@ __global__ void composite_bwd_kernel(
     }
     float after = __shfl_down_sync(kFull, suffix, 1);  // the lanes after this one
     if (lane == 31) after = 0.f;
+    float dd[K];
 #pragma unroll
     for (int i = K - 1; i >= 0; --i) {
-      if (valid[i]) {
-        const float g_sdt = gw[i] * tr[i] * ex[i] - after;
-        d_dens[(row + s0 + i) * D + d] = g_sdt * dt[i];
-      }
+      float g_sdt;
+      if constexpr (kTransOnly) g_sdt = -after;
+      else g_sdt = gw[i] * tr[i] * ex[i] - after;
+      dd[i] = g_sdt * dt[i];
       after += q[i];
+    }
+    if (vec) {
+      store_lane_run<K>(d_dens + row, dd, s0, S, true);
+    } else {
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        if (valid[i]) d_dens[(row + s0 + i) * D + d] = dd[i];
     }
   }
 }
 
+__host__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 }  // namespace
 
+// sets_lo / sets_hi: the density set of each value channel, packed as the
+// forward takes them (render/volrend.py:pack_chan_sets)
 extern "C" int emt_composite_backward(
-    const void* t_starts, const void* t_ends, const void* dens,
-    const void* vals, const void* chan_set, int n_rays, int S, int D, int C,
+    const void* t_starts, const void* t_ends, const void* dens, const void* vals,
+    unsigned long long sets_lo, unsigned long long sets_hi, int n_rays, int S, int D, int C,
     const void* g_weights, const void* g_trans, const void* g_opacity,
     const void* g_depth, const void* g_sums, void* d_dens, void* d_vals,
     void* stream) {
   if (n_rays == 0) return cudaSuccess;
   if (S < 1 || S > 256 || D < 1 || D > kMaxD || C < 0 || C > kMaxC)
     return cudaErrorInvalidValue;
-  ChanSets cs = {};
-  const int* sets = static_cast<const int*>(chan_set);
-  for (int c = 0; c < C; ++c) {
-    if (sets[c] < 0 || sets[c] >= D) return cudaErrorInvalidValue;
-    cs.set[c] = sets[c];
-  }
+  // every row of the per-sample tensors starts 16-byte aligned
+  const bool vec = D == 1 && S % 4 == 0 && aligned16(t_starts) && aligned16(t_ends) &&
+                   aligned16(dens) && aligned16(g_weights) && aligned16(g_trans) &&
+                   aligned16(d_dens);
+  const bool narrow = vec && C <= 4 && aligned16(vals) && aligned16(d_vals);
+  const bool trans_only = g_trans && !g_weights && !g_opacity && !g_depth && !g_sums;
   const int threads = 128;  // 4 rays per block
   const long long total = static_cast<long long>(n_rays) * 32;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
@@ -564,14 +721,21 @@ extern "C" int emt_composite_backward(
   float* dd = static_cast<float*>(d_dens);
   float* dv = static_cast<float*>(d_vals);
   const int k = (S + 31) / 32;
-#define EMT_LAUNCH(KV)                                                        \
-  composite_bwd_kernel<KV><<<blocks, threads, 0, s>>>(a, b, dn, v, n_rays, S, \
-                                                     D, C, cs, gw, gt, go, gd, \
-                                                     gs, dd, dv)
-  if (k == 1) EMT_LAUNCH(1);
-  else if (k == 2) EMT_LAUNCH(2);
-  else if (k <= 4) EMT_LAUNCH(4);
-  else EMT_LAUNCH(8);
+#define EMT_LAUNCH(KV, TO)                                                               \
+  composite_bwd_kernel<KV, TO><<<blocks, threads, 0, s>>>(a, b, dn, v, n_rays, S, D, C,  \
+                                                          sets_lo, sets_hi, vec, narrow, \
+                                                          gw, gt, go, gd, gs, dd, dv)
+#define EMT_LAUNCH_K(TO)          \
+  if (k == 1) EMT_LAUNCH(1, TO);  \
+  else if (k == 2) EMT_LAUNCH(2, TO); \
+  else if (k <= 4) EMT_LAUNCH(4, TO); \
+  else EMT_LAUNCH(8, TO)
+  if (trans_only) {
+    EMT_LAUNCH_K(true);
+  } else {
+    EMT_LAUNCH_K(false);
+  }
+#undef EMT_LAUNCH_K
 #undef EMT_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

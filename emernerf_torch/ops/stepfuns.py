@@ -6,13 +6,16 @@ zip-NeRF interlevel-loss pieces on dense (n_rays, n_edges) tensors.
 ``importance_sampling`` is the wrapper around the K2 CUDA kernel
 (``kernels/csrc/importance_sampling.cu``: a warp per ray; the evenly spaced
 CDF positions it inverts at are built once per (count, device) by
-``cached_sample_positions``); ``interlevel_loss`` the
-differentiable wrapper around K5 (``kernels/csrc/interlevel.cu``).  Each has
-its plain version beside it (``*_ref``).
+``cached_sample_positions``); ``interlevel_loss_levels`` the
+differentiable wrapper around K5 (``kernels/csrc/interlevel.cu``: one
+launch forward and one backward for every cache level of a branch;
+``interlevel_loss`` is its one-level form).  Each has its plain version
+beside it (``*_ref``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -204,7 +207,7 @@ def pdf_outer_loss(s_query, cdfs_query, s_key, cdfs_key, eps: float = 1e-7):
     return (w - w_outer).clamp_min(0.0) ** 2 / (w + eps)
 
 
-_MAX_EDGES = 257
+_MAX_EDGES, _MAX_LEVELS = 257, 8
 
 
 def interlevel_loss_ref(s_final, trans_final, r: float, cache_s, cache_cdfs):
@@ -222,23 +225,51 @@ def interlevel_loss_ref(s_final, trans_final, r: float, cache_s, cache_cdfs):
     return w_s, loss
 
 
-def _interlevel_forward(s_final, trans_final, r, cache_s, cache_cdfs):
-    name = "interlevel_loss"
-    if kernels.dispatch_device(name, cache_cdfs) == "cpu":
-        return interlevel_loss_ref(s_final, trans_final, r, cache_s, cache_cdfs)
-    kernels.require_cuda_inputs(name, s_final, trans_final, cache_s, cache_cdfs)
-    lib = kernels.load()
-    n, m1 = cache_s.shape
-    w_s = torch.empty((n, m1 - 1), dtype=torch.float32, device=cache_s.device)
-    loss = torch.empty((n,), dtype=torch.float32, device=cache_s.device)
-    if n > 0:
-        err = lib.emt_interlevel_forward(
-            s_final.data_ptr(), trans_final.data_ptr(), float(r), cache_s.data_ptr(),
-            cache_cdfs.data_ptr(), w_s.data_ptr(), loss.data_ptr(), n,
-            s_final.shape[1], m1, kernels.stream_ptr(cache_s.device))
+def interlevel_loss_levels_ref(caches_s, caches_cdfs, s_final, trans_final, radii):
+    """Plain version of the K5 forward over L cache levels: (w_s of each
+    level (R, M_l), per-level per-ray loss sums (L, R)), level by level."""
+    outs = [interlevel_loss_ref(s_final, trans_final, r, s, c)
+            for s, c, r in zip(caches_s, caches_cdfs, radii)]
+    return tuple(w for w, _ in outs), torch.stack([loss for _, loss in outs])
+
+
+class _Level(ctypes.Structure):
+    """One cache level as ``kernels/csrc/interlevel.cu:Level`` takes it."""
+
+    _fields_ = [("inp", ctypes.c_void_p), ("cdfs", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("r", ctypes.c_float), ("m1", ctypes.c_int)]
+
+
+def _levels_arg(ins, cdfs, outs, radii):
+    return (_Level * len(ins))(*[_Level(a.data_ptr(), c.data_ptr(), o.data_ptr(), r, c.shape[1])
+                                 for a, c, o, r in zip(ins, cdfs, outs, radii)])
+
+
+def _levels_forward(caches_s, caches_cdfs, s_final, trans_final, radii):
+    """The K5 forward over every level in one launch; the plain version for
+    CPU tensors.  The outputs share one buffer: the losses (L, R), then each
+    level's w_s (R, M_l)."""
+    name = "interlevel_loss_levels"
+    if kernels.dispatch_device(name, s_final) == "cpu":
+        return interlevel_loss_levels_ref(caches_s, caches_cdfs, s_final, trans_final, radii)
+    kernels.require_cuda_inputs(name, s_final, trans_final, *caches_s, *caches_cdfs)
+    r, k1 = s_final.shape
+    n = len(caches_s)
+    ms = [c.shape[1] - 1 for c in caches_cdfs]
+    buf = torch.empty(r * (n + sum(ms)), dtype=torch.float32, device=s_final.device)
+    loss = buf.as_strided((n, r), (r, 1))
+    w_s, off = [], n * r
+    for m in ms:
+        w_s.append(buf.as_strided((r, m), (m, 1), off))
+        off += r * m
+    if r > 0:
+        levels = _levels_arg(caches_s, caches_cdfs, w_s, radii)
+        err = kernels.load().emt_interlevel_forward(
+            s_final.data_ptr(), trans_final.data_ptr(), ctypes.addressof(levels), n,
+            loss.data_ptr(), r, k1, kernels.stream_ptr(s_final.device))
         kernels.check(err, name)
-        interlevel_loss.launches += 1
-    return w_s, loss
+        interlevel_loss_levels.launches += 1
+    return tuple(w_s), loss
 
 
 def interlevel_loss_bwd_ref(w_s, cache_cdfs, g_loss):
@@ -253,63 +284,117 @@ def interlevel_loss_bwd_ref(w_s, cache_cdfs, g_loss):
     return d
 
 
-def interlevel_loss_bwd(w_s, cache_cdfs, g_loss):
-    """K5 backward: d cache_cdfs (R, M+1) from the per-ray loss cotangent
-    (R,) and the forward's w_s residual.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    name = "interlevel_loss_bwd"
-    if kernels.dispatch_device(name, cache_cdfs) == "cpu":
-        return interlevel_loss_bwd_ref(w_s, cache_cdfs, g_loss)
-    g_loss = g_loss.contiguous()
-    kernels.require_cuda_inputs(name, w_s, cache_cdfs, g_loss)
-    lib = kernels.load()
-    n, m1 = cache_cdfs.shape
-    d = torch.empty_like(cache_cdfs)
-    if n > 0:
-        err = lib.emt_interlevel_backward(w_s.data_ptr(), cache_cdfs.data_ptr(),
-                                          g_loss.data_ptr(), d.data_ptr(), n, m1,
-                                          kernels.stream_ptr(cache_cdfs.device))
+def interlevel_loss_levels_bwd_ref(w_s, caches_cdfs, g_loss):
+    """Plain version of :func:`interlevel_loss_levels_bwd`, level by level."""
+    return tuple(interlevel_loss_bwd_ref(w, c, g) for w, c, g in zip(w_s, caches_cdfs, g_loss))
+
+
+def interlevel_loss_levels_bwd(w_s, caches_cdfs, g_loss):
+    """K5 backward over L levels in one launch: d cache_cdfs of each level
+    (R, M_l + 1) from the per-level per-ray loss cotangent ``g_loss`` (L, R;
+    any strides, so the expanded cotangent of a sum needs no copy) and the
+    forward's w_s residuals.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    name = "interlevel_loss_levels_bwd"
+    if kernels.dispatch_device(name, g_loss) == "cpu":
+        return interlevel_loss_levels_bwd_ref(w_s, caches_cdfs, g_loss)
+    kernels.require_cuda_inputs(name, *w_s, *caches_cdfs)
+    n, r = g_loss.shape
+    if (n != len(caches_cdfs) or g_loss.device != caches_cdfs[0].device
+            or g_loss.dtype != torch.float32):
+        raise ValueError(f"{name}: g_loss must be (L, R) float32 on the caches' device")
+    m1s = [c.shape[1] for c in caches_cdfs]
+    buf = torch.empty(r * sum(m1s), dtype=torch.float32, device=g_loss.device)
+    d, off = [], 0
+    for m1 in m1s:
+        d.append(buf.as_strided((r, m1), (m1, 1), off))
+        off += r * m1
+    if r > 0:
+        levels = _levels_arg(w_s, caches_cdfs, d, (0.0,) * n)
+        err = kernels.load().emt_interlevel_backward(
+            ctypes.addressof(levels), n, g_loss.data_ptr(), *g_loss.stride(), r,
+            kernels.stream_ptr(g_loss.device))
         kernels.check(err, name)
-        interlevel_loss_bwd.launches += 1
-    return d
+        interlevel_loss_levels_bwd.launches += 1
+    return tuple(d)
 
 
-interlevel_loss_bwd.launches = 0
+interlevel_loss_levels_bwd.launches = 0
 
 
-class _Interlevel(torch.autograd.Function):
+class _InterlevelLevels(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cache_cdfs, cache_s, s_final, trans_final, r):
-        w_s, loss = _interlevel_forward(s_final, trans_final, r, cache_s, cache_cdfs)
-        ctx.save_for_backward(w_s, cache_cdfs)
+    def forward(ctx, s_final, trans_final, radii, *caches):
+        n = len(caches) // 2
+        w_s, loss = _levels_forward(caches[:n], caches[n:], s_final, trans_final, radii)
+        ctx.save_for_backward(*w_s, *caches[n:])
         return loss
 
     @staticmethod
     def backward(ctx, g_loss):
-        w_s, cache_cdfs = ctx.saved_tensors
-        return interlevel_loss_bwd(w_s, cache_cdfs, g_loss), None, None, None, None
+        saved = ctx.saved_tensors
+        n = len(saved) // 2
+        d = interlevel_loss_levels_bwd(saved[:n], saved[n:], g_loss)
+        return (None, None, None) + (None,) * n + d
+
+
+def _check_levels(name, caches_s, caches_cdfs, s_final, trans_final, radii):
+    n = len(caches_s)
+    if not 1 <= n <= _MAX_LEVELS or len(caches_cdfs) != n:
+        raise ValueError(f"{name}: 1 to {_MAX_LEVELS} levels, cache edges and CDFs for each")
+    if len(radii) != n:
+        raise ValueError(f"{name}: one radius per cache level")
+    for t in (s_final, trans_final, *caches_s, *caches_cdfs):
+        if t.dtype != torch.float32 or t.ndim != 2:
+            raise ValueError(f"{name}: (R, n) float32 inputs required")
+    r, k1 = s_final.shape
+    if trans_final.shape != (r, k1 - 1):
+        raise ValueError(f"{name}: s_final (R, K+1), trans_final (R, K)")
+    for s, c in zip(caches_s, caches_cdfs):
+        if s.shape != c.shape or s.shape[0] != r:
+            raise ValueError(f"{name}: each level's cache edges and CDFs (R, M+1), R of s_final")
+    if not all(2 <= k <= _MAX_EDGES for k in (k1, *(s.shape[1] for s in caches_s))):
+        raise ValueError(f"{name}: 2 to {_MAX_EDGES} edges per ray")
+
+
+def interlevel_loss_levels(caches_s, caches_cdfs, s_final: torch.Tensor,
+                           trans_final: torch.Tensor, radii) -> torch.Tensor:
+    """Per-level, per-ray sums over the M_l proposal intervals of the
+    anti-aliased interlevel loss, (L, R): clip(w_s - wp, 0)^2 / (wp + 1e-5),
+    where w_s is the final distribution (edges s_final (R, K+1),
+    transmittance trans_final (R, K)) blurred with half-width radii[l] and
+    integrated over level l's cache edges caches_s[l] (R, M_l + 1), and wp
+    = diff(caches_cdfs[l]).  One K5 launch forward and one backward for all
+    levels.  Differentiable in caches_cdfs only (the rest is detached, as
+    in the reference)."""
+    name = "interlevel_loss_levels"
+    radii = tuple(float(r) for r in radii)
+    _check_levels(name, caches_s, caches_cdfs, s_final, trans_final, radii)
+    if any(t.requires_grad for t in (s_final, trans_final, *caches_s)):
+        raise ValueError(f"{name}: only cache_cdfs (the caches' CDFs) take a gradient")
+    if torch.is_grad_enabled() and any(c.requires_grad for c in caches_cdfs):
+        return _InterlevelLevels.apply(s_final, trans_final, radii, *caches_s, *caches_cdfs)
+    return _levels_forward(caches_s, caches_cdfs, s_final, trans_final, radii)[1]
+
+
+interlevel_loss_levels.launches = 0
+
+
+def _interlevel_forward(s_final, trans_final, r, cache_s, cache_cdfs):
+    """The K5 forward of one level: (w_s (R, M), per-ray loss sum (R,))."""
+    (w_s,), loss = _levels_forward((cache_s,), (cache_cdfs,), s_final, trans_final, (float(r),))
+    return w_s, loss[0]
+
+
+def interlevel_loss_bwd(w_s, cache_cdfs, g_loss):
+    """K5 backward of one level: d cache_cdfs (R, M+1) from the per-ray
+    loss cotangent (R,) and the forward's w_s residual."""
+    return interlevel_loss_levels_bwd((w_s,), (cache_cdfs,), g_loss[None])[0]
 
 
 def interlevel_loss(cache_s: torch.Tensor, cache_cdfs: torch.Tensor,
                     s_final: torch.Tensor, trans_final: torch.Tensor,
                     r: float) -> torch.Tensor:
-    """Per-ray sum over the M proposal intervals of the anti-aliased
-    interlevel loss, clip(w_s - wp, 0)^2 / (wp + 1e-5), where w_s is the
-    final distribution (edges s_final (R, K+1), transmittance trans_final
-    (R, K)) blurred with half-width r and integrated over the cache edges
-    cache_s (R, M+1), and wp = diff(cache_cdfs).  Differentiable in
-    cache_cdfs only (the rest is detached, as in the reference)."""
-    name = "interlevel_loss"
-    for t in (cache_s, cache_cdfs, s_final, trans_final):
-        if t.dtype != torch.float32 or t.ndim != 2:
-            raise ValueError(f"{name}: (R, n) float32 inputs required")
-    if cache_s.shape != cache_cdfs.shape or trans_final.shape[1] + 1 != s_final.shape[1]:
-        raise ValueError(f"{name}: cache (R, M+1) x2, s_final (R, K+1), trans (R, K)")
-    if max(s_final.shape[1], cache_s.shape[1]) > _MAX_EDGES:
-        raise ValueError(f"{name}: at most {_MAX_EDGES} edges per ray")
-    if any(t.requires_grad for t in (cache_s, s_final, trans_final)):
-        raise ValueError(f"{name}: only cache_cdfs takes a gradient")
-    return _Interlevel.apply(cache_cdfs, cache_s, s_final, trans_final, float(r))
-
-
-interlevel_loss.launches = 0
+    """:func:`interlevel_loss_levels` of one cache level: the per-ray loss
+    sums (R,) at half-width r."""
+    return interlevel_loss_levels((cache_s,), (cache_cdfs,), s_final, trans_final, (r,))[0]

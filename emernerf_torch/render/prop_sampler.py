@@ -11,13 +11,14 @@ it they run under ``torch.no_grad()``.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from emernerf_torch.ops.stepfuns import (
     importance_sampling,
-    interlevel_loss,
+    interlevel_loss_levels,
     pdf_outer_loss,
     transform_stot,
 )
@@ -80,6 +81,13 @@ def sample_along_rays(
     return t_vals[..., :-1].contiguous(), t_vals[..., 1:].contiguous(), s_vals, caches
 
 
+@functools.lru_cache(maxsize=None)
+def _level_sizes(sizes, device) -> torch.Tensor:
+    """The element counts R * M_l of each level's loss terms, as float32 on
+    ``device``: built once per (sizes, device), read-only."""
+    return torch.tensor(sizes, dtype=torch.float32, device=device)
+
+
 def compute_prop_loss(
     caches: Sequence[PropCache],
     s_vals_final: torch.Tensor,
@@ -90,21 +98,24 @@ def compute_prop_loss(
 ) -> torch.Tensor:
     """Interlevel loss supervising the proposal networks with the final
     render's (detached) distribution: the zip-NeRF blurred-stepfun loss (one
-    K5 launch per cache level, at that level's pulse width) or, without
-    anti-aliasing, the mip-NeRF 360 outer-envelope loss."""
+    K5 launch for all cache levels, each at its level's pulse width) or,
+    without anti-aliasing, the mip-NeRF 360 outer-envelope loss."""
     if not caches:
         return s_vals_final.new_zeros(())
     trans_final = trans_final.detach().contiguous()
     s_vals_final = s_vals_final.detach().contiguous()
-    loss = s_vals_final.new_zeros(())
-    for cache in caches:
-        if enable_anti_aliasing:
-            per_ray = interlevel_loss(cache.s_vals.contiguous(), cache.cdfs.contiguous(),
-                                      s_vals_final, trans_final,
-                                      pulse_widths[cache.level])
-            loss = loss + per_ray.sum() / (per_ray.shape[0] * (cache.cdfs.shape[1] - 1))
-        else:
-            cdfs = 1.0 - torch.cat([trans_final, torch.zeros_like(trans_final[..., :1])], -1)
+    if enable_anti_aliasing:
+        per_ray = interlevel_loss_levels(
+            [cache.s_vals.contiguous() for cache in caches],
+            [cache.cdfs.contiguous() for cache in caches], s_vals_final, trans_final,
+            [pulse_widths[cache.level] for cache in caches])
+        # each level's mean over its R x M_l terms, summed over the levels
+        sizes = tuple(per_ray.shape[1] * (cache.cdfs.shape[1] - 1) for cache in caches)
+        loss = (per_ray.sum(dim=1) / _level_sizes(sizes, per_ray.device)).sum()
+    else:
+        cdfs = 1.0 - torch.cat([trans_final, torch.zeros_like(trans_final[..., :1])], -1)
+        loss = s_vals_final.new_zeros(())
+        for cache in caches:
             loss = loss + pdf_outer_loss(s_vals_final, cdfs, cache.s_vals, cache.cdfs).mean()
     return loss * loss_scaler
 

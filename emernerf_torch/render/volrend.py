@@ -14,7 +14,6 @@ keys and formulas.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -152,23 +151,23 @@ def composite_along_rays_bwd(t_starts, t_ends, densities, values, chan_set,
     if kernels.dispatch_device(name, t_starts) == "cpu":
         return composite_along_rays_bwd_ref(t_starts, t_ends, densities, values,
                                             chan_set, grads)
-    grads = [None if g is None else g.contiguous() for g in grads]
+    grads = [g if g is None or g.is_contiguous() else g.contiguous() for g in grads]
     extra = () if values is None else (values,)
     kernels.require_cuda_inputs(name, t_starts, t_ends, densities, *extra,
                                 *[g for g in grads if g is not None])
-    lib = kernels.load()
     r, s = t_starts.shape
     d_dens = torch.empty_like(densities)
-    d_vals = None if values is None else torch.zeros_like(values)
+    # the kernel writes every d value when the sums have a cotangent
+    d_vals = None if values is None else (
+        torch.zeros_like(values) if grads[4] is None else torch.empty_like(values))
     if r == 0:
         return d_dens, d_vals
-    c = len(chan_set)
-    sets = (ctypes.c_int * max(c, 1))(*chan_set)
-    ptr = [None if g is None else g.data_ptr() for g in grads]
-    err = lib.emt_composite_backward(
+    d = densities.shape[2]
+    lo, hi = pack_chan_sets(tuple(chan_set), d)
+    err = kernels.load().emt_composite_backward(
         t_starts.data_ptr(), t_ends.data_ptr(), densities.data_ptr(),
-        None if values is None else values.data_ptr(), ctypes.addressof(sets),
-        r, s, densities.shape[2], c, *ptr, d_dens.data_ptr(),
+        None if values is None else values.data_ptr(), lo, hi, r, s, d, len(chan_set),
+        *[None if g is None else g.data_ptr() for g in grads], d_dens.data_ptr(),
         None if d_vals is None else d_vals.data_ptr(), kernels.stream_ptr(t_starts.device),
     )
     kernels.check(err, name)

@@ -40,6 +40,10 @@ from emernerf_torch.ops.stepfuns import (
     importance_sampling_ref,
     interlevel_loss_bwd,
     interlevel_loss_bwd_ref,
+    interlevel_loss_levels,
+    interlevel_loss_levels_bwd,
+    interlevel_loss_levels_bwd_ref,
+    interlevel_loss_levels_ref,
     interlevel_loss_ref,
 )
 from emernerf_torch.render.volrend import (
@@ -486,6 +490,168 @@ def test_composite_backward_kernel_tie_gradient(cuda):
     d, _ = composite_along_rays_bwd(ts, te, dens.contiguous(), None, [], grads)
     ref, _ = composite_along_rays_bwd_ref(ts, te, dens.contiguous(), None, [], grads)
     torch.testing.assert_close(d, ref, rtol=1e-3, atol=0)
+
+
+def _composite_bwd_case(dev, seed, r, s, d, c, pattern):
+    """Seeded K3 backward inputs: edges, densities, values and channel sets,
+    and the cotangents of the pattern: 'trans' (the proposal levels),
+    'full' (every output) or 'no_sums' (every output but the sums)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.sort(torch.rand((r, s + 1), device=dev, generator=g) * 50, -1)[0] + 0.1
+    ts, te = t[:, :-1].contiguous(), t[:, 1:].contiguous()
+    dens = torch.rand((r, s, d), device=dev, generator=g) ** 3 * 0.5
+    vals = torch.rand((r, s, c), device=dev, generator=g) if c else None
+    sets = [j % d for j in range(c)]
+    rnd = lambda *shape: torch.randn(shape, device=dev, generator=g)  # noqa: E731
+    if pattern == "trans":
+        grads = (None, rnd(r, s, d), None, None, None)
+    else:
+        grads = (rnd(r, s, d), rnd(r, s, d), rnd(r, d), rnd(r, d),
+                 rnd(r, c) if c and pattern == "full" else None)
+    return ts, te, dens, vals, sets, grads
+
+
+def _check_composite_bwd(out, ref):
+    for a, b in zip(out, ref):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [0, 4, 7])
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 128, 256])
+def test_composite_backward_kernel_shapes_match_plain(cuda, s, d, c):
+    """K3 backward at rows that are (S a multiple of 4, D = 1: vector loads)
+    and are not 16-byte aligned, at one, two, four and eight samples per
+    lane, with the transmittance's cotangent alone (the trans-only kernel),
+    every cotangent, and every one but the sums' (d values then exactly
+    zero), over 2,053 rays; rtol 1e-4 + 1e-5 x max |grad| against the
+    plain version, and two runs bit for bit."""
+    for k, pattern in enumerate(("trans", "full", "no_sums")):
+        ts, te, dens, vals, sets, grads = _composite_bwd_case(cuda, 100 + s + 7 * d + 13 * c + k,
+                                                              2053, s, d, c, pattern)
+        before = composite_along_rays_bwd.launches
+        out = composite_along_rays_bwd(ts, te, dens, vals, sets, grads)
+        assert composite_along_rays_bwd.launches == before + 1
+        _check_composite_bwd(out, composite_along_rays_bwd_ref(ts, te, dens, vals, sets, grads))
+        again = composite_along_rays_bwd(ts, te, dens, vals, sets, grads)
+        assert all(a is None or torch.equal(a, b) for a, b in zip(out, again))
+        if vals is not None and grads[4] is None:
+            assert not out[1].any()  # no sums cotangent: d values exactly zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["t_starts", "densities", "g_trans", "values"])
+def test_composite_backward_kernel_on_misaligned_pointers(cuda, what):
+    """A contiguous input that starts 4 bytes past a 16-byte boundary (a
+    view one float into its storage) takes the scalar loads, at the
+    pixel branch's shape class (S = 64, D = 1, C = 4) and the proposal
+    levels' (trans only)."""
+    for pattern in ("full", "trans"):
+        ts, te, dens, vals, sets, grads = _composite_bwd_case(cuda, 7, 1029, 64, 1, 4, pattern)
+
+        def shifted(x):
+            buf = torch.empty(x.numel() + 1, device=cuda)
+            view = buf[1:].view(x.shape)
+            view.copy_(x)
+            return view
+
+        if what == "t_starts":
+            ts = shifted(ts)
+        elif what == "densities":
+            dens = shifted(dens)
+        elif what == "values":
+            vals = shifted(vals)
+        elif grads[1] is not None:
+            grads = (grads[0], shifted(grads[1])) + grads[2:]
+        out = composite_along_rays_bwd(ts, te, dens, vals, sets, grads)
+        _check_composite_bwd(out, composite_along_rays_bwd_ref(ts, te, dens, vals, sets, grads))
+
+
+def _interlevel_case(dev, seed, r, k1, m1s):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def edges(n):  # strictly increasing from 0 to 1
+        e = torch.cumsum(torch.rand((r, n), device=dev, generator=g) + 0.05, -1)
+        e = e - e[:, :1]
+        return (e / e[:, -1:]).contiguous()
+
+    def cdf(n):
+        c = torch.cumsum(torch.rand((r, n), device=dev, generator=g) ** 4, -1)
+        c = c - c[:, :1]
+        return (c / c[:, -1:] * 0.98).contiguous()
+
+    s_final, trans = edges(k1), (1.0 - cdf(k1)[:, :-1]).contiguous()
+    return s_final, trans, [edges(m) for m in m1s], [cdf(m) for m in m1s], g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radii", [(0.03, 0.003), (0.003, 0.03)])
+def test_interlevel_levels_kernels_match_plain(cuda, radii):
+    """The grouped K5 at the flagship's shapes (K+1 = 65, cache levels of
+    129 and 65 edges, 8,192 rays): one forward launch for both levels, held
+    to a float64 evaluation as closely as the fp32 plain version (2x its
+    error + 1e-6 x max); one backward launch, rtol 1e-5 + 1e-6 x max |grad|
+    against the plain version, also through autograd."""
+    r = 8192
+    s_final, trans, caches_s, cdfs, g = _interlevel_case(cuda, 9, r, 65, (129, 65))
+    before = interlevel_loss_levels.launches
+    loss = interlevel_loss_levels(caches_s, cdfs, s_final, trans, radii)
+    assert interlevel_loss_levels.launches == before + 1 and loss.shape == (2, r)
+    w_ref, loss_ref = interlevel_loss_levels_ref(caches_s, cdfs, s_final, trans, radii)
+    w64, loss64 = interlevel_loss_levels_ref([x.double() for x in caches_s],
+                                             [x.double() for x in cdfs], s_final.double(),
+                                             trans.double(), radii)
+    from emernerf_torch.ops.stepfuns import _levels_forward
+
+    w_s, again = _levels_forward(caches_s, cdfs, s_final, trans, radii)
+    assert torch.equal(again, loss)
+    for ours, plain, exact in (*zip(w_s, w_ref, w64), (loss, loss_ref, loss64)):
+        err = float((ours.double() - exact).abs().max())
+        plain_err = float((plain.double() - exact).abs().max())
+        assert err <= 2 * plain_err + 1e-6 * float(exact.abs().max()), (err, plain_err)
+        assert torch.isfinite(ours).all()
+    gl = torch.rand((2, r), device=cuda, generator=g)
+    before = interlevel_loss_levels_bwd.launches
+    d = interlevel_loss_levels_bwd(w_ref, cdfs, gl)
+    assert interlevel_loss_levels_bwd.launches == before + 1
+    for a, b in zip(d, interlevel_loss_levels_bwd_ref(w_ref, cdfs, gl)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+    leaves = [c.clone().requires_grad_(True) for c in cdfs]
+    interlevel_loss_levels(caches_s, leaves, s_final, trans, radii).backward(gl)
+    for leaf, b in zip(leaves, interlevel_loss_levels_bwd_ref(w_s, cdfs, gl)):
+        torch.testing.assert_close(leaf.grad, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k1,m1s", [(17, (13, 9)), (65, (129,)), (129, (257, 33, 65)),
+                                    (257, (257,) * 8)])
+def test_interlevel_levels_kernels_at_other_widths(cuda, k1, m1s):
+    """The grouped K5 at every merged-run width (2, 5, 9 and 17 edges a
+    lane), one to eight levels (eight 257-edge levels: past 48 KB of shared
+    memory per block), 1,031 rays: the float64 hold of the forward and the
+    backward's tolerance, per level."""
+    r = 1031
+    s_final, trans, caches_s, cdfs, g = _interlevel_case(cuda, k1, r, k1, m1s)
+    radii = [(0.03, 0.003, 0.01)[i % 3] for i in range(len(m1s))]
+    from emernerf_torch.ops.stepfuns import _levels_forward
+
+    w_s, loss = _levels_forward(caches_s, cdfs, s_final, trans, radii)
+    w_ref, loss_ref = interlevel_loss_levels_ref(caches_s, cdfs, s_final, trans, radii)
+    w64, loss64 = interlevel_loss_levels_ref([x.double() for x in caches_s],
+                                             [x.double() for x in cdfs], s_final.double(),
+                                             trans.double(), radii)
+    for ours, plain, exact in (*zip(w_s, w_ref, w64), (loss, loss_ref, loss64)):
+        err = float((ours.double() - exact).abs().max())
+        plain_err = float((plain.double() - exact).abs().max())
+        assert err <= 2 * plain_err + 1e-6 * float(exact.abs().max()), (err, plain_err)
+    gl = torch.rand((len(m1s), r), device=cuda, generator=g)
+    for a, b in zip(interlevel_loss_levels_bwd(w_ref, cdfs, gl),
+                    interlevel_loss_levels_bwd_ref(w_ref, cdfs, gl)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ from emernerf_tpu.render.volrend import composite_rays as jax_composite
 from emernerf_torch.losses.losses import sky_loss_opacity
 from emernerf_torch.render.volrend import (
     composite_along_rays,
+    composite_along_rays_bwd,
     composite_rays,
     pack_chan_sets,
     weights_opacity_depth_from_density,
@@ -205,3 +206,47 @@ def test_sky_loss_tie_gradient_matches_jax():
     x = torch.from_numpy(o).requires_grad_(True)
     sky_loss_opacity(x, torch.from_numpy(sky), 0.001).backward()
     np.testing.assert_allclose(x.grad.numpy(), ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("pattern", ["trans", "full"])
+@pytest.mark.parametrize("s", [63, 64, 65])
+def test_composite_backward_matches_jax_vjp(s, pattern):
+    """K3 backward's CPU path (the plain version the kernel is held to on
+    the card) against jax.vjp of the reference compositing, with the
+    training calls' cotangents: the transmittance's alone (the proposal
+    levels) or the weights', opacity's, depth's and four value sums' (the
+    pixel branch's final composite), at row lengths that are and are not a
+    multiple of 4.  d values is exactly zero without a sums cotangent.
+    rtol 1e-4 + 1e-5 x the largest |grad| (reverse cumsums in another
+    order)."""
+    rng = np.random.default_rng(s + (pattern == "full"))
+    r = 16
+    t = np.sort(rng.uniform(0.5, 80.0, (r, s + 1)).astype(np.float32), -1)
+    ts, te = t[:, :-1].copy(), t[:, 1:].copy()
+    dens = (rng.uniform(0, 1, (r, s)) ** 3 * 0.5).astype(np.float32)
+    vals = rng.uniform(0, 1, (r, s, 4)).astype(np.float32)
+    cot = {k: rng.normal(0, 1, shape).astype(np.float32) for k, shape in (
+        ("weights", (r, s)), ("trans", (r, s)), ("opacity", (r, 1)), ("depth", (r, 1)),
+        ("rgb", (r, 4)))}
+    keys = ("trans",) if pattern == "trans" else ("weights", "opacity", "depth", "rgb")
+
+    def jax_out(dn, v):
+        out = jax_composite(jnp.asarray(ts), jnp.asarray(te), {"density": dn, "rgb": v})
+        every = {"weights": out["extras"]["weights"], "trans": out["extras"]["trans"],
+                 "opacity": out["opacity"], "depth": out["depth"], "rgb": out["rgb"]}
+        return tuple(every[k] for k in keys)
+
+    _, vjp = jax.vjp(jax_out, jnp.asarray(dens), jnp.asarray(vals))
+    ref_dens, ref_vals = (np.asarray(g) for g in vjp(tuple(jnp.asarray(cot[k]) for k in keys)))
+    grads = [None if k not in keys else torch.from_numpy(
+        cot[k][..., None] if k in ("weights", "trans") else cot[k])
+        for k in ("weights", "trans", "opacity", "depth", "rgb")]
+    d_dens, d_vals = composite_along_rays_bwd(
+        torch.from_numpy(ts), torch.from_numpy(te), torch.from_numpy(dens)[..., None],
+        torch.from_numpy(vals), [0] * 4, grads)
+    np.testing.assert_allclose(d_dens[..., 0].numpy(), ref_dens, rtol=1e-4,
+                               atol=1e-5 * np.abs(ref_dens).max())
+    np.testing.assert_allclose(d_vals.numpy(), ref_vals, rtol=1e-4,
+                               atol=1e-5 * np.abs(ref_vals).max())
+    if pattern == "trans":
+        assert not d_vals.any()

@@ -71,10 +71,6 @@ Phases (any failure exits non-zero; nothing is skipped):
      forward counter above 0, K1's unmoved;
   6c. one fp32 training step of the tiny reference-hash flagship, card vs
      CPU, as in 5b;
-  6d. K3 forward against its plain version at every (R, S, D, C) that the
-     training runs of phases 5 and 6 launched, called as training calls it
-     (densities that require a gradient), with the wrapper's time and the
-     kernel's alone;
   7. the gather/scatter probes P1-P4: both probe entry points
      (emernerf_torch.perf.pallas_experiments, .bench_scatter_alts, every
      case at full size) with the launch counters zeroed before and read
@@ -84,7 +80,10 @@ Phases (any failure exits non-zero; nothing is skipped):
      for P4 the chunked one-hot torch.matmul), rows/s, GB/s and the bound;
      for P4 also the route the wrapper takes (gather_scatter.cu), bound /
      time and the route's kernel-only device time, for P1 the kernel's
-     device time alone;
+     device time alone; P3 also at odd widths (w = 1, 3, 6, 130), on an
+     update view at a 4-byte offset and with every index 0, each with the
+     vector width p3_plan picks, its kernel's time alone and the share of
+     the bound alone and for the call;
   8. the training CLI (emernerf_torch.train_emernerf.main) on the full-width
      brick flagship in a temporary run directory: a few iterations with a
      periodic checkpoint, SIGTERM during an iteration (the preemption
@@ -92,16 +91,38 @@ Phases (any failure exits non-zero; nothing is skipped):
      end-of-training evaluation: lowres and test metric JSONs, lidar depth
      RMSE), the restored state against the saved one bit for bit on the
      card, and --eval_only; prints the CLI's ms/iteration beside phase 5's,
-     the checkpoint's size and its save and load seconds.
+     the checkpoint's size and its save and load seconds;
+  9. the dynamic-only profile (configs/default_dynamic.yaml, the flow
+     branch off): K1 forward (bit for bit) and backward against the plain
+     versions on its dynamic grid (paired 4D rows, F = 4) at the top-K
+     queries of one 8,192-ray branch, and the forward at those of one
+     16,384-ray eval chunk; Trainer on the full-width model, 3 warm-up and 6 timed
+     iterations, then iterations 2000 and 2001, checked as phase 5 (every
+     loss finite, every parameter changed, K1's counters above 0, K4's
+     unmoved, no grid table cast) and without flow (no cycle loss); 9b, 2
+     images through ImageRenderer, finite maps and no flow maps; 9c, one
+     fp32 tiny training step, card vs CPU, as in 5b;
+  10. the reference-semantics profile on brick grids (configs/
+     reference_semantics.yaml: separate dynamic and flow grids of unpaired
+     4D rows, every sample shaded and flow-warped): K1 forward (bit for
+     bit) and backward (position gradients bit for bit) against the plain
+     versions on those grids at one 8,192-ray branch's ray-ordered
+     queries, and the forward at one eval chunk's; then as phase 9 with
+     flow (10, 10b, 10c);
+  11. K3 forward against its plain version at every (R, S, D, C) that the
+     training runs (densities that require a gradient) and the eval renders
+     (no_grad) of phases 4-10 launched, called as each calls it, with the
+     wrapper's time and the kernel's alone.
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
 and its operations over the fp32 rate (H100 SXM data sheet).  Its launches
-are those of the run of its path (phase 5, phase 6 for K4, phase 7's probe
-run for P1-P4).
+are those of the training run of its path (phase 5, phase 6 for K4, phase
+7's probe run for P1-P4, phase 9 or 10 for the rows of those profiles'
+grids and K3 shapes).
 The kernels' device times alone (torch.profiler: K2, K3 forward and
-backward, K5, P1) are taken after phase 8, so that no profiler session
-precedes a timed phase.
+backward, K5, P1, P3) are taken last, so that no profiler session precedes
+a timed phase.
 The last two lines are the card line and {"ok": true, "device": {...}}.
 """
 
@@ -351,6 +372,92 @@ def hash_specs():
     return specs
 
 
+def profile_specs(profile):
+    """The 4D grid specs of the full-width flagship of ``profile`` with
+    separate grids: its dynamic grid and, with a flow branch, its flow
+    grid, each with the profile's row pairing (the default profile's fused
+    grid is flagship_specs' "dynflow")."""
+    from emernerf_torch.builders import _enc_spec, cfg_time_pair, flow_spec
+    from emernerf_torch.flagship import flagship_config
+
+    cfg = flagship_config(profile=profile)
+    pair = cfg_time_pair(cfg)
+    specs = {"dynamic": _enc_spec(cfg.nerf.model.dynamic_xyz_encoder, "brick", pair)}
+    if cfg.nerf.model.head.enable_flow_branch:
+        specs["flow"] = flow_spec("brick", pair)
+    return specs
+
+
+def profile_grid_cases(specs, xyzt, n):
+    """(grid, queries, position gradient) of the grids ``specs`` over the
+    ray-ordered 4D batch ``xyzt`` (ray_batches) of n samples: without a
+    flow grid, the dynamic grid at the current n; with one, the dynamic
+    grid's 3n batch (current, +warp, -warp; the warped queries' positions
+    carry a gradient, so the whole batch takes the position gradient) and
+    the flow grid's current n and warped 2n."""
+    if "flow" not in specs:
+        return [("dynamic", xyzt[:n].contiguous(), False)]
+    return [("dynamic", xyzt, True), ("flow", xyzt[:n].contiguous(), False),
+            ("flow", xyzt[n:].contiguous(), True)]
+
+
+def phase_profile_kernels(dev, entries, profile, path, label):
+    """K1 forward and backward on the separate 4D grids of ``profile``
+    (profile_specs; the static and proposal grids are phase 3's) against
+    the plain versions, the fp32 parameter with a bf16 computation as the
+    fields call it: forward (bit for bit) and backward (k1_backward_row) at
+    the ray-ordered queries of one 8,192-ray pixel branch (the samples it
+    shades: the top-K, or all 64), then the forward at those of one
+    16,384-ray eval chunk (all samples).  The kernel lines report the
+    launches of the training run ``path``."""
+    from emernerf_torch.builders import cfg_time_pair
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_ref
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    cfg = flagship_config(profile=profile)
+    specs, pair = profile_specs(profile), cfg_time_pair(cfg)
+    rows = "paired" if pair else "unpaired"
+    n_samples = cfg.nerf.sampling.num_samples
+    k = cfg.nerf.sampling.sample_topk or n_samples
+    print(f"{label} (K1, {rows} rows): K1 forward and backward vs plain versions on the "
+          f"{'/'.join(specs)} grid(s) of profile {_profile_name(profile)} at the queries of "
+          f"one {N_TRAIN}-ray branch, {k} samples per ray, and K1 forward at those of one "
+          f"{N_RAYS}-ray eval chunk, {n_samples} samples per ray")
+    for n_rays, per_ray, train in ((N_TRAIN, k, True), (N_RAYS, n_samples, False)):
+        _, xyzt = ray_batches(dev, g, n_rays, per_ray)
+        cases = profile_grid_cases(specs, xyzt, n_rays * per_ray)
+        del xyzt
+        for name, pos, pos_grad in cases:
+            spec = specs[name]
+            if spec.uses_time_pair != pair:
+                fail(f"the {name} grid of {_profile_name(profile)}: time_pair "
+                     f"{spec.uses_time_pair}, the config asks for {pair}")
+            table = torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1
+            with torch.no_grad():
+                out = brickgrid_encode(table, pos, spec, torch.bfloat16)
+                ref = brickgrid_encode_ref(table, pos, spec, torch.bfloat16)
+            tag = (f"brickgrid_encode[{name},{rows}{',warped' if pos_grad else ''},rays"
+                   f"{'' if train else ',eval'},fp32->bf16,N={pos.shape[0]}]")
+            exact = torch.equal(out, ref)
+            print(f"  {tag}: bit for bit with the plain version: {exact} (tolerance 0)")
+            if not exact:
+                fail(f"{tag}: kernel and plain version differ")
+            ms = cuda_ms(lambda: brickgrid_encode(table, pos, spec, torch.bfloat16), 5)
+            plain_ms = cuda_ms(lambda: brickgrid_encode_ref(table, pos, spec, torch.bfloat16), 2)
+            add_entry(entries, tag, "brickgrid.cu", "emernerf_tpu/ops/brickgrid.py:581",
+                      brickgrid_encode, 0.0, ms, plain_ms,
+                      nbytes(pos, out) + brick_touched(spec, pos) * table.element_size(),
+                      grid_ops(spec, pos.shape[0], False, False), path=path)
+            del out, ref
+            if train:
+                k1_backward_row(entries, f"{name},{rows}", spec, table, pos, pos_grad, g,
+                                rays=True, compute=torch.bfloat16, path=path)
+            del table, pos
+        del cases
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(dev, kernels_entries, after_timed):
     from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_ref
     from emernerf_torch.ops.stepfuns import importance_sampling, importance_sampling_ref
@@ -438,7 +545,7 @@ def phase_kernels(dev, kernels_entries, after_timed):
         # out as render/volrend.py:composite_rays packs them
         sets = [0] * 4 + [1] * 9 + [0] + [2] * 9
         composite_row(dev, 7, kernels_entries, after_timed, N_RAYS, NUM_SAMPLES, 3, sets, 100.0,
-                      path="eval")
+                      grad=False)
 
 
 def composite_inputs(dev, seed, r, s_, d, n_ch, t_far, grad):
@@ -470,17 +577,17 @@ def remade(make, call):
     return run
 
 
-def composite_row(dev, seed, kernels_entries, after_timed, r, s_, d, sets, t_far, path="brick"):
+def composite_row(dev, seed, kernels_entries, after_timed, r, s_, d, sets, t_far, path="brick",
+                  grad=True):
     """K3 forward at (r, s_, d, len(sets)) against its plain version, with
-    the wrapper's time (as the path calls it: eval under no_grad, training
-    with densities that require a gradient) and, after the timed phases,
+    the wrapper's time (as the run calls it: eval under no_grad, training
+    with densities that require a gradient, ``grad``) and, after the timed phases,
     the kernel's alone (on the same inputs made again then, so that they
     do not stay allocated through the phases in between).  Tolerance: rtol
     1e-5 (depth 1e-4), atol 1e-5; a median depth may move one sample only
     at a 0.5 crossing."""
     from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_ref
 
-    grad = path != "eval"
     args = (dev, seed, r, s_, d, len(sets), t_far, grad)
     ts, te, dens, vals = composite_inputs(*args)
     out = composite_along_rays(ts, te, dens, vals, sets)
@@ -512,7 +619,7 @@ def composite_row(dev, seed, kernels_entries, after_timed, r, s_, d, sets, t_far
     n_ops = r * s_ * (12 * d + 2 * len(sets))
     add_entry(kernels_entries, tag, "composite.cu", "emernerf_tpu/render/volrend.py:33",
               composite_along_rays, mx, ms, plain_ms, nbytes(ts, te, dens, vals, *out), n_ops,
-              path="brick" if path == "eval" else path)
+              path=path)
     after_timed.append((kernels_entries[-1], K3_FORWARD_KERNELS,
                         remade(lambda: composite_inputs(*args),
                                lambda *a: composite_along_rays(*a, sets))))
@@ -592,11 +699,51 @@ def interlevel_bwd_inputs(dev, seed, radii):
     return w_s, cdfs, gl
 
 
+def k1_backward_row(entries, name, spec, table, pos, pos_grad, g, rays=False, compute=None,
+                    path="brick"):
+    """K1 backward against its plain version on ``table`` at ``pos`` with a
+    random cotangent: the table gradient within rtol 2^-7 (one bf16 ulp) +
+    1e-5 x max|grad| (the same fp32 products summed by atomics in another
+    order, rounded once to bf16); the position gradient (``pos_grad``) bit
+    for bit with the plain version and between two runs.  One kernel line
+    of the run ``path``."""
+    from emernerf_torch.ops.brickgrid import brickgrid_encode_bwd, brickgrid_encode_bwd_ref
+
+    n = pos.shape[0]
+    cot = torch.randn((n, spec.n_output_dims), device=pos.device, generator=g).bfloat16()
+    args = (table, pos, cot, spec, pos_grad, compute)
+    out, ref = brickgrid_encode_bwd(*args), brickgrid_encode_bwd_ref(*args)
+    short = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+    label = short[table.dtype]
+    if compute is not None and compute != table.dtype:
+        label += f"->{short[compute]}"
+    tag = (f"brickgrid_encode_bwd[{name}{',warped' if pos_grad else ''}"
+           f"{',rays' if rays else ''},{label},N={n}]")
+    mx = check(tag + ".d_table", out[0], ref[0], 2 ** -7, 1e-5)
+    if pos_grad:
+        again = brickgrid_encode_bwd(*args)[1]
+        mx = max(mx, float((out[1] - ref[1]).abs().max()))
+        exact, repeat = torch.equal(out[1], ref[1]), torch.equal(out[1], again)
+        print(f"  {tag}.d_pos: bit for bit with the plain version: {exact}; "
+              f"with a second run: {repeat} (tolerance 0)")
+        if not (exact and repeat):
+            fail(f"{tag}.d_pos: not bit for bit (plain {exact}, second run {repeat})")
+        del again
+    ms = cuda_ms(lambda: brickgrid_encode_bwd(*args), 5)
+    plain_ms = cuda_ms(lambda: brickgrid_encode_bwd_ref(*args), 2)
+    # positions and cotangent in, the dense table gradient out (and the
+    # touched table entries in, d_pos out, for the position gradient)
+    n_bytes = nbytes(pos, cot, out[0], out[1]) + (
+        brick_touched(spec, pos) * table.element_size() if pos_grad else 0)
+    add_entry(entries, tag, "brickgrid.cu", "emernerf_tpu/ops/brickgrid.py:733",
+              brickgrid_encode_bwd, mx, ms, plain_ms, n_bytes,
+              grid_ops(spec, n, True, pos_grad), path=path)
+
+
 def phase_train_kernels(dev, kernels_entries):
     """The training kernels against their plain versions at the shapes of
     one 8,192-ray pixel branch, and K8 over the flagship's parameters."""
     from emernerf_torch.flagship import build_flagship
-    from emernerf_torch.ops.brickgrid import brickgrid_encode_bwd, brickgrid_encode_bwd_ref
     from emernerf_torch.train.optim import adam_update, adam_update_ref, make_adam
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -627,31 +774,9 @@ def phase_train_kernels(dev, kernels_entries):
         pos = (torch.rand((n, spec.n_input_dims), device=dev, generator=g) if rays is None
                else rays)
         table = (torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1).bfloat16()
-        cot = torch.randn((n, spec.n_output_dims), device=dev, generator=g).bfloat16()
-        out = brickgrid_encode_bwd(table, pos, cot, spec, pos_grad)
-        ref = brickgrid_encode_bwd_ref(table, pos, cot, spec, pos_grad)
-        tag = (f"brickgrid_encode_bwd[{name}{',warped' if pos_grad else ''}"
-               f"{',rays' if rays is not None else ''},bf16,N={n}]")
-        mx = check(tag + ".d_table", out[0], ref[0], 2 ** -7, 1e-5)
-        if pos_grad:
-            again = brickgrid_encode_bwd(table, pos, cot, spec, pos_grad)[1]
-            mx = max(mx, float((out[1] - ref[1]).abs().max()))
-            exact, repeat = torch.equal(out[1], ref[1]), torch.equal(out[1], again)
-            print(f"  {tag}.d_pos: bit for bit with the plain version: {exact}; "
-                  f"with a second run: {repeat} (tolerance 0)")
-            if not (exact and repeat):
-                fail(f"{tag}.d_pos: not bit for bit (plain {exact}, second run {repeat})")
-            del again
-        ms = cuda_ms(lambda: brickgrid_encode_bwd(table, pos, cot, spec, pos_grad), 5)
-        plain_ms = cuda_ms(lambda: brickgrid_encode_bwd_ref(table, pos, cot, spec, pos_grad), 2)
-        # positions and cotangent in, the dense table gradient out (and the
-        # touched table entries in, d_pos out, for the position gradient)
-        n_bytes = nbytes(pos, cot, out[0], out[1]) + (
-            brick_touched(spec, pos) * table.element_size() if pos_grad else 0)
-        add_entry(kernels_entries, tag, "brickgrid.cu", "emernerf_tpu/ops/brickgrid.py:733",
-                  brickgrid_encode_bwd, mx, ms, plain_ms, n_bytes,
-                  grid_ops(spec, n, True, pos_grad))
-        del pos, table, cot, out, ref
+        k1_backward_row(kernels_entries, name, spec, table, pos, pos_grad, g,
+                        rays=rays is not None)
+        del pos, table
     del xyz, warped, k1
     torch.cuda.empty_cache()
 
@@ -952,7 +1077,7 @@ def _check_launches(launches, zero, what):
             fail(f"kernel {name} was not launched by the {what}")
 
 
-def phase_slice(dev, counted, zero=(), profile=None, label="phase 4"):
+def phase_slice(dev, counted, zero=(), profile=None, label="phase 4", flow=True):
     from emernerf_torch.eval.renderer import ImageRenderer
     from emernerf_torch.flagship import DEFAULT_PROFILE, build_flagship
 
@@ -994,12 +1119,14 @@ def phase_slice(dev, counted, zero=(), profile=None, label="phase 4"):
         if maps["rgb"].shape != (h, w, 3) or maps["depth"].shape != (h, w):
             fail(f"image {indices[i]}: unexpected map shapes")
     print(f"  maps finite: {sorted(frames[0])}")
+    if ("forward_flow" in frames[0]) != flow:
+        fail(f"flow maps {'missing' if flow else 'present'}: {sorted(frames[0])}")
     _check_launches(launches, {fn.__name__ for fn in zero}, "render")
     tally = composite_tally(lambda: renderer.render_image(*_image_rays(dataset, 0)))
     print(f"  K3 forward calls by (R, S, D, C) in one more image: {tally}")
     del model, props, renderer
     torch.cuda.empty_cache()
-    return launches, n_rays / secs
+    return launches, n_rays / secs, tally
 
 
 def _image_rays(dataset, idx):
@@ -1127,14 +1254,16 @@ def _check_loss_launches(windows, history, n_timed):
 
 
 def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5",
-                profile_file="profile_train.json", shares=(), table_numels=(),
-                table_casts_allowed=True):
+                profile_file="profile_train.json", shares=(), table_casts_allowed=True,
+                flow=True):
     """Trains the full-width flagship of ``profile`` through Trainer;
     returns (launches, ms/iteration, rays/s, peak GiB, {label: share of the
     profiled device time} for each (label, kernel-name substrings) of
     ``shares``, {(R, S, D, C): K3 forward calls in one iteration}).  Lists
-    the casts of tensors the size of a grid table (``table_numels``) in one
-    more iteration, and fails on any unless ``table_casts_allowed``."""
+    the casts of tensors the size of a grid table in one more iteration,
+    and fails on any unless ``table_casts_allowed``; fails unless the model
+    has a flow branch (flow outputs and the cycle loss) exactly when
+    ``flow``."""
     from emernerf_torch.flagship import DEFAULT_PROFILE, flagship_config
     from emernerf_torch.train.trainer import Trainer
 
@@ -1146,6 +1275,10 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
     trainer = Trainer(flagship_config(profile=profile), device=dev)
     params = trainer.state.params + trainer.state.prop_params
     n_params = sum(p.numel() for p in params)
+    table_numels = {p.numel() for m in (trainer.model, *trainer.prop_models)
+                    for name, p in m.named_parameters() if name.endswith("table")}
+    if trainer.model.has_flow != flow or trainer.step_cfg.has_flow != flow:
+        fail(f"the model's flow branch: {trainer.model.has_flow}, expected {flow}")
     cfg = trainer.step_cfg
     print(f"  built: {n_params} params in {time.perf_counter() - t0:.1f} s; "
           f"{trainer.ray_batch_size} pixel + {trainer.ray_batch_size} lidar rays, "
@@ -1182,8 +1315,8 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
     for what, keys in shares:
         print(f"  {what}: {share[what]:.1%} of the device time, {share[what] * busy:.3f} ms "
               f"per iteration (kernels {', '.join(keys)})")
-    casts = table_casts(trainer, 2004, set(table_numels))
-    print(f"  dtype casts of tensors the size of a grid table ({sorted(set(table_numels))} "
+    casts = table_casts(trainer, 2004, table_numels)
+    print(f"  dtype casts of tensors the size of a grid table ({sorted(table_numels)} "
           f"elements) in one iteration: {len(casts)} {casts[:12]}")
     if casts and not table_casts_allowed:
         fail(f"{len(casts)} casts of a grid table in one training iteration: {casts[:6]}")
@@ -1196,6 +1329,8 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
         losses = _losses(m)
         if not all(np.isfinite(v) for v in losses.values()):
             fail(f"iteration {i}: non-finite loss {losses}")
+        if ("cycle_loss" in m) != flow:
+            fail(f"iteration {i}: cycle loss {'missing' if flow else 'present'} ({sorted(m)})")
     rg = [(bool(m["pixel_rg"]), bool(m["lidar_rg"])) for m in history]
     print(f"  requires-grad (pixel, lidar) per iteration: {rg}")
     if not any(a or b for a, b in rg) or all(a and b for a, b in rg):
@@ -1214,15 +1349,22 @@ def phase_train(dev, counted, zero=(), profile=None, n_timed=12, label="phase 5"
     return launches, ms, rays / ms * 1e3, peak, share, tally
 
 
-def phase_train_composite(dev, entries, after_timed, tally, hash_tally):
+def phase_composite_shapes(dev, entries, after_timed, tallies):
     """K3 forward against its plain version at every (R, S, D, C) that the
-    training runs of phases 5 and 6 launched, as training calls it."""
-    print("phase 6d: K3 forward vs plain version at every shape the training runs launched")
-    shapes = {k: "brick" for k in tally}
-    shapes.update({k: "hash" for k in hash_tally if k not in tally})
-    for i, ((r, s_, d, c), path) in enumerate(sorted(shapes.items())):
-        composite_row(dev, 8 + i, entries, after_timed, r, s_, d, [j % d for j in range(c)],
-                      80.0, path=path)
+    training and eval runs of phases 4-10 launched, called as each run
+    calls it; ``tallies`` holds (tally, path, grad) per run: a shape's
+    kernel line reports the launches of the training run ``path`` of its
+    first run.  Phase 3's eval key set is not repeated."""
+    print("phase 11: K3 forward vs plain version at every shape the training and eval runs "
+          "launched")
+    seen = {(N_RAYS, NUM_SAMPLES, 3, 23, False)}
+    for tally, path, grad in tallies:
+        for r, s_, d, c in sorted(tally):
+            if (r, s_, d, c, grad) in seen:
+                continue
+            seen.add((r, s_, d, c, grad))
+            composite_row(dev, 7 + len(seen), entries, after_timed, r, s_, d,
+                          [j % d for j in range(c)], 80.0, path=path, grad=grad)
     torch.cuda.empty_cache()
 
 
@@ -1292,7 +1434,7 @@ def phase_train_fp32(dev, profile=None, overrides=TINY_FP32, label="phase 5b"):
     worst = 0.0
     for lidar_branch in (False, True):
         batch = lidar if lidar_branch else pixel
-        draws = draw_step(r, gstep.render_kw(lidar_branch), True, gen)
+        draws = draw_step(r, gstep.render_kw(lidar_branch), gmodel.has_flow, gen)
         got = []
         for step, model, props, device in ((gstep, gmodel, gprops, dev),
                                            (cstep, cmodel, cprops, "cpu")):
@@ -1357,7 +1499,7 @@ def phase_probes(dev, entries, after_timed):
     the probe path), then each kernel against its plain version at every
     shape the entry points run."""
     from emernerf_torch.ops import gather_scatter as gs
-    from emernerf_torch.perf import bench_scatter_alts, pallas_experiments as pe
+    from emernerf_torch.perf import bench_scatter_alts, bench_scatter_rmw, pallas_experiments as pe
 
     fns = (gs.row_gather_loop, gs.row_gather_take, gs.scatter_add_rmw, gs.scatter_add_onehot)
     print("phase 7: the gather/scatter probe entry points (P1-P4), full sizes")
@@ -1402,19 +1544,32 @@ def phase_probes(dev, entries, after_timed):
         torch.cuda.empty_cache()
 
     # P3 and P4: fp32 sums in another order (atomics) than index_add_'s:
-    # within 1e-5 of the largest |value|
-    t = 1 << 13
-    idx = pe.make_indices(n, t, dev)
-    upd = torch.randn((n, 128), device=dev, generator=torch.Generator(device=dev).manual_seed(2))
-    tag = f"scatter_add_rmw[t={t},w=128,f32,n={n}]"
-    out = gs.scatter_add_rmw(idx, upd, t)
-    mx = check(tag, out, gs.scatter_add_plain(idx, upd, t), 0.0, 1e-5)
-    add(tag, gs.scatter_add_rmw, "perf/pallas_experiments.py:124", mx,
-        lambda: gs.scatter_add_rmw(idx, upd, t), lambda: gs.scatter_add_plain(idx, upd, t),
-        lambda: torch.zeros((t, 128), device=dev).index_add_(0, idx, upd), n,
-        nbytes(idx, upd, out), float(n * 128))
-    print(f"  {tag}: {n * 128 / entries[-1]['ms'] / 1e6:.1f} G fp32 atomics/s")
-    del idx, upd, out
+    # within 1e-5 of the largest |value|.  P3 at the entry point's shape,
+    # then at odd widths (float and float2 reductions), on an update view
+    # at a 4-byte offset (p3_plan narrows) and with every index 0 (the
+    # worst contention), each with its kernel's time alone
+    # (the shapes of bench_scatter_rmw, which times P3 alone)
+    t = bench_scatter_rmw.T
+    for rows, w, offset, equal in bench_scatter_rmw.SHAPES:
+        idx, upd = bench_scatter_rmw.make_inputs(dev, rows, w, offset, equal)
+        tag = bench_scatter_rmw.tag(rows, w, offset, equal)
+        out = gs.scatter_add_rmw(idx, upd, t)
+        vec = gs.p3_plan(w, upd.data_ptr(), out.data_ptr())
+        mx = check(tag, out, gs.scatter_add_plain(idx, upd, t), 0.0, 1e-5)
+        add(tag, gs.scatter_add_rmw, "perf/pallas_experiments.py:124", mx,
+            lambda: gs.scatter_add_rmw(idx, upd, t), lambda: gs.scatter_add_plain(idx, upd, t),
+            lambda: torch.zeros((t, w), device=dev).index_add_(0, idx, upd), rows,
+            nbytes(idx, upd, out), float(rows * w), {"p3_vec_bytes": vec})
+        e = entries[-1]
+        e["kernel_only_ms"] = kernel_device_ms(lambda: gs.scatter_add_rmw(idx, upd, t),
+                                               ("scatter_rmw_kernel",))
+        print(f"  {tag}: {vec}-byte reductions; kernel alone {e['kernel_only_ms']:.4f} ms, the "
+              f"call {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, index_add_ "
+              f"{e['library_ms']:.4f} ms; bound {e['bound_ms']:.4f} ms = "
+              f"{e['bound_ms'] / e['kernel_only_ms']:.1%} of the time alone, "
+              f"{e['bound_ms'] / e['ms']:.1%} of the call's")
+        del idx, upd, out
+    torch.cuda.empty_cache()
     nn = bench_scatter_alts.N
     for t, w, tile_n in bench_scatter_alts.PALLAS_SHAPES:
         rows, upd = bench_scatter_alts.make_inputs(nn, t, w, dev)
@@ -1628,7 +1783,7 @@ def main():
 
     sys.path.insert(0, REPO)
     from emernerf_torch import kernels
-    from emernerf_torch.flagship import REFERENCE_HASH
+    from emernerf_torch.flagship import DYNAMIC, REFERENCE_BRICK, REFERENCE_HASH
     from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
     from emernerf_torch.ops.hashgrid import features_minor, hashgrid_encode, hashgrid_encode_bwd
     from emernerf_torch.ops.stepfuns import (
@@ -1653,34 +1808,56 @@ def main():
     brick = (brickgrid_encode, brickgrid_encode_bwd)
     hashed = (hashgrid_encode, hashgrid_encode_bwd, features_minor)
     forward = (importance_sampling, composite_along_rays)
-    _, rays_per_s = phase_slice(dev, (brickgrid_encode,) + forward, zero=hashed)
+    _, rays_per_s, eval_tally = phase_slice(dev, (brickgrid_encode,) + forward, zero=hashed)
     phase_fp32_chunk(dev)
     shared = forward + (composite_along_rays_bwd, interlevel_loss_levels,
                         interlevel_loss_levels_bwd, adam_update)
     launches, ms_iter, train_rays_per_s, peak, share, tally = phase_train(
         dev, brick + shared, zero=hashed, shares=PROFILE_SHARES,
-        table_numels=[math.prod(sp.table_shape) for sp in flagship_specs().values()],
         table_casts_allowed=False)
     phase_train_fp32(dev)
     # the reference-hash profile: K4 in place of K1
     hash_launches, hash_ms, hash_rays_per_s, hash_peak, hash_share, hash_tally = phase_train(
         dev, hashed + shared, zero=brick, profile=REFERENCE_HASH, n_timed=8, label="phase 6",
-        profile_file="profile_train_hash.json", shares=PROFILE_SHARES,
-        table_numels=[math.prod(sp.table_shape) for sp in hash_specs().values()])
-    _, hash_eval_rays_per_s = phase_slice(dev, (hashgrid_encode, features_minor) + forward,
-                                          zero=brick,
-                                          profile=REFERENCE_HASH, label="phase 6b")
+        profile_file="profile_train_hash.json", shares=PROFILE_SHARES)
+    _, hash_eval_rays_per_s, hash_eval_tally = phase_slice(
+        dev, (hashgrid_encode, features_minor) + forward, zero=brick, profile=REFERENCE_HASH,
+        label="phase 6b")
     phase_train_fp32(dev, REFERENCE_HASH, HASH_TINY_FP32, label="phase 6c")
-    phase_train_composite(dev, entries, after_timed, tally, hash_tally)
     probe_launches = phase_probes(dev, entries, after_timed)
     cli_ms = phase_cli(dev, ms_iter)
+    # the dynamic-only profile: K1 on the static and dynamic grids, no flow
+    phase_profile_kernels(dev, entries, DYNAMIC, "dynamic", "phase 9")
+    dyn = phase_train(dev, brick + shared, zero=hashed, profile=DYNAMIC, n_timed=6,
+                      label="phase 9", profile_file="profile_train_dynamic.json",
+                      shares=PROFILE_SHARES, table_casts_allowed=False, flow=False)
+    _, dyn_eval_rays_per_s, dyn_eval_tally = phase_slice(
+        dev, (brickgrid_encode,) + forward, zero=hashed, profile=DYNAMIC, label="phase 9b",
+        flow=False)
+    phase_train_fp32(dev, DYNAMIC, TINY_FP32, label="phase 9c")
+    # the reference-semantics profile on brick grids: unpaired 4D rows,
+    # separate dynamic and flow grids, every sample shaded and warped
+    phase_profile_kernels(dev, entries, REFERENCE_BRICK, "reference_brick", "phase 10")
+    ref = phase_train(dev, brick + shared, zero=hashed, profile=REFERENCE_BRICK, n_timed=6,
+                      label="phase 10", profile_file="profile_train_reference_brick.json",
+                      shares=PROFILE_SHARES, table_casts_allowed=False)
+    _, ref_eval_rays_per_s, ref_eval_tally = phase_slice(
+        dev, (brickgrid_encode,) + forward, zero=hashed, profile=REFERENCE_BRICK,
+        label="phase 10b")
+    phase_train_fp32(dev, REFERENCE_BRICK, HASH_TINY_FP32, label="phase 10c")
+    phase_composite_shapes(dev, entries, after_timed, [
+        (tally, "brick", True), (hash_tally, "hash", True), (dyn[5], "dynamic", True),
+        (ref[5], "reference_brick", True), (eval_tally, "brick", False),
+        (hash_eval_tally, "hash", False), (dyn_eval_tally, "dynamic", False),
+        (ref_eval_tally, "reference_brick", False)])
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):
         fail("jax, the JAX package or the repository's perf/ scripts were imported")
 
     # launches: the counts of the training run of each kernel's path
-    runs = {"brick": launches, "hash": hash_launches, "probe": probe_launches}
+    runs = {"brick": launches, "hash": hash_launches, "probe": probe_launches,
+            "dynamic": dyn[0], "reference_brick": ref[0]}
     report = [dict({k: v for k, v in e.items() if k not in ("fn", "path")},
                    launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
@@ -1692,6 +1869,11 @@ def main():
           f"{hash_share['K4 forward']:.1%} and backward {hash_share['K4 backward']:.1%} of "
           f"device time on {card_line}")
     print(f"CLI (brick): {cli_ms:.2f} ms/iteration on {card_line}")
+    for what, (_, ms, rps, pk, sh, _), eval_rps in (("dynamic-only", dyn, dyn_eval_rays_per_s),
+                                                    ("reference-brick", ref, ref_eval_rays_per_s)):
+        print(f"{what}: eval {eval_rps:.1f} rays/s; train {ms:.2f} ms/iteration, {rps:.1f} "
+              f"rays/s, peak {pk:.2f} GiB, K1 backward {sh['K1 backward']:.1%} and forward "
+              f"{sh['K1 forward']:.1%} of device time on {card_line}")
     print(json.dumps({"kernels": report}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,9 +8,10 @@ backend, as in the JAX package; ``nerf.model.fuse_flow_grid`` overrides
 that.  A knob that the port does not run raises instead of being ignored:
 ``grid_backend=mx`` (rejected on quality), ``nerf.propnet.fine_level_skip
 > 0``, ``render.eval_sample_topk > 0``, a non-default ``nerf.model.perf.*``
-formulation knob (``perf.time_pair=false`` is taken with ``hash`` only,
-where rows are never paired), a dynamic branch without the flow branch or
-the reverse, the feature head, spherical-harmonics directions, temporal
+formulation knob (``perf.time_pair=false`` is taken: unpaired 4D brick
+rows, two gathers per (point, level), as the reference-semantics profile
+asks; the hash grid's rows are never paired), the flow branch without the
+dynamic branch, the feature head, spherical-harmonics directions, temporal
 interpolation, ``optim.fused_lidar_branch`` (left behind) and
 ``optim.remat``.
 """
@@ -37,12 +38,21 @@ _BACKENDS = ("brick", "hash")
 _PERF_DEFAULTS = {
     "scatter_mode": "wide", "reduce_mode": "unroll", "posgrad_mode": "fwd",
     "gather_mode": "2d", "onehot_budget": 1 << 19, "grad_subsample": 1,
-    "time_pair": True,
 }
 
 
 def _grid_backend(cfg: ConfigNode) -> str:
     return cfg.nerf.model.get("grid_backend", "brick")
+
+
+def _perf(cfg: ConfigNode):
+    return cfg.nerf.model.get("perf", None) or {}
+
+
+def cfg_time_pair(cfg: ConfigNode) -> bool:
+    """Whether the config's 4D brick rows pair their two time corners
+    (``nerf.model.perf.time_pair``, on by default)."""
+    return bool(_perf(cfg).get("time_pair", True))
 
 
 def validate_cfg(cfg: ConfigNode) -> None:
@@ -51,10 +61,9 @@ def validate_cfg(cfg: ConfigNode) -> None:
     if backend not in _BACKENDS:
         raise NotImplementedError(
             f"nerf.model.grid_backend={backend!r}: only {_BACKENDS} are ported")
-    perf = cfg.nerf.model.get("perf", None) or {}
-    for k, v in perf.items():
-        if k == "time_pair" and backend == "hash":
-            continue  # hash rows hold one time corner each: nothing to pair
+    for k, v in _perf(cfg).items():
+        if k == "time_pair":
+            continue  # either layout: K1 reads paired and unpaired 4D rows
         if k not in _PERF_DEFAULTS or v != _PERF_DEFAULTS[k]:
             raise NotImplementedError(
                 f"nerf.model.perf.{k}={v!r}: only the default formulation is ported")
@@ -68,8 +77,9 @@ def validate_cfg(cfg: ConfigNode) -> None:
     if int(cfg.get_dotted("render.eval_sample_topk", 0)) > 0:
         raise NotImplementedError("render.eval_sample_topk>0 is not ported yet")
     head = cfg.nerf.model.head
-    if head.enable_dynamic_branch != head.enable_flow_branch:
-        raise NotImplementedError("the dynamic and flow branches are ported together only")
+    if head.enable_flow_branch and not head.enable_dynamic_branch:
+        # the fields use the flow only inside the dynamic branch
+        raise NotImplementedError("the flow branch needs the dynamic branch")
     if head.enable_feature_head:
         raise NotImplementedError("the feature head and learnable PE are not ported yet")
     if head.get("direction_encoding", "sinusoidal") != "sinusoidal":
@@ -79,12 +89,14 @@ def validate_cfg(cfg: ConfigNode) -> None:
 
 
 def make_grid_spec(backend: str, n_input_dims: int, n_levels: int, base_resolution: int,
-                   max_resolution: int, log2_hashmap_size: int, n_features_per_level: int):
+                   max_resolution: int, log2_hashmap_size: int, n_features_per_level: int,
+                   time_pair: bool = True):
     """Grid spec for the configured backend.
 
     "brick": cell capacity of the configured hash table.  F=1 3D grids
     (proposal nets) use 4^3-cell bricks (125-corner rows, cell capacity 64
-    per row); others 2^3-cell bricks.  4D rows store both time corners.
+    per row); others 2^3-cell bricks.  4D rows store both time corners
+    unless ``time_pair`` is false (``nerf.model.perf.time_pair``).
     "hash": the exact tiny-cuda-nn layout."""
     if backend == "hash":
         return HashGridSpec(
@@ -102,25 +114,27 @@ def make_grid_spec(backend: str, n_input_dims: int, n_levels: int, base_resoluti
         log2_bricks=max(log2_hashmap_size - 3 * bs, 4),
         n_features_per_level=n_features_per_level,
         log2_brick_size=bs,
-        time_pair=n_input_dims == 4,
+        time_pair=n_input_dims == 4 and time_pair,
     )
 
 
-def _enc_spec(enc_cfg: ConfigNode, backend: str):
+def _enc_spec(enc_cfg: ConfigNode, backend: str, time_pair: bool = True):
     return make_grid_spec(
         backend, n_input_dims=enc_cfg.n_input_dims, n_levels=enc_cfg.n_levels,
         base_resolution=enc_cfg.base_resolution,
         max_resolution=enc_cfg.max_resolution,
         log2_hashmap_size=enc_cfg.log2_hashmap_size,
         n_features_per_level=enc_cfg.n_features_per_level,
+        time_pair=time_pair,
     )
 
 
-def flow_spec(backend: str):
-    """The flow encoder's structure is fixed in the reference."""
+def flow_spec(backend: str, time_pair: bool = True):
+    """The flow encoder's structure is fixed in the reference; ``time_pair``
+    picks paired or unpaired 4D rows."""
     return make_grid_spec(backend, n_input_dims=4, n_levels=10, base_resolution=16,
                           max_resolution=4096, log2_hashmap_size=18,
-                          n_features_per_level=4)
+                          n_features_per_level=4, time_pair=time_pair)
 
 
 def _dtype(cfg: ConfigNode, key: str):
@@ -138,14 +152,16 @@ def build_model_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
         # per-image embeddings can't generalize to held-out images
         enable_cam, enable_img = True, False
     backend = _grid_backend(cfg)
-    dynamic = (_enc_spec(model_cfg.dynamic_xyz_encoder, backend)
+    pair = cfg_time_pair(cfg)
+    dynamic = (_enc_spec(model_cfg.dynamic_xyz_encoder, backend, pair)
                if head.enable_dynamic_branch else None)
-    flow = (flow or flow_spec(backend)) if head.enable_flow_branch else None
+    flow = (flow or flow_spec(backend, pair)) if head.enable_flow_branch else None
     # fused dynamic+flow grid by default on the brick backend; the hash
     # backend keeps the reference's separate grids
-    fuse = bool(model_cfg.get("fuse_flow_grid", backend == "brick")) and dynamic is not None
+    fuse = (bool(model_cfg.get("fuse_flow_grid", backend == "brick"))
+            and dynamic is not None and flow is not None)
     return RadianceField(
-        static_spec=_enc_spec(model_cfg.xyz_encoder, backend),
+        static_spec=_enc_spec(model_cfg.xyz_encoder, backend, pair),
         dynamic_spec=dynamic,
         flow_spec=flow,
         fuse_flow_grid=fuse,

@@ -2,11 +2,14 @@
 EmerNeRF configuration (static + dynamic + flow fields, sky + shadow heads,
 reference-scale grids) on the synthetic dynamic scene.
 
-Two profiles: the default (``configs/default_config.yaml``: brick grids,
-top-K sample pruning and aggregation) and ``REFERENCE_HASH``, the work per
-ray of the original CUDA EmerNeRF (``configs/reference_semantics.yaml`` with
-the exact tiny-cuda-nn hash grid: every sample shaded and flow-warped,
-separate dynamic and flow tables).
+Four profiles: the default (``configs/default_config.yaml``: brick grids,
+top-K sample pruning and aggregation); ``DYNAMIC``, the stock dynamic
+decomposition without flow (``configs/default_dynamic.yaml``: static and
+dynamic grids and the shadow head, no flow grid, no aggregation); and the
+work per ray of the original CUDA EmerNeRF (``configs/reference_semantics.yaml``:
+every sample shaded and flow-warped, separate dynamic and flow tables of
+unpaired 4D rows) on brick grids, ``REFERENCE_BRICK``, or with the exact
+tiny-cuda-nn hash grid, ``REFERENCE_HASH``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from emernerf_torch.builders import (
     build_propnets_from_cfg,
     build_train_step_config,
     make_grid_spec,
+    cfg_time_pair,
 )
 from emernerf_torch.config import load_config
 
@@ -37,8 +41,13 @@ class Profile(NamedTuple):
     overrides: Sequence[str]
 
 
+_CONFIGS = os.path.join(_REPO_ROOT, "configs")
 DEFAULT_PROFILE = Profile(None, ())
-REFERENCE_HASH = Profile(os.path.join(_REPO_ROOT, "configs", "reference_semantics.yaml"),
+# the flagship dotlist turns the flow branch on: the override turns it off
+DYNAMIC = Profile(os.path.join(_CONFIGS, "default_dynamic.yaml"),
+                  ("nerf.model.head.enable_flow_branch=false",))
+REFERENCE_BRICK = Profile(os.path.join(_CONFIGS, "reference_semantics.yaml"), ())
+REFERENCE_HASH = Profile(os.path.join(_CONFIGS, "reference_semantics.yaml"),
                          ("nerf.model.grid_backend=hash",))
 
 _FLAGSHIP_DOTLIST = (
@@ -75,8 +84,9 @@ _TINY_DOTLIST = (
 
 
 def flagship_config(tiny: bool = False, overrides=(), profile: Profile = DEFAULT_PROFILE):
-    """Full-feature config (dynamic + flow) of ``profile``; ``tiny=True``
-    shrinks grids and sample counts while keeping every branch enabled.
+    """Full-feature config (dynamic + flow, unless the profile turns the flow
+    off) of ``profile``; ``tiny=True`` shrinks grids and sample counts while
+    keeping every branch of the profile enabled.
     Merged as the CLI merges: defaults <- the profile's config file <- the
     flagship dotlist, the profile's overrides and ``overrides``."""
     dot = (list(_FLAGSHIP_DOTLIST) + (list(_TINY_DOTLIST) if tiny else [])
@@ -84,10 +94,14 @@ def flagship_config(tiny: bool = False, overrides=(), profile: Profile = DEFAULT
     return load_config(DEFAULT_CONFIG, profile.config_file, dot)
 
 
-def flagship_flow_spec(tiny: bool = False, backend: str = "brick"):
-    """The flow grid's spec: the reference's fixed one (None), or (tiny) a
-    small one of the configured backend that keeps the flow branch."""
-    return make_grid_spec(backend, 4, 4, 8, 64, 10, 2) if tiny else None
+def flagship_flow_spec(cfg, tiny: bool = False):
+    """The flow grid's spec for ``cfg``: the reference's fixed one (None), or
+    (tiny) a small one of the config's backend and row pairing that keeps
+    the flow branch."""
+    if not tiny:
+        return None
+    return make_grid_spec(cfg.nerf.model.get("grid_backend", "brick"), 4, 4, 8, 64, 10, 2,
+                          time_pair=cfg_time_pair(cfg))
 
 
 def build_flagship(tiny: bool = False, overrides=(), *, profile: Profile = DEFAULT_PROFILE,
@@ -100,7 +114,7 @@ def build_flagship(tiny: bool = False, overrides=(), *, profile: Profile = DEFAU
     dataset = build_dataset_from_cfg(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    flow = flagship_flow_spec(tiny, cfg.nerf.model.get("grid_backend", "brick"))
+    flow = flagship_flow_spec(cfg, tiny)
     model = build_model_from_cfg(cfg, dataset, device=dev, generator=gen, flow=flow)
     prop_models = build_propnets_from_cfg(cfg, dataset, device=dev, generator=gen)
     return cfg, dataset, model, prop_models, build_train_step_config(cfg, dataset)

@@ -70,8 +70,8 @@ _SIGNATURES = {
     "emt_gather_loop": (_P, _P, _P, _L, _I, _I, _P),
     # table, idx (int32), out, n, row_bytes, stream
     "emt_gather_take": (_P, _P, _P, _L, _I, _P),
-    # idx (int32), upd (fp32), out (zeroed fp32), n, w, stream
-    "emt_scatter_rmw": (_P, _P, _P, _L, _I, _P),
+    # idx (int32), upd (fp32), out (zeroed fp32), n, w, vec_bytes, stream
+    "emt_scatter_rmw": (_P, _P, _P, _L, _I, _I, _P),
     # rows (int32), upd (fp32), out (zeroed fp32), n, t, w, tile_n,
     # shared_table, stream
     "emt_scatter_onehot": (_P, _P, _P, _L, _I, _I, _I, _I, _P),

@@ -48,8 +48,27 @@
 //   P2: one block per tile of 2048 rows (the TPU tile) stages its indices
 //       in shared memory; then each warp copies whole rows with 16-byte
 //       vector loads and stores.
-//   P3: one thread per update element, atomicAdd into a zeroed fp32
-//       table (the wrapper zeroes it).
+//   P3 (redesigned; it replaces the thread-per-element grid-stride loop of
+//       this file's first version: a 64-bit division and an index load per
+//       fp32 element, 2^29 scalar atomics at the probe's shape, update
+//       reads through the cache, 45% of the bound): P1's pattern turned
+//       round.  A warp per tile of 32 update rows, one coalesced load of
+//       the tile's 32 indices, each broadcast with __shfl_sync; the warp
+//       reads the tile's rows as one run of V-vectors (float4, float2 or
+//       float: the widest that divides the row and both pointers'
+//       alignment, ops/gather_scatter.py:p3_plan), lane l taking vectors
+//       l, l + 32, ..., row and column by carries.  Each lane has
+//       kScatterUnroll streaming loads (__ldcs: the updates are read once
+//       and must not push the L2-resident table out) in flight before it
+//       adds them with one vector reduction each (atomicAdd on float4 /
+//       float2, sm_90's red.global.add.v4.f32 / .v2.f32) into the zeroed
+//       fp32 table (the wrapper zeroes it): at w = 128 a quarter of a row
+//       per instruction, 32x fewer atomic instructions than one per
+//       element.  All tiles in one grid.  It runs at the L2's reduction
+//       rate (~1.85 TB/s of fp32 adds whatever the vector width); a binned
+//       route (update rows sorted by destination range, a block per range
+//       accumulating in shared memory) matched it alone at w = 128 and
+//       lost at odd widths and per call (PERF.md, P3).
 //   P4: no one-hot product: the scatter-add itself, at N*W adds, reading
 //       each update byte once.  Where the fp32 (T, W) table fits one
 //       block's shared memory ((512, 108) is 221,184 of the 232,448
@@ -73,6 +92,7 @@ namespace {
 constexpr int kTakeTile = 2048;  // rows per block of the take gather
 constexpr int kThreads = 256;
 constexpr int kGatherUnroll = 8;  // P1: vector loads in flight per lane
+constexpr int kScatterUnroll = 8;  // P3: vector loads in flight per lane
 
 // P1: a warp per tile of 32 rows of vpr V-vectors each (see the header).
 template <typename V>
@@ -127,15 +147,41 @@ __global__ void gather_take_kernel(const uint4* __restrict__ table, const int* _
   }
 }
 
-__global__ void scatter_rmw_kernel(const int* __restrict__ idx, const float* __restrict__ upd,
-                                   float* __restrict__ out, long long n, int w) {
-  const long long total = n * w;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       e < total; e += stride) {
-    const long long i = e / w;
-    const int j = static_cast<int>(e - i * w);
-    atomicAdd(out + static_cast<long long>(idx[i]) * w + j, upd[e]);
+// P3: a warp per tile of 32 update rows of vpr V-vectors each (see the
+// header).
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+scatter_rmw_kernel(const int* __restrict__ idx, const V* __restrict__ upd, V* __restrict__ out,
+                   long long n, int vpr) {
+  const int lane = threadIdx.x & 31;
+  const long long row0 =
+      (blockIdx.x * static_cast<long long>(blockDim.x >> 5) + (threadIdx.x >> 5)) << 5;
+  if (row0 >= n) return;  // uniform across the warp
+  const int rows = n - row0 < 32 ? static_cast<int>(n - row0) : 32;
+  const int my_idx = lane < rows ? __ldcs(idx + row0 + lane) : 0;
+  const int total = rows * vpr;
+  const V* src = upd + row0 * vpr;
+  // a step of 32 vectors moves a lane by dq rows and dr vectors
+  const int dq = 32 / vpr, dr = 32 - dq * vpr;
+  int r = lane / vpr, c = lane - r * vpr;
+  for (int base = 0; base < total; base += 32 * kScatterUnroll) {
+    V v[kScatterUnroll];
+    long long dst[kScatterUnroll];
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      const int row = __shfl_sync(0xffffffffu, my_idx, r & 31);
+      dst[u] = static_cast<long long>(row) * vpr + c;
+      if (base + 32 * u + lane < total) v[u] = __ldcs(src + base + 32 * u + lane);
+      r += dq;
+      c += dr;
+      if (c >= vpr) {
+        c -= vpr;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u)
+      if (base + 32 * u + lane < total) atomicAdd(out + dst[u], v[u]);
   }
 }
 
@@ -297,15 +343,30 @@ extern "C" int emt_gather_take(const void* table, const void* idx, void* out, lo
   return static_cast<int>(cudaGetLastError());
 }
 
-// P3.  out: a zeroed fp32 (t, w) table.
+// P3.  out: a zeroed fp32 (t, w) table; vec_bytes (16, 8 or 4) divides
+// 4 * w and the alignment of upd and out (ops/gather_scatter.py:p3_plan).
+template <typename V>
+cudaError_t launch_scatter_rmw(const int* idx, const void* upd, void* out, long long n, int vpr,
+                               cudaStream_t s) {
+  const long long blocks = ((n + 31) / 32 + kThreads / 32 - 1) / (kThreads / 32);
+  scatter_rmw_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      idx, static_cast<const V*>(upd), static_cast<V*>(out), n, vpr);
+  return cudaGetLastError();
+}
+
 extern "C" int emt_scatter_rmw(const void* idx, const void* upd, void* out, long long n, int w,
-                               void* stream) {
-  if (n == 0) return cudaSuccess;
-  scatter_rmw_kernel<<<grid_stride_blocks(n * w), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(upd), static_cast<float*>(out),
-      n, w);
-  return static_cast<int>(cudaGetLastError());
+                               int vec_bytes, void* stream) {
+  if (n == 0 || w == 0) return cudaSuccess;
+  if (vec_bytes <= 0 || (4 * w) % vec_bytes) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* i = static_cast<const int*>(idx);
+  const int vpr = 4 * w / vec_bytes;
+  switch (vec_bytes) {
+    case 16: return launch_scatter_rmw<float4>(i, upd, out, n, vpr, s);
+    case 8: return launch_scatter_rmw<float2>(i, upd, out, n, vpr, s);
+    case 4: return launch_scatter_rmw<float>(i, upd, out, n, vpr, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // P4.  out: a zeroed fp32 (t, w) table; tile_n > 0; shared_table: whether

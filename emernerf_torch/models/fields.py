@@ -4,10 +4,12 @@ train paths.
 ``RadianceField``: the static grid field; the dynamic and flow grids, fused
 into one 4D grid (per level the lanes are ``[dyn F_d | flow F_f]``, the
 brick profile's default) or separate (``dynamic_table`` and ``flow_table``,
-the reference-exact hash profile); the flow MLP; temporal aggregation of
+the reference-semantics profiles); the flow MLP; temporal aggregation of
 flow-warped features (Eq. 8), on all samples or, fused, on the K most
-dynamic samples per ray; the shared RGB head, shadow and sky heads, and the
-appearance embedding with its mean-embedding fallback.  ``DensityField``:
+dynamic samples per ray; or the dynamic grid alone, without flow or
+aggregation (``configs/default_dynamic.yaml``); the shared RGB head, shadow
+and sky heads, and the appearance embedding with its mean-embedding
+fallback.  ``DensityField``:
 the proposal network.  Every grid is a brick grid (K1) or an exact hash
 grid (K4), by its spec's type.
 
@@ -17,8 +19,8 @@ noise (a tensor of uniform draws instead of 1) and ``return_density_only``
 for the lidar render.  The flow-warped 4D queries are the grid queries
 whose positions carry a gradient (they depend on the flow MLP).  The config
 knobs the port does not take (feature head, spherical-harmonics directions,
-temporal interpolation, fine-level skipping, a dynamic branch without the
-flow branch) raise in ``emernerf_torch/builders.py``.
+temporal interpolation, fine-level skipping, the flow branch without the
+dynamic branch) raise in ``emernerf_torch/builders.py``.
 """
 
 from __future__ import annotations
@@ -87,9 +89,8 @@ class RadianceField(nn.Module):
                  table_dtype=torch.float32, table_param_dtype=torch.float32,
                  mlp_dtype=torch.float32, device=None, generator=None):
         super().__init__()
-        if (dynamic_spec is None) != (flow_spec is None):
-            raise NotImplementedError(
-                "the dynamic and flow branches are ported together only")
+        if flow_spec is not None and dynamic_spec is None:
+            raise NotImplementedError("the flow branch needs the dynamic branch")
         self.static_spec = static_spec
         self.dynamic_spec = dynamic_spec
         self.flow_spec = flow_spec
@@ -122,10 +123,12 @@ class RadianceField(nn.Module):
             else:
                 self.dynamic_table = nn.Parameter(
                     init_grid_table(dynamic_spec, table_param_dtype, **tkw))
-                self.flow_table = nn.Parameter(
-                    init_grid_table(flow_spec, table_param_dtype, **tkw))
+                if self.has_flow:
+                    self.flow_table = nn.Parameter(
+                        init_grid_table(flow_spec, table_param_dtype, **tkw))
             self.dynamic_base_mlp = Sequential64(
                 dynamic_spec.n_output_dims, (base_mlp_layer_width, gf), **kw)
+        if self.has_flow:
             # 3 layers of base width -> 6 (fwd + bwd flow), no final activation
             flow_levels = (dynamic_spec if self.fused else flow_spec).n_levels
             self.flow_mlp = Sequential64(
@@ -158,9 +161,14 @@ class RadianceField(nn.Module):
         return self.dynamic_spec is not None
 
     @property
+    def has_flow(self) -> bool:
+        return self.flow_spec is not None
+
+    @property
     def fused(self) -> bool:
-        """One fused dynamic+flow grid (else separate dynamic and flow grids)."""
-        return self.fuse_flow_grid and self.has_dynamic
+        """One fused dynamic+flow grid (else separate dynamic and flow grids,
+        or the dynamic grid alone)."""
+        return self.fuse_flow_grid and self.has_dynamic and self.has_flow
 
     def contract_points(self, positions):
         return _contract(positions, self.aabb, self.unbounded)
@@ -318,6 +326,28 @@ class RadianceField(nn.Module):
             "agg_mask": mask,
         }
 
+    def _flow_and_aggregation(self, positions, normed_positions, t, agg_noise, results):
+        """The flow query and the temporal aggregation: puts the flows (and
+        the aggregation's outputs) into ``results`` and returns the
+        aggregated dynamic features."""
+        if self.fused:
+            dyn_enc, flow_enc = self._dynflow_encode(normed_positions, t)
+            cur_feats = self.dynamic_base_mlp(dyn_enc)
+            flow = self.flow_mlp(flow_enc)
+        else:
+            # the current-time dynamic query is batched inside
+            # temporal_aggregation with the two warped ones
+            cur_feats = None
+            flow = self.forward_flow_hash(normed_positions, t)
+        forward_flow, backward_flow = flow[..., :3], flow[..., 3:]
+        results["forward_flow"] = forward_flow
+        results["backward_flow"] = backward_flow
+        agg = self.temporal_aggregation(positions, normed_positions, t, forward_flow,
+                                        backward_flow, cur_feats, agg_noise)
+        dynamic_feats = agg.pop("dynamic_feats")
+        results.update(agg)
+        return dynamic_feats
+
     # ------------------------------------------------------------------ #
     def forward(self, positions: torch.Tensor, directions: Optional[torch.Tensor] = None,
                 data: Optional[Dict[str, torch.Tensor]] = None,
@@ -325,7 +355,8 @@ class RadianceField(nn.Module):
                 agg_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One field query; positions and directions are (R, S, 3).
         ``agg_noise`` (R, S, 1): training-time aggregation noise (None at
-        eval); ``return_density_only``: densities (and flow) only."""
+        eval; unused without the flow branch); ``return_density_only``:
+        densities (and flow) only."""
         data = data or {}
         results: Dict[str, torch.Tensor] = {}
         encoded, normed_positions = self.forward_static_hash(positions)
@@ -334,22 +365,12 @@ class RadianceField(nn.Module):
 
         if self.has_dynamic and "normed_timestamps" in data:
             t = data["normed_timestamps"]
-            if self.fused:
-                dyn_enc, flow_enc = self._dynflow_encode(normed_positions, t)
-                cur_feats = self.dynamic_base_mlp(dyn_enc)
-                flow = self.flow_mlp(flow_enc)
+            if self.has_flow:
+                dynamic_feats = self._flow_and_aggregation(positions, normed_positions, t,
+                                                           agg_noise, results)
             else:
-                # the current-time dynamic query is batched inside
-                # temporal_aggregation with the two warped ones
-                cur_feats = None
-                flow = self.forward_flow_hash(normed_positions, t)
-            forward_flow, backward_flow = flow[..., :3], flow[..., 3:]
-            results["forward_flow"] = forward_flow
-            results["backward_flow"] = backward_flow
-            agg = self.temporal_aggregation(positions, normed_positions, t, forward_flow,
-                                            backward_flow, cur_feats, agg_noise)
-            dynamic_feats = agg.pop("dynamic_feats")
-            results.update(agg)
+                # the dynamic grid alone: no flow, no aggregation
+                dynamic_feats, _ = self.forward_dynamic_hash(normed_positions, t)
 
             dynamic_geo_feats = dynamic_feats[..., : self.geometry_feature_dim]
             dynamic_density = density_activation(dynamic_geo_feats[..., 0])

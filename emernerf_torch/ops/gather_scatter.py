@@ -6,7 +6,8 @@ repository that reach ``pl.pallas_call``:
 - P1 :func:`row_gather_loop` (``perf/pallas_experiments.py:60``) and P2
   :func:`row_gather_take` (``:94``): ``out[i] = table[idx[i]]``;
 - P3 :func:`scatter_add_rmw` (``:124``): ``out[idx[i]] += upd[i]`` into a
-  zeroed fp32 table, whole tiles of 2048 rows only, as the TPU grid;
+  zeroed fp32 table, whole tiles of 2048 rows only, as the TPU grid
+  (:func:`p3_plan` picks its vector width on the card);
 - P4 :func:`scatter_add_onehot` (``perf/bench_scatter_alts.py:196``): the
   function of a one-hot product with bf16 operands and fp32 accumulation,
   i.e. the scatter-add of the bf16-rounded updates, computed on the card
@@ -132,18 +133,34 @@ def row_gather_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 row_gather_take.launches = 0
 
 
+def p3_plan(w: int, upd_ptr: int, out_ptr: int) -> int:
+    """P3's vector width on the card in bytes for fp32 rows of ``w``: the
+    widest of 16, 8 and 4 that divides the row and the alignment of both
+    pointers."""
+    row_bytes = 4 * w
+    for v in (16, 8, 4):
+        if row_bytes % v == 0 and upd_ptr % v == 0 and out_ptr % v == 0:
+            return v
+    raise ValueError("scatter_add_rmw: rows and pointers must be 4-byte aligned")
+
+
 def scatter_add_rmw(idx: torch.Tensor, upd: torch.Tensor, t: int) -> torch.Tensor:
-    """P3: the (t, w) fp32 sum of the update rows at their indices, by
-    atomics on the card.  Takes whole tiles of 2048 rows, as the TPU grid."""
+    """P3: the (t, w) fp32 sum of the update rows at their indices, on the
+    card a warp per 32 update rows with the vector reductions
+    :func:`p3_plan` picks.  Takes whole tiles of 2048 rows, as the TPU
+    grid."""
     name = "scatter_add_rmw"
     _check_scatter(name, idx, upd, TILE)
     if kernels.dispatch_device(name, upd) == "cpu":
         return scatter_add_plain(idx, upd, t)
     kernels.require_cuda_inputs(name, idx, upd)
     _check_range(name, idx, t)
-    out = torch.zeros((t, upd.shape[1]), dtype=torch.float32, device=upd.device)
-    err = kernels.load().emt_scatter_rmw(idx.data_ptr(), upd.data_ptr(), out.data_ptr(),
-                                         upd.shape[0], upd.shape[1],
+    n, w = upd.shape
+    out = torch.zeros((t, w), dtype=torch.float32, device=upd.device)
+    if out.numel() == 0:
+        return out
+    err = kernels.load().emt_scatter_rmw(idx.data_ptr(), upd.data_ptr(), out.data_ptr(), n, w,
+                                         p3_plan(w, upd.data_ptr(), out.data_ptr()),
                                          kernels.stream_ptr(upd.device))
     kernels.check(err, name)
     scatter_add_rmw.launches += 1

@@ -162,7 +162,7 @@ class Trainer:
     # ---------------------------------------------------------------- #
     def _branch_draws(self, lidar: bool, full: bool = False):
         kw = self.train_step.render_kw(lidar, full)
-        return draw_step(self.ray_batch_size, kw, self.model.has_dynamic, self.generator,
+        return draw_step(self.ray_batch_size, kw, self.model.has_flow, self.generator,
                          self.device)
 
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:

@@ -21,8 +21,10 @@ from emernerf_tpu.ops.brickgrid import BrickGridSpec as JaxSpec
 from emernerf_tpu.ops.brickgrid import brickgrid_encode as jax_encode
 from emernerf_tpu.ops.brickgrid import _level_constants as jax_level_constants
 from emernerf_tpu.ops.brickgrid import brickgrid_encode_ref as jax_encode_ref
+from emernerf_tpu.ops.grid import grid_encode as jax_grid_encode
 from emernerf_torch import builders, kernels
-from emernerf_torch.flagship import flagship_config
+from emernerf_torch.flagship import REFERENCE_BRICK, build_flagship, flagship_config
+from emernerf_torch.ops.grid import grid_encode
 from emernerf_torch.ops.brickgrid import (
     BrickGridSpec,
     brickgrid_encode,
@@ -339,6 +341,43 @@ def test_flagship_spec_geometry_matches_jax(name):
     want_shapes = {"static": (1_310_720, 108), "dynflow": (327_680, 432),
                    "prop0": (131_072, 125), "prop1": (131_072, 125)}
     assert ours.table_shape == want_shapes[name]
+
+
+@pytest.mark.parametrize("grid", ["dynamic", "flow"])
+def test_reference_brick_warped_queries_match_jax_vjp(grid):
+    """The tiny reference-brick flagship's separate dynamic and flow grids
+    (unpaired 4D rows: two gathers per (point, level)) at flow-warped
+    queries, as the unfused temporal aggregation makes them: positions
+    anywhere in the unit cube (zeroed outside it), times moved by the frame
+    step and clamped to exactly 0 or 1.  The port's grid_encode forward and
+    its autograd VJP (table and position gradients, the latter only for
+    warped queries) against JAX's grid_encode and its VJP with position
+    gradients; tolerances as test_encode_ref_matches_jax and
+    test_bwd_ref_matches_jax_vjp."""
+    cfg, _, model, _, _ = build_flagship(tiny=True, profile=REFERENCE_BRICK, device="cpu")
+    tspec = getattr(model, f"{grid}_spec")
+    assert tspec.has_time and not tspec.uses_time_pair and not model.fused
+    jspec = JaxSpec(**dataclasses.asdict(tspec))
+    rng = np.random.default_rng(80 + len(grid))
+    table = rng.uniform(-1.0, 1.0, tspec.table_shape).astype(np.float32)
+    n = 512
+    xyz = rng.uniform(-0.1, 1.1, (n, 3))
+    xyz *= np.all((xyz >= 0) & (xyz <= 1), axis=-1, keepdims=True)  # contract_points' zeroing
+    t = np.clip(rng.uniform(0, 1, (n, 1)) + rng.choice([-0.5, 0.0, 0.5], (n, 1)), 0.0, 1.0)
+    pos = np.concatenate([xyz, t], -1).astype(np.float32)
+    assert (pos[:, 3] == 0).any() and (pos[:, 3] == 1).any()
+    cot = rng.normal(size=(n, tspec.n_output_dims)).astype(np.float32)
+    tt = torch.from_numpy(table).requires_grad_(True)
+    tx = torch.from_numpy(pos).requires_grad_(True)
+    ours = grid_encode(tt, tx, tspec, torch.float32)
+    d_t, d_x = torch.autograd.grad(ours, [tt, tx], torch.from_numpy(cot))
+    ref, vjp = jax.vjp(lambda a, x: jax_grid_encode(a, x, jspec, True), jnp.asarray(table),
+                       jnp.asarray(pos))
+    ref_t, ref_x = (np.asarray(g) for g in vjp(jnp.asarray(cot)))
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(d_t.numpy(), ref_t, rtol=0, atol=1e-5 * np.abs(ref_t).max())
+    np.testing.assert_allclose(d_x.numpy(), ref_x, rtol=0, atol=1e-6 * np.abs(ref_x).max())
+    assert np.abs(ref_x[:, :3]).max() > 1.0  # the position gradient is exercised
 
 
 def test_wrapper_checks_and_non_cuda_devices():

@@ -58,7 +58,7 @@ def bf16_moments(monkeypatch):
 
 def _trainer(seed=0):
     cfg = flagship_config(tiny=True, overrides=[f"optim.seed={seed}"])
-    return Trainer(cfg, device="cpu", flow=flagship_flow_spec(tiny=True))
+    return Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
 
 
 def _tensors(state):

@@ -1,14 +1,16 @@
 """Host-side helpers of ``chip_smoke.py`` that size and explain its
 measurements: the ray-ordered sample batches, the count of distinct rows
 (and runs of equal rows) per warp that K4 backward's warp merge acts on,
-the shares of a training profile, and the census of casts of tensors the
-size of a grid table."""
+the shares of a training profile, the census of casts of tensors the
+size of a grid table, and the grid specs and queries phases 9 and 10
+check K1 on."""
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from emernerf_torch.flagship import DYNAMIC, REFERENCE_BRICK, build_flagship
 from emernerf_torch.ops.hashgrid import HashGridSpec, _level_geometry, level_constants
 
 
@@ -106,3 +108,55 @@ def test_remade_makes_its_inputs_on_first_use_and_once():
     assert torch.equal(run(), torch.tensor([0.0, 2.0, 4.0]))
     assert torch.equal(run(), torch.tensor([0.0, 2.0, 4.0]))
     assert made == [1]
+
+
+def _tiny_flagship_config(monkeypatch):
+    import emernerf_torch.flagship as fl
+
+    full = fl.flagship_config
+    monkeypatch.setattr(fl, "flagship_config",
+                        lambda tiny=False, overrides=(), profile=fl.DEFAULT_PROFILE:
+                        full(True, overrides, profile))
+
+
+def test_reference_brick_specs_are_the_built_models_unpaired_grids(monkeypatch):
+    """Phase 10's K1 shapes are those of the reference-brick model the
+    trainer builds: separate dynamic and flow grids of unpaired 4D rows
+    (compared at the tiny size, which keeps make_grid_spec's row pairing)."""
+    _tiny_flagship_config(monkeypatch)
+    specs = chip_smoke.profile_specs(REFERENCE_BRICK)
+    _, _, model, _, _ = build_flagship(tiny=True, profile=REFERENCE_BRICK, device="cpu")
+    assert specs["dynamic"] == model.dynamic_spec
+    for spec in specs.values():
+        assert spec.has_time and not spec.uses_time_pair
+    # the flow grid's structure is fixed (the tiny model's is shrunk)
+    assert (specs["flow"].n_levels, specs["flow"].n_features_per_level) == (10, 4)
+
+
+def test_dynamic_specs_are_the_built_models_paired_dynamic_grid(monkeypatch):
+    """Phase 9's K1 shapes are those of the dynamic-only model: its dynamic
+    grid alone, of paired 4D rows."""
+    _tiny_flagship_config(monkeypatch)
+    specs = chip_smoke.profile_specs(DYNAMIC)
+    _, _, model, _, _ = build_flagship(tiny=True, profile=DYNAMIC, device="cpu")
+    assert list(specs) == ["dynamic"] and model.flow_spec is None
+    assert specs["dynamic"] == model.dynamic_spec and specs["dynamic"].uses_time_pair
+
+
+@pytest.mark.parametrize("flow", [False, True], ids=["no_flow", "flow"])
+def test_profile_grid_cases_split_the_ray_batch_as_the_fields_query_it(flow):
+    """Without flow the dynamic grid takes the current samples only; with
+    flow the dynamic grid takes the whole [current; +warp; -warp] batch
+    with position gradients, the flow grid the current third, then the
+    warped two thirds with position gradients."""
+    g = torch.Generator().manual_seed(0)
+    _, xyzt = chip_smoke.ray_batches("cpu", g, 4, 8)
+    specs = {"dynamic": None, **({"flow": None} if flow else {})}
+    cases = chip_smoke.profile_grid_cases(specs, xyzt, 32)
+    got = [(name, pos.shape[0], pos_grad) for name, pos, pos_grad in cases]
+    if flow:
+        assert got == [("dynamic", 96, True), ("flow", 32, False), ("flow", 64, True)]
+        assert torch.equal(cases[2][1], xyzt[32:])
+    else:
+        assert got == [("dynamic", 32, False)]
+    assert torch.equal(cases[0][1][:32], xyzt[:32])

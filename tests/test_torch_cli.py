@@ -101,6 +101,41 @@ def test_cli_train_eval_and_eval_only(tmp_path):
     assert rerun["lowres/psnr"] == pytest.approx(results["lowres/psnr"], rel=1e-6)
 
 
+# the dynamic grid at the tiny sizes of the static one
+TINY_DYNAMIC = ["nerf.model.dynamic_xyz_encoder.n_levels=4",
+                "nerf.model.dynamic_xyz_encoder.log2_hashmap_size=12",
+                "nerf.model.dynamic_xyz_encoder.max_resolution=128"]
+
+
+@pytest.mark.parametrize("config_file,extra", [
+    ("configs/default_dynamic.yaml", []),
+    # the flow grid's spec is fixed (10 levels, 2^18 cells): unpaired rows
+    ("configs/reference_semantics.yaml", ["nerf.model.head.enable_dynamic_branch=true",
+                                          "nerf.model.head.enable_flow_branch=true"]),
+], ids=["default_dynamic", "reference_semantics"])
+def test_cli_trains_and_evaluates_a_stock_config(tmp_path, config_file, extra):
+    """``--config_file`` of the stock dynamic-only config and of the
+    reference-semantics profile on brick grids: 2 iterations and the
+    evaluation; the dynamic-only model has no flow."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    trainer = main(_argv(tmp_path, "cfg", "--config_file", os.path.join(repo, config_file))
+                   + TINY_OVERRIDES + TINY_DYNAMIC + NO_EVAL + extra
+                   + ["optim.num_iters=1", "logging.print_freq=1"])
+    model = trainer.model
+    assert trainer.state.step == 2 and model.has_dynamic and not model.fused
+    assert model.has_flow == ("reference" in config_file)
+    if model.has_flow:
+        assert not model.dynamic_spec.uses_time_pair and not model.flow_spec.uses_time_pair
+    records = [json.loads(x) for x in (tmp_path / "p" / "cfg" / "metrics.json")
+               .read_text().splitlines()]
+    assert records and np.isfinite(records[-1]["dynamic_reg_loss"])
+    assert ("cycle_loss" in records[-1]) == model.has_flow
+    rays, _ = trainer.dataset.get_image_rays(0, downscale=4)
+    out = trainer.renderer.render_rays_chunked(rays)
+    assert ("forward_flow" in out) == model.has_flow and "dynamic_rgb" in out
+    assert all(np.isfinite(v).all() for v in out.values())
+
+
 def test_cli_eval_only_needs_a_checkpoint(tmp_path):
     with pytest.raises(FileNotFoundError, match="needs a checkpoint"):
         main(_argv(tmp_path, "none", "--eval_only") + TINY_OVERRIDES)
@@ -131,7 +166,7 @@ def test_cli_auto_resume_continues_and_keeps_checkpointing(tmp_path):
 def _tiny_trainer(tmp_path, *overrides):
     cfg = flagship_config(tiny=True, overrides=["optim.num_iters=50", "logging.print_freq=10",
                                                 "logging.saveckpt_freq=0", *overrides])
-    return Trainer(cfg, str(tmp_path), device="cpu", flow=flagship_flow_spec(tiny=True))
+    return Trainer(cfg, str(tmp_path), device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
 
 
 def test_preemption_saves_checkpoint_and_exits_cleanly(tmp_path, monkeypatch, _signal_handlers):
@@ -189,7 +224,7 @@ def test_unported_flags_raise(tmp_path, flag):
 def test_unported_settings_raise(key):
     cfg = flagship_config(tiny=True, overrides=[f"{key}=true"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, device="cpu", flow=flagship_flow_spec(tiny=True))
+        Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
 
 
 def test_log_every_reports_wall_clock(tmp_path):

@@ -1,7 +1,10 @@
 """Port parity: emernerf_torch fields against emernerf_tpu fields, eval path,
 on the CPU in fp32: the tiny flagship (brick grids, fused dynamic+flow
 grid), its reference-hash profile (exact hash grids, separate dynamic and
-flow grids) and its brick profile with unfused grids.
+flow grids), its brick profile with unfused grids, the dynamic-only profile
+(``configs/default_dynamic.yaml``: no flow) and the reference-semantics
+profile on brick grids (separate dynamic and flow grids of unpaired 4D
+rows, every sample flow-warped).
 
 The JAX params come from ``init_train_state`` on the tiny flagship with
 fp32 tables and MLPs, go through ``emernerf_torch.convert`` and are loaded
@@ -26,10 +29,13 @@ from emernerf_torch.builders import validate_cfg
 from emernerf_torch.convert import load_jax_params, state_dict_from_jax
 from emernerf_torch.flagship import (
     DEFAULT_PROFILE,
+    DYNAMIC,
+    REFERENCE_BRICK,
     REFERENCE_HASH,
     build_flagship,
     flagship_config,
 )
+from emernerf_torch.ops.brickgrid import BrickGridSpec
 from emernerf_torch.ops.hashgrid import HashGridSpec
 
 FP32 = ["nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32"]
@@ -95,6 +101,16 @@ def hash_pair():
 @pytest.fixture(scope="module")
 def unfused_pair():
     return _make_pair(overrides=["nerf.model.fuse_flow_grid=false"])
+
+
+@pytest.fixture(scope="module")
+def dynamic_pair():
+    return _make_pair(DYNAMIC)
+
+
+@pytest.fixture(scope="module")
+def reference_brick_pair():
+    return _make_pair(REFERENCE_BRICK)
 
 
 def _radiance_matches(p, seed, topk=None):
@@ -193,6 +209,32 @@ def test_brick_unfused_radiance_field_matches_jax(unfused_pair):
     _radiance_matches(unfused_pair, 9)
 
 
+def test_dynamic_only_radiance_field_matches_jax(dynamic_pair):
+    """The dynamic grid alone: no flow grid, flow MLP or aggregation; the
+    JAX tree carries across unchanged."""
+    tmodel = dynamic_pair["tmodel"]
+    assert tmodel.has_dynamic and not tmodel.has_flow and not tmodel.fused
+    sd = state_dict_from_jax(dynamic_pair["params"])
+    assert set(sd) == set(tmodel.state_dict())
+    assert "dynamic_table" in sd and not any(k.startswith(("flow", "dynflow")) for k in sd)
+    ours, _ = _radiance_matches(dynamic_pair, 10)
+    assert {"dynamic_rgb", "shadow_ratio", "dynamic_density"} <= set(ours)
+    assert not {"forward_flow", "backward_flow", "agg_mask"} & set(ours)
+
+
+def test_reference_brick_radiance_field_matches_jax(reference_brick_pair):
+    """Separate dynamic and flow brick grids of unpaired 4D rows, every
+    sample flow-warped."""
+    tmodel = reference_brick_pair["tmodel"]
+    assert not tmodel.fused and tmodel.temporal_agg_topk == 0
+    for spec in (tmodel.dynamic_spec, tmodel.flow_spec):
+        assert isinstance(spec, BrickGridSpec) and spec.has_time and not spec.uses_time_pair
+    assert tmodel.dynamic_table.shape == tmodel.dynamic_spec.table_shape
+    assert set(state_dict_from_jax(reference_brick_pair["params"])) == set(tmodel.state_dict())
+    ours, _ = _radiance_matches(reference_brick_pair, 11)
+    assert "forward_flow" in ours and "agg_mask" not in ours
+
+
 def test_appearance_mean_embedding_fallback(pair):
     tmodel = pair["tmodel"]
     pos, dirs, data = _inputs(pair["dataset"], seed=3)
@@ -212,9 +254,8 @@ def test_appearance_mean_embedding_fallback(pair):
     "nerf.propnet.fine_level_skip=1",
     "render.eval_sample_topk=16",
     "nerf.model.perf.scatter_mode=flat",
-    "nerf.model.perf.time_pair=false",
     "nerf.model.perf.gather_mode=1d",
-    "nerf.model.head.enable_flow_branch=false",
+    "nerf.model.head.enable_dynamic_branch=false",  # the flow branch stays on
     "nerf.model.head.enable_feature_head=true",
     "nerf.model.head.direction_encoding=sh",
     "nerf.model.head.enable_temporal_interpolation=true",
@@ -225,12 +266,16 @@ def test_unported_knob_raises(knob):
         validate_cfg(flagship_config(tiny=True, overrides=[knob]))
 
 
-def test_reference_profiles_validate():
-    """The reference-hash profile and unfused brick grids are ported; with
-    the hash grid, fine-level skipping raises the JAX package's ValueError."""
-    validate_cfg(flagship_config(profile=REFERENCE_HASH))
-    validate_cfg(flagship_config(tiny=True, profile=REFERENCE_HASH))
-    validate_cfg(flagship_config(tiny=True, overrides=["nerf.model.fuse_flow_grid=false"]))
-    with pytest.raises(ValueError, match="requires grid_backend=brick"):
-        validate_cfg(flagship_config(overrides=["nerf.propnet.fine_level_skip=1"],
-                                     profile=REFERENCE_HASH))
+@pytest.mark.parametrize("profile", [REFERENCE_HASH, DYNAMIC, REFERENCE_BRICK],
+                         ids=["reference_hash", "dynamic", "reference_brick"])
+def test_reference_profiles_validate(profile):
+    """The reference-hash, dynamic-only and reference-brick profiles and
+    unfused brick grids are ported; with the hash grid, fine-level skipping
+    raises the JAX package's ValueError."""
+    validate_cfg(flagship_config(profile=profile))
+    validate_cfg(flagship_config(tiny=True, profile=profile))
+    if profile is REFERENCE_HASH:
+        validate_cfg(flagship_config(tiny=True, overrides=["nerf.model.fuse_flow_grid=false"]))
+        with pytest.raises(ValueError, match="requires grid_backend=brick"):
+            validate_cfg(flagship_config(overrides=["nerf.propnet.fine_level_skip=1"],
+                                         profile=REFERENCE_HASH))

@@ -28,6 +28,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from emernerf_torch.ops import gather_scatter as gs
 from emernerf_torch.perf import bench_scatter_alts as bsa
+from emernerf_torch.perf import bench_scatter_rmw
 from emernerf_torch.perf import pallas_experiments as pe
 from perf.pallas_experiments import gather_loop_kernel, gather_take_kernel
 
@@ -189,6 +190,42 @@ def test_p1_plan_picks_the_widest_aligned_vector(elem_bytes, table_offset, out_o
         gs.p1_plan(3, table_ptr, out_ptr)
 
 
+@pytest.mark.parametrize("upd_offset", [0, 4, 8])
+@pytest.mark.parametrize("out_offset", [0, 4, 8])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 6, 128, 130])
+def test_p3_plan_picks_the_widest_aligned_vector(w, upd_offset, out_offset):
+    """P3's vector width for fp32 rows of w with the update and table
+    pointers offset by 0, 4 or 8 bytes: it divides the row and both
+    alignments, and no wider width of 16, 8, 4 does."""
+    upd_ptr, out_ptr = _BASE_PTR + upd_offset, _BASE_PTR + out_offset
+    v = gs.p3_plan(w, upd_ptr, out_ptr)
+    ok = [u for u in (16, 8, 4) if (4 * w) % u == 0 and upd_ptr % u == 0 and out_ptr % u == 0]
+    assert v == max(ok)
+    if (w, upd_offset, out_offset) == (128, 0, 0):
+        assert v == 16  # the probe's rows: float4 reductions
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        gs.p3_plan(w, upd_ptr + 2, out_ptr)
+
+
+@pytest.mark.parametrize("w", [1, 3, 6, 128, 130])
+def test_scatter_add_rmw_matches_numpy_add_at(w):
+    """P3 on the CPU (its plain version) and the plain version itself
+    against numpy's unbuffered ``np.add.at`` on numpy-seeded inputs (two
+    tiles of 2048 rows, repeated indices), in float64 as the reference:
+    within 1e-6 of the largest |value|."""
+    rng = np.random.default_rng(60 + w)
+    t, n = 97, 2 * gs.TILE
+    idx = rng.integers(0, t, n).astype(np.int32)
+    upd = rng.normal(size=(n, w)).astype(np.float32)
+    ref = np.zeros((t, w))
+    np.add.at(ref, idx, upd.astype(np.float64))
+    ti, tu = torch.from_numpy(idx), torch.from_numpy(upd)
+    ours, plain = gs.scatter_add_rmw(ti, tu, t), gs.scatter_add_plain(ti, tu, t)
+    assert ours.dtype == torch.float32 and ours.shape == (t, w)
+    for got in (ours, plain):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("t,w,route", [
     (512, 108, "shared_table"),  # 221,184 bytes: fits one block's shared memory
     (4096, 108, "red"),
@@ -248,3 +285,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
         pe.main(["--quick"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bsa.main(["--case", "pallas"])
+
+
+def test_p3_shapes_start_at_the_probe_entry_shape_and_make_their_views():
+    """The P3 shapes that the bench times and chip_smoke.py phase 7 checks:
+    the first is the probe entry point's (n = 2^22 rows of 128 into 2^13
+    table rows); each case's inputs have its width, its update offset and,
+    where asked, every index 0."""
+    assert bench_scatter_rmw.SHAPES[0] == (pe.N, 128, 0, False) and bench_scatter_rmw.T == 1 << 13
+    for n, w, offset, equal in [(64, 3, 1, False), (64, 128, 0, True)]:
+        idx, upd = bench_scatter_rmw.make_inputs("cpu", n, w, offset, equal)
+        assert idx.dtype == torch.int32 and upd.shape == (n, w) and upd.is_contiguous()
+        assert upd.storage_offset() == offset
+        assert bool((idx == 0).all()) == equal and int(idx.max()) < bench_scatter_rmw.T

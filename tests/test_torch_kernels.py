@@ -926,6 +926,38 @@ def test_scatter_add_kernels_match_plain(cuda, t, w, tile_n):
         torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
 
 
+# (n, w, element offset of the update view, every index 0): the probe's
+# shape, odd widths (the float and float2 instances; a warp's run of 32
+# rows of 130 floats ends inside a step of 8 vectors per lane), update
+# views at a 4- and 8-byte offset (p3_plan narrows), and the worst
+# contention
+_P3_CASES = [(1 << 22, 128, 0, False), (1 << 14, 1, 0, False), (1 << 14, 3, 0, False),
+             (1 << 14, 6, 0, False), (6144, 130, 0, False), (1 << 16, 128, 1, False),
+             (1 << 16, 128, 2, False), (1 << 16, 6, 1, False), (4096, 128, 0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,offset,equal", _P3_CASES)
+def test_scatter_rmw_widths_offsets_and_contention(cuda, n, w, offset, equal):
+    """P3 (a warp per 32 update rows, vector reductions of the width
+    p3_plan picks) against index_add_ into zeros: fp32 sums in another
+    order, within 1e-5 of the largest |value|; one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(50 + w)
+    t = 1 << 13
+    idx = torch.randint(0, t, (n,), device=cuda, generator=g, dtype=torch.int32)
+    if equal:
+        idx.zero_()
+    upd = torch.randn((n * w + offset,), device=cuda, generator=g)[offset:].view(n, w)
+    out = torch.zeros((t, w), device=cuda)
+    assert gs.p3_plan(w, upd.data_ptr(), out.data_ptr()) == max(
+        v for v in (16, 8, 4) if (4 * w) % v == 0 and (4 * offset) % v == 0)
+    before = gs.scatter_add_rmw.launches
+    out = gs.scatter_add_rmw(idx, upd, t)
+    assert gs.scatter_add_rmw.launches == before + 1
+    ref = gs.scatter_add_plain(idx, upd, t)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
 # (t, w, rows): a table that fits shared memory (221,184 bytes), one that
 # does not (259,200 bytes), the largest probe table, every update row on
 # one table row on each side of the limit, w not a multiple of 4

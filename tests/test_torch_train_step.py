@@ -1,13 +1,17 @@
 """Port parity for the training step: ``emernerf_tpu.train.step`` and
 ``emernerf_torch.train.step`` take the same iterations on the tiny flagship
 on the CPU in fp32, from the same params, batches and random draws; and one
-iteration of the tiny flagship's reference-hash profile (exact hash grids,
-separate dynamic and flow grids, every sample shaded and flow-warped).
+iteration of each of the tiny flagship's other profiles: reference-hash
+(exact hash grids, separate dynamic and flow grids, every sample shaded and
+flow-warped), reference-brick (the same on brick grids of unpaired 4D rows)
+and dynamic-only (``configs/default_dynamic.yaml``: no flow, no cycle loss,
+no aggregation noise drawn).
 
 The draws: the jitted JAX step runs with ``jax.random.uniform`` wrapped,
 in this test only, so that every draw it makes is passed out through a
 debug callback in program order (per branch: three stratified jitters, the
-top-K Gumbel uniforms, the aggregation noise); the port's ``StepDraws``
+top-K Gumbel uniforms, the aggregation noise where there is flow); the
+port's ``StepDraws``
 take the recorded arrays.  The gradients handed to ``apply_update`` are
 recorded the same way on the JAX side and by wrapping ``apply_update`` on
 the port's side.
@@ -59,7 +63,13 @@ from emernerf_tpu.flagship import build_flagship as jax_build_flagship
 from emernerf_tpu.train.step import build_train_step as jax_build_train_step
 from emernerf_tpu.train.step import init_train_state as jax_init_train_state
 from emernerf_torch.convert import load_jax_params, state_dict_from_jax
-from emernerf_torch.flagship import DEFAULT_PROFILE, REFERENCE_HASH, build_flagship
+from emernerf_torch.flagship import (
+    DEFAULT_PROFILE,
+    DYNAMIC,
+    REFERENCE_BRICK,
+    REFERENCE_HASH,
+    build_flagship,
+)
 from emernerf_torch.train.state import init_train_state
 from emernerf_torch.train.step import StepDraws, build_train_step
 
@@ -122,7 +132,8 @@ def _draws(recorded, lidar: bool, step_cfg):
     n_jit = len(step_cfg.prop_samples) + 1
     jit, rest = t[:n_jit], t[n_jit:]
     topk_u = rest.pop(0) if prune and step_cfg.sample_topk_temp > 0 else None
-    (agg,) = rest
+    agg = rest.pop(0) if step_cfg.has_flow else None  # drawn by the aggregation
+    assert not rest
     return StepDraws(tuple(jit), topk_u, agg)
 
 
@@ -200,6 +211,16 @@ def jax_side(taps):
 @pytest.fixture(scope="module")
 def hash_jax_side(taps):
     return _jax_side(taps, REFERENCE_HASH, FP32 + HASH_WIDE)
+
+
+@pytest.fixture(scope="module")
+def dynamic_jax_side(taps):
+    return _jax_side(taps, DYNAMIC, FP32 + WIDE)
+
+
+@pytest.fixture(scope="module")
+def reference_brick_jax_side(taps):
+    return _jax_side(taps, REFERENCE_BRICK, FP32 + HASH_WIDE)
 
 
 class Pair:
@@ -303,6 +324,33 @@ def test_reference_hash_iteration_matches_jax(hash_jax_side, monkeypatch):
     jm, tm, jgrads, tgrads = pair.run(pb, lb, True, True, seed=7, monkeypatch=monkeypatch)
     _assert_losses_close(tm, jm)
     assert jm["prop_loss"] > 0 and jm["cycle_loss"] > 0
+    order = ["prop", "model", "prop", "model"]
+    assert len(jgrads) == len(tgrads) == len(order)
+    for kind, jg, tg in zip(order, jgrads, tgrads):
+        _assert_grads_close(_named(jg, kind == "prop"), tg,
+                            pair.prop_names if kind == "prop" else pair.names)
+
+
+@pytest.mark.parametrize("side", ["dynamic_jax_side", "reference_brick_jax_side"],
+                         ids=["dynamic", "reference_brick"])
+def test_profile_iteration_matches_jax(side, request, monkeypatch):
+    """One iteration of the dynamic-only profile (top-K pruning, no flow:
+    no cycle loss) and of the reference-brick profile (separate dynamic
+    and flow brick grids of unpaired 4D rows, every sample shaded and
+    flow-warped), both branches with proposal gradients: every loss and
+    every gradient handed to Adam."""
+    pair = Pair(request.getfixturevalue(side))
+    model, cfg = pair.tstate.model, pair.tstep.cfg
+    if side == "dynamic_jax_side":
+        assert not model.has_flow and not cfg.has_flow and cfg.sample_topk == 6
+    else:
+        assert model.has_flow and not model.fused and cfg.sample_topk == 0
+        assert not model.dynamic_spec.uses_time_pair and not model.flow_spec.uses_time_pair
+    pb, lb = pair.batches(0)
+    jm, tm, jgrads, tgrads = pair.run(pb, lb, True, True, seed=7, monkeypatch=monkeypatch)
+    _assert_losses_close(tm, jm)
+    assert jm["prop_loss"] > 0 and jm["dynamic_reg_loss"] > 0
+    assert ("cycle_loss" in jm) == cfg.has_flow
     order = ["prop", "model", "prop", "model"]
     assert len(jgrads) == len(tgrads) == len(order)
     for kind, jg, tg in zip(order, jgrads, tgrads):

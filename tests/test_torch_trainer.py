@@ -20,6 +20,8 @@ from emernerf_torch.builders import build_dataset_from_cfg
 from emernerf_torch.data import scene as tscene
 from emernerf_torch.eval.renderer import ImageRenderer
 from emernerf_torch.flagship import (
+    DYNAMIC,
+    REFERENCE_BRICK,
     REFERENCE_HASH,
     build_flagship,
     flagship_config,
@@ -105,7 +107,7 @@ def test_lidar_batch_matches_jax(scenes):
 def test_trainer_runs_the_tiny_flagship():
     cfg = flagship_config(tiny=True, overrides=["optim.cache_rgb_freq=2",
                                                 "optim.check_nan=true", "logging.print_freq=1"])
-    trainer = Trainer(cfg, device="cpu", flow=flagship_flow_spec(tiny=True))
+    trainer = Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     metrics = [trainer.train_iteration(step) for step in range(4)]
     assert trainer.error_map_buffered  # refreshed at step 2; step 3 sampled from it
@@ -128,7 +130,7 @@ def test_trainer_runs_the_tiny_reference_hash_flagship():
     """The reference-hash profile through Trainer: hash grids, separate
     dynamic and flow grids, an error-map refresh through the eval render."""
     cfg = flagship_config(tiny=True, overrides=["optim.cache_rgb_freq=2"], profile=REFERENCE_HASH)
-    trainer = Trainer(cfg, device="cpu", flow=flagship_flow_spec(True, "hash"))
+    trainer = Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
     assert not trainer.model.fused and trainer.step_cfg.sample_topk == 0
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     metrics = [trainer.train_iteration(step) for step in range(3)]
@@ -137,6 +139,33 @@ def test_trainer_runs_the_tiny_reference_hash_flagship():
         assert all(np.isfinite(float(v)) for v in m.values())
     for name, p in trainer.model.named_parameters():
         assert not torch.equal(p, before[name]), name
+
+
+@pytest.mark.parametrize("profile", [DYNAMIC, REFERENCE_BRICK],
+                         ids=["dynamic", "reference_brick"])
+def test_trainer_runs_the_tiny_profile(profile):
+    """The dynamic-only profile (no flow grid, MLP or cycle loss) and the
+    reference-brick profile (separate dynamic and flow brick grids of
+    unpaired 4D rows) through build_flagship, Trainer and ImageRenderer."""
+    _, _, model, props, step_cfg = build_flagship(tiny=True, profile=profile, device="cpu")
+    assert model.has_dynamic and not model.fused and step_cfg.has_flow == model.has_flow
+    assert model.has_flow == (profile is REFERENCE_BRICK)
+    cfg = flagship_config(tiny=True, overrides=["optim.cache_rgb_freq=2"], profile=profile)
+    trainer = Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
+    assert trainer.model.has_flow == model.has_flow
+    if model.has_flow:
+        assert not trainer.model.flow_spec.uses_time_pair
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    metrics = [trainer.train_iteration(step) for step in range(3)]
+    assert trainer.error_map_buffered
+    for m in metrics:
+        assert all(np.isfinite(float(v)) for v in m.values())
+        assert ("cycle_loss" in m) == model.has_flow and "dynamic_reg_loss" in m
+    for name, p in trainer.model.named_parameters():
+        assert not torch.equal(p, before[name]), name
+    frames, _ = trainer.renderer.render_split(trainer.dataset, [0])
+    assert ("forward_flow" in frames[0]) == model.has_flow and "shadow_ratio" in frames[0]
+    assert all(np.isfinite(v).all() for v in frames[0].values())
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -112,14 +112,34 @@ Phases (any failure exits non-zero; nothing is skipped):
   11. K3 forward against its plain version at every (R, S, D, C) that the
      training runs (densities that require a gradient) and the eval renders
      (no_grad) of phases 4-10 launched, called as each calls it, with the
-     wrapper's time and the kernel's alone.
+     wrapper's time and the kernel's alone;
+  12. the point-query path: configs/default_flow.yaml through the CLI on
+     the full-width flagship in a temporary run directory (a few
+     iterations, then the evaluation with the lidar scene-flow metrics:
+     metrics_flow_{step}.json's five NSFP metrics must be finite; the flow
+     eval's seconds and points/s), then --eval_only --visualize_voxel in one
+     run with render.eval_sample_topk=32 and the novel trajectory (top-K
+     eval rays/s beside the exact render's; the .npz, .html and scene-flow
+     export; a cut: render.vis_voxel_size=1.0, 109,200 cells per timestep
+     instead of the default 0.3 m's 4.05 M), then --render_data_video_only;
+     the videos must exist where imageio is installed, and without it the
+     composed first frames (eval/video.py:compose_frame) are checked in
+     memory; then the full-width reference-hash flagship's flow evaluation
+     and voxel queries (K4).  The launch counters are zeroed before its
+     first run and read after its last: every forward kernel must launch;
+  12b. K1 forward (the flagship's static and fused grids; fp32 and the
+     bf16 computation, bit for bit) at one 65,536-point chunk of the voxel
+     grid, at that chunk at a training timestamp, at the warped 2N batch of
+     query_attributes and at the flow eval's lidar returns; K4 forward on
+     the reference-hash grids at the same chunk; K3 forward at the top-K
+     eval's final composite, on inputs zero but at the 32 shaded samples.
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
 and its operations over the fp32 rate (H100 SXM data sheet).  Its launches
 are those of the training run of its path (phase 5, phase 6 for K4, phase
 7's probe run for P1-P4, phase 9 or 10 for the rows of those profiles'
-grids and K3 shapes).
+grids and K3 shapes, phase 12's runs for the "points" rows of 12b).
 The kernels' device times alone (torch.profiler: K2, K3 forward and
 backward, K5, P1, P3) are taken last, so that no profiler session precedes
 a timed phase.
@@ -144,6 +164,9 @@ N_RAYS = 16384  # render.render_chunk_size
 N_TRAIN = 8192  # data.ray_batch_size: rays per branch and iteration
 PROP_SAMPLES, NUM_SAMPLES = (128, 64), 64
 SAMPLE_TOPK, AGG_TOPK = 32, 16  # nerf.sampling.sample_topk, head.temporal_agg_topk
+# the eval key set of one chunk: 3 density sets, 23 value channels laid out
+# as render/volrend.py:composite_rays packs them
+EVAL_SETS = [0] * 4 + [1] * 9 + [0] + [2] * 9
 TABLE_SCALE = 2000.0  # fp32 card-vs-CPU checks: tables U(+-0.2), not U(+-1e-4)
 # tiny flagship widened so that top-K pruning and both proposal levels
 # carry gradients (as tests/test_torch_train_step.py widens it)
@@ -541,22 +564,27 @@ def phase_kernels(dev, kernels_entries, after_timed):
                                 lambda s=s, cdf=cdf, n=n, jitter=jitter:
                                 importance_sampling(s, cdf, n, jitter)))
 
-        # K3: the full eval key set: 3 density sets, 23 value channels laid
-        # out as render/volrend.py:composite_rays packs them
-        sets = [0] * 4 + [1] * 9 + [0] + [2] * 9
-        composite_row(dev, 7, kernels_entries, after_timed, N_RAYS, NUM_SAMPLES, 3, sets, 100.0,
-                      grad=False)
+        # K3: the full eval key set
+        composite_row(dev, 7, kernels_entries, after_timed, N_RAYS, NUM_SAMPLES, 3, EVAL_SETS,
+                      100.0, grad=False)
 
 
-def composite_inputs(dev, seed, r, s_, d, n_ch, t_far, grad):
+def composite_inputs(dev, seed, r, s_, d, n_ch, t_far, grad, keep=0):
     """Seeded K3 inputs: sorted edges in [0.1, t_far), densities U^3 / 2
-    (set 0 the sum of sets 1 and 2 where D = 3), values U(0, 1)."""
+    (set 0 the sum of sets 1 and 2 where D = 3), values U(0, 1).  With
+    ``keep``, as a pruned render scatters its outputs back: densities and
+    values zero but at ``keep`` random samples per ray."""
     g = torch.Generator(device=dev).manual_seed(seed)
     t = torch.sort(torch.rand((r, s_ + 1), device=dev, generator=g) * t_far, -1)[0] + 0.1
     dens = torch.rand((r, s_, d), device=dev, generator=g) ** 3 * 0.5
     if d == 3:
         dens[:, :, 0] = dens[:, :, 1] + dens[:, :, 2]
     vals = torch.rand((r, s_, n_ch), device=dev, generator=g) if n_ch else None
+    if keep:
+        kept = torch.rand((r, s_), device=dev, generator=g).argsort(-1)[:, :keep]
+        mask = torch.zeros((r, s_, 1), device=dev).scatter_(1, kept[..., None], 1.0)
+        dens = dens * mask
+        vals = None if vals is None else vals * mask
     return t[:, :-1].contiguous(), t[:, 1:].contiguous(), dens.requires_grad_(grad), vals
 
 
@@ -578,22 +606,23 @@ def remade(make, call):
 
 
 def composite_row(dev, seed, kernels_entries, after_timed, r, s_, d, sets, t_far, path="brick",
-                  grad=True):
+                  grad=True, keep=0):
     """K3 forward at (r, s_, d, len(sets)) against its plain version, with
     the wrapper's time (as the run calls it: eval under no_grad, training
     with densities that require a gradient, ``grad``) and, after the timed phases,
     the kernel's alone (on the same inputs made again then, so that they
-    do not stay allocated through the phases in between).  Tolerance: rtol
-    1e-5 (depth 1e-4), atol 1e-5; a median depth may move one sample only
-    at a 0.5 crossing."""
+    do not stay allocated through the phases in between); ``keep``: the
+    inputs of a render that shaded ``keep`` samples per ray (composite_inputs).
+    Tolerance: rtol 1e-5 (depth 1e-4), atol 1e-5; a median depth may move
+    one sample only at a 0.5 crossing."""
     from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_ref
 
-    args = (dev, seed, r, s_, d, len(sets), t_far, grad)
+    args = (dev, seed, r, s_, d, len(sets), t_far, grad, keep)
     ts, te, dens, vals = composite_inputs(*args)
     out = composite_along_rays(ts, te, dens, vals, sets)
     ref = composite_along_rays_ref(ts, te, dens.detach(), vals, sets)
     tag = (f"composite_along_rays[R={r},S={s_},D={d},C={len(sets)}"
-           f"{',grad' if grad else ''}]")
+           f"{',grad' if grad else ''}{f',top{keep}' if keep else ''}]")
     mx = 0.0
     for field, a, b in zip(out._fields, out, ref):
         a = a.detach()
@@ -1767,6 +1796,330 @@ def _cli_metrics(run_dir, step):
     return results
 
 
+N_POINTS_CLI = 3  # optim.num_iters of phase 12's training run
+EVAL_SAMPLE_TOPK = 32  # render.eval_sample_topk of phase 12's --eval_only run
+# render.vis_voxel_size of phase 12's --visualize_voxel run, a cut: the
+# default 0.3 m over the synthetic scene's aabb is 234 x 262 x 66 = 4.05 M
+# cells per timestep; 1.0 m is 70 x 78 x 20 = 109,200
+VIS_VOXEL_SIZE = 1.0
+POINT_CHUNK = 65536  # PointQueryEngine's chunk_size
+
+
+def phase_points(dev, counted, zero):
+    """Phase 12: the stock flow config (configs/default_flow.yaml,
+    eval.eval_lidar_flow) through the CLI on the full-width flagship in a
+    temporary run directory: N_POINTS_CLI training iterations, then the
+    end-of-training evaluation (the lidar scene-flow metrics through
+    PointQueryEngine, the lowres and full renders, the videos where imageio
+    is installed); then --eval_only --visualize_voxel in one run (one model
+    build instead of two) with render.eval_sample_topk=32 and
+    render.render_novel_trajectory=true at render.vis_voxel_size=1.0 (the
+    cut above); then --render_data_video_only.  Without imageio, the
+    composed first frame of the full split, of the novel trajectory and of
+    the data video are checked in memory.  Then the full-width
+    reference-hash flagship's point queries (K4): its flow evaluation and
+    the occupied voxels of one timestep.  The launch counters are zeroed
+    before the first CLI run and read after the hash queries.  Returns
+    (launches, K3 calls of the pruned eval by (R, S, D, C))."""
+    import logging
+    import shutil
+    import tempfile
+
+    from emernerf_torch import train_emernerf
+    from emernerf_torch.builders import build_dataset_from_cfg
+    from emernerf_torch.eval import video
+    from emernerf_torch.eval.data_preview import data_video_frames
+    from emernerf_torch.eval.flow import evaluate_lidar_flow
+    from emernerf_torch.eval.points import PointQueryEngine
+    from emernerf_torch.eval.renderer import ImageRenderer
+    from emernerf_torch.eval.voxel_vis import extract_occupied_voxels
+    from emernerf_torch.flagship import (
+        _FLAGSHIP_DOTLIST, REFERENCE_HASH, build_flagship, flagship_config)
+    from emernerf_torch.train import trainer as trainer_mod
+
+    print("phase 12: configs/default_flow.yaml through the CLI on the full-width flagship "
+          "(flow eval, videos, --eval_only --visualize_voxel with top-K renders and the novel "
+          "trajectory, --render_data_video_only), then the reference-hash point queries")
+    root = tempfile.mkdtemp(prefix="emernerf_points_")
+    run_dir = os.path.join(root, "p", "flow")
+    os.makedirs(run_dir)
+    log = logging.getLogger("emernerf_torch")
+    handler = logging.FileHandler(os.path.join(run_dir, "log.txt"))
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    argv = ["--output_root", root, "--project", "p", "--run_name", "flow"]
+    opts = (["--config_file", os.path.join(REPO, "configs", "default_flow.yaml")]
+            + list(_FLAGSHIP_DOTLIST) + [f"optim.num_iters={N_POINTS_CLI}",
+                                         "logging.print_freq=1000"])
+    queries, renders, first = [], [], {}
+    orig = {"flow": PointQueryEngine.query_flow, "attrs": PointQueryEngine.query_attributes,
+            "split": ImageRenderer.render_split, "novel": trainer_mod.render_novel_trajectory}
+
+    def timed_query(kind):
+        def run(self, positions, *args):
+            t0 = time.perf_counter()
+            out = orig[kind](self, positions, *args)  # numpy: the device is done
+            queries.append((kind, len(positions), time.perf_counter() - t0))
+            return out
+        return run
+
+    def render_split(self, dataset, indices, downscale=1, compute_metrics=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames, metrics = orig["split"](self, dataset, indices, downscale, compute_metrics)
+        secs = time.perf_counter() - t0
+        renders.append((self.kw["sample_topk"], downscale, frames[0]["rgb"].size // 3
+                        * len(frames), secs))
+        first.setdefault(("split", self.kw["sample_topk"], downscale), frames[0])
+        return frames, metrics
+
+    def novel(renderer, dataset, **kw):
+        frames = orig["novel"](renderer, dataset, **kw)
+        first["novel"] = frames[0]
+        return frames
+
+    def span(fn):
+        """(seconds, points) of the point queries fn() makes."""
+        n0 = len(queries)
+        out = fn()
+        return out, sum(q[2] for q in queries[n0:]), sum(q[1] for q in queries[n0:])
+
+    PointQueryEngine.query_flow = timed_query("flow")
+    PointQueryEngine.query_attributes = timed_query("attrs")
+    ImageRenderer.render_split = render_split
+    trainer_mod.render_novel_trajectory = novel
+    imageio = video.have_imageio()
+    print(f"  imageio installed: {imageio}")
+    if not imageio:
+        print("  imageio is not installed on this machine: the runs write no videos; the "
+              "composed first frames are checked in memory instead")
+    try:
+        torch.cuda.synchronize()
+        for fn in counted + tuple(zero):
+            fn.launches = 0
+        # 1. train, then the end-of-training evaluation with the flow eval
+        t_phase = t0 = time.perf_counter()
+        trainer = train_emernerf.main(argv + opts)
+        step = trainer.state.step
+        vis_keys = ["gt_rgb", "rgb", "depth", "static_rgb", "dynamic_rgb", "dynamic_depth",
+                    "forward_flow", "backward_flow"]
+        del trainer
+        torch.cuda.empty_cache()
+        print(f"  run 1 (train {N_POINTS_CLI} iterations, evaluate): "
+              f"{time.perf_counter() - t0:.1f} s")
+        with open(os.path.join(run_dir, f"metrics_flow_{step}.json")) as f:
+            flow = json.load(f)
+        keys = {"EPE3D", "acc3d_strict", "acc3d_relax", "angle_error", "outlier"}
+        print(f"  metrics_flow_{step}.json (random weights): {flow}")
+        if set(flow) != keys or not all(np.isfinite(v) for v in flow.values()):
+            fail(f"metrics_flow_{step}.json: expected the five finite NSFP metrics, got {flow}")
+        n_flow, flow_s = sum(q[1] for q in queries if q[0] == "flow"), sum(
+            q[2] for q in queries if q[0] == "flow")
+        print(f"  flow eval: {n_flow} lidar points through query_flow in {flow_s:.3f} s "
+              f"-> {n_flow / flow_s:.1f} points/s (host copies in)")
+        # 2. --eval_only --visualize_voxel with the top-K eval and the novel path
+        n0 = len(queries)
+        t0 = time.perf_counter()
+        tally = composite_tally(lambda: train_emernerf.main(
+            argv[:6] + ["--eval_only", "--visualize_voxel"] + opts
+            + [f"render.eval_sample_topk={EVAL_SAMPLE_TOPK}",
+               "render.render_novel_trajectory=true", f"render.vis_voxel_size={VIS_VOXEL_SIZE}"]))
+        torch.cuda.empty_cache()
+        print(f"  run 2 (--eval_only --visualize_voxel): {time.perf_counter() - t0:.1f} s")
+        vox = [q for q in queries[n0:] if q[0] == "attrs"]
+        n_vox, vox_s = sum(q[1] for q in vox), sum(q[2] for q in vox)
+        print(f"  voxel export: {n_vox} points through query_attributes in {vox_s:.3f} s "
+              f"-> {n_vox / vox_s:.1f} points/s ({len(vox)} timesteps of "
+              f"{vox[0][1] if vox else 0} cells at {VIS_VOXEL_SIZE} m)")
+        for name in ("voxels.npz", "voxels.html", "scene_flow.npz"):
+            if not os.path.getsize(os.path.join(run_dir, name)):
+                fail(f"--visualize_voxel: {name} is empty")
+        z = np.load(os.path.join(run_dir, "voxels.npz"))
+        frames_vox = sorted(k for k in z if k.endswith("_xyz"))
+        print(f"  voxels.npz: {len(frames_vox)} frames, {len(z['frame0_xyz'])} occupied cells in "
+              f"frame 0; voxels.html {os.path.getsize(os.path.join(run_dir, 'voxels.html'))} "
+              f"bytes; scene_flow.npz {len(np.load(os.path.join(run_dir, 'scene_flow.npz')))} "
+              "arrays")
+        if len(frames_vox) != len(vox) or not np.isfinite(z["frame0_xyz"]).all():
+            fail("voxels.npz: one finite frame per training timestep expected")
+        for (topk, ds, n, secs) in renders:
+            print(f"  render_split (eval_sample_topk={topk}, downscale {ds}): {n} rays in "
+                  f"{secs:.3f} s -> {n / secs:.1f} rays/s")
+        exact = [n / secs for topk, ds, n, secs in renders if ds == 1 and not topk]
+        pruned = [n / secs for topk, ds, n, secs in renders if ds == 1 and topk]
+        print(f"  full split: top-{EVAL_SAMPLE_TOPK} eval {pruned[0]:.1f} rays/s beside the exact "
+              f"render's {exact[0]:.1f} rays/s")
+        for key, frame in first.items():
+            for k, v in frame.items():
+                if not np.isfinite(v).all():
+                    fail(f"{key}: map {k} is not finite")
+        # 3. --render_data_video_only
+        t0 = time.perf_counter()
+        if train_emernerf.main(argv[:6] + ["--render_data_video_only"] + opts) is not None:
+            fail("--render_data_video_only built a model")
+        print(f"  run 3 (--render_data_video_only): {time.perf_counter() - t0:.1f} s")
+        data = [f for f in os.listdir(run_dir) if f.startswith("data.")]
+        videos = sorted(os.listdir(os.path.join(run_dir, "videos")))
+        print(f"  videos: {videos}; data video: {data}")
+        if imageio:
+            want = {f"{n}_{step}" for n in ("lowres", "full", "novel")}
+            if not want <= {os.path.splitext(v)[0] for v in videos} or not data:
+                fail(f"videos missing: expected {sorted(want)} and data.*")
+        else:
+            if videos or data:
+                fail("videos written without imageio")
+            h, w = first[("split", 0, 1)]["rgb"].shape[:2]
+            # the flagship's scene, as the flow config's (which changes no data key)
+            frames, keys = data_video_frames(build_dataset_from_cfg(flagship_config()))
+            for what, frame, ks, rows, hw in (
+                    ("full split", first[("split", 0, 1)], vis_keys, len(vis_keys), (h, w)),
+                    ("novel trajectory", first["novel"], ["rgb", "depth"], 2, None),
+                    ("data video", frames[0], keys, len(keys), (h, w))):
+                img = video.compose_frame(frame, ks)
+                fh, fw = hw or frame["rgb"].shape[:2]
+                print(f"  composed first frame of the {what}: {img.dtype} {img.shape}")
+                if img.dtype != np.uint8 or img.shape != (rows * fh, fw, 3):
+                    fail(f"composed {what} frame: {img.dtype} {img.shape}, expected uint8 "
+                         f"{(rows * fh, fw, 3)}")
+        # 4. the reference-hash flagship's point queries (K4)
+        _, dataset, model, props, _ = build_flagship(profile=REFERENCE_HASH, device=dev, seed=0)
+        engine = PointQueryEngine(model, device=dev)
+        hash_flow, secs, n = span(lambda: evaluate_lidar_flow(engine, dataset))
+        print(f"  reference-hash flow eval: {n} points in {secs:.3f} s -> {n / secs:.1f} "
+              f"points/s; metrics {hash_flow}")
+        t = float(dataset.unique_normalized_training_timestamps[0])
+        (coords, _), secs, n = span(lambda: extract_occupied_voxels(
+            engine, dataset.aabb, VIS_VOXEL_SIZE, t))
+        print(f"  reference-hash voxels at t={t:.4f}: {n} cells in {secs:.3f} s -> "
+              f"{n / secs:.1f} points/s, {len(coords)} occupied")
+        if not all(np.isfinite(v) for v in hash_flow.values()) or not np.isfinite(coords).all():
+            fail("reference-hash point queries: non-finite results")
+        del model, props, engine
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
+        print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s; launch counts: {launches}")
+        _check_launches(launches, {fn.__name__ for fn in zero}, "points run")
+        pruned_tally = {k: v for k, v in tally.items() if k[2] == 3}
+        print(f"  K3 forward calls of the top-{EVAL_SAMPLE_TOPK} eval with three density sets "
+              f"by (R, S, D, C): {pruned_tally}")
+    finally:
+        PointQueryEngine.query_flow, PointQueryEngine.query_attributes = orig["flow"], orig["attrs"]
+        ImageRenderer.render_split = orig["split"]
+        trainer_mod.render_novel_trajectory = orig["novel"]
+        log.removeHandler(handler)
+        handler.close()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches, pruned_tally
+
+
+def point_batches(dev, g, n=POINT_CHUNK, voxel_size=VIS_VOXEL_SIZE):
+    """The contracted grid queries of phase 12's point paths on the
+    flagship scene: the first chunk of the voxel grid (N, 3), the same at a
+    training timestamp (N, 4), the warped 2N batch of query_attributes'
+    aggregation (each point moved by up to 0.5 m and one frame of 8 in
+    time, both ways), and the flow eval's scored lidar returns of frame 0
+    (M, 4)."""
+    from emernerf_torch.builders import build_dataset_from_cfg
+    from emernerf_torch.eval.flow import flow_eval_points
+    from emernerf_torch.eval.voxel_vis import voxel_grid
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.models.fields import _contract
+
+    dataset = build_dataset_from_cfg(flagship_config())
+    aabb = torch.tensor(dataset.aabb, device=dev)
+
+    def contract(world):
+        return _contract(world, aabb, True)
+
+    world = torch.from_numpy(voxel_grid(dataset.aabb, voxel_size)[:n].astype(np.float32)).to(dev)
+    ts = dataset.unique_normalized_training_timestamps
+    t = float(ts[len(ts) // 2])
+    times = torch.full((len(world), 1), t, device=dev)
+    shift = torch.rand(world.shape, device=dev, generator=g) - 0.5
+    warped = torch.cat([torch.cat([contract(world + shift), (times + 1 / 8).clamp(0, 1)], -1),
+                        torch.cat([contract(world - shift), (times - 1 / 8).clamp(0, 1)], -1)])
+    pts, lidar_t, _ = flow_eval_points(dataset, 0)
+    lidar = torch.cat([contract(torch.from_numpy(pts).to(dev)),
+                       torch.from_numpy(lidar_t).to(dev)[:, None]], -1)
+    xyz = contract(world)
+    return {"voxels": xyz.contiguous(), "voxels_t": torch.cat([xyz, times], -1).contiguous(),
+            "voxels_warped": warped.contiguous(), "lidar": lidar.contiguous()}
+
+
+def phase_points_kernels(dev, entries, after_timed, pruned_tally):
+    """Phase 12b: the grid and compositing kernels at phase 12's new shapes
+    against their plain versions, reported under the path "points": K1
+    forward on the flagship's static grid at one 65,536-point chunk of the
+    voxel grid and on its fused dynamic+flow grid at that chunk at a
+    training timestamp, at the warped 2N batch and at the flow eval's lidar
+    returns (fp32 tables, fp32 and the flagship's bf16 computation, bit for
+    bit); K4 forward at the same chunk on the reference-hash static,
+    dynamic and flow grids (fp32 bit for bit; bf16, one rounding, rtol
+    2^-7); K3 forward at the shape of the top-K eval's final composite,
+    on inputs zero but at the shaded samples."""
+    from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_ref
+    from emernerf_torch.ops.hashgrid import hashgrid_encode, hashgrid_encode_plain
+
+    print("phase 12b: K1, K4 and K3 forward vs plain versions at the point-query and top-K "
+          "eval shapes")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(12)
+    pts = point_batches(dev, g)
+    specs, hspecs = flagship_specs(), hash_specs()
+    with torch.no_grad():
+        for name, batch in (("static", "voxels"), ("dynflow", "voxels_t"),
+                            ("dynflow", "voxels_warped"), ("dynflow", "lidar")):
+            spec, pos = specs[name], pts[batch]
+            table = torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1
+            touched = brick_touched(spec, pos)
+            for label, compute in (("fp32", torch.float32), ("fp32->bf16", torch.bfloat16)):
+                out = brickgrid_encode(table, pos, spec, compute)
+                ref = brickgrid_encode_ref(table, pos, spec, compute)
+                tag = f"brickgrid_encode[{name},{batch},{label},N={pos.shape[0]}]"
+                exact = torch.equal(out, ref)
+                print(f"  {tag}: bit for bit with the plain version: {exact} (tolerance 0)")
+                if not exact:
+                    fail(f"{tag}: kernel and plain version differ")
+                ms = cuda_ms(lambda: brickgrid_encode(table, pos, spec, compute), 10)
+                plain_ms = cuda_ms(lambda: brickgrid_encode_ref(table, pos, spec, compute), 3)
+                add_entry(entries, tag, "brickgrid.cu", "emernerf_tpu/ops/brickgrid.py:581",
+                          brickgrid_encode, 0.0, ms, plain_ms,
+                          nbytes(pos, out) + touched * table.element_size(),
+                          grid_ops(spec, pos.shape[0], False, False), path="points")
+                del out, ref
+            del table
+        for name, batch in (("static", "voxels"), ("dynamic", "voxels_t"), ("flow", "voxels_t")):
+            spec, pos = hspecs[name], pts[batch]
+            table32 = torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1
+            touched = hash_touched(spec, pos)
+            for dtype, rtol in ((torch.float32, 0.0), (torch.bfloat16, 2 ** -7)):
+                table = table32.to(dtype)
+                out = hashgrid_encode(table, pos, spec)
+                ref = hashgrid_encode_plain(table, pos, spec)
+                tag = f"hashgrid_encode[{name},{batch},{str(dtype)[6:]},N={pos.shape[0]}]"
+                mx, over = compare(tag, out.float(), ref.float(), rtol, 0.0 if rtol == 0 else 1e-6)
+                if over:
+                    fail(f"{tag}: {over} elements over tolerance")
+                ms = cuda_ms(lambda: hashgrid_encode(table, pos, spec), 10)
+                plain_ms = cuda_ms(lambda: hashgrid_encode_plain(table, pos, spec), 3)
+                add_entry(entries, tag, "hashgrid.cu", "emernerf_tpu/ops/hashgrid.py:408",
+                          hashgrid_encode, mx, ms, plain_ms,
+                          nbytes(pos, out) + touched * table.element_size(),
+                          grid_ops(spec, pos.shape[0], False, False), path="points")
+                del out, ref, table
+            del table32
+    del pts
+    torch.cuda.empty_cache()
+    for r, s_, d, c in sorted(pruned_tally):
+        sets = EVAL_SETS if c == len(EVAL_SETS) else [j % d for j in range(c)]
+        composite_row(dev, 12, entries, after_timed, r, s_, d, sets, 100.0, path="points",
+                      grad=False, keep=EVAL_SAMPLE_TOPK)
+    torch.cuda.empty_cache()
+    print(f"  phase 12b took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1850,6 +2203,10 @@ def main():
         (ref[5], "reference_brick", True), (eval_tally, "brick", False),
         (hash_eval_tally, "hash", False), (dyn_eval_tally, "dynamic", False),
         (ref_eval_tally, "reference_brick", False)])
+    point_launches, pruned_tally = phase_points(
+        dev, (brickgrid_encode, hashgrid_encode, features_minor) + forward,
+        zero=(hashgrid_encode_bwd,))
+    phase_points_kernels(dev, entries, after_timed, pruned_tally)
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):
@@ -1857,7 +2214,7 @@ def main():
 
     # launches: the counts of the training run of each kernel's path
     runs = {"brick": launches, "hash": hash_launches, "probe": probe_launches,
-            "dynamic": dyn[0], "reference_brick": ref[0]}
+            "dynamic": dyn[0], "reference_brick": ref[0], "points": point_launches}
     report = [dict({k: v for k, v in e.items() if k not in ("fn", "path")},
                    launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "

@@ -7,7 +7,7 @@ grids are fused by default on the brick backend and separate on the hash
 backend, as in the JAX package; ``nerf.model.fuse_flow_grid`` overrides
 that.  A knob that the port does not run raises instead of being ignored:
 ``grid_backend=mx`` (rejected on quality), ``nerf.propnet.fine_level_skip
-> 0``, ``render.eval_sample_topk > 0``, a non-default ``nerf.model.perf.*``
+> 0``, a non-default ``nerf.model.perf.*``
 formulation knob (``perf.time_pair=false`` is taken: unpaired 4D brick
 rows, two gathers per (point, level), as the reference-semantics profile
 asks; the hash grid's rows are never paired), the flow branch without the
@@ -74,8 +74,6 @@ def validate_cfg(cfg: ConfigNode) -> None:
             f"{backend!r}): the hash/mx specs have no coarse-view support")
     if skip > 0:
         raise NotImplementedError("nerf.propnet.fine_level_skip>0 is not ported")
-    if int(cfg.get_dotted("render.eval_sample_topk", 0)) > 0:
-        raise NotImplementedError("render.eval_sample_topk>0 is not ported yet")
     head = cfg.nerf.model.head
     if head.enable_flow_branch and not head.enable_dynamic_branch:
         # the fields use the flow only inside the dynamic branch
@@ -294,7 +292,8 @@ def build_dataset_from_cfg(cfg: ConfigNode) -> SceneDataset:
         frame_idx = np.round(
             s["lidar_normed_timestamps"] * (s["num_frames"] - 1)).astype(np.int64)
         lidar = dict(origins=s["lidar_origins"], viewdirs=s["lidar_viewdirs"],
-                     ranges=s["lidar_ranges"], frame_idx=frame_idx)
+                     ranges=s["lidar_ranges"], frame_idx=frame_idx, flows=s["lidar_flows"],
+                     flow_classes=s["lidar_flow_classes"], ground=s["lidar_ground"])
     return SceneDataset(
         images=s["images"],
         c2w=s["c2w"],

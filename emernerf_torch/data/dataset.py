@@ -1,7 +1,8 @@
 """Host-side scene dataset (port of ``emernerf_tpu/data/dataset.py``).
 
 Numpy split bookkeeping, joint timestamp normalization, the aabb,
-whole-image eval rays, and the upload of the training scene to the device
+whole-image eval rays, per-frame lidar rays and their camera visibility,
+and the upload of the training scene to the device
 (:meth:`SceneDataset.scene_tensors`).
 """
 
@@ -96,8 +97,16 @@ class SceneDataset:
         return len(self.test_indices) > 0
 
     @property
+    def num_train_timesteps(self) -> int:
+        return len(set(self.frame_idx.tolist()) - set(self.test_frames.tolist()))
+
+    @property
     def num_img_timesteps(self) -> int:
         return self.num_frames
+
+    @property
+    def unique_normalized_training_timestamps(self) -> np.ndarray:
+        return np.unique(self.normed_timestamps[self.train_indices])
 
     @property
     def time_diff(self) -> float:
@@ -172,6 +181,21 @@ class SceneDataset:
         if self.dynamic_masks is not None:
             gt["dynamic_masks"] = self.dynamic_masks[img_idx, ::downscale, ::downscale]
         return rays, gt
+
+    def get_valid_lidar_mask(self, frame: int, points: np.ndarray) -> np.ndarray:
+        """Lidar-to-camera visibility: True where a world-space point projects
+        inside at least one of the frame's images with positive depth."""
+        h, w = self.image_hw
+        valid = np.zeros(len(points), bool)
+        for img_idx in np.nonzero(self.frame_idx == frame)[0]:
+            w2c = np.linalg.inv(self.c2w[img_idx].astype(np.float64))
+            cam_pts = points @ w2c[:3, :3].T + w2c[:3, 3]
+            proj = cam_pts @ self.intrinsics[img_idx].astype(np.float64).T
+            depth = proj[:, 2]
+            uv = proj[:, :2] / (depth[:, None] + 1e-6)
+            valid |= ((uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0) & (uv[:, 1] < h)
+                      & (depth > 0))
+        return valid
 
     def get_lidar_render_rays(self, frame: int):
         """All lidar rays of one frame, for depth/flow eval."""

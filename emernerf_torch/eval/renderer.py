@@ -1,9 +1,10 @@
 """Whole-image evaluation rendering (port of ``emernerf_tpu/eval/renderer.py``).
 
 Renders a dataset split image by image through fixed-size ray chunks (the
-last chunk is padded by repeating its final ray), collects the per-ray maps
-and computes PSNR/SSIM (+ dynamic- and static-masked variants) with the
-numpy metrics of ``emernerf_torch/eval/metrics.py``.
+last chunk is padded by repeating its final ray), optionally shading only
+the top-K samples per ray, collects the per-ray maps and computes PSNR/SSIM
+(+ dynamic- and static-masked variants) with the numpy metrics of
+``emernerf_torch/eval/metrics.py``.
 """
 
 from __future__ import annotations
@@ -45,8 +46,12 @@ class ImageRenderer:
         sampling_type: str = "uniform_lindisp",
         chunk_size: int = 16384,
         return_decomposition: bool = False,
+        sample_topk: int = 0,
         device="cuda",
     ):
+        """``sample_topk``: shade only the K samples per ray that the last
+        proposal net ranks highest (``render.eval_sample_topk``; exact top-K,
+        no Gumbel noise); 0 shades every sample."""
         self.model = model
         self.prop_models = list(prop_models)
         self.chunk_size = chunk_size
@@ -55,6 +60,7 @@ class ImageRenderer:
             num_samples=num_samples, prop_samples=tuple(prop_samples),
             near_plane=near_plane, far_plane=far_plane,
             sampling_type=sampling_type, return_decomposition=return_decomposition,
+            sample_topk=sample_topk,
         )
 
     @torch.no_grad()

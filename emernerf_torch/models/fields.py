@@ -14,7 +14,8 @@ the proposal network.  Every grid is a brick grid (K1) or an exact hash
 grid (K4), by its spec's type.
 
 Positions are (R, S, 3) and per-ray data is expanded to (R, S) by the
-renderer.  Training differs from eval in two inputs only: the aggregation
+renderer; the point queries ``query_flow`` and ``query_attributes`` (flow
+eval, voxel export) take (N, 3) positions and (N,) timestamps.  Training differs from eval in two inputs only: the aggregation
 noise (a tensor of uniform draws instead of 1) and ``return_density_only``
 for the lidar render.  The flow-warped 4D queries are the grid queries
 whose positions carry a gradient (they depend on the flow MLP).  The config
@@ -349,6 +350,35 @@ class RadianceField(nn.Module):
         return dynamic_feats
 
     # ------------------------------------------------------------------ #
+    def query_flow(self, positions: torch.Tensor,
+                   normed_timestamps: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Point query of the flow field and the dynamic density: positions
+        (N, 3), timestamps (N,).  Fused, one 4D query gives both (the JAX
+        package makes two of the same points)."""
+        normed = self.contract_points(positions)
+        if self.fused:
+            dyn_enc, flow_enc = self._dynflow_encode(normed, normed_timestamps)
+            dynamic_feats, flow = self.dynamic_base_mlp(dyn_enc), self.flow_mlp(flow_enc)
+        else:
+            flow = self.forward_flow_hash(normed, normed_timestamps)
+            dynamic_feats, _ = self.forward_dynamic_hash(normed, normed_timestamps)
+        return {"forward_flow": flow[..., :3], "backward_flow": flow[..., 3:],
+                "dynamic_density": density_activation(dynamic_feats[..., 0])}
+
+    def query_attributes(self, positions: torch.Tensor,
+                         normed_timestamps: Optional[torch.Tensor] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """Point query of the densities (and, with the flow branch, the flows)
+        of positions (N, 3) at timestamps (N,), the eval's field query
+        without directions: aggregated dynamic features, as the renders
+        shade them.  Without timestamps, the static density alone."""
+        if normed_timestamps is None or not self.has_dynamic:
+            return {"density": self.forward(positions, return_density_only=True)["density"]}
+        out = self.forward(positions, data={"normed_timestamps": normed_timestamps},
+                           return_density_only=True)
+        keys = ("forward_flow", "backward_flow", "density", "static_density", "dynamic_density")
+        return {k: out[k] for k in keys if k in out}
+
     def forward(self, positions: torch.Tensor, directions: Optional[torch.Tensor] = None,
                 data: Optional[Dict[str, torch.Tensor]] = None,
                 return_density_only: bool = False,

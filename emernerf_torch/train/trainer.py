@@ -7,12 +7,13 @@ schedule (called once per branch), the staged lidar top-K, the step, the
 metric log and NaN tripwire at the print steps, periodic checkpoints, the
 pixel-error-buffer refresh every ``optim.cache_rgb_freq`` steps through the
 eval ``ImageRenderer``, a ``torch.profiler`` window, and SIGTERM/SIGINT
-checkpoint-and-exit.  ``evaluate`` renders the configured splits and writes
-the metric JSONs and the lidar depth RMSE.
+checkpoint-and-exit.  ``evaluate`` runs the lidar scene-flow evaluation,
+renders the configured splits and the novel trajectory, and writes the
+metric JSONs, the lidar depth RMSE and the videos (where ``imageio`` is
+installed).
 
-Not ported yet (ROADMAP queue 1): the videos of the evaluation (they need
-``imageio``), occupancy and scene-flow evaluation, the novel trajectory,
-``render.eval_sample_topk`` and the multi-device mesh; each raises.
+Not ported yet (ROADMAP queue 1): occupancy evaluation (it needs the
+feature head) and the multi-device mesh; each raises.
 """
 
 from __future__ import annotations
@@ -42,8 +43,12 @@ from emernerf_torch.data.scene import (
     sample_pixel_batch,
     update_pixel_error_map,
 )
+from emernerf_torch.eval.flow import evaluate_lidar_flow
 from emernerf_torch.eval.metrics import compute_valid_depth_rmse
+from emernerf_torch.eval.novel import render_novel_trajectory
+from emernerf_torch.eval.points import PointQueryEngine
 from emernerf_torch.eval.renderer import ImageRenderer
+from emernerf_torch.eval.video import have_imageio, save_videos
 from emernerf_torch.render.prop_sampler import proposal_requires_grad_schedule
 from emernerf_torch.train.checkpoints import load_checkpoint, save_checkpoint
 from emernerf_torch.train.state import init_train_state
@@ -52,12 +57,10 @@ from emernerf_torch.utils.logging import MetricLogger
 
 logger = logging.getLogger("emernerf_torch")
 
-# settings whose code is not ported yet, and the ROADMAP queue 1 item that
-# brings it
+# settings whose code is not ported yet, and what it waits for
 _NOT_PORTED = {
-    "eval.eval_occ": "occupancy evaluation (eval/occ.py, eval/points.py)",
-    "eval.eval_lidar_flow": "lidar scene-flow evaluation (eval/flow.py, eval/points.py)",
-    "render.render_novel_trajectory": "the novel-trajectory render (eval/novel.py)",
+    "eval.eval_occ": "occupancy evaluation (eval/occ.py) reads the feature head's "
+                     "dino_feat, and the feature head is not ported",
 }
 
 
@@ -139,7 +142,8 @@ class Trainer:
             near_plane=cfg.nerf.propnet.near_plane, far_plane=cfg.nerf.propnet.far_plane,
             sampling_type=cfg.nerf.propnet.sampling_type,
             chunk_size=cfg.render.render_chunk_size,
-            return_decomposition=self.model.has_dynamic, device=self.device,
+            return_decomposition=self.model.has_dynamic,
+            sample_topk=int(cfg.get_dotted("render.eval_sample_topk", 0)), device=self.device,
         )
         self.rg_fn = proposal_requires_grad_schedule()
         self.error_map_buffered = False
@@ -320,13 +324,42 @@ class Trainer:
                 json.dump(obj, f, indent=2)
 
     def evaluate(self) -> Dict[str, float]:
-        """End-of-training evaluation at the state's step: renders the
-        configured splits (``lowres``, ``test``, ``full``) and a few frames'
-        lidar depth, and writes ``metrics_{split}_{step}.json`` and
-        ``metrics_all_{step}.json`` (no videos yet)."""
+        """End-of-training evaluation at the state's step: the lidar
+        scene-flow metrics (``eval.eval_lidar_flow``), the configured splits
+        (``lowres``, ``test``, ``full``), the novel trajectory
+        (``render.render_novel_trajectory``) and a few frames' lidar depth.
+        Writes ``metrics_flow_{step}.json``, ``metrics_{split}_{step}.json``
+        and ``metrics_all_{step}.json``, and the videos under ``videos/``
+        where ``imageio`` is installed (without it, one warning)."""
         cfg = self.cfg
         step = self.state.step
         results: Dict[str, float] = {}
+        video_dir = self._path("videos")
+        write_videos = video_dir is not None and have_imageio()
+        if video_dir is not None:
+            os.makedirs(video_dir, exist_ok=True)
+            if not write_videos:
+                logger.warning("imageio is not installed: the evaluation writes no videos")
+
+        def _save(frames, name, **kw):
+            if write_videos:
+                save_videos(frames, os.path.join(video_dir, name), **kw)
+
+        if (cfg.eval.eval_lidar_flow and self.model.has_flow and self.dataset.lidar is not None
+                and "flows" in self.dataset.lidar):
+            flow_metrics = evaluate_lidar_flow(
+                PointQueryEngine(self.model, device=self.device), self.dataset,
+                remove_ground=cfg.eval.remove_ground_when_eval_lidar_flow)
+            for k, v in flow_metrics.items():
+                results[f"flow/{k}"] = v
+            self._write_json(f"metrics_flow_{step}.json", flow_metrics)
+            logger.info("[flow] %s", flow_metrics)
+
+        vis_keys = ["gt_rgb", "rgb", "depth"]
+        if self.model.has_dynamic:
+            vis_keys += ["static_rgb", "dynamic_rgb", "dynamic_depth"]
+        if self.model.has_flow:
+            vis_keys += ["forward_flow", "backward_flow"]
 
         def _run(split_name, indices, downscale):
             if len(indices) == 0:
@@ -335,6 +368,9 @@ class Trainer:
                                                          downscale=downscale)
             for k, v in metrics.items():
                 results[f"{split_name}/{k}"] = v
+            n_t = len(indices) // self.dataset.num_cams
+            _save(frames, f"{split_name}_{step}.mp4", keys=vis_keys, num_timestamps=max(n_t, 1),
+                  fps=cfg.render.fps, num_cams=self.dataset.num_cams)
             self._write_json(f"metrics_{split_name}_{step}.json", metrics)
             logger.info("[%s] %s", split_name, metrics)
             if self.wandb is not None and frames:
@@ -355,6 +391,13 @@ class Trainer:
             _run("test", self.dataset.test_indices, 1)
         if cfg.render.render_full:
             _run("full", self.dataset.full_indices, 1)
+
+        if cfg.render.render_novel_trajectory:
+            frames = render_novel_trajectory(self.renderer, self.dataset,
+                                             downscale=cfg.render.low_res_downscale)
+            _save(frames, f"novel_{step}.mp4", keys=[k for k in ("rgb", "depth") if k in frames[0]],
+                  num_timestamps=len(frames), fps=cfg.render.fps * 2, num_cams=1)
+            logger.info("Rendered novel trajectory (%d frames)", len(frames))
 
         if self.dataset.lidar is not None:
             rmses = []

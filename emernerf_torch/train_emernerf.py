@@ -20,7 +20,12 @@ import time
 
 import numpy as np
 
+from emernerf_torch.builders import build_dataset_from_cfg
 from emernerf_torch.config import load_config
+from emernerf_torch.eval.data_preview import render_data_video
+from emernerf_torch.eval.points import PointQueryEngine
+from emernerf_torch.eval.video import have_imageio
+from emernerf_torch.eval.voxel_vis import visualize_scene_flow, visualize_voxels
 from emernerf_torch.flagship import DEFAULT_CONFIG
 from emernerf_torch.train.checkpoints import latest_checkpoint
 from emernerf_torch.train.trainer import Trainer
@@ -39,11 +44,11 @@ def get_args_parser():
         "preempted job restarted with the SAME command continues where it stopped; "
         "unlike resume_from, periodic checkpointing stays enabled)")
     parser.add_argument("--visualize_voxel", action="store_true",
-                        help="visualize voxel field after training (not ported yet)")
+                        help="visualize voxel field after training")
     parser.add_argument("--render_data_video", action="store_true",
-                        help="render a data inspection video before training (not ported yet)")
+                        help="render a data inspection video before training")
     parser.add_argument("--render_data_video_only", action="store_true",
-                        help="render the data video and exit (not ported yet)")
+                        help="render the data video and exit")
     parser.add_argument("--render_video_postfix", type=str, default=None,
                         help="an optional postfix for rendered video names")
     parser.add_argument("--output_root", default="./work_dirs/", type=str,
@@ -88,15 +93,39 @@ def setup(args):
     return cfg
 
 
+def _render_data_video(dataset, cfg) -> None:
+    """The data-inspection video ``data.mp4`` (one warning instead without
+    ``imageio``)."""
+    if not have_imageio():
+        logger.warning("imageio is not installed: no data video is written")
+        return
+    render_data_video(dataset, os.path.join(cfg.log_dir, "data.mp4"), fps=cfg.render.fps)
+
+
+def _visualize(trainer, cfg) -> None:
+    """The occupied voxels (per training timestep with the dynamic branch)
+    as ``voxels.npz`` and ``voxels.html``, and with the flow branch the
+    lidar scene flow as ``scene_flow.npz``."""
+    engine = PointQueryEngine(trainer.model, device=trainer.device)
+    times = (list(trainer.dataset.unique_normalized_training_timestamps)
+             if trainer.model.has_dynamic else None)
+    visualize_voxels(engine, trainer.dataset.aabb, os.path.join(cfg.log_dir, "voxels"),
+                     timesteps=times, voxel_size=cfg.render.vis_voxel_size, save_html=True)
+    if trainer.model.has_flow:
+        visualize_scene_flow(engine, trainer.dataset, os.path.join(cfg.log_dir, "scene_flow"))
+
+
 def main(argv=None):
     """Train (or with ``--eval_only`` evaluate) one scene; returns the
-    ``Trainer``."""
+    ``Trainer`` (None with ``--render_data_video_only``, which builds no
+    model)."""
     args = get_args_parser().parse_args(argv)
-    for flag in ("render_data_video_only", "render_data_video", "visualize_voxel"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP queue 1: the "
-                                      "voxel and data videos)")
     cfg = setup(args)
+
+    if args.render_data_video_only:
+        _render_data_video(build_dataset_from_cfg(cfg), cfg)
+        logger.info("Render data video only, exiting...")
+        return None
 
     if args.auto_resume and not cfg.resume_from:
         ckpt = latest_checkpoint(cfg.log_dir)
@@ -109,7 +138,7 @@ def main(argv=None):
         else:
             logger.info("auto_resume: no checkpoint yet under %s", cfg.log_dir)
 
-    if args.eval_only and not cfg.resume_from:
+    if (args.eval_only or args.visualize_voxel) and not cfg.resume_from:
         # evaluating a random init by accident helps no one: take the newest
         # checkpoint of the run directory
         ckpt = latest_checkpoint(cfg.log_dir)
@@ -120,6 +149,10 @@ def main(argv=None):
         cfg.resume_from = ckpt
 
     trainer = Trainer(cfg, cfg.log_dir, enable_wandb=args.enable_wandb, device=args.device)
+    if args.render_data_video:
+        _render_data_video(trainer.dataset, cfg)
+    if args.visualize_voxel:
+        _visualize(trainer, cfg)
     if args.eval_only:
         trainer.evaluate()
         return trainer

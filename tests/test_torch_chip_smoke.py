@@ -160,3 +160,41 @@ def test_profile_grid_cases_split_the_ray_batch_as_the_fields_query_it(flow):
     else:
         assert got == [("dynamic", 32, False)]
     assert torch.equal(cases[0][1][:32], xyzt[:32])
+
+
+def test_composite_inputs_keep_zeroes_all_but_the_shaded_samples():
+    """The pruned eval's K3 inputs: per ray exactly ``keep`` samples carry a
+    density and values, as the scatter-back of a top-K render leaves them."""
+    ts, te, dens, vals = chip_smoke.composite_inputs("cpu", 3, 50, 16, 3, 5, 80.0, False, keep=6)
+    full = chip_smoke.composite_inputs("cpu", 3, 50, 16, 3, 5, 80.0, False)
+    assert torch.equal(ts, full[0]) and torch.equal(te, full[1])
+    live = (dens[..., 1:] > 0).any(-1)
+    assert torch.all(live.sum(-1) == 6)
+    assert torch.equal(dens[live], full[2][live]) and torch.all(vals[~live] == 0)
+    assert torch.equal(dens[..., 0], dens[..., 1] + dens[..., 2])
+
+
+def test_point_batches_are_the_point_queries_of_the_flagship_scene():
+    """Phase 12b's grid queries: the first chunk of the voxel grid
+    contracted as the fields contract it, the same at one training
+    timestamp, the warped 2N batch, and the flow eval's scored lidar
+    returns of frame 0 at their timestamps."""
+    from emernerf_torch.builders import build_dataset_from_cfg
+    from emernerf_torch.eval.flow import flow_eval_points
+    from emernerf_torch.eval.voxel_vis import voxel_grid
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.models.fields import _contract
+
+    n = 1000
+    b = chip_smoke.point_batches("cpu", torch.Generator().manual_seed(0), n=n)
+    dataset = build_dataset_from_cfg(flagship_config())
+    aabb = torch.from_numpy(dataset.aabb)
+    world = torch.from_numpy(voxel_grid(dataset.aabb, chip_smoke.VIS_VOXEL_SIZE)[:n]).float()
+    assert torch.equal(b["voxels"], _contract(world, aabb, True))
+    assert torch.equal(b["voxels_t"][:, :3], b["voxels"])
+    assert float(b["voxels_t"][0, 3]) in dataset.unique_normalized_training_timestamps
+    assert b["voxels_warped"].shape == (2 * n, 4)
+    assert torch.all((b["voxels_warped"] >= 0) & (b["voxels_warped"] <= 1))
+    pts, t, _ = flow_eval_points(dataset, 0)
+    assert torch.equal(b["lidar"][:, :3], _contract(torch.from_numpy(pts), aabb, True))
+    np.testing.assert_array_equal(b["lidar"][:, 3].numpy(), t)

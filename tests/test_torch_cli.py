@@ -1,8 +1,10 @@
 """The port's training CLI and trainer plumbing on the CPU: the
 counterparts of ``tests/test_cli.py`` (dotlist and ``setup``, a
-train-and-eval run, ``--auto_resume``) and ``tests/test_train.py`` (SIGTERM
-preemption, the NaN tripwire restoring the signal handlers, the wall-clock
-``log_every``, wandb's retries), run through
+train-and-eval run, ``--auto_resume``), the stock flow config's scene-flow
+evaluation and videos, ``--visualize_voxel``, the data videos, and
+``tests/test_train.py`` (SIGTERM preemption, the NaN tripwire restoring
+the signal handlers, the wall-clock ``log_every``, wandb's retries), run
+through
 ``emernerf_torch.train_emernerf.main(["--device", "cpu", ...])`` on the
 tiny synthetic config of ``tests/test_cli.py``.  ``utils/logging.py`` is
 held to the JAX package's original.
@@ -10,6 +12,7 @@ held to the JAX package's original.
 
 import inspect
 import json
+import logging
 import os
 import signal
 import sys
@@ -212,18 +215,88 @@ def test_nan_tripwire_halts_training_and_restores_handlers(tmp_path, monkeypatch
     assert not _ckpts(tmp_path)
 
 
+FLOW_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "configs", "default_flow.yaml")
+# the stock flow config on the tiny scene (one camera, the dynamic sphere)
+TINY_FLOW = (["--config_file", FLOW_CONFIG] + TINY_OVERRIDES + TINY_DYNAMIC
+             + ["data.synthetic.dynamic=true", "data.pixel_source.num_cams=1"])
+
+
+class _Warnings(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+@pytest.mark.parametrize("imageio", [True, False], ids=["videos", "no_imageio"])
+def test_cli_default_flow_writes_flow_metrics_and_videos(tmp_path, monkeypatch, imageio):
+    """``configs/default_flow.yaml`` (``eval.eval_lidar_flow``) with the novel
+    trajectory: trains, then writes ``metrics_flow_{step}.json`` with the five
+    NSFP metrics, the lowres and novel videos, and without ``imageio`` one
+    warning, no video and every metric as before."""
+    if not imageio:
+        monkeypatch.setitem(sys.modules, "imageio", None)
+        monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    warnings = _Warnings()
+    logging.getLogger("emernerf_torch").addHandler(warnings)
+    try:
+        trainer = main(_argv(tmp_path, "flow") + TINY_FLOW
+                       + ["optim.num_iters=1", "render.render_novel_trajectory=true"])
+    finally:
+        logging.getLogger("emernerf_torch").removeHandler(warnings)
+    run_dir = tmp_path / "p" / "flow"
+    assert trainer.model.fused and trainer.cfg.eval.eval_lidar_flow
+    flow = json.loads((run_dir / "metrics_flow_2.json").read_text())
+    assert set(flow) == {"EPE3D", "acc3d_strict", "acc3d_relax", "angle_error", "outlier"}
+    assert all(np.isfinite(v) for v in flow.values())
+    results = json.loads((run_dir / "metrics_all_2.json").read_text())
+    assert results["flow/EPE3D"] == flow["EPE3D"] and np.isfinite(results["lowres/psnr"])
+    videos = sorted(p.stem for p in (run_dir / "videos").glob("*"))
+    no_video = [m for m in warnings.messages if "no videos" in m]
+    if imageio:
+        assert videos == ["lowres_2", "novel_2"] and not no_video
+    else:
+        assert videos == [] and len(no_video) == 1
+
+
 @pytest.mark.parametrize("flag", ["--visualize_voxel", "--render_data_video",
                                   "--render_data_video_only"])
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(_argv(tmp_path, "x", flag) + TINY_OVERRIDES)
+def test_cli_flag_runs(tmp_path, flag):
+    """--render_data_video_only writes the data video and builds no model;
+    --render_data_video writes it and trains; --visualize_voxel picks the
+    newest checkpoint as --eval_only does, exports the occupied voxels of
+    each training timestep (.npz, .html) and the lidar scene flow, then
+    evaluates with the top-K pruned render (render.eval_sample_topk)."""
+    run_dir = tmp_path / "p" / "x"
+    argv = _argv(tmp_path, "x", flag) + TINY_FLOW + NO_EVAL + ["optim.num_iters=1"]
+    if flag == "--visualize_voxel":
+        main(_argv(tmp_path, "x") + TINY_FLOW + NO_EVAL + ["optim.num_iters=1"])
+        trainer = main(argv + ["render.vis_voxel_size=4.0", "render.eval_sample_topk=3"])
+        assert trainer.cfg.resume_from.endswith("checkpoint_00002")
+        assert trainer.renderer.kw["sample_topk"] == 3
+        voxels = np.load(run_dir / "voxels.npz")
+        assert sorted(k for k in voxels if k.endswith("_xyz")) == [f"frame{i}_xyz" for i in range(3)]
+        assert len(voxels["frame0_xyz"]) > 0 and (run_dir / "voxels.html").stat().st_size > 0
+        flows = np.load(run_dir / "scene_flow.npz")
+        assert np.isfinite(flows["frame0_pred_flow"]).all() and len(flows["frame0_xyz"]) > 0
+        assert (run_dir / "metrics_all_2.json").exists()
+        return
+    trainer = main(argv)
+    assert [p.stem for p in run_dir.glob("data.*")] == ["data"]
+    if flag == "--render_data_video_only":
+        assert trainer is None and not _ckpts(run_dir)
+    else:
+        assert trainer.state.step == 2 and _ckpts(run_dir) == ["checkpoint_00002"]
 
 
-@pytest.mark.parametrize("key", ["eval.eval_occ", "eval.eval_lidar_flow",
-                                 "render.render_novel_trajectory"])
+@pytest.mark.parametrize("key", ["eval.eval_occ"])
 def test_unported_settings_raise(key):
+    """Occupancy evaluation waits for the feature head."""
     cfg = flagship_config(tiny=True, overrides=[f"{key}=true"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="feature head"):
         Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
 
 

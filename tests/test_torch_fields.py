@@ -252,7 +252,6 @@ def test_appearance_mean_embedding_fallback(pair):
 @pytest.mark.parametrize("knob", [
     "nerf.model.grid_backend=mx",
     "nerf.propnet.fine_level_skip=1",
-    "render.eval_sample_topk=16",
     "nerf.model.perf.scatter_mode=flat",
     "nerf.model.perf.gather_mode=1d",
     "nerf.model.head.enable_dynamic_branch=false",  # the flow branch stays on

@@ -1,8 +1,10 @@
 """Package boundary of the port: emernerf_torch never imports jax, flax,
 optax, the JAX package emernerf_tpu or the repository's perf/ scripts, its
 own copies of the JAX package's framework-free modules (config, synthetic
-scene, metrics) agree with the originals, its flagship config is the JAX
-package's, and its entry points run on the card unless asked for the CPU."""
+scene, metrics, data utils, visualization, the video frames, the novel
+trajectory's cameras and rays, the lidar projection of the data preview)
+agree with the originals, its flagship config is the JAX package's, and
+its entry points run on the card unless asked for the CPU."""
 
 import os
 import subprocess
@@ -14,11 +16,20 @@ import pytest
 
 from emernerf_tpu import config as jax_config
 from emernerf_tpu import flagship as jax_flagship
+from emernerf_tpu.builders import build_dataset_from_cfg as jax_build_dataset
 from emernerf_tpu.data import synthetic as jax_synthetic
+from emernerf_tpu.data import utils as jax_data_utils
+from emernerf_tpu.eval import data_preview as jax_data_preview
 from emernerf_tpu.eval import metrics as jax_metrics
+from emernerf_tpu.eval import novel as jax_novel
+from emernerf_tpu.eval import video as jax_video
+from emernerf_tpu.utils import visualization as jax_visualization
 from emernerf_torch import config, flagship
+from emernerf_torch.builders import build_dataset_from_cfg
 from emernerf_torch.data import synthetic
-from emernerf_torch.eval import metrics
+from emernerf_torch.data import utils as data_utils
+from emernerf_torch.eval import data_preview, metrics, novel, video
+from emernerf_torch.utils import visualization
 from emernerf_torch.flagship import REFERENCE_HASH, flagship_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,7 +60,11 @@ def test_every_module_imports_without_jax():
     assert len(walked) >= 20  # every module was walked
     assert {"emernerf_torch.ops.gather_scatter", "emernerf_torch.perf.pallas_experiments",
             "emernerf_torch.perf.bench_scatter_alts", "emernerf_torch.train.checkpoints",
-            "emernerf_torch.train_emernerf", "emernerf_torch.utils.logging"} <= walked
+            "emernerf_torch.train_emernerf", "emernerf_torch.utils.logging",
+            "emernerf_torch.data.utils", "emernerf_torch.utils.visualization",
+            "emernerf_torch.eval.points", "emernerf_torch.eval.flow",
+            "emernerf_torch.eval.video", "emernerf_torch.eval.novel",
+            "emernerf_torch.eval.data_preview", "emernerf_torch.eval.voxel_vis"} <= walked
 
 
 @pytest.mark.parametrize("tiny", [True, False])
@@ -115,3 +130,140 @@ def test_metrics_copy_equals_jax():
             == jax_metrics.compute_scene_flow_metrics(flow, labels))
     names = sorted(n for n in dir(jax_metrics) if n.startswith("compute_"))
     assert names == sorted(n for n in dir(metrics) if n.startswith("compute_"))
+
+
+def test_data_utils_copy_equals_jax():
+    rng = np.random.default_rng(1)
+    aabb_min, aabb_max, res = [-3.0, -2.0, 0.0], [5.0, 4.0, 2.5], [7, 5, 3]
+    np.testing.assert_array_equal(data_utils.voxel_coords_to_world_coords(aabb_min, aabb_max, res),
+                                  jax_data_utils.voxel_coords_to_world_coords(aabb_min, aabb_max,
+                                                                              res))
+    pts = rng.uniform(0, 5, (50, 3))
+    np.testing.assert_array_equal(
+        data_utils.voxel_coords_to_world_coords(aabb_min, aabb_max, res, pts),
+        jax_data_utils.voxel_coords_to_world_coords(aabb_min, aabb_max, res, pts))
+    np.testing.assert_array_equal(
+        data_utils.world_coords_to_voxel_coords(pts, aabb_min, aabb_max, res),
+        jax_data_utils.world_coords_to_voxel_coords(pts, aabb_min, aabb_max, res))
+    for seed in range(4):  # rotations of every trace sign (Shepperd's branches)
+        q = np.random.default_rng(seed).normal(size=(2, 4))
+        t1, t2 = np.eye(4), np.eye(4)
+        t1[:3, :3], t2[:3, :3] = data_utils._quat_to_mat(q[0]), data_utils._quat_to_mat(q[1])
+        t1[:3, 3], t2[:3, 3] = rng.normal(size=(2, 3))
+        for alpha in (0.0, 0.3, 1.0):
+            np.testing.assert_array_equal(data_utils.interpolate_matrices(t1, t2, alpha),
+                                          jax_data_utils.interpolate_matrices(t1, t2, alpha))
+    s = synthetic.make_synthetic_scene(num_frames=3, num_cams=1, hw=(8, 12), dynamic=True)
+    lidar = s["lidar_origins"] + s["lidar_viewdirs"] * s["lidar_ranges"][:, None]
+    ground = data_utils.get_ground_label(lidar)
+    np.testing.assert_array_equal(ground, jax_data_utils.get_ground_label(lidar))
+    assert 0 < ground.sum() < len(ground)
+
+
+def test_turbo_table_is_matplotlibs():
+    """The port's turbo table is matplotlib's, bit for bit, and indexed as
+    matplotlib's ListedColormap indexes it (both ends, bin edges, out of
+    range, NaN)."""
+    from matplotlib import colormaps
+
+    lut = colormaps["turbo"]
+    assert lut.N == len(visualization._TURBO) == 256
+    np.testing.assert_array_equal(visualization._TURBO, lut(np.arange(256))[:, :3])
+    x = np.concatenate([np.random.default_rng(0).uniform(-0.2, 1.2, 19998), np.arange(257) / 256,
+                        np.nextafter(np.arange(1, 257) / 256, 0), [np.nan, 0.0, 1.0, 0.5]])
+    np.testing.assert_array_equal(visualization._turbo(x), lut(x)[:, :3])
+    grid = x[:len(x) // 5 * 5].reshape(-1, 5)  # a 2D map, as depth_visualizer passes
+    np.testing.assert_array_equal(visualization._turbo(grid), lut(grid)[..., :3])
+
+
+def _frame(rng, h=12, w=16):
+    return {"gt_rgb": rng.uniform(0, 1, (h, w, 3)).astype(np.float32),
+            "rgb": rng.uniform(0, 1, (h, w, 3)).astype(np.float32),
+            "depth": rng.uniform(0.5, 80, (h, w)).astype(np.float32),
+            "opacity": rng.uniform(0, 1, (h, w)).astype(np.float32),
+            "forward_flow": rng.normal(size=(h, w, 3)).astype(np.float32),
+            "dynamic_opacity": rng.uniform(0, 1, (h, w)).astype(np.float32)}
+
+
+def test_visualization_copy_equals_jax():
+    rng = np.random.default_rng(2)
+    f = _frame(rng)
+    np.testing.assert_array_equal(visualization.depth_visualizer(f["depth"], f["opacity"]),
+                                  jax_visualization.depth_visualizer(f["depth"], f["opacity"]))
+    np.testing.assert_array_equal(visualization.depth_visualizer(f["depth"], lo=2.0, hi=40.0),
+                                  jax_visualization.depth_visualizer(f["depth"], lo=2.0, hi=40.0))
+    for bg in ("dark", "bright"):
+        np.testing.assert_array_equal(
+            visualization.scene_flow_to_rgb(f["forward_flow"], background=bg),
+            jax_visualization.scene_flow_to_rgb(f["forward_flow"], background=bg))
+    feats = rng.normal(size=(300, 8))
+    ours, ref = visualization.get_robust_pca(feats), jax_visualization.get_robust_pca(feats)
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(visualization.apply_pca_colors(feats, *ours),
+                                  jax_visualization.apply_pca_colors(feats, *ref))
+    np.testing.assert_array_equal(visualization.to_uint8(f["rgb"] * 1.2 - 0.1),
+                                  jax_visualization.to_uint8(f["rgb"] * 1.2 - 0.1))
+
+
+def test_video_frames_copy_equals_jax():
+    """compose_frame: rgb, a depth map colored with the opacity, flow, a
+    scalar map and a key the frame lacks."""
+    f = _frame(np.random.default_rng(3))
+    keys = ["gt_rgb", "rgb", "depth", "forward_flow", "dynamic_opacity", "backward_flow"]
+    ours = video.compose_frame(f, keys)
+    assert ours.dtype == np.uint8 and ours.shape == (5 * 12, 16, 3)
+    np.testing.assert_array_equal(ours, jax_video.compose_frame(f, keys))
+
+
+@pytest.fixture(scope="module")
+def datasets():
+    """The port's and the JAX package's tiny flagship scene, with a test
+    split (frame 0 of 3)."""
+    dot = ["data.pixel_source.test_image_stride=2"]
+    return (build_dataset_from_cfg(flagship_config(tiny=True, overrides=dot)),
+            jax_build_dataset(jax_flagship.flagship_config(tiny=True, overrides=dot)))
+
+
+def test_dataset_eval_surface_equals_jax(datasets):
+    """The lidar flow labels and ground mask, the training timesteps and
+    the lidar visibility that the flow eval and the voxel export read."""
+    ours, ref = datasets
+    assert set(ours.lidar) == set(ref.lidar)
+    for k in ref.lidar:
+        np.testing.assert_array_equal(ours.lidar[k], ref.lidar[k], err_msg=k)
+    assert ours.num_train_timesteps == ref.num_train_timesteps == 1
+    np.testing.assert_array_equal(ours.unique_normalized_training_timestamps,
+                                  ref.unique_normalized_training_timestamps)
+    for frame in range(ref.num_frames):
+        pts = ref.get_lidar_render_rays(frame)
+        pts = pts["origins"] + pts["viewdirs"] * pts["ranges"][:, None]
+        vis = ours.get_valid_lidar_mask(frame, pts)
+        np.testing.assert_array_equal(vis, ref.get_valid_lidar_mask(frame, pts))
+        assert 0 < vis.sum() < len(vis)
+
+
+def test_novel_trajectory_copy_equals_jax(datasets):
+    ours, ref = datasets
+    cams, ref_cams = novel.generate_novel_trajectory(ours), jax_novel.generate_novel_trajectory(ref)
+    assert len(cams) == len(ref_cams) == 5
+    for a, b in zip(cams, ref_cams):
+        assert set(a) == set(b)
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    c = cams[3]
+    rays = novel._rays_for_camera(c["c2w"], c["intrinsics"], (6, 8), c["normed_timestamp"])
+    ref_rays = jax_novel._rays_for_camera(c["c2w"], c["intrinsics"], (6, 8), c["normed_timestamp"])
+    assert set(rays) == set(ref_rays)
+    for k in ref_rays:
+        np.testing.assert_array_equal(rays[k], ref_rays[k], err_msg=k)
+
+
+def test_data_preview_projection_copy_equals_jax(datasets):
+    ours, ref = datasets
+    for img in range(ref.num_images):
+        (depth, flow), (ref_depth, ref_flow) = (data_preview.project_lidar_to_image(ours, img),
+                                                jax_data_preview.project_lidar_to_image(ref, img))
+        np.testing.assert_array_equal(depth, ref_depth)
+        np.testing.assert_array_equal(flow, ref_flow)
+        assert depth.any()

@@ -993,3 +993,67 @@ def test_probe_wrappers_reject_out_of_range_rows(cuda):
         gs.scatter_add_rmw(idx, upd, 4)
     with pytest.raises(ValueError, match="indices must lie"):
         gs.row_gather_loop(upd, idx.clone().fill_(gs.TILE))
+
+
+def _point_chunk(cuda, dims, n=65536, voxel_size=1.0):
+    """A point-query chunk as PointQueryEngine sends it: the first n cells of
+    the synthetic flagship scene's voxel grid (eval/voxel_vis.py:voxel_grid),
+    contracted as the fields contract them, at one timestamp in 4D."""
+    from emernerf_torch.data.synthetic import make_synthetic_scene
+    from emernerf_torch.eval.voxel_vis import voxel_grid
+    from emernerf_torch.models.fields import _contract
+
+    aabb = make_synthetic_scene(num_frames=8, num_cams=1, hw=(8, 12), dynamic=True)["aabb"]
+    world = torch.from_numpy(voxel_grid(aabb, voxel_size)[:n].astype(np.float32)).to(cuda)
+    pos = _contract(world, torch.from_numpy(aabb).to(cuda), True)
+    if dims == 4:
+        pos = torch.cat([pos, torch.full_like(pos[:, :1], 3 / 7)], -1)
+    return pos.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f,bs,pair", [_BRICK_LAYOUTS[1], _BRICK_LAYOUTS[2]],
+                         ids=["static_3d", "fused_4d"])
+@pytest.mark.parametrize("stored,compute", _K1_TYPES[:2], ids=_K1_TYPE_IDS[:2])
+def test_brickgrid_kernel_at_a_point_query_chunk(cuda, dims, f, bs, pair, stored, compute):
+    """K1 forward at an (N, 3) and an (N, 4) point-query chunk (a regular
+    lattice: neighbouring lanes on neighbouring cells) bit for bit."""
+    spec = _brick_spec(dims, f, bs, pair)
+    g = torch.Generator(device=cuda).manual_seed(40)
+    table = (torch.rand(spec.table_shape, device=cuda, generator=g) * 2 - 1).to(stored)
+    pos = _point_chunk(cuda, dims)
+    with torch.no_grad():
+        out = brickgrid_encode(table, pos, spec, compute)
+        ref = brickgrid_encode_ref(table, pos, spec, compute)
+    torch.cuda.synchronize()
+    assert out.shape == (65536, spec.n_output_dims) and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f", [(3, 4), (4, 4)], ids=["static_3d", "dynamic_4d"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hashgrid_kernel_at_a_point_query_chunk(cuda, dims, f, dtype):
+    spec, table, _, _ = _hash_inputs(cuda, dims, f, dtype, 41)
+    _check_hash_forward(spec, table, _point_chunk(cuda, dims))
+
+
+@pytest.mark.cuda
+def test_composite_forward_kernel_at_the_pruned_eval_shape(cuda):
+    """K3 forward at the top-K eval's final composite: 16,384 rays of 64
+    samples, three density sets, 23 channels, every field output zero but
+    at the 32 shaded samples of each ray (as the scatter-back leaves them)."""
+    g = torch.Generator(device=cuda).manual_seed(42)
+    r, s, k = 16384, 64, 32
+    t = torch.sort(torch.rand((r, s + 1), device=cuda, generator=g) * 100, -1)[0] + 0.1
+    ts, te = t[:, :-1].contiguous(), t[:, 1:].contiguous()
+    kept = torch.rand((r, s), device=cuda, generator=g).argsort(-1)[:, :k]
+    mask = torch.zeros((r, s, 1), device=cuda).scatter_(1, kept[..., None], 1.0)
+    dens = torch.rand((r, s, 3), device=cuda, generator=g) ** 3 * 0.5 * mask
+    dens[..., 0] = dens[..., 1] + dens[..., 2]
+    vals = torch.rand((r, s, 23), device=cuda, generator=g) * mask
+    sets = [0] * 4 + [1] * 9 + [0] + [2] * 9
+    out = composite_along_rays(ts, te, dens, vals, sets)
+    ref = composite_along_rays_ref(ts, te, dens, vals, sets)
+    torch.cuda.synchronize()
+    _check_composite_forward(out, ref, ts, te)
+    assert float((out.weights == 0).float().mean()) >= 0.5

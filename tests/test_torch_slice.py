@@ -167,3 +167,20 @@ def test_stratified_batch_with_injected_jitter_matches_jax(renders):
                                  {k: torch.from_numpy(np.array(v)) for k, v in rays.items()},
                                  **kw).out
     assert not torch.allclose(plain["extras"]["t_vals"], ours["extras"]["t_vals"])
+
+
+def test_eval_sample_topk_render_matches_jax(renders):
+    """``render.eval_sample_topk``: both renderers shade only the K = 3 of 4
+    samples per ray that the last proposal net ranks highest (exact top-K,
+    then the temporal aggregation's top 2 of those 3) and scatter the
+    outputs back; every map within the slice's tolerance, and the pruned
+    render differs from the exact one."""
+    exact, _, m = renders
+    kw = dict(m["kw"], sample_topk=3)
+    rays, hw = m["rays"], exact["rgb"].shape[:2]
+    ref = JaxImageRenderer(m["jmodel"], m["jprops"], **kw).render_image(
+        m["params"], m["prop_params"], rays, hw)
+    ours = ImageRenderer(m["tmodel"], m["tprops"], device="cpu", **kw).render_image(rays, hw)
+    for key in MAPS:
+        np.testing.assert_allclose(ours[key], ref[key], rtol=1e-4, atol=1e-5, err_msg=key)
+    assert not np.allclose(ours["rgb"], exact["rgb"], rtol=1e-4, atol=1e-5)

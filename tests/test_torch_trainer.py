@@ -18,6 +18,7 @@ from emernerf_tpu.data import scene as jscene
 from emernerf_tpu.flagship import build_flagship as jax_build_flagship
 from emernerf_torch.builders import build_dataset_from_cfg
 from emernerf_torch.data import scene as tscene
+from emernerf_torch.eval.points import PointQueryEngine
 from emernerf_torch.eval.renderer import ImageRenderer
 from emernerf_torch.flagship import (
     DYNAMIC,
@@ -181,3 +182,6 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ImageRenderer(model, props)
     assert ImageRenderer(model, props, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PointQueryEngine(model)
+    assert PointQueryEngine(model, device="cpu").device.type == "cpu"

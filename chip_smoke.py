@@ -133,16 +133,36 @@ Phases (any failure exits non-zero; nothing is skipped):
      query_attributes and at the flow eval's lidar returns; K4 forward on
      the reference-hash grids at the same chunk; K3 forward at the top-K
      eval's final composite, on inputs zero but at the 32 shaded samples.
+  13. the feature head: a Waymo-layout scene written to a temporary
+     directory (20 frames of 3 cameras, JPEGs at the cameras' original
+     sizes loaded at 640x960, sky and dynamic masks, 160,000 top-lidar
+     returns per frame, fp16 (91, 137, 768) feature maps, Occ3D at 0.4 m;
+     the cuts are printed), the full-width flagship with the feature head
+     through the CLI: a few iterations with the feature loss, the
+     evaluation (lowres split with feat_psnr, occupancy eval, the feature
+     video or its composed frame), the feature maps deleted; then timed
+     iterations, device busy, peak memory and the top device items beside
+     phase 5's, then the same scene without the feature head (a control).
+     The launch counters are zeroed before its CLI run and read after its
+     profiled iterations;
+  13b. K3 forward at the training (8192, 64, 1, 68) and eval (16384, 64,
+     3, 215) shapes of phase 13 and K3 backward at (8192, 64, 1, 68)
+     (emernerf_torch/perf/bench_wide_composite.py times the eval chunk's
+     one call beside four calls by channel group).
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
 and its operations over the fp32 rate (H100 SXM data sheet).  Its launches
 are those of the training run of its path (phase 5, phase 6 for K4, phase
 7's probe run for P1-P4, phase 9 or 10 for the rows of those profiles'
-grids and K3 shapes, phase 12's runs for the "points" rows of 12b).
-The kernels' device times alone (torch.profiler: K2, K3 forward and
-backward, K5, P1, P3) are taken last, so that no profiler session precedes
-a timed phase.
+grids and K3 shapes, phase 12's runs for the "points" rows of 12b, phase
+13's for the "waymo" rows of 13b; a K3 forward call past 64 channels
+counts its two kernels).
+The kernels' device times alone (torch.profiler, each kernel's mean over
+its records: K2, K3 forward and backward, K5, P1, P3; for K3 past 64
+channels, CUDA events around calls queued behind a sleep kernel are
+printed beside) are taken last, so that no profiler session precedes a
+timed phase; a time under its bound is not reported.
 The last two lines are the card line and {"ok": true, "device": {...}}.
 """
 
@@ -215,6 +235,23 @@ def cuda_ms(fn, iters: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device time per call of fn(), the host ahead of the card: iters calls
+    queued between two CUDA events behind a sleep kernel that holds the
+    card while the host issues them, so no host time falls between the
+    events (the kernels alone where fn launches nothing else)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms: longer than issuing the calls
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def compare(name, out, ref, rtol, atol):
@@ -588,8 +625,9 @@ def composite_inputs(dev, seed, r, s_, d, n_ch, t_far, grad, keep=0):
     return t[:, :-1].contiguous(), t[:, 1:].contiguous(), dens.requires_grad_(grad), vals
 
 
-# the device kernels of K3 forward's two routes (composite.cu)
-K3_FORWARD_KERNELS = ("composite_kernel", "composite_warp_kernel")
+# the device kernels of K3 forward's two routes and of its sums above 64
+# channels (composite.cu)
+K3_FORWARD_KERNELS = ("composite_kernel", "composite_warp_kernel", "composite_sums_kernel")
 
 
 def remade(make, call):
@@ -651,7 +689,8 @@ def composite_row(dev, seed, kernels_entries, after_timed, r, s_, d, sets, t_far
               path=path)
     after_timed.append((kernels_entries[-1], K3_FORWARD_KERNELS,
                         remade(lambda: composite_inputs(*args),
-                               lambda *a: composite_along_rays(*a, sets))))
+                               lambda *a: composite_along_rays(*a, sets)),
+                        len(sets) > 64))
 
 
 def composite_tally(fn):
@@ -677,19 +716,20 @@ def composite_tally(fn):
 K3_BACKWARD_KERNELS = ("composite_bwd_kernel",)
 
 
-def composite_bwd_inputs(dev, seed, s_, with_vals):
+def composite_bwd_inputs(dev, seed, s_, with_vals, n_ch=4):
     """Seeded arguments of one K3 backward call of training, 8,192 rays of
     s_ samples and one density set: the pixel branch's final composite
-    (four value channels; cotangents of the weights, opacity, depth and
+    (``n_ch`` value channels: 4, shadow_ratio^2 and rgb, or 68 with the
+    feature head's dino_feat; cotangents of the weights, opacity, depth and
     sums) or a proposal level's (the transmittance's cotangent alone)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     t = torch.sort(torch.rand((N_TRAIN, s_ + 1), device=dev, generator=g) * 80, -1)[0] + 0.1
     dens = (torch.rand((N_TRAIN, s_, 1), device=dev, generator=g) ** 3 * 0.5).contiguous()
-    vals = torch.rand((N_TRAIN, s_, 4), device=dev, generator=g) if with_vals else None
+    vals = torch.rand((N_TRAIN, s_, n_ch), device=dev, generator=g) if with_vals else None
     rnd = lambda *shape: torch.randn(shape, device=dev, generator=g)  # noqa: E731
-    grads = ((rnd(N_TRAIN, s_, 1), None, rnd(N_TRAIN, 1), rnd(N_TRAIN, 1), rnd(N_TRAIN, 4))
+    grads = ((rnd(N_TRAIN, s_, 1), None, rnd(N_TRAIN, 1), rnd(N_TRAIN, 1), rnd(N_TRAIN, n_ch))
              if with_vals else (None, rnd(N_TRAIN, s_, 1), None, None, None))
-    sets = [0] * 4 if with_vals else []  # shadow_ratio^2, rgb
+    sets = [0] * n_ch if with_vals else []
     return t[:, :-1].contiguous(), t[:, 1:].contiguous(), dens, vals, sets, grads
 
 
@@ -1400,14 +1440,9 @@ def phase_composite_shapes(dev, entries, after_timed, tallies):
 def profile_train(trainer, step, ms_iter, file_name):
     """Device time by kernel over 2 training iterations (torch.profiler,
     CUDA activity only: tracing CPU ops slows the iteration ~40x)."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(2):
-            trainer.train_iteration(step + i)
-        torch.cuda.synchronize()
+    prof = cuda_profile(lambda: [trainer.train_iteration(step + i) for i in range(2)])
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_time_total > 0]
@@ -1496,31 +1531,64 @@ def phase_train_fp32(dev, profile=None, overrides=TINY_FP32, label="phase 5b"):
 
 
 def kernel_only(after_timed):
-    """Each (entry, kernel-name substrings, call) of ``after_timed``: the
-    device time of the kernels alone in the call, a torch.profiler session
-    each, run after every timed phase so that no profiler session precedes
-    the eval, training and CLI timings."""
-    print("kernels alone (torch.profiler, after the timed phases)")
+    """Each (entry, kernel-name substrings, call[, queued]) of
+    ``after_timed``: the device time of the kernels alone in the call, a
+    torch.profiler session each, run after every timed phase so that no
+    profiler session precedes the eval, training and CLI timings.  With
+    ``queued`` (K3 past 64 channels) queued_ms's time of the call is
+    printed beside it."""
+    print("kernels alone (torch.profiler, after the timed phases; kernel records per call)")
     while after_timed:  # each call's inputs go with it
-        entry, keys, fn = after_timed.pop(0)
-        entry["kernel_only_ms"] = kernel_device_ms(fn, keys, iters=20)
+        entry, keys, fn, *queued = after_timed.pop(0)
+        ms, records = profiled_ms(fn, keys, iters=20)
+        extra = f"; queued events {queued_ms(fn, 20):.4f} ms" if queued and queued[0] else ""
         print(f"  {entry['name']}: the wrapper's call {entry['ms']:.4f} ms, the kernel alone "
-              f"{entry['kernel_only_ms']:.4f} ms")
+              f"{set_kernel_only(entry, ms)} ({records / 20:g} records a call{extra})")
 
 
-def kernel_device_ms(fn, keys, iters=10) -> float:
-    """Device time per call of fn() spent in kernels whose names contain one
-    of keys (torch.profiler, CUDA activity)."""
+def set_kernel_only(entry, ms) -> str:
+    """entry's kernel_only_ms = ms, unless the session kept no record or ms
+    is under the HBM bound (inputs that stay in the L2 between calls, or a
+    fault of the measurement): then none."""
+    if ms is None or ms < entry["bound_ms"]:
+        entry.pop("kernel_only_ms", None)
+        return f"not reported ({'no records' if ms is None else f'{ms:.4f} ms, under the bound'})"
+    entry["kernel_only_ms"] = ms
+    return f"{ms:.4f} ms"
+
+
+def cuda_profile(run):
+    """torch.profiler's CUDA activity over run() and a synchronize."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return prof
+
+
+def profiled_ms(fn, keys, iters=10):
+    """(device time per call of fn() in the kernels whose names contain one
+    of keys, their records) from torch.profiler.  Each such kernel runs once
+    per call, so its time is its mean over its records: in a long process a
+    session keeps only some of them (8 of 20 lost is common; PERF.md, PR
+    12), and a lost record does not bias the mean; (None, 0) where the
+    session kept none."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if any(k in e.key for k in keys)) / iters / 1e3
+    prof = cuda_profile(lambda: [fn() for _ in range(iters)])
+    hits = [e for e in prof.key_averages()
+            if e.device_time_total > 0 and any(k in e.key for k in keys)]
+    if not hits:
+        return None, 0
+    return (sum(e.device_time_total / e.count for e in hits) / 1e3,
+            sum(e.count for e in hits))
+
+
+def kernel_device_ms(fn, keys, iters=10):
+    """Device time per call of fn() in the kernels whose names contain one
+    of keys, each launched once per call (profiled_ms); None without records."""
+    return profiled_ms(fn, keys, iters)[0]
 
 
 def phase_probes(dev, entries, after_timed):
@@ -1590,12 +1658,12 @@ def phase_probes(dev, entries, after_timed):
             lambda: torch.zeros((t, w), device=dev).index_add_(0, idx, upd), rows,
             nbytes(idx, upd, out), float(rows * w), {"p3_vec_bytes": vec})
         e = entries[-1]
-        e["kernel_only_ms"] = kernel_device_ms(lambda: gs.scatter_add_rmw(idx, upd, t),
-                                               ("scatter_rmw_kernel",))
-        print(f"  {tag}: {vec}-byte reductions; kernel alone {e['kernel_only_ms']:.4f} ms, the "
-              f"call {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, index_add_ "
-              f"{e['library_ms']:.4f} ms; bound {e['bound_ms']:.4f} ms = "
-              f"{e['bound_ms'] / e['kernel_only_ms']:.1%} of the time alone, "
+        alone = set_kernel_only(e, kernel_device_ms(lambda: gs.scatter_add_rmw(idx, upd, t),
+                                                    ("scatter_rmw_kernel",)))
+        share = f"{e['bound_ms'] / e['kernel_only_ms']:.1%}" if "kernel_only_ms" in e else "-"
+        print(f"  {tag}: {vec}-byte reductions; kernel alone {alone}, the call {e['ms']:.4f} "
+              f"ms, plain {e['plain_ms']:.4f} ms, index_add_ {e['library_ms']:.4f} ms; bound "
+              f"{e['bound_ms']:.4f} ms = {share} of the time alone, "
               f"{e['bound_ms'] / e['ms']:.1%} of the call's")
         del idx, upd, out
     torch.cuda.empty_cache()
@@ -1620,12 +1688,12 @@ def phase_probes(dev, entries, after_timed):
             nbytes(rows, upd, out), float(nn * w),
             {"library_onehot_matmul_ms": matmul_ms, "p4_route": route})
         e = entries[-1]
-        e["kernel_only_ms"] = kernel_device_ms(
-            lambda: gs.scatter_add_onehot(rows, upd, t, tile_n), P4_KERNELS)
+        alone = set_kernel_only(e, kernel_device_ms(
+            lambda: gs.scatter_add_onehot(rows, upd, t, tile_n), P4_KERNELS))
         print(f"  {tag}: route {route}: bound_ms / ms = {e['bound_ms'] / e['ms']:.3f}; "
               f"index_add_ / ms = {e['library_ms'] / e['ms']:.2f}; the route's kernels "
-              f"{e['kernel_only_ms']:.4f} ms of the call's {e['ms']:.4f} ms (the rest: the range "
-              "check's aminmax and host sync, the zeroed output)")
+              f"{alone} of the call's {e['ms']:.4f} ms (the rest: the range check's aminmax "
+              "and host sync, the zeroed output)")
         del rows, upd, out, upd_bf
     torch.cuda.empty_cache()
     return launches
@@ -2120,6 +2188,346 @@ def phase_points_kernels(dev, entries, after_timed, pruned_tally):
     print(f"  phase 12b took {time.perf_counter() - t0:.1f} s")
 
 
+# phase 13's Waymo-layout scene (data/waymo.py's layout) and its cuts
+WAYMO_FRAMES = 20  # cut from a NOTR scene's ~200 frames
+WAYMO_CAMS = 3  # data.pixel_source.num_cams: CAMERA_LISTS[3], the three front cameras
+WAYMO_LIDAR = 160_000  # top-lidar returns per frame
+WAYMO_FEAT = (91, 137, 768)  # dinov2_vitb14's map at stride 7 on 644x966, stored fp16
+WAYMO_OCC_VOXEL = 0.4  # data.occ_source.voxel_size, cut from 0.1 to keep the files small
+WAYMO_OCC_VOXELS = 4000  # annotated voxels per frame
+
+
+def write_waymo_scene(root, n_frames=WAYMO_FRAMES, num_cams=WAYMO_CAMS, n_lidar=WAYMO_LIDAR,
+                      feat_shape=WAYMO_FEAT, image_hw=None, occ_voxels=WAYMO_OCC_VOXELS,
+                      feature_model="dinov2_vitb14", seed=0):
+    """Writes scene 000 of a preprocessed Waymo scene under ``root``, made
+    from ``seed``: the ego drives 1 m per frame along x; the cameras of
+    CAMERA_LISTS[num_cams] 1.5 m ahead of it, turned by 45 degrees per
+    place from the front, their JPEGs (smooth random colour) at the
+    camera's original size (or ``image_hw``), sky masks (the top fifth),
+    dynamic masks (a box that moves); ``n_lidar`` top-lidar returns per
+    frame (ground plane and a wall band within 75 m, a quarter of them on
+    a moving vehicle: velocity 5 m/s, flow class 1); fp16 feature maps of
+    ``feat_shape`` (rank 96 plus a per-pixel ramp); Occ3D annotations at
+    0.4 m (``occ_voxels`` labelled voxels of the front half, labels 0-14)."""
+    from PIL import Image
+
+    from emernerf_torch.data.waymo import CAMERA_LISTS, ORIGINAL_SIZE
+
+    rng = np.random.default_rng(seed)
+    scene = os.path.join(root, "000")
+    for sub in ("images", "intrinsics", "extrinsics", "ego_pose", "lidar", "sky_masks",
+                "dynamic_masks", "occ3d", feature_model):
+        os.makedirs(os.path.join(scene, sub), exist_ok=True)
+    cams = CAMERA_LISTS[num_cams]
+    yaw = {0: 0.0, 1: 45.0, 2: -45.0, 3: 90.0, 4: -90.0}
+    for cam in cams:
+        oh, ow = ORIGINAL_SIZE[cam]
+        np.savetxt(os.path.join(scene, "intrinsics", f"{cam}.txt"),
+                   np.array([0.8 * ow, 0.8 * ow, ow / 2.0, oh / 2.0, 0, 0, 0, 0, 0]))
+        a = np.deg2rad(yaw[cam])
+        c2e = np.eye(4)
+        c2e[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        c2e[:3, 3] = [1.5, 0.0, 2.0]
+        np.savetxt(os.path.join(scene, "extrinsics", f"{cam}.txt"), c2e)
+    hf, wf, cf = feat_shape
+    basis = rng.standard_normal((96, cf)).astype(np.float32)
+    ramp = np.linspace(-1.0, 1.0, hf * wf, dtype=np.float32)[:, None]
+    for t in range(n_frames):
+        ego = np.eye(4)
+        ego[0, 3] = 100.0 + t
+        np.savetxt(os.path.join(scene, "ego_pose", f"{t:03d}.txt"), ego)
+        for cam in cams:
+            oh, ow = image_hw or ORIGINAL_SIZE[cam]
+            small = (rng.uniform(0, 255, (max(oh // 32, 2), max(ow // 32, 2), 3))).astype(np.uint8)
+            Image.fromarray(small).resize((ow, oh), Image.BILINEAR).save(
+                os.path.join(scene, "images", f"{t:03d}_{cam}.jpg"), quality=90)
+            sky = np.zeros((oh, ow), np.uint8)
+            sky[: oh // 5] = 255
+            Image.fromarray(sky).save(os.path.join(scene, "sky_masks", f"{t:03d}_{cam}.png"))
+            dyn = np.zeros((oh, ow), np.uint8)
+            x0 = (t * ow // (2 * n_frames)) % max(ow - ow // 8, 1)
+            dyn[oh // 2: oh // 2 + oh // 8, x0: x0 + ow // 8] = 255
+            Image.fromarray(dyn).save(os.path.join(scene, "dynamic_masks", f"{t:03d}_{cam}.png"))
+            latent = rng.standard_normal((hf * wf, 96)).astype(np.float32)
+            feat = (latent @ basis + 4.0 * ramp * basis[0]).reshape(hf, wf, cf)
+            np.save(os.path.join(scene, feature_model, f"{t:03d}_{cam}.npy"),
+                    feat.astype(np.float16))
+        # lidar: N x 14 (origin 3, point 3, velocity 3, flow class, ground,
+        # intensity, elongation, laser id), in the ego frame
+        info = np.zeros((n_lidar, 14), np.float32)
+        info[:, 2] = 2.0
+        az = rng.uniform(-np.pi, np.pi, n_lidar)
+        el = rng.uniform(np.deg2rad(-17.0), np.deg2rad(2.0), n_lidar)
+        d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)], -1)
+        rng_ground = np.where(d[:, 2] < -1e-3, 2.0 / np.maximum(-d[:, 2], 1e-3), np.inf)
+        ranges = np.minimum(rng_ground, rng.uniform(20.0, 75.0, n_lidar))
+        info[:, 3:6] = info[:, :3] + d * ranges[:, None]
+        moving = rng.random(n_lidar) < 0.25
+        info[moving, 6] = 5.0
+        info[moving, 9] = 1
+        info[:, 10] = info[:, 5] < 0.05
+        info[:, 11] = rng.random(n_lidar)
+        info.tofile(os.path.join(scene, "lidar", f"{t:03d}.bin"))
+        # Occ3D at 0.4 m: (200, 200, 16), 23 = free; the loader keeps x >= 100
+        label = np.full((200, 200, 16), 23, np.uint8)
+        label[rng.integers(100, 200, occ_voxels), rng.integers(0, 200, occ_voxels),
+              rng.integers(0, 16, occ_voxels)] = rng.integers(0, 15, occ_voxels)
+        np.savez(os.path.join(scene, "occ3d", f"{t:03d}_04.npz"), voxel_label=label,
+                 final_voxel_state=np.ones((200, 200, 16), np.uint8))
+    return scene
+
+
+N_WAYMO_CLI = 4  # optim.num_iters of phase 13's CLI run
+N_WAYMO_TIMED = 6  # iterations timed after it, on the trainer the CLI returns
+
+
+def waymo_dotlist(root):
+    """Phase 13's settings: the flagship's branches (dynamic, flow, shadow)
+    on the stock defaults, the Waymo loader on ``root`` at the default load
+    size, the feature head with the learnable PE map (the defaults'
+    widths), the occupancy eval at 0.4 m and the deletion of the feature
+    maps after the run; render.render_full=false is a cut (the lowres
+    split of every image, not full-size renders)."""
+    from emernerf_torch.flagship import _FLAGSHIP_DOTLIST
+
+    return list(_FLAGSHIP_DOTLIST) + [
+        f"data.data_root={root}", "data.dataset=waymo", "data.scene_idx=0",
+        f"data.pixel_source.num_cams={WAYMO_CAMS}", "data.pixel_source.load_features=true",
+        "data.pixel_source.skip_feature_extraction=true",
+        "nerf.model.head.enable_feature_head=true",
+        f"data.occ_source.voxel_size={WAYMO_OCC_VOXEL}", "eval.eval_occ=true",
+        "render.render_full=false", "data.pixel_source.delete_features_after_run=true"]
+
+
+def phase_waymo(dev, counted, zero, train_ms, busy5, peak5):
+    """Phase 13: the feature head on a Waymo-layout scene through the CLI.
+    Writes the scene (write_waymo_scene) to a temporary directory, trains
+    N_WAYMO_CLI iterations of the full-width flagship with the feature
+    head, evaluates (the lowres split with feat_psnr, the occupancy eval,
+    the feature video where imageio is installed, else the composed first
+    frame in memory), deletes the feature maps; then on the trainer the
+    CLI returns: N_WAYMO_TIMED timed iterations (ms/iteration, peak
+    memory), a profile of 2 (device busy, top items beside phase 5's) and
+    one more iteration's K3 calls.  The launch counters are zeroed before
+    the CLI run and read after the profiled iterations.  Then the control:
+    the same scene and flagship without the feature head, timed and
+    profiled the same way.  Returns (launches, K3 calls of training, K3
+    calls of the eval, ms/iteration, busy, peak GiB, eval peak GiB, and
+    the control's ms/iteration and busy)."""
+    import logging
+    import shutil
+    import tempfile
+
+    from emernerf_torch import train_emernerf
+    from emernerf_torch.config import load_config
+    from emernerf_torch.eval import video
+    from emernerf_torch.eval.renderer import ImageRenderer
+    from emernerf_torch.flagship import DEFAULT_CONFIG
+    from emernerf_torch.train.trainer import Trainer
+
+    print("phase 13: the feature head (DINO lifting, learnable PE, feature loss, feature PSNR, "
+          "occupancy eval) on a Waymo-layout scene through the CLI, full-width flagship")
+    root = tempfile.mkdtemp(prefix="emernerf_waymo_")
+    t_phase = t0 = time.perf_counter()
+    scene = write_waymo_scene(root)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(scene) for f in fs)
+    print(f"  wrote the scene in {time.perf_counter() - t0:.1f} s ({size / 2 ** 30:.2f} GiB): "
+          f"{WAYMO_CAMS} cameras (CAMERA_LISTS[{WAYMO_CAMS}], JPEGs at each camera's original "
+          f"size), sky and dynamic masks, {WAYMO_LIDAR} top-lidar returns per frame, fp16 "
+          f"feature maps {WAYMO_FEAT} per image, Occ3D files at {WAYMO_OCC_VOXEL} m")
+    print(f"  cuts: {WAYMO_FRAMES} frames (a NOTR scene has ~200); Occ3D at {WAYMO_OCC_VOXEL} m "
+          f"(from 0.1 m); render.render_full=false (the eval renders the lowres split); "
+          f"{N_WAYMO_CLI} + {N_WAYMO_TIMED} + 3 training iterations")
+    run_dir = os.path.join(root, "p", "waymo")
+    os.makedirs(run_dir)
+    log = logging.getLogger("emernerf_torch")
+    handler = logging.FileHandler(os.path.join(run_dir, "log.txt"))
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    argv = (["--output_root", root, "--project", "p", "--run_name", "waymo"]
+            + waymo_dotlist(root) + [f"optim.num_iters={N_WAYMO_CLI}", "logging.print_freq=1"])
+    orig = {"split": ImageRenderer.render_split, "evaluate": Trainer.evaluate}
+    first, eval_peak = {}, []
+
+    def render_split(self, dataset, indices, downscale=1, compute_metrics=True):
+        frames, metrics = orig["split"](self, dataset, indices, downscale, compute_metrics)
+        first.setdefault(downscale, frames[0])
+        return frames, metrics
+
+    def evaluate(self):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = orig["evaluate"](self)
+        eval_peak.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        return out
+
+    ImageRenderer.render_split, Trainer.evaluate = render_split, evaluate
+    trainer = None
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        for fn in counted + tuple(zero):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        holder = []
+        tally_cli = composite_tally(lambda: holder.append(train_emernerf.main(argv)))
+        trainer = holder.pop()
+        step = trainer.state.step
+        print(f"  CLI run (load the scene, build, train {N_WAYMO_CLI} iterations, evaluate, "
+              f"delete the features): {time.perf_counter() - t0:.1f} s; eval peak device "
+              f"memory {eval_peak[0]:.2f} GiB")
+        ds = trainer.dataset
+        print(f"  dataset: {ds.num_images} images of {ds.image_hw}, features "
+              f"{tuple(ds.features.shape)} (PCA of {WAYMO_FEAT[-1]}), "
+              f"{len(ds.lidar['ranges'])} lidar rays; model "
+              f"{sum(p.numel() for p in trainer.state.params)} params, PE map "
+              f"{tuple(trainer.model.learnable_pe_map.shape)}")
+        with open(os.path.join(run_dir, "metrics.json")) as f:
+            records = [json.loads(x) for x in f.read().splitlines()]
+        losses = {k: records[-1][k] for k in ("rgb_loss", "feature_loss", "cycle_loss")}
+        print(f"  losses at the last print: {losses}")
+        with open(os.path.join(run_dir, f"metrics_all_{step}.json")) as f:
+            results = json.load(f)
+        with open(os.path.join(run_dir, f"metrics_occ_{step}.json")) as f:
+            occ = json.load(f)
+        keys = ("lowres/psnr", "lowres/feat_psnr", "lowres/masked_feat_psnr",
+                "occ/micro_accuracy", "occ/cover_rate", "lidar/depth_rmse")
+        print(f"  evaluation (random weights): {({k: results.get(k) for k in keys})}; occupancy "
+              f"{occ['num_measured_points']} of {occ['num_total_points']} voxels measured")
+        if not all(np.isfinite(results.get(k, float("nan"))) for k in keys) or not all(
+                np.isfinite(v) for v in losses.values()):
+            fail(f"phase 13: losses or evaluation metrics missing or not finite: {results}")
+        if occ["num_total_points"] <= 0:
+            fail("phase 13: the occupancy eval read no annotated voxels")
+        left = [f for f in os.listdir(os.path.join(scene, "dinov2_vitb14"))
+                if f.endswith(".npy")]
+        print(f"  feature maps left after delete_features_after_run: {len(left)}")
+        if left:
+            fail("phase 13: delete_features_after_run left feature maps")
+        frame = first[trainer.cfg.render.low_res_downscale]
+        vis = ["gt_rgb", "rgb", "depth", "static_rgb", "dynamic_rgb", "dynamic_depth",
+               "forward_flow", "backward_flow", "dino_feat"]
+        videos = sorted(os.listdir(os.path.join(run_dir, "videos")))
+        if video.have_imageio():
+            print(f"  videos: {videos}")
+            if f"lowres_{step}" not in {os.path.splitext(v)[0] for v in videos}:
+                fail("phase 13: the lowres video (with dino_feat) is missing")
+        else:
+            img = video.compose_frame(frame, vis)
+            h, w = frame["rgb"].shape[:2]
+            print(f"  imageio is not installed: the composed first lowres frame with the "
+                  f"feature map: {img.dtype} {img.shape}")
+            if img.dtype != np.uint8 or img.shape != (len(vis) * h, w, 3):
+                fail(f"phase 13: composed frame {img.dtype} {img.shape}")
+        for k, v in frame.items():
+            if not np.isfinite(v).all():
+                fail(f"phase 13: lowres map {k} is not finite")
+        print(f"  lowres maps: {sorted(frame)}")
+
+        # the timed window on the CLI's trainer
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(N_WAYMO_TIMED):
+            trainer.train_iteration(step + i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / N_WAYMO_TIMED
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows, busy = profile_train(trainer, step + N_WAYMO_TIMED, ms, "profile_train_waymo.json")
+        share = profile_shares(rows, busy)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
+        tally = composite_tally(lambda: trainer.train_iteration(step + N_WAYMO_TIMED + 2))
+        rays = 2 * trainer.ray_batch_size
+        print(f"  {ms:.2f} ms/iteration ({N_WAYMO_TIMED} iterations), {rays / ms * 1e3:.1f} "
+              f"rays/s, device busy {busy:.2f} ms per iteration, peak device memory "
+              f"{peak:.2f} GiB; phase 5 (no feature head, synthetic scene): {train_ms:.2f} "
+              f"ms/iteration, busy {busy5:.2f} ms, peak {peak5:.2f} GiB")
+        for what, keys in PROFILE_SHARES:
+            print(f"  {what}: {share[what]:.1%} of the device time")
+        print(f"  launch counts (CLI run and timed iterations): {launches}")
+        _check_launches(launches, {fn.__name__ for fn in zero}, "feature-head run")
+        eval_tally = {k: v for k, v in tally_cli.items() if k[2] == 3}
+        print(f"  K3 forward calls by (R, S, D, C): one training iteration {tally}; the "
+              f"eval's with three density sets {eval_tally}")
+        # shadow_ratio^2 and rgb, then dino_feat; the eval's 23 channels of
+        # the decomposition, then dino_feat, static_dino and dynamic_dino
+        fe = trainer.model.dino_head.layers[-1].out_features
+        if not any(c == 4 + fe for (_, _, _, c) in tally) or not any(
+                c == 23 + 3 * fe for (_, _, _, c) in eval_tally):
+            fail(f"phase 13: expected K3 at C = {4 + fe} in training and C = {23 + 3 * fe} in "
+                 "the eval")
+        # the control: the same scene and flagship without the feature head
+        del trainer
+        trainer = None
+        torch.cuda.empty_cache()
+        off = ["nerf.model.head.enable_feature_head=false",
+               "data.pixel_source.load_features=false", "eval.eval_occ=false"]
+        trainer = Trainer(load_config(DEFAULT_CONFIG, None, waymo_dotlist(root) + off),
+                          device=dev)
+        for i in range(3):  # warm-up: cuBLAS, allocator
+            trainer.train_iteration(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(3, 3 + N_WAYMO_TIMED):
+            trainer.train_iteration(i)
+        torch.cuda.synchronize()
+        ms_off = (time.perf_counter() - t0) * 1e3 / N_WAYMO_TIMED
+        peak_off = torch.cuda.max_memory_allocated() / 2 ** 30
+        print("  control: the same scene without the feature head")
+        _, busy_off = profile_train(trainer, 3 + N_WAYMO_TIMED, ms_off,
+                                    "profile_train_waymo_no_features.json")
+        print(f"  control: {ms_off:.2f} ms/iteration, device busy {busy_off:.2f} ms, peak "
+              f"{peak_off:.2f} GiB; with the feature head {ms:.2f}, {busy:.2f}, {peak:.2f}")
+        print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+        return launches, tally, eval_tally, ms, busy, peak, eval_peak[0], ms_off, busy_off
+    finally:
+        ImageRenderer.render_split, Trainer.evaluate = orig["split"], orig["evaluate"]
+        log.removeHandler(handler)
+        handler.close()
+        del trainer
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_waymo_kernels(dev, entries, after_timed, tally, eval_tally):
+    """Phase 13b: K3 forward at the feature head's shapes of phase 13 (the
+    training composite at C = 68 with a gradient, the eval's at C = 215
+    under no_grad) and K3 backward at the training call (C = 68, every
+    cotangent) against their plain versions."""
+    from emernerf_torch.render.volrend import composite_along_rays_bwd, composite_along_rays_bwd_ref
+
+    print("phase 13b: K3 forward and backward vs plain versions at the feature head's shapes")
+    t0 = time.perf_counter()
+    shapes = sorted({k for k in tally if k[3] > 64}) + sorted(
+        {k for k in eval_tally if k[3] > 64})
+    for i, (r, s_, d, c) in enumerate(shapes):
+        grad = (r, s_, d, c) in tally
+        composite_row(dev, 60 + i, entries, after_timed, r, s_, d, [j % d for j in range(c)],
+                      80.0, path="waymo", grad=grad)
+    n_ch = max(k[3] for k in tally)
+    args = composite_bwd_inputs(dev, 70, NUM_SAMPLES, True, n_ch)
+    out = composite_along_rays_bwd(*args)
+    ref = composite_along_rays_bwd_ref(*args)
+    tag = f"composite_along_rays_bwd[R={N_TRAIN},S={NUM_SAMPLES},D=1,C={n_ch},w/opacity/depth/sums]"
+    mx = max(check(tag + ".d_dens", out[0], ref[0], 1e-4, 1e-5),
+             check(tag + ".d_vals", out[1], ref[1], 1e-4, 1e-5))
+    ms = cuda_ms(lambda: composite_along_rays_bwd(*args), 20)
+    plain_ms = cuda_ms(lambda: composite_along_rays_bwd_ref(*args), 5)
+    add_entry(entries, tag, "composite.cu", "emernerf_tpu/render/volrend.py:33",
+              composite_along_rays_bwd, mx, ms, plain_ms, nbytes(*args[:4], *args[5], *out),
+              3 * N_TRAIN * NUM_SAMPLES * (12 + 2 * n_ch), path="waymo")
+    after_timed.append((entries[-1], K3_BACKWARD_KERNELS,
+                        remade(lambda: composite_bwd_inputs(dev, 70, NUM_SAMPLES, True, n_ch),
+                               composite_along_rays_bwd), True))
+    del args, out, ref
+    torch.cuda.empty_cache()
+    print(f"  phase 13b took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2207,6 +2615,11 @@ def main():
         dev, (brickgrid_encode, hashgrid_encode, features_minor) + forward,
         zero=(hashgrid_encode_bwd,))
     phase_points_kernels(dev, entries, after_timed, pruned_tally)
+    # the feature head on a Waymo-layout scene (K3 past 64 channels)
+    with open(os.path.join(REPO, "chiprun_out", "profile_train.json")) as f:
+        busy5 = json.load(f)["busy_ms_per_iteration"]
+    waymo = phase_waymo(dev, brick + shared, hashed, ms_iter, busy5, peak)
+    phase_waymo_kernels(dev, entries, after_timed, waymo[1], waymo[2])
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):
@@ -2214,7 +2627,8 @@ def main():
 
     # launches: the counts of the training run of each kernel's path
     runs = {"brick": launches, "hash": hash_launches, "probe": probe_launches,
-            "dynamic": dyn[0], "reference_brick": ref[0], "points": point_launches}
+            "dynamic": dyn[0], "reference_brick": ref[0], "points": point_launches,
+            "waymo": waymo[0]}
     report = [dict({k: v for k, v in e.items() if k not in ("fn", "path")},
                    launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
@@ -2231,6 +2645,9 @@ def main():
         print(f"{what}: eval {eval_rps:.1f} rays/s; train {ms:.2f} ms/iteration, {rps:.1f} "
               f"rays/s, peak {pk:.2f} GiB, K1 backward {sh['K1 backward']:.1%} and forward "
               f"{sh['K1 forward']:.1%} of device time on {card_line}")
+    print(f"feature head (Waymo layout): train {waymo[3]:.2f} ms/iteration, busy {waymo[4]:.2f} "
+          f"ms (without the head {waymo[7]:.2f}, {waymo[8]:.2f}), peak {waymo[5]:.2f} GiB, eval "
+          f"peak {waymo[6]:.2f} GiB on {card_line}")
     print(json.dumps({"kernels": report}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

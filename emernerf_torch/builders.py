@@ -11,9 +11,9 @@ that.  A knob that the port does not run raises instead of being ignored:
 formulation knob (``perf.time_pair=false`` is taken: unpaired 4D brick
 rows, two gathers per (point, level), as the reference-semantics profile
 asks; the hash grid's rows are never paired), the flow branch without the
-dynamic branch, the feature head, spherical-harmonics directions, temporal
-interpolation, ``optim.fused_lidar_branch`` (left behind) and
-``optim.remat``.
+dynamic branch, spherical-harmonics directions, temporal interpolation,
+``optim.fused_lidar_branch`` (left behind) and ``optim.remat``.  Datasets:
+``synthetic`` and ``waymo``; ``nuscenes`` raises.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 from emernerf_torch.config import ConfigNode
 from emernerf_torch.data import synthetic
 from emernerf_torch.data.dataset import SceneDataset
+from emernerf_torch.data.waymo import load_waymo_dataset
 from emernerf_torch.models.fields import DensityField, RadianceField
 from emernerf_torch.ops.brickgrid import BrickGridSpec
 from emernerf_torch.ops.hashgrid import HashGridSpec
@@ -78,12 +79,12 @@ def validate_cfg(cfg: ConfigNode) -> None:
     if head.enable_flow_branch and not head.enable_dynamic_branch:
         # the fields use the flow only inside the dynamic branch
         raise NotImplementedError("the flow branch needs the dynamic branch")
-    if head.enable_feature_head:
-        raise NotImplementedError("the feature head and learnable PE are not ported yet")
     if head.get("direction_encoding", "sinusoidal") != "sinusoidal":
-        raise NotImplementedError("only sinusoidal direction encoding is ported")
+        raise NotImplementedError("only sinusoidal direction encoding is ported "
+                                  "(spherical harmonics: ROADMAP queue 1 item 5)")
     if head.get("enable_temporal_interpolation", False):
-        raise NotImplementedError("temporal interpolation is not ported yet")
+        raise NotImplementedError("temporal interpolation is not ported yet "
+                                  "(ROADMAP queue 1 item 6)")
 
 
 def make_grid_spec(backend: str, n_input_dims: int, n_levels: int, base_resolution: int,
@@ -149,6 +150,13 @@ def build_model_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
     if dataset.has_test_split and enable_img:
         # per-image embeddings can't generalize to held-out images
         enable_cam, enable_img = True, False
+    # the base MLPs carry semantic features only for the feature head, whose
+    # output width is the dataset's feature maps' where it has them
+    enable_feature = head.enable_feature_head
+    semantic_dim = model_cfg.neck.semantic_feature_dim if enable_feature else 0
+    feature_dim = head.feature_embedding_dim
+    if enable_feature and dataset.features is not None:
+        feature_dim = int(dataset.features.shape[-1])
     backend = _grid_backend(cfg)
     pair = cfg_time_pair(cfg)
     dynamic = (_enc_spec(model_cfg.dynamic_xyz_encoder, backend, pair)
@@ -175,6 +183,11 @@ def build_model_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
         appearance_embedding_dim=head.appearance_embedding_dim,
         enable_sky_head=head.enable_sky_head,
         enable_shadow_head=head.enable_shadow_head,
+        semantic_feature_dim=semantic_dim,
+        feature_mlp_layer_width=head.feature_mlp_layer_width,
+        feature_embedding_dim=feature_dim,
+        enable_feature_head=enable_feature,
+        enable_learnable_pe=head.enable_learnable_pe,
         num_train_timesteps=dataset.num_img_timesteps,
         time_diff=dataset.time_diff,
         table_dtype=_dtype(cfg, "table_dtype"),
@@ -222,7 +235,7 @@ def build_train_step_config(cfg: ConfigNode, dataset: SceneDataset) -> TrainStep
         raise NotImplementedError("optim.fused_lidar_branch is left behind: the port "
                                   "runs the reference's two-pass step")
     if cfg.optim.get("remat", False):
-        raise NotImplementedError("optim.remat is not ported yet")
+        raise NotImplementedError("optim.remat is not ported yet (ROADMAP queue 1 item 7)")
     sup = cfg.supervision
     head = cfg.nerf.model.head
     has_lidar = (dataset.lidar is not None and cfg.data.lidar_source.load_lidar
@@ -251,6 +264,10 @@ def build_train_step_config(cfg: ConfigNode, dataset: SceneDataset) -> TrainStep
                           and dataset.sky_masks is not None),
         sky_loss_type=sup.sky.loss_type,
         sky_coef=sup.sky.loss_coef,
+        use_feature_loss=bool(cfg.data.pixel_source.load_features and head.enable_feature_head
+                              and dataset.features is not None),
+        feature_loss_type=sup.feature.loss_type,
+        feature_coef=sup.feature.loss_coef,
         use_dynamic_reg=head.enable_dynamic_branch,
         dynamic_loss_type=sup.dynamic.loss_type,
         dynamic_coef=sup.dynamic.loss_coef,
@@ -276,10 +293,15 @@ def build_train_step_config(cfg: ConfigNode, dataset: SceneDataset) -> TrainStep
 
 
 def build_dataset_from_cfg(cfg: ConfigNode) -> SceneDataset:
-    """The synthetic scene; the Waymo and nuScenes loaders come later."""
+    """The synthetic scene or a preprocessed Waymo scene."""
     name = cfg.data.dataset
+    if name == "waymo":
+        return load_waymo_dataset(cfg)
+    if name == "nuscenes":
+        raise NotImplementedError("data.dataset='nuscenes': the nuScenes loader is not ported "
+                                  "yet (ROADMAP queue 1 item 4)")
     if name != "synthetic":
-        raise NotImplementedError(f"data.dataset={name!r}: only 'synthetic' is ported")
+        raise ValueError(f"Unknown dataset: {name}")
     syn = cfg.data.synthetic
     s = synthetic.make_synthetic_scene(
         num_frames=syn.num_frames,

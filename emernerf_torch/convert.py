@@ -6,7 +6,8 @@ them.  Flax ``TorchDense_i/Dense_0/{kernel,bias}`` becomes
 ``layers.i.{weight,bias}`` with the kernel ``(in, out)`` transposed to the
 ``Linear.weight`` ``(out, in)``; ``Embed.embedding`` becomes
 ``Embedding.weight``; ``*_table`` params (brick rows, or the hash grids'
-feature-major ``(F, L*T)``) map straight across.  Any other leaf raises, as
+feature-major ``(F, L*T)``) and the ``learnable_pe_map`` (H, W, C) map
+straight across.  Any other leaf raises, as
 does a state dict that does not cover the modules exactly.
 
 :func:`load_jax_train_state` takes a whole JAX ``TrainState`` (params,
@@ -24,7 +25,7 @@ import torch
 from torch import nn
 
 _DENSE = re.compile(r"TorchDense_(\d+)")
-_LEAVES = ("kernel", "bias", "embedding",
+_LEAVES = ("kernel", "bias", "embedding", "learnable_pe_map",
            "xyz_table", "dynflow_table", "dynamic_table", "flow_table", "hash_table")
 
 

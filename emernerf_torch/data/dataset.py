@@ -17,8 +17,8 @@ from emernerf_torch.data.scene import SceneTensors
 
 
 class SceneDataset:
-    """One driving scene: images + calibration + optional sky/dynamic masks
-    and lidar, with reference-compatible split logic."""
+    """One driving scene: images + calibration + optional sky/dynamic masks,
+    feature maps and lidar, with reference-compatible split logic."""
 
     def __init__(
         self,
@@ -29,6 +29,7 @@ class SceneDataset:
         cam_ids: np.ndarray,  # (N,) int
         sky_masks: Optional[np.ndarray] = None,
         dynamic_masks: Optional[np.ndarray] = None,
+        features: Optional[np.ndarray] = None,  # (N, Hf, Wf, C) float32
         lidar: Optional[Dict[str, np.ndarray]] = None,
         aabb: Optional[np.ndarray] = None,
         test_image_stride: int = 0,
@@ -42,6 +43,7 @@ class SceneDataset:
         self.cam_ids = np.asarray(cam_ids, np.int32)
         self.sky_masks = sky_masks
         self.dynamic_masks = dynamic_masks
+        self.features = features
         self.lidar = lidar
         self.buffer_downscale = buffer_downscale
         self.buffer_ratio = buffer_ratio
@@ -140,6 +142,7 @@ class SceneDataset:
             cam_ids=dev(self.cam_ids, torch.int64),
             train_indices=dev(self.train_indices, torch.int64),
             sky_masks=None if self.sky_masks is None else dev(self.sky_masks, torch.float32),
+            features=None if self.features is None else dev(self.features, torch.float32),
             pixel_error_map=error_map,
             **lidar_kw,
         )
@@ -180,6 +183,12 @@ class SceneDataset:
             gt["sky_masks"] = self.sky_masks[img_idx, ::downscale, ::downscale]
         if self.dynamic_masks is not None:
             gt["dynamic_masks"] = self.dynamic_masks[img_idx, ::downscale, ::downscale]
+        if self.features is not None:
+            # the feature map's nearest cell of each rendered pixel
+            fh, fw = self.features.shape[1:3]
+            fy = (np.arange(hh) * downscale * fh / h).astype(np.int64)
+            fx = (np.arange(ww) * downscale * fw / w).astype(np.int64)
+            gt["features"] = self.features[img_idx][np.ix_(fy, fx)]
         return rays, gt
 
     def get_valid_lidar_mask(self, frame: int, points: np.ndarray) -> np.ndarray:

@@ -31,6 +31,7 @@ class SceneTensors:
     cam_ids: torch.Tensor  # (N,) int64
     train_indices: torch.Tensor  # (K,) int64 image indices available for training
     sky_masks: Optional[torch.Tensor] = None  # (N, H, W)
+    features: Optional[torch.Tensor] = None  # (N, Hf, Wf, C)
     pixel_error_map: Optional[torch.Tensor] = None  # (N, H//bd, W//bd)
     lidar_origins: Optional[torch.Tensor] = None  # (M, 3)
     lidar_viewdirs: Optional[torch.Tensor] = None  # (M, 3)
@@ -119,6 +120,12 @@ def sample_pixel_batch(scene: SceneTensors, draws: PixelDraws, buffer_downscale:
         batch["normed_timestamps"] = scene.normed_timestamps[img_idx]
     if scene.sky_masks is not None:
         batch["sky_masks"] = scene.sky_masks[img_idx, y, x]
+    if scene.features is not None:
+        # the feature map's cell of each drawn pixel
+        fh, fw = scene.features.shape[1:3]
+        fy = (y * (fh / h)).long()
+        fx = (x * (fw / w)).long()
+        batch["features"] = scene.features[img_idx, fy, fx]
     return batch
 
 

@@ -3,7 +3,9 @@
 Renders a dataset split image by image through fixed-size ray chunks (the
 last chunk is padded by repeating its final ray), optionally shading only
 the top-K samples per ray, collects the per-ray maps and computes PSNR/SSIM
-(+ dynamic- and static-masked variants) with the numpy metrics of
+(+ dynamic- and static-masked variants) and, with the feature head, the
+PSNR of the lifted features against the feature maps (``feat_psnr``,
+``masked_feat_psnr``) with the numpy metrics of
 ``emernerf_torch/eval/metrics.py``.
 """
 
@@ -23,7 +25,8 @@ _MAP_KEYS = (
     "rgb", "depth", "median_depth", "opacity", "static_rgb", "dynamic_rgb",
     "static_depth", "dynamic_depth", "static_opacity", "dynamic_opacity",
     "shadow_reduced_static_rgb", "shadow_only_static_rgb", "shadow",
-    "shadow_ratio", "forward_flow", "backward_flow",
+    "shadow_ratio", "forward_flow", "backward_flow", "dino_feat",
+    "dino_pe", "dino_pe_free", "static_dino", "dynamic_dino",
 )
 # ray keys the renderer reads
 _RAY_KEYS = ("origins", "viewdirs", "normed_timestamps", "img_idx", "cam_idx",
@@ -113,6 +116,7 @@ class ImageRenderer:
         """Render a list of dataset images; returns (frames, metrics)."""
         frames: List[Dict[str, np.ndarray]] = []
         psnrs, ssims, dyn_psnrs, stat_psnrs, dyn_ssims = [], [], [], [], []
+        feat_psnrs, masked_feat_psnrs = [], []
         for idx in indices:
             rays, gt = dataset.get_image_rays(int(idx), downscale=downscale)
             maps = self.render_image(rays, gt["hw"])
@@ -134,6 +138,13 @@ class ImageRenderer:
                         dyn_ssims.append(float(ssim_map[m].mean()))
                     if (~m).sum() > 0:
                         stat_psnrs.append(metrics.compute_psnr(maps["rgb"][~m], gt["pixels"][~m]))
+                if "dino_feat" in maps and "features" in gt:
+                    feat_psnrs.append(metrics.compute_psnr(maps["dino_feat"], gt["features"]))
+                    if "dynamic_masks" in gt:
+                        m = gt["dynamic_masks"] > 0.5
+                        if m.sum() > 0:
+                            masked_feat_psnrs.append(metrics.compute_psnr(
+                                maps["dino_feat"][m], gt["features"][m]))
         out = {}
         if psnrs:
             out["psnr"] = float(np.mean(psnrs))
@@ -143,4 +154,8 @@ class ImageRenderer:
             out["masked_ssim"] = float(np.mean(dyn_ssims))
         if stat_psnrs:
             out["non_masked_psnr"] = float(np.mean(stat_psnrs))
+        if feat_psnrs:
+            out["feat_psnr"] = float(np.mean(feat_psnrs))
+        if masked_feat_psnrs:
+            out["masked_feat_psnr"] = float(np.mean(masked_feat_psnrs))
         return frames, out

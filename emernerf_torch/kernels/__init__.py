@@ -28,7 +28,6 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_U = ctypes.c_ulonglong
 # C signatures of the entry points (all return cudaError_t as int)
 _SIGNATURES = {
     # table, table_is_bf16, compute_is_bf16, positions, out, n_points,
@@ -37,13 +36,13 @@ _SIGNATURES = {
     # s_vals, cdfs, u_base, jitter|NULL, out, n_rays, n_in_edges, n_out_edges, stream
     "emt_importance_sampling": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # t_starts, t_ends, dens (R,S,D), vals (R,S,C)|NULL, packed channel
-    # sets (channels 0-31, 32-63), n_rays, S, D, C, out (weights, trans,
+    # sets (host array of 8 uint64), n_rays, S, D, C, out (weights, trans,
     # opacity, depth, median, sums one after the other), stream
-    "emt_composite": (_P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _P, _P),
+    "emt_composite": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # t_starts, t_ends, dens, vals|NULL, packed channel sets (as
     # emt_composite), n_rays, S, D, C, g_weights, g_trans, g_opacity,
     # g_depth, g_sums (each |NULL), d_dens, d_vals|NULL, stream
-    "emt_composite_backward": (_P, _P, _P, _P, _U, _U, _I, _I, _I, _I,
+    "emt_composite_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P),
     # table, table_is_bf16, compute_is_bf16, positions, grad_out, d_table
     # (fp32), d_pos|NULL, n_points, params (host struct), stream

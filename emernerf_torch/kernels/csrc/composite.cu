@@ -45,7 +45,18 @@
 // and stores are contiguous runs already.  At S = 128 (K = 4) the warp
 // per ray lost to the staging on the card, so those rays are staged.
 //
-// The value channels' density sets come by value, 2 bits per channel.
+// More than 64 value channels (the feature head's: 68 at the training
+// shape, 215 at the eval shape with decomposition, 55 KB of values a ray
+// there) are two launches in one call: the route above with no value
+// channels writes the weights, then composite_sums_kernel streams the
+// values, one thread per (ray, channel), each channel summed over the
+// samples in order.  Staging 55 KB rays left one or two warps per SM, and
+// a warp that read its ray's channels itself (lanes across channels, the
+// loads of two samples in flight) was slower than four staged calls of
+// <= 64 channels (PERF.md, PR 12).  At most 256 channels.
+//
+// The value channels' density sets come by value, 2 bits per channel, in
+// one 64-byte struct (ChanSets).
 //
 // Backward design: one warp per ray, reading its inputs from device
 // memory with vector loads where its rows are aligned; see
@@ -57,8 +68,29 @@
 namespace {
 
 constexpr int kMaxD = 3;
-constexpr int kMaxC = 64;
+constexpr int kMaxC = 256;
+// above this many value channels the forward's sums are a second kernel,
+// composite_sums_kernel, and the backward's lanes go across the channels
+// (see the header and composite_bwd_kernel)
+constexpr int kMaxStagedC = 64;
+constexpr int kSetWords = kMaxC / 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+// the density set of each value channel, 2 bits per channel: channel c in
+// bits 2(c % 32), 2(c % 32) + 1 of word c / 32 (render/volrend.py:pack_chan_sets)
+struct ChanSets {
+  unsigned long long w[kSetWords];
+};
+
+// density set of value channel c; the word is picked by compare and select,
+// so the struct stays in the kernel's parameter space
+__device__ __forceinline__ int chan_set(const ChanSets& sets, int c) {
+  const int k = c >> 5;
+  unsigned long long word = 0;
+#pragma unroll
+  for (int i = 0; i < kSetWords; ++i) word = i == k ? sets.w[i] : word;
+  return static_cast<int>((word >> (2 * (c & 31))) & 3ull);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -230,16 +262,11 @@ __host__ __device__ __forceinline__ int stage_floats(int rb, int S, int D, int C
   return 2 * stage_in_floats(rb, S, D, C) + 2 * region(rb * S * D);
 }
 
-// density set of value channel c, 2 bits per channel
-__device__ __forceinline__ int chan_set(unsigned long long lo, unsigned long long hi, int c) {
-  return static_cast<int>(((c < 32 ? lo : hi) >> (2 * (c & 31))) & 3ull);
-}
-
 template <int K>
 __global__ void __launch_bounds__(32 * kMaxRaysPerStage)
 composite_kernel(const float* __restrict__ ts, const float* __restrict__ te,
                  const float* __restrict__ dens, const float* __restrict__ vals, int n_rays,
-                 int S, int D, int C, unsigned long long sets_lo, unsigned long long sets_hi,
+                 int S, int D, int C, const ChanSets sets,
                  float* __restrict__ weights, float* __restrict__ trans,
                  float* __restrict__ opacity, float* __restrict__ depth,
                  float* __restrict__ median, float* __restrict__ sums) {
@@ -378,7 +405,7 @@ composite_kernel(const float* __restrict__ ts, const float* __restrict__ te,
       if (C > 0 && C <= 32) {
         float acc = 0.f;
         if (g < G) {
-          const int set = chan_set(sets_lo, sets_hi, cl);
+          const int set = chan_set(sets, cl);
           const float* v = s_v + row * C + cl;
           const float* w = s_w + row * D + set;
           for (int s = g; s < S; s += G) acc += w[s * D] * v[s * C];
@@ -390,7 +417,7 @@ composite_kernel(const float* __restrict__ ts, const float* __restrict__ te,
         if (g == 0) sums[r * C + cl] = acc;
       } else if (C > 32) {
         for (int c = lane; c < C; c += 32) {
-          const int set = chan_set(sets_lo, sets_hi, c);
+          const int set = chan_set(sets, c);
           float acc = 0.f;
           for (int s = 0; s < S; ++s) acc += s_w[(row + s) * D + set] * s_v[(row + s) * C + c];
           sums[r * C + c] = acc;
@@ -402,6 +429,26 @@ composite_kernel(const float* __restrict__ ts, const float* __restrict__ te,
     store_run(weights + ray0 * S * D, s_w, nr * S * D);
     store_run(trans + ray0 * S * D, s_t, nr * S * D);
   }
+}
+
+// The weighted sums above kMaxStagedC channels, from the weights that
+// composite_kernel or composite_warp_kernel wrote: one thread per (ray,
+// channel), so that neighbouring threads read neighbouring words of a
+// sample's row and every thread keeps several samples' loads in flight;
+// each channel is summed over the samples in order.
+__global__ void composite_sums_kernel(const float* __restrict__ weights,
+                                      const float* __restrict__ vals, unsigned n, int S, int D,
+                                      int C, const ChanSets sets, float* __restrict__ sums) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned r = i / static_cast<unsigned>(C);
+  const int c = static_cast<int>(i - r * static_cast<unsigned>(C));
+  const float* w = weights + static_cast<long long>(r) * S * D + chan_set(sets, c);
+  const float* v = vals + static_cast<long long>(r) * S * C + c;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < S; ++s) acc += w[s * D] * __ldg(v + s * C);
+  sums[i] = acc;
 }
 
 // Backward (K3 bwd): the reverse of the scan above, one warp per ray.
@@ -425,8 +472,14 @@ composite_kernel(const float* __restrict__ ts, const float* __restrict__ te,
 // and d densities as one float2 (K = 2), one float4 (K = 4) or two float4
 // (K = 8), else as scalars, in the same kernel.  Where also C <= 4
 // (`narrow`), a sample's C values and their gradients move as one C-wide
-// vector.  The proposal levels' calls carry the transmittance's cotangent
-// alone: kTransOnly drops the weights' terms (gw = 0) and their branches.
+// vector.  Above 64 channels (`wide`: the feature head's), the lanes go
+// across the channels instead: for each sample, lane c reads value c
+// (then c + 32, ...) of the row and writes its gradient, the sample's
+// weight comes from the lane that holds it by a shuffle, and the value
+// terms of gw meet by a warp sum, so that a row is read and written as
+// consecutive words.  The proposal levels' calls carry the
+// transmittance's cotangent alone: kTransOnly drops the weights' terms
+// (gw = 0) and their branches.
 __device__ __forceinline__ float clip_tie_grad(float x, float lo, float hi) {
   const float a = x > lo ? 1.f : (x == lo ? 0.5f : 0.f);
   const float b = x < hi ? 1.f : (x == hi ? 0.5f : 0.f);
@@ -529,8 +582,7 @@ template <int K, bool kTransOnly>
 __global__ void composite_bwd_kernel(
     const float* __restrict__ ts, const float* __restrict__ te,
     const float* __restrict__ dens, const float* __restrict__ vals,
-    int n_rays, int S, int D, int C, unsigned long long sets_lo, unsigned long long sets_hi,
-    bool vec, bool narrow,
+    int n_rays, int S, int D, int C, const ChanSets sets, bool vec, bool narrow, bool wide,
     const float* __restrict__ g_weights, const float* __restrict__ g_trans,
     const float* __restrict__ g_opacity, const float* __restrict__ g_depth,
     const float* __restrict__ g_sums, float* __restrict__ d_dens,
@@ -632,9 +684,39 @@ __global__ void composite_bwd_kernel(
           }
           store_sample(d_vals + o, dv, C);
         }
+      } else if (g_sums && wide) {
+        // this lane's channels of set d and their cotangents
+        float gs[kSetWords];
+        unsigned mine = 0;
+#pragma unroll
+        for (int j = 0; j < kSetWords; ++j) {
+          const int c = lane + 32 * j;
+          const bool in_set = c < C && chan_set(sets, c) == d;
+          gs[j] = in_set ? g_sums[r * C + c] : 0.f;
+          mine |= in_set ? 1u << j : 0u;
+        }
+        for (int src = 0; src < 32; ++src) {
+#pragma unroll
+          for (int i = 0; i < K; ++i) {
+            const int s = src * K + i;
+            if (s >= S) continue;  // uniform across the warp
+            const float ws = __shfl_sync(kFull, w[i], src);
+            const float* v = vals + (row + s) * C + lane;
+            float* dv = d_vals + (row + s) * C + lane;
+            float part = 0.f;
+#pragma unroll
+            for (int j = 0; j < kSetWords; ++j) {
+              if (!((mine >> j) & 1u)) continue;
+              part += gs[j] * v[32 * j];
+              dv[32 * j] = gs[j] * ws;
+            }
+            part = warp_sum(part);
+            if (lane == src) gw[i] += part;
+          }
+        }
       } else if (g_sums) {
         for (int c = 0; c < C; ++c) {
-          if (chan_set(sets_lo, sets_hi, c) != d) continue;
+          if (chan_set(sets, c) != d) continue;
           const float gs = g_sums[r * C + c];
 #pragma unroll
           for (int i = 0; i < K; ++i) {
@@ -688,11 +770,11 @@ __host__ __forceinline__ bool aligned16(const void* p) {
 
 }  // namespace
 
-// sets_lo / sets_hi: the density set of each value channel, packed as the
-// forward takes them (render/volrend.py:pack_chan_sets)
+// sets: host array of kSetWords words, the density set of each value
+// channel packed as the forward takes them (render/volrend.py:pack_chan_sets)
 extern "C" int emt_composite_backward(
     const void* t_starts, const void* t_ends, const void* dens, const void* vals,
-    unsigned long long sets_lo, unsigned long long sets_hi, int n_rays, int S, int D, int C,
+    const void* sets, int n_rays, int S, int D, int C,
     const void* g_weights, const void* g_trans, const void* g_opacity,
     const void* g_depth, const void* g_sums, void* d_dens, void* d_vals,
     void* stream) {
@@ -704,6 +786,9 @@ extern "C" int emt_composite_backward(
                    aligned16(dens) && aligned16(g_weights) && aligned16(g_trans) &&
                    aligned16(d_dens);
   const bool narrow = vec && C <= 4 && aligned16(vals) && aligned16(d_vals);
+  const bool wide = C > kMaxStagedC;
+  ChanSets cs;
+  for (int i = 0; i < kSetWords; ++i) cs.w[i] = static_cast<const unsigned long long*>(sets)[i];
   const bool trans_only = g_trans && !g_weights && !g_opacity && !g_depth && !g_sums;
   const int threads = 128;  // 4 rays per block
   const long long total = static_cast<long long>(n_rays) * 32;
@@ -722,9 +807,9 @@ extern "C" int emt_composite_backward(
   float* dv = static_cast<float*>(d_vals);
   const int k = (S + 31) / 32;
 #define EMT_LAUNCH(KV, TO)                                                               \
-  composite_bwd_kernel<KV, TO><<<blocks, threads, 0, s>>>(a, b, dn, v, n_rays, S, D, C,  \
-                                                          sets_lo, sets_hi, vec, narrow, \
-                                                          gw, gt, go, gd, gs, dd, dv)
+  composite_bwd_kernel<KV, TO><<<blocks, threads, 0, s>>>(a, b, dn, v, n_rays, S, D, C, cs, \
+                                                          vec, narrow, wide, gw, gt, go,  \
+                                                          gd, gs, dd, dv)
 #define EMT_LAUNCH_K(TO)          \
   if (k == 1) EMT_LAUNCH(1, TO);  \
   else if (k == 2) EMT_LAUNCH(2, TO); \
@@ -740,14 +825,13 @@ extern "C" int emt_composite_backward(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Forward.  sets_lo / sets_hi: the density set of value channel c in bits
-// 2c, 2c+1 of channels 0-31 / 32-63 (render/volrend.py:pack_chan_sets).
+// Forward.  sets: the density set of each value channel (ChanSets).
 // out: weights (R,S,D), trans (R,S,D), opacity (R,D), depth (R,D), median
 // (R,1), sums (R,C), one after the other.
 template <int K>
 cudaError_t launch_composite(const float* a, const float* b, const float* dn, const float* v,
-                             int n_rays, int S, int D, int C, unsigned long long lo,
-                             unsigned long long hi, float* out, cudaStream_t s) {
+                             int n_rays, int S, int D, int C, const ChanSets& sets, float* out,
+                             cudaStream_t s) {
   const long long rs = static_cast<long long>(n_rays) * S;
   float* w = out;
   float* tr = w + rs * D;
@@ -806,26 +890,38 @@ cudaError_t launch_composite(const float* a, const float* b, const float* dn, co
   const long long n_stages = (static_cast<long long>(n_rays) + rb - 1) / rb;
   const long long most = static_cast<long long>(per_sm) * sms;
   composite_kernel<K><<<static_cast<unsigned>(n_stages < most ? n_stages : most), 32 * rb,
-                        smem, s>>>(a, b, dn, v, n_rays, S, D, C, lo, hi, w, tr, op, dp, md, sm);
+                        smem, s>>>(a, b, dn, v, n_rays, S, D, C, sets, w, tr, op, dp, md, sm);
   return cudaGetLastError();
 }
 
+// sets: host array of kSetWords words (render/volrend.py:pack_chan_sets)
 extern "C" int emt_composite(const void* t_starts, const void* t_ends, const void* dens,
-                             const void* vals, unsigned long long sets_lo,
-                             unsigned long long sets_hi, int n_rays, int S, int D, int C,
-                             void* out, void* stream) {
+                             const void* vals, const void* sets, int n_rays, int S, int D,
+                             int C, void* out, void* stream) {
   if (n_rays == 0) return cudaSuccess;
   if (S < 1 || S > 256 || D < 1 || D > kMaxD || C < 0 || C > kMaxC)
     return cudaErrorInvalidValue;
+  ChanSets cs;
+  for (int i = 0; i < kSetWords; ++i) cs.w[i] = static_cast<const unsigned long long*>(sets)[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(t_starts);
   const float* b = static_cast<const float*>(t_ends);
   const float* dn = static_cast<const float*>(dens);
   const float* v = static_cast<const float*>(vals);
   float* o = static_cast<float*>(out);
+  // above kMaxStagedC channels: the weights first (no value channels), then
+  // the sums from them
+  const int cw = C > kMaxStagedC ? 0 : C;
   const int k = (S + 31) / 32;
-  if (k == 1) return launch_composite<1>(a, b, dn, v, n_rays, S, D, C, sets_lo, sets_hi, o, s);
-  if (k == 2) return launch_composite<2>(a, b, dn, v, n_rays, S, D, C, sets_lo, sets_hi, o, s);
-  if (k <= 4) return launch_composite<4>(a, b, dn, v, n_rays, S, D, C, sets_lo, sets_hi, o, s);
-  return launch_composite<8>(a, b, dn, v, n_rays, S, D, C, sets_lo, sets_hi, o, s);
+  cudaError_t err;
+  if (k == 1) err = launch_composite<1>(a, b, dn, v, n_rays, S, D, cw, cs, o, s);
+  else if (k == 2) err = launch_composite<2>(a, b, dn, v, n_rays, S, D, cw, cs, o, s);
+  else if (k <= 4) err = launch_composite<4>(a, b, dn, v, n_rays, S, D, cw, cs, o, s);
+  else err = launch_composite<8>(a, b, dn, v, n_rays, S, D, cw, cs, o, s);
+  if (err != cudaSuccess || cw == C) return err;
+  const long long rs = static_cast<long long>(n_rays) * S;
+  const unsigned n = static_cast<unsigned>(n_rays) * static_cast<unsigned>(C);
+  composite_sums_kernel<<<(n + 255) / 256, 256, 0, s>>>(o, v, n, S, D, C, cs,
+                                                        o + 2 * rs * D + 2LL * n_rays * D + n_rays);
+  return cudaGetLastError();
 }

@@ -9,7 +9,10 @@ flow-warped features (Eq. 8), on all samples or, fused, on the K most
 dynamic samples per ray; or the dynamic grid alone, without flow or
 aggregation (``configs/default_dynamic.yaml``); the shared RGB head, shadow
 and sky heads, and the appearance embedding with its mean-embedding
-fallback.  ``DensityField``:
+fallback; the feature head: the base MLPs' output split into geometry and
+semantic features, the DINO head over the semantic ones (and its sky
+head), and the learnable positional-embedding map, sampled at the ray's
+pixel and lifted by its own head.  ``DensityField``:
 the proposal network.  Every grid is a brick grid (K1) or an exact hash
 grid (K4), by its spec's type.
 
@@ -19,9 +22,9 @@ eval, voxel export) take (N, 3) positions and (N,) timestamps.  Training differs
 noise (a tensor of uniform draws instead of 1) and ``return_density_only``
 for the lidar render.  The flow-warped 4D queries are the grid queries
 whose positions carry a gradient (they depend on the flow MLP).  The config
-knobs the port does not take (feature head, spherical-harmonics directions,
-temporal interpolation, fine-level skipping, the flow branch without the
-dynamic branch) raise in ``emernerf_torch/builders.py``.
+knobs the port does not take (spherical-harmonics directions, temporal
+interpolation, fine-level skipping, the flow branch without the dynamic
+branch) raise in ``emernerf_torch/builders.py``.
 """
 
 from __future__ import annotations
@@ -41,7 +44,12 @@ from emernerf_torch.ops.contraction import (
     normalize_aabb,
 )
 from emernerf_torch.ops.grid import grid_encode, init_grid_table
+from emernerf_torch.ops.interp import grid_sample_2d
 from emernerf_torch.ops.sinusoidal import sinusoidal_encode, sinusoidal_output_dim
+
+
+# the learnable PE map's (height, width): the reference's, which no config sets
+PE_MAP_HW = (80, 120)
 
 
 def _contract(positions, aabb, unbounded: bool):
@@ -86,6 +94,9 @@ class RadianceField(nn.Module):
                  enable_img_embedding: bool = False, num_cams: int = 3,
                  appearance_embedding_dim: int = 16,
                  enable_sky_head: bool = False, enable_shadow_head: bool = False,
+                 semantic_feature_dim: int = 0, feature_mlp_layer_width: int = 64,
+                 feature_embedding_dim: int = 64, enable_feature_head: bool = False,
+                 enable_learnable_pe: bool = True,
                  num_train_timesteps: int = 0, time_diff: float = 0.0,
                  table_dtype=torch.float32, table_param_dtype=torch.float32,
                  mlp_dtype=torch.float32, device=None, generator=None):
@@ -99,11 +110,14 @@ class RadianceField(nn.Module):
         self.temporal_agg_topk = temporal_agg_topk
         self.unbounded = unbounded
         self.geometry_feature_dim = gf = geometry_feature_dim
+        sf = semantic_feature_dim
         self.enable_cam_embedding = enable_cam_embedding
         self.enable_img_embedding = enable_img_embedding
         self.appearance_embedding_dim = appearance_embedding_dim
         self.enable_sky_head = enable_sky_head
         self.enable_shadow_head = enable_shadow_head
+        self.enable_feature_head = enable_feature_head
+        self.enable_learnable_pe = enable_feature_head and enable_learnable_pe
         self.time_diff = time_diff
         self.table_dtype = table_dtype
         kw = dict(dtype=mlp_dtype, device=device, generator=generator)
@@ -112,7 +126,9 @@ class RadianceField(nn.Module):
                                                   device=device), persistent=False)
 
         self.xyz_table = nn.Parameter(init_grid_table(static_spec, table_param_dtype, **tkw))
-        self.base_mlp = Sequential64(static_spec.n_output_dims, (base_mlp_layer_width, gf), **kw)
+        # geometry features, then the feature head's semantic ones
+        self.base_mlp = Sequential64(static_spec.n_output_dims, (base_mlp_layer_width, gf + sf),
+                                     **kw)
         if self.has_dynamic:
             if self.fused:
                 self.dynflow_spec = dataclasses.replace(
@@ -128,7 +144,7 @@ class RadianceField(nn.Module):
                     self.flow_table = nn.Parameter(
                         init_grid_table(flow_spec, table_param_dtype, **tkw))
             self.dynamic_base_mlp = Sequential64(
-                dynamic_spec.n_output_dims, (base_mlp_layer_width, gf), **kw)
+                dynamic_spec.n_output_dims, (base_mlp_layer_width, gf + sf), **kw)
         if self.has_flow:
             # 3 layers of base width -> 6 (fwd + bwd flow), no final activation
             flow_levels = (dynamic_spec if self.fused else flow_spec).n_levels
@@ -151,6 +167,16 @@ class RadianceField(nn.Module):
         if enable_sky_head:
             self.sky_head = MLP(dir_dim + app, 3, num_layers=3,
                                 hidden_dims=head_mlp_layer_width, skip_connections=(1,), **kw)
+        if enable_feature_head:
+            fw, fe = feature_mlp_layer_width, feature_embedding_dim
+            if enable_sky_head:
+                self.dino_sky_head = Sequential64(dir_dim + app, (fw, fw, fe), **kw)
+            self.dino_head = Sequential64(sf, (fw, fw, fe), **kw)
+            if self.enable_learnable_pe:
+                h, w = PE_MAP_HW
+                self.learnable_pe_map = nn.Parameter(0.05 * torch.randn(
+                    (h, w, fe // 2), device=device, generator=generator))
+                self.pe_head = Sequential64(fe // 2, (fe,), **kw)
 
     # ------------------------------------------------------------------ #
     @property
@@ -241,7 +267,10 @@ class RadianceField(nn.Module):
         app = self._appearance(directions_per_ray.shape[:-1], data or {})
         if app is not None:
             dd = torch.cat([dd, app], dim=-1)
-        return {"rgb_sky": torch.sigmoid(self.sky_head(dd))}
+        results = {"rgb_sky": torch.sigmoid(self.sky_head(dd))}
+        if self.enable_feature_head:
+            results["dino_sky_feat"] = self.dino_sky_head(dd)
+        return results
 
     def temporal_aggregation(self, positions, normed_positions, normed_timestamps,
                              forward_flow, backward_flow, cur_feats=None, noise=None):
@@ -371,13 +400,55 @@ class RadianceField(nn.Module):
         """Point query of the densities (and, with the flow branch, the flows)
         of positions (N, 3) at timestamps (N,), the eval's field query
         without directions: aggregated dynamic features, as the renders
-        shade them.  Without timestamps, the static density alone."""
-        if normed_timestamps is None or not self.has_dynamic:
-            return {"density": self.forward(positions, return_density_only=True)["density"]}
-        out = self.forward(positions, data={"normed_timestamps": normed_timestamps},
-                           return_density_only=True)
-        keys = ("forward_flow", "backward_flow", "density", "static_density", "dynamic_density")
-        return {k: out[k] for k in keys if k in out}
+        shade them.  Without timestamps, the static density alone.  With
+        the feature head, ``dino_feat``: with the dynamic branch the
+        density-weighted mix of ``static_dino_feat`` and
+        ``dynamic_dino_feat``."""
+        results: Dict[str, torch.Tensor] = {}
+        dynamic = normed_timestamps is not None and self.has_dynamic
+        data = {"normed_timestamps": normed_timestamps} if dynamic else {}
+        _, sem, _, dyn_sem = self._features(positions, data, None, results)
+        keys = (("forward_flow", "backward_flow", "density", "static_density",
+                 "dynamic_density") if dynamic else ("density",))
+        out = {k: results[k] for k in keys if k in results}
+        if self.enable_feature_head:
+            dino = self.dino_head(sem)
+            if dyn_sem is None:
+                out["dino_feat"] = dino
+            else:
+                dyn_dino = self.dino_head(dyn_sem)
+                out["static_dino_feat"], out["dynamic_dino_feat"] = dino, dyn_dino
+                out["dino_feat"] = (out["static_density"][..., None] * dino
+                                    + out["dynamic_density"][..., None] * dyn_dino
+                                    ) / (out["density"][..., None] + 1e-6)
+        return out
+
+    def _features(self, positions, data, agg_noise, results):
+        """The static and (with timestamps) dynamic grid queries and base
+        MLPs: puts the densities (and the flows and the aggregation's
+        outputs) into ``results``; returns (geometry, semantic, dynamic
+        geometry, dynamic semantic features), the dynamic ones None
+        without the dynamic branch."""
+        gf = self.geometry_feature_dim
+        encoded, normed_positions = self.forward_static_hash(positions)
+        geo_feats, semantic_feats = encoded[..., :gf], encoded[..., gf:]
+        static_density = density_activation(geo_feats[..., 0])
+        if not (self.has_dynamic and "normed_timestamps" in data):
+            results["density"] = static_density
+            results["static_density"] = static_density
+            return geo_feats, semantic_feats, None, None
+        t = data["normed_timestamps"]
+        if self.has_flow:
+            dynamic_feats = self._flow_and_aggregation(positions, normed_positions, t,
+                                                       agg_noise, results)
+        else:
+            # the dynamic grid alone: no flow, no aggregation
+            dynamic_feats, _ = self.forward_dynamic_hash(normed_positions, t)
+        dynamic_geo_feats = dynamic_feats[..., :gf]
+        dynamic_density = density_activation(dynamic_geo_feats[..., 0])
+        results.update(density=static_density + dynamic_density, static_density=static_density,
+                       dynamic_density=dynamic_density)
+        return geo_feats, semantic_feats, dynamic_geo_feats, dynamic_feats[..., gf:]
 
     def forward(self, positions: torch.Tensor, directions: Optional[torch.Tensor] = None,
                 data: Optional[Dict[str, torch.Tensor]] = None,
@@ -386,42 +457,38 @@ class RadianceField(nn.Module):
         """One field query; positions and directions are (R, S, 3).
         ``agg_noise`` (R, S, 1): training-time aggregation noise (None at
         eval; unused without the flow branch); ``return_density_only``:
-        densities (and flow) only."""
+        densities (and flow) only.  ``data["pixel_coords"]`` (R, 2), the
+        rays' (y/H, x/W), places the learnable PE map's sample."""
         data = data or {}
         results: Dict[str, torch.Tensor] = {}
-        encoded, normed_positions = self.forward_static_hash(positions)
-        geo_feats = encoded[..., : self.geometry_feature_dim]
-        static_density = density_activation(geo_feats[..., 0])
-
-        if self.has_dynamic and "normed_timestamps" in data:
-            t = data["normed_timestamps"]
-            if self.has_flow:
-                dynamic_feats = self._flow_and_aggregation(positions, normed_positions, t,
-                                                           agg_noise, results)
+        geo_feats, semantic_feats, dynamic_geo_feats, dynamic_semantic_feats = self._features(
+            positions, data, agg_noise, results)
+        if return_density_only:
+            return results
+        if directions is not None:
+            rgb = self.query_rgb(directions, geo_feats, dynamic_geo_feats, data=data)
+            if dynamic_geo_feats is None:
+                results["rgb"] = rgb["rgb"]
             else:
-                # the dynamic grid alone: no flow, no aggregation
-                dynamic_feats, _ = self.forward_dynamic_hash(normed_positions, t)
-
-            dynamic_geo_feats = dynamic_feats[..., : self.geometry_feature_dim]
-            dynamic_density = density_activation(dynamic_geo_feats[..., 0])
-            results.update(density=static_density + dynamic_density,
-                           static_density=static_density,
-                           dynamic_density=dynamic_density)
-            if return_density_only:
-                return results
-            if directions is not None:
-                rgb = self.query_rgb(directions, geo_feats, dynamic_geo_feats, data=data)
                 results["static_rgb"] = rgb["rgb"]
                 results["dynamic_rgb"] = rgb["dynamic_rgb"]
-            if self.enable_shadow_head:
-                results["shadow_ratio"] = self.shadow_head(dynamic_geo_feats)
-        else:
-            results["density"] = static_density
-            results["static_density"] = static_density
-            if return_density_only:
-                return results
-            if directions is not None:
-                results["rgb"] = self.query_rgb(directions, geo_feats, data=data)["rgb"]
+        if self.enable_shadow_head and dynamic_geo_feats is not None:
+            results["shadow_ratio"] = self.shadow_head(dynamic_geo_feats)
+
+        if self.enable_feature_head:
+            if self.enable_learnable_pe and "pixel_coords" in data:
+                # pixel_coords is (y/H, x/W) and is fed to the sampler as-is,
+                # as the reference does: coordinate 0 indexes the map's width
+                # axis and coordinate 1 its height axis
+                pc = data["pixel_coords"] * 2.0 - 1.0
+                pe = grid_sample_2d(self.learnable_pe_map, pc[..., 0], pc[..., 1])
+                results["dino_pe"] = self.pe_head(pe)
+            dino_feats = self.dino_head(semantic_feats)
+            if dynamic_semantic_feats is None:
+                results["dino_feat"] = dino_feats
+            else:
+                results["static_dino_feat"] = dino_feats
+                results["dynamic_dino_feat"] = self.dino_head(dynamic_semantic_feats)
 
         if self.enable_sky_head and directions is not None:
             per_ray_data = {k: v[:, 0] for k, v in data.items()

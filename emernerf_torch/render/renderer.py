@@ -22,7 +22,7 @@ from emernerf_torch.render.volrend import composite_rays
 # per-ray keys the field consumes, expanded to (R, S)
 _EXPAND_KEYS = ("normed_timestamps", "img_idx", "cam_idx")
 # field outputs that are per ray, never scattered back over the samples
-_PER_RAY_KEYS = frozenset({"rgb_sky", "dino_sky_feat"})
+_PER_RAY_KEYS = frozenset({"rgb_sky", "dino_sky_feat", "dino_pe"})
 
 
 class RenderResult(NamedTuple):

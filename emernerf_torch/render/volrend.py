@@ -9,11 +9,13 @@ depth of the first set, and the weighted sums of a packed (R, S, C) value
 tensor whose channel c is weighted by set ``chan_set[c]``.  Gradients flow
 to the densities and the values (never to the sample edges).
 ``composite_rays`` is the dict glue around it and keeps the reference's
-keys and formulas.
+keys and formulas; every value channel of a render, the feature head's
+included, goes into its one K3 call.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -23,7 +25,11 @@ from emernerf_torch import kernels
 from emernerf_torch.ops.clip import clip
 from emernerf_torch.ops.stepfuns import exclusive_cumsum
 
-_MAX_SETS, _MAX_CHANNELS, _MAX_SAMPLES = 3, 64, 256
+_MAX_SETS, _MAX_CHANNELS, _MAX_SAMPLES = 3, 256, 256
+# above this many value channels a forward call is two launches: the
+# weights, then composite_sums_kernel (composite.cu:kMaxStagedC)
+_STAGED_CHANNELS = 64
+_SET_WORDS = _MAX_CHANNELS // 32  # 2 bits per channel in 64-bit words
 
 
 class Composited(NamedTuple):
@@ -36,17 +42,24 @@ class Composited(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def pack_chan_sets(chan_set: Tuple[int, ...], n_sets: int) -> Tuple[int, int]:
+def pack_chan_sets(chan_set: Tuple[int, ...], n_sets: int) -> Tuple[int, ...]:
     """The density set of each value channel, 2 bits per channel, as the K3
-    forward kernel takes them: (channels 0-31, channels 32-63).  Cached per
-    distinct tuple; raises on a set outside [0, n_sets) or over 64 channels."""
+    kernels take them: eight 64-bit words, channel c in bits 2(c % 32) and
+    2(c % 32) + 1 of word c // 32.  Cached per distinct tuple; raises on a
+    set outside [0, n_sets) or over 256 channels."""
     if len(chan_set) > _MAX_CHANNELS or not 1 <= n_sets <= _MAX_SETS or any(
             not 0 <= c < n_sets for c in chan_set):
         raise ValueError("composite_along_rays: one density set per value channel")
-    words = [0, 0]
+    words = [0] * _SET_WORDS
     for c, dset in enumerate(chan_set):
         words[c >> 5] |= dset << (2 * (c & 31))
-    return words[0], words[1]
+    return tuple(words)
+
+
+@functools.lru_cache(maxsize=256)
+def _chan_sets_arg(words: Tuple[int, ...]):
+    """The packed words as the host array the C entry points copy."""
+    return (ctypes.c_ulonglong * _SET_WORDS)(*words)
 
 
 def _check_composite_args(name, t_starts, t_ends, densities, values, chan_set):
@@ -111,13 +124,13 @@ def _composite_forward(t_starts, t_ends, densities, values, chan_set) -> Composi
                      view((r, c), (c, 1), 2 * rsd + 2 * rd + r))
     if r == 0:
         return out
-    lo, hi = pack_chan_sets(chan_set, d)
+    sets = _chan_sets_arg(pack_chan_sets(chan_set, d))
     err = kernels.load().emt_composite(
         t_starts.data_ptr(), t_ends.data_ptr(), densities.data_ptr(),
-        None if values is None else values.data_ptr(), lo, hi, r, s, d, c, buf.data_ptr(),
-        kernels.stream_ptr(t_starts.device))
+        None if values is None else values.data_ptr(), ctypes.addressof(sets), r, s, d, c,
+        buf.data_ptr(), kernels.stream_ptr(t_starts.device))
     kernels.check(err, name)
-    composite_along_rays.launches += 1
+    composite_along_rays.launches += 1 if c <= _STAGED_CHANNELS else 2
     return out
 
 
@@ -163,10 +176,11 @@ def composite_along_rays_bwd(t_starts, t_ends, densities, values, chan_set,
     if r == 0:
         return d_dens, d_vals
     d = densities.shape[2]
-    lo, hi = pack_chan_sets(tuple(chan_set), d)
+    sets = _chan_sets_arg(pack_chan_sets(tuple(chan_set), d))
     err = kernels.load().emt_composite_backward(
         t_starts.data_ptr(), t_ends.data_ptr(), densities.data_ptr(),
-        None if values is None else values.data_ptr(), lo, hi, r, s, d, len(chan_set),
+        None if values is None else values.data_ptr(), ctypes.addressof(sets), r, s, d,
+        len(chan_set),
         *[None if g is None else g.data_ptr() for g in grads], d_dens.data_ptr(),
         None if d_vals is None else d_vals.data_ptr(), kernels.stream_ptr(t_starts.device),
     )
@@ -262,8 +276,6 @@ def composite_rays(t_starts: torch.Tensor, t_ends: torch.Tensor,
                    return_decomposition: bool = False) -> Dict[str, torch.Tensor]:
     """Composite per-sample field outputs along rays.  ``results`` is the
     field-query dict; returns per-ray quantities plus an ``extras`` dict."""
-    if "dino_feat" in results or "static_dino_feat" in results:
-        raise NotImplementedError("feature compositing is ported with the feature head")
     t_starts, t_ends = t_starts.contiguous(), t_ends.contiguous()
     density = results["density"]
     has_decomp = "static_density" in results and "dynamic_density" in results
@@ -300,6 +312,15 @@ def composite_rays(t_starts: torch.Tensor, t_ends: torch.Tensor,
             if "forward_flow" in results:
                 pack.add("forward_flow", results["forward_flow"], dynamic)
                 pack.add("backward_flow", results["backward_flow"], dynamic)
+    # ---------- features: in the same call as the other channels ----------
+    if "dino_feat" in results:
+        pack.add("dino_feat", results["dino_feat"], total)
+    elif "static_dino_feat" in results and "dynamic_dino_feat" in results:
+        pack.add("dino_feat", static_ratio[..., None] * results["static_dino_feat"]
+                 + dynamic_ratio[..., None] * results["dynamic_dino_feat"], total)
+        if decomp:
+            pack.add("static_dino", results["static_dino_feat"], static)
+            pack.add("dynamic_dino", results["dynamic_dino_feat"], dynamic)
 
     res = composite_along_rays(t_starts, t_ends, densities.contiguous(),
                                pack.values(), pack.sets)
@@ -346,6 +367,18 @@ def composite_rays(t_starts: torch.Tensor, t_ends: torch.Tensor,
         if "static_rgb" in out:
             out["static_rgb"] = out["static_rgb"] + results["rgb_sky"] * (
                 1.0 - out["static_opacity"])
+
+    # ---------- sky feature and the learnable-PE decomposition ----------
+    if "dino_feat" in out:
+        if "dino_sky_feat" in results:
+            out["dino_feat"] = out["dino_feat"] + results["dino_sky_feat"] * (1.0 - opacity)
+        if "dino_pe" in results:
+            out["dino_pe_free"] = out["dino_feat"]
+            out["dino_pe"] = results["dino_pe"]
+            out["dino_feat"] = out["dino_feat"] + results["dino_pe"]
+        if "static_dino" in out and "dino_sky_feat" in results:
+            # the total opacity, as the reference composes it
+            out["static_dino"] = out["static_dino"] + results["dino_sky_feat"] * (1.0 - opacity)
 
     out["extras"] = extras
     return out

@@ -150,7 +150,7 @@ class TrainStep:
     pixel_rg, lidar_rg, lidar_full) -> metrics``; updates ``state`` in place.
 
     Batches are dicts of device tensors:
-      pixel: origins, viewdirs, pixels + optional sky_masks,
+      pixel: origins, viewdirs, pixels + optional sky_masks, features,
              normed_timestamps, img_idx, cam_idx, pixel_coords
       lidar: origins, viewdirs, ranges, normed_timestamps
     """
@@ -186,6 +186,9 @@ class TrainStep:
             else:
                 losses["sky_loss"] = sky_loss_weights(extras["weights"], batch["sky_masks"],
                                                       cfg.sky_coef)
+        if cfg.use_feature_loss:
+            losses["feature_loss"] = real_value_loss(out["dino_feat"], batch["features"],
+                                                     cfg.feature_loss_type, cfg.feature_coef)
         if cfg.use_dynamic_reg:
             losses["dynamic_reg_loss"] = dynamic_regularization_loss(
                 extras["dynamic_density"], extras["static_density"],
@@ -304,8 +307,6 @@ def build_train_step(model, prop_models: Sequence, cfg: TrainStepConfig,
                                   "behind: the two-pass step is the reference's")
     if cfg.remat:
         raise NotImplementedError("remat (optim.remat) is not ported yet")
-    if cfg.use_feature_loss:
-        raise NotImplementedError("the feature loss comes with the feature head")
     return TrainStep(model, prop_models, cfg)
 
 

@@ -7,13 +7,12 @@ schedule (called once per branch), the staged lidar top-K, the step, the
 metric log and NaN tripwire at the print steps, periodic checkpoints, the
 pixel-error-buffer refresh every ``optim.cache_rgb_freq`` steps through the
 eval ``ImageRenderer``, a ``torch.profiler`` window, and SIGTERM/SIGINT
-checkpoint-and-exit.  ``evaluate`` runs the lidar scene-flow evaluation,
-renders the configured splits and the novel trajectory, and writes the
-metric JSONs, the lidar depth RMSE and the videos (where ``imageio`` is
-installed).
+checkpoint-and-exit.  ``evaluate`` runs the few-shot occupancy evaluation
+and the lidar scene-flow evaluation, renders the configured splits and the
+novel trajectory, and writes the metric JSONs, the lidar depth RMSE and
+the videos (where ``imageio`` is installed).
 
-Not ported yet (ROADMAP queue 1): occupancy evaluation (it needs the
-feature head) and the multi-device mesh; each raises.
+Not ported yet (ROADMAP queue 1): the multi-device mesh; it raises.
 """
 
 from __future__ import annotations
@@ -46,6 +45,7 @@ from emernerf_torch.data.scene import (
 from emernerf_torch.eval.flow import evaluate_lidar_flow
 from emernerf_torch.eval.metrics import compute_valid_depth_rmse
 from emernerf_torch.eval.novel import render_novel_trajectory
+from emernerf_torch.eval.occ import run_occ_eval
 from emernerf_torch.eval.points import PointQueryEngine
 from emernerf_torch.eval.renderer import ImageRenderer
 from emernerf_torch.eval.video import have_imageio, save_videos
@@ -56,12 +56,6 @@ from emernerf_torch.train.step import build_train_step, draw_step, lidar_full_at
 from emernerf_torch.utils.logging import MetricLogger
 
 logger = logging.getLogger("emernerf_torch")
-
-# settings whose code is not ported yet, and what it waits for
-_NOT_PORTED = {
-    "eval.eval_occ": "occupancy evaluation (eval/occ.py) reads the feature head's "
-                     "dino_feat, and the feature head is not ported",
-}
 
 
 def raise_on_nonfinite(scalars: Dict[str, float], step: int) -> None:
@@ -106,11 +100,9 @@ class Trainer:
         self.cfg = cfg
         self.log_dir = log_dir
         self.device = resolve_device(device)
-        for key, item in _NOT_PORTED.items():
-            if cfg.get_dotted(key, False):
-                raise NotImplementedError(f"{key} is not ported yet: {item} (ROADMAP queue 1)")
         if int(cfg.get_dotted("parallel.num_devices", 1)) != 1:
-            raise NotImplementedError("multi-device training is not ported yet (ROADMAP queue 1)")
+            raise NotImplementedError("multi-device training is not ported yet "
+                                      "(ROADMAP queue 1 item 12)")
         seed = int(cfg.optim.seed)
         init_gen = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -323,14 +315,30 @@ class Trainer:
             with open(self._path(name), "w") as f:
                 json.dump(obj, f, indent=2)
 
+    def _occ_eval(self) -> Optional[Dict]:
+        """The few-shot occupancy metrics (``eval.eval_occ``), or None with a
+        warning where the scene has no Occ3D annotations."""
+        if not hasattr(self.dataset, "ego_to_worlds"):
+            logger.warning("eval_occ=True but the dataset has no ego poses / Occ3D annotations "
+                           "(only the Waymo loader provides them); skipping occupancy eval")
+            return None
+        try:
+            return run_occ_eval(self.dataset, PointQueryEngine(self.model, device=self.device),
+                                annotation_stride=self.cfg.eval.occ_annotation_stride)
+        except FileNotFoundError as e:
+            logger.warning("eval_occ=True but Occ3D annotations missing: %s", e)
+            return None
+
     def evaluate(self) -> Dict[str, float]:
-        """End-of-training evaluation at the state's step: the lidar
-        scene-flow metrics (``eval.eval_lidar_flow``), the configured splits
-        (``lowres``, ``test``, ``full``), the novel trajectory
+        """End-of-training evaluation at the state's step: the few-shot
+        occupancy metrics (``eval.eval_occ``), the lidar scene-flow metrics
+        (``eval.eval_lidar_flow``), the configured splits (``lowres``,
+        ``test``, ``full``), the novel trajectory
         (``render.render_novel_trajectory``) and a few frames' lidar depth.
-        Writes ``metrics_flow_{step}.json``, ``metrics_{split}_{step}.json``
-        and ``metrics_all_{step}.json``, and the videos under ``videos/``
-        where ``imageio`` is installed (without it, one warning)."""
+        Writes ``metrics_occ_{step}.json``, ``metrics_flow_{step}.json``,
+        ``metrics_{split}_{step}.json`` and ``metrics_all_{step}.json``, and
+        the videos under ``videos/`` where ``imageio`` is installed (without
+        it, one warning)."""
         cfg = self.cfg
         step = self.state.step
         results: Dict[str, float] = {}
@@ -344,6 +352,16 @@ class Trainer:
         def _save(frames, name, **kw):
             if write_videos:
                 save_videos(frames, os.path.join(video_dir, name), **kw)
+
+        if cfg.eval.eval_occ:
+            occ_metrics = self._occ_eval()
+            if occ_metrics is not None:
+                # the scalar metrics (not the per-class dict)
+                for k, v in occ_metrics.items():
+                    if np.isscalar(v):
+                        results[f"occ/{k}"] = float(v)
+                self._write_json(f"metrics_occ_{step}.json", occ_metrics)
+                logger.info("[occ] %s", occ_metrics)
 
         if (cfg.eval.eval_lidar_flow and self.model.has_flow and self.dataset.lidar is not None
                 and "flows" in self.dataset.lidar):
@@ -360,6 +378,8 @@ class Trainer:
             vis_keys += ["static_rgb", "dynamic_rgb", "dynamic_depth"]
         if self.model.has_flow:
             vis_keys += ["forward_flow", "backward_flow"]
+        if self.model.enable_feature_head:
+            vis_keys += ["dino_feat"]
 
         def _run(split_name, indices, downscale):
             if len(indices) == 0:

@@ -22,6 +22,7 @@ import numpy as np
 
 from emernerf_torch.builders import build_dataset_from_cfg
 from emernerf_torch.config import load_config
+from emernerf_torch.data.waymo import delete_features
 from emernerf_torch.eval.data_preview import render_data_video
 from emernerf_torch.eval.points import PointQueryEngine
 from emernerf_torch.eval.video import have_imageio
@@ -169,6 +170,13 @@ def main(argv=None):
     logger.info("Training done: %d iters in %.1fs (%.0f rays/s)", iters, elapsed,
                 iters * rays_per_iter / max(elapsed, 1e-9))
     trainer.evaluate()
+    # reclaim the disk of the scene's feature maps when asked
+    if cfg.data.pixel_source.get("delete_features_after_run", False):
+        feat_dir = os.path.join(getattr(trainer.dataset, "data_path", ""),
+                                cfg.data.pixel_source.feature_model_type)
+        if os.path.isdir(feat_dir):
+            delete_features(feat_dir)
+            logger.info("Deleted the feature maps under %s", feat_dir)
     return trainer
 
 

@@ -2,8 +2,9 @@
 measurements: the ray-ordered sample batches, the count of distinct rows
 (and runs of equal rows) per warp that K4 backward's warp merge acts on,
 the shares of a training profile, the census of casts of tensors the
-size of a grid table, and the grid specs and queries phases 9 and 10
-check K1 on."""
+size of a grid table, the grid specs and queries phases 9 and 10 check
+K1 on, and the kernel times alone (a mean per profiler record, none
+under the bound)."""
 
 import numpy as np
 import pytest
@@ -108,6 +109,37 @@ def test_remade_makes_its_inputs_on_first_use_and_once():
     assert torch.equal(run(), torch.tensor([0.0, 2.0, 4.0]))
     assert torch.equal(run(), torch.tensor([0.0, 2.0, 4.0]))
     assert made == [1]
+
+
+def test_profiled_ms_takes_each_kernels_mean_over_its_records(monkeypatch):
+    """A session that lost records (the weights kernel kept 7 of 20, the
+    sums kernel all 20) still gives each kernel's time per call; a session
+    that kept none gives no time."""
+    from types import SimpleNamespace as Rec
+
+    records = [Rec(key="void composite_kernel<2>(float const*)", device_time_total=35.0,
+                   count=7),
+               Rec(key="void composite_sums_kernel(float const*)", device_time_total=1320.0,
+                   count=20),
+               Rec(key="void at::native::fill_kernel(float*)", device_time_total=99.0, count=20)]
+    session = Rec(key_averages=lambda: records)
+    monkeypatch.setattr(chip_smoke, "cuda_profile", lambda run: (run(), session)[1])
+    monkeypatch.setattr(chip_smoke.torch.cuda, "synchronize", lambda: None)
+    calls = []
+    ms, n = chip_smoke.profiled_ms(lambda: calls.append(1), ("composite_kernel",
+                                                            "composite_sums_kernel"), iters=20)
+    assert len(calls) == 21  # a warm-up call, then the session's
+    assert ms == pytest.approx((35.0 / 7 + 1320.0 / 20) / 1e3) and n == 27
+    records[:] = []
+    assert chip_smoke.profiled_ms(lambda: None, ("composite_kernel",)) == (None, 0)
+
+
+@pytest.mark.parametrize("ms,reported", [(0.30, 0.30), (0.25, None), (None, None)])
+def test_kernel_only_time_under_its_bound_is_not_reported(ms, reported):
+    entry = {"bound_ms": 0.2873, "kernel_only_ms": 1.0}
+    text = chip_smoke.set_kernel_only(entry, ms)
+    assert entry.get("kernel_only_ms") == reported
+    assert ("not reported" in text) == (reported is None)
 
 
 def _tiny_flagship_config(monkeypatch):

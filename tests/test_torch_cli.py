@@ -292,12 +292,47 @@ def test_cli_flag_runs(tmp_path, flag):
         assert trainer.state.step == 2 and _ckpts(run_dir) == ["checkpoint_00002"]
 
 
-@pytest.mark.parametrize("key", ["eval.eval_occ"])
+@pytest.mark.parametrize("key", ["data.dataset=nuscenes",
+                                 "nerf.model.head.direction_encoding=sh",
+                                 "nerf.model.head.enable_temporal_interpolation=true"])
 def test_unported_settings_raise(key):
-    """Occupancy evaluation waits for the feature head."""
-    cfg = flagship_config(tiny=True, overrides=[f"{key}=true"])
-    with pytest.raises(NotImplementedError, match="feature head"):
+    """The nuScenes loader, spherical-harmonics directions and temporal
+    interpolation raise, naming their ROADMAP item (occupancy evaluation
+    is ported: test_cli_waymo_feature_head_trains_and_evaluates)."""
+    cfg = flagship_config(tiny=True, overrides=[key])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
+
+
+def test_cli_waymo_feature_head_trains_and_evaluates(tmp_path_factory, tmp_path):
+    """The CLI on a Waymo-layout scene with the feature head on (the tiny
+    flagship of test_torch_features): 2 iterations with the feature loss,
+    then the evaluation with feat_psnr and the occupancy metrics
+    (eval.eval_occ at 0.4 m), then the feature maps deleted
+    (delete_features_after_run)."""
+    from test_torch_features import waymo_overrides, write_scene
+
+    from emernerf_torch.flagship import _FLAGSHIP_DOTLIST, _TINY_DOTLIST
+
+    root = write_scene(tmp_path_factory)
+    feat_dir = root / "000" / "dinov2_vitb14"
+    assert len(list(feat_dir.glob("*.npy"))) == 12
+    trainer = main(_argv(tmp_path, "waymo") + list(_FLAGSHIP_DOTLIST) + list(_TINY_DOTLIST)
+                   + waymo_overrides(root)
+                   + ["data.occ_source.voxel_size=0.4", "eval.eval_occ=true",
+                      "eval.occ_annotation_stride=2", "render.render_full=false",
+                      "data.pixel_source.delete_features_after_run=true",
+                      "optim.num_iters=1", "logging.print_freq=1"])
+    run_dir = tmp_path / "p" / "waymo"
+    assert trainer.state.step == 2 and trainer.step_cfg.use_feature_loss
+    records = [json.loads(x) for x in (run_dir / "metrics.json").read_text().splitlines()]
+    assert np.isfinite(records[-1]["feature_loss"])
+    results = json.loads((run_dir / "metrics_all_2.json").read_text())
+    assert np.isfinite(results["lowres/feat_psnr"]) and np.isfinite(results["lowres/psnr"])
+    occ = json.loads((run_dir / "metrics_occ_2.json").read_text())
+    assert occ["num_total_points"] > 0 and set(occ["per_class_accuracy"]) >= {"vehicle", "road"}
+    assert results["occ/num_total_points"] == occ["num_total_points"]
+    assert not list(feat_dir.glob("*.npy"))
 
 
 def test_log_every_reports_wall_clock(tmp_path):

@@ -255,7 +255,7 @@ def test_appearance_mean_embedding_fallback(pair):
     "nerf.model.perf.scatter_mode=flat",
     "nerf.model.perf.gather_mode=1d",
     "nerf.model.head.enable_dynamic_branch=false",  # the flow branch stays on
-    "nerf.model.head.enable_feature_head=true",
+    "nerf.model.perf.reduce_mode=einsum",
     "nerf.model.head.direction_encoding=sh",
     "nerf.model.head.enable_temporal_interpolation=true",
 ])
@@ -263,6 +263,21 @@ def test_unported_knob_raises(knob):
     validate_cfg(flagship_config(tiny=True))  # the flagship itself is ported
     with pytest.raises(NotImplementedError):
         validate_cfg(flagship_config(tiny=True, overrides=[knob]))
+
+
+@pytest.mark.parametrize("pe", [True, False], ids=["learnable_pe", "no_pe"])
+def test_feature_head_validates(pe):
+    """The feature head is ported, with and without the learnable PE map;
+    without the head the base MLPs carry no semantic features."""
+    on = ["nerf.model.head.enable_feature_head=true",
+          f"nerf.model.head.enable_learnable_pe={str(pe).lower()}"]
+    validate_cfg(flagship_config(tiny=True, overrides=on))
+    _, _, model, _, _ = build_flagship(tiny=True, overrides=on, device="cpu")
+    assert model.enable_feature_head and model.enable_learnable_pe == pe
+    assert hasattr(model, "learnable_pe_map") == pe and hasattr(model, "pe_head") == pe
+    assert model.base_mlp.layers[-1].out_features == 16 + 64
+    _, _, plain, _, _ = build_flagship(tiny=True, device="cpu")
+    assert plain.base_mlp.layers[-1].out_features == 16 and not hasattr(plain, "dino_head")
 
 
 @pytest.mark.parametrize("profile", [REFERENCE_HASH, DYNAMIC, REFERENCE_BRICK],

@@ -3,32 +3,41 @@ optax, the JAX package emernerf_tpu or the repository's perf/ scripts, its
 own copies of the JAX package's framework-free modules (config, synthetic
 scene, metrics, data utils, visualization, the video frames, the novel
 trajectory's cameras and rays, the lidar projection of the data preview)
-agree with the originals, its flagship config is the JAX package's, and
-its entry points run on the card unless asked for the CPU."""
+and the feature path's numpy helpers (the PCA of the feature maps, the PE
+map's bilinear sampler, the deletion of the maps) agree with the
+originals, its flagship config is the JAX package's, and its entry points
+run on the card unless asked for the CPU."""
 
 import os
 import subprocess
 import sys
 import textwrap
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from emernerf_tpu import config as jax_config
 from emernerf_tpu import flagship as jax_flagship
 from emernerf_tpu.builders import build_dataset_from_cfg as jax_build_dataset
 from emernerf_tpu.data import synthetic as jax_synthetic
 from emernerf_tpu.data import utils as jax_data_utils
+from emernerf_tpu.data.waymo import reduce_features_pca as jax_reduce_features_pca
 from emernerf_tpu.eval import data_preview as jax_data_preview
 from emernerf_tpu.eval import metrics as jax_metrics
 from emernerf_tpu.eval import novel as jax_novel
 from emernerf_tpu.eval import video as jax_video
+from emernerf_tpu.ops.interp import grid_sample_2d as jax_grid_sample_2d
+from emernerf_tpu.tools.extract_features import delete_features as jax_delete_features
 from emernerf_tpu.utils import visualization as jax_visualization
 from emernerf_torch import config, flagship
 from emernerf_torch.builders import build_dataset_from_cfg
 from emernerf_torch.data import synthetic
 from emernerf_torch.data import utils as data_utils
+from emernerf_torch.data.waymo import delete_features, reduce_features_pca
 from emernerf_torch.eval import data_preview, metrics, novel, video
+from emernerf_torch.ops.interp import grid_sample_2d
 from emernerf_torch.utils import visualization
 from emernerf_torch.flagship import REFERENCE_HASH, flagship_config
 
@@ -64,7 +73,9 @@ def test_every_module_imports_without_jax():
             "emernerf_torch.data.utils", "emernerf_torch.utils.visualization",
             "emernerf_torch.eval.points", "emernerf_torch.eval.flow",
             "emernerf_torch.eval.video", "emernerf_torch.eval.novel",
-            "emernerf_torch.eval.data_preview", "emernerf_torch.eval.voxel_vis"} <= walked
+            "emernerf_torch.eval.data_preview", "emernerf_torch.eval.voxel_vis",
+            "emernerf_torch.data.waymo", "emernerf_torch.ops.interp",
+            "emernerf_torch.eval.occ"} <= walked
 
 
 @pytest.mark.parametrize("tiny", [True, False])
@@ -267,3 +278,40 @@ def test_data_preview_projection_copy_equals_jax(datasets):
         np.testing.assert_array_equal(depth, ref_depth)
         np.testing.assert_array_equal(flow, ref_flow)
         assert depth.any()
+
+
+def test_reduce_features_pca_matches_jax():
+    feats = np.random.default_rng(3).normal(size=(3, 5, 7, 20)).astype(np.float32)
+    for a, b in zip(reduce_features_pca(feats, 6, sample=50),
+                    jax_reduce_features_pca(feats, 6, sample=50)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_grid_sample_2d_matches_jax_bit_for_bit():
+    rng = np.random.default_rng(5)
+    image = rng.normal(size=(7, 11, 5)).astype(np.float32)
+    # inside, on the edges and corners, and out of range on every side
+    g = np.concatenate([rng.uniform(-1, 1, (200, 2)), rng.uniform(-3, 3, (200, 2)),
+                        np.array([[-1, -1], [1, 1], [-1, 1], [1, -1], [0, 0], [1.2, -1.3]])]
+                       ).astype(np.float32)
+    ours = grid_sample_2d(torch.from_numpy(image), torch.from_numpy(g[:, 0]),
+                          torch.from_numpy(g[:, 1])).numpy()
+    ref = np.asarray(jax_grid_sample_2d(jnp.asarray(image), jnp.asarray(g[:, 0]),
+                                        jnp.asarray(g[:, 1])))
+    np.testing.assert_array_equal(ours, ref)
+    # and the semantics of F.grid_sample (bilinear, align_corners=False, zeros)
+    lib = torch.nn.functional.grid_sample(
+        torch.from_numpy(image).permute(2, 0, 1)[None], torch.from_numpy(g)[None, None],
+        mode="bilinear", padding_mode="zeros", align_corners=False)[0, :, 0].T
+    np.testing.assert_allclose(ours, lib.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_delete_features_matches_the_jax_tool(tmp_path):
+    for d in ("ours", "ref"):
+        os.makedirs(tmp_path / d)
+        for name in ("000_0.npy", "001_1.npy", "keep.txt"):
+            (tmp_path / d / name).write_bytes(b"x")
+    delete_features(str(tmp_path / "ours"))
+    jax_delete_features(str(tmp_path / "ref"))
+    assert sorted(os.listdir(tmp_path / "ours")) == sorted(os.listdir(tmp_path / "ref")) == [
+        "keep.txt"]

@@ -1057,3 +1057,55 @@ def test_composite_forward_kernel_at_the_pruned_eval_shape(cuda):
     torch.cuda.synchronize()
     _check_composite_forward(out, ref, ts, te)
     assert float((out.weights == 0).float().mean()) >= 0.5
+
+
+# the feature head's K3 calls: the pixel branch's (shadow 1 + rgb 3 +
+# dino 64 channels, one density set), the eval's with decomposition (23 +
+# dino_feat, static_dino and dynamic_dino at 64 each), an odd width and
+# the widest; each beside a ragged shape (rays, samples per lane)
+_WIDE_K3 = [(8192, 64, 1, 68), (4099, 64, 3, 97), (16384, 64, 3, 215), (2053, 128, 3, 256),
+            (1031, 33, 2, 215)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,d,c", _WIDE_K3,
+                         ids=[f"R{r}_S{s}_D{d}_C{c}" for r, s, d, c in _WIDE_K3])
+def test_composite_kernels_past_64_channels_match_plain(cuda, r, s, d, c):
+    """K3 forward and backward above 64 value channels (the weights, then
+    the sums kernel, counted as two launches) against the plain versions,
+    with random channel sets; the backward with every cotangent and with
+    all but the sums' (d values exactly zero); two runs bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(7 * c + d + s)
+    t = torch.sort(torch.rand((r, s + 1), device=cuda, generator=g) * 50, -1)[0] + 0.1
+    ts, te = t[:, :-1].contiguous(), t[:, 1:].contiguous()
+    dens = torch.rand((r, s, d), device=cuda, generator=g) ** 3 * 0.2
+    dens[:5] = 0.0  # empty rays: opacity clipped to 1e-6
+    vals = torch.rand((r, s, c), device=cuda, generator=g)
+    sets = [int(x) for x in torch.randint(0, d, (c,), generator=torch.Generator().manual_seed(c))]
+    before = composite_along_rays.launches
+    out = composite_along_rays(ts, te, dens, vals, sets)
+    again = composite_along_rays(ts, te, dens, vals, sets)
+    assert composite_along_rays.launches == before + 4  # two kernels a call
+    ref = composite_along_rays_ref(ts, te, dens, vals, sets)
+    torch.cuda.synchronize()
+    _check_composite_forward(out, ref, ts, te)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    del out, again, ref
+    rnd = lambda *shape: torch.randn(shape, device=cuda, generator=g)  # noqa: E731
+    for grads in ((rnd(r, s, d), rnd(r, s, d), rnd(r, d), rnd(r, d), rnd(r, c)),
+                  (rnd(r, s, d), None, rnd(r, d), None, None)):
+        out = composite_along_rays_bwd(ts, te, dens, vals, sets, grads)
+        _check_composite_bwd(out, composite_along_rays_bwd_ref(ts, te, dens, vals, sets, grads))
+        again = composite_along_rays_bwd(ts, te, dens, vals, sets, grads)
+        assert all(torch.equal(a, b) for a, b in zip(out, again))
+        if grads[4] is None:
+            assert not out[1].any()
+
+
+@pytest.mark.cuda
+def test_composite_kernel_refuses_257_channels(cuda):
+    ts = torch.sort(torch.rand((4, 9), device=cuda), -1)[0]
+    dens = torch.rand((4, 8, 1), device=cuda)
+    with pytest.raises(ValueError, match="one density set per value channel"):
+        composite_along_rays(ts[:, :-1].contiguous(), ts[:, 1:].contiguous(), dens,
+                             torch.rand((4, 8, 257), device=cuda), [0] * 257)

@@ -119,32 +119,36 @@ def test_composite_along_rays_checks_inputs():
 
 
 def _unpack_chan_sets(packed, n_channels):
-    """Channel c's set from bits 2c, 2c + 1 of word c // 32, as the K3
-    forward kernel reads them (composite.cu:chan_set)."""
+    """Channel c's set from bits 2(c % 32), 2(c % 32) + 1 of word c // 32,
+    as the K3 kernels read them (composite.cu:chan_set)."""
     return tuple((packed[c >> 5] >> (2 * (c & 31))) & 3 for c in range(n_channels))
 
 
 @pytest.mark.parametrize("n_sets", [1, 2, 3])
 def test_packed_chan_sets_round_trip(n_sets):
-    """K3 forward takes the density set of each value channel as 2 bits: every
-    assignment of up to 3 channels exhaustively, and 200 random assignments
-    of each count up to 64, come back unchanged."""
+    """K3 takes the density set of each value channel as 2 bits in eight
+    64-bit words: every assignment of up to 3 channels exhaustively, and
+    200 random assignments of each count up to 64 and 20 of each count up
+    to 256, come back unchanged."""
     assignments = [tuple(int(x) for x in np.unravel_index(i, (n_sets,) * c))
                    for c in range(4) for i in range(n_sets ** c)]
     rng = np.random.default_rng(n_sets)
     assignments += [tuple(int(x) for x in rng.integers(0, n_sets, c))
                     for c in range(65) for _ in range(200)]
+    assignments += [tuple(int(x) for x in rng.integers(0, n_sets, c))
+                    for c in range(65, 257) for _ in range(20)]
     for sets in assignments:
-        lo, hi = pack_chan_sets(sets, n_sets)
-        assert 0 <= lo < 2 ** 64 and 0 <= hi < 2 ** 64
-        assert _unpack_chan_sets((lo, hi), len(sets)) == sets
-    assert pack_chan_sets((n_sets - 1,) * 64, n_sets) == (
-        (sum((n_sets - 1) << (2 * c) for c in range(32)),) * 2)
+        words = pack_chan_sets(sets, n_sets)
+        assert len(words) == 8 and all(0 <= w < 2 ** 64 for w in words)
+        assert _unpack_chan_sets(words, len(sets)) == sets
+    assert pack_chan_sets((n_sets - 1,) * 256, n_sets) == (
+        (sum((n_sets - 1) << (2 * c) for c in range(32)),) * 8)
 
 
 @pytest.mark.parametrize("n_sets", [1, 2, 3])
 def test_packed_chan_sets_reject_a_set_outside_the_densities(n_sets):
-    for bad in ((n_sets,), (0,) * 40 + (n_sets,), (3,), (-1,), (0,) * 65):
+    for bad in ((n_sets,), (0,) * 40 + (n_sets,), (0,) * 200 + (n_sets,), (3,), (-1,),
+                (0,) * 257):
         with pytest.raises(ValueError, match="one density set per value channel"):
             pack_chan_sets(bad, n_sets)
     dens = torch.zeros(2, 4, n_sets)

@@ -149,6 +149,33 @@ Phases (any failure exits non-zero; nothing is skipped):
      3, 215) shapes of phase 13 and K3 backward at (8192, 64, 1, 68)
      (emernerf_torch/perf/bench_wide_composite.py times the eval chunk's
      one call beside four calls by channel group).
+  14. the nuScenes loader: a devkit-layout scene written to a temporary
+     directory (write_nuscenes_scene: the six cameras on 12 Hz chains of
+     40-42 JPEGs of 1600x900 with shutters offset and an ego pose per
+     image, sky masks, a 20 Hz LIDAR_TOP chain of 34,700-return .pcd.bin
+     sweeps; the cuts are printed), the full-width flagship through the
+     CLI with data.dataset=nuscenes and six cameras: a few iterations and
+     the evaluation; the metas cached by the first load, a second load
+     (half the scene) from them with the tables gone, the lidar returns of
+     both by the scene_fraction rule; then timed iterations, device busy,
+     idle share and peak memory beside phase 5's.  The launch counters are
+     zeroed before its CLI run and read after its profiled iterations;
+  15a. optim.remat on the full-width flagship: each branch from one state
+     and the same draws with remat off and on (losses bit for bit,
+     gradients within one bf16 ulp plus 1e-6 of the largest), one whole
+     iteration each way (pixel losses bit for bit), then timed iterations
+     each way: ms/iteration, busy, peak memory and K1 forward's launches
+     per iteration;
+  15b. the eval-time temporal interpolation: 2 images of the full-width
+     flagship and of the reference-hash flagship with it on (the launches
+     of the "interp" and "interp_hash" rows), a chunk and a query_flow
+     batch at an off-grid time in fp32, card vs CPU, and at a training
+     timestep bit for bit with the exact queries; K1 and K4 forward at the
+     flow encodes the interpolation adds to one eval chunk against their
+     plain versions;
+  15c. spherical-harmonics directions: a 2,048-ray fp32 chunk of the
+     full-width flagship, card vs CPU, one fp32 training step of the tiny
+     flagship, card vs CPU, and 2 full-width iterations through Trainer.
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
@@ -156,7 +183,8 @@ and its operations over the fp32 rate (H100 SXM data sheet).  Its launches
 are those of the training run of its path (phase 5, phase 6 for K4, phase
 7's probe run for P1-P4, phase 9 or 10 for the rows of those profiles'
 grids and K3 shapes, phase 12's runs for the "points" rows of 12b, phase
-13's for the "waymo" rows of 13b; a K3 forward call past 64 channels
+13's for the "waymo" rows of 13b, phase 15b's interpolated renders for
+the "interp" and "interp_hash" rows; a K3 forward call past 64 channels
 counts its two kernels).
 The kernels' device times alone (torch.profiler, each kernel's mean over
 its records: K2, K3 forward and backward, K5, P1, P3; for K3 past 64
@@ -1146,15 +1174,16 @@ def _check_launches(launches, zero, what):
             fail(f"kernel {name} was not launched by the {what}")
 
 
-def phase_slice(dev, counted, zero=(), profile=None, label="phase 4", flow=True):
+def phase_slice(dev, counted, zero=(), profile=None, label="phase 4", flow=True, overrides=()):
     from emernerf_torch.eval.renderer import ImageRenderer
     from emernerf_torch.flagship import DEFAULT_PROFILE, build_flagship
 
     profile = profile or DEFAULT_PROFILE
     print(f"{label}: full-width flagship eval render (bf16 default dtypes, profile "
-          f"{_profile_name(profile)})")
+          f"{_profile_name(profile)}{''.join(' ' + o for o in overrides)})")
     t0 = time.perf_counter()
-    cfg, dataset, model, props, _ = build_flagship(profile=profile, device=dev, seed=0)
+    cfg, dataset, model, props, _ = build_flagship(overrides=overrides, profile=profile,
+                                                   device=dev, seed=0)
     n_params = sum(p.numel() for p in model.parameters()) + sum(
         p.numel() for pm in props for p in pm.parameters())
     print(f"  built flagship: {n_params} params in {time.perf_counter() - t0:.1f} s; "
@@ -1216,30 +1245,42 @@ def _scaled_twins(gpu, cpu):
         c.load_state_dict(g.state_dict())
 
 
-def phase_fp32_chunk(dev):
+def phase_fp32_chunk(dev, overrides=(), profile=None, label="phase 4b", time_=None,
+                     n_rays=2048):
+    """One chunk of ``n_rays`` across the first image's middle rows in fp32,
+    the full-width flagship of ``profile`` with ``overrides`` on the card
+    against the same params on the CPU; ``time_`` sets the rays' normalized
+    time.  Returns the card's and the CPU's models and renderers' kwargs
+    for a further check."""
     from emernerf_torch.eval.renderer import ImageRenderer
-    from emernerf_torch.flagship import build_flagship
+    from emernerf_torch.flagship import DEFAULT_PROFILE, build_flagship
 
-    print("phase 4b: one 2,048-ray chunk in fp32, card (kernels) vs CPU (plain versions)")
+    profile = profile or DEFAULT_PROFILE
+    print(f"{label}: one {n_rays}-ray chunk in fp32, card (kernels) vs CPU (plain versions); "
+          f"profile {_profile_name(profile)}{''.join(' ' + o for o in overrides)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fp32 = ["nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32"]
-    cfg, dataset, gmodel, gprops, _ = build_flagship(overrides=fp32, device=dev, seed=1)
-    _, _, cmodel, cprops, _ = build_flagship(overrides=fp32, device="cpu", seed=1)
+    fp32 = ["nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32", *overrides]
+    cfg, dataset, gmodel, gprops, _ = build_flagship(overrides=fp32, profile=profile, device=dev,
+                                                     seed=1)
+    _, _, cmodel, cprops, _ = build_flagship(overrides=fp32, profile=profile, device="cpu",
+                                             seed=1)
     _scaled_twins([gmodel, *gprops], [cmodel, *cprops])
     rays, _ = dataset.get_image_rays(0)
     h, w = dataset.image_hw
-    sl = slice(w * (h // 2), w * (h // 2) + 2048)  # rays across the image's middle rows
+    sl = slice(w * (h // 2), w * (h // 2) + n_rays)  # rays across the image's middle rows
     rays = {k: v[sl] for k, v in rays.items()}
+    if time_ is not None:
+        rays["normed_timestamps"] = np.full_like(rays["normed_timestamps"], time_)
     kw = dict(num_samples=cfg.nerf.sampling.num_samples,
               prop_samples=tuple(cfg.nerf.propnet.num_samples_per_prop),
               near_plane=cfg.nerf.propnet.near_plane, far_plane=cfg.nerf.propnet.far_plane,
-              sampling_type=cfg.nerf.propnet.sampling_type, chunk_size=2048,
+              sampling_type=cfg.nerf.propnet.sampling_type, chunk_size=n_rays,
               return_decomposition=True)
     out_gpu = ImageRenderer(gmodel, gprops, device=dev, **kw).render_rays_chunked(rays)
     t0 = time.perf_counter()
     out_cpu = ImageRenderer(cmodel, cprops, device="cpu", **kw).render_rays_chunked(rays)
-    print(f"  CPU plain render of 2048 rays: {time.perf_counter() - t0:.1f} s")
+    print(f"  CPU plain render of {n_rays} rays: {time.perf_counter() - t0:.1f} s")
     rgb_err = float(np.abs(out_gpu["rgb"] - out_cpu["rgb"]).max())
     depth_rel = float((np.abs(out_gpu["depth"] - out_cpu["depth"])
                        / np.maximum(np.abs(out_cpu["depth"]), 1e-3)).max())
@@ -1250,7 +1291,8 @@ def phase_fp32_chunk(dev):
         d = float(np.abs(out_gpu[k] - out_cpu[k]).max())
         print(f"    {k}: max abs diff {d:.3e}")
     if not (rgb_err <= 1e-3 and depth_rel <= 1e-3):
-        fail("fp32 chunk on the card disagrees with the CPU plain render")
+        fail(f"{label}: fp32 chunk on the card disagrees with the CPU plain render")
+    return dataset, (gmodel, gprops), (cmodel, cprops), kw, rays
 
 
 def _losses(metrics):
@@ -2528,6 +2570,696 @@ def phase_waymo_kernels(dev, entries, after_timed, tally, eval_tally):
     print(f"  phase 13b took {time.perf_counter() - t0:.1f} s")
 
 
+# phase 14's nuScenes scene (the devkit's table layout) and its cuts
+NUSC_FRAMES = 40  # per camera, cut from a 20 s scene's ~240 at 12 Hz
+NUSC_HW = (900, 1600)  # the cameras' size on disk
+NUSC_LIDAR = 34_700  # LIDAR_TOP returns per sweep
+NUSC_CAM_US = 83_333  # 12 Hz camera shutters
+NUSC_LIDAR_US = 50_000  # 20 Hz lidar sweeps
+# camera yaws from the ego's x axis, degrees, in CAMERA_LISTS[6]'s order
+NUSC_YAW = (55.0, 0.0, -55.0, 110.0, 180.0, -110.0)
+
+
+def _token(*parts) -> str:
+    """A 32-hex token, as the tables use."""
+    import hashlib
+
+    return hashlib.md5("/".join(map(str, parts)).encode()).hexdigest()
+
+
+def _qmul(a, b):
+    """Hamilton product of [w, x, y, z] quaternions."""
+    aw, ax, ay, az = a
+    bw, bx, by, bz = b
+    return [aw * bw - ax * bx - ay * by - az * bz, aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx, aw * bz + ax * by - ay * bx + az * bw]
+
+
+def write_nuscenes_scene(root, n_frames=NUSC_FRAMES, image_hw=NUSC_HW, n_lidar=NUSC_LIDAR,
+                         feat_shape=None, version="v1.0-trainval", seed=0):
+    """Writes one nuScenes scene under ``root`` in the devkit's layout, made
+    from ``seed``: the tables ``{root}/{version}/{scene,sample,sample_data,
+    calibrated_sensor,ego_pose,sensor}.json`` (the documented schema: 32-hex
+    tokens, microsecond timestamps, [w, x, y, z] rotations, sample records
+    without ``data``); the six cameras of CAMERA_LISTS[6] on 12 Hz chains
+    of JPEGs (smooth random colour) at ``image_hw``, their shutters offset
+    by a sixth of a period each and their chains n_frames, n_frames + 1 and
+    n_frames + 2 long in turn, each image with the ego pose at its own
+    timestamp; sky masks (the top fifth) under samples_sky_mask and
+    sweeps_sky_mask; a 20 Hz LIDAR_TOP chain over the same span of
+    ``.pcd.bin`` sweeps of ``n_lidar`` returns (x, y, z, intensity, ring as
+    float32; a ground plane and a band of walls within 70 m); key frames
+    every 6th image and 10th sweep under samples/, the rest under sweeps/;
+    and, with ``feat_shape``, fp16 feature maps beside the images
+    (samples_dinov2_vitb14).  The ego drives 10 m/s along x.  Returns root."""
+    from PIL import Image
+
+    from emernerf_torch.data.nuscenes import ALL_CAMERAS, _feature_path, _sky_mask_path
+
+    rng = np.random.default_rng(seed)
+    h, w = image_hw
+    t0 = 1_532_402_927_612_460
+    speed = 10.0  # m/s
+    sensors, calibs, egos, sds = [], [], [], []
+    key_samples = {}
+
+    def ego_at(ts):
+        tok = _token("ego", len(egos), ts)
+        egos.append({"token": tok, "timestamp": ts, "rotation": [1.0, 0.0, 0.0, 0.0],
+                     "translation": [speed * (ts - t0) * 1e-6, 0.0, 0.0]})
+        return tok
+
+    def chain(channel, stamps, key_every, files):
+        toks = [_token("sd", channel, i) for i in range(len(stamps))]
+        for i, ts in enumerate(stamps):
+            key = i % key_every == 0
+            if key:
+                key_samples.setdefault(i // key_every, ts)
+            sds.append({"token": toks[i], "sample_token": _token("sample", i // key_every),
+                        "ego_pose_token": ego_at(ts),
+                        "calibrated_sensor_token": _token("calib", channel), "timestamp": ts,
+                        "fileformat": "jpg" if channel != "LIDAR_TOP" else "pcd",
+                        "is_key_frame": key,
+                        "height": h if channel != "LIDAR_TOP" else 0,
+                        "width": w if channel != "LIDAR_TOP" else 0,
+                        "filename": files(i, key, ts),
+                        "prev": toks[i - 1] if i else "",
+                        "next": toks[i + 1] if i + 1 < len(stamps) else ""})
+
+    cam_files = []
+    for c, cam in enumerate(ALL_CAMERAS):
+        sensors.append({"token": _token("sensor", cam), "channel": cam, "modality": "camera"})
+        a = np.deg2rad(NUSC_YAW[c])
+        # OpenCV camera axes (z forward) into the ego frame (x forward), then the yaw
+        rot = _qmul([np.cos(a / 2), 0.0, 0.0, np.sin(a / 2)], [0.5, -0.5, 0.5, -0.5])
+        calibs.append({"token": _token("calib", cam), "sensor_token": _token("sensor", cam),
+                       "translation": [1.5 * np.cos(a), 0.5 * np.sin(a), 1.5],
+                       "rotation": [float(v) for v in rot],
+                       "camera_intrinsic": [[0.79 * w, 0.0, w / 2.0], [0.0, 0.79 * w, h / 2.0],
+                                            [0.0, 0.0, 1.0]]})
+        stamps = [t0 + c * NUSC_CAM_US // 6 + k * NUSC_CAM_US for k in range(n_frames + c % 3)]
+
+        def files(i, key, ts, cam=cam):
+            name = f"{'samples' if key else 'sweeps'}/{cam}/n000__{cam}__{ts}.jpg"
+            cam_files.append(name)
+            return name
+
+        chain(cam, stamps, 6, files)
+    lidar_files = []
+    sensors.append({"token": _token("sensor", "LIDAR_TOP"), "channel": "LIDAR_TOP",
+                    "modality": "lidar"})
+    calibs.append({"token": _token("calib", "LIDAR_TOP"),
+                   "sensor_token": _token("sensor", "LIDAR_TOP"),
+                   "translation": [0.94, 0.0, 1.84], "rotation": [1.0, 0.0, 0.0, 0.0],
+                   "camera_intrinsic": []})
+    span = (n_frames + 2) * NUSC_CAM_US
+    n_sweeps = span // NUSC_LIDAR_US + 1
+
+    def lidar_name(i, key, ts):
+        name = f"{'samples' if key else 'sweeps'}/LIDAR_TOP/n000__LIDAR_TOP__{ts}.pcd.bin"
+        lidar_files.append(name)
+        return name
+
+    chain("LIDAR_TOP", [t0 + i * NUSC_LIDAR_US for i in range(n_sweeps)], 10, lidar_name)
+
+    n_samples = max(key_samples) + 1
+    samples = [{"token": _token("sample", i), "timestamp": key_samples[i],
+                "prev": _token("sample", i - 1) if i else "",
+                "next": _token("sample", i + 1) if i + 1 < n_samples else "",
+                "scene_token": _token("scene", 0)} for i in range(n_samples)]
+    scene = [{"token": _token("scene", 0), "log_token": _token("log", 0),
+              "nbr_samples": n_samples, "first_sample_token": samples[0]["token"],
+              "last_sample_token": samples[-1]["token"], "name": "scene-0001",
+              "description": "synthetic, written from a seed"}]
+    os.makedirs(os.path.join(root, version), exist_ok=True)
+    for name, records in (("scene", scene), ("sample", samples), ("sample_data", sds),
+                          ("calibrated_sensor", calibs), ("ego_pose", egos),
+                          ("sensor", sensors)):
+        with open(os.path.join(root, version, f"{name}.json"), "w") as f:
+            json.dump(records, f)
+
+    sky = np.zeros((h, w), np.uint8)
+    sky[: h // 5] = 255
+    sky_img = Image.fromarray(sky)
+    for name in cam_files:
+        path = os.path.join(root, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        small = rng.uniform(0, 255, (max(h // 32, 2), max(w // 32, 2), 3)).astype(np.uint8)
+        Image.fromarray(small).resize((w, h), Image.BILINEAR).save(path, quality=90)
+        mask = os.path.join(root, _sky_mask_path(name))
+        os.makedirs(os.path.dirname(mask), exist_ok=True)
+        sky_img.save(mask)
+        if feat_shape is not None:
+            feat = os.path.join(root, _feature_path(name, "dinov2_vitb14"))
+            os.makedirs(os.path.dirname(feat), exist_ok=True)
+            np.save(feat, rng.standard_normal(feat_shape).astype(np.float16))
+    for name in lidar_files:
+        # in the sensor frame: the ground 1.84 m below, walls 20-70 m out
+        az = rng.uniform(-np.pi, np.pi, n_lidar)
+        el = rng.uniform(np.deg2rad(-30.0), np.deg2rad(10.0), n_lidar)
+        d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)], -1)
+        ground = np.where(d[:, 2] < -1e-3, 1.84 / np.maximum(-d[:, 2], 1e-3), np.inf)
+        ranges = np.minimum(ground, rng.uniform(20.0, 70.0, n_lidar))
+        pts = np.zeros((n_lidar, 5), np.float32)
+        pts[:, :3] = d * ranges[:, None]
+        pts[:, 3] = rng.uniform(0, 255, n_lidar)
+        pts[:, 4] = rng.integers(0, 32, n_lidar)
+        path = os.path.join(root, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        pts.tofile(path)
+    return root
+
+
+N_NUSC_CLI = 4  # optim.num_iters of phase 14's CLI run
+N_NUSC_TIMED = 6  # iterations timed after it, on the trainer the CLI returns
+
+
+def nuscenes_dotlist(root):
+    """Phase 14's settings: the flagship's branches (dynamic, flow, shadow)
+    on the stock defaults, the nuScenes loader on ``root`` with the six
+    cameras at the default load size; render.render_full=false is a cut
+    (the eval renders the lowres split of every image, not full-size)."""
+    from emernerf_torch.flagship import _FLAGSHIP_DOTLIST
+
+    return list(_FLAGSHIP_DOTLIST) + [
+        "data.dataset=nuscenes", f"data.data_root={root}", "data.scene_idx=0",
+        "data.pixel_source.num_cams=6", "render.render_full=false"]
+
+
+def _kept_lidar(root, lidar_meta, lo, hi, cfg):
+    """Returns of sweeps lo..hi-1 that the loader keeps: .pcd.bin as 5
+    float32 per point, truncated on x by data.lidar_source's range."""
+    lcfg = cfg.data.lidar_source
+    n = 0
+    for path in lidar_meta["filepath"][lo:hi]:
+        x = np.fromfile(os.path.join(root, path), np.float32).reshape(-1, 5)[:, 0]
+        n += int(((x < lcfg.truncated_max_range) & (x > lcfg.truncated_min_range)).sum())
+    return n
+
+
+def phase_nuscenes(dev, counted, zero, train_ms, busy5, peak5):
+    """Phase 14: the nuScenes loader through the CLI.  Writes a devkit-layout
+    scene (write_nuscenes_scene) to a temporary directory, trains
+    N_NUSC_CLI iterations of the full-width flagship on its six
+    asynchronous cameras and its lidar chain, evaluates; then checks that
+    the first load cached the metas and that a second load (an end
+    timestep at half the scene) reads them with the tables gone, and that
+    the lidar returns loaded follow the scene_fraction rule in both; then
+    on the trainer the CLI returns: N_NUSC_TIMED timed iterations
+    (ms/iteration, peak memory) and a profile of 2 (device busy, idle
+    share).  The launch counters are zeroed before the CLI run and read
+    after the profiled iterations.  Returns (launches, ms/iteration, busy,
+    peak GiB, load seconds)."""
+    import logging
+    import shutil
+    import tempfile
+
+    from emernerf_torch import train_emernerf
+    from emernerf_torch.config import load_config
+    from emernerf_torch.data import nuscenes
+    from emernerf_torch.flagship import DEFAULT_CONFIG
+    from emernerf_torch.train import trainer as trainer_mod
+
+    print("phase 14: the nuScenes loader through the CLI (six asynchronous cameras, the lidar "
+          "chain), full-width flagship")
+    root = tempfile.mkdtemp(prefix="emernerf_nuscenes_")
+    t_phase = t0 = time.perf_counter()
+    write_nuscenes_scene(root)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    print(f"  wrote the scene in {time.perf_counter() - t0:.1f} s ({size / 2 ** 30:.2f} GiB): the "
+          f"six cameras of CAMERA_LISTS[6] on 12 Hz chains of {NUSC_FRAMES}-{NUSC_FRAMES + 2} "
+          f"JPEGs of {NUSC_HW[1]}x{NUSC_HW[0]} (shutters a sixth of a period apart, an ego "
+          f"pose per image), sky masks, a 20 Hz LIDAR_TOP chain of {NUSC_LIDAR} returns per "
+          "sweep, key frames at 2 Hz")
+    print(f"  cuts: {NUSC_FRAMES} frames per camera (a 20 s scene has ~240); "
+          f"render.render_full=false (the eval renders the lowres split); "
+          f"{N_NUSC_CLI} + {N_NUSC_TIMED} + 2 training iterations")
+    run_dir = os.path.join(root, "p", "nuscenes")
+    os.makedirs(run_dir)
+    log = logging.getLogger("emernerf_torch")
+    handler = logging.FileHandler(os.path.join(run_dir, "log.txt"))
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    argv = (["--output_root", root, "--project", "p", "--run_name", "nuscenes"]
+            + nuscenes_dotlist(root) + [f"optim.num_iters={N_NUSC_CLI}", "logging.print_freq=1"])
+    orig = trainer_mod.build_dataset_from_cfg
+    loads = []
+
+    def timed_load(cfg):
+        t = time.perf_counter()
+        out = orig(cfg)
+        loads.append(time.perf_counter() - t)
+        return out
+
+    trainer_mod.build_dataset_from_cfg = timed_load
+    trainer = None
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        for fn in counted + tuple(zero):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_emernerf.main(argv)
+        step = trainer.state.step
+        print(f"  CLI run (load the scene, build, train {N_NUSC_CLI} iterations, evaluate): "
+              f"{time.perf_counter() - t0:.1f} s; the dataset's load {loads[0]:.1f} s "
+              "(the token walk, the metas written, images, masks and sweeps read)")
+        ds = trainer.dataset
+        metas = [os.path.join(root, "emernerf_metas", f"scene_000_{k}.json")
+                 for k in ("camera", "lidar")]
+        if not all(os.path.exists(m) for m in metas):
+            fail("phase 14: the first load did not cache the metas")
+        with open(metas[1]) as f:
+            lidar_meta = json.load(f)
+        n_total = len(lidar_meta["timestamp"])
+        print(f"  dataset: {ds.num_images} images of {ds.image_hw} from {ds.num_cams} cameras, "
+              f"{ds.num_frames} frames (the shortest chain), {len(ds.lidar['ranges'])} lidar rays "
+              f"of {n_total} sweeps, scene_fraction {ds.scene_fraction}, aabb "
+              f"{np.round(ds.aabb, 2).tolist()}; "
+              f"{sum(p.numel() for p in trainer.state.params + trainer.state.prop_params)} params")
+        if (ds.num_cams, ds.num_frames) != (6, NUSC_FRAMES):
+            fail(f"phase 14: {ds.num_cams} cameras of {ds.num_frames} frames, expected 6 of "
+                 f"{NUSC_FRAMES}")
+        cfg = trainer.cfg
+        if len(ds.lidar["ranges"]) != _kept_lidar(root, lidar_meta, 0, n_total, cfg):
+            fail("phase 14: the lidar returns loaded do not follow the scene_fraction rule")
+        with open(os.path.join(run_dir, "metrics.json")) as f:
+            records = [json.loads(x) for x in f.read().splitlines()]
+        losses = {k: records[-1][k] for k in ("rgb_loss", "sky_loss", "cycle_loss",
+                                              "lidar_range_loss")}
+        print(f"  losses at the last print: {losses}")
+        with open(os.path.join(run_dir, f"metrics_all_{step}.json")) as f:
+            results = json.load(f)
+        keys = ("lowres/psnr", "lowres/ssim", "lidar/depth_rmse")
+        print(f"  evaluation (random weights): {({k: results.get(k) for k in keys})}")
+        if not all(np.isfinite(results.get(k, float("nan"))) for k in keys) or not all(
+                np.isfinite(v) for v in losses.values()):
+            fail(f"phase 14: losses or evaluation metrics missing or not finite: {results}")
+
+        # the second load: cached metas, tables gone, half the scene
+        tables = os.path.join(root, "v1.0-trainval")
+        os.rename(tables, tables + ".gone")
+        end = NUSC_FRAMES // 2 - 1
+        cfg2 = load_config(DEFAULT_CONFIG, None, nuscenes_dotlist(root)
+                           + [f"data.end_timestep={end}"])
+        t0 = time.perf_counter()
+        half = nuscenes.load_nuscenes_dataset(cfg2)
+        secs2 = time.perf_counter() - t0
+        l_end = int(n_total * half.scene_fraction)
+        l_start = min(cfg2.data.start_timestep, max(l_end - 1, 0))
+        want = _kept_lidar(root, lidar_meta, l_start, l_end, cfg2)
+        print(f"  second load (cached metas, tables gone, data.end_timestep={end}): {secs2:.1f} s, "
+              f"{half.num_frames} frames, scene_fraction {half.scene_fraction}, sweeps {l_start}-"
+              f"{l_end - 1} of {n_total}: {len(half.lidar['ranges'])} lidar rays (rule: {want})")
+        if half.num_frames != end + 1 or half.scene_fraction != (end + 1) / NUSC_FRAMES or len(
+                half.lidar["ranges"]) != want:
+            fail("phase 14: the cached-meta load or its lidar fraction is wrong")
+        del half
+
+        # the timed window on the CLI's trainer
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(N_NUSC_TIMED):
+            trainer.train_iteration(step + i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / N_NUSC_TIMED
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows, busy = profile_train(trainer, step + N_NUSC_TIMED, ms, "profile_train_nuscenes.json")
+        share = profile_shares(rows, busy)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
+        rays = 2 * trainer.ray_batch_size
+        print(f"  {ms:.2f} ms/iteration ({N_NUSC_TIMED} iterations), {rays / ms * 1e3:.1f} rays/s, "
+              f"device busy {busy:.2f} ms per iteration (idle {1 - busy / ms:.1%}), peak device "
+              f"memory {peak:.2f} GiB; phase 5 (the synthetic scene, 1 camera): {train_ms:.2f} "
+              f"ms/iteration, busy {busy5:.2f} ms, peak {peak5:.2f} GiB")
+        for what, _ in PROFILE_SHARES:
+            print(f"  {what}: {share[what]:.1%} of the device time")
+        print(f"  launch counts (CLI run and timed iterations): {launches}")
+        _check_launches(launches, {fn.__name__ for fn in zero}, "nuScenes run")
+        print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+        return launches, ms, busy, peak, loads[0]
+    finally:
+        trainer_mod.build_dataset_from_cfg = orig
+        log.removeHandler(handler)
+        handler.close()
+        del trainer
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+N_REMAT_TIMED = 6  # timed iterations with optim.remat off, then on
+
+
+def _snapshot(trainer):
+    """The state a step reads and writes: params, both Adam states, the step
+    and the trainer's generator."""
+    st = trainer.state
+    opt = [(o.count, [m.clone() for m in o.mu], [v.clone() for v in o.nu])
+           for o in (st.opt_state, st.prop_opt_state)]
+    return ([p.detach().clone() for p in st.params + st.prop_params], opt, st.step,
+            trainer.generator.get_state())
+
+
+@torch.no_grad()
+def _restore(trainer, snap):
+    params, opt, step, gen = snap
+    st = trainer.state
+    for p, q in zip(st.params + st.prop_params, params):
+        p.copy_(q)
+    for o, (count, mu, nu) in zip((st.opt_state, st.prop_opt_state), opt):
+        o.count = count
+        for a, b in zip(o.mu + o.nu, mu + nu):
+            a.copy_(b)
+    st.step = step
+    trainer.generator.set_state(gen)
+
+
+def _branch_grads(trainer, step_fn, lidar):
+    """(losses, gradients in the order of the params, (GiB held after the
+    forward for the backward, GiB of the peak above the start, GiB of the
+    gradients)) of one branch's loss at the trainer's current params and
+    generator state."""
+    from emernerf_torch.data.scene import draw_lidar, draw_pixel, sample_lidar_batch, sample_pixel_batch
+    from emernerf_torch.train.step import draw_step
+
+    gen, scene, r = trainer.generator, trainer.scene, trainer.ray_batch_size
+    if lidar:
+        batch = sample_lidar_batch(scene, draw_lidar(scene, r, gen))
+    else:
+        batch = sample_pixel_batch(scene, draw_pixel(scene, r, gen), trainer.buffer_downscale,
+                                   use_timestamps=trainer.model.has_dynamic)
+    draws = draw_step(r, step_fn.render_kw(lidar), trainer.model.has_flow, gen, trainer.device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    total, aux = (step_fn.lidar_loss if lidar else step_fn.pixel_loss)(
+        batch, draws, trainer.state.step, True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    total.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    params = trainer.state.params + trainer.state.prop_params
+    grads = [None if p.grad is None else p.grad.clone() for p in params]
+    grad_bytes = sum(nbytes(g) for g in grads if g is not None)
+    for p in params:
+        p.grad = None
+    return ({k: v.detach().clone() for k, v in aux.items()}, grads,
+            tuple(x / 2 ** 30 for x in (held, peak, grad_bytes)))
+
+
+def phase_remat(dev, counted):
+    """Phase 15a: optim.remat on the full-width flagship (phase 5's scene).
+    From one state (after 3 iterations) and the same draws, each branch's
+    losses with remat off and on, bit for bit, and its gradients (K1
+    backward's fp32 atomics and the index ops' add in any order: within
+    2^-7 relative, one bf16 ulp, plus 1e-6 of the tensor's max |grad|, the
+    spread of two runs without remat printed beside); then one whole
+    iteration each way from that state: the pixel branch's losses bit for
+    bit, the parameters after it finite (Adam moves an element by about lr
+    whatever its gradient's size, so gradients at the rounding level move
+    it either way: their differences are printed).  Then
+    N_REMAT_TIMED timed iterations each way (after 2 warm-up ones), with
+    peak memory, device busy from a profile of 2, and K1 forward's
+    launches per iteration.  Returns {"off"|"on": (ms, busy, peak GiB, K1
+    forward launches per iteration)}."""
+    import dataclasses
+
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
+    from emernerf_torch.train.step import build_train_step
+    from emernerf_torch.train.trainer import Trainer
+
+    print("phase 15a: optim.remat on the full-width flagship (the field query recomputed in the "
+          "backward): the same state and draws off and on, then timed iterations each way")
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = Trainer(flagship_config(), device=dev)
+    off = trainer.train_step
+    on = build_train_step(trainer.model, trainer.prop_models,
+                          dataclasses.replace(trainer.step_cfg, remat=True))
+    for i in range(3):
+        trainer.train_iteration(i)
+    snap = _snapshot(trainer)
+    for lidar in (False, True):
+        branch = "lidar" if lidar else "pixel"
+        got = []
+        for step_fn in (off, on, off):
+            _restore(trainer, snap)
+            got.append(_branch_grads(trainer, step_fn, lidar))
+        (l_off, g_off, mem_off), (l_on, g_on, mem_on), (_, g_off2, _) = got
+        same = all(torch.equal(l_off[k], l_on[k]) for k in l_off)
+        print(f"  {branch} branch from one state: losses bit for bit off/on: {same} "
+              f"({ {k: float(v) for k, v in l_on.items() if 'loss' in k} })")
+        if not same:
+            fail(f"phase 15a: the {branch} branch's losses differ with remat")
+        worst, spread, n_exact = 0.0, 0.0, 0
+        for a, b, c in zip(g_off, g_on, g_off2):
+            if (a is None) != (b is None):
+                fail(f"phase 15a: a gradient is missing with remat on or off ({branch})")
+            if a is None:
+                continue
+            scale = float(a.abs().max())
+            err = (a - b).abs()
+            worst = max(worst, float(err.max()) / max(scale, 1e-30))
+            spread = max(spread, float((a - c).abs().max()) / max(scale, 1e-30))
+            n_exact += int(torch.equal(a, b))
+            if bool((err > 2 ** -7 * a.abs() + 1e-6 * scale).any()):
+                fail(f"phase 15a: {branch} gradients with remat beyond one bf16 ulp + 1e-6 "
+                     f"of the max (worst {float(err.max()):.3e}, max |grad| {scale:.3e})")
+        n = sum(g is not None for g in g_off)
+        print(f"  {branch} gradients: {n_exact} of {n} tensors bit for bit; worst |off - on| "
+              f"{worst:.3e} x the tensor's max |grad| (two runs without remat: {spread:.3e})")
+        for mode, (held, peak, grad_gib) in (("off", mem_off), ("on", mem_on)):
+            print(f"  {branch} branch, remat {mode}: {held:.3f} GiB held after the forward for "
+                  f"the backward, peak {peak:.3f} GiB above the state's (the gradients "
+                  f"{grad_gib:.3f} GiB of it)")
+        del got, g_off, g_on, g_off2
+    # one whole iteration each way from the same state
+    _restore(trainer, snap)
+    step = trainer.state.step
+    m_off = trainer.train_iteration(step)
+    after_off = [p.detach().clone() for p in trainer.state.params + trainer.state.prop_params]
+    _restore(trainer, snap)
+    trainer.train_step = on
+    m_on = trainer.train_iteration(step)
+    lr = float(m_off["lr"])
+    lidar_keys = {"lidar_range_loss", "lidar_line_of_sight", "lidar_dynamic_loss",
+                  "total_lidar_loss", "range_rmse"}
+    pixel = sorted(set(m_off) - lidar_keys - {"lr", "pixel_rg", "lidar_rg"})
+    same = all(torch.equal(torch.as_tensor(m_off[k]), torch.as_tensor(m_on[k])) for k in pixel)
+    params = [p.detach() for p in trainer.state.params + trainer.state.prop_params]
+    diff = max(float((p - q).abs().max()) for p, q in zip(params, after_off))
+    moved = sum(int((p != q).sum()) for p, q in zip(params, after_off))
+    total = sum(p.numel() for p in params)
+    finite = all(bool(torch.isfinite(p).all()) for p in params)
+    lidar_rel = {k: abs(float(m_on[k]) - float(m_off[k])) / max(abs(float(m_off[k])), 1e-30)
+                 for k in sorted(lidar_keys & set(m_off))}
+    print(f"  one iteration each way: pixel losses ({', '.join(pixel)}) bit for bit {same}; lidar "
+          f"losses (after the pixel update) relative differences {lidar_rel}; parameters after "
+          f"it: {moved} of {total} elements differ, max |diff| {diff:.3e} (lr {lr:.3e})")
+    if not same or not finite:
+        fail("phase 15a: the iteration with remat is not the one without")
+    del snap, after_off
+    torch.cuda.empty_cache()
+
+    out = {}
+    step = trainer.state.step + 1
+    for label, step_fn in (("off", off), ("on", on)):
+        trainer.train_step = step_fn
+        for i in range(2):
+            trainer.train_iteration(step + i)
+        step += 2
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted:
+            fn.launches = 0
+        t1 = time.perf_counter()
+        for i in range(N_REMAT_TIMED):
+            trainer.train_iteration(step + i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / N_REMAT_TIMED
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {fn.__name__: fn.launches / N_REMAT_TIMED for fn in counted}
+        step += N_REMAT_TIMED
+        _, busy = profile_train(trainer, step, ms, f"profile_train_remat_{label}.json")
+        step += 2
+        out[label] = (ms, busy, peak, launches["brickgrid_encode"])
+        print(f"  remat {label}: {ms:.2f} ms/iteration, device busy {busy:.2f} ms (idle "
+              f"{1 - busy / ms:.1%}), peak device memory {peak:.2f} GiB; launches per iteration "
+              f"{launches}")
+    if out["on"][3] <= out["off"][3]:
+        fail("phase 15a: K1 forward did not launch again in the backward with remat")
+    print(f"  phase 15a took {time.perf_counter() - t0:.1f} s")
+    del trainer, off, on
+    torch.cuda.empty_cache()
+    return out
+
+
+def interp_time(dataset):
+    """(an off-grid normalized time, a training timestep): 0.3 of the way
+    between the two middle training timesteps, and the later of them."""
+    ts = dataset.unique_normalized_training_timestamps
+    i = (len(ts) - 1) // 2
+    return float(ts[i] + 0.3 * (ts[i + 1] - ts[i])), float(ts[i + 1])
+
+
+def phase_interp(dev, profile, label, n_rays=2048):
+    """Phase 15b on ``profile``: the eval-time temporal interpolation of the
+    flow at full width in fp32, card against CPU: a chunk of ``n_rays``
+    (phase_fp32_chunk) and a query_flow batch of 8,192 points at an
+    off-grid time (the flows within 1e-3 of their largest |value|); then
+    on the card at a training timestep, the interpolated chunk and
+    query_flow bit for bit the exact ones."""
+    from emernerf_torch.builders import build_dataset_from_cfg
+    from emernerf_torch.eval.points import PointQueryEngine
+    from emernerf_torch.eval.renderer import ImageRenderer
+    from emernerf_torch.flagship import flagship_config
+
+    t0 = time.perf_counter()
+    interp = ["nerf.model.head.enable_temporal_interpolation=true"]
+    t_off, t_grid = interp_time(build_dataset_from_cfg(flagship_config(profile=profile)))
+    dataset, (gmodel, gprops), (cmodel, cprops), kw, rays = phase_fp32_chunk(
+        dev, interp, profile, label, time_=t_off, n_rays=n_rays)
+    g = np.random.default_rng(15)
+    lo, hi = dataset.aabb[:3], dataset.aabb[3:]
+    pts = g.uniform(lo, hi, (8192, 3)).astype(np.float32)
+    times = np.full(len(pts), t_off, np.float32)
+    got = PointQueryEngine(gmodel, device=dev).query_flow(pts, times)
+    ref = PointQueryEngine(cmodel, device="cpu").query_flow(pts, times)
+    for k in ref:
+        err = float(np.abs(got[k] - ref[k]).max())
+        scale = float(np.abs(ref[k]).max())
+        print(f"  query_flow at t={t_off:.4f}, {len(pts)} points: {k} max abs diff {err:.3e} "
+              f"(max |value| {scale:.3e}, tolerance 1e-3 of it)")
+        if err > 1e-3 * max(scale, 1e-6):
+            fail(f"{label}: interpolated query_flow {k} on the card disagrees with the CPU")
+    # at a training timestep the interpolated queries are the exact ones
+    rays = dict(rays, normed_timestamps=np.full_like(rays["normed_timestamps"], t_grid))
+    pts_t = np.full(len(pts), t_grid, np.float32)
+    out, flow = {}, {}
+    for on in (True, False):
+        gmodel.enable_temporal_interpolation = on
+        out[on] = ImageRenderer(gmodel, gprops, device=dev, **kw).render_rays_chunked(rays)
+        flow[on] = PointQueryEngine(gmodel, device=dev).query_flow(pts, pts_t)
+    exact = all(np.array_equal(out[True][k], out[False][k]) for k in out[False]) and all(
+        np.array_equal(flow[True][k], flow[False][k]) for k in flow[False])
+    print(f"  at the training timestep t={t_grid:.4f}: the interpolated chunk ({sorted(out[True])}) "
+          f"and query_flow bit for bit the exact ones: {exact}")
+    if not exact:
+        fail(f"{label}: at a training timestep the interpolated queries are not the exact ones")
+    print(f"  {label} took {time.perf_counter() - t0:.1f} s")
+    del gmodel, gprops, cmodel, cprops
+    torch.cuda.empty_cache()
+    return t_off
+
+
+def phase_interp_kernels(dev, entries, t_off):
+    """Phase 15b (kernels): K1 forward on the flagship's fused grid and K4
+    forward on the reference-hash flow grid at the flow encodes that the
+    interpolation adds to one 16,384-ray eval chunk, against their plain
+    versions (K1 bit for bit in fp32 and in the flagship's bf16
+    computation; K4 fp32 bit for bit, bf16 one rounding, rtol 2^-7): the
+    chunk's samples (ray-ordered, 64 per ray) at their rays' nearer
+    training timestep, and the warped points' flow queries (fused: the
+    top-16 aggregation's 2 x 16 per ray; hash: all 64 samples' 2 x 64)."""
+    from emernerf_torch.builders import build_dataset_from_cfg
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_ref
+    from emernerf_torch.ops.hashgrid import hashgrid_encode, hashgrid_encode_plain
+
+    print("phase 15b (kernels): K1 and K4 forward vs plain versions at the interpolation's flow "
+          "encodes of one eval chunk")
+    t0 = time.perf_counter()
+    ts = build_dataset_from_cfg(flagship_config()).unique_normalized_training_timestamps
+    left = float(ts[np.argsort(np.abs(ts - t_off), kind="stable")[0]])
+    g = torch.Generator(device=dev).manual_seed(15)
+    cases = []
+    for name, spec, fn, ref_fn, k in (
+            ("dynflow", flagship_specs()["dynflow"], brickgrid_encode, brickgrid_encode_ref,
+             AGG_TOPK),
+            ("flow", hash_specs()["flow"], hashgrid_encode, hashgrid_encode_plain, NUM_SAMPLES)):
+        xyz, xyzt = ray_batches(dev, g, N_RAYS, NUM_SAMPLES)
+        n = N_RAYS * NUM_SAMPLES
+        at_left = torch.cat([xyz, torch.full((n, 1), left, device=dev)], -1).contiguous()
+        # the warped points of the aggregation (k per ray, both ways) at the left time
+        warped = xyzt[n:].reshape(2, N_RAYS, NUM_SAMPLES, 4)[:, :, :k].reshape(-1, 4).clone()
+        warped[:, 3] = left
+        cases += [(name, spec, fn, ref_fn, "interp_left", at_left),
+                  (name, spec, fn, ref_fn, "interp_warped_left", warped.contiguous())]
+    with torch.no_grad():
+        for name, spec, fn, ref_fn, batch, pos in cases:
+            table32 = torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1
+            brick = fn is brickgrid_encode
+            touched = brick_touched(spec, pos) if brick else hash_touched(spec, pos)
+            for label, dtype in ((("fp32", torch.float32), ("fp32->bf16", torch.bfloat16)) if brick
+                                 else (("float32", torch.float32), ("bfloat16", torch.bfloat16))):
+                if brick:
+                    call = (lambda: fn(table32, pos, spec, dtype))
+                    plain = (lambda: ref_fn(table32, pos, spec, dtype))
+                    table_bytes = table32.element_size()
+                else:
+                    table = table32.to(dtype)
+                    call = (lambda: fn(table, pos, spec))
+                    plain = (lambda: ref_fn(table, pos, spec))
+                    table_bytes = table.element_size()
+                out, ref = call(), plain()
+                tag = f"{fn.__name__}[{name},{batch},{label},N={pos.shape[0]}]"
+                if brick or dtype == torch.float32:
+                    mx = 0.0
+                    exact = torch.equal(out, ref)
+                    print(f"  {tag}: bit for bit with the plain version: {exact} (tolerance 0)")
+                    if not exact:
+                        fail(f"{tag}: kernel and plain version differ")
+                else:
+                    mx, over = compare(tag, out.float(), ref.float(), 2 ** -7, 1e-6)
+                    if over:
+                        fail(f"{tag}: {over} elements over tolerance")
+                ms = cuda_ms(call, 10)
+                plain_ms = cuda_ms(plain, 3)
+                add_entry(entries, tag, "brickgrid.cu" if brick else "hashgrid.cu",
+                          "emernerf_tpu/ops/brickgrid.py:581" if brick
+                          else "emernerf_tpu/ops/hashgrid.py:408", fn, mx, ms, plain_ms,
+                          nbytes(pos, out) + touched * table_bytes,
+                          grid_ops(spec, pos.shape[0], False, False),
+                          path="interp" if brick else "interp_hash")
+                del out, ref
+            del table32
+    torch.cuda.empty_cache()
+    print(f"  phase 15b (kernels) took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sh(dev):
+    """Phase 15c: spherical-harmonics directions: a 2,048-ray chunk of the
+    full-width flagship in fp32, card against CPU (phase_fp32_chunk), one
+    fp32 training step of the tiny flagship, card against CPU
+    (phase_train_fp32), and 2 iterations of the full-width flagship
+    through Trainer on the card, every loss finite."""
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.train.trainer import Trainer
+
+    sh = ["nerf.model.head.direction_encoding=sh"]
+    t0 = time.perf_counter()
+    phase_fp32_chunk(dev, sh, label="phase 15c")
+    torch.cuda.empty_cache()
+    phase_train_fp32(dev, overrides=TINY_FP32 + tuple(sh), label="phase 15c (training)")
+    trainer = Trainer(flagship_config(overrides=sh), device=dev)
+    if trainer.model.direction_encoding != "sh":
+        fail("phase 15c: the model does not encode directions by spherical harmonics")
+    for i in range(2):
+        losses = _losses(trainer.train_iteration(i))
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"phase 15c: non-finite loss {losses}")
+    print(f"  full-width flagship with spherical harmonics, 2 iterations through Trainer: losses "
+          f"{losses}")
+    print(f"  phase 15c took {time.perf_counter() - t0:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2544,7 +3276,7 @@ def main():
 
     sys.path.insert(0, REPO)
     from emernerf_torch import kernels
-    from emernerf_torch.flagship import DYNAMIC, REFERENCE_BRICK, REFERENCE_HASH
+    from emernerf_torch.flagship import DEFAULT_PROFILE, DYNAMIC, REFERENCE_BRICK, REFERENCE_HASH
     from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
     from emernerf_torch.ops.hashgrid import features_minor, hashgrid_encode, hashgrid_encode_bwd
     from emernerf_torch.ops.stepfuns import (
@@ -2569,7 +3301,8 @@ def main():
     brick = (brickgrid_encode, brickgrid_encode_bwd)
     hashed = (hashgrid_encode, hashgrid_encode_bwd, features_minor)
     forward = (importance_sampling, composite_along_rays)
-    _, rays_per_s, eval_tally = phase_slice(dev, (brickgrid_encode,) + forward, zero=hashed)
+    exact_launches, rays_per_s, eval_tally = phase_slice(dev, (brickgrid_encode,) + forward,
+                                                         zero=hashed)
     phase_fp32_chunk(dev)
     shared = forward + (composite_along_rays_bwd, interlevel_loss_levels,
                         interlevel_loss_levels_bwd, adam_update)
@@ -2620,6 +3353,21 @@ def main():
         busy5 = json.load(f)["busy_ms_per_iteration"]
     waymo = phase_waymo(dev, brick + shared, hashed, ms_iter, busy5, peak)
     phase_waymo_kernels(dev, entries, after_timed, waymo[1], waymo[2])
+    # the nuScenes loader, then the three settings on the full-width flagship
+    nusc = phase_nuscenes(dev, brick + shared, hashed, ms_iter, busy5, peak)
+    remat = phase_remat(dev, brick)
+    interp = ["nerf.model.head.enable_temporal_interpolation=true"]
+    interp_launches, _, _ = phase_slice(dev, (brickgrid_encode,) + forward, zero=hashed,
+                                        label="phase 15b", overrides=interp)
+    interp_hash_launches, _, _ = phase_slice(
+        dev, (hashgrid_encode, features_minor) + forward, zero=brick, profile=REFERENCE_HASH,
+        label="phase 15b (hash)", overrides=interp)
+    print(f"  K1 forward launches over the same 2 images: exact {exact_launches['brickgrid_encode']}"
+          f", interpolated {interp_launches['brickgrid_encode']}")
+    t_off = phase_interp(dev, DEFAULT_PROFILE, "phase 15b (fp32)")
+    phase_interp(dev, REFERENCE_HASH, "phase 15b (hash, fp32)", n_rays=512)
+    phase_interp_kernels(dev, entries, t_off)
+    phase_sh(dev)
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):
@@ -2628,7 +3376,7 @@ def main():
     # launches: the counts of the training run of each kernel's path
     runs = {"brick": launches, "hash": hash_launches, "probe": probe_launches,
             "dynamic": dyn[0], "reference_brick": ref[0], "points": point_launches,
-            "waymo": waymo[0]}
+            "waymo": waymo[0], "interp": interp_launches, "interp_hash": interp_hash_launches}
     report = [dict({k: v for k, v in e.items() if k not in ("fn", "path")},
                    launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
@@ -2648,6 +3396,13 @@ def main():
     print(f"feature head (Waymo layout): train {waymo[3]:.2f} ms/iteration, busy {waymo[4]:.2f} "
           f"ms (without the head {waymo[7]:.2f}, {waymo[8]:.2f}), peak {waymo[5]:.2f} GiB, eval "
           f"peak {waymo[6]:.2f} GiB on {card_line}")
+    print(f"nuScenes (6 cameras): train {nusc[1]:.2f} ms/iteration, busy {nusc[2]:.2f} ms (idle "
+          f"{1 - nusc[2] / nusc[1]:.1%}), peak {nusc[3]:.2f} GiB, load {nusc[4]:.1f} s on "
+          f"{card_line}")
+    for label in ("off", "on"):
+        ms, busy, pk, k1 = remat[label]
+        print(f"remat {label}: train {ms:.2f} ms/iteration, busy {busy:.2f} ms, peak {pk:.2f} GiB, "
+              f"K1 forward {k1:g} launches per iteration on {card_line}")
     print(json.dumps({"kernels": report}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,13 @@ that.  A knob that the port does not run raises instead of being ignored:
 formulation knob (``perf.time_pair=false`` is taken: unpaired 4D brick
 rows, two gathers per (point, level), as the reference-semantics profile
 asks; the hash grid's rows are never paired), the flow branch without the
-dynamic branch, spherical-harmonics directions, temporal interpolation,
-``optim.fused_lidar_branch`` (left behind) and ``optim.remat``.  Datasets:
-``synthetic`` and ``waymo``; ``nuscenes`` raises.
+dynamic branch and ``optim.fused_lidar_branch`` (left behind).  Taken as
+in the JAX package: spherical-harmonics directions
+(``nerf.model.head.direction_encoding=sh``), the eval-time temporal
+interpolation of the flow (``enable_temporal_interpolation``, anchored at
+the dataset's training timesteps) and ``optim.remat`` (the field query
+recomputed in the backward).  Datasets: ``synthetic``, ``waymo`` and
+``nuscenes``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from emernerf_torch.config import ConfigNode
 from emernerf_torch.data import synthetic
 from emernerf_torch.data.dataset import SceneDataset
+from emernerf_torch.data.nuscenes import load_nuscenes_dataset
 from emernerf_torch.data.waymo import load_waymo_dataset
 from emernerf_torch.models.fields import DensityField, RadianceField
 from emernerf_torch.ops.brickgrid import BrickGridSpec
@@ -79,12 +84,6 @@ def validate_cfg(cfg: ConfigNode) -> None:
     if head.enable_flow_branch and not head.enable_dynamic_branch:
         # the fields use the flow only inside the dynamic branch
         raise NotImplementedError("the flow branch needs the dynamic branch")
-    if head.get("direction_encoding", "sinusoidal") != "sinusoidal":
-        raise NotImplementedError("only sinusoidal direction encoding is ported "
-                                  "(spherical harmonics: ROADMAP queue 1 item 5)")
-    if head.get("enable_temporal_interpolation", False):
-        raise NotImplementedError("temporal interpolation is not ported yet "
-                                  "(ROADMAP queue 1 item 6)")
 
 
 def make_grid_spec(backend: str, n_input_dims: int, n_levels: int, base_resolution: int,
@@ -193,6 +192,11 @@ def build_model_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
         table_dtype=_dtype(cfg, "table_dtype"),
         table_param_dtype=_dtype(cfg, "table_param_dtype"),
         mlp_dtype=_dtype(cfg, "mlp_dtype"),
+        direction_encoding=head.get("direction_encoding", "sinusoidal"),
+        enable_temporal_interpolation=bool(head.get("enable_temporal_interpolation", False)),
+        interpolate_xyz_encoding=bool(head.get("interpolate_xyz_encoding", True)),
+        training_timesteps=torch.as_tensor(dataset.unique_normalized_training_timestamps,
+                                           dtype=torch.float32, device=device),
         device=device,
         generator=generator,
     )
@@ -234,8 +238,6 @@ def build_train_step_config(cfg: ConfigNode, dataset: SceneDataset) -> TrainStep
     if cfg.optim.get("fused_lidar_branch", False):
         raise NotImplementedError("optim.fused_lidar_branch is left behind: the port "
                                   "runs the reference's two-pass step")
-    if cfg.optim.get("remat", False):
-        raise NotImplementedError("optim.remat is not ported yet (ROADMAP queue 1 item 7)")
     sup = cfg.supervision
     head = cfg.nerf.model.head
     has_lidar = (dataset.lidar is not None and cfg.data.lidar_source.load_lidar
@@ -289,17 +291,17 @@ def build_train_step_config(cfg: ConfigNode, dataset: SceneDataset) -> TrainStep
         lr=cfg.optim.lr,
         weight_decay=float(cfg.optim.weight_decay),
         num_iters=cfg.optim.num_iters,
+        remat=bool(cfg.optim.get("remat", False)),
     )
 
 
 def build_dataset_from_cfg(cfg: ConfigNode) -> SceneDataset:
-    """The synthetic scene or a preprocessed Waymo scene."""
+    """The synthetic scene, a preprocessed Waymo scene or a nuScenes scene."""
     name = cfg.data.dataset
     if name == "waymo":
         return load_waymo_dataset(cfg)
     if name == "nuscenes":
-        raise NotImplementedError("data.dataset='nuscenes': the nuScenes loader is not ported "
-                                  "yet (ROADMAP queue 1 item 4)")
+        return load_nuscenes_dataset(cfg)
     if name != "synthetic":
         raise ValueError(f"Unknown dataset: {name}")
     syn = cfg.data.synthetic

@@ -178,11 +178,15 @@ class SceneDataset:
             "img_idx": np.full(n, img_idx, np.int32),
             "cam_idx": np.full(n, self.cam_ids[img_idx], np.int32),
         }
-        gt = {"pixels": self.images[img_idx, ::downscale, ::downscale], "hw": (hh, ww)}
+        # the rendered pixels' rows and columns: where H or W is not a
+        # multiple of the downscale, [::downscale] would keep one more
+        # (the JAX package's maps then fail to broadcast against the render)
+        rows, cols = slice(0, hh * downscale, downscale), slice(0, ww * downscale, downscale)
+        gt = {"pixels": self.images[img_idx, rows, cols], "hw": (hh, ww)}
         if self.sky_masks is not None:
-            gt["sky_masks"] = self.sky_masks[img_idx, ::downscale, ::downscale]
+            gt["sky_masks"] = self.sky_masks[img_idx, rows, cols]
         if self.dynamic_masks is not None:
-            gt["dynamic_masks"] = self.dynamic_masks[img_idx, ::downscale, ::downscale]
+            gt["dynamic_masks"] = self.dynamic_masks[img_idx, rows, cols]
         if self.features is not None:
             # the feature map's nearest cell of each rendered pixel
             fh, fw = self.features.shape[1:3]

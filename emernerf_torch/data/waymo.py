@@ -19,7 +19,8 @@ change, ego poses normalized to the first kept frame, the top-lidar and
 range filters, velocities divided by 10 into per-scan flows, and the
 feature maps (fp16 on disk) PCA-reduced to ``target_feature_dim`` and
 min-max normalized.  Feature maps are read, never extracted: without them
-the loader raises (extraction needs the DINO weights, ROADMAP queue 1 item 8).
+the loader raises (extraction needs the DINO weights: ROADMAP queue 1,
+offline preprocessing and feature extraction).
 """
 
 from __future__ import annotations
@@ -93,8 +94,8 @@ def _missing_features(data_path: str, pix) -> None:
             "and skip_feature_extraction=True; extract them first")
     raise NotImplementedError(
         f"feature maps missing under {data_path}/{pix.feature_model_type}: on-demand DINO "
-        "feature extraction is not ported yet (ROADMAP queue 1 item 8: it needs the "
-        "model's weights); extract the maps first")
+        "feature extraction is not ported yet (ROADMAP queue 1, offline preprocessing and "
+        "feature extraction: it needs the model's weights); extract the maps first")
 
 
 def load_waymo_dataset(cfg: ConfigNode) -> SceneDataset:

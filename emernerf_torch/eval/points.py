@@ -5,7 +5,10 @@ voxel visualisation.
 Chunks of ``chunk_size`` points go to the device under ``torch.no_grad()``
 and come back as numpy.  The JAX package pads the last chunk to a fixed
 shape for ``jit``; here the last chunk is simply shorter, and each point's
-result does not depend on the chunking.
+result does not depend on the chunking, except under the eval-time
+temporal interpolation, which (as in the reference) anchors a chunk at the
+training timesteps nearest its first point's time: every caller queries
+one timestep per call.  Queries are eval queries (``train=False``).
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ class PointQueryEngine:
         for lo in range(0, len(positions), self.chunk_size):
             hi = lo + self.chunk_size
             t = None if timestamps is None else dev(timestamps, lo, hi)
-            outs.append({k: v.cpu().numpy() for k, v in fn(dev(positions, lo, hi), t).items()})
+            out = fn(dev(positions, lo, hi), t, train=False)
+            outs.append({k: v.cpu().numpy() for k, v in out.items()})
         return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
     def query_flow(self, positions: np.ndarray, timestamps: np.ndarray) -> Dict[str, np.ndarray]:

@@ -72,7 +72,7 @@ class ImageRenderer:
         """One ray batch on the device; per-ray outputs without ``extras``.
         ``is_lidar``: the density-only lidar render, without decomposition."""
         kw = dict(self.kw, return_decomposition=False, is_lidar=True) if is_lidar else self.kw
-        out = render_ray_batch(self.model, self.prop_models, rays, **kw).out
+        out = render_ray_batch(self.model, self.prop_models, rays, train=False, **kw).out
         out.pop("extras", None)
         return out
 

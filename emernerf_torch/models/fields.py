@@ -18,13 +18,19 @@ grid (K4), by its spec's type.
 
 Positions are (R, S, 3) and per-ray data is expanded to (R, S) by the
 renderer; the point queries ``query_flow`` and ``query_attributes`` (flow
-eval, voxel export) take (N, 3) positions and (N,) timestamps.  Training differs from eval in two inputs only: the aggregation
-noise (a tensor of uniform draws instead of 1) and ``return_density_only``
-for the lidar render.  The flow-warped 4D queries are the grid queries
-whose positions carry a gradient (they depend on the flow MLP).  The config
-knobs the port does not take (spherical-harmonics directions, temporal
-interpolation, fine-level skipping, the flow branch without the dynamic
-branch) raise in ``emernerf_torch/builders.py``.
+eval, voxel export) take (N, 3) positions and (N,) timestamps.  Training
+differs from eval in the aggregation noise (a tensor of uniform draws
+instead of 1), ``return_density_only`` for the lidar render and the
+``train`` flag, which only turns off the eval-time temporal interpolation:
+with ``enable_temporal_interpolation`` the flow field is queried at the two
+training timesteps nearest each ray's (or point batch's) time and the two
+encodings (or, without ``interpolate_xyz_encoding``, the two flow MLP
+outputs) are lerped.  The flow-warped 4D queries are the grid queries whose
+positions carry a gradient (they depend on the flow MLP).  The rgb and sky
+heads read the directions through the sinusoidal encoding or, with
+``direction_encoding="sh"``, spherical harmonics of degree 4.  The config
+knobs the port does not take (fine-level skipping, the flow branch without
+the dynamic branch) raise in ``emernerf_torch/builders.py``.
 """
 
 from __future__ import annotations
@@ -45,11 +51,22 @@ from emernerf_torch.ops.contraction import (
 )
 from emernerf_torch.ops.grid import grid_encode, init_grid_table
 from emernerf_torch.ops.interp import grid_sample_2d
+from emernerf_torch.ops.sh import sh_encode, sh_output_dim
 from emernerf_torch.ops.sinusoidal import sinusoidal_encode, sinusoidal_output_dim
 
 
 # the learnable PE map's (height, width): the reference's, which no config sets
 PE_MAP_HW = (80, 120)
+
+
+def find_topk_nearby_timesteps(training_timesteps: torch.Tensor, query: torch.Tensor,
+                               topk: int = 2) -> torch.Tensor:
+    """The ``topk`` training timesteps (T,) nearest each query (...,), nearest
+    first: (..., topk).  A stable sort of the distances puts the lower index
+    first on ties, as ``jax.lax.top_k`` does; ``torch.topk`` does not."""
+    diffs = (training_timesteps[None, :] - query.reshape(-1)[:, None]).abs()
+    idx = torch.sort(diffs, dim=-1, stable=True)[1][:, :topk]
+    return training_timesteps[idx].reshape(*query.shape, topk)
 
 
 def _contract(positions, aabb, unbounded: bool):
@@ -99,8 +116,18 @@ class RadianceField(nn.Module):
                  enable_learnable_pe: bool = True,
                  num_train_timesteps: int = 0, time_diff: float = 0.0,
                  table_dtype=torch.float32, table_param_dtype=torch.float32,
-                 mlp_dtype=torch.float32, device=None, generator=None):
+                 mlp_dtype=torch.float32, direction_encoding: str = "sinusoidal",
+                 enable_temporal_interpolation: bool = False,
+                 interpolate_xyz_encoding: bool = True,
+                 training_timesteps: Optional[torch.Tensor] = None,
+                 device=None, generator=None):
+        """``direction_encoding``: "sinusoidal" or "sh" (degree 4) for the
+        rgb and sky heads; ``training_timesteps`` (T,): the normalized
+        timesteps of the training images, where the eval-time temporal
+        interpolation (``enable_temporal_interpolation``) anchors the flow."""
         super().__init__()
+        if direction_encoding not in ("sinusoidal", "sh"):
+            raise ValueError(f"unknown direction encoding {direction_encoding!r}")
         if flow_spec is not None and dynamic_spec is None:
             raise NotImplementedError("the flow branch needs the dynamic branch")
         self.static_spec = static_spec
@@ -120,10 +147,17 @@ class RadianceField(nn.Module):
         self.enable_learnable_pe = enable_feature_head and enable_learnable_pe
         self.time_diff = time_diff
         self.table_dtype = table_dtype
+        self.direction_encoding = direction_encoding
+        self.enable_temporal_interpolation = enable_temporal_interpolation
+        self.interpolate_xyz_encoding = interpolate_xyz_encoding
         kw = dict(dtype=mlp_dtype, device=device, generator=generator)
         tkw = dict(device=device, generator=generator)
         self.register_buffer("aabb", torch.tensor(aabb, dtype=torch.float32,
                                                   device=device), persistent=False)
+        if training_timesteps is None:
+            training_timesteps = torch.zeros(0)
+        self.register_buffer("training_timesteps", torch.as_tensor(
+            training_timesteps, dtype=torch.float32, device=device), persistent=False)
 
         self.xyz_table = nn.Parameter(init_grid_table(static_spec, table_param_dtype, **tkw))
         # geometry features, then the feature head's semantic ones
@@ -158,7 +192,7 @@ class RadianceField(nn.Module):
                 max(n_embeds, 1), appearance_embedding_dim, device=device)
             torch_embedding_init_(self.appearance_embedding, generator)
         app = appearance_embedding_dim if self.use_appearance_embedding else 0
-        dir_dim = sinusoidal_output_dim(3)
+        dir_dim = sh_output_dim(4) if direction_encoding == "sh" else sinusoidal_output_dim(3)
         self.rgb_head = MLP(dir_dim + app + gf, 3, num_layers=3,
                             hidden_dims=head_mlp_layer_width, skip_connections=(1,), **kw)
         if enable_shadow_head:
@@ -225,14 +259,48 @@ class RadianceField(nn.Module):
                               normed_timestamps)
         return self.dynamic_base_mlp(enc), enc
 
-    def forward_flow_hash(self, normed_positions, normed_timestamps):
-        """The separate flow grid's 4D query + the flow MLP -> (..., 6) =
-        (forward flow, backward flow)."""
-        return self.flow_mlp(self._flow_encode(normed_positions, normed_timestamps))
+    def forward_flow_hash(self, normed_positions, normed_timestamps, train: bool = True):
+        """The flow grid's 4D query + the flow MLP -> (..., 6) = (forward
+        flow, backward flow).  At eval (``train`` false) with temporal
+        interpolation, the flow is queried at the two training timesteps
+        nearest the time of each ray (the first of the last axis, the
+        reference's per-ray time; a point batch (N,) takes its first
+        point's) and lerped by the offset between them: past the last
+        training timestep the offset leaves [0, 1] and extrapolates."""
+        if not self._interpolates(train):
+            return self.flow_mlp(self._flow_encode(normed_positions, normed_timestamps))
+        t_ray = normed_timestamps[..., 0]
+        near2 = find_topk_nearby_timesteps(self.training_timesteps, t_ray)
+        left, right = near2[..., 0], near2[..., 1]
+        denom = right - left
+        offset = torch.where(denom.abs() > 1e-8, (t_ray - left) / denom,
+                             torch.zeros_like(denom))[..., None, None]
+        n = normed_timestamps.shape[-1]
+        enc_l = self._flow_encode(normed_positions, left[..., None].expand(*left.shape, n))
+        enc_r = self._flow_encode(normed_positions, right[..., None].expand(*right.shape, n))
+        if self.interpolate_xyz_encoding:
+            return self.flow_mlp(enc_l * (1 - offset) + enc_r * offset)
+        return self.flow_mlp(enc_l) * (1 - offset) + self.flow_mlp(enc_r) * offset
+
+    def _interpolates(self, train: bool) -> bool:
+        """Whether flow queries interpolate between training timesteps: at
+        eval only, with the setting on and training timesteps known."""
+        return (not train and self.enable_temporal_interpolation
+                and self.training_timesteps.numel() > 0)
 
     def _flow_encode(self, normed_positions, normed_timestamps):
+        if self.fused:
+            return self._dynflow_encode(normed_positions, normed_timestamps)[1]
         return self._encode_4d(self.flow_table, self.flow_spec, normed_positions,
                                normed_timestamps)
+
+    def _fused_flow(self, normed_positions, normed_timestamps, flow_enc, train: bool):
+        """The flow at points whose fused query gave ``flow_enc``: its flow
+        MLP, or at eval with temporal interpolation the interpolated query
+        (two more encodes), as the JAX package routes it."""
+        if self._interpolates(train):
+            return self.forward_flow_hash(normed_positions, normed_timestamps, train)
+        return self.flow_mlp(flow_enc)
 
     # ------------------------------------------------------------------ #
     def _appearance(self, shape_prefix, data: Dict[str, torch.Tensor]):
@@ -247,10 +315,15 @@ class RadianceField(nn.Module):
         mean = self.appearance_embedding.weight.mean(dim=0)
         return mean.expand(*shape_prefix, self.appearance_embedding_dim)
 
+    def _encode_dirs(self, directions01):
+        if self.direction_encoding == "sh":
+            return sh_encode(directions01, degree=4)
+        return sinusoidal_encode(directions01, min_deg=0, max_deg=4)
+
     def query_rgb(self, directions, geo_feats, dynamic_geo_feats=None, data=None):
         data = data or {}
         directions = (directions + 1.0) / 2.0
-        h = sinusoidal_encode(directions, min_deg=0, max_deg=4)
+        h = self._encode_dirs(directions)
         app = self._appearance(directions.shape[:-1], data)
         if app is not None:
             h = torch.cat([h, app], dim=-1)
@@ -262,8 +335,9 @@ class RadianceField(nn.Module):
 
     def query_sky(self, directions_per_ray, data=None):
         """Sky color from RAW per-ray directions (no (d+1)/2 remap, as in the
-        reference)."""
-        dd = sinusoidal_encode(directions_per_ray, min_deg=0, max_deg=4)
+        reference; spherical harmonics then map them to 2d - 1, outside
+        [-1, 1], as the reference does too)."""
+        dd = self._encode_dirs(directions_per_ray)
         app = self._appearance(directions_per_ray.shape[:-1], data or {})
         if app is not None:
             dd = torch.cat([dd, app], dim=-1)
@@ -273,7 +347,8 @@ class RadianceField(nn.Module):
         return results
 
     def temporal_aggregation(self, positions, normed_positions, normed_timestamps,
-                             forward_flow, backward_flow, cur_feats=None, noise=None):
+                             forward_flow, backward_flow, cur_feats=None, noise=None,
+                             train: bool = False):
         """Flow-warped feature aggregation (Eq. 8).  ``noise`` (R, S, 1) is
         the training-time uniform draw that scales the flow; None is the
         eval's 1.
@@ -291,7 +366,7 @@ class RadianceField(nn.Module):
         k = self.temporal_agg_topk
         if self.fused and positions.ndim == 3 and 0 < k < positions.shape[1]:
             return self._topk_aggregation(positions, normed_timestamps, forward_flow,
-                                          backward_flow, cur_feats, noise, k)
+                                          backward_flow, cur_feats, noise, k, train)
         fwd_pos = self.contract_points(positions + forward_flow * noise)
         bwd_pos = self.contract_points(positions + backward_flow * noise)
         noise_t = noise[..., 0]
@@ -301,13 +376,13 @@ class RadianceField(nn.Module):
         if self.fused:
             dyn2, flow2 = self._dynflow_encode(pos2, t2)
             fwd_feats, bwd_feats = self.dynamic_base_mlp(dyn2).unbind(0)
-            pred2 = self.flow_mlp(flow2)
+            pred2 = self._fused_flow(pos2, t2, flow2, train)
         else:
             feats3, _ = self.forward_dynamic_hash(
                 torch.stack([normed_positions, fwd_pos, bwd_pos]),
                 torch.stack([normed_timestamps, fwd_time, bwd_time]))
             cur_feats, fwd_feats, bwd_feats = feats3.unbind(0)
-            pred2 = self.forward_flow_hash(pos2, t2)
+            pred2 = self.forward_flow_hash(pos2, t2, train)
         aggregated = (cur_feats + 0.5 * fwd_feats + 0.5 * bwd_feats) / 2.0
         return {
             "dynamic_feats": aggregated,
@@ -316,7 +391,7 @@ class RadianceField(nn.Module):
         }
 
     def _topk_aggregation(self, positions, normed_timestamps, forward_flow,
-                          backward_flow, cur_feats, noise, k: int):
+                          backward_flow, cur_feats, noise, k: int, train: bool):
         """Aggregation on the K most dynamic samples per ray (by current-time
         dynamic density); the others keep their current-time features, and
         ``agg_mask`` marks the selected samples.  Selection is a stable
@@ -337,10 +412,10 @@ class RadianceField(nn.Module):
         nt = noise_k[..., 0]
         fwd_time = (t_k + self.time_diff * nt).clamp(0.0, 1.0)
         bwd_time = (t_k - self.time_diff * nt).clamp(0.0, 1.0)
-        dyn2, flow2 = self._dynflow_encode(torch.stack([fwd_pos, bwd_pos]),
-                                           torch.stack([fwd_time, bwd_time]))
+        pos2, t2 = torch.stack([fwd_pos, bwd_pos]), torch.stack([fwd_time, bwd_time])
+        dyn2, flow2 = self._dynflow_encode(pos2, t2)
         feats2 = self.dynamic_base_mlp(dyn2)  # (2, R, K, gf)
-        pred2 = self.flow_mlp(flow2)  # (2, R, K, 6)
+        pred2 = self._fused_flow(pos2, t2, flow2, train)  # (2, R, K, 6)
 
         def unsel(vals_k):  # (R, K, F) -> (R, S, F), zeros off-mask
             out = vals_k.new_zeros((*positions.shape[:2], vals_k.shape[-1]))
@@ -356,47 +431,51 @@ class RadianceField(nn.Module):
             "agg_mask": mask,
         }
 
-    def _flow_and_aggregation(self, positions, normed_positions, t, agg_noise, results):
+    def _flow_and_aggregation(self, positions, normed_positions, t, agg_noise, results,
+                              train: bool):
         """The flow query and the temporal aggregation: puts the flows (and
         the aggregation's outputs) into ``results`` and returns the
         aggregated dynamic features."""
         if self.fused:
             dyn_enc, flow_enc = self._dynflow_encode(normed_positions, t)
             cur_feats = self.dynamic_base_mlp(dyn_enc)
-            flow = self.flow_mlp(flow_enc)
+            flow = self._fused_flow(normed_positions, t, flow_enc, train)
         else:
             # the current-time dynamic query is batched inside
             # temporal_aggregation with the two warped ones
             cur_feats = None
-            flow = self.forward_flow_hash(normed_positions, t)
+            flow = self.forward_flow_hash(normed_positions, t, train)
         forward_flow, backward_flow = flow[..., :3], flow[..., 3:]
         results["forward_flow"] = forward_flow
         results["backward_flow"] = backward_flow
         agg = self.temporal_aggregation(positions, normed_positions, t, forward_flow,
-                                        backward_flow, cur_feats, agg_noise)
+                                        backward_flow, cur_feats, agg_noise, train)
         dynamic_feats = agg.pop("dynamic_feats")
         results.update(agg)
         return dynamic_feats
 
     # ------------------------------------------------------------------ #
-    def query_flow(self, positions: torch.Tensor,
-                   normed_timestamps: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def query_flow(self, positions: torch.Tensor, normed_timestamps: torch.Tensor,
+                   train: bool = False) -> Dict[str, torch.Tensor]:
         """Point query of the flow field and the dynamic density: positions
         (N, 3), timestamps (N,).  Fused, one 4D query gives both (the JAX
-        package makes two of the same points)."""
+        package makes two of the same points); with temporal interpolation
+        at eval the flow comes from the interpolated queries and the
+        density stays at the exact timestamps."""
         normed = self.contract_points(positions)
         if self.fused:
             dyn_enc, flow_enc = self._dynflow_encode(normed, normed_timestamps)
-            dynamic_feats, flow = self.dynamic_base_mlp(dyn_enc), self.flow_mlp(flow_enc)
+            dynamic_feats = self.dynamic_base_mlp(dyn_enc)
+            flow = self._fused_flow(normed, normed_timestamps, flow_enc, train)
         else:
-            flow = self.forward_flow_hash(normed, normed_timestamps)
+            flow = self.forward_flow_hash(normed, normed_timestamps, train)
             dynamic_feats, _ = self.forward_dynamic_hash(normed, normed_timestamps)
         return {"forward_flow": flow[..., :3], "backward_flow": flow[..., 3:],
                 "dynamic_density": density_activation(dynamic_feats[..., 0])}
 
     def query_attributes(self, positions: torch.Tensor,
-                         normed_timestamps: Optional[torch.Tensor] = None
-                         ) -> Dict[str, torch.Tensor]:
+                         normed_timestamps: Optional[torch.Tensor] = None,
+                         train: bool = False) -> Dict[str, torch.Tensor]:
         """Point query of the densities (and, with the flow branch, the flows)
         of positions (N, 3) at timestamps (N,), the eval's field query
         without directions: aggregated dynamic features, as the renders
@@ -407,7 +486,7 @@ class RadianceField(nn.Module):
         results: Dict[str, torch.Tensor] = {}
         dynamic = normed_timestamps is not None and self.has_dynamic
         data = {"normed_timestamps": normed_timestamps} if dynamic else {}
-        _, sem, _, dyn_sem = self._features(positions, data, None, results)
+        _, sem, _, dyn_sem = self._features(positions, data, None, results, train)
         keys = (("forward_flow", "backward_flow", "density", "static_density",
                  "dynamic_density") if dynamic else ("density",))
         out = {k: results[k] for k in keys if k in results}
@@ -423,7 +502,7 @@ class RadianceField(nn.Module):
                                     ) / (out["density"][..., None] + 1e-6)
         return out
 
-    def _features(self, positions, data, agg_noise, results):
+    def _features(self, positions, data, agg_noise, results, train: bool):
         """The static and (with timestamps) dynamic grid queries and base
         MLPs: puts the densities (and the flows and the aggregation's
         outputs) into ``results``; returns (geometry, semantic, dynamic
@@ -440,7 +519,7 @@ class RadianceField(nn.Module):
         t = data["normed_timestamps"]
         if self.has_flow:
             dynamic_feats = self._flow_and_aggregation(positions, normed_positions, t,
-                                                       agg_noise, results)
+                                                       agg_noise, results, train)
         else:
             # the dynamic grid alone: no flow, no aggregation
             dynamic_feats, _ = self.forward_dynamic_hash(normed_positions, t)
@@ -453,16 +532,18 @@ class RadianceField(nn.Module):
     def forward(self, positions: torch.Tensor, directions: Optional[torch.Tensor] = None,
                 data: Optional[Dict[str, torch.Tensor]] = None,
                 return_density_only: bool = False,
-                agg_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                agg_noise: Optional[torch.Tensor] = None,
+                train: bool = False) -> Dict[str, torch.Tensor]:
         """One field query; positions and directions are (R, S, 3).
         ``agg_noise`` (R, S, 1): training-time aggregation noise (None at
         eval; unused without the flow branch); ``return_density_only``:
-        densities (and flow) only.  ``data["pixel_coords"]`` (R, 2), the
+        densities (and flow) only; ``train``: a training query, which never
+        interpolates the flow between training timesteps.  ``data["pixel_coords"]`` (R, 2), the
         rays' (y/H, x/W), places the learnable PE map's sample."""
         data = data or {}
         results: Dict[str, torch.Tensor] = {}
         geo_feats, semantic_feats, dynamic_geo_feats, dynamic_semantic_feats = self._features(
-            positions, data, agg_noise, results)
+            positions, data, agg_noise, results, train)
         if return_density_only:
             return results
         if directions is not None:

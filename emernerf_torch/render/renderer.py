@@ -7,7 +7,11 @@ density-only lidar render (``is_lidar``) and top-K sample pruning: the
 radiance field is queried at the K samples per ray that the last proposal
 net ranks highest and its outputs are scattered back to (R, S) with zeros
 elsewhere.  Random draws come in as tensors (``jitters``, ``topk_u``,
-``agg_noise``); the caller makes them.
+``agg_noise``); the caller makes them.  With ``remat`` the field query
+alone runs under ``torch.utils.checkpoint``: its activations are dropped
+after the forward and recomputed in the backward (the same grid kernels,
+GEMMs and activations again); the sampling, the top-K scatter-back and the
+compositing keep theirs.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from emernerf_torch.render.prop_sampler import PropCache, sample_along_rays
 from emernerf_torch.render.volrend import composite_rays
@@ -87,6 +92,8 @@ def render_ray_batch(
     sample_topk_temp: float = 0.0,
     topk_u: Optional[torch.Tensor] = None,
     agg_noise: Optional[torch.Tensor] = None,
+    train: bool = False,
+    remat: bool = False,
 ) -> RenderResult:
     """Render one ray batch.
 
@@ -95,7 +102,10 @@ def render_ray_batch(
     ``jitters``: stratified-sampling draws (see sample_along_rays);
     ``topk_u``: (R, S) uniforms for the Gumbel top-K selection;
     ``agg_noise``: (R, S_q, 1) training-time aggregation noise of the field
-    (S_q = sample_topk when pruning, else S); None is the eval's 1."""
+    (S_q = sample_topk when pruning, else S); None is the eval's 1.
+    ``train``: a training render (the field never interpolates the flow
+    between training timesteps); ``remat``: recompute the field query in
+    the backward instead of keeping its activations."""
     origins, viewdirs = rays["origins"], rays["viewdirs"]
     n_rays = origins.shape[0]
 
@@ -129,8 +139,18 @@ def render_ray_batch(
             data[k] = rays[k][:, None].expand(n_rays, s_q)
     if rays.get("pixel_coords") is not None:
         data["pixel_coords"] = rays["pixel_coords"]
-    field_out = model(positions, directions, data, return_density_only=is_lidar,
-                      agg_noise=agg_noise)
+    def query(positions, directions, agg_noise):
+        return model(positions, directions, data, return_density_only=is_lidar,
+                     agg_noise=agg_noise, train=train)
+
+    if remat:
+        # every draw is an input, so the recomputation repeats the forward
+        # exactly and no RNG state needs keeping; the non-reentrant variant
+        # gives the parameters their gradients though no input requires one
+        field_out = checkpoint(query, positions, directions, agg_noise, use_reentrant=False,
+                               preserve_rng_state=False)
+    else:
+        field_out = query(positions, directions, agg_noise)
     if prune:
         field_out = scatter_back(field_out, idx, s)
     out = composite_rays(t_starts, t_ends, field_out,

@@ -11,8 +11,10 @@ stratified jitters, the Gumbel uniforms of the top-K sample selection and
 the aggregation noise).  The trainer fills it from its generator; the
 parity tests fill it with the values JAX drew.
 
-Not ported, raising ``NotImplementedError``: ``fused_branches`` (left
-behind: it measured slower on the TPU), ``remat`` and ``mesh`` (later).
+``remat`` recomputes each render's field query in its backward
+(``render_ray_batch(..., remat=True)``).  Not ported, raising
+``NotImplementedError``: ``fused_branches`` (left behind: it measured
+slower on the TPU) and ``mesh`` (later).
 """
 
 from __future__ import annotations
@@ -209,7 +211,8 @@ class TrainStep:
         return render_ray_batch(
             self.model, self.prop_models, batch, jitters=draws.jitters,
             requires_grad=requires_grad, is_lidar=lidar, topk_u=draws.topk_u,
-            agg_noise=draws.agg_noise, **self.render_kw(lidar, full))
+            agg_noise=draws.agg_noise, train=True, remat=self.cfg.remat,
+            **self.render_kw(lidar, full))
 
     def _prop_loss(self, res, requires_grad: bool):
         if not requires_grad:
@@ -305,8 +308,6 @@ def build_train_step(model, prop_models: Sequence, cfg: TrainStepConfig,
     if cfg.fused_branches:
         raise NotImplementedError("fused_branches (optim.fused_lidar_branch) is left "
                                   "behind: the two-pass step is the reference's")
-    if cfg.remat:
-        raise NotImplementedError("remat (optim.remat) is not ported yet")
     return TrainStep(model, prop_models, cfg)
 
 

@@ -102,7 +102,7 @@ class Trainer:
         self.device = resolve_device(device)
         if int(cfg.get_dotted("parallel.num_devices", 1)) != 1:
             raise NotImplementedError("multi-device training is not ported yet "
-                                      "(ROADMAP queue 1 item 12)")
+                                      "(ROADMAP queue 1, multi-GPU data parallelism)")
         seed = int(cfg.optim.seed)
         init_gen = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)

@@ -292,16 +292,49 @@ def test_cli_flag_runs(tmp_path, flag):
         assert trainer.state.step == 2 and _ckpts(run_dir) == ["checkpoint_00002"]
 
 
-@pytest.mark.parametrize("key", ["data.dataset=nuscenes",
-                                 "nerf.model.head.direction_encoding=sh",
-                                 "nerf.model.head.enable_temporal_interpolation=true"])
-def test_unported_settings_raise(key):
-    """The nuScenes loader, spherical-harmonics directions and temporal
-    interpolation raise, naming their ROADMAP item (occupancy evaluation
-    is ported: test_cli_waymo_feature_head_trains_and_evaluates)."""
-    cfg = flagship_config(tiny=True, overrides=[key])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
+# each setting's tiny flagship trains; "remat" and "interpolation" train
+# bit for bit as the flagship without them (training never interpolates)
+PORTED_SETTINGS = {"nuscenes": ["data.dataset=nuscenes", "data.pixel_source.num_cams=6",
+                                "data.pixel_source.load_size=[18,32]"],
+                   "sh": ["nerf.model.head.direction_encoding=sh"],
+                   "interpolation": ["nerf.model.head.enable_temporal_interpolation=true"],
+                   "remat": ["optim.remat=true"]}
+
+
+@pytest.mark.parametrize("setting", sorted(PORTED_SETTINGS))
+def test_ported_settings_train(setting, tmp_path):
+    """The nuScenes loader (on a tiny devkit-layout scene), spherical-harmonics
+    directions, temporal interpolation and optim.remat build and train 2
+    iterations through Trainer on the tiny flagship, every loss finite."""
+    import chip_smoke
+
+    over = list(PORTED_SETTINGS[setting])
+    if setting == "nuscenes":
+        chip_smoke.write_nuscenes_scene(str(tmp_path / "nusc"), n_frames=4, image_hw=(36, 64),
+                                        n_lidar=300)
+        over.append(f"data.data_root={tmp_path / 'nusc'}")
+
+    def train(dotlist):
+        cfg = flagship_config(tiny=True, overrides=dotlist)
+        trainer = Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
+        metrics = [trainer.train_iteration(i) for i in range(2)]
+        for m in metrics:
+            assert all(np.isfinite(float(v)) for v in m.values()), m
+        return trainer
+
+    trainer = train(over)
+    model = trainer.model
+    if setting == "nuscenes":
+        assert trainer.dataset.num_cams == 6 and trainer.dataset.lidar is not None
+    if setting == "sh":
+        app = model.appearance_embedding_dim if model.use_appearance_embedding else 0
+        assert model.direction_encoding == "sh" and model.sky_head.layers[0].in_features == 16 + app
+    if setting in ("interpolation", "remat"):
+        assert model.enable_temporal_interpolation == (setting == "interpolation")
+        assert trainer.step_cfg.remat == (setting == "remat")
+        base = train([])
+        for (name, p), q in zip(trainer.model.named_parameters(), base.model.parameters()):
+            assert torch.equal(p, q), name
 
 
 def test_cli_waymo_feature_head_trains_and_evaluates(tmp_path_factory, tmp_path):

@@ -4,7 +4,9 @@ grid), its reference-hash profile (exact hash grids, separate dynamic and
 flow grids), its brick profile with unfused grids, the dynamic-only profile
 (``configs/default_dynamic.yaml``: no flow) and the reference-semantics
 profile on brick grids (separate dynamic and flow grids of unpaired 4D
-rows, every sample flow-warped).
+rows, every sample flow-warped); and the flagship with spherical-harmonics
+directions (rtol 1e-5).  The eval-time temporal interpolation is held in
+``test_torch_interpolation.py`` on this file's pairs.
 
 The JAX params come from ``init_train_state`` on the tiny flagship with
 fp32 tables and MLPs, go through ``emernerf_torch.convert`` and are loaded
@@ -113,7 +115,7 @@ def reference_brick_pair():
     return _make_pair(REFERENCE_BRICK)
 
 
-def _radiance_matches(p, seed, topk=None):
+def _radiance_matches(p, seed, topk=None, rtol=1e-4):
     jmodel, tmodel = p["jmodel"], p["tmodel"]
     if topk is not None:
         jmodel = jmodel.clone(temporal_agg_topk=topk)
@@ -126,7 +128,7 @@ def _radiance_matches(p, seed, topk=None):
                       {k: torch.from_numpy(v) for k, v in data.items()})
     assert set(ours) == set(ref)
     for k in ref:
-        np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]), rtol=1e-4,
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]), rtol=rtol,
                                    atol=1e-5, err_msg=k)
     return ours, pos
 
@@ -256,8 +258,6 @@ def test_appearance_mean_embedding_fallback(pair):
     "nerf.model.perf.gather_mode=1d",
     "nerf.model.head.enable_dynamic_branch=false",  # the flow branch stays on
     "nerf.model.perf.reduce_mode=einsum",
-    "nerf.model.head.direction_encoding=sh",
-    "nerf.model.head.enable_temporal_interpolation=true",
 ])
 def test_unported_knob_raises(knob):
     validate_cfg(flagship_config(tiny=True))  # the flagship itself is ported
@@ -293,3 +293,24 @@ def test_reference_profiles_validate(profile):
         with pytest.raises(ValueError, match="requires grid_backend=brick"):
             validate_cfg(flagship_config(overrides=["nerf.propnet.fine_level_skip=1"],
                                          profile=REFERENCE_HASH))
+
+
+# ---------------- spherical-harmonics directions ---------------- #
+
+@pytest.fixture(scope="module")
+def sh_pair():
+    return _make_pair(overrides=["nerf.model.head.direction_encoding=sh"])
+
+
+def test_sh_directions_radiance_field_matches_jax(sh_pair):
+    """Degree-4 harmonics (16 lanes) feed the rgb head on (d + 1) / 2 and
+    the sky head on the raw directions, as the reference does."""
+    tmodel = sh_pair["tmodel"]
+    app = tmodel.appearance_embedding_dim if tmodel.use_appearance_embedding else 0
+    assert tmodel.direction_encoding == "sh"
+    assert tmodel.sky_head.layers[0].in_features == 16 + app
+    assert tmodel.rgb_head.layers[0].in_features == 16 + app + tmodel.geometry_feature_dim
+    assert set(state_dict_from_jax(sh_pair["params"])) == set(tmodel.state_dict())
+    ours, _ = _radiance_matches(sh_pair, 12, rtol=1e-5)
+    assert "rgb_sky" in ours
+

@@ -75,7 +75,8 @@ def test_every_module_imports_without_jax():
             "emernerf_torch.eval.video", "emernerf_torch.eval.novel",
             "emernerf_torch.eval.data_preview", "emernerf_torch.eval.voxel_vis",
             "emernerf_torch.data.waymo", "emernerf_torch.ops.interp",
-            "emernerf_torch.eval.occ"} <= walked
+            "emernerf_torch.eval.occ", "emernerf_torch.ops.sh", "emernerf_torch.data.nuscenes",
+            "emernerf_torch.data.nuscenes_devkit_lite"} <= walked
 
 
 @pytest.mark.parametrize("tiny", [True, False])

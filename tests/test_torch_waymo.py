@@ -7,7 +7,7 @@ feature maps and Occ3D files).  Both loaders run the same numpy code, so
 every array is equal exactly: images, masks, poses, intrinsics, lidar,
 feature maps after the PCA and the PCA itself, the splits and the aabb.
 Also: the features of the training batch and of the eval rays, and what
-still raises (missing feature maps, nuScenes).  The loader's numpy
+still raises (missing feature maps).  The loader's numpy
 helpers are held to the originals in ``test_torch_imports``."""
 
 import os
@@ -156,11 +156,5 @@ def test_missing_feature_maps_raise(scenes, tmp_path):
     with pytest.raises(FileNotFoundError, match="skip_feature_extraction"):
         build_dataset_from_cfg(cfg)
     cfg.merge_(from_dotlist(["data.pixel_source.skip_feature_extraction=false"]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        build_dataset_from_cfg(cfg)
-
-
-def test_nuscenes_still_raises():
-    cfg = load_config(DEFAULT_CONFIG, None, ["data.dataset=nuscenes"])
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(NotImplementedError, match="queue 1, offline preprocessing and feature extraction"):
         build_dataset_from_cfg(cfg)

@@ -176,6 +176,37 @@ Phases (any failure exits non-zero; nothing is skipped):
   15c. spherical-harmonics directions: a 2,048-ray fp32 chunk of the
      full-width flagship, card vs CPU, one fp32 training step of the tiny
      flagship, card vs CPU, and 2 full-width iterations through Trainer.
+  16. raw logs to a trained model, in a temporary directory.  16a: a raw
+     Waymo scene-flow TFRecord at Waymo's sizes written from seed 0 with
+     the port's encode_frame and write_tfrecords (write_raw_tfrecord: five
+     cameras' JPEGs, FRONT and its two neighbours at 1920x1280, the sides
+     at 1920x886, with calibrations; the TOP lidar's 64 x 2650 range image
+     with its per-pixel pose and four 200 x 600 short lidars, zlib
+     MatrixFloats; scene-flow images of the same shapes; moving, parked
+     and unseen labels with point counts; the cut is printed: 20 frames,
+     a NOTR scene has ~198).  16b: emernerf_torch.tools.preprocess's
+     WaymoProcessor.convert_one on it; the native codec must have built
+     and framed every record; the first record through the native codec
+     and the pure-Python one gives identical frames (seconds per frame of
+     both); the lidar rows of the first and last frame are the valid
+     returns, each point at its range from its lidar (the TOP lidar's
+     moved by the ego's travel its per-pixel pose compensates), the flow
+     columns the encoded velocities and classes; the dynamic masks have
+     the cameras' sizes.  16c: a torch.hub directory whose hubconf.py
+     builds a ViT of DINOv2 ViT-B/14's widths and layout (write_hubconf,
+     random weights from seed 0; no weights ship with the repository);
+     the loader of 16d extracts the 60 missing maps on the card, each
+     (91, 137, 768) fp16 and finite (seconds per image, peak memory), and
+     one image again on the card in fp32 with TF32 off equals the port's
+     extractor on the CPU within EXTRACT_RTOL of the largest |value|.
+     16d: the CLI (emernerf_torch.train_emernerf) with the stock defaults
+     on the preprocessed scene (raw_dotlist: the full-width flagship with
+     the feature head; cuts, printed: data.pixel_source.load_sky_mask=
+     false, render.render_full=false): a few iterations, the evaluation
+     (finite losses and feat_psnr), the maps deleted; then timed and
+     profiled iterations (ms/iteration, busy, idle, peak beside phase
+     13's).  The launch counters are zeroed before the CLI run and read
+     after the profiled iterations: K1, K2, K3, K5 and K8 must launch.
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
@@ -2806,9 +2837,9 @@ def phase_nuscenes(dev, counted, zero, train_ms, busy5, peak5):
     orig = trainer_mod.build_dataset_from_cfg
     loads = []
 
-    def timed_load(cfg):
+    def timed_load(cfg, device):
         t = time.perf_counter()
-        out = orig(cfg)
+        out = orig(cfg, device)
         loads.append(time.perf_counter() - t)
         return out
 
@@ -3260,6 +3291,592 @@ def phase_sh(dev):
     torch.cuda.empty_cache()
 
 
+# phase 16's raw Waymo scene-flow record, at Waymo's sensor sizes, and its cut
+RAW_FRAMES = 20  # cut from a NOTR scene's ~198 frames, as phase 13
+# CameraName -> (width, height): FRONT, FRONT_LEFT, FRONT_RIGHT, SIDE_LEFT, SIDE_RIGHT
+RAW_CAMERAS = {1: (1920, 1280), 2: (1920, 1280), 3: (1920, 1280), 4: (1920, 886),
+               5: (1920, 886)}
+RAW_CAMERA_YAW = {1: 0.0, 2: 45.0, 3: -45.0, 4: 90.0, 5: -90.0}
+# LaserName -> range image (rows, columns), mount position (m) and yaw (deg):
+# the TOP lidar, then FRONT, SIDE_LEFT, SIDE_RIGHT and REAR
+RAW_LASERS = {1: ((64, 2650), (1.43, 0.0, 2.18), 1.0),
+              2: ((200, 600), (4.07, 0.0, 0.69), 0.0),
+              3: ((200, 600), (3.25, 1.03, 0.97), 90.0),
+              4: ((200, 600), (3.25, -1.03, 0.97), -90.0),
+              5: ((200, 600), (-1.15, 0.0, 0.46), 180.0)}
+RAW_TOP_INCLINATION = (-0.31, 0.04)  # rad: the TOP lidar's beams, bottom to top
+RAW_SHORT_INCLINATION = (-1.57, 0.52)  # the short lidars' limits (no per-beam list)
+RAW_SHORT_RANGE = 20.0  # m: the short lidars' reach
+RAW_SWEEP_M = 1.0  # the ego's travel over one TOP sweep (10 m/s, 0.1 s)
+RAW_MOVER_SPEED = 5.0  # m/s along x: the moving vehicle's returns and box
+
+
+def _rot_z(deg):
+    a = np.deg2rad(deg)
+    m = np.eye(4)
+    m[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+    return m
+
+
+def _transform(m):
+    return {"transform": np.asarray(m, np.float64).reshape(-1).tolist()}
+
+
+def _raw_context():
+    """Calibrations of the five cameras and five lidars (Waymo's names,
+    sizes and 9-coefficient intrinsics with distortion)."""
+    cams, lasers = [], []
+    for name, (w, h) in RAW_CAMERAS.items():
+        c2v = _rot_z(RAW_CAMERA_YAW[name])
+        c2v[:3, 3] = [1.5, 0.0, 2.0]
+        cams.append({"name": name, "intrinsic": [2055.5, 2055.5, w / 2.0, h / 2.0, 0.03, -0.3,
+                                                 5e-4, -4e-4, 0.0],
+                     "extrinsic": _transform(c2v), "width": w, "height": h,
+                     "rolling_shutter_direction": 1})
+    for name, ((rows, _), pos, yaw) in RAW_LASERS.items():
+        l2v = _rot_z(yaw)
+        l2v[:3, 3] = pos
+        lo, hi = RAW_TOP_INCLINATION if name == 1 else RAW_SHORT_INCLINATION
+        cal = {"name": name, "beam_inclination_min": lo, "beam_inclination_max": hi,
+               "extrinsic": _transform(l2v)}
+        if name == 1:  # the TOP lidar lists its beams, bottom to top
+            cal["beam_inclinations"] = np.linspace(lo, hi, rows).tolist()
+        lasers.append(cal)
+    return {"name": "segment-chip-smoke", "camera_calibrations": cams,
+            "laser_calibrations": lasers}
+
+
+def _raw_range_image(rng, name):
+    """(range image (H, W, 4): range, intensity, elongation, nlz; flow image
+    (H, W, 4): vx, vy, vz, class) of one lidar: returns off the ground
+    plane and a wall ring 18-60 m out, 3% dropped; a short lidar sees 20 m
+    and 120 degrees; a moving vehicle's returns ahead."""
+    (rows, cols), pos, yaw = RAW_LASERS[name]
+    lo, hi = RAW_TOP_INCLINATION if name == 1 else RAW_SHORT_INCLINATION
+    incl = np.linspace(hi, lo, rows)[:, None]  # top row first
+    az = np.linspace(np.pi, -np.pi, cols, endpoint=False)[None, :]
+    world_az = np.broadcast_to(az, (rows, cols))  # each column's azimuth in the vehicle frame
+    ground = np.where(incl < -1e-3, pos[2] / np.maximum(-np.sin(incl), 1e-3), np.inf)
+    wall = (39.0 + 21.0 * np.sin(3.0 * world_az)) / np.maximum(np.cos(incl), 1e-3)
+    rng_m = np.minimum(ground, wall) * (1.0 + 0.002 * rng.standard_normal((rows, cols)))
+    valid = (rng_m < 75.0) & (rng.random((rows, cols)) > 0.03)
+    if name != 1:  # a short lidar: its reach, and the vehicle's body hides all but 120 deg
+        off = np.abs(np.angle(np.exp(1j * (world_az - np.deg2rad(yaw)))))
+        valid &= (rng_m < RAW_SHORT_RANGE) & (off < np.deg2rad(60.0))
+    ri = np.zeros((rows, cols, 4), np.float32)
+    ri[..., 0] = np.where(valid, rng_m, -1.0)
+    ri[..., 1] = rng.random((rows, cols))
+    ri[..., 2] = 0.3 * rng.random((rows, cols))
+    ri[..., 3] = -1.0
+    flow = np.zeros((rows, cols, 4), np.float32)
+    flow[..., 3] = np.where(valid, 0.0, -1.0)
+    mover = valid & (np.abs(world_az) < 0.1) & (rng_m < 16.0)
+    flow[mover, 0] = RAW_MOVER_SPEED
+    flow[mover, 3] = 1.0
+    return ri, flow
+
+
+def _raw_jpeg(rng, w, h):
+    import io
+
+    from PIL import Image
+
+    small = rng.uniform(0, 255, (max(h // 32, 2), max(w // 32, 2), 3)).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(small).resize((w, h), Image.BILINEAR).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def _raw_label(cx, cy, heading, speed, dims, points, top_points, ident):
+    length, width, height = dims
+    return {"box": {"center_x": cx, "center_y": cy, "center_z": height / 2, "width": width,
+                    "length": length, "height": height, "heading": heading},
+            "metadata": {"speed_x": speed[0], "speed_y": speed[1]}, "type": 1, "id": ident,
+            "num_lidar_points_in_box": points, "num_top_lidar_points_in_box": top_points}
+
+
+def raw_frame(rng, t, context):
+    """(Frame values for waymo_wire.encode_frame, truth) of frame ``t``: the
+    ego at x = 100 + t (1 m per frame), five JPEGs, five lidars (first
+    return, zlib-compressed MatrixFloats), the TOP lidar's per-pixel pose
+    (the ego's travel over the sweep), scene-flow images, and four labels:
+    a vehicle moving at 5 m/s ahead, a cyclist crossing on the left, a
+    parked vehicle, and a moving box no lidar saw.  ``truth`` holds each
+    lidar's range and flow images and the TOP pose's x offset per column."""
+    import zlib
+
+    from emernerf_torch.tools import waymo_wire as ww
+
+    pose = np.eye(4)
+    pose[0, 3] = 100.0 + t
+    images = [{"name": n, "image": _raw_jpeg(rng, w, h), "pose": _transform(pose),
+               "pose_timestamp": 0.1 * t} for n, (w, h) in RAW_CAMERAS.items()]
+    lasers, truth = [], {}
+    for name, ((rows, cols), _, _) in RAW_LASERS.items():
+        ri, flow = _raw_range_image(rng, name)
+        ret = {"range_image_compressed": zlib.compress(ww.encode_matrix_float(ri)),
+               "range_image_flow_compressed": zlib.compress(ww.encode_matrix_float(flow))}
+        truth[name] = {"range": ri[..., 0], "flow": flow}
+        if name == 1:  # roll, pitch, yaw, x, y, z of the ego at each pixel's time
+            dx = RAW_SWEEP_M * (np.arange(cols) / (cols - 1) - 0.5)
+            pp = np.zeros((rows, cols, 6), np.float32)
+            pp[..., 3] = pose[0, 3] + dx
+            ret["range_image_pose_compressed"] = zlib.compress(ww.encode_matrix_float(pp))
+            truth[name]["dx"] = np.broadcast_to(pp[..., 3] - np.float32(pose[0, 3]), (rows, cols))
+        lasers.append({"name": name, "ri_return1": ret})
+    labels = [_raw_label(12.0 - 0.5 * t, 0.3, 0.05, (RAW_MOVER_SPEED, 0.0), (4.5, 2.0, 1.6), 180,
+                         150, "mover"),
+              _raw_label(9.0, 5.0 - 0.2 * t, 1.5, (0.0, -2.0), (1.8, 0.6, 1.7), 40, 32, "cyclist"),
+              _raw_label(20.0 - t, -4.0, 0.0, (0.0, 0.0), (4.6, 2.0, 1.5), 90, 70, "parked"),
+              _raw_label(30.0, 8.0, 0.0, (3.0, 0.0), (4.5, 2.0, 1.6), 0, 0, "occluded")]
+    values = {"context": context, "timestamp_micros": 100_000 * t, "pose": _transform(pose),
+              "images": images, "lasers": lasers, "laser_labels": labels}
+    return values, truth
+
+
+def write_raw_tfrecord(path, n_frames=RAW_FRAMES, seed=0, keep=(0,)):
+    """Writes a raw Waymo scene-flow TFRecord of ``n_frames`` frames made
+    from ``seed`` with the port's encoder (raw_frame); returns the truth of
+    the frames in ``keep``."""
+    from emernerf_torch.tools import waymo_wire as ww
+
+    rng = np.random.default_rng(seed)
+    context = _raw_context()
+    kept = {}
+
+    def records():
+        for t in range(n_frames):
+            values, truth = raw_frame(rng, t, context)
+            if t in keep:
+                kept[t] = truth
+            yield ww.encode_frame(values)
+
+    ww.write_tfrecords(path, records())
+    return kept
+
+
+# phase 16c's stand-in for DINOv2 ViT-B/14, whose weights the repository
+# does not ship: its widths and layout, random weights from seed 0
+DINOV2_VITB14 = dict(patch=14, dim=768, depth=12, heads=12, mlp=3072, grid=37)
+TINY_HUB = dict(patch=14, dim=24, depth=12, heads=2, mlp=48, grid=4)  # the CPU tests'
+HUBCONF = '''"""dinov2_vitb14 for torch.hub: a ViT with DINOv2's layout and widths
+given below, random weights from seed 0 (written by chip_smoke.py)."""
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+PATCH, DIM, DEPTH, HEADS, MLP, GRID = {patch}, {dim}, {depth}, {heads}, {mlp}, {grid}
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.patch_size = (PATCH, PATCH)
+        self.proj = nn.Conv2d(3, DIM, kernel_size=PATCH, stride=PATCH)
+        self.norm = nn.Identity()
+
+    def forward(self, x):
+        return self.norm(self.proj(x).flatten(2).transpose(1, 2))
+
+
+class Attention(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.num_heads = HEADS
+        self.qkv = nn.Linear(DIM, 3 * DIM, bias=True)
+        self.proj = nn.Linear(DIM, DIM)
+
+    def forward(self, x):
+        b, n, c = x.shape
+        q, k, v = self.qkv(x).reshape(b, n, 3, HEADS, c // HEADS).permute(2, 0, 3, 1, 4)
+        out = F.scaled_dot_product_attention(q, k, v)
+        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+
+
+class LayerScale(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(DIM))
+
+    def forward(self, x):
+        return x * self.gamma
+
+
+class Mlp(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.fc1 = nn.Linear(DIM, MLP)
+        self.act = nn.GELU()
+        self.fc2 = nn.Linear(MLP, DIM)
+
+    def forward(self, x):
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class Block(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(DIM, eps=1e-6)
+        self.attn = Attention()
+        self.ls1 = LayerScale()
+        self.norm2 = nn.LayerNorm(DIM, eps=1e-6)
+        self.mlp = Mlp()
+        self.ls2 = LayerScale()
+
+    def forward(self, x):
+        x = x + self.ls1(self.attn(self.norm1(x)))
+        return x + self.ls2(self.mlp(self.norm2(x)))
+
+
+class DinoVisionTransformer(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.patch_size = PATCH
+        self.num_register_tokens = 0
+        self.patch_embed = PatchEmbed()
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, DIM))
+        self.mask_token = nn.Parameter(torch.zeros(1, DIM))
+        self.pos_embed = nn.Parameter(torch.zeros(1, GRID * GRID + 1, DIM))
+        self.blocks = nn.ModuleList([Block() for _ in range(DEPTH)])
+        self.norm = nn.LayerNorm(DIM, eps=1e-6)
+
+    def interpolate_pos_encoding(self, x, w, h):
+        # DINOv2's convention: w and h are the input's height and width
+        if x.shape[1] - 1 == GRID * GRID and w == h:
+            return self.pos_embed
+        grid = self.pos_embed[:, 1:].reshape(1, GRID, GRID, DIM).permute(0, 3, 1, 2)
+        grid = F.interpolate(grid, size=(w // PATCH, h // PATCH), mode="bicubic",
+                             align_corners=False)
+        return torch.cat([self.pos_embed[:, :1], grid.permute(0, 2, 3, 1).reshape(1, -1, DIM)], 1)
+
+    def forward(self, x):
+        b, _, w, h = x.shape
+        x = self.patch_embed(x)
+        x = torch.cat([self.cls_token.expand(b, -1, -1), x], dim=1)
+        x = x + self.interpolate_pos_encoding(x, w, h)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.norm(x)[:, 0]
+
+
+def dinov2_vitb14(pretrained=True, **kwargs):
+    model = DinoVisionTransformer()
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" not in name and not name.endswith("gamma"):
+                p.normal_(0.0, 0.02, generator=g)
+    return model
+'''
+
+
+def write_hubconf(hub_dir, **widths):
+    """Writes ``<hub_dir>/facebookresearch_dinov2_main/hubconf.py`` (HUBCONF
+    at ``widths``), where ``torch.hub`` caches DINOv2's repository; returns
+    its path."""
+    repo = os.path.join(hub_dir, "facebookresearch_dinov2_main")
+    os.makedirs(repo, exist_ok=True)
+    path = os.path.join(repo, "hubconf.py")
+    with open(path, "w") as f:
+        f.write(HUBCONF.format(**widths))
+    return path
+
+
+def _same_tree(a, b) -> bool:
+    """Decoded frames equal: namespaces, lists, arrays bit for bit, scalars."""
+    if type(a).__name__ == "SimpleNamespace":
+        return (type(b).__name__ == "SimpleNamespace" and vars(a).keys() == vars(b).keys()
+                and all(_same_tree(getattr(a, k), getattr(b, k)) for k in vars(a)))
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(map(_same_tree, a, b))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    return type(a) is type(b) and a == b
+
+
+def check_preprocessed(scene, truth):
+    """The preprocessor's lidar rows of each frame in ``truth`` against the
+    encoded range images: one row per valid return, laser by laser; each
+    point's distance from its lidar equals its range (the TOP lidar's
+    points moved by the ego's travel at their pixel's time, which the
+    per-pixel pose compensates); the flow columns are the encoded
+    velocities and classes.  Returns the rows checked."""
+    n = 0
+    for t, lasers in truth.items():
+        rows = np.fromfile(os.path.join(scene, "lidar", f"{t:03d}.bin"), np.float32).reshape(-1, 14)
+        start = 0
+        for name in sorted(lasers):
+            tr = lasers[name]
+            valid = tr["range"] > 0
+            part = rows[start:start + int(valid.sum())]
+            start += len(part)
+            if len(part) != valid.sum() or not np.all(part[:, 13] == name - 1):
+                fail(f"phase 16b: frame {t} laser {name}: {len(part)} rows for {valid.sum()} "
+                     "valid returns")
+            d = part[:, 3:6] - part[:, :3]
+            if "dx" in tr:
+                d[:, 0] -= tr["dx"][valid]
+            err = np.abs(np.linalg.norm(d, axis=-1) - tr["range"][valid])
+            if err.max() > 1e-4 * tr["range"][valid].max():
+                fail(f"phase 16b: frame {t} laser {name}: point distances off their ranges by "
+                     f"{err.max()}")
+            if not (np.array_equal(part[:, 6:9], tr["flow"][valid][:, :3])
+                    and np.array_equal(part[:, 9], tr["flow"][valid][:, 3])):
+                fail(f"phase 16b: frame {t} laser {name}: flow columns differ from the encoded")
+        if start != len(rows):
+            fail(f"phase 16b: frame {t}: {len(rows)} rows, {start} valid returns")
+        n += len(rows)
+    return n
+
+
+N_RAW_CLI = 4  # optim.num_iters of phase 16d's CLI run
+N_RAW_TIMED = 6  # iterations timed after it
+EXTRACT_HW = (644, 966)  # data.pixel_source.feature_extraction_size
+# card (fp32, TF32 off) against CPU, of the largest |value| of the map (PERF.md, Tolerances)
+EXTRACT_RTOL = 1e-3
+# the on-demand map (fp16 on disk, PyTorch's default TF32 convolutions) against the CPU
+STORED_RTOL = 5e-2
+
+
+def raw_dotlist(root):
+    """Phase 16d's settings: the flagship's branches on the stock defaults,
+    the Waymo loader on the preprocessed ``root`` with CAMERA_LISTS[3], the
+    feature head with the maps extracted on demand and deleted after the
+    run; cuts: no sky masks (the repository has no sky-mask tool),
+    render.render_full=false."""
+    from emernerf_torch.flagship import _FLAGSHIP_DOTLIST
+
+    return list(_FLAGSHIP_DOTLIST) + [
+        f"data.data_root={root}", "data.dataset=waymo", "data.scene_idx=0",
+        "data.pixel_source.num_cams=3", "data.pixel_source.load_features=true",
+        "data.pixel_source.skip_feature_extraction=false", "data.pixel_source.load_sky_mask=false",
+        "nerf.model.head.enable_feature_head=true", "render.render_full=false",
+        "data.pixel_source.delete_features_after_run=true"]
+
+
+def phase_raw(dev, counted, zero, waymo_ms, waymo_busy, waymo_peak):
+    """Phase 16: raw logs to a trained model on the card.  16a writes a raw
+    TFRecord (write_raw_tfrecord); 16b preprocesses it
+    (WaymoProcessor.convert_one, records framed by the native codec),
+    checks the native codec against the pure-Python one on the first
+    record and the output against the encoded truth; 16c serves a
+    DINOv2-ViT-B/14-shaped model through a torch.hub directory; 16d trains
+    the full-width flagship with the feature head through the CLI, whose
+    loader extracts the missing maps on the card (checked as they are
+    written, one against the CPU), evaluates and deletes them; then timed
+    and profiled iterations.  The launch counters are zeroed before the
+    CLI run and read after the profiled iterations.  Returns (launches,
+    seconds per frame of the two codecs and of convert_one, extraction
+    seconds per image and peak GiB, ms/iteration, busy, peak GiB)."""
+    import logging
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    from emernerf_torch import native, train_emernerf
+    from emernerf_torch.tools import extract_features as xf
+    from emernerf_torch.tools import waymo_wire as ww
+    from emernerf_torch.tools.preprocess import WaymoProcessor
+    from emernerf_torch.tools.vit_extractor import ViTFeatureExtractor, preprocess_image
+
+    print("phase 16: raw Waymo logs to a trained model: TFRecord, preprocessing (native wire "
+          "codec), on-demand DINO extraction and the CLI on the card")
+    root = tempfile.mkdtemp(prefix="emernerf_raw_")
+    hub_dir, orig_extract = torch.hub.get_dir(), xf.extract_and_save_features
+    log = logging.getLogger("emernerf_torch")
+    handler, trainer = None, None
+    t_phase = t0 = time.perf_counter()
+    try:
+        # 16a: the raw record
+        raw_dir, name = os.path.join(root, "raw"), "segment-chip-smoke"
+        os.makedirs(raw_dir)
+        path = os.path.join(raw_dir, f"{name}.tfrecord")
+        truth = write_raw_tfrecord(path, RAW_FRAMES, keep=(0, RAW_FRAMES - 1))
+        print(f"  16a: wrote {RAW_FRAMES} frames in {time.perf_counter() - t0:.1f} s "
+              f"({os.path.getsize(path) / 2 ** 20:.1f} MiB): cameras {RAW_CAMERAS} (JPEG), "
+              f"lidars {({k: v[0] for k, v in RAW_LASERS.items()})} (zlib MatrixFloats, the TOP "
+              "lidar's per-pixel pose), scene-flow images, 4 labels per frame")
+        print(f"  cut: {RAW_FRAMES} frames (a NOTR scene has ~198)")
+
+        # 16b: the codecs, then the preprocessor
+        if not native.available():
+            fail("phase 16b: the native wire codec did not build (g++)")
+        t0 = time.perf_counter()
+        first = None
+        for rec in ww.read_tfrecords(path):
+            frame = ww.parse_frame(rec)
+            first = first or (rec, frame)
+        native_s = (time.perf_counter() - t0) / RAW_FRAMES
+        t0 = time.perf_counter()
+        rec_py = next(ww._read_py(path))
+        frame_py = ww._decode_py(rec_py, "Frame")
+        py_s = time.perf_counter() - t0
+        if rec_py != first[0] or not _same_tree(frame_py, first[1]) or not _same_tree(
+                ww._decode_native(memoryview(first[0]), "Frame"), frame_py):
+            fail("phase 16b: the native and the pure-Python codec disagree on the first record")
+        print(f"  16b: native codec {native.LIB_PATH.relative_to(REPO)}; the first record "
+              f"({len(rec_py) / 2 ** 20:.1f} MiB) gives identical frames through the native "
+              f"framing + decode, the native field scan (_decode_native) and the pure-Python "
+              f"codec; seconds per frame (framing, CRC check, decode): native {native_s:.3f}, "
+              f"pure Python {py_s:.3f}")
+        out = os.path.join(root, "processed")
+        ww.read_tfrecords.records.update(native=0, python=0)
+        t0 = time.perf_counter()
+        WaymoProcessor(raw_dir, out, [0], [name], workers=1).convert_one(0)
+        convert_s = (time.perf_counter() - t0) / RAW_FRAMES
+        framed = dict(ww.read_tfrecords.records)
+        print(f"  records framed by each codec during convert_one: {framed}")
+        if framed != {"native": RAW_FRAMES, "python": 0}:
+            fail(f"phase 16b: convert_one did not frame every record natively: {framed}")
+        scene = os.path.join(out, "000")
+        n_rows = check_preprocessed(scene, truth)
+        for cam, (w, h) in RAW_CAMERAS.items():
+            mask = np.asarray(Image.open(os.path.join(scene, "dynamic_masks",
+                                                      f"000_{cam - 1}.png")))
+            if mask.shape != (h, w):
+                fail(f"phase 16b: camera {cam}'s dynamic mask is {mask.shape}, not {(h, w)}")
+            if cam == 1 and not mask.any():
+                fail("phase 16b: the moving vehicle ahead left no dynamic mask")
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(scene) for f in fs)
+        print(f"  convert_one: {convert_s:.3f} s per frame, {size / 2 ** 20:.1f} MiB written; "
+              f"lidar rows of frames {sorted(truth)} ({n_rows}) match the encoded returns, "
+              "ranges and flows; dynamic masks at the cameras' sizes")
+
+        # 16c: the hub model, and extraction on demand through 16d's loader
+        torch.hub.set_dir(os.path.join(root, "hub"))
+        write_hubconf(torch.hub.get_dir(), **DINOV2_VITB14)
+        seen = {}
+
+        def extract(imgs, feats, **kw):
+            if torch.device(kw["device"]) != torch.device(dev):
+                fail(f"phase 16c: the loader extracted on {kw['device']}, not {dev}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            orig_extract(imgs, feats, **kw)
+            torch.cuda.synchronize()
+            seen.update(s=time.perf_counter() - t1, n=len(imgs), img=imgs[0],
+                        peak=torch.cuda.max_memory_allocated() / 2 ** 30, kw=kw,
+                        tf32=(torch.backends.cuda.matmul.allow_tf32,
+                              torch.backends.cudnn.allow_tf32))
+            maps = [np.load(f) for f in feats]  # before the run deletes them
+            bad = [f for f, m in zip(feats, maps) if m.shape != WAYMO_FEAT
+                   or m.dtype != np.float16 or not np.isfinite(m).all()]
+            if bad:
+                fail(f"phase 16c: maps of the wrong shape or dtype or not finite: {bad[:3]}")
+            seen["map"] = maps[0].astype(np.float32)
+
+        xf.extract_and_save_features = extract
+
+        # 16d: the CLI on the preprocessed scene, as a user runs it
+        run_dir = os.path.join(root, "p", "raw")
+        os.makedirs(run_dir)
+        handler = logging.FileHandler(os.path.join(run_dir, "log.txt"))
+        log.addHandler(handler)
+        log.setLevel(logging.INFO)
+        log.propagate = False
+        argv = (["--output_root", root, "--project", "p", "--run_name", "raw", "--device",
+                 str(dev)] + raw_dotlist(out)
+                + [f"optim.num_iters={N_RAW_CLI}", "logging.print_freq=1"])
+        torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+        torch.backends.cudnn.allow_tf32 = True
+        torch.cuda.synchronize()
+        for fn in counted + tuple(zero):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_emernerf.main(argv)
+        step = trainer.state.step
+        cli_s = time.perf_counter() - t0
+        if seen.get("n") != RAW_FRAMES * 3:
+            fail(f"phase 16c: the loader extracted {seen.get('n')} maps, not {RAW_FRAMES * 3}")
+        per_img = seen["s"] / seen["n"]
+        print(f"  16c: the loader extracted {seen['n']} maps {WAYMO_FEAT} fp16 (finite) on "
+              f"{seen['kw']['device']} with {seen['kw']['model_type']} from the torch.hub "
+              f"directory (widths {DINOV2_VITB14}, random weights from seed 0), stride "
+              f"{seen['kw']['stride']}, {seen['kw']['extraction_size']}: {per_img:.3f} s per "
+              f"image, peak device memory {seen['peak']:.2f} GiB (TF32 matmul, conv: "
+              f"{seen['tf32']})")
+        # one map again: the card in fp32 with TF32 off, and the CPU
+        x = preprocess_image(seen["img"], EXTRACT_HW, "dinov2_vitb14")
+        prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            model, _, _ = xf._load_model("dinov2_vitb14", None, dev)
+            card = ViTFeatureExtractor(model, "dinov2_vitb14", stride=7, device=dev).extract(
+                x.to(dev))[0].cpu().numpy()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        del model
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        model, _, _ = xf._load_model("dinov2_vitb14", None, "cpu")
+        host = ViTFeatureExtractor(model, "dinov2_vitb14", stride=7, device="cpu").extract(x)[0]
+        host = host.numpy()
+        cpu_s = time.perf_counter() - t1
+        del model
+        scale = float(np.abs(host).max())
+        err, stored_err = float(np.abs(card - host).max()), float(np.abs(seen["map"] - host).max())
+        print(f"  one map ({os.path.basename(seen['img'])}) against the port's extractor on the "
+              f"CPU ({cpu_s:.1f} s): card fp32 with TF32 off max |diff| {err:.3g} "
+              f"({err / scale:.3g} of the largest |value| {scale:.4g}; bound {EXTRACT_RTOL}); "
+              f"the on-demand fp16 map {stored_err:.3g} ({stored_err / scale:.3g}; bound "
+              f"{STORED_RTOL})")
+        if not err <= EXTRACT_RTOL * scale or not stored_err <= STORED_RTOL * scale:
+            fail("phase 16c: the card's features differ from the CPU's")
+
+        print(f"  16d: CLI run (load and extract, build, train {N_RAW_CLI} iterations, evaluate, "
+              f"delete the features): {cli_s:.1f} s")
+        ds = trainer.dataset
+        print(f"  dataset: {ds.num_images} images of {ds.image_hw}, features "
+              f"{tuple(ds.features.shape)}, {len(ds.lidar['ranges'])} lidar rays; cut: "
+              "data.pixel_source.load_sky_mask=false (no sky masks), render.render_full=false")
+        with open(os.path.join(run_dir, "metrics.json")) as f:
+            records = [json.loads(x) for x in f.read().splitlines()]
+        losses = {k: records[-1][k] for k in ("rgb_loss", "feature_loss")}
+        with open(os.path.join(run_dir, f"metrics_all_{step}.json")) as f:
+            results = json.load(f)
+        keys = ("lowres/psnr", "lowres/feat_psnr", "lidar/depth_rmse")
+        print(f"  losses at the last print {losses}; evaluation (random weights) "
+              f"{({k: results.get(k) for k in keys})}")
+        if not all(np.isfinite(results.get(k, float("nan"))) for k in keys) or not all(
+                np.isfinite(v) for v in losses.values()):
+            fail(f"phase 16d: losses or evaluation metrics missing or not finite: {results}")
+        left = [f for f in os.listdir(os.path.join(scene, "dinov2_vitb14")) if f.endswith(".npy")]
+        print(f"  feature maps left after delete_features_after_run: {len(left)}")
+        if left:
+            fail("phase 16d: delete_features_after_run left feature maps")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(N_RAW_TIMED):
+            trainer.train_iteration(step + i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / N_RAW_TIMED
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _, busy = profile_train(trainer, step + N_RAW_TIMED, ms, "profile_train_raw.json")
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
+        print(f"  {ms:.2f} ms/iteration ({N_RAW_TIMED} iterations), device busy {busy:.2f} ms "
+              f"(idle {1 - busy / ms:.1%}), peak device memory {peak:.2f} GiB; phase 13 (the "
+              f"written Waymo-layout scene): {waymo_ms:.2f} ms, busy {waymo_busy:.2f} ms, peak "
+              f"{waymo_peak:.2f} GiB")
+        print(f"  launch counts (CLI run and timed iterations): {launches}")
+        _check_launches(launches, {fn.__name__ for fn in zero}, "raw-scene run")
+        print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+        return (launches, native_s, py_s, convert_s, per_img, seen["peak"], ms, busy, peak)
+    finally:
+        xf.extract_and_save_features = orig_extract
+        torch.hub.set_dir(hub_dir)
+        if handler is not None:
+            log.removeHandler(handler)
+            handler.close()
+        del trainer
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3368,6 +3985,8 @@ def main():
     phase_interp(dev, REFERENCE_HASH, "phase 15b (hash, fp32)", n_rays=512)
     phase_interp_kernels(dev, entries, t_off)
     phase_sh(dev)
+    # raw logs to a trained model: preprocessing, on-demand extraction, the CLI
+    raw = phase_raw(dev, brick + shared, hashed, waymo[3], waymo[4], waymo[5])
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):
@@ -3399,6 +4018,10 @@ def main():
     print(f"nuScenes (6 cameras): train {nusc[1]:.2f} ms/iteration, busy {nusc[2]:.2f} ms (idle "
           f"{1 - nusc[2] / nusc[1]:.1%}), peak {nusc[3]:.2f} GiB, load {nusc[4]:.1f} s on "
           f"{card_line}")
+    print(f"raw Waymo logs: codec {raw[1]:.3f} s per frame native, {raw[2]:.3f} pure Python; "
+          f"convert_one {raw[3]:.3f} s per frame; extraction {raw[4]:.3f} s per image, peak "
+          f"{raw[5]:.2f} GiB; train {raw[6]:.2f} ms/iteration, busy {raw[7]:.2f} ms (idle "
+          f"{1 - raw[7] / raw[6]:.1%}), peak {raw[8]:.2f} GiB on {card_line}")
     for label in ("off", "on"):
         ms, busy, pk, k1 = remat[label]
         print(f"remat {label}: train {ms:.2f} ms/iteration, busy {busy:.2f} ms, peak {pk:.2f} GiB, "

@@ -295,11 +295,13 @@ def build_train_step_config(cfg: ConfigNode, dataset: SceneDataset) -> TrainStep
     )
 
 
-def build_dataset_from_cfg(cfg: ConfigNode) -> SceneDataset:
-    """The synthetic scene, a preprocessed Waymo scene or a nuScenes scene."""
+def build_dataset_from_cfg(cfg: ConfigNode, device="cuda") -> SceneDataset:
+    """The synthetic scene, a preprocessed Waymo scene or a nuScenes scene.
+    ``device`` is where a Waymo scene's missing feature maps are extracted
+    (the card unless the caller asks for the CPU)."""
     name = cfg.data.dataset
     if name == "waymo":
-        return load_waymo_dataset(cfg)
+        return load_waymo_dataset(cfg, device)
     if name == "nuscenes":
         return load_nuscenes_dataset(cfg)
     if name != "synthetic":

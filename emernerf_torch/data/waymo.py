@@ -18,14 +18,15 @@ The reference's semantics: the camera subsets ([0] / [1,0,2] /
 change, ego poses normalized to the first kept frame, the top-lidar and
 range filters, velocities divided by 10 into per-scan flows, and the
 feature maps (fp16 on disk) PCA-reduced to ``target_feature_dim`` and
-min-max normalized.  Feature maps are read, never extracted: without them
-the loader raises (extraction needs the DINO weights: ROADMAP queue 1,
-offline preprocessing and feature extraction).
+min-max normalized.  Where a scene lacks feature maps, the loader extracts
+those of the loaded frames and cameras on ``device`` (the card unless the
+caller asks for the CPU) with ``emernerf_torch/tools/extract_features.py``,
+unless ``skip_feature_extraction`` is set, where it raises.  The scenes
+themselves come from ``python -m emernerf_torch.tools.preprocess``.
 """
 
 from __future__ import annotations
 
-import glob
 import logging
 import os
 from typing import Optional
@@ -80,25 +81,32 @@ def reduce_features_pca(feats: np.ndarray, target_dim: int, sample: int = 100_00
     return reduced.reshape(n, hf, wf, target_dim), mat, fmin, fmax
 
 
-def delete_features(feat_dir: str) -> None:
-    """Remove the feature maps of a scene to reclaim disk
-    (``data.pixel_source.delete_features_after_run``)."""
-    for f in glob.glob(os.path.join(feat_dir, "*.npy")):
-        os.remove(f)
-
-
-def _missing_features(data_path: str, pix) -> None:
+def _extract_missing_features(data_path, pix, start, end, cam_list, device) -> None:
+    """On-demand DINO feature extraction where maps are missing (the
+    reference's pixel_source.py:288-382): the maps of frames [start, end)
+    of every camera of ``cam_list``, on ``device``."""
     if pix.get("skip_feature_extraction", False):
         raise FileNotFoundError(
             f"features missing under {data_path}/{pix.feature_model_type} "
-            "and skip_feature_extraction=True; extract them first")
-    raise NotImplementedError(
-        f"feature maps missing under {data_path}/{pix.feature_model_type}: on-demand DINO "
-        "feature extraction is not ported yet (ROADMAP queue 1, offline preprocessing and "
-        "feature extraction: it needs the model's weights); extract the maps first")
+            "and skip_feature_extraction=True; run "
+            "emernerf_torch.tools.extract_features first")
+    from emernerf_torch.tools.extract_features import extract_and_save_features
+
+    imgs, feats = [], []
+    for t in range(start, end):
+        for cam in cam_list:
+            imgs.append(os.path.join(data_path, "images", f"{t:03d}_{cam}.jpg"))
+            feats.append(os.path.join(data_path, pix.feature_model_type, f"{t:03d}_{cam}.npy"))
+    logger.info("Extracting %d missing feature maps...", len(imgs))
+    extract_and_save_features(
+        imgs, feats, model_type=pix.feature_model_type,
+        extraction_size=tuple(pix.feature_extraction_size),
+        device=device, stride=pix.get("feature_extraction_stride", 7))
 
 
-def load_waymo_dataset(cfg: ConfigNode) -> SceneDataset:
+def load_waymo_dataset(cfg: ConfigNode, device="cuda") -> SceneDataset:
+    """The preprocessed scene ``data.scene_idx`` under ``data.data_root``;
+    missing feature maps are extracted on ``device``."""
     data_cfg = cfg.data
     pix = data_cfg.pixel_source
     data_path = os.path.join(data_cfg.data_root, f"{data_cfg.scene_idx:03d}")
@@ -149,7 +157,7 @@ def load_waymo_dataset(cfg: ConfigNode) -> SceneDataset:
             if pix.load_features:
                 feat_path = os.path.join(feat_dir, f"{name}.npy")
                 if not os.path.exists(feat_path):
-                    _missing_features(data_path, pix)
+                    _extract_missing_features(data_path, pix, start, end, cam_list, device)
                 features.append(np.load(feat_path).astype(np.float32))
             c2ws.append(ego_to_world @ cam_to_egos[cam])
             intrs.append(intrinsics_per_cam[cam])

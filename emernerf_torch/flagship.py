@@ -111,7 +111,7 @@ def build_flagship(tiny: bool = False, overrides=(), *, profile: Profile = DEFAU
     from ``seed``."""
     dev = resolve_device(device)
     cfg = flagship_config(tiny, overrides, profile)
-    dataset = build_dataset_from_cfg(cfg)
+    dataset = build_dataset_from_cfg(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     flow = flagship_flow_spec(cfg, tiny)

@@ -108,7 +108,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.wandb = init_wandb(cfg, log_dir) if enable_wandb else None
 
-        self.dataset = build_dataset_from_cfg(cfg)
+        self.dataset = build_dataset_from_cfg(cfg, self.device)
         logger.info("Dataset: %d images (%d train / %d test), aabb=%s",
                     self.dataset.num_images, len(self.dataset.train_indices),
                     len(self.dataset.test_indices), self.dataset.aabb)

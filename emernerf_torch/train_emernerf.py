@@ -22,12 +22,12 @@ import numpy as np
 
 from emernerf_torch.builders import build_dataset_from_cfg
 from emernerf_torch.config import load_config
-from emernerf_torch.data.waymo import delete_features
 from emernerf_torch.eval.data_preview import render_data_video
 from emernerf_torch.eval.points import PointQueryEngine
 from emernerf_torch.eval.video import have_imageio
 from emernerf_torch.eval.voxel_vis import visualize_scene_flow, visualize_voxels
 from emernerf_torch.flagship import DEFAULT_CONFIG
+from emernerf_torch.tools.extract_features import delete_features
 from emernerf_torch.train.checkpoints import latest_checkpoint
 from emernerf_torch.train.trainer import Trainer
 from emernerf_torch.utils.logging import setup_logging
@@ -124,7 +124,7 @@ def main(argv=None):
     cfg = setup(args)
 
     if args.render_data_video_only:
-        _render_data_video(build_dataset_from_cfg(cfg), cfg)
+        _render_data_video(build_dataset_from_cfg(cfg, args.device), cfg)
         logger.info("Render data video only, exiting...")
         return None
 

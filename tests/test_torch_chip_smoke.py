@@ -230,3 +230,96 @@ def test_point_batches_are_the_point_queries_of_the_flagship_scene():
     pts, t, _ = flow_eval_points(dataset, 0)
     assert torch.equal(b["lidar"][:, :3], _contract(torch.from_numpy(pts), aabb, True))
     np.testing.assert_array_equal(b["lidar"][:, 3].numpy(), t)
+
+
+def test_raw_record_decodes_to_waymo_shapes_and_preprocesses(tmp_path):
+    """Phase 16a's writer at one frame: Waymo's five cameras (JPEGs at
+    their sizes), the TOP lidar's 64 x 2650 range image with its per-pixel
+    pose, four 200 x 600 short lidars, flow images of the same shapes and
+    the labels; the preprocessor's rows of it pass phase 16b's check, and
+    a moved point fails it."""
+    import io
+
+    from PIL import Image
+
+    from emernerf_torch.tools import waymo_wire as ww
+    from emernerf_torch.tools.preprocess import WaymoProcessor, parse_flow_range_images
+
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    truth = chip_smoke.write_raw_tfrecord(str(raw / "seg.tfrecord"), n_frames=1)
+    (rec,) = list(ww.read_tfrecords(str(raw / "seg.tfrecord")))
+    frame = ww.parse_frame(rec)
+    sizes = {c.name: (c.width, c.height) for c in frame.context.camera_calibrations}
+    assert sizes == {1: (1920, 1280), 2: (1920, 1280), 3: (1920, 1280), 4: (1920, 886),
+                     5: (1920, 886)}
+    assert {img.name: Image.open(io.BytesIO(img.image)).size for img in frame.images} == sizes
+    ri, _, _, top_pose = ww.parse_range_image_and_camera_projection(frame)
+    shapes = {1: (64, 2650, 4), **{n: (200, 600, 4) for n in (2, 3, 4, 5)}}
+    assert {k: tuple(v[0].shape.dims) for k, v in ri.items()} == shapes
+    assert tuple(top_pose.shape.dims) == (64, 2650, 6)
+    assert {k: v.shape for k, v in parse_flow_range_images(frame).items()} == shapes
+    assert len(frame.context.laser_calibrations[0].beam_inclinations) == 64
+    speeds = sorted(np.hypot(b.metadata.speed_x, b.metadata.speed_y) > 1.0
+                    for b in frame.laser_labels)
+    assert speeds == [False, True, True, True]  # the parked one stands
+    assert sum(b.num_top_lidar_points_in_box == 0 for b in frame.laser_labels) == 1
+
+    WaymoProcessor(str(raw), str(tmp_path / "out"), [0], ["seg"], workers=1).convert_one(0)
+    scene = str(tmp_path / "out" / "000")
+    n = chip_smoke.check_preprocessed(scene, truth)
+    assert n == sum(int((t["range"] > 0).sum()) for t in truth[0].values())
+    mask = np.asarray(Image.open(tmp_path / "out" / "000" / "dynamic_masks" / "000_0.png"))
+    assert mask.shape == (1280, 1920) and mask.any()
+    rows = np.fromfile(f"{scene}/lidar/000.bin", np.float32).reshape(-1, 14)
+    rows[7, 3] += 0.5
+    rows.tofile(f"{scene}/lidar/000.bin")
+    with pytest.raises(SystemExit, match="distances"):
+        chip_smoke.check_preprocessed(scene, truth)
+
+
+def test_hub_model_has_dinov2_vitb14_shapes_and_grid(tmp_path):
+    """Phase 16c's hub model: DINOv2 ViT-B/14's parameter names and shapes
+    (86,580,480 parameters) and a (91, 137) token grid for a 644 x 966
+    input at stride 7 through the port's extractor (by shape arithmetic,
+    the pos-embed interpolation at that size, and a forward at a small
+    input); loaded through _load_model from the torch.hub directory, with
+    the directory restored after."""
+    import importlib.util
+
+    from emernerf_torch.tools import extract_features as xf
+    from emernerf_torch.tools.vit_extractor import ViTFeatureExtractor
+
+    path = chip_smoke.write_hubconf(str(tmp_path), **chip_smoke.DINOV2_VITB14)
+    spec = importlib.util.spec_from_file_location("vitb14_hubconf", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with torch.device("meta"):
+        shapes = {k: tuple(p.shape) for k, p in mod.dinov2_vitb14().named_parameters()}
+    block = {"norm1.weight": (768,), "norm1.bias": (768,), "attn.qkv.weight": (2304, 768),
+             "attn.qkv.bias": (2304,), "attn.proj.weight": (768, 768), "attn.proj.bias": (768,),
+             "ls1.gamma": (768,), "norm2.weight": (768,), "norm2.bias": (768,),
+             "mlp.fc1.weight": (3072, 768), "mlp.fc1.bias": (3072,),
+             "mlp.fc2.weight": (768, 3072), "mlp.fc2.bias": (768,), "ls2.gamma": (768,)}
+    want = {"cls_token": (1, 1, 768), "mask_token": (1, 768), "pos_embed": (1, 1370, 768),
+            "patch_embed.proj.weight": (768, 3, 14, 14), "patch_embed.proj.bias": (768,),
+            "norm.weight": (768,), "norm.bias": (768,),
+            **{f"blocks.{i}.{k}": v for i in range(12) for k, v in block.items()}}
+    assert shapes == want
+    assert sum(int(np.prod(s)) for s in shapes.values()) == 86_580_480
+
+    old = torch.hub.get_dir()
+    torch.hub.set_dir(str(tmp_path))
+    try:
+        model, _, kind = xf._load_model("dinov2_vitb14", None, "cpu")
+    finally:
+        torch.hub.set_dir(old)
+    assert kind == "hub" and torch.hub.get_dir() == old
+    ex = ViTFeatureExtractor(model, "dinov2_vitb14", stride=7, device="cpu")
+    assert ex.num_patches(*chip_smoke.EXTRACT_HW) == chip_smoke.WAYMO_FEAT[:2] == (91, 137)
+    # the forward passes (height, width) as (w, h), as DINOv2's does
+    pe = model.interpolate_pos_encoding(torch.zeros(1, 1 + 91 * 137, 768), *chip_smoke.EXTRACT_HW)
+    assert pe.shape == (1, 1 + 91 * 137, 768)
+    x = torch.randn(1, 3, 42, 56, generator=torch.Generator().manual_seed(0))
+    feat = ex.extract(x, layer=11, facet="key")
+    assert feat.shape == (1, 5, 7, 768) and torch.isfinite(feat).all()

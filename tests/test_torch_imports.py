@@ -35,9 +35,10 @@ from emernerf_torch import config, flagship
 from emernerf_torch.builders import build_dataset_from_cfg
 from emernerf_torch.data import synthetic
 from emernerf_torch.data import utils as data_utils
-from emernerf_torch.data.waymo import delete_features, reduce_features_pca
+from emernerf_torch.data.waymo import reduce_features_pca
 from emernerf_torch.eval import data_preview, metrics, novel, video
 from emernerf_torch.ops.interp import grid_sample_2d
+from emernerf_torch.tools.extract_features import delete_features
 from emernerf_torch.utils import visualization
 from emernerf_torch.flagship import REFERENCE_HASH, flagship_config
 
@@ -76,7 +77,10 @@ def test_every_module_imports_without_jax():
             "emernerf_torch.eval.data_preview", "emernerf_torch.eval.voxel_vis",
             "emernerf_torch.data.waymo", "emernerf_torch.ops.interp",
             "emernerf_torch.eval.occ", "emernerf_torch.ops.sh", "emernerf_torch.data.nuscenes",
-            "emernerf_torch.data.nuscenes_devkit_lite"} <= walked
+            "emernerf_torch.data.nuscenes_devkit_lite", "emernerf_torch.native",
+            "emernerf_torch.tools.preprocess", "emernerf_torch.tools.waymo_wire",
+            "emernerf_torch.tools.scene_lists", "emernerf_torch.tools.extract_features",
+            "emernerf_torch.tools.vit_extractor"} <= walked
 
 
 @pytest.mark.parametrize("tiny", [True, False])

@@ -7,7 +7,7 @@ feature maps and Occ3D files).  Both loaders run the same numpy code, so
 every array is equal exactly: images, masks, poses, intrinsics, lidar,
 feature maps after the PCA and the PCA itself, the splits and the aabb.
 Also: the features of the training batch and of the eval rays, and what
-still raises (missing feature maps).  The loader's numpy
+raises where feature maps are missing (the skip; no card; no hub cache).  The loader's numpy
 helpers are held to the originals in ``test_torch_imports``."""
 
 import os
@@ -155,6 +155,16 @@ def test_missing_feature_maps_raise(scenes, tmp_path):
     cfg.merge_(from_dotlist(_overrides(bare, cams)))
     with pytest.raises(FileNotFoundError, match="skip_feature_extraction"):
         build_dataset_from_cfg(cfg)
+    # without the skip the loader extracts the maps: on the card by default,
+    # and on the CPU from the torch.hub cache, which this one lacks
     cfg.merge_(from_dotlist(["data.pixel_source.skip_feature_extraction=false"]))
-    with pytest.raises(NotImplementedError, match="queue 1, offline preprocessing and feature extraction"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         build_dataset_from_cfg(cfg)
+    old = torch.hub.get_dir()
+    torch.hub.set_dir(str(tmp_path / "empty_hub"))
+    try:
+        with pytest.raises(RuntimeError, match="no torch.hub cache"):
+            build_dataset_from_cfg(cfg, "cpu")
+    finally:
+        torch.hub.set_dir(old)
+    assert not (bare / "000" / "dinov2_vitb14").exists()

@@ -207,6 +207,26 @@ Phases (any failure exits non-zero; nothing is skipped):
      profiled iterations (ms/iteration, busy, idle, peak beside phase
      13's).  The launch counters are zeroed before the CLI run and read
      after the profiled iterations: K1, K2, K3, K5 and K8 must launch.
+  17. data parallelism: the full-width flagship trained by two ranks
+     (parallel.num_devices=2), Trainer in spawned processes rendezvousing
+     on a file.  17a: both ranks on the one card over gloo (collectives
+     staged through host memory), each with 4,096 + 4,096 rays: the
+     explicit step with ZeRO and the bf16 wire (the defaults), 6
+     iterations with the launch counters zeroed before them and read after
+     (K1-K3, K5 and K11 must launch, K8 and K4 must not): finite losses,
+     ms/iteration, the collectives' host time and bytes, peak memory per
+     rank, rank 0's device busy (2 profiled iterations); an error-map
+     refresh; parameters and maps identical across the ranks (float64
+     checksums through all_gather); each routed table's moments hold half
+     its rows.  Then the fp32 wire: ZeRO against replicated after 2
+     iterations with the same gradients fed to both updates (max relative
+     difference < 1e-4), and the implicit path
+     (fp32 all-reduce, K8) in fp32 computation against one process on the
+     same draws: the first iteration's losses within rtol 1e-4.  17b: the
+     same over NCCL on two cards where there are two, else it says why it
+     did not run.  17c: K11's three entry points against their plain
+     versions, bit for bit, at the flagship's parameters and its routed
+     tables' slabs of two ranks (bf16 and fp32 wire, moments, direction).
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
@@ -215,7 +235,8 @@ are those of the training run of its path (phase 5, phase 6 for K4, phase
 7's probe run for P1-P4, phase 9 or 10 for the rows of those profiles'
 grids and K3 shapes, phase 12's runs for the "points" rows of 12b, phase
 13's for the "waymo" rows of 13b, phase 15b's interpolated renders for
-the "interp" and "interp_hash" rows; a K3 forward call past 64 channels
+the "interp" and "interp_hash" rows, phase 17a's explicit run (rank 0)
+for K11's "dp" rows; a K3 forward call past 64 channels
 counts its two kernels).
 The kernels' device times alone (torch.profiler, each kernel's mean over
 its records: K2, K3 forward and backward, K5, P1, P3; for K3 past 64
@@ -3877,6 +3898,464 @@ def phase_raw(dev, counted, zero, waymo_ms, waymo_busy, waymo_peak):
         torch.cuda.empty_cache()
 
 
+# phase 17: data parallelism (emernerf_torch/parallel) on two ranks
+N_DP = 2
+N_DP_WARMUP, N_DP_TIMED = 2, 4  # the explicit run's 6 iterations
+DP_TIMEOUT = 900  # seconds for the ranks of one phase-17 case
+# the fp32 computation of 17a's implicit-against-one-process check
+FP32_DTYPES = ("nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32")
+
+
+def _dp_counted():
+    """(kernels the explicit step launches, kernels it must not launch)."""
+    from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
+    from emernerf_torch.ops.hashgrid import features_minor, hashgrid_encode, hashgrid_encode_bwd
+    from emernerf_torch.ops.stepfuns import (
+        importance_sampling, interlevel_loss_levels, interlevel_loss_levels_bwd)
+    from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_bwd
+    from emernerf_torch.train.optim import (
+        adam_update, apply_direction, spmd_adam_update, zero_slab_update)
+
+    return ((brickgrid_encode, brickgrid_encode_bwd, importance_sampling, composite_along_rays,
+             composite_along_rays_bwd, interlevel_loss_levels, interlevel_loss_levels_bwd,
+             spmd_adam_update, zero_slab_update, apply_direction),
+            (hashgrid_encode, hashgrid_encode_bwd, features_minor, adam_update))
+
+
+def _dp_trainer(group, dev, overrides=()):
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.train.trainer import Trainer
+
+    cfg = flagship_config(overrides=[f"parallel.num_devices={N_DP}", *overrides])
+    return Trainer(cfg, device=dev, group=group)
+
+
+def _losses_of(metrics):
+    return {k: float(v) for k, v in metrics.items() if "loss" in k}
+
+
+def _same_gradients(step, recorded, replay):
+    """Make ``step``'s updates record each branch's gradients into
+    ``recorded`` or, with ``replay``, take the recorded ones in their place
+    (the branch's own backward still runs, its gradients are dropped)."""
+    apply = step._apply_branch
+
+    def branch(state, total, requires_grad, count):
+        total.backward()
+        params = state.params + state.prop_params
+        if replay:
+            for p, g in zip(params, recorded.pop(0)):
+                p.grad = g
+        else:
+            recorded.append([None if p.grad is None else p.grad.clone() for p in params])
+        # a loss with no parameter in its graph: the update reads p.grad
+        return apply(state, torch.zeros((), device=params[0].device, requires_grad=True),
+                     requires_grad, count)
+
+    step._apply_branch = branch
+
+
+def _dp_rank(rank, init, out_dir, backend, device):
+    """One rank of phase 17 (spawned): the explicit step with ZeRO and the
+    bf16 wire (timed, profiled on rank 0, the kernels' launches counted),
+    the fp32 wire with ZeRO against replicated, and the implicit step
+    against one process; writes its results to ``out_dir``."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    from emernerf_torch import kernels
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.parallel import mesh
+    from emernerf_torch.parallel.spmd import SpmdConfig, routing, transposed_params
+    from emernerf_torch.train.optim import adam_update
+    from emernerf_torch.train.trainer import Trainer
+
+    group, dev = mesh.init_data_parallel(N_DP, device, backend=backend, init_method=init,
+                                         rank=rank)
+    kernels.load()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counted, zero = _dp_counted()
+    res = dict(rank=rank, device=str(dev), backend=dist.get_backend(group))
+
+    # the explicit step: ZeRO, bf16 wire and direction (the defaults)
+    t = _dp_trainer(group, dev)
+    params = t.state.params + t.state.prop_params
+    res["params"] = sum(p.numel() for p in params)
+    res["rays_per_rank"] = [t.ray_batch_size // N_DP] * 2
+    for fn in counted + zero:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    history = [t.train_iteration(i) for i in range(N_DP_WARMUP)]
+    torch.cuda.synchronize(dev)
+    mesh.traffic.reset()
+    t0 = time.perf_counter()
+    history += [t.train_iteration(i) for i in range(N_DP_WARMUP, N_DP_WARMUP + N_DP_TIMED)]
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / N_DP_TIMED
+    res["launches"] = {fn.__name__: fn.launches for fn in counted + zero}
+    res.update(ms=ms, collective_ms=mesh.traffic.seconds * 1e3 / N_DP_TIMED,
+               wire_bytes=mesh.traffic.bytes / N_DP_TIMED,
+               collectives=mesh.traffic.calls / N_DP_TIMED,
+               peak=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               losses=[_losses_of(m) for m in history])
+    step = N_DP_WARMUP + N_DP_TIMED
+    if rank == 0:
+        rows, res["busy"] = profile_train(t, step, ms, "profile_train_dp.json")
+        res["copies"] = sum(x for k, x, _ in rows if k.startswith("Memcpy")) / 2
+    else:
+        for i in range(2):
+            t.train_iteration(step + i)
+    # the error-map refresh renders sharded chunks: every rank holds the
+    # same maps after it
+    t._refresh_error_map()
+    sums = torch.stack([p.detach().double().sum() for p in params]
+                       + [t.scene.pixel_error_map.double().sum()])
+    every = mesh.all_gather(sums[None], group)
+    res["identical"] = bool(torch.equal(every[0], every[1]))
+    z = t.state.zero
+    res["shards"] = [(tuple(m.shape), tuple(p.t().shape if tr else p.shape))
+                     for params_, adam, route in ((t.state.params, t.state.opt_state, z.model),
+                                                  (t.state.prop_params, t.state.prop_opt_state,
+                                                   z.prop))
+                     for p, m, big, tr in zip(params_, adam.mu, route.big, route.transposed)
+                     if big]
+    # the leaves the JAX routing rule picks at the default zero_min_elems,
+    # the model's and the proposal nets' (JAX layout)
+    res["expected_shards"] = []
+    for ps, mods in ((t.state.params, (t.state.model,)),
+                     (t.state.prop_params, t.state.prop_models)):
+        r = routing(ps, transposed_params(*mods), SpmdConfig(zero=True), N_DP)
+        res["expected_shards"].append([tuple(p.t().shape if tr else p.shape)
+                                       for p, tr, big in zip(ps, r.transposed, r.big) if big])
+    del t, params, history
+    torch.cuda.empty_cache()
+
+    # fp32 wire: ZeRO against replicated over 2 iterations.  The check feeds
+    # both updates the same gradients (the ZeRO run's, replayed into the
+    # replicated one); two more replicated runs, each on its own gradients,
+    # witness how far independent runs of one layout drift apart
+    recorded, snaps = [], {}
+    for name, zero_on, replay in (("zero", True, False), ("replicated", False, True),
+                                  ("replicated_own", False, None),
+                                  ("replicated_own_again", False, None)):
+        t = _dp_trainer(group, dev, ["parallel.grad_psum_dtype=float32",
+                                     "parallel.direction_dtype=float32",
+                                     f"parallel.zero={str(zero_on).lower()}"])
+        if replay is not None:
+            _same_gradients(t.train_step, recorded, replay=replay)
+        for i in range(2):
+            t.train_iteration(i)
+        snaps[name] = [p.detach().clone() for p in t.state.params + t.state.prop_params]
+        del t
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return max(float(((x - y).abs() / x.abs().clamp_min(1e-3)).max())
+                   for x, y in zip(snaps[a], snaps[b]))
+
+    res["zero_vs_replicated"] = rel("zero", "replicated")
+    res["independent"] = {
+        "replicated vs replicated": rel("replicated_own", "replicated_own_again"),
+        "ZeRO vs replicated": rel("zero", "replicated_own")}
+    del snaps, recorded
+
+    # the implicit step against the one-process step on the same draws, in
+    # fp32; K8 updates
+    adam_update.launches = 0
+    t = _dp_trainer(group, dev, ["parallel.explicit_collectives=false", *FP32_DTYPES])
+    res["implicit"] = _losses_of(t.train_iteration(0))
+    res["implicit_k8"] = adam_update.launches
+    del t
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = Trainer(flagship_config(overrides=list(FP32_DTYPES)), device=dev)
+        res["single"] = _losses_of(one.train_iteration(0))
+        del one
+        torch.cuda.empty_cache()
+    dist.barrier(group)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(backend, device):
+    """Phase 17's two ranks in spawned processes; their results."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="emt_dp_")
+    try:
+        ctx = mp.start_processes(_dp_rank, args=("file://" + os.path.join(tmp, "rendezvous"), tmp,
+                                                 backend, device),
+                                 nprocs=N_DP, join=False, start_method="spawn")
+        t0 = time.perf_counter()
+        try:
+            while not ctx.join(timeout=10):
+                if time.perf_counter() - t0 > DP_TIMEOUT:
+                    fail(f"phase 17: the ranks ran past {DP_TIMEOUT} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        out = []
+        for r in range(N_DP):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_data_parallel(dev, card_line, train_ms, busy5, peak5):
+    """Phase 17: the flagship trained by two data-parallel ranks; returns
+    rank 0's results (launches of the explicit run among them)."""
+    print(f"phase 17: data-parallel training of the full-width flagship by {N_DP} ranks "
+          "(parallel.num_devices=2; Trainer in spawned processes, a file rendezvous)")
+    # gloo binds to an interface of this host; the machine may have only
+    # its loopback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cases = [("17a", "gloo", str(dev),
+              "both ranks on the one card, gloo (NCCL refuses two ranks on one device); "
+              "every collective staged through host memory")]
+    if torch.cuda.device_count() >= N_DP:
+        cases.append(("17b", "nccl", "cuda", f"rank r on cuda:r, NCCL"))
+    else:
+        print(f"  17b (two cards over NCCL): not run: torch.cuda.device_count() = "
+              f"{torch.cuda.device_count()}, it needs {N_DP}")
+    counted, zero = _dp_counted()
+    out = None
+    for label, backend, device, how in cases:
+        t0 = time.perf_counter()
+        res = _spawn_ranks(backend, device)
+        r0 = res[0]
+        print(f"  {label}: {how}; {r0['params']} params per rank, {r0['rays_per_rank'][0]} pixel + "
+              f"{r0['rays_per_rank'][1]} lidar rays per rank and iteration; "
+              f"{time.perf_counter() - t0:.1f} s")
+        for r in res:
+            print(f"    rank {r['rank']} on {r['device']} ({r['backend']}): {r['ms']:.2f} ms/iteration "
+                  f"({N_DP_TIMED} after {N_DP_WARMUP}), collectives {r['collective_ms']:.2f} ms "
+                  f"({r['collective_ms'] / r['ms']:.1%} of it; {r['collectives']:g} calls, "
+                  f"{r['wire_bytes'] / 1e6:.1f} MB handed to them per iteration), peak device "
+                  f"memory {r['peak']:.2f} GiB on {card_line}")
+        print(f"    rank 0 device busy {r0['busy']:.2f} ms per iteration ({r0['busy'] / r0['ms']:.1%} "
+              f"of its {r0['ms']:.2f} ms), of which the staging copies (Memcpy) "
+              f"{r0['copies']:.2f} ms and the kernels {r0['busy'] - r0['copies']:.2f} ms; phase 5 (one process, 8,192 + 8,192 rays): "
+              f"{train_ms:.2f} ms/iteration, busy {busy5:.2f} ms, peak {peak5:.2f} GiB; two ranks "
+              "share one card here, so the per-rank time is no scaling number")
+        for r in res:
+            bad = [(i, k) for i, m in enumerate(r["losses"]) for k, v in m.items()
+                   if not math.isfinite(v)]
+            if bad or len(r["losses"]) != N_DP_WARMUP + N_DP_TIMED:
+                fail(f"phase {label}: rank {r['rank']}: non-finite losses {bad[:4]}")
+        print(f"    losses, rank 0, iteration {N_DP_WARMUP + N_DP_TIMED - 1}: {r0['losses'][-1]}")
+        if not all(r["identical"] for r in res):
+            fail(f"phase {label}: the ranks' parameters or error maps differ (checksums)")
+        print("    parameters and refreshed error maps identical across the ranks (float64 "
+              "checksums through all_gather)")
+        for shard, full in r0["shards"]:
+            if shard[0] * N_DP != full[0] or tuple(shard[1:]) != tuple(full[1:]):
+                fail(f"phase {label}: a moment shard {shard} of a {full} leaf")
+        print(f"    ZeRO-routed leaves (moment shard / leaf, JAX layout): "
+              f"{[(tuple(a), tuple(b)) for a, b in r0['shards']]}")
+        model_big, prop_big = ([tuple(x) for x in xs] for xs in r0["expected_shards"])
+        if [tuple(b) for _, b in r0["shards"]] != model_big + prop_big or not (
+                model_big and prop_big):
+            fail(f"phase {label}: the routed leaves are not the JAX rule's: model "
+                 f"{model_big}, proposal nets {prop_big}")
+        print(f"    the routed leaves are the JAX rule's: {len(model_big)} of the model, "
+              f"{len(prop_big)} of the proposal nets")
+        _check_launches(r0["launches"], {fn.__name__ for fn in zero}, "explicit data-parallel run")
+        print(f"    launch counts, rank 0, the explicit run's {N_DP_WARMUP + N_DP_TIMED} iterations: "
+              f"{r0['launches']}")
+        diff = r0["zero_vs_replicated"]
+        print(f"    fp32 wire, 2 iterations, the same gradients fed to both: ZeRO against "
+              f"replicated max relative param difference {diff:.3e} (bound 1e-4); runs on "
+              f"their own gradients: {r0['independent']}")
+        if not diff < 1e-4:
+            fail(f"phase {label}: ZeRO and replicated differ by {diff:.3e}")
+        single = r0["single"]
+        for r in res:
+            for k, v in single.items():
+                got = r["implicit"][k]
+                if not abs(got - v) <= 1e-4 * abs(v) + 1e-7:
+                    fail(f"phase {label}: implicit {k} {got} against one process {v}")
+        print(f"    implicit path (fp32 all-reduce, K8: {r0['implicit_k8']} launches), fp32 "
+              f"computation, first iteration's losses against one process on the same draws "
+              f"(rtol 1e-4): {r0['implicit']} vs {single}")
+        if r0["implicit_k8"] <= 0:
+            fail(f"phase {label}: the implicit path did not launch K8")
+        out = out or r0
+    print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_dp_kernels(dev, entries):
+    """Phase 17c: K11 against its plain versions at the flagship's shapes:
+    the replicated update over every parameter (fp32 and bf16 moments), the
+    ZeRO slab step at each routed table's slab of two ranks (bf16 and fp32
+    wire; bf16 moments and direction, and fp32 ones at the fused grid's
+    slab) and the gathered direction's update (bf16 and fp32)."""
+    from emernerf_torch.flagship import build_flagship
+    from emernerf_torch.parallel.spmd import SpmdConfig, routing, transposed_params
+    from emernerf_torch.train.optim import (
+        apply_direction, apply_direction_ref, make_adam, spmd_adam_update, spmd_adam_update_ref,
+        zero_slab_update, zero_slab_update_ref)
+
+    print("phase 17c: K11 (the data-parallel Adam) vs plain versions at the flagship's shapes")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(17)
+    _, _, model, props, _ = build_flagship(device=dev, seed=0)
+    params = [p.detach() for m in (model, *props) for p in m.parameters()]
+    route = routing(params, transposed_params(model, *props), SpmdConfig(zero=True), N_DP)
+    del model, props
+    adam = make_adam(1e-5)
+    h = adam.hyper(4, 0.005)
+    mom = adam.init(params)
+    for m_, v_ in zip(mom.mu, mom.nu):
+        m_.copy_(torch.randn(m_.shape, device=dev, generator=g) * 1e-3)
+        v_.copy_(torch.rand(v_.shape, device=dev, generator=g) * 1e-6)
+    replaces = "emernerf_tpu/parallel/spmd.py:96"
+
+    def same(tag, pairs):
+        mx = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+        print(f"  {tag}: max_abs_err={mx:.3e} (tolerance 0: bit for bit)")
+        if mx != 0.0:
+            fail(f"{tag}: kernel and plain version differ")
+        return mx
+
+    # (a) every parameter, replicated
+    gr = [torch.randn(p.shape, device=dev, generator=g) * 1e-3 for p in params]
+    runs = []
+    for fn in (spmd_adam_update, spmd_adam_update_ref):
+        ps, ms_, vs = ([x.clone() for x in xs] for xs in (params, mom.mu, mom.nu))
+        for p, g_, m_, v_ in zip(ps, gr, ms_, vs):
+            fn(p, g_, m_, v_, h)
+        runs.append((ps, ms_, vs))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params)
+    tag = f"spmd_adam_update[{len(params)} tensors,{n} elements,bf16 moments for >=2^20]"
+    mx = same(tag, [(a, b) for xs, ys in zip(*runs) for a, b in zip(xs, ys)])
+
+    def loop(fn, ps, ms_, vs):
+        def go():
+            for p, g_, m_, v_ in zip(ps, gr, ms_, vs):
+                fn(p, g_, m_, v_, h)
+        return go
+
+    n_bytes = sum(nbytes(p, g_, m_, v_) + nbytes(p, m_, v_)
+                  for p, g_, m_, v_ in zip(params, gr, mom.mu, mom.nu))
+    ms = cuda_ms(loop(spmd_adam_update, *runs[0]), 5)
+    plain_ms = cuda_ms(loop(spmd_adam_update_ref, *runs[1]), 3)
+    del runs
+    # the library's fused Adam (L2 weight decay before the moments) on a
+    # copy of the params, as K8's row: its moments are fp32, where stored
+    # and unrounded moments are one, so it computes this function for the
+    # fp32-moment leaves and moves 4 bytes more per table element
+    lib_params = [p.clone() for p in params]
+    for p, g_ in zip(lib_params, gr):
+        p.grad = g_
+    lib_opt = torch.optim.Adam(lib_params, lr=-h.neg_lr, betas=(0.9, 0.99), eps=1e-15,
+                               weight_decay=1e-5, fused=True)
+    library_ms = cuda_ms(lib_opt.step, 5)
+    add_entry(entries, tag, "adam.cu", replaces, spmd_adam_update, mx, ms, plain_ms, n_bytes,
+              16.0 * n, library_ms=library_ms, path="dp")
+    del gr, lib_params, lib_opt
+    torch.cuda.empty_cache()
+
+    # (b) the ZeRO slabs of the routed tables, rank 0's rows
+    big = [i for i, b in enumerate(route.big) if b]
+    slabs = [params[i][:params[i].shape[0] // N_DP] for i in big]
+    fused = max(range(len(slabs)), key=lambda j: slabs[j].numel())
+    cases = [(torch.bfloat16, torch.bfloat16, torch.bfloat16, range(len(slabs))),
+             (torch.float32, torch.bfloat16, torch.bfloat16, range(len(slabs))),
+             (torch.float32, torch.float32, torch.float32, [fused]),
+             (torch.bfloat16, torch.float32, torch.float32, [fused])]
+    dirs = {}
+    for wire, moments, direction, which in cases:
+        which = list(which)
+        ins = [((torch.randn(slabs[j].shape, device=dev, generator=g) * 1e-2).to(wire),
+                (torch.randn(slabs[j].shape, device=dev, generator=g) * 1e-3).to(moments),
+                (torch.rand(slabs[j].shape, device=dev, generator=g) * 1e-6).to(moments))
+               for j in which]
+        outs = []
+        for fn in (zero_slab_update, zero_slab_update_ref):
+            res = []
+            for j, (w, m_, v_) in zip(which, ins):
+                m2, v2 = m_.clone(), v_.clone()
+                d = torch.empty(slabs[j].shape, dtype=direction, device=dev)
+                fn(w, slabs[j], m2, v2, d, N_DP, h)
+                res += [m2, v2, d]
+            outs.append(res)
+        torch.cuda.synchronize()
+        dirs.setdefault(direction, [outs[0][3 * k + 2] for k in range(len(which))])
+        n = sum(slabs[j].numel() for j in which)
+        name = lambda t: str(t).split(".")[-1]  # noqa: E731
+        tag = (f"zero_slab_update[{len(which)} slabs,{n} elements,wire {name(wire)},moments "
+               f"{name(moments)},direction {name(direction)}]")
+        mx = same(tag, list(zip(*outs)))
+
+        def slab_loop(fn, res):
+            def go():
+                for k, (j, (w, _, _)) in enumerate(zip(which, ins)):
+                    fn(w, slabs[j], res[3 * k], res[3 * k + 1], res[3 * k + 2], N_DP, h)
+            return go
+
+        n_bytes = sum(nbytes(w, slabs[j], m_, v_) + nbytes(m_, v_, d)
+                      for j, (w, m_, v_), d in zip(which, ins, outs[0][2::3]))
+        add_entry(entries, tag, "adam.cu", "emernerf_tpu/parallel/spmd.py:127",
+                  zero_slab_update, mx, cuda_ms(slab_loop(zero_slab_update, outs[0]), 5),
+                  cuda_ms(slab_loop(zero_slab_update_ref, outs[1]), 3), n_bytes, 16.0 * n,
+                  path="dp")
+        del ins, outs
+        torch.cuda.empty_cache()
+
+    # (c) the gathered direction applied to each routed table
+    for direction in (torch.bfloat16, torch.float32):
+        full = [torch.cat([d] * N_DP) for d in dirs[direction]]
+        targets = [params[i] for i in big] if len(full) == len(big) else [params[big[fused]]]
+        outs = []
+        for fn in (apply_direction, apply_direction_ref):
+            ps = [p.clone() for p in targets]
+            for p, d in zip(ps, full):
+                fn(p, d, h.neg_lr)
+            outs.append(ps)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in targets)
+        tag = f"apply_direction[{len(targets)} tables,{n} elements,direction {str(direction)[6:]}]"
+        mx = same(tag, list(zip(*outs)))
+        # the library's call for the same function: p += -lr * dir in fp32
+        lib = [p.clone() for p in targets]
+        for p, d in zip(lib, full):
+            p.add_(d, alpha=h.neg_lr)
+        lib_err = max(float((a - b).abs().max()) for a, b in zip(lib, outs[0]))
+        print(f"  {tag}: library p.add_(dir, alpha=-lr) against the kernel: "
+              f"max_abs_err={lib_err:.3e}")
+
+        def apply_loop(fn, ps):
+            def go():
+                for p, d in zip(ps, full):
+                    fn(p, d, h.neg_lr)
+            return go
+
+        def library_loop():
+            for p, d in zip(lib, full):
+                p.add_(d, alpha=h.neg_lr)
+
+        n_bytes = sum(nbytes(p, d) + nbytes(p) for p, d in zip(targets, full))
+        add_entry(entries, tag, "adam.cu", "emernerf_tpu/parallel/spmd.py:137", apply_direction,
+                  mx, cuda_ms(apply_loop(apply_direction, outs[0]), 5),
+                  cuda_ms(apply_loop(apply_direction_ref, outs[1]), 3), n_bytes, 2.0 * n,
+                  library_ms=cuda_ms(library_loop, 5), path="dp")
+        del full, outs, lib
+    del params, mom, slabs, dirs
+    torch.cuda.empty_cache()
+    print(f"  phase 17c took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3987,6 +4466,9 @@ def main():
     phase_sh(dev)
     # raw logs to a trained model: preprocessing, on-demand extraction, the CLI
     raw = phase_raw(dev, brick + shared, hashed, waymo[3], waymo[4], waymo[5])
+    # data parallelism: two ranks, then K11 alone
+    dp = phase_data_parallel(dev, card_line, ms_iter, busy5, peak)
+    phase_dp_kernels(dev, entries)
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):
@@ -3995,7 +4477,8 @@ def main():
     # launches: the counts of the training run of each kernel's path
     runs = {"brick": launches, "hash": hash_launches, "probe": probe_launches,
             "dynamic": dyn[0], "reference_brick": ref[0], "points": point_launches,
-            "waymo": waymo[0], "interp": interp_launches, "interp_hash": interp_hash_launches}
+            "waymo": waymo[0], "interp": interp_launches, "interp_hash": interp_hash_launches,
+            "dp": dp["launches"]}
     report = [dict({k: v for k, v in e.items() if k not in ("fn", "path")},
                    launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
@@ -4022,6 +4505,10 @@ def main():
           f"convert_one {raw[3]:.3f} s per frame; extraction {raw[4]:.3f} s per image, peak "
           f"{raw[5]:.2f} GiB; train {raw[6]:.2f} ms/iteration, busy {raw[7]:.2f} ms (idle "
           f"{1 - raw[7] / raw[6]:.1%}), peak {raw[8]:.2f} GiB on {card_line}")
+    print(f"data-parallel (2 ranks on one card, gloo, ZeRO, bf16 wire): {dp['ms']:.2f} "
+          f"ms/iteration per rank, rank 0 busy {dp['busy']:.2f} ms, collectives "
+          f"{dp['collective_ms'] / dp['ms']:.1%} of the iteration, {dp['wire_bytes'] / 1e6:.1f} MB "
+          f"to the collectives per iteration, peak {dp['peak']:.2f} GiB per rank on {card_line}")
     for label in ("off", "on"):
         ms, busy, pk, k1 = remat[label]
         print(f"remat {label}: train {ms:.2f} ms/iteration, busy {busy:.2f} ms, peak {pk:.2f} GiB, "

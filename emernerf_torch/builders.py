@@ -11,7 +11,8 @@ that.  A knob that the port does not run raises instead of being ignored:
 formulation knob (``perf.time_pair=false`` is taken: unpaired 4D brick
 rows, two gathers per (point, level), as the reference-semantics profile
 asks; the hash grid's rows are never paired), the flow branch without the
-dynamic branch and ``optim.fused_lidar_branch`` (left behind).  Taken as
+dynamic branch and ``optim.fused_lidar_branch`` (left behind), and an unknown ``parallel.*``
+key or value.  Taken as
 in the JAX package: spherical-harmonics directions
 (``nerf.model.head.direction_encoding=sh``), the eval-time temporal
 interpolation of the flow (``enable_temporal_interpolation``, anchored at
@@ -84,6 +85,23 @@ def validate_cfg(cfg: ConfigNode) -> None:
     if head.enable_flow_branch and not head.enable_dynamic_branch:
         # the fields use the flow only inside the dynamic branch
         raise NotImplementedError("the flow branch needs the dynamic branch")
+    _validate_parallel(cfg.get("parallel", None) or {})
+
+
+# parallel.*: the values each key takes (num_devices: any count >= 0)
+_PARALLEL = {"explicit_collectives": (True, False), "zero": (True, False),
+             "grad_psum_dtype": ("float32", "bfloat16"),
+             "direction_dtype": ("float32", "bfloat16")}
+
+
+def _validate_parallel(par) -> None:
+    for k, v in par.items():
+        if k == "num_devices":
+            if isinstance(v, bool) or not isinstance(v, int) or v < 0:
+                raise ValueError(f"parallel.num_devices={v!r}: a count >= 0")
+        elif k not in _PARALLEL or type(v) is not type(_PARALLEL[k][0]) or v not in _PARALLEL[k]:
+            raise ValueError(f"parallel.{k}={v!r}: "
+                             + (f"one of {_PARALLEL[k]}" if k in _PARALLEL else "unknown key"))
 
 
 def make_grid_spec(backend: str, n_input_dims: int, n_levels: int, base_resolution: int,

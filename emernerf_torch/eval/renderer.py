@@ -6,7 +6,9 @@ the top-K samples per ray, collects the per-ray maps and computes PSNR/SSIM
 (+ dynamic- and static-masked variants) and, with the feature head, the
 PSNR of the lifted features against the feature maps (``feat_psnr``,
 ``masked_feat_psnr``) with the numpy metrics of
-``emernerf_torch/eval/metrics.py``.
+``emernerf_torch/eval/metrics.py``.  With a process group each rank
+renders its slice of every chunk and the chunk's outputs are gathered on
+every rank (``parallel/mesh.py:shard_render_chunk``).
 """
 
 from __future__ import annotations
@@ -15,9 +17,11 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from emernerf_torch import resolve_device
 from emernerf_torch.eval import metrics
+from emernerf_torch.parallel import mesh
 from emernerf_torch.render.renderer import render_ray_batch
 
 # per-ray outputs worth reshaping into image maps
@@ -51,10 +55,18 @@ class ImageRenderer:
         return_decomposition: bool = False,
         sample_topk: int = 0,
         device="cuda",
+        group=None,
     ):
         """``sample_topk``: shade only the K samples per ray that the last
         proposal net ranks highest (``render.eval_sample_topk``; exact top-K,
-        no Gumbel noise); 0 shades every sample."""
+        no Gumbel noise); 0 shades every sample.  ``group``: shard each
+        chunk over its ranks (``chunk_size`` must divide by their count;
+        every rank calls the renderer with the same rays)."""
+        if group is not None and chunk_size % dist.get_world_size(group):
+            raise ValueError(f"chunk_size {chunk_size} not divisible by the "
+                             f"{dist.get_world_size(group)} ranks")
+        self._chunk = self.render_chunk if group is None else mesh.shard_render_chunk(
+            self.render_chunk, group)
         self.model = model
         self.prop_models = list(prop_models)
         self.chunk_size = chunk_size
@@ -94,7 +106,7 @@ class ImageRenderer:
         outs: List[Dict[str, np.ndarray]] = []
         for i in range(n_chunks):
             sl = {k: v[i * chunk:(i + 1) * chunk].to(self.device) for k, v in padded.items()}
-            out = self.render_chunk(sl, is_lidar)
+            out = self._chunk(sl, is_lidar)
             outs.append({k: v.cpu().numpy() for k, v in out.items()})
         return {k: np.concatenate([o[k] for o in outs], axis=0)[:n] for k in outs[0]}
 

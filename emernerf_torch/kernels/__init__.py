@@ -27,7 +27,7 @@ LIB_NAME = "libemernerf_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (all return cudaError_t as int)
 _SIGNATURES = {
     # table, table_is_bf16, compute_is_bf16, positions, out, n_points,
@@ -56,6 +56,13 @@ _SIGNATURES = {
     "emt_interlevel_backward": (_P, _I, _P, _L, _L, _I, _P),
     # param, grad|NULL, mu, nu, moments_bf16, n, hyper (host struct), stream
     "emt_adam": (_P, _P, _P, _P, _I, _L, _P, _P),
+    # K11: param, grad|NULL, mu, nu, moments_bf16, n, hyper (host struct), stream
+    "emt_spmd_adam": (_P, _P, _P, _P, _I, _L, _P, _P),
+    # slab (wire dtype), wire_bf16, p_local (fp32), mu, nu, moments_bf16,
+    # dir_out, dir_bf16, n, n_ranks, hyper (host struct), stream
+    "emt_zero_slab": (_P, _I, _P, _P, _P, _I, _P, _I, _L, _F, _P, _P),
+    # param, dir, dir_bf16, n, neg_lr, stream
+    "emt_apply_direction": (_P, _P, _I, _L, _F, _P),
     # table (F, rows), elem_bytes (2 or 4), out (rows, F), rows, F, stream
     "emt_hashgrid_features_minor": (_P, _I, _P, _L, _I, _P),
     # table (L*T, F) features-minor, table_is_bf16, positions, out, n_points,

@@ -56,15 +56,17 @@ def normalize_depth(depth, max_depth: float = 80.0):
 
 
 def depth_loss(pred_depth, gt_depth, loss_type: str = "l2", coef: float = 1.0,
-               max_depth: float = 80.0):
+               max_depth: float = 80.0, denominator: Optional[torch.Tensor] = None):
     """Normalized depth loss, averaged over the valid returns
-    (0.01 < gt < max_depth)."""
+    (0.01 < gt < max_depth); ``denominator`` replaces this batch's
+    (clamped) valid count."""
     pred = pred_depth.reshape(-1)
     gt = gt_depth.reshape(-1)
     valid = ((gt > 0.01) & (gt < max_depth)).to(pred.dtype)
     err = _elementwise(normalize_depth(pred, max_depth),
                        normalize_depth(gt, max_depth), loss_type)
-    return (err * valid).sum() / valid.sum().clamp_min(1.0) * coef
+    den = valid.sum().clamp_min(1.0) if denominator is None else denominator
+    return (err * valid).sum() / den * coef
 
 
 def dirac_delta_approx(x, mu: float = 0.0, sigma: float = 1e-5):
@@ -76,11 +78,11 @@ def dirac_delta_approx(x, mu: float = 0.0, sigma: float = 1e-5):
 
 
 def line_of_sight_loss(gt_depth, weights, t_vals, epsilon: float, coef: float = 0.1,
-                       coef_decay: float = 1.0):
+                       coef_decay: float = 1.0, return_share: Optional[torch.Tensor] = None):
     """Line-of-sight loss: weights to zero in the free space before the lidar
     return and toward a narrow Gaussian around it.  Empty and near terms are
     global means scaled by the fraction of rays with a return, as in the
-    reference."""
+    reference; ``return_share`` replaces this batch's fraction."""
     gt = gt_depth.reshape(-1)[:, None]
     t_vals = t_vals.detach()
     depth_mask = (gt[:, 0] > 0.0).to(weights.dtype)
@@ -90,6 +92,8 @@ def line_of_sight_loss(gt_depth, weights, t_vals, epsilon: float, coef: float = 
     sigma = float(np.float32(epsilon) / np.float32(3.0))
     near_loss = ((weights - dirac_delta_approx(t_vals - gt, sigma=sigma)).square()
                  * near_mask).sum(-1).mean()
+    if return_share is not None:
+        return (empty_loss + near_loss) * return_share * coef * coef_decay
     sight = (empty_loss + near_loss) * depth_mask
     return sight.mean() * coef * coef_decay
 
@@ -114,15 +118,18 @@ def dynamic_regularization_loss(dynamic_density, static_density=None,
 
 def cycle_consistency_loss(forward_flow, forward_pred_backward_flow, backward_flow,
                            backward_pred_forward_flow, coef: float = 0.01,
-                           mask: Optional[torch.Tensor] = None):
+                           mask: Optional[torch.Tensor] = None,
+                           denominator: Optional[torch.Tensor] = None):
     """Warped-point flow should invert the original flow; ``mask`` (from the
     top-K temporal aggregation) restricts the mean to the samples whose
-    cycle predictions were computed."""
+    cycle predictions were computed; ``denominator`` replaces the mask's
+    (clamped) count of terms."""
     per = 0.5 * ((forward_flow.detach() + forward_pred_backward_flow) ** 2
                  + (backward_flow.detach() + backward_pred_forward_flow) ** 2)
     if mask is not None:
         m = mask[..., None]
-        loss = (per * m).sum() / (m.sum() * per.shape[-1]).clamp_min(1.0)
+        den = (m.sum() * per.shape[-1]).clamp_min(1.0) if denominator is None else denominator
+        loss = (per * m).sum() / den
     else:
         loss = per.mean()
     return loss * coef

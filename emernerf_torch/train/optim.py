@@ -7,6 +7,10 @@ more (the grid tables: four in the brick flagship, five with separate
 dynamic and flow grids); every other param keeps fp32 moments.  The
 update runs per parameter tensor in the K8 kernel (``kernels/csrc/adam.cu``)
 on the card and in :func:`adam_update_ref` on the CPU.  No ``torch.optim``.
+The data-parallel step of ``parallel/spmd.py`` takes its three updates from
+the K11 kernels of the same file (:func:`spmd_adam_update`,
+:func:`zero_slab_update`, :func:`apply_direction`), whose direction reads
+the unrounded fp32 moments, as ``emernerf_tpu/parallel/spmd.py`` does.
 
 The learning rate is applied separately so the pixel and lidar updates of
 one iteration can use different scheduler counts (the reference steps its
@@ -76,6 +80,129 @@ def adam_update(param: torch.Tensor, grad: Optional[torch.Tensor], mu: torch.Ten
 
 
 adam_update.launches = 0
+
+
+def _scalars(p: torch.Tensor, h: AdamHyper):
+    # divide by device scalars: a Python-number divisor may become a
+    # multiplication by its reciprocal, which rounds differently
+    return p.new_full((), h.c1), p.new_full((), h.c2)
+
+
+def spmd_adam_update_ref(param: torch.Tensor, grad: Optional[torch.Tensor], mu: torch.Tensor,
+                         nu: torch.Tensor, h: AdamHyper) -> None:
+    """Plain version of :func:`spmd_adam_update`, op for op the kernel's."""
+    p = param.detach()
+    g = torch.zeros_like(p) if grad is None else grad
+    g = g + p * h.weight_decay
+    m = mu.float() * h.b1 + g * h.one_minus_b1
+    v = nu.float() * h.b2 + (g * h.one_minus_b2) * g
+    mu.copy_(m)
+    nu.copy_(v)
+    c1, c2 = _scalars(p, h)
+    p.copy_(p + ((m / c1) / (torch.sqrt(v / c2) + h.eps)) * h.neg_lr)
+
+
+def zero_slab_update_ref(slab: torch.Tensor, p_local: torch.Tensor, mu: torch.Tensor,
+                         nu: torch.Tensor, dir_out: torch.Tensor, n_ranks: int,
+                         h: AdamHyper) -> None:
+    """Plain version of :func:`zero_slab_update`, op for op the kernel's."""
+    g = slab.float() / p_local.new_full((), float(n_ranks))
+    g = g + p_local * h.weight_decay
+    m = mu.float() * h.b1 + g * h.one_minus_b1
+    v = nu.float() * h.b2 + (g * h.one_minus_b2) * g
+    mu.copy_(m)
+    nu.copy_(v)
+    c1, c2 = _scalars(p_local, h)
+    dir_out.copy_((m / c1) / (torch.sqrt(v / c2) + h.eps))
+
+
+def apply_direction_ref(param: torch.Tensor, direction: torch.Tensor, neg_lr: float) -> None:
+    """Plain version of :func:`apply_direction`."""
+    p = param.detach()
+    p.copy_(p + direction.float() * neg_lr)
+
+
+def _check_moments(name, ref: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor) -> None:
+    if mu.dtype != nu.dtype or mu.shape != ref.shape or nu.shape != ref.shape:
+        raise ValueError(f"{name}: two moments of one dtype and of the shape {tuple(ref.shape)}")
+    if mu.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: moments fp32 or bf16, not {mu.dtype}")
+
+
+def spmd_adam_update(param: torch.Tensor, grad: Optional[torch.Tensor], mu: torch.Tensor,
+                     nu: torch.Tensor, h: AdamHyper) -> None:
+    """In-place Adam step of a replicated fp32 param whose direction reads the
+    unrounded fp32 moments (K11; ``grad`` None is a zero gradient).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    name = "spmd_adam_update"
+    if param.dtype != torch.float32:
+        raise ValueError(f"{name}: fp32 param, not {param.dtype}")
+    _check_moments(name, param, mu, nu)
+    if kernels.dispatch_device(name, param) == "cpu":
+        with torch.no_grad():
+            spmd_adam_update_ref(param, grad, mu, nu, h)
+        return
+    extra = () if grad is None else (grad,)
+    kernels.require_cuda_inputs(name, param, mu, nu, *extra)
+    err = kernels.load().emt_spmd_adam(
+        param.data_ptr(), None if grad is None else grad.data_ptr(), mu.data_ptr(),
+        nu.data_ptr(), int(mu.dtype == torch.bfloat16), param.numel(), ctypes.addressof(h),
+        kernels.stream_ptr(param.device))
+    kernels.check(err, name)
+    spmd_adam_update.launches += 1
+
+
+def zero_slab_update(slab: torch.Tensor, p_local: torch.Tensor, mu: torch.Tensor,
+                     nu: torch.Tensor, dir_out: torch.Tensor, n_ranks: int,
+                     h: AdamHyper) -> None:
+    """This rank's Adam step of a ZeRO-routed leaf (K11): the reduce-scattered
+    gradient sum ``slab`` (fp32 or bf16, the wire's dtype) over ``n_ranks``,
+    plus the L2 term of the param rows ``p_local`` (fp32), updates the moment
+    shard in place and writes the direction, rounded to ``dir_out``'s dtype
+    (fp32 or bf16).  CPU tensors take the plain version."""
+    name = "zero_slab_update"
+    if p_local.dtype != torch.float32 or slab.shape != p_local.shape:
+        raise ValueError(f"{name}: an fp32 param slab of the gradient slab's shape")
+    if slab.dtype not in (torch.float32, torch.bfloat16) or dir_out.dtype not in (
+            torch.float32, torch.bfloat16) or dir_out.shape != slab.shape:
+        raise ValueError(f"{name}: fp32 or bf16 gradient and direction slabs of one shape")
+    _check_moments(name, slab, mu, nu)
+    if kernels.dispatch_device(name, slab) == "cpu":
+        with torch.no_grad():
+            zero_slab_update_ref(slab, p_local, mu, nu, dir_out, n_ranks, h)
+        return
+    kernels.require_cuda_inputs(name, slab, p_local, mu, nu, dir_out)
+    bf16 = torch.bfloat16
+    err = kernels.load().emt_zero_slab(
+        slab.data_ptr(), int(slab.dtype == bf16), p_local.data_ptr(), mu.data_ptr(),
+        nu.data_ptr(), int(mu.dtype == bf16), dir_out.data_ptr(), int(dir_out.dtype == bf16),
+        slab.numel(), float(n_ranks), ctypes.addressof(h), kernels.stream_ptr(slab.device))
+    kernels.check(err, name)
+    zero_slab_update.launches += 1
+
+
+def apply_direction(param: torch.Tensor, direction: torch.Tensor, neg_lr: float) -> None:
+    """``param += neg_lr * direction`` in place (K11), the gathered direction
+    fp32 or bf16.  CPU tensors take the plain version."""
+    name = "apply_direction"
+    if param.dtype != torch.float32 or direction.shape != param.shape or direction.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: an fp32 param and an fp32 or bf16 direction of its shape")
+    if kernels.dispatch_device(name, param) == "cpu":
+        with torch.no_grad():
+            apply_direction_ref(param, direction, neg_lr)
+        return
+    kernels.require_cuda_inputs(name, param, direction)
+    err = kernels.load().emt_apply_direction(
+        param.data_ptr(), direction.data_ptr(), int(direction.dtype == torch.bfloat16),
+        param.numel(), float(neg_lr), kernels.stream_ptr(param.device))
+    kernels.check(err, name)
+    apply_direction.launches += 1
+
+
+spmd_adam_update.launches = 0
+zero_slab_update.launches = 0
+apply_direction.launches = 0
 
 
 @dataclasses.dataclass

@@ -1,11 +1,13 @@
 """Training state (port of ``emernerf_tpu/train/state.py``): the step, the
 model and proposal modules (their parameters are the master params) and
-the two Adam states, updated in place by the train step."""
+the two Adam states, updated in place by the train step.  Under ZeRO
+(``parallel/spmd.py:shard_state``) ``zero`` records which moments hold
+only this rank's rows."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 from torch import nn
 
@@ -19,6 +21,7 @@ class TrainState:
     prop_models: List[nn.Module]
     opt_state: AdamState
     prop_opt_state: AdamState
+    zero: Optional[object] = None  # parallel.spmd.ZeroLayout, or None: every moment whole
 
     @property
     def params(self) -> List[nn.Parameter]:

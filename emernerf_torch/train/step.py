@@ -14,7 +14,20 @@ parity tests fill it with the values JAX drew.
 ``remat`` recomputes each render's field query in its backward
 (``render_ray_batch(..., remat=True)``).  Not ported, raising
 ``NotImplementedError``: ``fused_branches`` (left behind: it measured
-slower on the TPU) and ``mesh`` (later).
+slower on the TPU).
+
+Data parallelism (``group``, a ``torch.distributed`` process group of n
+ranks, each given its equal slice of the batches and of the draws):
+
+- with ``spmd`` (an ``SpmdConfig``), the JAX package's explicit-collective
+  step: each rank's losses are its slice's means, the gradients are
+  averaged in the wire dtype (the ZeRO-routed ones reduce-scattered) and
+  the K11 updates of ``parallel/spmd.py`` run; the metrics are the ranks'
+  mean;
+- without, the JAX package's implicit step, which equals the single-device
+  step: every gradient averaged in fp32, then K8; the losses that
+  normalise by a statistic of the batch take the whole batch's, and the
+  PSNR and range RMSE come from the whole batch's mean squared errors.
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from emernerf_torch.losses.losses import (
     cycle_consistency_loss,
@@ -34,6 +48,8 @@ from emernerf_torch.losses.losses import (
     sky_loss_opacity,
     sky_loss_weights,
 )
+from emernerf_torch.parallel import mesh
+from emernerf_torch.parallel.spmd import Routing, SpmdConfig, reduce_grads, spmd_apply_update
 from emernerf_torch.render.prop_sampler import compute_prop_loss
 from emernerf_torch.render.renderer import render_ray_batch
 from emernerf_torch.train.optim import apply_update, chained_lr_schedule, make_adam
@@ -125,8 +141,7 @@ def draw_step(n_rays: int, render_kw: Dict, with_agg: bool,
     return StepDraws(tuple(jitters), topk_u, agg)
 
 
-def psnr(pred, gt):
-    mse = ((pred - gt) ** 2).mean()
+def psnr_of_mse(mse):
     return -10.0 * torch.log10(mse.clamp_min(1e-10))
 
 
@@ -157,8 +172,13 @@ class TrainStep:
       lidar: origins, viewdirs, ranges, normed_timestamps
     """
 
-    def __init__(self, model, prop_models: Sequence, cfg: TrainStepConfig):
+    def __init__(self, model, prop_models: Sequence, cfg: TrainStepConfig, group=None,
+                 spmd: Optional[SpmdConfig] = None):
         self.model, self.prop_models, self.cfg = model, list(prop_models), cfg
+        self.group = group
+        self.n_ranks = 1 if group is None else dist.get_world_size(group)
+        self.spmd = spmd
+        self.implicit = group is not None and spmd is None
         self.tx = make_adam(cfg.weight_decay)
         self.lr_fn = chained_lr_schedule(cfg.lr, cfg.num_iters)
         self.steps_per_iter = 2 if cfg.has_lidar else 1
@@ -200,11 +220,25 @@ class TrainStep:
             losses["shadow_loss"] = dynamic_regularization_loss(
                 out["shadow_ratio"], loss_type=cfg.shadow_loss_type, coef=cfg.shadow_coef)
         if cfg.has_flow:
+            mask = extras.get("agg_mask")
+            den = None
+            if self.implicit and mask is not None:
+                terms = mask.sum() * extras["forward_flow"].shape[-1]
+                den = self._global_sum(terms.float()).clamp_min(1.0) / self.n_ranks
             losses["cycle_loss"] = cycle_consistency_loss(
                 extras["forward_flow"], extras["forward_pred_backward_flow"],
                 extras["backward_flow"], extras["backward_pred_forward_flow"],
-                cfg.cycle_coef, mask=extras.get("agg_mask"))
+                cfg.cycle_coef, mask=mask, denominator=den)
         return losses
+
+    def _global_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of ``x`` (detached)."""
+        return mesh.all_reduce_(x.detach().clone(), self.group)
+
+    def _whole_batch_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-rank mean as the whole batch's on the implicit path (equal
+        slices), else ``x``."""
+        return self._global_sum(x) / self.n_ranks if self.implicit else x
 
     def _render(self, batch, draws: StepDraws, requires_grad: bool, lidar: bool,
                 full: bool = False):
@@ -231,22 +265,36 @@ class TrainStep:
         total = sum(losses.values()) + prop_loss
         aux = dict(losses)
         aux["prop_loss"] = prop_loss
-        aux["psnr"] = psnr(out["rgb"], batch["pixels"])
+        mse = ((out["rgb"] - batch["pixels"]) ** 2).mean()
+        aux["psnr"] = psnr_of_mse(self._whole_batch_mean(mse))
         aux["total_pixel_loss"] = sum(losses.values())
         return total, aux
 
     # ---------------- lidar branch ---------------- #
+    def _lidar_statistics(self, batch):
+        """The whole batch's valid-return count over the rank count and share
+        of rays with a return (the implicit path), or (None, None)."""
+        if not self.implicit:
+            return None, None
+        gt = batch["ranges"].reshape(-1)
+        counts = torch.stack([((gt > 0.01) & (gt < self.cfg.depth_upper_bound)).sum(),
+                              (gt > 0.0).sum()]).float()
+        counts = self._global_sum(counts)
+        return counts[0].clamp_min(1.0) / self.n_ranks, counts[1] / (gt.shape[0] * self.n_ranks)
+
     def _lidar_losses(self, out, extras, batch, step: int) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
+        depth_den, return_share = self._lidar_statistics(batch)
         losses = {"lidar_range_loss": depth_loss(out["depth"], batch["ranges"],
                                                  cfg.depth_loss_type, cfg.depth_coef,
-                                                 cfg.depth_upper_bound)}
+                                                 cfg.depth_upper_bound, depth_den)}
         if cfg.los_enable:
             # active only after the warm-up iterations
             if step > cfg.los_start_iter:
                 losses["lidar_line_of_sight"] = line_of_sight_loss(
                     batch["ranges"], extras["weights"], extras["t_vals"],
-                    los_epsilon(cfg, step), cfg.los_coef, los_decay_weight(cfg, step))
+                    los_epsilon(cfg, step), cfg.los_coef, los_decay_weight(cfg, step),
+                    return_share)
             else:
                 losses["lidar_line_of_sight"] = out["depth"].new_zeros(())
         if cfg.use_dynamic_reg:
@@ -265,7 +313,8 @@ class TrainStep:
         total = sum(losses.values()) + self._prop_loss(res, requires_grad)
         aux = dict(losses)
         aux["total_lidar_loss"] = sum(losses.values())
-        aux["range_rmse"] = torch.sqrt(((out["depth"][..., 0] - batch["ranges"]) ** 2).mean())
+        aux["range_rmse"] = torch.sqrt(self._whole_batch_mean(
+            ((out["depth"][..., 0] - batch["ranges"]) ** 2).mean()))
         return total, aux
 
     # ---------------- one branch: backward + updates ---------------- #
@@ -273,13 +322,52 @@ class TrainStep:
         params, prop_params = state.params, state.prop_params
         total.backward()
         lr = self.lr_fn(count)
-        if requires_grad:
-            apply_update(self.tx, [p.grad for p in prop_params], state.prop_opt_state,
-                         prop_params, lr)
-        apply_update(self.tx, [p.grad for p in params], state.opt_state, params, lr)
+        # (params, moments, ZeRO routing): the proposal nets only on
+        # requires-grad renders
+        parts = [(prop_params, state.prop_opt_state, state.zero and state.zero.prop)]
+        parts = (parts if requires_grad else []) + [
+            (params, state.opt_state, state.zero and state.zero.model)]
+        grads = [[p.grad for p in ps] for ps, _, _ in parts]
+        if self.group is not None:
+            grads = self._reduce(state, parts, grads)
+        for (ps, opt, route), gs in zip(parts, grads):
+            if self.spmd is None:
+                apply_update(self.tx, gs, opt, ps, lr)
+            else:
+                route = route or Routing((False,) * len(ps), (False,) * len(ps))
+                spmd_apply_update(gs, opt, ps, lr, route, self.spmd, self.group, self.tx)
         for p in params + prop_params:
             p.grad = None
         return lr
+
+    def _reduce(self, state: TrainState, parts, grads):
+        """Every part's gradients averaged across the ranks in one bucket: in
+        fp32 on the implicit path, else in the wire dtype with the
+        ZeRO-routed ones left to the update."""
+        if self.spmd is not None and self.spmd.zero and state.zero is None:
+            raise ValueError("spmd.zero: lay the state out first (parallel.spmd.shard_state)")
+        ps = [p for part, _, _ in parts for p in part]
+        big = [b for part, _, route in parts
+               for b in (route.big if route else (False,) * len(part))]
+        wire = torch.float32 if self.spmd is None else self.spmd.wire_dtype
+        flat = reduce_grads(ps, [g for gs in grads for g in gs], big, wire, self.group)
+        out, i = [], 0
+        for gs in grads:
+            out.append(flat[i:i + len(gs)])
+            i += len(gs)
+        return out
+
+    def _finalize(self, metrics: Dict) -> Dict:
+        """The ranks' mean of every metric (one all-reduce); the implicit
+        path's PSNR and range RMSE are the whole batch's already."""
+        if self.group is None:
+            return metrics
+        whole = ("psnr", "range_rmse") if self.implicit else ()
+        keys = [k for k, v in metrics.items() if torch.is_tensor(v) and k not in whole]
+        vec = mesh.all_reduce_(torch.stack([metrics[k].float() for k in keys]), self.group)
+        vec = vec / self.n_ranks
+        metrics.update(zip(keys, vec.unbind(0)))
+        return metrics
 
     def __call__(self, state: TrainState, pixel_batch, lidar_batch, pixel_draws: StepDraws,
                  lidar_draws: Optional[StepDraws], pixel_rg: bool, lidar_rg: bool,
@@ -297,18 +385,21 @@ class TrainStep:
             self._apply_branch(state, total, lidar_rg, count + 1)
             metrics.update({k: v.detach() for k, v in laux.items()})
         state.step = step + 1
-        return metrics
+        return self._finalize(metrics)
 
 
-def build_train_step(model, prop_models: Sequence, cfg: TrainStepConfig,
-                     mesh=None) -> TrainStep:
-    """The train step for ``model`` and ``prop_models`` on one device."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device training (mesh) is not ported yet")
+def build_train_step(model, prop_models: Sequence, cfg: TrainStepConfig, group=None,
+                     spmd: Optional[SpmdConfig] = None) -> TrainStep:
+    """The train step for ``model`` and ``prop_models``: on one device, or
+    with ``group`` one rank of a data-parallel step, with explicit
+    collectives per ``spmd`` or, without it, the implicit fp32 all-reduce
+    (the JAX package builds that one as a wrapper, ``shard_train_step``)."""
+    if spmd is not None and group is None:
+        raise ValueError("spmd needs a process group")
     if cfg.fused_branches:
         raise NotImplementedError("fused_branches (optim.fused_lidar_branch) is left "
                                   "behind: the two-pass step is the reference's")
-    return TrainStep(model, prop_models, cfg)
+    return TrainStep(model, prop_models, cfg, group, spmd)
 
 
 def lidar_full_at(cfg: TrainStepConfig, it: int) -> bool:

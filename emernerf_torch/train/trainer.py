@@ -26,6 +26,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from emernerf_torch import resolve_device
 from emernerf_torch.builders import (
@@ -49,10 +50,12 @@ from emernerf_torch.eval.occ import run_occ_eval
 from emernerf_torch.eval.points import PointQueryEngine
 from emernerf_torch.eval.renderer import ImageRenderer
 from emernerf_torch.eval.video import have_imageio, save_videos
+from emernerf_torch.parallel import mesh
+from emernerf_torch.parallel.spmd import SpmdConfig, shard_state
 from emernerf_torch.render.prop_sampler import proposal_requires_grad_schedule
 from emernerf_torch.train.checkpoints import load_checkpoint, save_checkpoint
 from emernerf_torch.train.state import init_train_state
-from emernerf_torch.train.step import build_train_step, draw_step, lidar_full_at
+from emernerf_torch.train.step import StepDraws, build_train_step, draw_step, lidar_full_at
 from emernerf_torch.utils.logging import MetricLogger
 
 logger = logging.getLogger("emernerf_torch")
@@ -88,25 +91,57 @@ def init_wandb(cfg: ConfigNode, log_dir: str, retries: int = 10, sleep_s: float 
     return None
 
 
+def spmd_config(cfg: ConfigNode) -> Optional[SpmdConfig]:
+    """The explicit-collective settings of ``parallel.*``, or None for the
+    implicit path (``explicit_collectives: false``)."""
+    if not bool(cfg.get_dotted("parallel.explicit_collectives", True)):
+        return None
+    return SpmdConfig(grad_psum_dtype=str(cfg.get_dotted("parallel.grad_psum_dtype", "bfloat16")),
+                      zero=bool(cfg.get_dotted("parallel.zero", True)),
+                      direction_dtype=str(cfg.get_dotted("parallel.direction_dtype", "bfloat16")))
+
+
+def check_parallel(cfg: ConfigNode, n: int) -> None:
+    """Batch and chunk sizes must split evenly over ``n`` ranks."""
+    for key in ("data.ray_batch_size", "render.render_chunk_size"):
+        if int(cfg.get_dotted(key)) % n:
+            raise ValueError(f"{key} {cfg.get_dotted(key)} must divide by "
+                             f"parallel.num_devices {n}")
+
+
 class Trainer:
     """One scene's training run on one device: the card unless the caller
     asks for another (raises where there is no card).  ``log_dir`` receives
     ``metrics.json``, the checkpoints, the buffer maps, the profile and the
     evaluation JSONs; without it the run writes no files.  ``flow``
-    overrides the flow grid's spec (the tiny flagship's)."""
+    overrides the flow grid's spec (the tiny flagship's).  With
+    ``parallel.num_devices`` other than 1, ``group`` is the process group
+    of that many ranks (``parallel.mesh.init_data_parallel``) and this
+    trainer is one of them."""
 
     def __init__(self, cfg: ConfigNode, log_dir: Optional[str] = None,
-                 enable_wandb: bool = False, device="cuda", flow=None):
+                 enable_wandb: bool = False, device="cuda", flow=None, group=None):
         self.cfg = cfg
         self.log_dir = log_dir
         self.device = resolve_device(device)
-        if int(cfg.get_dotted("parallel.num_devices", 1)) != 1:
-            raise NotImplementedError("multi-device training is not ported yet "
-                                      "(ROADMAP queue 1, multi-GPU data parallelism)")
+        n = int(cfg.get_dotted("parallel.num_devices", 1))
+        if group is None:
+            n = mesh.world_size(n, self.device)
+        elif n == 0:  # every rank of the group
+            n = dist.get_world_size(group)
+        if n != 1 and (group is None or dist.get_world_size(group) != n):
+            raise ValueError(f"parallel.num_devices={n} needs a process group of {n} ranks "
+                             "(the CLI starts them; see parallel.mesh.init_data_parallel)")
+        self.group = group if n > 1 else None
+        self.rank, self.n_ranks = mesh.rank_and_size(self.group) if self.group else (0, 1)
+        self.is_main = self.rank == 0
+        if self.group is not None:
+            check_parallel(cfg, n)
+            logger.info("Data-parallel rank %d of %d on %s", self.rank, n, self.device)
         seed = int(cfg.optim.seed)
         init_gen = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        self.wandb = init_wandb(cfg, log_dir) if enable_wandb else None
+        self.wandb = init_wandb(cfg, log_dir) if enable_wandb and self.is_main else None
 
         self.dataset = build_dataset_from_cfg(cfg, self.device)
         logger.info("Dataset: %d images (%d train / %d test), aabb=%s",
@@ -120,7 +155,11 @@ class Trainer:
         self.step_cfg = build_train_step_config(cfg, self.dataset)
         logger.info("Train step config: %s", self.step_cfg)
         self.state = init_train_state(self.model, self.prop_models)
-        self.train_step = build_train_step(self.model, self.prop_models, self.step_cfg)
+        spmd = spmd_config(cfg) if self.group is not None else None
+        if spmd is not None:
+            shard_state(self.state, spmd, self.group)
+        self.train_step = build_train_step(self.model, self.prop_models, self.step_cfg,
+                                           self.group, spmd)
         self.ray_batch_size = cfg.data.ray_batch_size
         self.buffer_ratio = cfg.data.pixel_source.sampler.buffer_ratio
         self.buffer_downscale = cfg.data.pixel_source.sampler.buffer_downscale
@@ -136,6 +175,7 @@ class Trainer:
             chunk_size=cfg.render.render_chunk_size,
             return_decomposition=self.model.has_dynamic,
             sample_topk=int(cfg.get_dotted("render.eval_sample_topk", 0)), device=self.device,
+            group=self.group,
         )
         self.rg_fn = proposal_requires_grad_schedule()
         self.error_map_buffered = False
@@ -149,17 +189,36 @@ class Trainer:
             logger.info("Resumed from %s at step %d", cfg.resume_from, self.start_step)
 
     def _path(self, *names) -> Optional[str]:
-        return None if self.log_dir is None else os.path.join(self.log_dir, *names)
+        """A file under the log dir: None without one and on ranks but 0."""
+        if self.log_dir is None or not self.is_main:
+            return None
+        return os.path.join(self.log_dir, *names)
+
+    def _barrier(self) -> None:
+        if self.group is not None:
+            dist.barrier(self.group)
 
     def save(self) -> Optional[str]:
-        """A checkpoint of the state at its step (none without a log dir)."""
-        return None if self.log_dir is None else save_checkpoint(self.log_dir, self.state)
+        """A checkpoint of the state at its step (none without a log dir),
+        written by rank 0; every rank joins the gather of ZeRO moments."""
+        if self.log_dir is None:
+            return None
+        path = save_checkpoint(self._path(), self.state)
+        self._barrier()
+        return path
 
     # ---------------------------------------------------------------- #
-    def _branch_draws(self, lidar: bool, full: bool = False):
+    def _slice(self, tensor):
+        """This rank's slice of a whole batch's tensor."""
+        if self.group is None or tensor is None:
+            return tensor
+        return mesh.batch_slice(tensor, self.rank, self.n_ranks)
+
+    def _branch_draws(self, lidar: bool, full: bool = False) -> StepDraws:
         kw = self.train_step.render_kw(lidar, full)
-        return draw_step(self.ray_batch_size, kw, self.model.has_flow, self.generator,
-                         self.device)
+        d = draw_step(self.ray_batch_size, kw, self.model.has_flow, self.generator, self.device)
+        return StepDraws(tuple(map(self._slice, d.jitters)), self._slice(d.topk_u),
+                         self._slice(d.agg_noise))
 
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         """One loop body at iteration ``step`` (the state's step)."""
@@ -171,12 +230,14 @@ class Trainer:
             self.scene, draw_pixel(self.scene, self.ray_batch_size, gen, ratio,
                                    self.buffer_downscale),
             self.buffer_downscale, use_timestamps=self.model.has_dynamic)
+        pixel_batch = {k: self._slice(v) for k, v in pixel_batch.items()}
         lidar_rg, lidar_batch, lidar_draws = False, None, None
         full = lidar_full_at(self.step_cfg, step)
         if self.step_cfg.has_lidar:
             lidar_rg = self.rg_fn(step)
             lidar_batch = sample_lidar_batch(self.scene,
                                              draw_lidar(self.scene, self.ray_batch_size, gen))
+            lidar_batch = {k: self._slice(v) for k, v in lidar_batch.items()}
             lidar_draws = self._branch_draws(lidar=True, full=full)
         metrics = self.train_step(self.state, pixel_batch, lidar_batch,
                                   self._branch_draws(lidar=False), lidar_draws,
@@ -203,7 +264,9 @@ class Trainer:
         clean stop: the in-flight iteration finishes, a checkpoint of its
         step is saved, ``preempted`` is set and the loop returns; the
         previous handlers come back on first receipt (a second signal acts
-        the default way) and on every way out of the loop."""
+        the default way) and on every way out of the loop.  With several
+        ranks the flag is all-reduced each iteration: a signal to any rank
+        stops all of them at the same step."""
         cfg = self.cfg
         last = cfg.optim.num_iters if num_iters is None else num_iters
         self.metric_logger = MetricLogger(delimiter="  ", output_file=self._path("metrics.json"))
@@ -232,15 +295,16 @@ class Trainer:
         try:
             steps = range(self.state.step, last + 1)
             for step in self.metric_logger.log_every(steps, cfg.logging.print_freq):
-                if stop_signal:
+                if self._stop_requested(stop_signal):
                     path = self.save()
-                    logger.info("Preempted (signal %d) at step %d: saved %s; exiting cleanly",
-                                stop_signal[0], self.state.step, path)
+                    logger.info("Preempted (signal %s) at step %d: saved %s; exiting cleanly",
+                                stop_signal[0] if stop_signal else "on another rank",
+                                self.state.step, path)
                     # the caller skips the end-of-training evaluation: a
                     # preemption grace window cannot afford a render pass
                     self.preempted = True
                     return self.state
-                if prof_start >= 0 and step == prof_start and self.log_dir is not None:
+                if prof_start >= 0 and step == prof_start and self._path() is not None:
                     profiler = self._start_profiler()
                 self.train_iteration(step)
                 if profiler is not None and step == prof_start + prof_iters:
@@ -260,6 +324,16 @@ class Trainer:
                 signal.signal(sig, h)
             if profiler is not None:
                 profiler.stop()
+
+    def _stop_requested(self, stop_signal: list) -> bool:
+        """Whether this rank, or with several ranks any rank, caught a stop
+        signal."""
+        if self.group is None:
+            return bool(stop_signal)
+        flag = torch.tensor([float(bool(stop_signal))],
+                            device="cpu" if dist.get_backend(self.group) == "gloo"
+                            else self.device)
+        return bool(mesh.all_reduce_(flag, self.group, dist.ReduceOp.MAX).item())
 
     def _start_profiler(self):
         from torch.profiler import ProfilerActivity, profile
@@ -304,14 +378,14 @@ class Trainer:
         self.scene = update_pixel_error_map(self.scene, dev(preds), dev(gts),
                                             dev(dyn_ops) if dyn_ops else None)
         self.error_map_buffered = True
-        if self.log_dir is not None:
+        if self._path() is not None:
             os.makedirs(self._path("buffer_maps"), exist_ok=True)
             np.save(self._path("buffer_maps", f"buffer_{self.state.step:05d}.npy"),
                     self.scene.pixel_error_map.cpu().numpy().astype(np.float16))
 
     # ---------------------------------------------------------------- #
     def _write_json(self, name: str, obj) -> None:
-        if self.log_dir is not None:
+        if self._path() is not None:
             with open(self._path(name), "w") as f:
                 json.dump(obj, f, indent=2)
 
@@ -353,7 +427,9 @@ class Trainer:
             if write_videos:
                 save_videos(frames, os.path.join(video_dir, name), **kw)
 
-        if cfg.eval.eval_occ:
+        # the point-query evaluations run on rank 0 alone; the renders below
+        # are sharded and every rank joins them
+        if cfg.eval.eval_occ and self.is_main:
             occ_metrics = self._occ_eval()
             if occ_metrics is not None:
                 # the scalar metrics (not the per-class dict)
@@ -364,7 +440,7 @@ class Trainer:
                 logger.info("[occ] %s", occ_metrics)
 
         if (cfg.eval.eval_lidar_flow and self.model.has_flow and self.dataset.lidar is not None
-                and "flows" in self.dataset.lidar):
+                and "flows" in self.dataset.lidar and self.is_main):
             flow_metrics = evaluate_lidar_flow(
                 PointQueryEngine(self.model, device=self.device), self.dataset,
                 remove_ground=cfg.eval.remove_ground_when_eval_lidar_flow)
@@ -433,4 +509,5 @@ class Trainer:
 
         self._write_json(f"metrics_all_{step}.json", results)
         logger.info("Evaluation results: %s", results)
+        self._barrier()
         return results

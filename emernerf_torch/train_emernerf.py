@@ -8,6 +8,15 @@ root::
 
     python -m emernerf_torch.train_emernerf --config_file configs/x.yaml \\
         --run_name r data.dataset=synthetic optim.num_iters=50
+
+``parallel.num_devices=N`` (0: every visible GPU) trains on N ranks, as
+the JAX CLI does on N chips: under ``torchrun --nproc_per_node N`` each
+process joins the group from torchrun's environment (``WORLD_SIZE`` must
+be N); otherwise this command starts the N ranks itself
+(``torch.multiprocessing``, a rendezvous file in the run directory).  Rank
+r runs on ``cuda:r`` unless ``--device`` names a device (``cpu``, or one
+card for every rank); NCCL on the cards, gloo on the CPU.  Rank 0 writes
+the run directory.
 """
 
 from __future__ import annotations
@@ -16,9 +25,12 @@ import argparse
 import logging
 import os
 import random
+import sys
 import time
 
 import numpy as np
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from emernerf_torch.builders import build_dataset_from_cfg
 from emernerf_torch.config import load_config
@@ -27,6 +39,7 @@ from emernerf_torch.eval.points import PointQueryEngine
 from emernerf_torch.eval.video import have_imageio
 from emernerf_torch.eval.voxel_vis import visualize_scene_flow, visualize_voxels
 from emernerf_torch.flagship import DEFAULT_CONFIG
+from emernerf_torch.parallel.mesh import init_data_parallel, world_size
 from emernerf_torch.tools.extract_features import delete_features
 from emernerf_torch.train.checkpoints import latest_checkpoint
 from emernerf_torch.train.trainer import Trainer
@@ -69,16 +82,28 @@ def get_args_parser():
     return parser
 
 
-def setup(args):
-    """Merge configs, create the run directory tree, snapshot the config,
-    seed the host generators."""
+def load_run_config(args):
+    """The merged config with the run directory's names (no files written)."""
     cfg = load_config(DEFAULT_CONFIG, args.config_file, args.opts)
-    log_dir = os.path.join(args.output_root, args.project, args.run_name)
-    cfg.log_dir = log_dir
+    cfg.log_dir = os.path.join(args.output_root, args.project, args.run_name)
     cfg.project = args.project
     cfg.run_name = args.run_name
     if getattr(args, "entity", None):
         cfg.wandb_entity = args.entity
+    return cfg
+
+
+def setup(args, write: bool = True):
+    """Merge configs, create the run directory tree, snapshot the config,
+    seed the host generators; ``write`` False (ranks but 0) writes
+    nothing and logs to the console only."""
+    cfg = load_run_config(args)
+    log_dir = cfg.log_dir
+    if not write:
+        setup_logging()
+        random.seed(cfg.optim.seed)
+        np.random.seed(cfg.optim.seed)
+        return cfg
     os.makedirs(log_dir, exist_ok=True)
     for sub in ("images", "full_videos", "test_videos", "lowres_videos", "metrics",
                 "configs_bk", "buffer_maps"):
@@ -119,12 +144,50 @@ def _visualize(trainer, cfg) -> None:
 def main(argv=None):
     """Train (or with ``--eval_only`` evaluate) one scene; returns the
     ``Trainer`` (None with ``--render_data_video_only``, which builds no
-    model)."""
+    model, and where this call started the ranks itself)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = get_args_parser().parse_args(argv)
-    cfg = setup(args)
+    n = int(load_run_config(args).get_dotted("parallel.num_devices", 1))
+    n = 1 if n == 1 else world_size(n, args.device)  # 0: every visible GPU
+    if n == 1:
+        return run(args)
+    if "WORLD_SIZE" in os.environ:
+        # torchrun: join the group from its environment
+        if int(os.environ["WORLD_SIZE"]) != n:
+            raise ValueError(f"torchrun started {os.environ['WORLD_SIZE']} ranks, "
+                             f"parallel.num_devices asks for {n}")
+        group, device = init_data_parallel(n, args.device)
+        return run(args, group, device)
+    log_dir = load_run_config(args).log_dir
+    os.makedirs(log_dir, exist_ok=True)
+    rendezvous = os.path.join(os.path.abspath(log_dir), ".rendezvous")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)  # a file store takes a new file
+    mp.start_processes(_rank_main, args=(argv, f"file://{rendezvous}", n), nprocs=n,
+                       join=True, start_method="spawn")
+    return None
+
+
+def _rank_main(rank: int, argv, init_method: str, n: int) -> None:
+    """One rank started by :func:`main`."""
+    args = get_args_parser().parse_args(argv)
+    group, device = init_data_parallel(n, args.device, init_method=init_method, rank=rank)
+    try:
+        run(args, group, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args, group=None, device=None):
+    """The run of one process: the only one, or one rank of ``group`` on
+    ``device``."""
+    main_rank = group is None or dist.get_rank(group) == 0
+    cfg = setup(args, write=main_rank)
+    device = args.device if device is None else device
 
     if args.render_data_video_only:
-        _render_data_video(build_dataset_from_cfg(cfg, args.device), cfg)
+        if main_rank:
+            _render_data_video(build_dataset_from_cfg(cfg, device), cfg)
         logger.info("Render data video only, exiting...")
         return None
 
@@ -149,10 +212,11 @@ def main(argv=None):
         logger.info("eval_only: resuming from latest checkpoint %s", ckpt)
         cfg.resume_from = ckpt
 
-    trainer = Trainer(cfg, cfg.log_dir, enable_wandb=args.enable_wandb, device=args.device)
-    if args.render_data_video:
+    trainer = Trainer(cfg, cfg.log_dir, enable_wandb=args.enable_wandb, device=device,
+                      group=group)
+    if args.render_data_video and main_rank:
         _render_data_video(trainer.dataset, cfg)
-    if args.visualize_voxel:
+    if args.visualize_voxel and main_rank:
         _visualize(trainer, cfg)
     if args.eval_only:
         trainer.evaluate()
@@ -171,7 +235,7 @@ def main(argv=None):
                 iters * rays_per_iter / max(elapsed, 1e-9))
     trainer.evaluate()
     # reclaim the disk of the scene's feature maps when asked
-    if cfg.data.pixel_source.get("delete_features_after_run", False):
+    if cfg.data.pixel_source.get("delete_features_after_run", False) and main_rank:
         feat_dir = os.path.join(getattr(trainer.dataset, "data_path", ""),
                                 cfg.data.pixel_source.feature_model_type)
         if os.path.isdir(feat_dir):

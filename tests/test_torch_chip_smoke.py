@@ -323,3 +323,41 @@ def test_hub_model_has_dinov2_vitb14_shapes_and_grid(tmp_path):
     x = torch.randn(1, 3, 42, 56, generator=torch.Generator().manual_seed(0))
     feat = ex.extract(x, layer=11, facet="key")
     assert feat.shape == (1, 5, 7, 768) and torch.isfinite(feat).all()
+
+
+def test_phase_17_counts_k11_on_the_explicit_path_and_not_k8():
+    """Phase 17a's launch check: the explicit data-parallel step launches
+    K1-K3, K5 and K11's three entry points, and neither K8 (the implicit
+    path's update) nor K4; phase 17c's rows report those launches ("dp")."""
+    import inspect
+
+    from emernerf_torch.train import optim
+
+    counted, zero = chip_smoke._dp_counted()
+    names = {fn.__name__ for fn in counted}
+    assert {"spmd_adam_update", "zero_slab_update", "apply_direction", "brickgrid_encode",
+            "brickgrid_encode_bwd", "importance_sampling", "composite_along_rays",
+            "interlevel_loss_levels"} <= names
+    assert optim.adam_update in zero and not names & {fn.__name__ for fn in zero}
+    assert all(isinstance(fn.launches, int) for fn in counted + zero)
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index("phase_raw(") < main.index("phase_data_parallel(") < main.index(
+        "phase_dp_kernels(") < main.index("kernel_only(")
+    assert '"dp": dp["launches"]' in main
+    src = inspect.getsource(chip_smoke.phase_dp_kernels)
+    for fn in ("spmd_adam_update", "zero_slab_update", "apply_direction"):
+        assert f'"adam.cu", ' in src and fn in src
+
+
+def test_phase_17_runs_two_ranks_of_the_flagship_at_its_batch():
+    """The ranks split the flagship's 8,192-ray batch (4,096 + 4,096 each)
+    and its 16,384-ray eval chunk; the explicit run is 6 iterations."""
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.train.trainer import check_parallel, spmd_config
+
+    cfg = flagship_config(overrides=[f"parallel.num_devices={chip_smoke.N_DP}"])
+    assert chip_smoke.N_DP == 2 and cfg.data.ray_batch_size // chip_smoke.N_DP == 4096
+    check_parallel(cfg, chip_smoke.N_DP)
+    s = spmd_config(cfg)
+    assert (s.zero, s.grad_psum_dtype, s.direction_dtype) == (True, "bfloat16", "bfloat16")
+    assert chip_smoke.N_DP_WARMUP + chip_smoke.N_DP_TIMED == 6

@@ -80,7 +80,8 @@ def test_every_module_imports_without_jax():
             "emernerf_torch.data.nuscenes_devkit_lite", "emernerf_torch.native",
             "emernerf_torch.tools.preprocess", "emernerf_torch.tools.waymo_wire",
             "emernerf_torch.tools.scene_lists", "emernerf_torch.tools.extract_features",
-            "emernerf_torch.tools.vit_extractor"} <= walked
+            "emernerf_torch.tools.vit_extractor", "emernerf_torch.parallel",
+            "emernerf_torch.parallel.mesh", "emernerf_torch.parallel.spmd"} <= walked
 
 
 @pytest.mark.parametrize("tiny", [True, False])
@@ -320,3 +321,26 @@ def test_delete_features_matches_the_jax_tool(tmp_path):
     jax_delete_features(str(tmp_path / "ref"))
     assert sorted(os.listdir(tmp_path / "ours")) == sorted(os.listdir(tmp_path / "ref")) == [
         "keep.txt"]
+
+
+def test_spmd_config_copy_equals_jax():
+    """The data-parallel settings: SpmdConfig's fields and defaults, the bf16
+    moment threshold and the ZeRO routing rule are the JAX package's."""
+    import dataclasses
+
+    from emernerf_torch.parallel import spmd
+    from emernerf_torch.train import optim
+    from emernerf_tpu.parallel import spmd as jax_spmd
+    from emernerf_tpu.train import optim as jax_optim
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(spmd.SpmdConfig) == fields(jax_spmd.SpmdConfig)
+    assert optim._BF16_MOMENT_MIN_ELEMS == jax_optim._BF16_MOMENT_MIN_ELEMS
+    assert spmd.SpmdConfig().zero_min_elems == jax_spmd.SpmdConfig().zero_min_elems
+    for shape in [(8, 64), (9, 64), (2,), (4, 3, 2), ()]:
+        for n, min_elems in [(2, 1), (2, 512), (4, 64), (3, 24)]:
+            assert spmd._is_big(shape, n, min_elems) == jax_spmd._is_big(
+                jnp.zeros(shape), n, min_elems), (shape, n, min_elems)
+

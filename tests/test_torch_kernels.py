@@ -52,7 +52,17 @@ from emernerf_torch.render.volrend import (
     composite_along_rays_bwd_ref,
     composite_along_rays_ref,
 )
-from emernerf_torch.train.optim import adam_update, adam_update_ref, make_adam
+from emernerf_torch.train.optim import (
+    adam_update,
+    adam_update_ref,
+    apply_direction,
+    apply_direction_ref,
+    make_adam,
+    spmd_adam_update,
+    spmd_adam_update_ref,
+    zero_slab_update,
+    zero_slab_update_ref,
+)
 
 
 @pytest.fixture
@@ -706,6 +716,53 @@ def test_adam_kernel_matches_plain_bit_for_bit(cuda, numel):
     for a, b in zip(*copies):
         assert torch.equal(a, b)
     assert copies[0][1].dtype == (torch.bfloat16 if numel >= 1 << 20 else torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("numel", [1000, 1 << 20])
+def test_spmd_adam_kernel_matches_plain_bit_for_bit(cuda, numel):
+    """K11's replicated-leaf update, fp32 and bf16 moments (2^20 elements)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    p = torch.randn((numel,), device=cuda, generator=g)
+    adam = make_adam(1e-5)
+    state = adam.init([p])
+    h = adam.hyper(3, 0.003)
+    grad = torch.randn((numel,), device=cuda, generator=g) * 1e-2
+    copies = [(p.clone(), state.mu[0].clone(), state.nu[0].clone()) for _ in range(2)]
+    for (pp, m, v), fn in zip(copies, (spmd_adam_update, spmd_adam_update_ref)):
+        fn(pp, grad, m, v, h)
+        fn(pp, None, m, v, h)
+    torch.cuda.synchronize()
+    for a, b in zip(*copies):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("direction", [torch.float32, torch.bfloat16])
+def test_zero_slab_and_apply_direction_kernels_match_plain(cuda, wire, moments, direction):
+    """K11's ZeRO slab step (a slab of the flagship's fused grid on 2 ranks,
+    (163840, 432) / 8 rows here) and the gathered direction's update, bit for
+    bit with the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    shape = (163840 // 8, 432)
+    slab = (torch.randn(shape, device=cuda, generator=g) * 1e-2).to(wire)
+    p = torch.randn(shape, device=cuda, generator=g)
+    mu = (torch.randn(shape, device=cuda, generator=g) * 1e-3).to(moments)
+    nu = (torch.rand(shape, device=cuda, generator=g) * 1e-4).to(moments)
+    h = make_adam(1e-5).hyper(4, 0.003)
+    outs = []
+    for fn, apply in ((zero_slab_update, apply_direction),
+                      (zero_slab_update_ref, apply_direction_ref)):
+        m, v, pp = mu.clone(), nu.clone(), p.clone()
+        d = torch.empty(shape, dtype=direction, device=cuda)
+        fn(slab, pp, m, v, d, 2, h)
+        apply(pp, d, h.neg_lr)
+        outs.append((m, v, d, pp))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def _hash_inputs(cuda, dims, f, dtype, seed, n=4096):

@@ -213,7 +213,9 @@ Phases (any failure exits non-zero; nothing is skipped):
      staged through host memory), each with 4,096 + 4,096 rays: the
      explicit step with ZeRO and the bf16 wire (the defaults), 6
      iterations with the launch counters zeroed before them and read after
-     (K1-K3, K5 and K11 must launch, K8 and K4 must not): finite losses,
+     (K1-K3, K5 and K11 must launch, K8 and K4 must not; K11's replicated
+     update at most 4 times per iteration, one launch per parameter group
+     and branch): finite losses,
      ms/iteration, the collectives' host time and bytes, peak memory per
      rank, rank 0's device busy (2 profiled iterations); an error-map
      refresh; parameters and maps identical across the ranks (float64
@@ -225,8 +227,24 @@ Phases (any failure exits non-zero; nothing is skipped):
      same draws: the first iteration's losses within rtol 1e-4.  17b: the
      same over NCCL on two cards where there are two, else it says why it
      did not run.  17c: K11's three entry points against their plain
-     versions, bit for bit, at the flagship's parameters and its routed
-     tables' slabs of two ranks (bf16 and fp32 wire, moments, direction).
+     versions, bit for bit, at the flagship's parameters (all, and the
+     leaves the ZeRO layout keeps replicated, one launch per group) and its
+     routed tables' slabs of two ranks (bf16 and fp32 wire, moments,
+     direction), each timed beside its bound and library call, then at
+     width 1 (operands off 16-byte alignment).
+  18. run-to-run gradients: on the full-width flagship, one recorded pixel
+     and one lidar batch with their draws, each branch's backward twice
+     from the same parameters on the proposal-gradient ramp, in fp32 and at
+     the default bf16 dtypes; per leaf its name, equal bit for bit or the
+     largest difference and its ratio to the leaf's largest |gradient|.
+     Every leaf but the brick tables must be equal bit for bit, and so must
+     every K1 backward call's inputs and position gradient; each table may
+     differ by K1 backward's atomics only, within k1_drift_bound at every
+     element (the fp32 reordering bound of its k terms and their sum of
+     |terms|, the atomics' flushes of subnormals and, with a bf16
+     computation, a bf16 rounding).  Then the
+     same passes under torch.use_deterministic_algorithms(True,
+     warn_only=True): the ops that warn.
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
@@ -4169,12 +4187,21 @@ def phase_data_parallel(dev, card_line, train_ms, busy5, peak5):
         print(f"    the routed leaves are the JAX rule's: {len(model_big)} of the model, "
               f"{len(prop_big)} of the proposal nets")
         _check_launches(r0["launches"], {fn.__name__ for fn in zero}, "explicit data-parallel run")
-        print(f"    launch counts, rank 0, the explicit run's {N_DP_WARMUP + N_DP_TIMED} iterations: "
-              f"{r0['launches']}")
+        n_it = N_DP_WARMUP + N_DP_TIMED
+        print(f"    launch counts, rank 0, the explicit run's {n_it} iterations: {r0['launches']}")
+        # every replicated leaf of a parameter group in one K11 launch: the
+        # model's and the proposal nets' per branch
+        rep = r0["launches"]["spmd_adam_update"]
+        print(f"    K11's replicated update: {rep} launches in {n_it} iterations (at most 4 per "
+              f"iteration: {4 * n_it})")
+        if rep > 4 * n_it:
+            fail(f"phase {label}: {rep} launches of K11's replicated update, over 4 per iteration")
         diff = r0["zero_vs_replicated"]
         print(f"    fp32 wire, 2 iterations, the same gradients fed to both: ZeRO against "
               f"replicated max relative param difference {diff:.3e} (bound 1e-4); runs on "
               f"their own gradients: {r0['independent']}")
+        print("    (the independent runs' drift comes from K1 backward's atomics: phase 18 "
+              "gives every leaf's verdict and bound)")
         if not diff < 1e-4:
             fail(f"phase {label}: ZeRO and replicated differ by {diff:.3e}")
         single = r0["single"]
@@ -4195,21 +4222,25 @@ def phase_data_parallel(dev, card_line, train_ms, busy5, peak5):
 
 def phase_dp_kernels(dev, entries):
     """Phase 17c: K11 against its plain versions at the flagship's shapes:
-    the replicated update over every parameter (fp32 and bf16 moments), the
-    ZeRO slab step at each routed table's slab of two ranks (bf16 and fp32
-    wire; bf16 moments and direction, and fp32 ones at the fused grid's
-    slab) and the gathered direction's update (bf16 and fp32)."""
+    the replicated update over every parameter (fp32 and bf16 moments) and
+    over the leaves the ZeRO layout keeps replicated (one launch per
+    group), the ZeRO slab step at each routed table's slab of two ranks
+    (bf16 and fp32 wire; bf16 moments and direction, and fp32 ones at the
+    fused grid's slab), the gathered direction's update (bf16 and fp32),
+    each timed beside its bound and library call; then all three at width
+    1 (operands off 16-byte alignment), bit for bit."""
     from emernerf_torch.flagship import build_flagship
     from emernerf_torch.parallel.spmd import SpmdConfig, routing, transposed_params
     from emernerf_torch.train.optim import (
         apply_direction, apply_direction_ref, make_adam, spmd_adam_update, spmd_adam_update_ref,
-        zero_slab_update, zero_slab_update_ref)
+        vector_width, zero_slab_update, zero_slab_update_ref)
 
     print("phase 17c: K11 (the data-parallel Adam) vs plain versions at the flagship's shapes")
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(17)
     _, _, model, props, _ = build_flagship(device=dev, seed=0)
-    params = [p.detach() for m in (model, *props) for p in m.parameters()]
+    model_params = [p.detach() for p in model.parameters()]
+    params = model_params + [p.detach() for m in props for p in m.parameters()]
     route = routing(params, transposed_params(model, *props), SpmdConfig(zero=True), N_DP)
     del model, props
     adam = make_adam(1e-5)
@@ -4227,44 +4258,63 @@ def phase_dp_kernels(dev, entries):
             fail(f"{tag}: kernel and plain version differ")
         return mx
 
-    # (a) every parameter, replicated
+    # (a) the replicated update (one launch per 64 leaves): every parameter,
+    # then the leaves the ZeRO layout keeps replicated, one launch for the
+    # model's and one for the proposal nets' (phase 17a's step)
     gr = [torch.randn(p.shape, device=dev, generator=g) * 1e-3 for p in params]
-    runs = []
-    for fn in (spmd_adam_update, spmd_adam_update_ref):
-        ps, ms_, vs = ([x.clone() for x in xs] for xs in (params, mom.mu, mom.nu))
-        for p, g_, m_, v_ in zip(ps, gr, ms_, vs):
-            fn(p, g_, m_, v_, h)
-        runs.append((ps, ms_, vs))
-    torch.cuda.synchronize()
-    n = sum(p.numel() for p in params)
-    tag = f"spmd_adam_update[{len(params)} tensors,{n} elements,bf16 moments for >=2^20]"
-    mx = same(tag, [(a, b) for xs, ys in zip(*runs) for a, b in zip(xs, ys)])
+    n_model = len(model_params)
+    rep = [i for i, big in enumerate(route.big) if not big]
+    groups = (("every parameter", [list(range(len(params)))]),
+              ("the replicated leaves, ZeRO layout",
+               [[i for i in rep if i < n_model], [i for i in rep if i >= n_model]]))
+    for what, parts in groups:
+        # the kernel's copy and the plain version's
+        runs = [tuple([x.clone() for x in xs] for xs in (params, mom.mu, mom.nu))
+                for _ in range(2)]
+        leaves = [i for part in parts for i in part]
 
-    def loop(fn, ps, ms_, vs):
-        def go():
-            for p, g_, m_, v_ in zip(ps, gr, ms_, vs):
-                fn(p, g_, m_, v_, h)
-        return go
+        def multi(ps, ms_, vs):
+            def go():
+                for part in parts:
+                    spmd_adam_update([ps[i] for i in part], [gr[i] for i in part],
+                                     [ms_[i] for i in part], [vs[i] for i in part], h)
+            return go
 
-    n_bytes = sum(nbytes(p, g_, m_, v_) + nbytes(p, m_, v_)
-                  for p, g_, m_, v_ in zip(params, gr, mom.mu, mom.nu))
-    ms = cuda_ms(loop(spmd_adam_update, *runs[0]), 5)
-    plain_ms = cuda_ms(loop(spmd_adam_update_ref, *runs[1]), 3)
-    del runs
-    # the library's fused Adam (L2 weight decay before the moments) on a
-    # copy of the params, as K8's row: its moments are fp32, where stored
-    # and unrounded moments are one, so it computes this function for the
-    # fp32-moment leaves and moves 4 bytes more per table element
-    lib_params = [p.clone() for p in params]
-    for p, g_ in zip(lib_params, gr):
-        p.grad = g_
-    lib_opt = torch.optim.Adam(lib_params, lr=-h.neg_lr, betas=(0.9, 0.99), eps=1e-15,
-                               weight_decay=1e-5, fused=True)
-    library_ms = cuda_ms(lib_opt.step, 5)
-    add_entry(entries, tag, "adam.cu", replaces, spmd_adam_update, mx, ms, plain_ms, n_bytes,
-              16.0 * n, library_ms=library_ms, path="dp")
-    del gr, lib_params, lib_opt
-    torch.cuda.empty_cache()
+        def loop(ps, ms_, vs):
+            def go():
+                for i in leaves:
+                    spmd_adam_update_ref(ps[i], gr[i], ms_[i], vs[i], h)
+            return go
+
+        launched = spmd_adam_update.launches
+        multi(*runs[0])()
+        launched = spmd_adam_update.launches - launched
+        loop(*runs[1])()
+        torch.cuda.synchronize()
+        n = sum(params[i].numel() for i in leaves)
+        tag = (f"spmd_adam_update[{what}: {len(leaves)} tensors,{n} elements,{launched} launches,"
+               "bf16 moments for >=2^20]")
+        mx = same(tag, [(xs[i], ys[i]) for xs, ys in zip(*runs) for i in leaves])
+        n_bytes = sum(nbytes(params[i], gr[i], mom.mu[i], mom.nu[i])
+                      + nbytes(params[i], mom.mu[i], mom.nu[i]) for i in leaves)
+        ms = cuda_ms(multi(*runs[0]), 5)
+        plain_ms = cuda_ms(loop(*runs[1]), 3)
+        del runs
+        # the library's fused Adam (L2 weight decay before the moments) on a
+        # copy of the same params, as K8's row: its moments are fp32, where
+        # stored and unrounded moments are one, so it computes this function
+        # for the fp32-moment leaves and moves 4 bytes more per table element
+        lib_params = [params[i].clone() for i in leaves]
+        for p, i in zip(lib_params, leaves):
+            p.grad = gr[i]
+        lib_opt = torch.optim.Adam(lib_params, lr=-h.neg_lr, betas=(0.9, 0.99), eps=1e-15,
+                                   weight_decay=1e-5, fused=True)
+        library_ms = cuda_ms(lib_opt.step, 5)
+        add_entry(entries, tag, "adam.cu", replaces, spmd_adam_update, mx, ms, plain_ms,
+                  n_bytes, 16.0 * n, library_ms=library_ms, path="dp")
+        del lib_params, lib_opt
+        torch.cuda.empty_cache()
+    del gr
 
     # (b) the ZeRO slabs of the routed tables, rank 0's rows
     big = [i for i, b in enumerate(route.big) if b]
@@ -4351,9 +4401,322 @@ def phase_dp_kernels(dev, entries):
                   cuda_ms(apply_loop(apply_direction_ref, outs[1]), 3), n_bytes, 2.0 * n,
                   library_ms=cuda_ms(library_loop, 5), path="dp")
         del full, outs, lib
+
+    # (d) width 1: each operand one element past 16-byte alignment (the same
+    # kernels, a scalar access per element), the fused grid's slab
+    def shifted(t, dtype=None):
+        flat = torch.empty(t.numel() + 1, dtype=dtype or t.dtype, device=dev)
+        flat[1:].copy_(t.reshape(-1))
+        return flat[1:]
+
+    sl = slabs[fused]
+    ins = [shifted(x) for x in (sl, torch.randn(sl.shape, device=dev, generator=g) * 1e-2,
+                                mom.mu[big[fused]][:sl.shape[0]], mom.nu[big[fused]][:sl.shape[0]])]
+    wire = shifted((torch.randn(sl.shape, device=dev, generator=g) * 1e-2).to(torch.bfloat16))
+    if vector_width(*ins) != 1 or vector_width(wire) != 1:
+        fail("phase 17c: the shifted operands are 16-byte aligned")
+    outs = []
+    for adam_fn, slab_fn, apply_fn in ((spmd_adam_update, zero_slab_update, apply_direction),
+                                       (None, zero_slab_update_ref, apply_direction_ref)):
+        p, gr1, m_, v_ = (x.clone() for x in ins)
+        if adam_fn is None:
+            spmd_adam_update_ref(p, gr1, m_, v_, h)
+        else:
+            adam_fn([p], [gr1], [m_], [v_], h)
+        d = shifted(torch.empty(sl.shape, device=dev), torch.bfloat16)
+        slab_fn(wire, p, m_, v_, d, N_DP, h)
+        apply_fn(p, d, h.neg_lr)
+        outs.append((p, m_, v_, d))
+    torch.cuda.synchronize()
+    same(f"spmd_adam_update, zero_slab_update, apply_direction at width 1 [{sl.numel()} "
+         "elements, each operand 2 or 4 bytes past 16-byte alignment]", list(zip(*outs)))
+    del ins, wire, outs
     del params, mom, slabs, dirs
     torch.cuda.empty_cache()
     print(f"  phase 17c took {time.perf_counter() - t0:.1f} s")
+
+
+# phase 18: two backward passes of one recorded batch, per leaf
+U_FP32 = 2.0 ** -24  # fp32's unit roundoff
+U_BF16 = 2.0 ** -8  # bf16's
+FLUSH = 2.0 ** -126  # fp32's least normal: the most a flush of a subnormal to zero moves a value
+K1_DRIFT_OP = ("K1 backward's fp32 atomicAdds into the table gradient "
+               "(kernels/csrc/grid_common.cuh:add_span, called by brickgrid.cu): the order in "
+               "which the warps' sums arrive")
+
+
+def sum_order_bound(k, abs_sum):
+    """The most two fp32 sums of the same ``k`` terms, added in two orders,
+    can differ by: each lies within gamma_(k-1) * sum|terms| of the exact
+    sum, gamma_n = n u / (1 - n u), u = 2^-24 (Higham, Accuracy and
+    Stability of Numerical Algorithms, 2nd ed., (4.4)), so the two lie
+    within twice that of each other; and the card's fp32 atomics flush a
+    subnormal input or result to zero (PTX atom/red.add.f32), which moves
+    each of the (at most k) atomic additions by less than 2^-126 more.
+    Elementwise on numbers or tensors (a float64 tensor); k <= 1 gives 0
+    (one term lands the same way in any order)."""
+    k = torch.as_tensor(k, dtype=torch.float64)
+    n = torch.clamp(k - 1.0, min=0.0)
+    gamma = n * U_FP32 / (1.0 - n * U_FP32)
+    flushes = torch.where(k > 1.0, k, 0.0)
+    return (2.0 * gamma * torch.as_tensor(abs_sum, dtype=torch.float64)
+            + 2.0 * flushes * FLUSH * (1.0 + gamma))
+
+
+def k1_term_counts(positions, spec):
+    """Per element of a brick table (its shape, int64): how many w * g terms
+    K1 backward adds into it at ``positions``, one per live corner, time
+    slice and level of every point (the plain version's index_add_ rows)."""
+    from emernerf_torch.ops.brickgrid import _corners, _level_geometry, level_constants
+
+    x = positions.reshape(-1, spec.n_input_dims).float()
+    consts = level_constants(spec)
+    f = spec.n_features_per_level
+    rows, width = spec.table_shape
+    counts = torch.zeros(rows * width // f, dtype=torch.int64, device=x.device)
+    for lvl in range(spec.n_levels):
+        _, _, _, base0, base1 = geometry = _level_geometry(x, spec, lvl, consts)
+        slots = [(base + lane) // f for *_, lane in _corners(spec, geometry[0], geometry[1])
+                 for base in (base0, base1) if base is not None]
+        counts += torch.bincount(torch.cat(slots), minlength=counts.numel())
+    return counts.repeat_interleave(f).view(rows, width)
+
+
+def k1_drift_bound(calls):
+    """Per element of one table, the most its gradient may differ between two
+    backward passes whose K1 backward ``calls`` (the recorded inputs of the
+    calls on that table) are equal: every element's gradient is an fp32 sum
+    of its k terms over the calls (k from :func:`k1_term_counts`), the sum
+    of |terms| S from the same kernel on |grad_out| (the interpolation
+    weights are non-negative).  In fp32 the whole gradient is one sum of k
+    terms in some order: sum_order_bound(k, S).  With a bf16 computation
+    each call's sum is rounded to bf16 before autograd adds the C calls'
+    results: sum_order_bound(k + C, S) + 2^-7 (1 + gamma) S (either pass may
+    round its sum either way).  S is read back through that rounding, sum
+    and flushes, so it is first raised by k 2^-126 and divided by
+    (1 - gamma) and, in bf16, by (1 - 2^-8)."""
+    from emernerf_torch.ops.brickgrid import brickgrid_encode_bwd
+
+    k = s_hat = None
+    for c in calls:
+        counts = k1_term_counts(c["positions"], c["spec"])
+        s, _ = brickgrid_encode_bwd(c["table"], c["positions"], c["grad_out"].abs(), c["spec"],
+                                    False, c["compute_dtype"])
+        k = counts if k is None else k + counts
+        s_hat = s.double() if s_hat is None else s_hat + s.double()
+    bf16 = calls[0]["compute_dtype"] == torch.bfloat16
+    n = torch.clamp(k.double() - 1.0, min=0.0)
+    gamma = n * U_FP32 / (1.0 - n * U_FP32)
+    s_true = (s_hat + k.double() * FLUSH) / ((1.0 - gamma) * ((1.0 - U_BF16) if bf16 else 1.0))
+    if not bf16:
+        return sum_order_bound(k, s_true), k
+    rounding = torch.where(k > 1, 2.0 * U_BF16 * (1.0 + gamma) * s_true, 0.0)
+    return sum_order_bound(k + len(calls), s_true) + rounding, k
+
+
+class RecordedK1Backward:
+    """While entered, every K1 backward call of the autograd Function records
+    its table, a copy of its positions and cotangent, its spec and compute
+    dtype, and its position gradient."""
+
+    def __enter__(self):
+        import emernerf_torch.ops.brickgrid as bg
+
+        self.module, self.orig, self.calls = bg, bg.brickgrid_encode_bwd, []
+
+        # the wrapper counts its launches through this name while it stands in
+        def recorded(table, positions, grad_out, spec, needs_pos_grad, compute_dtype=None):
+            d_table, d_pos = self.orig(table, positions, grad_out, spec, needs_pos_grad,
+                                       compute_dtype)
+            self.calls.append(dict(table=table, positions=positions.detach().clone(),
+                                   grad_out=grad_out.detach().clone(), spec=spec,
+                                   compute_dtype=compute_dtype,
+                                   d_pos=None if d_pos is None else d_pos.clone()))
+            return d_table, d_pos
+
+        recorded.launches = self.orig.launches
+        bg.brickgrid_encode_bwd = self.recorded = recorded
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.orig.launches = self.recorded.launches
+        self.module.brickgrid_encode_bwd = self.orig
+
+
+def _leaf_names(trainer):
+    """Module paths of ``state.params + state.prop_params``, in their order."""
+    names = [f"model.{n}" for n, _ in trainer.model.named_parameters()]
+    for i, pm in enumerate(trainer.prop_models):
+        names += [f"prop{i}.{n}" for n, _ in pm.named_parameters()]
+    return names
+
+
+def _recorded_batch(trainer, lidar):
+    """One branch's batch and draws from the trainer's generator."""
+    from emernerf_torch.data.scene import (
+        draw_lidar, draw_pixel, sample_lidar_batch, sample_pixel_batch)
+    from emernerf_torch.train.step import draw_step
+
+    gen, scene, r = trainer.generator, trainer.scene, trainer.ray_batch_size
+    if lidar:
+        batch = sample_lidar_batch(scene, draw_lidar(scene, r, gen))
+    else:
+        batch = sample_pixel_batch(scene, draw_pixel(scene, r, gen), trainer.buffer_downscale,
+                                   use_timestamps=trainer.model.has_dynamic)
+    draws = draw_step(r, trainer.train_step.render_kw(lidar), trainer.model.has_flow, gen,
+                      trainer.device)
+    return batch, draws
+
+
+def _backward_pass(trainer, batch, draws, lidar):
+    """(gradients of state.params + state.prop_params, K1 backward calls) of
+    one branch's loss on the proposal-gradient ramp (K5 and the proposal
+    nets' K3 backward run)."""
+    step = trainer.train_step
+    params = trainer.state.params + trainer.state.prop_params
+    for p in params:
+        p.grad = None
+    with RecordedK1Backward() as calls:
+        total, _ = (step.lidar_loss if lidar else step.pixel_loss)(batch, draws,
+                                                                   trainer.state.step, True)
+        total.backward()
+    grads = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    torch.cuda.synchronize()
+    return grads, calls
+
+
+def _same(a, b) -> bool:
+    return (a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+
+
+def phase_grad_drift(dev):
+    """Phase 18: the run-to-run drift of the gradients on the card.  On the
+    full-width flagship (seed 0), one recorded pixel batch and one lidar
+    batch with their draws, each branch's backward twice from the same
+    parameters, in fp32 and at the default bf16 dtypes.  Per leaf: equal bit
+    for bit, else the largest |difference| and its ratio to the leaf's
+    largest |gradient|.  Decided: every leaf but the brick tables
+    deterministic (bit for bit), and so is every K1 backward call's input
+    and position gradient; a table's gradient differs by K1 backward's
+    atomics only, within :func:`k1_drift_bound` at every element.  Then the
+    same passes under torch.use_deterministic_algorithms(True,
+    warn_only=True): which torch ops warn, and whether the gradients equal
+    the default mode's.  Writes the per-leaf table to
+    chiprun_out/phase18_leaves.txt."""
+    import warnings
+
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.train.trainer import Trainer
+
+    print("phase 18: run-to-run gradients of the full-width flagship: one recorded batch per "
+          "branch, two backward passes from the same parameters, fp32 and bf16")
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lines, faults = [], []
+
+    def say(text):
+        print(text)
+        lines.append(text)
+
+    for label, overrides in (("fp32", FP32_DTYPES), ("bf16", ())):
+        trainer = Trainer(flagship_config(overrides=list(overrides)), device=dev)
+        names = _leaf_names(trainer)
+        params = trainer.state.params + trainer.state.prop_params
+        if len(names) != len(params):
+            fail("phase 18: the leaf names do not match the parameters")
+        say(f"  {label}: {len(params)} leaves, {sum(p.numel() for p in params)} parameters")
+        rows = {name: [] for name in names}
+        for lidar in (False, True):
+            branch = "lidar" if lidar else "pixel"
+            batch, draws = _recorded_batch(trainer, lidar)
+            (g1, calls1), (g2, calls2) = (_backward_pass(trainer, batch, draws, lidar)
+                                          for _ in range(2))
+            # K1 backward's inputs and position gradients: bit for bit
+            if len(calls1) != len(calls2) or not calls1:
+                fail(f"phase 18 ({label}, {branch}): {len(calls1)} and {len(calls2)} K1 "
+                     "backward calls")
+            for i, (c1, c2) in enumerate(zip(calls1, calls2)):
+                for key in ("positions", "grad_out", "d_pos"):
+                    if not _same(c1[key], c2[key]):
+                        fail(f"phase 18 ({label}, {branch}): K1 backward call {i}'s {key} "
+                             "differs between the passes: an op upstream of K1 backward "
+                             "adds in a run-dependent order")
+            say(f"  {label} {branch}: {len(calls1)} K1 backward calls, their positions, "
+                "cotangents and position gradients equal bit for bit in both passes")
+            by_table = {}
+            for c in calls1:
+                by_table.setdefault(c["table"].data_ptr(), []).append(c)
+            for name, p, a, b in zip(names, params, g1, g2):
+                if (a is None) != (b is None):
+                    fail(f"phase 18: {name}'s gradient is missing in one pass")
+                if a is None:
+                    rows[name].append(f"{branch}: no gradient")
+                    continue
+                scale = float(a.abs().max())
+                diff = (a.double() - b.double()).abs()
+                mx = float(diff.max())
+                table_calls = by_table.get(p.data_ptr())
+                if table_calls is None:  # decided deterministic
+                    verdict = "equal" if torch.equal(a, b) else (
+                        f"DIFFERS by {mx:.3e} ({mx / max(scale, 1e-30):.3e} of max|g|)")
+                    rows[name].append(f"{branch}: {verdict}")
+                    if not torch.equal(a, b):
+                        faults.append(f"{label} {branch} {name}")
+                    continue
+                bnd, k = k1_drift_bound(table_calls)
+                over = int((diff > bnd).sum())
+                ratios = diff / bnd.clamp_min(1e-300)
+                worst = int(ratios.argmax())
+                n_diff = int((diff > 0).sum())
+                rows[name].append(
+                    f"{branch}: {'equal' if n_diff == 0 else f'{n_diff} of {a.numel()} differ'}"
+                    f", max {mx:.3e} ({mx / max(scale, 1e-30):.3e} of max|g|); at worst "
+                    f"{float(ratios.view(-1)[worst]) if mx else 0.0:.3e} of its bound (|diff| "
+                    f"{float(diff.view(-1)[worst]):.3e}, bound {float(bnd.view(-1)[worst]):.3e}, "
+                    f"k {int(k.view(-1)[worst])}, |g| {float(a.view(-1)[worst].abs()):.3e}); "
+                    f"K1, {len(table_calls)} calls, k <= {int(k.max())} terms")
+                if over:
+                    faults.append(f"{label} {branch} {name}: over its bound at {over} elements")
+                del bnd, k, diff, ratios
+            del g1, g2, calls1, calls2, by_table
+            torch.cuda.empty_cache()
+        for name in names:
+            say(f"    {label} {name}: " + "; ".join(rows[name]))
+
+        # the same passes in torch's deterministic mode
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                batch, draws = _recorded_batch(trainer, False)
+                det = [_backward_pass(trainer, batch, draws, False)[0] for _ in range(2)]
+            finally:
+                torch.use_deterministic_algorithms(False)
+        default, calls = _backward_pass(trainer, batch, draws, False)
+        warned = sorted({str(w.message).split(".")[0][:160] for w in caught})
+        tables = {c["table"].data_ptr() for c in calls}
+        rest = [i for i, p in enumerate(params) if p.data_ptr() not in tables]
+        det_same = all(_same(det[0][i], det[1][i]) for i in rest)
+        as_default = all(_same(det[0][i], default[i]) for i in rest)
+        say(f"  {label}, torch.use_deterministic_algorithms(True, warn_only=True), pixel branch: "
+            f"{len(warned)} warnings: {warned or 'none'}; the {len(rest)} leaves but the tables "
+            f"equal across its two passes: {det_same}, equal to the default mode's: "
+            f"{as_default}")
+        del default, det, calls, trainer, params
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "phase18_leaves.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    if faults:
+        fail("phase 18: a leaf decided deterministic differs between the passes (K1 backward's "
+             "inputs were equal, so the op lies downstream of the grids in the forward: a GEMM, "
+             "a reduction or an index op's backward), or a table exceeds its bound: "
+             + "; ".join(faults))
+    say(f"  the op behind every difference: {K1_DRIFT_OP}; kept by design, within its bound")
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -4469,6 +4832,8 @@ def main():
     # data parallelism: two ranks, then K11 alone
     dp = phase_data_parallel(dev, card_line, ms_iter, busy5, peak)
     phase_dp_kernels(dev, entries)
+    # the run-to-run drift of the gradients, named and bounded per leaf
+    phase_grad_drift(dev)
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):

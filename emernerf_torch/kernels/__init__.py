@@ -56,13 +56,14 @@ _SIGNATURES = {
     "emt_interlevel_backward": (_P, _I, _P, _L, _L, _I, _P),
     # param, grad|NULL, mu, nu, moments_bf16, n, hyper (host struct), stream
     "emt_adam": (_P, _P, _P, _P, _I, _L, _P, _P),
-    # K11: param, grad|NULL, mu, nu, moments_bf16, n, hyper (host struct), stream
-    "emt_spmd_adam": (_P, _P, _P, _P, _I, _L, _P, _P),
+    # K11: leaves (host array of train/optim.py:SpmdLeaf), n_leaves (<= 64),
+    # hyper (host struct), stream
+    "emt_spmd_adam_multi": (_P, _I, _P, _P),
     # slab (wire dtype), wire_bf16, p_local (fp32), mu, nu, moments_bf16,
-    # dir_out, dir_bf16, n, n_ranks, hyper (host struct), stream
-    "emt_zero_slab": (_P, _I, _P, _P, _P, _I, _P, _I, _L, _F, _P, _P),
-    # param, dir, dir_bf16, n, neg_lr, stream
-    "emt_apply_direction": (_P, _P, _I, _L, _F, _P),
+    # dir_out, dir_bf16, n, n_ranks, hyper (host struct), vec (8 or 1), stream
+    "emt_zero_slab": (_P, _I, _P, _P, _P, _I, _P, _I, _L, _F, _P, _I, _P),
+    # param, dir, dir_bf16, n, neg_lr, vec (8 or 1), stream
+    "emt_apply_direction": (_P, _P, _I, _L, _F, _I, _P),
     # table (F, rows), elem_bytes (2 or 4), out (rows, F), rows, F, stream
     "emt_hashgrid_features_minor": (_P, _I, _P, _L, _I, _P),
     # table (L*T, F) features-minor, table_is_bf16, positions, out, n_points,

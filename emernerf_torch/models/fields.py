@@ -59,6 +59,53 @@ from emernerf_torch.ops.sinusoidal import sinusoidal_encode, sinusoidal_output_d
 PE_MAP_HW = (80, 120)
 
 
+# entries of one one-hot block in the embedding's gradient (rows x indices;
+# 128 MiB in float64): every stock table takes one block at 8,192 rays
+_EMBED_ONE_HOT_ENTRIES = 1 << 24
+
+
+class _EmbeddingLookup(torch.autograd.Function):
+    """``weight[idx]`` whose table gradient is a float64 one-hot product per
+    block of rows (cuBLAS reduces in a fixed order, and float64 takes no
+    TF32), rounded once to the table's dtype, not ``nn.Embedding``'s
+    backward, whose sums over repeated indices come out in a run-dependent
+    order on the card: the gradient is bit for bit from run to run."""
+
+    @staticmethod
+    def forward(ctx, weight, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows, ctx.dtype = weight.shape[0], weight.dtype
+        return torch.index_select(weight, 0, idx.reshape(-1)).view(*idx.shape, weight.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat_idx = idx.reshape(-1)
+        flat_grad = grad.reshape(-1, grad.shape[-1]).double()
+        block = max(1, _EMBED_ONE_HOT_ENTRIES // max(1, flat_idx.numel()))
+        parts = []
+        for lo in range(0, ctx.n_rows, block):
+            rows = torch.arange(lo, min(lo + block, ctx.n_rows), device=idx.device)
+            parts.append((rows[:, None] == flat_idx).double() @ flat_grad)
+        out = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return out.to(ctx.dtype), None
+
+
+def embedding_lookup(weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows ``idx`` (any shape, any integer dtype) of ``weight``:
+    (*idx.shape, D), differentiable in ``weight`` with a run-to-run
+    deterministic gradient.  Dimensions along which ``idx`` is an expanded
+    view (stride 0, as the renderer expands each ray's index over its
+    samples) are looked up once and expanded: their gradient is a sum over
+    that dimension before the one-hot product sees one index per ray."""
+    shape = idx.shape
+    for d in range(idx.ndim):
+        if idx.stride(d) == 0 and idx.shape[d] > 1:
+            idx = idx.narrow(d, 0, 1)
+    out = _EmbeddingLookup.apply(weight, idx.long())
+    return out if idx.shape == shape else out.expand(*shape, weight.shape[-1])
+
+
 def find_topk_nearby_timesteps(training_timesteps: torch.Tensor, query: torch.Tensor,
                                topk: int = 2) -> torch.Tensor:
     """The ``topk`` training timesteps (T,) nearest each query (...,), nearest
@@ -309,9 +356,9 @@ class RadianceField(nn.Module):
         if not self.use_appearance_embedding:
             return None
         if self.enable_cam_embedding and "cam_idx" in data:
-            return self.appearance_embedding(data["cam_idx"].long())
+            return embedding_lookup(self.appearance_embedding.weight, data["cam_idx"])
         if self.enable_img_embedding and "img_idx" in data:
-            return self.appearance_embedding(data["img_idx"].long())
+            return embedding_lookup(self.appearance_embedding.weight, data["img_idx"])
         mean = self.appearance_embedding.weight.mean(dim=0)
         return mean.expand(*shape_prefix, self.appearance_embedding_dim)
 

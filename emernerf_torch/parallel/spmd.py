@@ -150,9 +150,14 @@ def spmd_apply_update(grads: Sequence[Optional[torch.Tensor]], opt_state: AdamSt
     opt_state.count += 1
     h = tx.hyper(opt_state.count, lr)
     with torch.no_grad():
+        # every replicated leaf in one K11 launch
+        rep = [i for i, big in enumerate(route.big) if not big]
+        spmd_adam_update([params[i] for i in rep],
+                         [None if grads[i] is None else grads[i].contiguous() for i in rep],
+                         [opt_state.mu[i] for i in rep], [opt_state.nu[i] for i in rep], h)
+        # the ZeRO-routed ones each after their own reduce-scatter
         for i, (p, g, m, v) in enumerate(zip(params, grads, opt_state.mu, opt_state.nu)):
             if not route.big[i]:
-                spmd_adam_update(p, None if g is None else g.contiguous(), m, v, h)
                 continue
             tr = route.transposed[i]
             g = torch.zeros_like(p) if g is None else g

@@ -8,9 +8,12 @@ dynamic and flow grids); every other param keeps fp32 moments.  The
 update runs per parameter tensor in the K8 kernel (``kernels/csrc/adam.cu``)
 on the card and in :func:`adam_update_ref` on the CPU.  No ``torch.optim``.
 The data-parallel step of ``parallel/spmd.py`` takes its three updates from
-the K11 kernels of the same file (:func:`spmd_adam_update`,
-:func:`zero_slab_update`, :func:`apply_direction`), whose direction reads
-the unrounded fp32 moments, as ``emernerf_tpu/parallel/spmd.py`` does.
+the K11 kernels of the same file (:func:`spmd_adam_update`, every
+replicated leaf of a group in one launch; :func:`zero_slab_update`;
+:func:`apply_direction`), whose direction reads the unrounded fp32
+moments, as ``emernerf_tpu/parallel/spmd.py`` does.  They access 16 bytes
+per operand and thread where every operand is 16-byte aligned
+(:func:`vector_width`), one element at a time otherwise.
 
 The learning rate is applied separately so the pixel and lidar updates of
 one iteration can use different scheduler counts (the reference steps its
@@ -122,6 +125,15 @@ def apply_direction_ref(param: torch.Tensor, direction: torch.Tensor, neg_lr: fl
     p.copy_(p + direction.float() * neg_lr)
 
 
+def _check_spmd_leaf(name, p: torch.Tensor, g: Optional[torch.Tensor], m: torch.Tensor,
+                     v: torch.Tensor) -> None:
+    if p.dtype != torch.float32:
+        raise ValueError(f"{name}: fp32 params, not {p.dtype}")
+    _check_moments(name, p, m, v)
+    if g is not None and g.shape != p.shape:
+        raise ValueError(f"{name}: a gradient {tuple(g.shape)} of a {tuple(p.shape)} param")
+
+
 def _check_moments(name, ref: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor) -> None:
     if mu.dtype != nu.dtype or mu.shape != ref.shape or nu.shape != ref.shape:
         raise ValueError(f"{name}: two moments of one dtype and of the shape {tuple(ref.shape)}")
@@ -129,27 +141,73 @@ def _check_moments(name, ref: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor) 
         raise ValueError(f"{name}: moments fp32 or bf16, not {mu.dtype}")
 
 
-def spmd_adam_update(param: torch.Tensor, grad: Optional[torch.Tensor], mu: torch.Tensor,
-                     nu: torch.Tensor, h: AdamHyper) -> None:
-    """In-place Adam step of a replicated fp32 param whose direction reads the
-    unrounded fp32 moments (K11; ``grad`` None is a zero gradient).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+# leaf descriptors per K11 multi-leaf launch (kMaxLeaves in adam.cu)
+SPMD_LEAVES_PER_LAUNCH = 64
+
+
+class SpmdLeaf(ctypes.Structure):
+    """One replicated leaf of a K11 launch; mirror of ``LeafDesc`` in
+    kernels/csrc/adam.cu (``first_chunk`` is filled there)."""
+
+    _fields_ = [("param", ctypes.c_void_p), ("grad", ctypes.c_void_p), ("mu", ctypes.c_void_p),
+                ("nu", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("first_chunk", ctypes.c_longlong), ("moments_bf16", ctypes.c_int),
+                ("vec", ctypes.c_int)]
+
+
+def _width(ptrs) -> int:
+    return 8 if all(x % 16 == 0 for x in ptrs) else 1
+
+
+def vector_width(*tensors: torch.Tensor) -> int:
+    """K11's access width: 8 elements (16-byte vectors) where every operand
+    starts 16-byte aligned, else 1 (the same kernel, one element at a
+    time).  Any element count works: a scalar tail follows the vectors."""
+    return _width(t.data_ptr() for t in tensors)
+
+
+def spmd_adam_update(params: Sequence[torch.Tensor], grads: Sequence[Optional[torch.Tensor]],
+                     mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
+                     h: AdamHyper) -> None:
+    """In-place Adam step of replicated fp32 params whose direction reads the
+    unrounded fp32 moments (K11; a ``grads`` entry None is a zero
+    gradient).  CPU tensors take the plain version, leaf by leaf; CUDA
+    tensors launch the kernel once per ``SPMD_LEAVES_PER_LAUNCH`` leaves."""
     name = "spmd_adam_update"
-    if param.dtype != torch.float32:
-        raise ValueError(f"{name}: fp32 param, not {param.dtype}")
-    _check_moments(name, param, mu, nu)
-    if kernels.dispatch_device(name, param) == "cpu":
-        with torch.no_grad():
-            spmd_adam_update_ref(param, grad, mu, nu, h)
+    if not len(params) == len(grads) == len(mus) == len(nus):
+        raise ValueError(f"{name}: one gradient and two moments per param")
+    if not params:
         return
-    extra = () if grad is None else (grad,)
-    kernels.require_cuda_inputs(name, param, mu, nu, *extra)
-    err = kernels.load().emt_spmd_adam(
-        param.data_ptr(), None if grad is None else grad.data_ptr(), mu.data_ptr(),
-        nu.data_ptr(), int(mu.dtype == torch.bfloat16), param.numel(), ctypes.addressof(h),
-        kernels.stream_ptr(param.device))
-    kernels.check(err, name)
-    spmd_adam_update.launches += 1
+    if kernels.dispatch_device(name, params[0]) == "cpu":
+        for p, g, m, v in zip(params, grads, mus, nus):
+            _check_spmd_leaf(name, p, g, m, v)
+            if any(t is not None and t.device.type != "cpu" for t in (p, g, m, v)):
+                raise ValueError(f"{name}: every leaf on the CPU, or every leaf on one "
+                                 "CUDA device")
+        with torch.no_grad():
+            for p, g, m, v in zip(params, grads, mus, nus):
+                spmd_adam_update_ref(p, g, m, v, h)
+        return
+    # one pass per leaf: its checks, then its descriptor
+    dev = params[0].get_device()
+    leaves = []
+    for p, g, m, v in zip(params, grads, mus, nus):
+        _check_spmd_leaf(name, p, g, m, v)
+        ts = (p, m, v) if g is None else (p, m, v, g)
+        ptrs = []
+        for t in ts:
+            if t.get_device() != dev or not t.is_contiguous():
+                raise ValueError(f"{name}: contiguous tensors on one CUDA device")
+            ptrs.append(t.data_ptr())
+        leaves.append((ptrs[0], ptrs[3] if g is not None else None, ptrs[1], ptrs[2],
+                       p.numel(), 0, int(m.dtype == torch.bfloat16), _width(ptrs)))
+    lib, stream = kernels.load(), kernels.stream_ptr(params[0].device)
+    for i in range(0, len(leaves), SPMD_LEAVES_PER_LAUNCH):
+        part = leaves[i:i + SPMD_LEAVES_PER_LAUNCH]
+        table = (SpmdLeaf * len(part))(*part)
+        kernels.check(lib.emt_spmd_adam_multi(ctypes.addressof(table), len(part),
+                                              ctypes.addressof(h), stream), name)
+        spmd_adam_update.launches += 1
 
 
 def zero_slab_update(slab: torch.Tensor, p_local: torch.Tensor, mu: torch.Tensor,
@@ -176,7 +234,8 @@ def zero_slab_update(slab: torch.Tensor, p_local: torch.Tensor, mu: torch.Tensor
     err = kernels.load().emt_zero_slab(
         slab.data_ptr(), int(slab.dtype == bf16), p_local.data_ptr(), mu.data_ptr(),
         nu.data_ptr(), int(mu.dtype == bf16), dir_out.data_ptr(), int(dir_out.dtype == bf16),
-        slab.numel(), float(n_ranks), ctypes.addressof(h), kernels.stream_ptr(slab.device))
+        slab.numel(), float(n_ranks), ctypes.addressof(h),
+        vector_width(slab, p_local, mu, nu, dir_out), kernels.stream_ptr(slab.device))
     kernels.check(err, name)
     zero_slab_update.launches += 1
 
@@ -195,7 +254,8 @@ def apply_direction(param: torch.Tensor, direction: torch.Tensor, neg_lr: float)
     kernels.require_cuda_inputs(name, param, direction)
     err = kernels.load().emt_apply_direction(
         param.data_ptr(), direction.data_ptr(), int(direction.dtype == torch.bfloat16),
-        param.numel(), float(neg_lr), kernels.stream_ptr(param.device))
+        param.numel(), float(neg_lr), vector_width(param, direction),
+        kernels.stream_ptr(param.device))
     kernels.check(err, name)
     apply_direction.launches += 1
 

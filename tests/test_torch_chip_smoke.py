@@ -347,6 +347,10 @@ def test_phase_17_counts_k11_on_the_explicit_path_and_not_k8():
     src = inspect.getsource(chip_smoke.phase_dp_kernels)
     for fn in ("spmd_adam_update", "zero_slab_update", "apply_direction"):
         assert f'"adam.cu", ' in src and fn in src
+    # the replicated update takes a group's leaves in one call, and 17a
+    # holds it to 4 launches per iteration (one per group and branch)
+    assert "spmd_adam_update([ps[i] for i in part]" in src
+    assert "rep > 4 * n_it" in inspect.getsource(chip_smoke.phase_data_parallel)
 
 
 def test_phase_17_runs_two_ranks_of_the_flagship_at_its_batch():
@@ -361,3 +365,50 @@ def test_phase_17_runs_two_ranks_of_the_flagship_at_its_batch():
     s = spmd_config(cfg)
     assert (s.zero, s.grad_psum_dtype, s.direction_dtype) == (True, "bfloat16", "bfloat16")
     assert chip_smoke.N_DP_WARMUP + chip_smoke.N_DP_TIMED == 6
+
+
+def test_phase_18_runs_after_17c_and_before_the_kernel_times():
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index("phase_dp_kernels(") < main.index("phase_grad_drift(") < main.index(
+        "kernel_only(")
+
+
+def test_sum_order_bound_holds_two_orders_of_a_hand_made_sum():
+    """1 + 2^-24 + 2^-24 in fp32: left to right each small term rounds away
+    (ties to even), right to left they add to 2^-23 first and survive; the
+    two differ by 2^-23, within 2 (k - 1) u / (1 - (k - 1) u) * sum|terms|."""
+    terms = np.array([1.0, 2.0 ** -24, 2.0 ** -24], dtype=np.float32)
+    left = (terms[0] + terms[1]) + terms[2]
+    right = terms[0] + (terms[1] + terms[2])
+    diff = abs(float(right) - float(left))
+    assert diff == 2.0 ** -23
+    bound = float(chip_smoke.sum_order_bound(3, np.abs(terms.astype(np.float64)).sum()))
+    assert diff <= bound < 2.1 * diff  # 4 u (1 + 2^-23) / (1 - 2 u): tight here
+    assert float(chip_smoke.sum_order_bound(1, 5.0)) == 0.0
+    k = torch.tensor([0, 1, 2, 1001])
+    out = chip_smoke.sum_order_bound(k, torch.full((4,), 3.0))
+    assert out[0] == out[1] == 0.0 and out[3] > 999 * out[2]
+
+
+@pytest.mark.parametrize("dims,time_pair", [(3, False), (4, True), (4, False)])
+def test_k1_term_counts_are_the_plain_backwards_terms(dims, time_pair):
+    """Per table element, the count of w * g terms K1 backward adds: every
+    element the plain backward writes has one (all weights > 0 inside the
+    cells), and the counts sum to points x levels x 8 corners x time slices
+    x F."""
+    from emernerf_torch.ops.brickgrid import BrickGridSpec, brickgrid_encode_bwd_ref
+
+    spec = BrickGridSpec(n_input_dims=dims, n_levels=3, base_resolution=4, max_resolution=16,
+                         log2_bricks=6, n_features_per_level=2, time_pair=time_pair)
+    g = torch.Generator().manual_seed(5)
+    pos = torch.rand((200, dims), generator=g) * 0.9 + 0.05
+    table = torch.rand(spec.table_shape, generator=g)
+    grad = torch.rand((200, spec.n_output_dims), generator=g) + 0.1
+    d_table, _ = brickgrid_encode_bwd_ref(table, pos, grad, spec, False)
+    counts = chip_smoke.k1_term_counts(pos, spec)
+    assert counts.shape == d_table.shape
+    slices = 2 if dims == 4 else 1
+    assert int(counts.sum()) == 200 * spec.n_levels * 8 * slices * spec.n_features_per_level
+    assert torch.equal(counts > 0, d_table != 0)

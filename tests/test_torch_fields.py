@@ -314,3 +314,48 @@ def test_sh_directions_radiance_field_matches_jax(sh_pair):
     ours, _ = _radiance_matches(sh_pair, 12, rtol=1e-5)
     assert "rgb_sky" in ours
 
+
+
+@pytest.mark.parametrize("expanded", [False, True])
+def test_embedding_lookup_is_the_embedding_with_its_gradient(monkeypatch, expanded):
+    """``embedding_lookup`` returns nn.Embedding's rows and, through its
+    float64 one-hot products (blocks of 64 rows here: 130 rows), the same
+    table gradient up to the order of the sums; an index expanded over its
+    last dimension (the renderer's per-sample view of each ray's index) is
+    looked up once per ray and gives the same rows and gradient."""
+    from emernerf_torch.models import fields
+
+    g = torch.Generator().manual_seed(3)
+    weight = torch.randn((130, 16), generator=g, requires_grad=True)
+    idx = torch.randint(0, 130, (50, 1 if expanded else 7), generator=g)
+    idx[:3, 0] = torch.tensor([0, 64, 129])
+    idx = idx.int().expand(50, 7)
+    monkeypatch.setattr(fields, "_EMBED_ONE_HOT_ENTRIES", 64 * (50 if expanded else 350))
+    cot = torch.randn((50, 7, 16), generator=g)
+    assert (idx.stride(1) == 0) == expanded
+    out = fields.embedding_lookup(weight, idx)
+    ref = torch.nn.functional.embedding(idx.long(), weight)
+    assert torch.equal(out, ref)
+    (ours,) = torch.autograd.grad(out, weight, cot)
+    (theirs,) = torch.autograd.grad(ref, weight, cot)
+    torch.testing.assert_close(ours, theirs, rtol=1e-6, atol=1e-6)
+
+
+def _reaches(fn, name):
+    return fn is not None and (type(fn).__name__ == name or
+                               any(_reaches(f, name) for f, _ in fn.next_functions))
+
+
+def test_appearance_embedding_takes_the_deterministic_lookup():
+    """The field's appearance rows come through ``embedding_lookup``, whose
+    gradient the card reproduces bit for bit (``nn.Embedding``'s does not:
+    ``emernerf_torch/perf/bench_embedding.py``), for a per-sample index and
+    for the renderer's expanded per-ray one."""
+    from emernerf_torch.flagship import build_flagship
+
+    _, _, model, _, _ = build_flagship(tiny=True, device="cpu")
+    assert model.use_appearance_embedding
+    for idx in (torch.tensor([[0, 1], [2, 0]]), torch.tensor([2, 0])[:, None].expand(2, 3)):
+        out = model._appearance(tuple(idx.shape), {"img_idx": idx, "cam_idx": idx})
+        assert _reaches(out.grad_fn, "_EmbeddingLookupBackward")
+        assert torch.equal(out, model.appearance_embedding.weight[idx])

@@ -58,8 +58,10 @@ from emernerf_torch.train.optim import (
     apply_direction,
     apply_direction_ref,
     make_adam,
+    SPMD_LEAVES_PER_LAUNCH,
     spmd_adam_update,
     spmd_adam_update_ref,
+    vector_width,
     zero_slab_update,
     zero_slab_update_ref,
 )
@@ -729,12 +731,122 @@ def test_spmd_adam_kernel_matches_plain_bit_for_bit(cuda, numel):
     h = adam.hyper(3, 0.003)
     grad = torch.randn((numel,), device=cuda, generator=g) * 1e-2
     copies = [(p.clone(), state.mu[0].clone(), state.nu[0].clone()) for _ in range(2)]
-    for (pp, m, v), fn in zip(copies, (spmd_adam_update, spmd_adam_update_ref)):
-        fn(pp, grad, m, v, h)
-        fn(pp, None, m, v, h)
+    (pp, m, v), (pr, mr, vr) = copies
+    spmd_adam_update([pp], [grad], [m], [v], h)
+    spmd_adam_update([pp], [None], [m], [v], h)
+    spmd_adam_update_ref(pr, grad, mr, vr, h)
+    spmd_adam_update_ref(pr, None, mr, vr, h)
     torch.cuda.synchronize()
     for a, b in zip(*copies):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 594])
+def test_embedding_lookup_gradient_is_bit_for_bit_between_runs(cuda, rows):
+    """The appearance embedding's gradient at a training batch's shape
+    (8,192 rays x 32 samples; the synthetic flagship's 8 rows and Waymo's
+    594): embedding_lookup's float64 one-hot products give the same bits
+    twice, and with TF32 matmuls allowed (nn.Embedding's backward need not
+    give the same bits twice)."""
+    from emernerf_torch.models.fields import embedding_lookup
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    weight = torch.randn((rows, 16), device=cuda, generator=g, requires_grad=True)
+    idx = torch.randint(0, rows, (8192, 1), device=cuda, generator=g).expand(-1, 32)
+    cot = torch.randn((8192, 32, 16), device=cuda, generator=g)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        grads = []
+        for allow in (False, False, True):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            grads.append(torch.autograd.grad(embedding_lookup(weight, idx), weight, cot)[0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    a = grads[0]
+    assert all(torch.equal(a, b) for b in grads[1:])
+    # against the float64 sums: an fp32 sum over each ray's 32 samples, then
+    # float64 sums over the rays rounded once: (32 + 1) 2^-24 sum|terms|
+    flat_idx, flat = idx.reshape(-1), cot.reshape(-1, 16).double()
+    exact = torch.zeros((rows, 16), dtype=torch.float64, device=cuda).index_add_(0, flat_idx, flat)
+    abs_sum = torch.zeros_like(exact).index_add_(0, flat_idx, flat.abs())
+    assert bool(((a.double() - exact).abs() <= 33 * 2.0 ** -24 * abs_sum).all())
+
+
+def _shifted(t, offset):
+    """t's values in a buffer ``offset`` elements in (off 16-byte alignment
+    for offset 1-3)."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    flat[offset:].copy_(t.reshape(-1))
+    return flat[offset:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("n", [1, 3, 8 * 613 + 5, 4096 * 5 + 7])
+@pytest.mark.parametrize("wire", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("direction", [torch.float32, torch.bfloat16])
+def test_k11_entry_points_match_plain_at_both_widths(cuda, offset, n, wire, moments, direction):
+    """Every K11 entry point on operands 16-byte aligned (vector width 8) and
+    1-3 elements past it (width 1), on lengths with a tail, for every wire,
+    moment and direction dtype: bit for bit with the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(10 + n + offset)
+
+    def rand(scale, dtype=torch.float32, positive=False):
+        x = torch.rand if positive else torch.randn
+        return _shifted((x((n,), device=cuda, generator=g) * scale).to(dtype), offset)
+
+    p, grad, slab = rand(1.0), rand(1e-2), rand(1e-2, wire)
+    mu, nu = rand(1e-3, moments), rand(1e-4, moments, positive=True)
+    assert vector_width(p, grad, mu, nu, slab) == (8 if offset == 0 else 1)
+    h = make_adam(1e-5).hyper(4, 0.003)
+    outs = []
+    for kernel in (True, False):
+        pp, m, v = (_shifted(x, offset) for x in (p, mu, nu))
+        if kernel:
+            spmd_adam_update([pp], [grad], [m], [v], h)
+        else:
+            spmd_adam_update_ref(pp, grad, m, v, h)
+        d = _shifted(torch.empty((n,), dtype=direction, device=cuda), offset)
+        (zero_slab_update if kernel else zero_slab_update_ref)(slab, pp, m, v, d, 2, h)
+        (apply_direction if kernel else apply_direction_ref)(pp, d, h.neg_lr)
+        outs.append((pp, m, v, d))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_spmd_adam_update_launches_once_per_table_of_leaves(cuda):
+    """More leaves than one launch's descriptor table holds, mixed fp32 and
+    bf16 moments, missing gradients, empty, short and misaligned leaves:
+    one launch per SPMD_LEAVES_PER_LAUNCH leaves, bit for bit with the
+    plain version leaf by leaf."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    count = SPMD_LEAVES_PER_LAUNCH + 9
+    sizes = [(0 if i == 5 else 1 + (i * 397) % 9000) for i in range(count)]
+    params = [torch.randn((k,), device=cuda, generator=g) for k in sizes]
+    grads = [None if i % 4 == 1 else _shifted(torch.randn((k,), device=cuda, generator=g) * 1e-2,
+                                              i % 3) for i, k in enumerate(sizes)]
+    dtypes = [torch.bfloat16 if i % 2 else torch.float32 for i in range(count)]
+    mus = [(torch.randn((k,), device=cuda, generator=g) * 1e-3).to(d)
+           for k, d in zip(sizes, dtypes)]
+    nus = [(torch.rand((k,), device=cuda, generator=g) * 1e-4).to(d)
+           for k, d in zip(sizes, dtypes)]
+    h = make_adam(1e-5).hyper(2, 0.003)
+    # every third leaf aligned, the others 1 or 2 elements past it
+    copies = [[[_shifted(x, i % 3) for i, x in enumerate(xs)] for xs in (params, mus, nus)]
+              for _ in range(2)]
+    launches = spmd_adam_update.launches
+    spmd_adam_update(copies[0][0], grads, copies[0][1], copies[0][2], h)
+    assert spmd_adam_update.launches - launches == 2
+    for p, gr, m, v in zip(*copies[1][:1], grads, *copies[1][1:]):
+        spmd_adam_update_ref(p, gr, m, v, h)
+    torch.cuda.synchronize()
+    for xs, ys in zip(*copies):
+        for a, b in zip(xs, ys):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -91,3 +91,55 @@ def test_lr_schedule_matches_jax_at_milestones(num_iters):
     for c in counts:
         np.testing.assert_allclose(ours(c), float(ref(c)), rtol=1e-6, err_msg=str(c))
     assert ours(0) == pytest.approx(1e-4) and ours(w) == pytest.approx(0.01)
+
+
+def test_spmd_adam_update_plain_path_is_the_per_leaf_plain_version():
+    """K11's replicated update takes every leaf of a group in one call; on
+    the CPU it is ``spmd_adam_update_ref`` leaf by leaf, bit for bit: a
+    missing gradient, fp32 and bf16 moments, lengths 1, 3 and 8k+5, and
+    more leaves than one launch's descriptor table holds."""
+    from emernerf_torch.train.optim import (
+        SPMD_LEAVES_PER_LAUNCH, spmd_adam_update, spmd_adam_update_ref)
+
+    rng = np.random.default_rng(4)
+    count = SPMD_LEAVES_PER_LAUNCH + 3
+    sizes = [(1, 3, 8 * 11 + 5)[i % 3] for i in range(count)]
+    params = [torch.from_numpy(rng.normal(size=n).astype(np.float32)) for n in sizes]
+    grads = [None if i % 5 == 2 else torch.from_numpy((rng.normal(size=n) * 1e-2)
+                                                        .astype(np.float32))
+             for i, n in enumerate(sizes)]
+    dtypes = [torch.bfloat16 if i % 2 else torch.float32 for i in range(count)]
+    mus = [torch.from_numpy((rng.normal(size=n) * 1e-3).astype(np.float32)).to(d)
+           for n, d in zip(sizes, dtypes)]
+    nus = [torch.from_numpy((rng.uniform(size=n) * 1e-4).astype(np.float32)).to(d)
+           for n, d in zip(sizes, dtypes)]
+    h = make_adam(1e-5).hyper(3, 0.003)
+    one, each = ([[x.clone() for x in xs] for xs in (params, mus, nus)] for _ in range(2))
+    spmd_adam_update(one[0], grads, one[1], one[2], h)
+    for p, g, m, v in zip(each[0], grads, each[1], each[2]):
+        spmd_adam_update_ref(p, g, m, v, h)
+    for xs, ys in zip(one, each):
+        for a, b in zip(xs, ys):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not torch.equal(one[0][0], params[0])  # the step moved the params
+    with pytest.raises(ValueError, match="one gradient and two moments"):
+        spmd_adam_update(one[0], grads[:-1], one[1], one[2], h)
+
+
+@pytest.mark.parametrize("slot", ["param", "grad", "mu", "nu"])
+def test_spmd_adam_update_refuses_a_leaf_off_the_first_leafs_device(slot):
+    """The route follows the first leaf; a later leaf on another device
+    (here the meta device) raises rather than taking the CPU's plain
+    version, as the kernel route raises on a device mismatch."""
+    from emernerf_torch.train.optim import spmd_adam_update
+
+    def leaf(device="cpu"):
+        return {k: torch.zeros(5, device=device) for k in ("param", "grad", "mu", "nu")}
+
+    first, second = leaf(), leaf()
+    second[slot] = torch.zeros(5, device="meta")
+    params, grads, mus, nus = ([first[k], second[k]] for k in ("param", "grad", "mu", "nu"))
+    before = first["param"].clone()
+    with pytest.raises(ValueError, match="every leaf on the CPU"):
+        spmd_adam_update(params, grads, mus, nus, make_adam(1e-5).hyper(1, 0.003))
+    assert torch.equal(first["param"], before)  # checked before any leaf moved

@@ -535,20 +535,76 @@ def test_trainer_counts_ranks_as_the_mesh_does():
         Trainer(_tiny_cfg(["parallel.num_devices=0"]), device="cpu")
 
 
-def test_cli_starts_two_ranks_and_rank_0_writes(tmp_path, monkeypatch):
-    """``parallel.num_devices=2 --device cpu``: the CLI spawns two ranks that
-    train 2 iterations; one metrics.json, one final checkpoint."""
+def _cli_argv(root, run_name):
     from test_cli import TINY_OVERRIDES
 
+    return ["--device", "cpu", "--output_root", str(root), "--project", "p", "--run_name",
+            run_name, *TINY_OVERRIDES, "parallel.num_devices=2", "optim.num_iters=2",
+            "logging.print_freq=1", "render.render_low_res=false"]
+
+
+@pytest.fixture(scope="module")
+def spawned_cli_run(tmp_path_factory):
+    """The run directory of the CLI that starts its own two ranks."""
     from emernerf_torch.train_emernerf import main
 
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    argv = ["--device", "cpu", "--output_root", str(tmp_path), "--project", "p", "--run_name",
-            "dp", *TINY_OVERRIDES, "parallel.num_devices=2", "optim.num_iters=2",
-            "logging.print_freq=1", "render.render_low_res=false"]
-    assert main(argv) is None
-    run = tmp_path / "p" / "dp"
+    root = tmp_path_factory.mktemp("cli")
+    with pytest.MonkeyPatch.context() as mp_:
+        mp_.setenv("OMP_NUM_THREADS", "1")
+        mp_.delenv("WORLD_SIZE", raising=False)
+        assert main(_cli_argv(root, "dp")) is None
+    return root / "p" / "dp"
+
+
+def _metrics(run):
+    """metrics.json's records without their clock readings."""
+    return [{k: v for k, v in json.loads(line).items() if not k.endswith("_time")}
+            for line in (run / "metrics.json").read_text().splitlines()]
+
+
+def test_cli_starts_two_ranks_and_rank_0_writes(spawned_cli_run):
+    """``parallel.num_devices=2 --device cpu``: the CLI spawns two ranks that
+    train 2 iterations; one metrics.json, one final checkpoint."""
+    run = spawned_cli_run
     lines = (run / "metrics.json").read_text().splitlines()
     assert len(lines) == 3 and all(np.isfinite(json.loads(x)["rgb_loss"]) for x in lines)
     assert sorted(f.name for f in run.glob("checkpoint_*")) == ["checkpoint_00003"]
     assert (run / "metrics_all_3.json").exists()
+
+
+def test_cli_under_torchrun_writes_what_the_spawned_ranks_write(spawned_cli_run, tmp_path):
+    """The same run under ``torchrun --nproc_per_node 2`` (the ranks join
+    the group from its environment): one metrics.json equal to the spawned
+    run's but for its clock readings, one final checkpoint."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([repo, os.path.join(repo, "tests"),
+                                           os.environ.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+           "-m", "emernerf_torch.train_emernerf", *_cli_argv(tmp_path, "torchrun")]
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out = proc.communicate(timeout=TIMEOUT)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        pytest.fail(f"torchrun's ranks ran past {TIMEOUT} s")
+    assert proc.returncode == 0, out[-3000:]
+    run = tmp_path / "p" / "torchrun"
+    assert _metrics(run) == _metrics(spawned_cli_run)
+    assert sorted(f.name for f in run.glob("checkpoint_*")) == ["checkpoint_00003"]
+
+
+def test_cli_under_torchrun_refuses_another_rank_count(tmp_path, monkeypatch):
+    """torchrun's WORLD_SIZE must be parallel.num_devices."""
+    from emernerf_torch.train_emernerf import main
+
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="torchrun started 3 ranks, parallel.num_devices asks "
+                                         "for 2"):
+        main(_cli_argv(tmp_path, "mismatch"))
+    assert not (tmp_path / "p").exists()

@@ -245,6 +245,27 @@ Phases (any failure exits non-zero; nothing is skipped):
      computation, a bf16 rounding).  Then the
      same passes under torch.use_deterministic_algorithms(True,
      warn_only=True): the ops that warn.
+  19. the four settings the JAX package runs beside the defaults, each on
+     the full-width flagship (Trainer, 3 warm-up and 6 timed iterations
+     with the launch counters zeroed before them and read after: every
+     loss finite, every parameter changed; 2 profiled iterations: busy and
+     idle), beside phase 5.  19a, nerf.model.grid_backend=mx: K12 forward
+     (bit for bit) and backward (line gradient within one fp32 or bf16
+     rounding, position gradient within 1e-5 of its largest value) against
+     the plain versions at the training shapes (proposal grids' 128 and 64
+     samples, static and fused grids' 32, the fused grid's warped 2 x 16
+     with position gradients), fp32 and bf16; the JAX form (tents +
+     torch.bmm) of one axis timed beside; training with no cast of a grid
+     table, K1 and K12 launches per iteration; 2 eval images (rays/s) and
+     one fp32 chunk card vs CPU.  19b, nerf.propnet.fine_level_skip=2: K1
+     forward (bit for bit) and backward on both proposal grids' coarse
+     views at the far samples; training, and the proposal grids' K1 rows
+     in one iteration against the unskipped count.  19c,
+     nerf.model.perf.grad_subsample=4: K1 backward with the stride at the
+     static and fused grids' queries (position gradient bit for bit, and
+     with and without the stride); training.  19d,
+     optim.fused_lidar_branch=true: training, launches per iteration
+     beside phase 5's.
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
@@ -254,7 +275,8 @@ are those of the training run of its path (phase 5, phase 6 for K4, phase
 grids and K3 shapes, phase 12's runs for the "points" rows of 12b, phase
 13's for the "waymo" rows of 13b, phase 15b's interpolated renders for
 the "interp" and "interp_hash" rows, phase 17a's explicit run (rank 0)
-for K11's "dp" rows; a K3 forward call past 64 channels
+for K11's "dp" rows, phase 19's training runs for the "mx", "skip" and
+"subsample" rows; a K3 forward call past 64 channels
 counts its two kernels).
 The kernels' device times alone (torch.profiler, each kernel's mean over
 its records: K2, K3 forward and backward, K5, P1, P3; for K3 past 64
@@ -266,6 +288,7 @@ The last two lines are the card line and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -286,6 +309,7 @@ SAMPLE_TOPK, AGG_TOPK = 32, 16  # nerf.sampling.sample_topk, head.temporal_agg_t
 # as render/volrend.py:composite_rays packs them
 EVAL_SETS = [0] * 4 + [1] * 9 + [0] + [2] * 9
 TABLE_SCALE = 2000.0  # fp32 card-vs-CPU checks: tables U(+-0.2), not U(+-1e-4)
+MX_TABLE_SCALE = 3.0  # an MX grid's lines N(0, 0.6^2): products of 3-4 lines stay O(1)
 # tiny flagship widened so that top-K pruning and both proposal levels
 # carry gradients (as tests/test_torch_train_step.py widens it)
 TINY_FP32 = ("nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32",
@@ -408,7 +432,7 @@ def brick_touched(spec, pos) -> int:
     cpa, f = spec.CPA, spec.n_features_per_level
     per_row = spec.row_width // f
     n = 0
-    for lvl in range(spec.n_levels):
+    for lvl in range(spec.n_levels_used):
         sc = float(scales[lvl])
         cells = [_cell(x[:, i], sc)[0] for i in range(spec.n_input_dims)]
         offs = [c & (spec.brick_cells - 1) for c in cells[:3]]
@@ -487,28 +511,32 @@ def grid_ops(spec, n: int, backward: bool, pos_grad: bool) -> float:
     backward's table gradient); the position gradient adds per corner the F
     multiply-adds of gdotf and, per dimension, D - 2 multiplies of the
     partial product, one by gdotf and one add."""
-    d, f, lv = spec.n_input_dims, spec.n_features_per_level, spec.n_levels
+    d, f = spec.n_input_dims, spec.n_features_per_level
+    lv = getattr(spec, "n_levels_used", spec.n_levels)  # a brick grid's coarse view
     per_corner = (d - 1) + (f if backward else 2 * f)
     if backward and pos_grad:
         per_corner += 2 * f + d * d
     return float(n) * lv * (4 * d + (1 << d) * per_corner)
 
 
-def flagship_specs():
-    """The four grid specs of the full-width flagship."""
+def flagship_specs(backend="brick"):
+    """The four grid specs of the full-width flagship (brick, or mx grids)."""
     import dataclasses
 
-    from emernerf_torch.builders import _enc_spec, flow_spec, make_grid_spec
+    from emernerf_torch.builders import _enc_spec, cfg_perf, flow_spec, make_grid_spec
     from emernerf_torch.flagship import flagship_config
 
     cfg = flagship_config()
+    perf = cfg_perf(cfg)
     m, enc = cfg.nerf.model, cfg.nerf.propnet.xyz_encoder
-    dyn, flw = _enc_spec(m.dynamic_xyz_encoder, "brick"), flow_spec("brick")
-    props = [make_grid_spec("brick", 3, enc.n_levels_per_prop[i],
+    dyn = _enc_spec(m.dynamic_xyz_encoder, backend, perf=perf)
+    flw = flow_spec(backend, perf=perf)
+    props = [make_grid_spec(backend, 3, enc.n_levels_per_prop[i],
                             enc.base_resolutions_per_prop[i], enc.max_resolution_per_prop[i],
-                            enc.lgo2_hashmap_size_per_prop[i], 1)
+                            enc.lgo2_hashmap_size_per_prop[i], 1, perf=perf)
              for i in range(2)]
-    return {"prop0": props[0], "prop1": props[1], "static": _enc_spec(m.xyz_encoder, "brick"),
+    return {"prop0": props[0], "prop1": props[1],
+            "static": _enc_spec(m.xyz_encoder, backend, perf=perf),
             "dynflow": dataclasses.replace(dyn, n_features_per_level=dyn.n_features_per_level
                                            + flw.n_features_per_level)}
 
@@ -1303,14 +1331,15 @@ def _image_rays(dataset, idx):
 
 
 def _scaled_twins(gpu, cpu):
-    """Scale the card models' tables up from their U(+-1e-4) init, so that
-    density varies along and across rays (random MLPs alone give a
+    """Scale the card models' tables up from their init (U(+-1e-4); an MX
+    grid's flat table, whose lines start at N(0, 0.2^2), by MX_TABLE_SCALE),
+    so that density varies along and across rays (random MLPs alone give a
     near-constant depth), and copy every param to the CPU models."""
     with torch.no_grad():
         for pm in gpu:
             for name, p in pm.named_parameters():
                 if name.endswith("table"):
-                    p.mul_(TABLE_SCALE)
+                    p.mul_(TABLE_SCALE if p.dim() == 2 else MX_TABLE_SCALE)
     for c, g in zip(cpu, gpu):
         c.load_state_dict(g.state_dict())
 
@@ -4719,6 +4748,380 @@ def phase_grad_drift(dev):
     print(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
 
+# phase 19: the four settings the JAX package runs, on the full-width flagship
+MX = ("nerf.model.grid_backend=mx",)
+SKIP = ("nerf.propnet.fine_level_skip=2",)
+SUBSAMPLE = ("nerf.model.perf.grad_subsample=4",)
+FUSED = ("optim.fused_lidar_branch=true",)
+N_SETTING_TIMED = 6  # timed iterations of each setting's training window
+# the MX flagship's kernels by name in its profiler table (kernels/csrc/mxgrid.cu)
+MX_SHARES = (("K12 forward", ("mx_forward_kernel",)),
+             ("K12 line gradients", ("mx_lines_grad_kernel",)),
+             ("K12 position gradients", ("mx_pos_grad_kernel",)),
+             ("K12's bf16 rounding pass", ("mx_round_to_bf16_kernel",)),
+             ("K1 forward", ("brickgrid_encode_kernel",)),
+             ("K1 backward", ("brickgrid_backward_kernel",)),
+             ("Adam (K8)", ("adam_kernel",)),
+             ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
+             ("copies, casts and fills", ("copy_kernel", "FillFunctor", "Memcpy", "Memset")))
+
+
+def mx_ops(spec, n: int, backward: bool, pos_grad: bool) -> float:
+    """The least operation count of one K12 call.  Per (point, scale, axis):
+    the two tents' weights (about 20) and, per lane, 4 multiplies and 3
+    adds of the rows and the product with the other axes; per (point,
+    scale) the rank sum (a lane each).  The backward rebuilds that, forms
+    each lane's cotangents (2 per axis) and multiplies and adds w * du into
+    4 rows (8 per axis); the position gradient adds per axis and lane the
+    derivative's rows and the dot (8)."""
+    s, a, w = spec.n_scales, spec.axes_per_scale, spec.factor_width
+    per = a * (20 + 8 * w) + w
+    if backward:
+        per += a * 10 * w
+        if pos_grad:
+            per += a * 8 * w
+    return float(n) * s * per
+
+
+def mx_rows(entries, name, spec, table, pos, pos_grad, g, compute, path="mx"):
+    """K12 forward (bit for bit) and backward against their plain versions
+    (the plain versions in one chunk: the card holds it): the line gradient
+    within rtol 1e-5 (fp32) or 2^-7 (one bf16 rounding) + 1e-5 x max|grad|,
+    the position gradient within 1e-5 x max|grad| (the lanes' sums in
+    another order).  Two kernel lines of the run ``path``."""
+    import dataclasses
+
+    from emernerf_torch.ops.mxgrid import (
+        mx_lines_encode, mx_lines_encode_bwd, mx_lines_encode_bwd_ref, mx_lines_encode_ref)
+
+    n = pos.shape[0]
+    lines = table[spec.part_sizes[0]:spec.num_parameters]
+    whole = dataclasses.replace(spec, chunk=n)
+    label = {torch.float32: "fp32", torch.bfloat16: "fp32->bf16"}[compute]
+    tag = f"[{name}{',warped' if pos_grad else ''},{label},N={n}]"
+    out = mx_lines_encode(lines, pos, spec, compute)
+    ref = mx_lines_encode_ref(lines, pos, whole, compute)
+    exact = torch.equal(out, ref)
+    print(f"  mx_lines_encode{tag}: bit for bit with the plain version: {exact} (tolerance 0)")
+    if not exact:
+        fail(f"mx_lines_encode{tag}: differs by {float((out - ref).abs().max()):.3e}")
+    ms = cuda_ms(lambda: mx_lines_encode(lines, pos, spec, compute), 5)
+    plain_ms = cuda_ms(lambda: mx_lines_encode_ref(lines, pos, whole, compute), 2)
+    add_entry(entries, f"mx_lines_encode{tag}", "mxgrid.cu", "emernerf_tpu/ops/mxgrid.py:306",
+              mx_lines_encode, 0.0, ms, plain_ms, nbytes(lines, pos, out),
+              mx_ops(spec, n, False, False), path=path)
+    cot = torch.randn(out.shape, device=pos.device, generator=g)
+    args = (lines, pos, cot, spec, pos_grad, compute)
+    d_l, d_x = mx_lines_encode_bwd(*args)
+    r_l, r_x = mx_lines_encode_bwd_ref(lines, pos, cot, whole, pos_grad, compute)
+    mx = check(f"mx_lines_encode_bwd{tag}.d_lines", d_l, r_l,
+               1e-5 if compute == torch.float32 else 2 ** -7, 1e-5)
+    if pos_grad:
+        mx = max(mx, check(f"mx_lines_encode_bwd{tag}.d_pos", d_x, r_x, 0.0, 1e-5))
+    ms = cuda_ms(lambda: mx_lines_encode_bwd(*args), 5)
+    plain_ms = cuda_ms(lambda: mx_lines_encode_bwd_ref(lines, pos, cot, whole, pos_grad,
+                                                        compute), 2)
+    # lines, positions and cotangent in; the line gradient (and d_pos) out
+    add_entry(entries, f"mx_lines_encode_bwd{tag}", "mxgrid.cu",
+              "emernerf_tpu/ops/mxgrid.py:306", mx_lines_encode_bwd, mx, ms, plain_ms,
+              nbytes(lines, pos, cot, d_l, d_x), mx_ops(spec, n, True, pos_grad), path=path)
+    del out, ref, d_l, d_x, r_l, r_x, cot
+
+
+def tent_bmm_ms(dev, spec, n):
+    """The JAX package's formulation of one axis of ``spec`` at ``n``
+    points, in PyTorch: per 8,192-point chunk the (2S, chunk, block) tent
+    stack built elementwise, then one fp32 torch.bmm with the (2S, block,
+    W) lines and the coarse + periodic sum (device ms, CUDA events)."""
+    blk, ns, w = spec.line_block, spec.n_scales, spec.factor_width
+    g = torch.Generator(device=dev).manual_seed(19)
+    lines = torch.randn((2 * ns, blk, w), device=dev, generator=g)
+    c = torch.rand(n, device=dev, generator=g)
+    fr = torch.tensor(spec.axis_freqs(0), dtype=torch.float32, device=dev)[:, None, None]
+    j = torch.arange(blk, device=dev, dtype=torch.float32)
+
+    def run():
+        for lo in range(0, n, spec.chunk):
+            cc = c[lo:lo + spec.chunk]
+            tent_c = (1.0 - (cc[:, None] * (blk - 1) - j).abs()).clamp_min(0.0)
+            up = torch.remainder(cc[None, :, None] * fr, 1.0) * blk
+            d = (up - j).abs()
+            tent_p = (1.0 - torch.minimum(d, blk - d)).clamp_min(0.0)
+            tents = torch.cat([tent_c.expand(ns, -1, -1), tent_p])
+            u2 = torch.bmm(tents, lines)
+            u2[:ns] + u2[ns:]
+
+    return cuda_ms(run, 3)
+
+
+def phase_mx_kernels(dev, entries):
+    """Phase 19a's kernels: K12 forward and backward against their plain
+    versions at the MX flagship's training shapes (the pixel branch's
+    8,192 rays: the proposal grids' 128 and 64 samples, the static and
+    fused grids' 32 shaded samples, the fused grid's 16 x 2 warped ones
+    with position gradients), fp32 and the flagship's bf16 computation on
+    its fp32 table; then the tents + torch.bmm form of one axis."""
+    from emernerf_torch.ops.mxgrid import init_mxgrid_table
+
+    print("phase 19a (kernels): K12 vs plain versions at the MX flagship's training shapes")
+    specs = flagship_specs("mx")
+    for k, spec in specs.items():
+        print(f"  {k}: {spec.n_input_dims}D, {spec.n_brick_levels} brick levels, "
+              f"{spec.n_scales} scales of W = {spec.factor_width}, table {spec.table_shape}")
+    g = torch.Generator(device=dev).manual_seed(190)
+    xyz, xyzt = ray_batches(dev, g, N_TRAIN, SAMPLE_TOPK)
+    warped = ray_batches(dev, g, N_TRAIN, AGG_TOPK)[1][N_TRAIN * AGG_TOPK:].contiguous()
+    cases = [("prop0", ray_batches(dev, g, N_TRAIN, PROP_SAMPLES[0])[0], False),
+             ("prop1", ray_batches(dev, g, N_TRAIN, PROP_SAMPLES[1])[0], False),
+             ("static", xyz, False),
+             ("dynflow", xyzt[:N_TRAIN * SAMPLE_TOPK].contiguous(), False),
+             ("dynflow", warped, True)]
+    for name, pos, pos_grad in cases:
+        spec = specs[name]
+        table = init_mxgrid_table(spec, device=dev, generator=g) * 3
+        for compute in (torch.float32, torch.bfloat16):
+            mx_rows(entries, name, spec, table, pos, pos_grad, g, compute)
+        del table
+    n = N_TRAIN * SAMPLE_TOPK
+    fused = specs["dynflow"]
+    bmm = tent_bmm_ms(dev, fused, n)
+    k12 = next(e for e in entries if e["name"] == f"mx_lines_encode[dynflow,fp32,N={n}]")
+    print(f"  tents + torch.bmm (the JAX form in PyTorch, fp32), one axis of the fused grid at "
+          f"{n} points in chunks of {fused.chunk}: {bmm:.3f} ms; K12 forward, all "
+          f"{fused.axes_per_scale} axes: {k12['ms']:.3f} ms")
+    del xyz, xyzt, warped, cases
+    torch.cuda.empty_cache()
+    return bmm
+
+
+def phase_setting_train(dev, label, overrides, counted, zero, file_name, shares=PROFILE_SHARES,
+                        casts=False, n_timed=N_SETTING_TIMED):
+    """Trainer on the full-width flagship with ``overrides``: 3 warm-up and
+    ``n_timed`` timed iterations (steps 3-8: on the proposal-gradient ramp,
+    as phase 5's timed steps) with the launch counters zeroed before the
+    warm-ups and read after the timed ones (every counted kernel must
+    launch, none of ``zero``), then 2 profiled iterations at steps
+    2002-2003 (busy at the schedule's steady state, as phase 5 profiles
+    them), with ``casts`` one more that lists the casts of
+    grid-table-sized tensors (none may occur).  Every loss finite, every
+    parameter changed.  Returns (trainer, dict of ms, busy, peak,
+    launches, launches per iteration, shares, iterations)."""
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.train.trainer import Trainer
+
+    print(f"{label}: full-width flagship training through Trainer (bf16 default dtypes, seed 0, "
+          f"{' '.join(overrides)})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()  # the earlier phases' models, so that the peak is this run's
+    torch.cuda.empty_cache()
+    print(f"  device memory allocated before the build: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          "GiB")
+    t0 = time.perf_counter()
+    trainer = Trainer(flagship_config(overrides=overrides), device=dev)
+    params = trainer.state.params + trainer.state.prop_params
+    print(f"  built: {sum(p.numel() for p in params)} params in {time.perf_counter() - t0:.1f} s")
+    before = [p.detach().clone() for p in params]
+    for fn in counted + tuple(zero):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    history = [trainer.train_iteration(step) for step in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history += [trainer.train_iteration(step) for step in range(3, 3 + n_timed)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    iters = 3 + n_timed
+    launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
+    _check_launches(launches, {fn.__name__ for fn in zero}, f"{label} training run")
+    trainer.state.step = 2002
+    rows, busy = profile_train(trainer, 2002, ms, file_name)
+    share = profile_shares(rows, busy, shares)
+    for what, keys in shares:
+        print(f"  {what}: {share[what]:.1%} of the device time, {share[what] * busy:.3f} ms "
+              f"per iteration")
+    if casts:
+        numels = {p.numel() for m in (trainer.model, *trainer.prop_models)
+                  for name, p in m.named_parameters() if name.endswith("table")}
+        seen = table_casts(trainer, 2004, numels)
+        print(f"  dtype casts of tensors the size of a grid table ({sorted(numels)} elements) in "
+              f"one iteration: {len(seen)} {seen[:12]}")
+        if seen:
+            fail(f"{label}: {len(seen)} casts of a grid table in one training iteration")
+    for i, m in enumerate(history):
+        losses = _losses(m)
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"{label} iteration {i}: non-finite loss {losses}")
+    unchanged = [i for i, (p, b) in enumerate(zip(params, before)) if torch.equal(p, b)]
+    if unchanged:
+        fail(f"{label}: {len(unchanged)} parameter tensors did not change")
+    per_it = {k: v / iters for k, v in launches.items() if v}
+    print(f"  {ms:.2f} ms/iteration (mean over {n_timed} timed iterations), device busy "
+          f"{busy:.2f} ms (idle {1 - busy / ms:.1%}), peak device memory {peak:.2f} GiB; "
+          f"launches per iteration over {iters}: {per_it}")
+    print(f"  losses at iteration {len(history) - 1}: {_losses(history[-1])}")
+    del params, before
+    return trainer, dict(ms=ms, busy=busy, peak=peak, launches=launches, per_it=per_it,
+                         share=share, history=history)
+
+
+def _proposal_rows(trainer, step):
+    """(rows read, rows without fine-level skipping) of the proposal grids'
+    K1 forward in one training iteration: points x levels encoded, per
+    grid_encode call of a DensityField."""
+    from emernerf_torch.models import fields
+
+    got = [0, 0]
+    encode = fields.grid_encode
+
+    def tally(table, positions, spec, *args):
+        if positions.shape[-1] == 3 and spec.n_features_per_level == 1:
+            n = positions.numel() // 3
+            got[0] += n * spec.n_levels_used
+            got[1] += n * spec.n_levels
+        return encode(table, positions, spec, *args)
+
+    fields.grid_encode = tally
+    try:
+        trainer.train_iteration(step)
+    finally:
+        fields.grid_encode = encode
+    return got
+
+
+def phase_settings(dev, card_line, phase5):
+    """Phase 19: the MX grid (19a), fine-level skipping (19b), subsampled
+    table gradients (19c) and the fused pixel + lidar step (19d) on the
+    full-width flagship, each beside phase 5 (``phase5``: its launches,
+    iterations, ms/iteration, busy and peak).  Returns (entries' runs by
+    path, summary lines)."""
+    import dataclasses
+
+    from emernerf_torch.ops.brickgrid import (
+        brickgrid_encode, brickgrid_encode_bwd, brickgrid_encode_ref)
+    from emernerf_torch.ops.hashgrid import features_minor, hashgrid_encode, hashgrid_encode_bwd
+    from emernerf_torch.ops.mxgrid import mx_lines_encode, mx_lines_encode_bwd
+    from emernerf_torch.ops.stepfuns import (
+        importance_sampling, interlevel_loss_levels, interlevel_loss_levels_bwd)
+    from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_bwd
+    from emernerf_torch.train.optim import adam_update
+
+    t_start = time.perf_counter()
+    entries, runs, lines = [], {}, []
+    brick = (brickgrid_encode, brickgrid_encode_bwd)
+    hashed = (hashgrid_encode, hashgrid_encode_bwd, features_minor)
+    mx = (mx_lines_encode, mx_lines_encode_bwd)
+    shared = (importance_sampling, composite_along_rays, composite_along_rays_bwd,
+              interlevel_loss_levels, interlevel_loss_levels_bwd, adam_update)
+    ms5, busy5, peak5 = phase5["ms"], phase5["busy"], phase5["peak"]
+    per5 = {k: v / phase5["iterations"] for k, v in phase5["launches"].items() if v}
+
+    # 19a: the MX grid backend
+    bmm = phase_mx_kernels(dev, entries)
+    trainer, r = phase_setting_train(dev, "phase 19a", MX, brick + mx + shared, hashed,
+                                     "profile_train_mx.json", MX_SHARES, casts=True)
+    del trainer
+    torch.cuda.empty_cache()
+    runs["mx"] = r["launches"]
+    _, eval_rps, _ = phase_slice(dev, (brickgrid_encode, mx_lines_encode, importance_sampling,
+                                       composite_along_rays),
+                                 zero=hashed, label="phase 19a (eval)", overrides=MX)
+    phase_fp32_chunk(dev, overrides=MX, label="phase 19a (fp32 chunk)")
+    lines.append(f"MX grid (19a): train {r['ms']:.2f} ms/iteration, busy {r['busy']:.2f} ms (idle "
+                 f"{1 - r['busy'] / r['ms']:.1%}), peak {r['peak']:.2f} GiB against phase 5's "
+                 f"{ms5:.2f}, {busy5:.2f}, {peak5:.2f}; K1 {r['per_it'].get('brickgrid_encode', 0):g}"
+                 f" + {r['per_it'].get('brickgrid_encode_bwd', 0):g} and K12 "
+                 f"{r['per_it']['mx_lines_encode']:g} + {r['per_it']['mx_lines_encode_bwd']:g} "
+                 f"launches per iteration (forward + backward); eval {eval_rps:.1f} rays/s; "
+                 f"tents + torch.bmm of one axis {bmm:.3f} ms on {card_line}")
+
+    # 19b: fine-level skipping on the proposal grids
+    print("phase 19b (kernels): K1 on the proposal grids' coarse views (6 of 8 levels) at "
+          "the far samples of one 8,192-ray branch")
+    specs = flagship_specs()
+    g = torch.Generator(device=dev).manual_seed(191)
+    for name, far in (("prop0", PROP_SAMPLES[0] // 2), ("prop1", PROP_SAMPLES[1] // 2)):
+        spec = dataclasses.replace(specs[name], view_levels=specs[name].n_levels - 2)
+        table = (torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1).bfloat16()
+        pos = ray_batches(dev, g, N_TRAIN, far)[0]
+        tag = f"brickgrid_encode[{name},view {spec.n_levels_used} of {spec.n_levels},bf16,N={pos.shape[0]}]"
+        with torch.no_grad():
+            out = brickgrid_encode(table, pos, spec)
+            exact = torch.equal(out, brickgrid_encode_ref(table, pos, spec))
+            print(f"  {tag}: bit for bit with the plain version: {exact} (tolerance 0)")
+            if not exact:
+                fail(f"{tag}: kernel and plain version differ")
+            ms = cuda_ms(lambda: brickgrid_encode(table, pos, spec), 10)
+            plain_ms = cuda_ms(lambda: brickgrid_encode_ref(table, pos, spec), 3)
+            add_entry(entries, tag, "brickgrid.cu", "emernerf_tpu/ops/brickgrid.py:581",
+                      brickgrid_encode, 0.0, ms, plain_ms,
+                      nbytes(pos, out) + brick_touched(spec, pos) * table.element_size(),
+                      grid_ops(spec, pos.shape[0], False, False), path="skip")
+        k1_backward_row(entries, f"{name},view {spec.n_levels_used} of {spec.n_levels}", spec,
+                        table, pos, False, g, rays=True, path="skip")
+        del table, pos, out
+    trainer, r = phase_setting_train(dev, "phase 19b", SKIP, brick + shared, hashed + mx,
+                                     "profile_train_skip.json")
+    rows = _proposal_rows(trainer, 2004)
+    del trainer
+    torch.cuda.empty_cache()
+    runs["skip"] = r["launches"]
+    lines.append(f"fine-level skipping (19b): train {r['ms']:.2f} ms/iteration, busy "
+                 f"{r['busy']:.2f} ms against phase 5's {ms5:.2f}, {busy5:.2f}; the proposal "
+                 f"grids' K1 rows (points x levels) in one iteration {rows[0]} against {rows[1]} "
+                 f"unskipped ({rows[0] / rows[1]:.1%}) on {card_line}")
+    print("  " + lines[-1])
+
+    # 19c: subsampled table gradients on the hashed levels
+    print("phase 19c (kernels): K1 backward with grad_subsample=4 at one 8,192-ray branch's "
+          "static and fused-grid queries")
+    xyz, xyzt = ray_batches(dev, g, N_TRAIN, SAMPLE_TOPK)
+    warped = ray_batches(dev, g, N_TRAIN, AGG_TOPK)[1][N_TRAIN * AGG_TOPK:].contiguous()
+    for name, pos, pos_grad in (("static", xyz, False),
+                                ("dynflow", xyzt[:N_TRAIN * SAMPLE_TOPK].contiguous(), False),
+                                ("dynflow", warped, True)):
+        spec = dataclasses.replace(specs[name], grad_subsample=4)
+        table = (torch.rand(spec.table_shape, device=dev, generator=g) * 2 - 1).bfloat16()
+        k1_backward_row(entries, f"{name},grad_subsample 4", spec, table, pos, pos_grad, g,
+                        rays=True, path="subsample")
+        if pos_grad:  # the stride leaves the position gradient as it was
+            cot = torch.randn((pos.shape[0], spec.n_output_dims), device=dev,
+                              generator=g).bfloat16()
+            full = dataclasses.replace(spec, grad_subsample=1)
+            same = torch.equal(brickgrid_encode_bwd(table, pos, cot, spec, True)[1],
+                               brickgrid_encode_bwd(table, pos, cot, full, True)[1])
+            print(f"  d_pos with and without the stride bit for bit: {same}")
+            if not same:
+                fail("phase 19c: grad_subsample changed the position gradient")
+        del table
+    del xyz, xyzt, warped
+    trainer, r = phase_setting_train(dev, "phase 19c", SUBSAMPLE, brick + shared, hashed + mx,
+                                     "profile_train_subsample.json")
+    del trainer
+    torch.cuda.empty_cache()
+    runs["subsample"] = r["launches"]
+    lines.append(f"grad_subsample=4 (19c): train {r['ms']:.2f} ms/iteration, busy {r['busy']:.2f} "
+                 f"ms, K1 backward {r['share']['K1 backward']:.1%} of the device time against "
+                 f"phase 5's {ms5:.2f}, {busy5:.2f}, {phase5['share']['K1 backward']:.1%} on "
+                 f"{card_line}")
+    print("  " + lines[-1])
+
+    # 19d: the fused pixel + lidar step
+    trainer, r = phase_setting_train(dev, "phase 19d", FUSED, brick + shared, hashed + mx,
+                                     "profile_train_fused.json")
+    del trainer
+    torch.cuda.empty_cache()
+    launches = ", ".join(f"{k} {v:g} ({per5.get(k, 0):g})" for k, v in sorted(r["per_it"].items()))
+    lines.append(f"fused pixel + lidar step (19d): train {r['ms']:.2f} ms/iteration, busy "
+                 f"{r['busy']:.2f} ms (idle {1 - r['busy'] / r['ms']:.1%}), peak {r['peak']:.2f} "
+                 f"GiB against phase 5's {ms5:.2f}, {busy5:.2f} "
+                 f"({1 - busy5 / ms5:.1%}), {peak5:.2f}; launches per iteration (phase 5's): "
+                 f"{launches} on {card_line}")
+    print("  " + lines[-1])
+    print(f"  phase 19 took {time.perf_counter() - t_start:.1f} s")
+    return entries, runs, lines
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -4834,6 +5237,12 @@ def main():
     phase_dp_kernels(dev, entries)
     # the run-to-run drift of the gradients, named and bounded per leaf
     phase_grad_drift(dev)
+    # the MX grid, fine-level skipping, subsampled table gradients and the
+    # fused step, each beside phase 5
+    settings_entries, settings_runs, settings_lines = phase_settings(
+        dev, card_line, dict(launches=launches, iterations=17, ms=ms_iter, busy=busy5,
+                             peak=peak, share=share))
+    entries += settings_entries
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):
@@ -4843,7 +5252,7 @@ def main():
     runs = {"brick": launches, "hash": hash_launches, "probe": probe_launches,
             "dynamic": dyn[0], "reference_brick": ref[0], "points": point_launches,
             "waymo": waymo[0], "interp": interp_launches, "interp_hash": interp_hash_launches,
-            "dp": dp["launches"]}
+            "dp": dp["launches"], **settings_runs}
     report = [dict({k: v for k, v in e.items() if k not in ("fn", "path")},
                    launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
@@ -4878,6 +5287,8 @@ def main():
         ms, busy, pk, k1 = remat[label]
         print(f"remat {label}: train {ms:.2f} ms/iteration, busy {busy:.2f} ms, peak {pk:.2f} GiB, "
               f"K1 forward {k1:g} launches per iteration on {card_line}")
+    for line in settings_lines:
+        print(line)
     print(json.dumps({"kernels": report}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

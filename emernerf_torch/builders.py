@@ -1,29 +1,34 @@
 """Factories: config + dataset -> the port's models (port of ``emernerf_tpu/builders.py``).
 
 Takes the same config schema, with ``grid_backend`` ``brick`` (the default
-profile) or ``hash`` (the exact tiny-cuda-nn grid, the reference-exact
-profile with ``configs/reference_semantics.yaml``).  The dynamic and flow
-grids are fused by default on the brick backend and separate on the hash
-backend, as in the JAX package; ``nerf.model.fuse_flow_grid`` overrides
-that.  A knob that the port does not run raises instead of being ignored:
-``grid_backend=mx`` (rejected on quality), ``nerf.propnet.fine_level_skip
-> 0``, a non-default ``nerf.model.perf.*``
-formulation knob (``perf.time_pair=false`` is taken: unpaired 4D brick
-rows, two gathers per (point, level), as the reference-semantics profile
-asks; the hash grid's rows are never paired), the flow branch without the
-dynamic branch and ``optim.fused_lidar_branch`` (left behind), and an unknown ``parallel.*``
-key or value.  Taken as
-in the JAX package: spherical-harmonics directions
+profile), ``hash`` (the exact tiny-cuda-nn grid, the reference-exact
+profile with ``configs/reference_semantics.yaml``) or ``mx`` (a dense brick
+prefix + blocked CP lines, sized by ``nerf.model.perf.mx_*``).  The dynamic
+and flow grids are fused by default on the brick and mx backends and
+separate on the hash backend, as in the JAX package;
+``nerf.model.fuse_flow_grid`` overrides that.  Taken as in the JAX package:
+``nerf.model.perf.time_pair`` (``false``: unpaired 4D brick rows, two
+gathers per (point, level), as the reference-semantics profile asks; the
+hash grid's rows are never paired), ``nerf.model.perf.grad_subsample``
+(hashed brick levels' table gradients from a 1/k strided subset of the
+points), ``nerf.propnet.fine_level_skip`` (the proposal grids' far samples
+read a coarse view), ``optim.fused_lidar_branch`` (one combined render,
+backward and update per iteration), spherical-harmonics directions
 (``nerf.model.head.direction_encoding=sh``), the eval-time temporal
 interpolation of the flow (``enable_temporal_interpolation``, anchored at
 the dataset's training timesteps) and ``optim.remat`` (the field query
-recomputed in the backward).  Datasets: ``synthetic``, ``waymo`` and
-``nuscenes``.
+recomputed in the backward).  A knob that the port does not run raises
+instead of being ignored: a non-default TPU lowering knob of
+``nerf.model.perf`` (``scatter_mode``, ``reduce_mode``, ``posgrad_mode``,
+``gather_mode``, ``onehot_budget``: each picks a TPU lowering of what K1
+or K4 computes in one form), the flow branch without the dynamic branch,
+and an unknown ``parallel.*`` key or value.  Datasets: ``synthetic``,
+``waymo`` and ``nuscenes``.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -36,16 +41,21 @@ from emernerf_torch.data.waymo import load_waymo_dataset
 from emernerf_torch.models.fields import DensityField, RadianceField
 from emernerf_torch.ops.brickgrid import BrickGridSpec
 from emernerf_torch.ops.hashgrid import HashGridSpec
+from emernerf_torch.ops.mxgrid import MXGridSpec
 from emernerf_torch.train.step import TrainStepConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_BACKENDS = ("brick", "hash")
-# nerf.model.perf.* at their defaults: TPU formulation choices that have no
-# meaning in the port (its kernels have one formulation each)
+_BACKENDS = ("brick", "hash", "mx")
+# nerf.model.perf.* TPU lowering knobs, taken at their defaults only: each
+# picks a TPU formulation of what the port's kernels compute in one form
 _PERF_DEFAULTS = {
     "scatter_mode": "wide", "reduce_mode": "unroll", "posgrad_mode": "fwd",
-    "gather_mode": "2d", "onehot_budget": 1 << 19, "grad_subsample": 1,
+    "gather_mode": "2d", "onehot_budget": 1 << 19,
 }
+# nerf.model.perf.* that shape the grids, with their defaults
+_PERF_TAKEN = {"time_pair": True, "grad_subsample": 1, "mx_rank": 16,
+               "mx_time_resolution": 64, "mx_chunk": 8192, "mx_max_line_resolution": 4096,
+               "mx_line_block": 128}
 
 
 def _grid_backend(cfg: ConfigNode) -> str:
@@ -54,6 +64,13 @@ def _grid_backend(cfg: ConfigNode) -> str:
 
 def _perf(cfg: ConfigNode):
     return cfg.nerf.model.get("perf", None) or {}
+
+
+def cfg_perf(cfg: ConfigNode) -> dict:
+    """The config's grid-shaping ``nerf.model.perf`` knobs (grad_subsample,
+    mx_*) as a plain dict, for :func:`make_grid_spec`."""
+    perf = _perf(cfg)
+    return {k: perf[k] for k in perf.keys() if k in _PERF_TAKEN and k != "time_pair"}
 
 
 def cfg_time_pair(cfg: ConfigNode) -> bool:
@@ -69,18 +86,22 @@ def validate_cfg(cfg: ConfigNode) -> None:
         raise NotImplementedError(
             f"nerf.model.grid_backend={backend!r}: only {_BACKENDS} are ported")
     for k, v in _perf(cfg).items():
-        if k == "time_pair":
-            continue  # either layout: K1 reads paired and unpaired 4D rows
+        if k in _PERF_TAKEN:
+            continue  # time_pair: K1 reads paired and unpaired 4D rows
         if k not in _PERF_DEFAULTS or v != _PERF_DEFAULTS[k]:
             raise NotImplementedError(
                 f"nerf.model.perf.{k}={v!r}: only the default formulation is ported")
-    skip = int(cfg.nerf.propnet.get("fine_level_skip", 0))
+    pcfg = cfg.nerf.propnet
+    skip = int(pcfg.get("fine_level_skip", 0))
     if skip > 0 and backend != "brick":
         raise ValueError(
             f"nerf.propnet.fine_level_skip={skip} requires grid_backend=brick (got "
             f"{backend!r}): the hash/mx specs have no coarse-view support")
-    if skip > 0:
-        raise NotImplementedError("nerf.propnet.fine_level_skip>0 is not ported")
+    for i, n in enumerate(pcfg.xyz_encoder.n_levels_per_prop):
+        if skip > 0 and skip >= int(n):
+            raise ValueError(
+                f"nerf.propnet.fine_level_skip={skip} must be < the prop grid's n_levels "
+                f"({int(n)} for prop {i}): at least one coarse level must remain")
     head = cfg.nerf.model.head
     if head.enable_flow_branch and not head.enable_dynamic_branch:
         # the fields use the flow only inside the dynamic branch
@@ -106,19 +127,32 @@ def _validate_parallel(par) -> None:
 
 def make_grid_spec(backend: str, n_input_dims: int, n_levels: int, base_resolution: int,
                    max_resolution: int, log2_hashmap_size: int, n_features_per_level: int,
-                   time_pair: bool = True):
-    """Grid spec for the configured backend.
+                   time_pair: bool = True, perf: Optional[dict] = None):
+    """Grid spec for the configured backend; ``perf`` holds the config's
+    grid-shaping knobs (:func:`cfg_perf`).
 
     "brick": cell capacity of the configured hash table.  F=1 3D grids
     (proposal nets) use 4^3-cell bricks (125-corner rows, cell capacity 64
     per row); others 2^3-cell bricks.  4D rows store both time corners
-    unless ``time_pair`` is false (``nerf.model.perf.time_pair``).
-    "hash": the exact tiny-cuda-nn layout."""
+    unless ``time_pair`` is false (``nerf.model.perf.time_pair``); hashed
+    levels subsample their table gradients by ``perf["grad_subsample"]``.
+    "hash": the exact tiny-cuda-nn layout.  "mx": sized by ``perf``'s
+    ``mx_*`` knobs."""
+    perf = perf or {}
     if backend == "hash":
         return HashGridSpec(
             n_input_dims=n_input_dims, n_levels=n_levels, base_resolution=base_resolution,
             max_resolution=max_resolution, log2_hashmap_size=log2_hashmap_size,
             n_features_per_level=n_features_per_level)
+    if backend == "mx":
+        return MXGridSpec(
+            n_input_dims=n_input_dims, n_levels=n_levels, base_resolution=base_resolution,
+            max_resolution=max_resolution, n_features_per_level=n_features_per_level,
+            rank=int(perf.get("mx_rank", 16)),
+            time_resolution=int(perf.get("mx_time_resolution", 64)),
+            chunk=int(perf.get("mx_chunk", 8192)),
+            max_line_resolution=int(perf.get("mx_max_line_resolution", 4096)),
+            line_block=int(perf.get("mx_line_block", 128)))
     if backend != "brick":
         raise ValueError(f"Unknown grid backend: {backend}")
     bs = 2 if n_features_per_level == 1 and n_input_dims == 3 else 1
@@ -131,26 +165,28 @@ def make_grid_spec(backend: str, n_input_dims: int, n_levels: int, base_resoluti
         n_features_per_level=n_features_per_level,
         log2_brick_size=bs,
         time_pair=n_input_dims == 4 and time_pair,
+        grad_subsample=int(perf.get("grad_subsample", 1)),
     )
 
 
-def _enc_spec(enc_cfg: ConfigNode, backend: str, time_pair: bool = True):
+def _enc_spec(enc_cfg: ConfigNode, backend: str, time_pair: bool = True,
+              perf: Optional[dict] = None):
     return make_grid_spec(
         backend, n_input_dims=enc_cfg.n_input_dims, n_levels=enc_cfg.n_levels,
         base_resolution=enc_cfg.base_resolution,
         max_resolution=enc_cfg.max_resolution,
         log2_hashmap_size=enc_cfg.log2_hashmap_size,
         n_features_per_level=enc_cfg.n_features_per_level,
-        time_pair=time_pair,
+        time_pair=time_pair, perf=perf,
     )
 
 
-def flow_spec(backend: str, time_pair: bool = True):
+def flow_spec(backend: str, time_pair: bool = True, perf: Optional[dict] = None):
     """The flow encoder's structure is fixed in the reference; ``time_pair``
     picks paired or unpaired 4D rows."""
     return make_grid_spec(backend, n_input_dims=4, n_levels=10, base_resolution=16,
                           max_resolution=4096, log2_hashmap_size=18,
-                          n_features_per_level=4, time_pair=time_pair)
+                          n_features_per_level=4, time_pair=time_pair, perf=perf)
 
 
 def _dtype(cfg: ConfigNode, key: str):
@@ -175,16 +211,16 @@ def build_model_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
     if enable_feature and dataset.features is not None:
         feature_dim = int(dataset.features.shape[-1])
     backend = _grid_backend(cfg)
-    pair = cfg_time_pair(cfg)
-    dynamic = (_enc_spec(model_cfg.dynamic_xyz_encoder, backend, pair)
+    pair, perf = cfg_time_pair(cfg), cfg_perf(cfg)
+    dynamic = (_enc_spec(model_cfg.dynamic_xyz_encoder, backend, pair, perf)
                if head.enable_dynamic_branch else None)
-    flow = (flow or flow_spec(backend, pair)) if head.enable_flow_branch else None
-    # fused dynamic+flow grid by default on the brick backend; the hash
-    # backend keeps the reference's separate grids
-    fuse = (bool(model_cfg.get("fuse_flow_grid", backend == "brick"))
+    flow = (flow or flow_spec(backend, pair, perf)) if head.enable_flow_branch else None
+    # fused dynamic+flow grid by default on the brick and mx backends; the
+    # hash backend keeps the reference's separate grids
+    fuse = (bool(model_cfg.get("fuse_flow_grid", backend in ("brick", "mx")))
             and dynamic is not None and flow is not None)
     return RadianceField(
-        static_spec=_enc_spec(model_cfg.xyz_encoder, backend, pair),
+        static_spec=_enc_spec(model_cfg.xyz_encoder, backend, pair, perf),
         dynamic_spec=dynamic,
         flow_spec=flow,
         fuse_flow_grid=fuse,
@@ -236,6 +272,7 @@ def build_propnets_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
             max_resolution=enc.max_resolution_per_prop[i],
             log2_hashmap_size=enc.lgo2_hashmap_size_per_prop[i],
             n_features_per_level=enc.n_features_per_level,
+            perf=cfg_perf(cfg),
         )
         nets.append(DensityField(
             spec=spec,
@@ -244,6 +281,8 @@ def build_propnets_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
             table_dtype=_dtype(cfg, "table_dtype"),
             table_param_dtype=_dtype(cfg, "table_param_dtype"),
             mlp_dtype=_dtype(cfg, "mlp_dtype"),
+            fine_level_skip=int(pcfg.get("fine_level_skip", 0)),
+            fine_level_frac=float(pcfg.get("fine_level_frac", 0.5)),
             device=device,
             generator=generator,
         ))
@@ -253,9 +292,6 @@ def build_propnets_from_cfg(cfg: ConfigNode, dataset: SceneDataset, *,
 def build_train_step_config(cfg: ConfigNode, dataset: SceneDataset) -> TrainStepConfig:
     """The train step's static settings, as the reference derives them."""
     validate_cfg(cfg)
-    if cfg.optim.get("fused_lidar_branch", False):
-        raise NotImplementedError("optim.fused_lidar_branch is left behind: the port "
-                                  "runs the reference's two-pass step")
     sup = cfg.supervision
     head = cfg.nerf.model.head
     has_lidar = (dataset.lidar is not None and cfg.data.lidar_source.load_lidar
@@ -264,6 +300,11 @@ def build_train_step_config(cfg: ConfigNode, dataset: SceneDataset) -> TrainStep
     if lidar_prop and len(lidar_prop) != len(cfg.nerf.propnet.num_samples_per_prop):
         raise ValueError("nerf.propnet.lidar_num_samples_per_prop must have one entry "
                          "per proposal model")
+    if lidar_prop and cfg.optim.get("fused_lidar_branch", False):
+        raise ValueError(
+            "nerf.propnet.lidar_num_samples_per_prop has no effect with "
+            "optim.fused_lidar_branch=true (one combined render has one proposal "
+            "hierarchy); unset one of the two")
     los = sup.depth.line_of_sight
     return TrainStepConfig(
         num_samples=cfg.nerf.sampling.num_samples,
@@ -310,6 +351,7 @@ def build_train_step_config(cfg: ConfigNode, dataset: SceneDataset) -> TrainStep
         weight_decay=float(cfg.optim.weight_decay),
         num_iters=cfg.optim.num_iters,
         remat=bool(cfg.optim.get("remat", False)),
+        fused_branches=bool(cfg.optim.get("fused_lidar_branch", False)),
     )
 
 

@@ -26,6 +26,7 @@ from emernerf_torch.builders import (
     build_propnets_from_cfg,
     build_train_step_config,
     make_grid_spec,
+    cfg_perf,
     cfg_time_pair,
 )
 from emernerf_torch.config import load_config
@@ -101,7 +102,7 @@ def flagship_flow_spec(cfg, tiny: bool = False):
     if not tiny:
         return None
     return make_grid_spec(cfg.nerf.model.get("grid_backend", "brick"), 4, 4, 8, 64, 10, 2,
-                          time_pair=cfg_time_pair(cfg))
+                          time_pair=cfg_time_pair(cfg), perf=cfg_perf(cfg))
 
 
 def build_flagship(tiny: bool = False, overrides=(), *, profile: Profile = DEFAULT_PROFILE,

@@ -64,6 +64,12 @@ _SIGNATURES = {
     "emt_zero_slab": (_P, _I, _P, _P, _P, _I, _P, _I, _L, _F, _P, _I, _P),
     # param, dir, dir_bf16, n, neg_lr, vec (8 or 1), stream
     "emt_apply_direction": (_P, _P, _I, _L, _F, _I, _P),
+    # K12: lines, lines_is_bf16, compute_is_bf16, positions, out (fp32),
+    # n_points, params (host struct), stream
+    "emt_mxgrid_encode": (_P, _I, _I, _P, _P, _L, _P, _P),
+    # lines, lines_is_bf16, compute_is_bf16, positions, grad_out (fp32),
+    # d_lines (zeroed fp32), d_pos|NULL, n_points, params (host struct), stream
+    "emt_mxgrid_backward": (_P, _I, _I, _P, _P, _P, _P, _L, _P, _P),
     # table (F, rows), elem_bytes (2 or 4), out (rows, F), rows, F, stream
     "emt_hashgrid_features_minor": (_P, _I, _P, _L, _I, _P),
     # table (L*T, F) features-minor, table_is_bf16, positions, out, n_points,

@@ -64,6 +64,7 @@ struct BrickParams {
   float scales[kMaxLevels];
   unsigned strides[kMaxLevels * 4];  // per level: x, y, z, t (linear rows)
   int uses_hash[kMaxLevels];
+  int grad_subsample;  // k > 1: hashed levels add the table gradients of 1/k of the points
 };
 
 using emt::load_f;
@@ -247,7 +248,12 @@ __global__ void brickgrid_encode_kernel(const T* __restrict__ table,
 //   - an fp32 table of a bf16 computation gets its gradient back rounded to
 //     bf16 precision, float(bf16(sum)), by one in-place pass over the fp32
 //     buffer (round_to_bf16_kernel): what autograd of table.to(bf16) gave,
-//     and JAX's astype VJP gives, with no bf16 gradient tensor.
+//     and JAX's astype VJP gives, with no bf16 gradient tensor;
+//   - grad_subsample k (BrickParams): a hashed level's table gradient takes
+//     points phase + j * k only (JAX's strided subsample), each cotangent
+//     times k; the others skip their atomics.  A coarse view needs nothing
+//     here: the host passes the view's level count with the full spec's
+//     level geometry.
 // T is the table's storage type, C the compute type (the cotangent's).
 template <typename T, typename C, int F>
 __global__ void brickgrid_backward_kernel(const T* __restrict__ table,
@@ -315,7 +321,21 @@ __global__ void brickgrid_backward_kernel(const T* __restrict__ table,
   }
 
   // the table gradient: per (dz, dy, time slice) one merged span of the
-  // dx = 0 and dx = 1 corners' 2F values
+  // dx = 0 and dx = 1 corners' 2F values.  With grad_subsample k, a hashed
+  // level takes only points phase + j * k (j < n / k), their cotangent
+  // times k; the phase comes from the bits of the first point's first
+  // coordinate, read here on the device
+  bool adds = live;
+  float gt[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) gt[f] = gf[f];
+  const int k = p.grad_subsample;
+  if (k > 1 && p.uses_hash[lvl]) {
+    const long long phase = (__float_as_uint(__ldg(pos)) >> 9) % static_cast<unsigned>(k);
+    adds = live && i % k == phase && i / k < n / k;
+#pragma unroll
+    for (int f = 0; f < F; ++f) gt[f] = __fmul_rn(gf[f], static_cast<float>(k));
+  }
   const float wx0 = __fsub_rn(1.f, g.frac[0]), wx1 = g.frac[0];
 #pragma unroll
   for (int dz = 0; dz < 2; ++dz) {
@@ -329,11 +349,11 @@ __global__ void brickgrid_backward_kernel(const T* __restrict__ table,
 #pragma unroll 2
       for (int s = 0; s < (has_t ? 2 : 1); ++s) {
         const float tw = s ? g.tfrac : tw0;
-        const long long key = live ? (s ? g.r1 : g.r0) + slot : -1LL;
+        const long long key = adds ? (s ? g.r1 : g.r0) + slot : -1LL;
         float v[2 * F];
         const float a0 = __fmul_rn(w0, tw), a1 = __fmul_rn(w1, tw);
 #pragma unroll
-        for (int f = 0; f < F; ++f) v[f] = __fmul_rn(a0, gf[f]), v[F + f] = __fmul_rn(a1, gf[f]);
+        for (int f = 0; f < F; ++f) v[f] = __fmul_rn(a0, gt[f]), v[F + f] = __fmul_rn(a1, gt[f]);
         if (emt::merge_runs<2 * F>(key, -1LL, v, lane)) emt::add_span<2 * F>(d_table + key, v);
       }
     }

@@ -13,8 +13,7 @@ fallback; the feature head: the base MLPs' output split into geometry and
 semantic features, the DINO head over the semantic ones (and its sky
 head), and the learnable positional-embedding map, sampled at the ray's
 pixel and lifted by its own head.  ``DensityField``:
-the proposal network.  Every grid is a brick grid (K1) or an exact hash
-grid (K4), by its spec's type.
+the proposal network, optionally with fine-level skipping.
 
 Positions are (R, S, 3) and per-ray data is expanded to (R, S) by the
 renderer; the point queries ``query_flow`` and ``query_attributes`` (flow
@@ -28,14 +27,17 @@ encodings (or, without ``interpolate_xyz_encoding``, the two flow MLP
 outputs) are lerped.  The flow-warped 4D queries are the grid queries whose
 positions carry a gradient (they depend on the flow MLP).  The rgb and sky
 heads read the directions through the sinusoidal encoding or, with
-``direction_encoding="sh"``, spherical harmonics of degree 4.  The config
-knobs the port does not take (fine-level skipping, the flow branch without
-the dynamic branch) raise in ``emernerf_torch/builders.py``.
+``direction_encoding="sh"``, spherical harmonics of degree 4.  Every grid
+is a brick grid (K1), an exact hash grid (K4) or an MX grid (K1 + K12), by
+its spec's type; a fused MX grid widens the dynamic spec's features as a
+fused brick grid does.  The flow branch without the dynamic branch raises
+in ``emernerf_torch/builders.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -44,6 +46,7 @@ from torch import nn
 from emernerf_torch.models.init_utils import torch_embedding_init_
 from emernerf_torch.models.mlp import MLP, Sequential64
 from emernerf_torch.ops.activations import density_activation
+from emernerf_torch.ops.brickgrid import BrickGridSpec
 from emernerf_torch.ops.contraction import (
     contract_merf,
     inside_unit_cube_selector,
@@ -123,16 +126,23 @@ def _contract(positions, aabb, unbounded: bool):
 
 
 class DensityField(nn.Module):
-    """Proposal density network: grid encoder + 2-layer MLP -> density."""
+    """Proposal density network: grid encoder + 2-layer MLP -> density.
+
+    ``fine_level_skip`` k > 0 (a 3D brick grid only): the finest k levels
+    are read only by the first ``s_near`` samples of each ray (sample axis
+    -2, sorted near to far); the far samples read a coarse view of the same
+    table and their fine features are zero."""
 
     def __init__(self, spec, aabb: Tuple[float, ...] = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
                  unbounded: bool = True, base_mlp_layer_width: int = 64,
                  table_dtype=torch.float32, table_param_dtype=torch.float32,
-                 mlp_dtype=torch.float32, device=None, generator=None):
+                 mlp_dtype=torch.float32, fine_level_skip: int = 0,
+                 fine_level_frac: float = 0.5, device=None, generator=None):
         super().__init__()
         self.spec = spec
         self.unbounded = unbounded
         self.table_dtype = table_dtype
+        self.fine_level_skip, self.fine_level_frac = fine_level_skip, fine_level_frac
         self.register_buffer("aabb", torch.tensor(aabb, dtype=torch.float32,
                                                   device=device), persistent=False)
         self.hash_table = nn.Parameter(init_grid_table(
@@ -140,11 +150,42 @@ class DensityField(nn.Module):
         self.base_mlp = Sequential64(spec.n_output_dims, (base_mlp_layer_width, 1),
                                      dtype=mlp_dtype, device=device, generator=generator)
 
+    def _encode(self, normed: torch.Tensor) -> torch.Tensor:
+        k, spec = self.fine_level_skip, self.spec
+        if k > 0:
+            if not isinstance(spec, BrickGridSpec) or spec.has_time:
+                raise ValueError(
+                    f"fine_level_skip requires a 3D brick-grid spec (got {type(spec).__name__})")
+            if k >= spec.n_levels:
+                raise ValueError(f"fine_level_skip={k} must be < n_levels={spec.n_levels}")
+        # flat point queries have no near/far structure: the full encode
+        if k <= 0 or normed.dim() < 3:
+            return grid_encode(self.hash_table, normed.contiguous(), spec, self.table_dtype)
+        s = normed.shape[-2]
+        # ceil(frac * S) near samples, down to a multiple of 8 (at least 8)
+        s_near = min(s, max(1, math.ceil(s * self.fine_level_frac)))
+        s_near = max(8, (s_near // 8) * 8)
+        if s_near >= s:
+            raise ValueError(
+                f"fine_level_skip={k} cannot engage: sample count {s} with fine_level_frac="
+                f"{self.fine_level_frac} leaves no far segment (need > {s_near} samples on "
+                "the sorted axis); raise num_samples_per_prop or disable the knob")
+        coarse = spec.n_levels - k
+        cspec = dataclasses.replace(spec, view_levels=coarse)
+        ctable = self.hash_table[:coarse * spec.bricks_per_level]
+        enc_n = grid_encode(self.hash_table, normed[..., :s_near, :].contiguous(), spec,
+                            self.table_dtype)
+        enc_f = grid_encode(ctable, normed[..., s_near:, :].contiguous(), cspec,
+                            self.table_dtype)
+        enc_f = torch.cat([enc_f, enc_f.new_zeros(*enc_f.shape[:-1],
+                                                  k * spec.n_features_per_level)], -1)
+        return torch.cat([enc_n, enc_f], -2)
+
     def forward(self, positions: torch.Tensor) -> torch.Tensor:
-        """positions (..., 3) world coords -> density (...,)."""
+        """positions (..., 3) world coords -> density (...,).  With
+        fine-level skipping the sample axis (-2) is sorted near to far."""
         normed = _contract(positions, self.aabb, self.unbounded)
-        enc = grid_encode(self.hash_table, normed.contiguous(), self.spec,
-                          self.table_dtype).float()
+        enc = self._encode(normed).float()
         return density_activation(self.base_mlp(enc)[..., 0])
 
 

@@ -31,6 +31,13 @@ gradient in the table's dtype, rounded once to the compute dtype first
 reference casts each level and autograd of the cast would return it), and
 the position gradient only where the positions need one (the flow-warped
 queries).  The plain versions cast first.
+
+Two settings of the spec change which rows a call reads or writes:
+``view_levels`` encodes the first levels only (a coarse view, the table's
+first rows; the proposal grids' far samples under fine-level skipping),
+and ``grad_subsample`` k has each hashed level add the table gradients of
+points ``phase + j k`` only, times k (the position gradient keeps every
+point).
 """
 
 from __future__ import annotations
@@ -67,6 +74,13 @@ class BrickGridSpec:
     n_features_per_level: int = 2
     log2_brick_size: int = 1
     time_pair: bool = False
+    # hashed levels add the table gradients of a 1/k strided subset of the
+    # points, scaled by k (1: every point)
+    grad_subsample: int = 1
+    # a coarse view: only the first ``view_levels`` levels (0: all).  The
+    # level geometry still derives from the full ``n_levels``, so the view's
+    # table is the full table's first ``view_levels * bricks_per_level`` rows
+    view_levels: int = 0
 
     @property
     def brick_cells(self) -> int:
@@ -103,12 +117,17 @@ class BrickGridSpec:
         return 1 << self.log2_bricks
 
     @property
+    def n_levels_used(self) -> int:
+        """Levels encoded: ``view_levels`` when set, else all."""
+        return self.view_levels or self.n_levels
+
+    @property
     def table_shape(self) -> Tuple[int, int]:
-        return (self.n_levels * self.bricks_per_level, self.row_width)
+        return (self.n_levels_used * self.bricks_per_level, self.row_width)
 
     @property
     def n_output_dims(self) -> int:
-        return self.n_levels * self.n_features_per_level
+        return self.n_levels_used * self.n_features_per_level
 
     @cached_property
     def growth_factor(self) -> float:
@@ -154,6 +173,18 @@ class BrickGridSpec:
                 cells *= int(self.level_resolutions[li])
             out.append(cells > self.bricks_per_level)
         return np.asarray(out, dtype=bool)
+
+    @cached_property
+    def level_rows(self) -> np.ndarray:
+        """Rows a level addresses: its dense brick count (unpaired 4D rows
+        also reach time slot ``t + 1``), at most the level's slice."""
+        out = []
+        for li, r in enumerate(self.brick_resolutions):
+            cells = int(r) ** self.spatial_dims
+            if self.has_time:
+                cells *= int(self.level_resolutions[li]) + (0 if self.uses_time_pair else 1)
+            out.append(min(cells, self.bricks_per_level))
+        return np.asarray(out, dtype=np.int64)
 
 
 def init_brickgrid_table(spec: BrickGridSpec, dtype=torch.float32,
@@ -260,7 +291,7 @@ def brickgrid_encode_ref(table: torch.Tensor, positions: torch.Tensor,
     flat = table.reshape(-1)
     lanes = torch.arange(f, device=table.device)
     outs = []
-    for lvl in range(spec.n_levels):
+    for lvl in range(spec.n_levels_used):
         offs, fracs, t_frac, base0, base1 = _level_geometry(x, spec, lvl, consts)
         acc0 = torch.zeros(x.shape[0], f, device=x.device)
         acc1 = torch.zeros_like(acc0) if base1 is not None else None
@@ -291,20 +322,23 @@ class _BrickParams(ctypes.Structure):
         ("scales", ctypes.c_float * MAX_LEVELS),
         ("strides", ctypes.c_uint * (MAX_LEVELS * 4)),
         ("uses_hash", ctypes.c_int * MAX_LEVELS),
+        ("grad_subsample", ctypes.c_int),
     ]
 
 
-def _kernel_params(spec: BrickGridSpec) -> _BrickParams:
+def _kernel_params(spec: BrickGridSpec, grad_subsample: int = 1) -> _BrickParams:
+    """The levels of the spec's view, with the full spec's geometry."""
     scales, strides, uses_hash = level_constants(spec)
     p = _BrickParams()
-    p.n_levels = spec.n_levels
+    p.n_levels = spec.n_levels_used
+    p.grad_subsample = grad_subsample
     p.n_features = spec.n_features_per_level
     p.n_dims = spec.n_input_dims
     p.log2_brick_size = spec.log2_brick_size
     p.time_pair = int(spec.uses_time_pair)
     p.row_width = spec.row_width
     p.bricks_per_level = spec.bricks_per_level
-    for li in range(spec.n_levels):
+    for li in range(spec.n_levels_used):
         p.scales[li] = float(scales[li])
         p.uses_hash[li] = int(uses_hash[li])
         for a, s in enumerate(strides[li]):
@@ -322,7 +356,7 @@ def _check_encode_args(name, table, positions, spec, compute_dtype):
         raise ValueError(f"{name}: table dtype {table.dtype}, compute dtype {compute_dtype}")
     if positions.shape[-1] != spec.n_input_dims or positions.dtype != torch.float32:
         raise ValueError(f"{name}: positions must be (..., {spec.n_input_dims}) float32")
-    if spec.n_features_per_level > 8 or spec.n_levels > MAX_LEVELS:
+    if spec.n_features_per_level > 8 or spec.n_levels_used > MAX_LEVELS:
         raise ValueError(f"{name}: F <= 8 and L <= {MAX_LEVELS} supported")
 
 
@@ -360,6 +394,23 @@ def _encode_forward(table, positions, spec, compute_dtype):
     return out.reshape(*batch, spec.n_output_dims)
 
 
+def effective_subsample(spec: BrickGridSpec, n: int) -> int:
+    """The table-gradient stride of ``n`` points: ``spec.grad_subsample``
+    when it is above 1 and there are at least twice as many points, else 1."""
+    k = spec.grad_subsample
+    return k if k > 1 and n >= 2 * k else 1
+
+
+def subsample_rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The points ``phase + j k`` (j < n // k) of the (n, D) positions ``x``
+    whose table gradients a hashed level adds, on ``x``'s device (no host
+    read).  ``phase = (bits(x[0, 0]) >> 9) % k``: the sampled positions
+    change every step, so the stride's phase does too."""
+    bits = x.reshape(-1)[:1].view(torch.int32).long() & _U32
+    phase = (bits >> 9) % k
+    return phase + torch.arange(x.shape[0] // k, device=x.device) * k
+
+
 def brickgrid_encode_bwd_ref(table, positions, grad_out, spec: BrickGridSpec,
                              needs_pos_grad: bool, compute_dtype=None):
     """Plain version of :func:`brickgrid_encode_bwd`, in the kernel's order
@@ -368,7 +419,9 @@ def brickgrid_encode_bwd_ref(table, positions, grad_out, spec: BrickGridSpec,
 
     The table gradient adds w * tw * g of every live corner and time slice
     into a zeroed fp32 buffer, rounds it once to the compute dtype and
-    returns it in the table's.  The position gradient
+    returns it in the table's.  With ``spec.grad_subsample`` k > 1 and at
+    least 2k points, a hashed level adds only points ``phase + j k`` (j <
+    n // k) with g * k (:func:`subsample_rows`).  The position gradient
     re-reads the corners: per level, in corner order,
       acc_a += dW/dfrac_a * gl  (gl = the time-lerped feats . g),
       acc_t += W * (feats1 . g - feats0 . g),
@@ -382,24 +435,30 @@ def brickgrid_encode_bwd_ref(table, positions, grad_out, spec: BrickGridSpec,
     batch = positions.shape[:-1]
     x = positions.reshape(-1, d).float()
     n = x.shape[0]
-    g = grad_out.reshape(n, spec.n_levels, f).to(table.dtype).float()
+    g = grad_out.reshape(n, spec.n_levels_used, f).to(table.dtype).float()
     consts = level_constants(spec)
     flat = table.reshape(-1)
     lanes = torch.arange(f, device=table.device)
     d_flat = torch.zeros(flat.numel(), dtype=torch.float32, device=x.device)
     d_pos = [torch.zeros(n, device=x.device) for _ in range(d)] if needs_pos_grad else None
-    for lvl in range(spec.n_levels):
+    k = effective_subsample(spec, n)
+    sel = subsample_rows(x, k) if k > 1 else None
+    for lvl in range(spec.n_levels_used):
         offs, fracs, t_frac, base0, base1 = _level_geometry(x, spec, lvl, consts)
         g_l = g[:, lvl]  # (N, F)
         tw0 = None if base1 is None else 1.0 - t_frac
+        # the points whose table gradients this level adds, and their cotangents
+        rows = sel if sel is not None and consts[2][lvl] else slice(None)
+        g_tab = g_l[rows] * float(k) if rows is sel else g_l
         acc = [torch.zeros(n, device=x.device) for _ in range(d)]
         for dx, dy, dz, wx, wy, wz, w, lane in _corners(spec, offs, fracs):
             idx0 = base0[:, None] + (lane[:, None] + lanes)
             w0 = w if tw0 is None else w * tw0
-            d_flat.index_add_(0, idx0.reshape(-1), (w0[:, None] * g_l).reshape(-1))
+            d_flat.index_add_(0, idx0[rows].reshape(-1), (w0[rows][:, None] * g_tab).reshape(-1))
             if base1 is not None:
                 idx1 = base1[:, None] + (lane[:, None] + lanes)
-                d_flat.index_add_(0, idx1.reshape(-1), ((w * t_frac)[:, None] * g_l).reshape(-1))
+                d_flat.index_add_(0, idx1[rows].reshape(-1),
+                                  ((w * t_frac)[rows][:, None] * g_tab).reshape(-1))
             if not needs_pos_grad:
                 continue
             feats = flat[idx0].float()
@@ -449,7 +508,7 @@ def brickgrid_encode_bwd(table: torch.Tensor, positions: torch.Tensor,
     d_table = torch.zeros(spec.table_shape, dtype=torch.float32, device=table.device)
     d_pos = torch.empty_like(positions) if needs_pos_grad else None
     if n > 0:
-        params = _kernel_params(spec)
+        params = _kernel_params(spec, effective_subsample(spec, n))
         err = lib.emt_brickgrid_backward(
             table.data_ptr(), _is_bf16(table.dtype), _is_bf16(compute_dtype),
             positions.data_ptr(), grad_out.data_ptr(), d_table.data_ptr(),

@@ -12,9 +12,14 @@ the aggregation noise).  The trainer fills it from its generator; the
 parity tests fill it with the values JAX drew.
 
 ``remat`` recomputes each render's field query in its backward
-(``render_ray_batch(..., remat=True)``).  Not ported, raising
-``NotImplementedError``: ``fused_branches`` (left behind: it measured
-slower on the TPU).
+(``render_ray_batch(..., remat=True)``).  ``fused_branches``
+(``optim.fused_lidar_branch``) renders the pixel and lidar rays as one
+combined batch with the pixel branch's settings and draws (a
+:class:`StepDraws` of ``R_pixel + R_lidar`` rays), sums the pixel, lidar
+and interlevel losses, and takes one backward and one Adam update (the
+proposal nets' too when either branch asks for proposal gradients) at
+scheduler count 2*step: the lr schedule still counts two steps an
+iteration, as the JAX package's does.
 
 Data parallelism (``group``, a ``torch.distributed`` process group of n
 ranks, each given its equal slice of the batches and of the draws):
@@ -317,6 +322,31 @@ class TrainStep:
             ((out["depth"][..., 0] - batch["ranges"]) ** 2).mean()))
         return total, aux
 
+    # ---------------- fused pixel + lidar branch ---------------- #
+    def joint_loss(self, pixel_batch, lidar_batch, draws: StepDraws, step: int,
+                   requires_grad: bool):
+        """(total loss, aux metrics) of one render of both batches."""
+        comb, rp = combined_batch(pixel_batch, lidar_batch)
+        res = self._render(comb, draws, requires_grad, lidar=False)
+        out = dict(res.out)
+        extras = out.pop("extras")
+        out_p, out_l = _split_rays(out, rp)
+        ex_p, ex_l = _split_rays(extras, rp)
+        losses = self._pixel_losses(out_p, ex_p, pixel_batch)
+        lidar_losses = self._lidar_losses(out_l, ex_l, lidar_batch, step)
+        prop_loss = self._prop_loss(res, requires_grad)
+        total = sum(losses.values()) + sum(lidar_losses.values()) + prop_loss
+        aux = dict(losses)
+        aux.update(lidar_losses)
+        aux["prop_loss"] = prop_loss
+        mse = ((out_p["rgb"] - pixel_batch["pixels"]) ** 2).mean()
+        aux["psnr"] = psnr_of_mse(self._whole_batch_mean(mse))
+        aux["total_pixel_loss"] = sum(losses.values())
+        aux["total_lidar_loss"] = sum(lidar_losses.values())
+        aux["range_rmse"] = torch.sqrt(self._whole_batch_mean(
+            ((out_l["depth"][..., 0] - lidar_batch["ranges"]) ** 2).mean()))
+        return total, aux
+
     # ---------------- one branch: backward + updates ---------------- #
     def _apply_branch(self, state: TrainState, total, requires_grad: bool, count: int) -> float:
         params, prop_params = state.params, state.prop_params
@@ -376,6 +406,13 @@ class TrainStep:
         count = step * self.steps_per_iter
         for p in state.params + state.prop_params:
             p.grad = None
+        if self.cfg.fused_branches and self.cfg.has_lidar:
+            rg = pixel_rg or lidar_rg
+            total, aux = self.joint_loss(pixel_batch, lidar_batch, pixel_draws, step, rg)
+            metrics = {k: v.detach() for k, v in aux.items()}
+            metrics["lr"] = self._apply_branch(state, total, rg, count)
+            state.step = step + 1
+            return self._finalize(metrics)
         total, aux = self.pixel_loss(pixel_batch, pixel_draws, step, pixel_rg)
         lr = self._apply_branch(state, total, pixel_rg, count)
         metrics = {k: v.detach() for k, v in aux.items()}
@@ -388,6 +425,32 @@ class TrainStep:
         return self._finalize(metrics)
 
 
+def combined_batch(pixel_batch, lidar_batch):
+    """The pixel rays, then the lidar rays, as one render batch, and the
+    pixel ray count.  Per-ray metadata is the union of both batches' keys;
+    a side that lacks one takes zeros (the lidar rays' rgb and feature
+    outputs are computed and never read)."""
+    rp, rl = pixel_batch["origins"].shape[0], lidar_batch["origins"].shape[0]
+    comb = {k: torch.cat([pixel_batch[k], lidar_batch[k]]) for k in ("origins", "viewdirs")}
+    for k in ("normed_timestamps", "img_idx", "cam_idx", "pixel_coords"):
+        pv, lv = pixel_batch.get(k), lidar_batch.get(k)
+        if pv is None and lv is None:
+            continue
+        if pv is None:
+            pv = lv.new_zeros((rp,) + lv.shape[1:])
+        if lv is None:
+            lv = pv.new_zeros((rl,) + pv.shape[1:])
+        comb[k] = torch.cat([pv, lv])
+    return comb, rp
+
+
+def _split_rays(tree: Dict, rp: int):
+    """Every per-ray tensor of ``tree`` cut into its first ``rp`` rays and
+    the rest."""
+    first = {k: v[:rp] for k, v in tree.items()}
+    return first, {k: v[rp:] for k, v in tree.items()}
+
+
 def build_train_step(model, prop_models: Sequence, cfg: TrainStepConfig, group=None,
                      spmd: Optional[SpmdConfig] = None) -> TrainStep:
     """The train step for ``model`` and ``prop_models``: on one device, or
@@ -396,9 +459,12 @@ def build_train_step(model, prop_models: Sequence, cfg: TrainStepConfig, group=N
     (the JAX package builds that one as a wrapper, ``shard_train_step``)."""
     if spmd is not None and group is None:
         raise ValueError("spmd needs a process group")
-    if cfg.fused_branches:
-        raise NotImplementedError("fused_branches (optim.fused_lidar_branch) is left "
-                                  "behind: the two-pass step is the reference's")
+    if cfg.fused_branches and cfg.lidar_prop_samples is not None:
+        raise ValueError("lidar_prop_samples has no effect with fused_branches=True "
+                         "(one combined render has one proposal hierarchy)")
+    if cfg.fused_branches and cfg.lidar_topk_until < 1.0:
+        raise ValueError("lidar_topk_until (staged lidar-K) has no effect with "
+                         "fused_branches=True (one combined render has one sample_topk)")
     return TrainStep(model, prop_models, cfg, group, spmd)
 
 

@@ -214,11 +214,20 @@ class Trainer:
             return tensor
         return mesh.batch_slice(tensor, self.rank, self.n_ranks)
 
-    def _branch_draws(self, lidar: bool, full: bool = False) -> StepDraws:
+    def _branch_draws(self, lidar: bool, full: bool = False, batches: int = 1) -> StepDraws:
+        """One render's draws, this rank's slice: of one batch, or (the fused
+        branch, ``batches`` = 2) of the pixel and the lidar batch one after
+        the other."""
         kw = self.train_step.render_kw(lidar, full)
-        d = draw_step(self.ray_batch_size, kw, self.model.has_flow, self.generator, self.device)
-        return StepDraws(tuple(map(self._slice, d.jitters)), self._slice(d.topk_u),
-                         self._slice(d.agg_noise))
+        d = draw_step(batches * self.ray_batch_size, kw, self.model.has_flow, self.generator,
+                      self.device)
+
+        def cut(t):
+            if t is None or batches == 1:
+                return self._slice(t)
+            return torch.cat([self._slice(part) for part in t.split(self.ray_batch_size)])
+
+        return StepDraws(tuple(map(cut, d.jitters)), cut(d.topk_u), cut(d.agg_noise))
 
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         """One loop body at iteration ``step`` (the state's step)."""
@@ -233,15 +242,18 @@ class Trainer:
         pixel_batch = {k: self._slice(v) for k, v in pixel_batch.items()}
         lidar_rg, lidar_batch, lidar_draws = False, None, None
         full = lidar_full_at(self.step_cfg, step)
+        # the fused branch renders both batches at once, with one set of draws
+        fused = self.step_cfg.fused_branches and self.step_cfg.has_lidar
         if self.step_cfg.has_lidar:
             lidar_rg = self.rg_fn(step)
             lidar_batch = sample_lidar_batch(self.scene,
                                              draw_lidar(self.scene, self.ray_batch_size, gen))
             lidar_batch = {k: self._slice(v) for k, v in lidar_batch.items()}
-            lidar_draws = self._branch_draws(lidar=True, full=full)
+            if not fused:
+                lidar_draws = self._branch_draws(lidar=True, full=full)
         metrics = self.train_step(self.state, pixel_batch, lidar_batch,
-                                  self._branch_draws(lidar=False), lidar_draws,
-                                  pixel_rg, lidar_rg, full)
+                                  self._branch_draws(lidar=False, batches=2 if fused else 1),
+                                  lidar_draws, pixel_rg, lidar_rg, full)
         metrics["pixel_rg"], metrics["lidar_rg"] = pixel_rg, lidar_rg
         if step % cfg.logging.print_freq == 0 or step == cfg.optim.num_iters:
             scalars = {k: float(v) for k, v in metrics.items()}

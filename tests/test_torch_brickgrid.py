@@ -27,10 +27,13 @@ from emernerf_torch.flagship import REFERENCE_BRICK, build_flagship, flagship_co
 from emernerf_torch.ops.grid import grid_encode
 from emernerf_torch.ops.brickgrid import (
     BrickGridSpec,
+    _kernel_params,
     brickgrid_encode,
     brickgrid_encode_bwd_ref,
     brickgrid_encode_ref,
+    effective_subsample,
     level_constants,
+    subsample_rows,
 )
 
 # (n_input_dims, F, log2_brick_size, time_pair); log2_bricks picked so the
@@ -393,3 +396,110 @@ def test_wrapper_checks_and_non_cuda_devices():
     brickgrid_encode(table, torch.zeros(4, 3), spec)
     assert brickgrid_encode.launches == before  # the plain version launches nothing
     assert kernels.dispatch_device("x", table) == "cpu"
+
+
+@pytest.mark.parametrize("variant", ["3d_b2cells_F4", "3d_b4cells_F1", "4d_pair_F8"])
+def test_coarse_view_matches_jax(variant):
+    """A coarse view (``view_levels`` = 2 of 4, the table's first 2 levels)
+    against JAX's ``view_levels`` spec: the forward and the VJP with
+    position gradients, tolerances as test_encode_ref_matches_jax and
+    test_bwd_ref_matches_jax_vjp.  The view's features are the full
+    encode's first 2 levels bit for bit, and its kernel parameters carry
+    the full spec's level geometry."""
+    kw = _spec(variant, 15)
+    full = BrickGridSpec(**kw)
+    tspec, jspec = BrickGridSpec(**kw, view_levels=2), JaxSpec(**kw, view_levels=2)
+    assert tspec.table_shape == jspec.table_shape == (2 * full.bricks_per_level, full.row_width)
+    rng = np.random.default_rng(90 + sorted(VARIANTS).index(variant))
+    table = rng.uniform(-1.0, 1.0, full.table_shape).astype(np.float32)
+    view = table[:tspec.table_shape[0]]
+    pos = _boundary_points(full, rng)
+    cot = rng.normal(size=(pos.shape[0], tspec.n_output_dims)).astype(np.float32)
+    tt = torch.from_numpy(view.copy()).requires_grad_(True)
+    tx = torch.from_numpy(pos).requires_grad_(True)
+    ours = brickgrid_encode(tt, tx, tspec)
+    d_t, d_x = torch.autograd.grad(ours, [tt, tx], torch.from_numpy(cot))
+    ref, vjp = jax.vjp(lambda t, x: jax_encode(t, x, jspec, True), jnp.asarray(view),
+                       jnp.asarray(pos))
+    ref_t, ref_x = (np.asarray(g) for g in vjp(jnp.asarray(cot)))
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(d_t.numpy(), ref_t, rtol=0, atol=1e-5 * np.abs(ref_t).max())
+    np.testing.assert_allclose(d_x.numpy(), ref_x, rtol=0, atol=1e-6 * np.abs(ref_x).max())
+    whole = brickgrid_encode(torch.from_numpy(table), torch.from_numpy(pos), full)
+    assert torch.equal(ours.detach(), whole[:, :tspec.n_output_dims])
+    params = _kernel_params(tspec)
+    assert params.n_levels == 2 and params.grad_subsample == 1
+    scales, strides, hashed = level_constants(full)
+    assert list(params.scales[:2]) == [float(v) for v in scales[:2]]
+    assert list(params.uses_hash[:2]) == [int(v) for v in hashed[:2]]
+
+
+def _subsample_inputs(variant, k, seed, n=1000):
+    kw = _spec(variant, 15)
+    tspec = BrickGridSpec(**kw, grad_subsample=k)
+    jspec = JaxSpec(**kw, grad_subsample=k)
+    rng = np.random.default_rng(seed)
+    table = rng.uniform(-1.0, 1.0, tspec.table_shape).astype(np.float32)
+    pos = rng.uniform(0.0, 1.0, (n, kw["n_input_dims"])).astype(np.float32)
+    cot = rng.normal(size=(n, tspec.n_output_dims)).astype(np.float32)
+    return tspec, jspec, table, pos, cot
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("variant", ["3d_b2cells_F4", "3d_b4cells_F1", "4d_pair_F8"])
+def test_grad_subsample_matches_jax_vjp(variant, k):
+    """``grad_subsample`` k: the hashed levels' table gradient from points
+    ``phase + j k`` (the phase from the bits of the first coordinate) times
+    k, against JAX's VJP (table 1e-5 x the largest |grad|, positions 1e-6,
+    as test_bwd_ref_matches_jax_vjp).  The dense levels' table gradient and
+    the position gradient equal the unsubsampled ones bit for bit, and the
+    hashed levels' differ (the stride engaged)."""
+    tspec, jspec, table, pos, cot = _subsample_inputs(variant, k, 200 + k)
+    tt = torch.from_numpy(table).requires_grad_(True)
+    tx = torch.from_numpy(pos).requires_grad_(True)
+    d_t, d_x = torch.autograd.grad(brickgrid_encode(tt, tx, tspec), [tt, tx],
+                                   torch.from_numpy(cot))
+    _, vjp = jax.vjp(lambda t, x: jax_encode(t, x, jspec, True), jnp.asarray(table),
+                     jnp.asarray(pos))
+    ref_t, ref_x = (np.asarray(g) for g in vjp(jnp.asarray(cot)))
+    np.testing.assert_allclose(d_t.numpy(), ref_t, rtol=0, atol=1e-5 * np.abs(ref_t).max())
+    np.testing.assert_allclose(d_x.numpy(), ref_x, rtol=0, atol=1e-6 * np.abs(ref_x).max())
+    full_t, full_x = brickgrid_encode_bwd_ref(
+        torch.from_numpy(table), torch.from_numpy(pos), torch.from_numpy(cot),
+        dataclasses.replace(tspec, grad_subsample=1), True)
+    assert torch.equal(d_x, full_x)
+    b = tspec.bricks_per_level
+    for lvl, hashed in enumerate(tspec.level_uses_hash):
+        rows = slice(lvl * b, (lvl + 1) * b)
+        assert torch.equal(d_t[rows], full_t[rows]) != bool(hashed), lvl
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_grad_subsample_keeps_each_level_mass(k):
+    """With a cotangent of ones each point adds weight 1 per feature and
+    level, so every level's table gradient sums to n F with or without the
+    stride (JAX's tests/test_brickgrid.py mass test); fewer than 2k points
+    take every point."""
+    tspec, _, table, pos, _ = _subsample_inputs("3d_b2cells_F4", k, 300 + k, n=128)
+    ones = torch.ones(128, tspec.n_output_dims)
+    d_t, _ = brickgrid_encode_bwd_ref(torch.from_numpy(table), torch.from_numpy(pos), ones,
+                                      tspec, False)
+    b, f = tspec.bricks_per_level, tspec.n_features_per_level
+    for lvl in range(tspec.n_levels):
+        assert np.isclose(float(d_t[lvl * b:(lvl + 1) * b].double().sum()), 128 * f, rtol=1e-5)
+    few = torch.from_numpy(pos[:2 * k - 1])
+    small, _ = brickgrid_encode_bwd_ref(torch.from_numpy(table), few, ones[:2 * k - 1], tspec,
+                                        False)
+    plain, _ = brickgrid_encode_bwd_ref(torch.from_numpy(table), few, ones[:2 * k - 1],
+                                        dataclasses.replace(tspec, grad_subsample=1), False)
+    assert torch.equal(small, plain)
+    assert _kernel_params(tspec, effective_subsample(tspec, 128)).grad_subsample == k
+    assert effective_subsample(tspec, 2 * k - 1) == 1
+
+
+def test_grad_subsample_phase_is_read_from_the_first_coordinate():
+    """The stride's phase is (bits(x[0, 0]) >> 9) % k, as JAX derives it."""
+    x = torch.tensor([[0.3, 0.1, 0.7], [0.2, 0.5, 0.9]] * 8)
+    bits = int(np.float32(0.3).view(np.uint32))
+    rows = subsample_rows(x, 4)
+    assert rows.tolist() == [(bits >> 9) % 4 + 4 * j for j in range(4)]

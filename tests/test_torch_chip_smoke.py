@@ -412,3 +412,50 @@ def test_k1_term_counts_are_the_plain_backwards_terms(dims, time_pair):
     slices = 2 if dims == 4 else 1
     assert int(counts.sum()) == 200 * spec.n_levels * 8 * slices * spec.n_features_per_level
     assert torch.equal(counts > 0, d_table != 0)
+
+
+def test_phase_19_runs_after_18_and_reports_its_rows():
+    """Phase 19 runs after phase 18 and before the kernel times; its rows
+    report the launches of its own training runs ("mx", "skip",
+    "subsample"), each window profiled at the schedule's steady state as
+    phase 5 is."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index("phase_grad_drift(") < main.index("phase_settings(") < main.index(
+        "kernel_only(")
+    assert "**settings_runs" in main
+    src = inspect.getsource(chip_smoke.phase_settings)
+    for path in ('runs["mx"]', 'runs["skip"]', 'runs["subsample"]'):
+        assert path in src
+    assert "trainer.state.step = 2002" in inspect.getsource(chip_smoke.phase_setting_train)
+
+
+def test_mx_ops_count_the_gather_form():
+    """K12's least operation count: about 8 operations per (point, scale,
+    axis, lane) forward (the issue's 42 GFLOP for 1 M points on the fused
+    grid), more in the backward and more again with position gradients."""
+    from emernerf_torch.ops.mxgrid import MXGridSpec
+
+    spec = MXGridSpec(n_input_dims=4, n_levels=10, base_resolution=16, max_resolution=8192,
+                      n_features_per_level=8, rank=16)
+    assert (spec.n_scales, spec.factor_width) == (10, 128)
+    fwd = chip_smoke.mx_ops(spec, 1 << 20, False, False)
+    assert 40e9 < fwd < 48e9
+    assert fwd < chip_smoke.mx_ops(spec, 1 << 20, True, False) < chip_smoke.mx_ops(
+        spec, 1 << 20, True, True)
+
+
+def test_proposal_rows_count_the_coarse_views(monkeypatch):
+    """The proposal grids' K1 rows of one iteration: with fine_level_skip=2
+    on 16 proposal samples (8 near, 8 far) the far half reads 2 of 4
+    levels, so the rows read are 3/4 of the unskipped count."""
+    from emernerf_torch.flagship import flagship_config, flagship_flow_spec
+    from emernerf_torch.train.trainer import Trainer
+
+    cfg = flagship_config(tiny=True, overrides=[
+        "nerf.propnet.fine_level_skip=2", "nerf.propnet.xyz_encoder.n_levels_per_prop=[4,4]",
+        "nerf.propnet.num_samples_per_prop=[16,16]", "nerf.sampling.num_samples=16"])
+    trainer = Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
+    read, unskipped = chip_smoke._proposal_rows(trainer, 0)
+    assert unskipped > 0 and read == unskipped * 3 // 4

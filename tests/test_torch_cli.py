@@ -24,6 +24,7 @@ import pytest
 import torch
 from test_cli import TINY_OVERRIDES
 
+from emernerf_torch import flagship as flagship_mod
 from emernerf_torch.config import from_dotlist
 from emernerf_torch.flagship import flagship_config, flagship_flow_spec
 from emernerf_torch.train import trainer as trainer_mod
@@ -335,6 +336,49 @@ def test_ported_settings_train(setting, tmp_path):
         base = train([])
         for (name, p), q in zip(trainer.model.named_parameters(), base.model.parameters()):
             assert torch.equal(p, q), name
+
+
+# the tiny flagship's dotlist, then each setting of the JAX package that
+# the port took last: fine-level skipping with subsampled table gradients
+# (16 proposal samples: 8 near, 8 far), the MX grid, the fused step
+TINY_FLAGSHIP = list(flagship_mod._FLAGSHIP_DOTLIST) + list(flagship_mod._TINY_DOTLIST)
+JAX_SETTINGS = {
+    "skip_subsample": ["nerf.propnet.fine_level_skip=1", "nerf.propnet.num_samples_per_prop=[16,16]",
+                       "nerf.sampling.num_samples=16", "nerf.model.perf.grad_subsample=2"],
+    "mx": ["nerf.model.grid_backend=mx"],
+    "fused": ["optim.fused_lidar_branch=true"],
+}
+
+
+@pytest.mark.parametrize("setting", sorted(JAX_SETTINGS))
+def test_cli_trains_the_jax_packages_last_settings(tmp_path, setting):
+    """4 iterations of the tiny flagship through the CLI with each setting,
+    every logged loss finite; the final checkpoint restores the whole
+    state (params and Adam moments, the MX grid's flat tables among them)
+    bit for bit into a fresh trainer."""
+    from emernerf_torch.train.checkpoints import latest_checkpoint, load_checkpoint
+
+    trainer = main(_argv(tmp_path, setting) + TINY_FLAGSHIP + JAX_SETTINGS[setting] + SHORT
+                   + NO_EVAL + ["render.render_full=false"])
+    run_dir = tmp_path / "p" / setting
+    assert trainer.state.step == 5
+    records = [json.loads(x) for x in (run_dir / "metrics.json").read_text().splitlines()]
+    assert records and all(np.isfinite(v) for r in records for k, v in r.items() if "loss" in k)
+    if setting == "mx":
+        assert trainer.model.xyz_table.dim() == 1 and trainer.prop_models[0].hash_table.dim() == 1
+    if setting == "skip_subsample":
+        assert trainer.prop_models[0].fine_level_skip == 1
+        assert trainer.model.static_spec.grad_subsample == 2
+    fresh = Trainer(trainer.cfg, device="cpu")
+    load_checkpoint(latest_checkpoint(str(run_dir)), fresh.state)
+    assert fresh.state.step == trainer.state.step
+    for a, b in zip(fresh.state.params + fresh.state.prop_params,
+                    trainer.state.params + trainer.state.prop_params):
+        assert torch.equal(a, b)
+    for ours, theirs in ((fresh.state.opt_state, trainer.state.opt_state),
+                         (fresh.state.prop_opt_state, trainer.state.prop_opt_state)):
+        assert ours.count == theirs.count
+        assert all(torch.equal(a, b) for a, b in zip(ours.mu + ours.nu, theirs.mu + theirs.nu))
 
 
 def test_cli_waymo_feature_head_trains_and_evaluates(tmp_path_factory, tmp_path):

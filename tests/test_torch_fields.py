@@ -252,8 +252,6 @@ def test_appearance_mean_embedding_fallback(pair):
 
 
 @pytest.mark.parametrize("knob", [
-    "nerf.model.grid_backend=mx",
-    "nerf.propnet.fine_level_skip=1",
     "nerf.model.perf.scatter_mode=flat",
     "nerf.model.perf.gather_mode=1d",
     "nerf.model.head.enable_dynamic_branch=false",  # the flow branch stays on
@@ -263,6 +261,101 @@ def test_unported_knob_raises(knob):
     validate_cfg(flagship_config(tiny=True))  # the flagship itself is ported
     with pytest.raises(NotImplementedError):
         validate_cfg(flagship_config(tiny=True, overrides=[knob]))
+
+
+def test_fused_lidar_branch_validates_and_builds():
+    """``optim.fused_lidar_branch=true`` validates and builds on the full
+    and the tiny flagship (the default staged lidar-K yields to it, as in
+    the JAX package), and the step takes it."""
+    from emernerf_torch.train.step import build_train_step
+
+    on = ["optim.fused_lidar_branch=true"]
+    validate_cfg(flagship_config(overrides=on))
+    cfg, _, model, props, step_cfg = build_flagship(tiny=True, overrides=on, device="cpu")
+    assert step_cfg.fused_branches and step_cfg.lidar_topk_until == 1.0
+    assert build_train_step(model, props, step_cfg).cfg.fused_branches
+
+
+@pytest.mark.parametrize("knob", ["nerf.model.grid_backend=mx",
+                                  "nerf.propnet.fine_level_skip=2",
+                                  "nerf.model.perf.grad_subsample=4",
+                                  "optim.fused_lidar_branch=true"])
+def test_the_four_settings_validate_on_the_full_flagship(knob):
+    validate_cfg(flagship_config(overrides=[knob]))
+
+
+def _density_fields(skip, spec=None):
+    """A JAX and a port proposal field of one brick spec (the JAX package's
+    test shape: 4 levels, F = 1, 4^3-cell bricks), the port's with the JAX
+    field's initial params."""
+    from emernerf_tpu.models.fields import DensityField as JaxDensityField
+    from emernerf_tpu.ops.brickgrid import BrickGridSpec as JaxBrickSpec
+    from emernerf_torch.models.fields import DensityField
+
+    kw = dict(n_input_dims=3, n_levels=4, base_resolution=8, max_resolution=128,
+              log2_bricks=8, n_features_per_level=1, log2_brick_size=2)
+    spec = spec or BrickGridSpec(**kw)
+    field_kw = dict(aabb=(-1, -1, -1, 1, 1, 1), unbounded=True, base_mlp_layer_width=16)
+    jfield = JaxDensityField(spec=JaxBrickSpec(**kw), fine_level_skip=skip,
+                             fine_level_frac=0.5, **field_kw)
+    x = np.random.default_rng(5).normal(size=(5, 24, 3)).astype(np.float32) * 2.0
+    params = jax.jit(jfield.init)(jax.random.PRNGKey(6), jnp.asarray(x))["params"]
+    params = jax.tree.map(np.asarray, params)
+    params["hash_table"] = np.random.default_rng(7).normal(
+        size=params["hash_table"].shape).astype(np.float32)
+    tfield = DensityField(spec, fine_level_skip=skip, fine_level_frac=0.5, **field_kw)
+    tfield.load_state_dict(state_dict_from_jax(params), strict=True)
+    return jfield, params, tfield, x
+
+
+def test_density_field_fine_level_skip_matches_jax():
+    """``fine_level_skip=2`` on JAX's near-segment test shape ((5, 24)
+    samples: 8 near, 16 far): densities against JAX (rtol 1e-5, atol
+    1e-6), the table gradient within 1e-5 x its largest |grad| (the sums of
+    test_torch_brickgrid's VJPs, in another order); the near samples equal
+    the unskipped field's bit for bit, the far ones differ."""
+    jfield, params, tfield, x = _density_fields(2)
+    cot = np.random.default_rng(8).normal(size=x.shape[:-1]).astype(np.float32)
+
+    @jax.jit
+    def density_vjp(p, c):
+        out, vjp = jax.vjp(lambda q: jfield.apply({"params": q}, jnp.asarray(x)), p)
+        return out, vjp(c)[0]["hash_table"]
+
+    ref, ref_g = (np.asarray(v) for v in density_vjp(params, jnp.asarray(cot)))
+    ours = tfield(torch.from_numpy(x))
+    (g,) = torch.autograd.grad(ours, tfield.hash_table, torch.from_numpy(cot))
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(g.numpy(), ref_g, rtol=0, atol=1e-5 * np.abs(ref_g).max())
+    tfield.fine_level_skip = 0
+    with torch.no_grad():
+        full = tfield(torch.from_numpy(x))
+    assert torch.equal(ours[:, :8].detach(), full[:, :8])
+    assert not torch.equal(ours[:, 8:].detach(), full[:, 8:])
+    flat = torch.from_numpy(x.reshape(-1, 3))
+    tfield.fine_level_skip = 2  # flat point queries take the full encode
+    with torch.no_grad():
+        assert torch.equal(tfield(flat), full.reshape(-1))
+
+
+def test_fine_level_skip_raises_the_jax_errors():
+    """The JAX package's errors at the same points: the builders (a
+    non-brick backend, k >= a proposal grid's levels) and the field (a
+    skip that cannot engage at 8 proposal samples, a non-brick spec)."""
+    from emernerf_torch.models.fields import DensityField
+
+    with pytest.raises(ValueError, match="requires grid_backend=brick"):
+        validate_cfg(flagship_config(overrides=["nerf.propnet.fine_level_skip=1",
+                                                "nerf.model.grid_backend=mx"]))
+    with pytest.raises(ValueError, match="must be < the prop grid's n_levels"):
+        validate_cfg(flagship_config(tiny=True, overrides=["nerf.propnet.fine_level_skip=2"]))
+    _, _, _, props, _ = build_flagship(tiny=True, overrides=["nerf.propnet.fine_level_skip=1"],
+                                       device="cpu")
+    with pytest.raises(ValueError, match="cannot engage: sample count 8"):
+        props[0](torch.zeros(4, 8, 3))
+    hashed = DensityField(HashGridSpec(n_levels=2, log2_hashmap_size=8), fine_level_skip=1)
+    with pytest.raises(ValueError, match="requires a 3D brick-grid spec"):
+        hashed(torch.zeros(2, 24, 3))
 
 
 @pytest.mark.parametrize("pe", [True, False], ids=["learnable_pe", "no_pe"])

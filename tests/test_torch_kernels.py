@@ -8,6 +8,7 @@ with ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``
 have).
 """
 
+import dataclasses
 import os
 import stat
 
@@ -32,6 +33,14 @@ from emernerf_torch.ops.hashgrid import (
     hashgrid_encode_bwd,
     hashgrid_encode_bwd_plain,
     hashgrid_encode_plain,
+)
+from emernerf_torch.ops.mxgrid import (
+    MXGridSpec,
+    init_mxgrid_table,
+    mx_lines_encode,
+    mx_lines_encode_bwd,
+    mx_lines_encode_bwd_ref,
+    mx_lines_encode_ref,
 )
 from emernerf_torch.ops.stepfuns import (
     _interlevel_forward,
@@ -417,6 +426,82 @@ def test_brickgrid_autograd_fp32_table_bf16_compute_on_the_card(cuda, dims, f, b
     assert torch.equal(x.grad, r_x)
     assert t.grad.dtype == torch.float32 and torch.equal(t.grad, t.grad.bfloat16().float())
     torch.testing.assert_close(t.grad, r_t, rtol=2 ** -7, atol=1e-5 * float(r_t.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,f,bs,pair", [_BRICK_LAYOUTS[i] for i in (0, 1, 2)])
+@pytest.mark.parametrize("k", [1, 4], ids=["view", "view_subsample4"])
+def test_brickgrid_coarse_view_and_subsample_on_the_card(cuda, dims, f, bs, pair, k):
+    """K1 on a coarse view (4 of 6 levels, the table's first rows) and with
+    ``grad_subsample`` k: the forward bit for bit with the plain version
+    and with the full encode's first levels, the backward as
+    _check_brick_backward (the position gradient bit for bit, and equal to
+    the unsubsampled one)."""
+    full = _brick_spec(dims, f, bs, pair)
+    spec = dataclasses.replace(full, view_levels=4, grad_subsample=k)
+    assert spec.level_uses_hash[:4].any()  # a hashed level takes the stride
+    g = torch.Generator(device=cuda).manual_seed(24)
+    table = torch.rand(full.table_shape, device=cuda, generator=g) * 2 - 1
+    view = table[:spec.table_shape[0]]
+    pos = torch.rand((4096, dims), device=cuda, generator=g)
+    cot = torch.randn((4096, spec.n_output_dims), device=cuda, generator=g)
+    with torch.no_grad():
+        out = brickgrid_encode(view, pos, spec)
+        assert torch.equal(out, brickgrid_encode_ref(view, pos, spec))
+        assert torch.equal(out, brickgrid_encode(table, pos, full)[:, :spec.n_output_dims])
+    _check_brick_backward(spec, view, pos, cot)
+    plain = dataclasses.replace(spec, grad_subsample=1)
+    assert torch.equal(brickgrid_encode_bwd(view, pos, cot, spec, True)[1],
+                       brickgrid_encode_bwd(view, pos, cot, plain, True)[1])
+
+
+# the MX grids of the full-width flagship: (dims, F, rank, scales);
+# static, fused dynamic+flow, proposal; and the tiny fused grid's W = 96
+_MX_GRIDS = {"static": (3, 4, 16, 10), "fused": (4, 8, 16, 10), "prop": (3, 1, 16, 8),
+             "tiny_fused": (4, 6, 16, 4)}
+
+
+def _mx_case(cuda, name, seed):
+    dims, f, rank, levels = _MX_GRIDS[name]
+    spec = MXGridSpec(n_input_dims=dims, n_levels=levels, base_resolution=16,
+                      max_resolution=8192, n_features_per_level=f, rank=rank)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    table = init_mxgrid_table(spec, device=cuda, generator=g) * 3
+    lines = table[spec.part_sizes[0]:spec.num_parameters]
+    vals = torch.tensor([0.0, 1.0, 0.5, 0.25, 1 - 2 ** -24, 7 / 128], device=cuda)
+    knots = vals[torch.randint(0, 6, (600, dims), device=cuda, generator=g)]
+    pos = torch.cat([torch.rand((5000, dims), device=cuda, generator=g), knots])
+    cot = torch.randn((pos.shape[0], spec.n_scales * f), device=cuda, generator=g)
+    return spec, lines, pos, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_MX_GRIDS))
+@pytest.mark.parametrize("stored,compute", _K1_TYPES, ids=_K1_TYPE_IDS)
+def test_mxgrid_kernels_match_plain(cuda, name, stored, compute):
+    """K12 forward bit for bit with the plain version (the same rounded
+    operations, ranks added in order); the backward's line gradient within
+    1e-5 x its largest |grad| (fp32 atomics in another order; for a bf16
+    computation one bf16 rounding, 2^-7), the position gradient within 1e-5
+    x its largest |grad| (the lanes' sums in another order), on random
+    points and on knots."""
+    spec, lines, pos, cot = _mx_case(cuda, name, 25)
+    lines = lines.to(stored)
+    before = (mx_lines_encode.launches, mx_lines_encode_bwd.launches)
+    out = mx_lines_encode(lines, pos, spec, compute)
+    d_l, d_x = mx_lines_encode_bwd(lines, pos, cot, spec, True, compute)
+    r_l, r_x = mx_lines_encode_bwd_ref(lines, pos, cot, spec, True, compute)
+    torch.cuda.synchronize()
+    assert (mx_lines_encode.launches, mx_lines_encode_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert out.dtype == torch.float32 and torch.equal(out, mx_lines_encode_ref(lines, pos, spec,
+                                                                               compute))
+    assert d_l.dtype == stored
+    rtol = 1e-5 if compute == torch.float32 else 2 ** -7
+    torch.testing.assert_close(d_l.float(), r_l.float(), rtol=rtol,
+                               atol=1e-5 * float(r_l.float().abs().max()))
+    torch.testing.assert_close(d_x, r_x, rtol=0, atol=1e-5 * float(r_x.abs().max()))
+    assert float(r_x.abs().max()) > 1.0
 
 
 def _sampling_rows(cuda, g, r, k1):

@@ -144,8 +144,8 @@ def _snapshot(t):
     return [_np(p) for p in t.state.params + t.state.prop_params]
 
 
-def _steps(group, spmd, n=2):
-    t = _trainer(group, spmd)
+def _steps(group, spmd, n=2, overrides=()):
+    t = _trainer(group, spmd, overrides)
     metrics = [{k: float(v) for k, v in t.train_iteration(s).items()} for s in range(n)]
     return dict(params=_snapshot(t), metrics=metrics,
                 routed=None if t.state.zero is None else sum(t.state.zero.model.big),
@@ -168,6 +168,11 @@ def _rank(rank, init, out_dir):
     implicit = _masked(_trainer(group, overrides=IMPLICIT))
     res["implicit"] = [{k: float(v) for k, v in implicit.train_iteration(s).items()}
                        for s in range(2)]
+    # the fused pixel + lidar step on both paths
+    res["fused_zero_f32"] = _steps(group, cfg("float32", True), overrides=FUSED)
+    implicit = _masked(_trainer(group, overrides=IMPLICIT + FUSED))
+    res["fused_implicit"] = [{k: float(v) for k, v in implicit.train_iteration(s).items()}
+                             for s in range(2)]
     res["render"] = _render(group, 32)
     try:
         _render(group, 33)
@@ -209,6 +214,7 @@ def _rank(rank, init, out_dir):
 
 # the implicit path with the line-of-sight loss on from step 1 ...
 IMPLICIT = ["parallel.explicit_collectives=false", "supervision.depth.line_of_sight.start_iter=0"]
+FUSED = ["optim.fused_lidar_branch=true"]
 
 
 def _masked(t):
@@ -445,6 +451,40 @@ def test_implicit_step_matches_the_single_process_step(ranks):
         assert ours == other
         for k, v in theirs.items():
             np.testing.assert_allclose(ours[k], v, rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_fused_implicit_step_matches_the_single_process_step(ranks):
+    """``optim.fused_lidar_branch`` on the implicit path: each rank renders
+    its pixel and lidar halves as one batch with its halves of the one
+    render's draws; the losses and metrics equal the one-process fused
+    step's on the whole batch (as test_implicit_step_matches_the_single_
+    process_step), both ranks alike."""
+    res = [r["fused_implicit"] for r in ranks]
+    single = _masked(_single(IMPLICIT + FUSED))
+    assert single.train_step.cfg.fused_branches
+    ref = [{k: float(v) for k, v in single.train_iteration(s).items()} for s in range(2)]
+    for ours, other, theirs in zip(res[0], res[1], ref):
+        assert ours == other and set(ours) == set(theirs)
+        for k, v in theirs.items():
+            np.testing.assert_allclose(ours[k], v, rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_fused_explicit_step_runs_on_both_ranks(ranks):
+    """The fused step on the explicit path (fp32 wire, ZeRO): both ranks end
+    with the same params, every metric finite, and the first iteration's
+    losses (means over equal halves, every lidar return valid) are the
+    one-process fused step's within rtol 1e-4."""
+    res = [r["fused_zero_f32"] for r in ranks]
+    np.testing.assert_array_equal(np.concatenate([p.ravel() for p in res[0]["params"]]),
+                                  np.concatenate([p.ravel() for p in res[1]["params"]]))
+    assert res[0]["routed"] > 0
+    assert all(np.isfinite(v) for m in res[0]["metrics"] for v in m.values())
+    single = _single(FUSED)
+    ref = {k: float(v) for k, v in single.train_iteration(0).items()}
+    for k, v in ref.items():
+        if "loss" in k:
+            np.testing.assert_allclose(res[0]["metrics"][0][k], v, rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
 
 
 def test_implicit_step_needs_the_whole_batch_denominators(ranks):

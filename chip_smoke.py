@@ -251,8 +251,9 @@ Phases (any failure exits non-zero; nothing is skipped):
      loss finite, every parameter changed; 2 profiled iterations: busy and
      idle), beside phase 5.  19a, nerf.model.grid_backend=mx: K12 forward
      (bit for bit) and backward (line gradient within one fp32 or bf16
-     rounding, position gradient within 1e-5 of its largest value) against
-     the plain versions at the training shapes (proposal grids' 128 and 64
+     rounding, position gradient within 1e-5 of its largest value and bit
+     for bit between two runs) against the plain versions at the training
+     shapes (proposal grids' 128 and 64
      samples, static and fused grids' 32, the fused grid's warped 2 x 16
      with position gradients), fp32 and bf16; the JAX form (tents +
      torch.bmm) of one axis timed beside; training with no cast of a grid
@@ -4755,10 +4756,9 @@ SUBSAMPLE = ("nerf.model.perf.grad_subsample=4",)
 FUSED = ("optim.fused_lidar_branch=true",)
 N_SETTING_TIMED = 6  # timed iterations of each setting's training window
 # the MX flagship's kernels by name in its profiler table (kernels/csrc/mxgrid.cu)
-MX_SHARES = (("K12 forward", ("mx_forward_kernel",)),
-             ("K12 line gradients", ("mx_lines_grad_kernel",)),
-             ("K12 position gradients", ("mx_pos_grad_kernel",)),
-             ("K12's bf16 rounding pass", ("mx_round_to_bf16_kernel",)),
+MX_SHARES = (("K12 forward", ("mx_encode_kernel",)),
+             ("K12 backward (line and position gradients)", ("mx_backward_kernel",)),
+             ("K12's pass summing d_pos and rounding bf16 gradients", ("mx_finish_kernel",)),
              ("K1 forward", ("brickgrid_encode_kernel",)),
              ("K1 backward", ("brickgrid_backward_kernel",)),
              ("Adam (K8)", ("adam_kernel",)),
@@ -4788,7 +4788,8 @@ def mx_rows(entries, name, spec, table, pos, pos_grad, g, compute, path="mx"):
     (the plain versions in one chunk: the card holds it): the line gradient
     within rtol 1e-5 (fp32) or 2^-7 (one bf16 rounding) + 1e-5 x max|grad|,
     the position gradient within 1e-5 x max|grad| (the lanes' sums in
-    another order).  Two kernel lines of the run ``path``."""
+    another order) and bit for bit between two runs (summed in a fixed
+    order).  Two kernel lines of the run ``path``."""
     import dataclasses
 
     from emernerf_torch.ops.mxgrid import (
@@ -4818,6 +4819,10 @@ def mx_rows(entries, name, spec, table, pos, pos_grad, g, compute, path="mx"):
                1e-5 if compute == torch.float32 else 2 ** -7, 1e-5)
     if pos_grad:
         mx = max(mx, check(f"mx_lines_encode_bwd{tag}.d_pos", d_x, r_x, 0.0, 1e-5))
+        same = torch.equal(mx_lines_encode_bwd(*args)[1], d_x)
+        print(f"  mx_lines_encode_bwd{tag}.d_pos bit for bit between two runs: {same}")
+        if not same:
+            fail(f"mx_lines_encode_bwd{tag}: the position gradient differs between two runs")
     ms = cuda_ms(lambda: mx_lines_encode_bwd(*args), 5)
     plain_ms = cuda_ms(lambda: mx_lines_encode_bwd_ref(lines, pos, cot, whole, pos_grad,
                                                         compute), 2)

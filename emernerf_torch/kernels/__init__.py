@@ -68,8 +68,9 @@ _SIGNATURES = {
     # n_points, params (host struct), stream
     "emt_mxgrid_encode": (_P, _I, _I, _P, _P, _L, _P, _P),
     # lines, lines_is_bf16, compute_is_bf16, positions, grad_out (fp32),
-    # d_lines (zeroed fp32), d_pos|NULL, n_points, params (host struct), stream
-    "emt_mxgrid_backward": (_P, _I, _I, _P, _P, _P, _P, _L, _P, _P),
+    # d_lines (zeroed fp32), d_pos|NULL, its scratch (S * slots, n, D) fp32
+    # |NULL, n_points, params (host struct), stream
+    "emt_mxgrid_backward": (_P, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P),
     # table (F, rows), elem_bytes (2 or 4), out (rows, F), rows, F, stream
     "emt_hashgrid_features_minor": (_P, _I, _P, _L, _I, _P),
     # table (L*T, F) features-minor, table_is_bf16, positions, out, n_points,

@@ -5,13 +5,24 @@
 // The TPU version builds dense (2S, chunk, block) tent matrices and runs
 // batched matmuls on the MXU, because a matmul is what the TPU does fast and
 // its backward has no scatter.  Per (point, scale, axis) only two entries of
-// each 128-entry line are non-zero, so on the H100 the dense form is ~60x
-// the arithmetic of the gather it computes.
+// each line are non-zero, so on the H100 the dense form is ~60x the
+// arithmetic of the gather it computes.
+//
+// What bounds it on the H100: the issue rate of the per-value arithmetic and
+// shared-memory traffic, and the latency of their dependent chains.  A point
+// reads 4 rows of W values per (scale, axis), 80 KB at the fused grid's 10
+// scales, 4 axes and W = 128; read from L2 for every point that is ~21 GB a
+// call, so the rows come from shared memory: a grid's lines are a few MB,
+// and the slice that one (scale, value slot) needs, every axis and both
+// lines, is at most 128 KB.  The line gradient adds 16 rows of W per (point,
+// scale) into 1-2 K rows; fp32 atomicAdd on shared memory is a
+// compare-and-swap loop on sm_90 (ATOMS.CAST.SPIN), so the backward adds
+// without atomics.
 //
 // A point at a factored scale s reads, per axis a with coordinate c, two
 // rows of the clamped coarse line (u = c (block - 1)) and two of the
 // periodic line (u = (c freq) mod 1 * block, circular), each row W = rank *
-// F lanes, and forms
+// F values, and forms
 //   u_a[e] = (w0 coarse[j0][e] + w1 coarse[j1][e]) + (v0 periodic[k0][e] + v1 periodic[k1][e]),
 //   out[s F + f] = sum_r prod_a u_a[r F + f]   (ranks in order).
 // The weights are max(0, 1 - dist) exactly as the tents compute them (every
@@ -19,44 +30,56 @@
 // nothing), rounded to the compute type C as the JAX package casts its
 // tents to the table's dtype; line values are read as C holds them.
 //
-// What bounds it on the H100: the rows.  A point reads 4 rows of W values
-// per (scale, axis) (S x A x 4 x W x 4 bytes: 80 KB at the fused grid's 10
-// scales, 4 axes and W = 128), almost all from L2: the lines are at most a
-// few MB.  The arithmetic is a few FLOPs per value read.
-//
-// Design (simple first):
-//   - forward: a group of LP lanes per point (LP = 32, or the power of two
-//     at or above a narrower W; 32 / LP points per warp), element e of a
-//     row in lane e % LP, so each row is read with coalesced loads; the
-//     scales in a loop, the rank sum through the warp's slice of shared
-//     memory in rank order;
-//   - line gradients: a block per (point chunk, scale, value slot); its
-//     warps take the chunk's points and add w * du_a into fp32 partials of
-//     the scale's lines in shared memory (axes x 2 lines x block x LP),
-//     rebuilding every u_b from the positions (the TPU version recomputes
-//     them too, under jax.checkpoint); the block then adds its non-zero
-//     partials into the fp32 gradient.  du_a is the cotangent of u_a in
-//     autodiff's order of products (reverse through ((u0 u1) u2) u3);
-//   - position gradients (the flow-warped queries only): as the forward, a
-//     lane group per point; per (scale, axis) the rows floor(u) - 1 (read
-//     only at a knot), floor(u) and floor(u) + 1 with the weights'
-//     derivatives as autodiff of the tents gives them (at a knot max's tie
-//     at 0 counts 0.5 and |0|'s slope is +1), summed over the lanes by
-//     shuffles;
-//   - an fp32 line table of a bf16 computation gets its gradient rounded to
-//     bf16 precision, float(bf16(sum)), by one pass (mx_round_to_bf16_kernel).
+// Design:
+//   - a value slot is LP consecutive values of a row (LP a power of two,
+//     planned by ops/mxgrid.py:plan_slots so that a block's shared memory
+//     fits); a group of LP lanes works on one point, element v LP + l of
+//     slot v in lane l;
+//   - a block copies one scale's slice of the lines for one slot (every
+//     axis, coarse and periodic line, all rows) into shared memory
+//     (cp.async, or loads that round fp32 to bf16 for a bf16 computation:
+//     the slice is held as bf16 whenever either type is bf16, which changes
+//     no value) and reads rows from there; a group's lanes compute its
+//     points' tents, a (point, axis) a lane, into a table the group reads;
+//   - forward (mx_encode_kernel): a block per (point chunk, scale) walks the
+//     slots in order, restaging the slice; each group takes a contiguous
+//     run of the chunk's points; the rank sum continues across slots in
+//     rank order (a lane per feature adds its slot's ranks onto the sum the
+//     previous slot left in the output), the plain version's order, so the
+//     two agree bit for bit;
+//   - backward (mx_backward_kernel): a block per (point chunk, scale,
+//     slot), in batches of a point a group.  Phase 1: each group forms u_a
+//     and du_a (autodiff's order of products, reverse through ((u0 u1) u2)
+//     u3) from one read of the staged rows, puts du into shared memory,
+//     and reduces its position gradient's partial (the tents' derivatives,
+//     by shuffles in a fixed order) into a scratch buffer.  Phase 2: a warp
+//     per (axis, line, row parity, column block) adds the batch's terms
+//     w * du into the block's fp32 partials, a point a lane: equal rows of
+//     neighbouring lanes merged by shuffles, others in turns decided by a
+//     tag in shared memory, so no two lanes write one partial at once.  The
+//     block then adds its partials into the fp32 gradient;
+//   - mx_finish_kernel sums the position gradient's partials over (scale,
+//     slot) in order into d_pos (the same from run to run) and, where fp32
+//     lines serve a bf16 computation, rounds the line gradient to bf16
+//     precision, float(bf16(sum)).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+#include <type_traits>
 
 #include "grid_common.cuh"
 
 namespace {
 
 constexpr int kMaxScales = 32;
-constexpr int kMaxValues = 8;  // W <= 256
 constexpr int kMaxAxes = 4;
+constexpr int kThreads = 1024;  // every K12 kernel's block
+constexpr int kWarps = kThreads / 32;
+constexpr int kFwdWords = 8;    // tent words per (point, axis): rows and weights
+constexpr int kBwdWords = 16;   // the backward's: + the third rows and the derivatives
+constexpr int kMaxRun = 8;      // the forward's tent batch: LP / 4 points
+constexpr int kCols = 16;       // columns of a backward phase-2 job
 
 struct MxParams {
   int n_dims;      // 3 (xyz) or 4 (xyz + t): the positions' row length
@@ -65,13 +88,87 @@ struct MxParams {
   int block;       // entries per line
   int width;       // W = rank * F
   int n_features;  // F
-  int lanes;       // LP: lanes per point
-  int values;      // ceil(W / LP): values per lane
+  int lanes;       // the forward's slot: LP lanes (a power of two, >= F)
+  int values;      // the forward's slots: ceil(W / LP)
+  int bwd_lanes;   // the backward's slot
+  int bwd_values;  // the backward's slots
   long long axis_part;  // elements of one axis's lines: 2 S block W
   float freqs[kMaxAxes * kMaxScales];  // periods of the periodic lines
 };
 
 using emt::kFullMask;
+
+// The slice's element type: bf16 where the lines or the computation are
+// bf16 (a bf16 value widens to fp32 exactly; an fp32 value for a bf16
+// computation is rounded once, at the copy, as the plain version's cast to
+// the compute dtype rounds it), else fp32.
+template <typename T, typename C>
+using Staged = std::conditional_t<std::is_same_v<T, float> && std::is_same_v<C, float>, float,
+                                  __nv_bfloat16>;
+
+__device__ __forceinline__ float sval(const float* s) { return *s; }
+__device__ __forceinline__ float sval(const __nv_bfloat16* s) { return __bfloat162float(*s); }
+
+__host__ __device__ inline size_t align16(size_t b) { return (b + 15) & ~static_cast<size_t>(15); }
+
+// The forward's tent batch: LP / 4 points a group (at least one).
+__host__ __device__ inline int tent_points(int lanes) { return lanes >= 4 ? lanes / 4 : 1; }
+
+// The backward's batch: a point a group of LP lanes.
+__host__ __device__ inline int batch_points(int lanes) { return kThreads / lanes; }
+
+// Floats a row of the backward's du: LP + 4 (LP / 4 + 1 odd float4s), or
+// LP + 1 below 4 lanes.
+__host__ __device__ inline int du_stride(int lanes) { return lanes >= 4 ? lanes + 4 : lanes + 1; }
+
+// Columns of a backward phase-2 job: 16, or a narrower slot's.
+__host__ __device__ inline int job_cols(int lanes) { return lanes < kCols ? lanes : kCols; }
+
+// Dynamic shared memory of a block, in bytes from its start.  Forward: the
+// slice (rows of LP values), the groups' tent tables (float4s [word
+// group][axis][point], tent_points(LP) points) and a float a thread (the
+// products the rank sum reads).  Backward: the slice, the fp32 partials
+// (rows of LP + 1 floats, each row's columns rotated by row / 32: lanes on
+// different rows of one column hit different banks), the batch's tent
+// table (4 word groups, a point a group), du ([axis][point][column], rows
+// of du_stride(LP) floats: 16-byte loads of 8 lanes' rows hit different
+// banks) and a tag byte a (warp, row).
+// ops/mxgrid.py:shared_bytes mirrors it.
+struct Layout {
+  size_t partials, tents, vals, tags, total;
+};
+
+__host__ __device__ inline Layout layout(const MxParams& p, int lanes, size_t staged_bytes,
+                                         bool backward) {
+  const size_t rows = static_cast<size_t>(p.n_axes) * 2 * p.block;
+  Layout L;
+  size_t off = align16(rows * lanes * staged_bytes);
+  L.partials = off;
+  if (backward) {
+    const size_t batch = batch_points(lanes);
+    off += align16(rows * (lanes + 1) * sizeof(float));
+    L.tents = off;
+    off += batch * kMaxAxes * kBwdWords * sizeof(float);
+    L.vals = off;
+    off += kMaxAxes * batch * du_stride(lanes) * sizeof(float);
+    L.tags = off;
+    off += align16(static_cast<size_t>(kWarps) * p.block);
+  } else {
+    L.tents = off;
+    off += static_cast<size_t>(kThreads / lanes) * tent_points(lanes) * kMaxAxes * kFwdWords *
+           sizeof(float);
+    L.vals = off;
+    off += kThreads * sizeof(float);
+  }
+  L.total = off;
+  return L;
+}
+
+// Where column c of partial row r lives: rows of LP + 1 floats, columns
+// rotated by r / 32.
+__device__ __forceinline__ int part_at(int r, int c, int lp) {
+  return r * (lp + 1) + ((c + (r >> 5)) & (lp - 1));
+}
 
 // The tent's weight max(0, 1 - dist(u, j)) and its derivative in u.
 __device__ __forceinline__ float2 tent(float u, float j, float fb, bool periodic) {
@@ -116,8 +213,10 @@ __device__ __forceinline__ Rows coarse_rows(float c, int blk) {
 __device__ __forceinline__ Rows periodic_rows(float c, float freq, int blk) {
   Rows r;
   const float fb = static_cast<float>(blk);
-  float m = fmodf(__fmul_rn(c, freq), 1.f);
-  if (m < 0.f) m = __fadd_rn(m, 1.f);
+  // (c freq) mod 1 as fmodf then + 1 where negative gives it: the same
+  // real number rounded once, so the same float
+  const float x = __fmul_rn(c, freq);
+  const float m = __fsub_rn(x, floorf(x));
   const float up = __fmul_rn(m, fb);
   const float fk = floorf(up);
 #pragma unroll
@@ -133,22 +232,41 @@ __device__ __forceinline__ Rows periodic_rows(float c, float freq, int blk) {
   return r;
 }
 
-template <typename T, typename C>
-__device__ __forceinline__ float load_value(const T* p) {
-  return emt::to_compute<C>(emt::load_f(p));
+__device__ __forceinline__ float pack_rows(int lo, int hi) {
+  return __int_as_float(lo | (hi << 16));
+}
+__device__ __forceinline__ int row_lo(float v) { return __float_as_int(v) & 0xffff; }
+__device__ __forceinline__ int row_hi(float v) {
+  return static_cast<int>(static_cast<unsigned>(__float_as_int(v)) >> 16);
 }
 
-// u_a[e] at the forward's rows (candidates 1 and 2) of one scale's coarse
-// line cl and periodic line pl (row-major, W values a row).
-template <typename T, typename C>
-__device__ __forceinline__ float axis_value(const T* cl, const T* pl, const Rows& rc,
-                                            const Rows& rp, int w, int e) {
-  const float wc0 = emt::to_compute<C>(rc.w[1]), wc1 = emt::to_compute<C>(rc.w[2]);
-  const float wp0 = emt::to_compute<C>(rp.w[1]), wp1 = emt::to_compute<C>(rp.w[2]);
-  const float cv = __fadd_rn(__fmul_rn(wc0, load_value<T, C>(cl + rc.row[1] * w + e)),
-                             __fmul_rn(wc1, load_value<T, C>(cl + rc.row[2] * w + e)));
-  const float pv = __fadd_rn(__fmul_rn(wp0, load_value<T, C>(pl + rp.row[1] * w + e)),
-                             __fmul_rn(wp1, load_value<T, C>(pl + rp.row[2] * w + e)));
+// One (point, axis) entry of a tent table, a float4 a word group, the
+// groups `stride` float4s apart: [rows 1 | 2, w1, w2 (the weights as C
+// holds them), row 0] of the coarse line, then of the periodic line; with
+// kDeriv [dw0, dw1, dw2, -] of each.
+template <typename C, bool kDeriv>
+__device__ __forceinline__ void write_tents(float4* t, int stride, float c, float freq, int blk) {
+  const Rows rc = coarse_rows(c, blk);
+  const Rows rp = periodic_rows(c, freq, blk);
+  t[0] = make_float4(pack_rows(rc.row[1], rc.row[2]), emt::to_compute<C>(rc.w[1]),
+                     emt::to_compute<C>(rc.w[2]), __int_as_float(rc.row[0]));
+  t[stride] = make_float4(pack_rows(rp.row[1], rp.row[2]), emt::to_compute<C>(rp.w[1]),
+                          emt::to_compute<C>(rp.w[2]), __int_as_float(rp.row[0]));
+  if constexpr (kDeriv) {
+    t[2 * stride] = make_float4(rc.dw[0], rc.dw[1], rc.dw[2], 0.f);
+    t[3 * stride] = make_float4(rp.dw[0], rp.dw[1], rp.dw[2], 0.f);
+  }
+}
+
+// u_a of one lane from the staged coarse line cl and periodic line pl (the
+// lane's column, rows LP apart) at the forward's rows.
+template <typename S>
+__device__ __forceinline__ float axis_value(const S* cl, const S* pl, float4 tc, float4 tp,
+                                            int lp) {
+  const float cv = __fadd_rn(__fmul_rn(tc.y, sval(cl + row_lo(tc.x) * lp)),
+                             __fmul_rn(tc.z, sval(cl + row_hi(tc.x) * lp)));
+  const float pv = __fadd_rn(__fmul_rn(tp.y, sval(pl + row_lo(tp.x) * lp)),
+                             __fmul_rn(tp.z, sval(pl + row_hi(tp.x) * lp)));
   return __fadd_rn(cv, pv);
 }
 
@@ -170,265 +288,429 @@ __device__ __forceinline__ void axis_cotangents(const float* u, int n_axes, floa
   du[0] = ct;
 }
 
-// Forward.  Warp slice of shared memory: 32 * kMaxValues floats (the
-// products of the warp's points, e-major per point).
-template <typename T, typename C>
-__global__ void mx_forward_kernel(const T* __restrict__ lines, const float* __restrict__ pos,
-                                  float* __restrict__ out, long long n, const MxParams p) {
-  extern __shared__ float s_prod[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lp = p.lanes, ppw = 32 / lp;
-  const int sub = lane / lp, l = lane % lp;
-  const long long first = (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp) * ppw;
-  if (first >= n) return;  // the whole warp
-  const long long i = first + sub;
-  const bool live = i < n;
-  const float* x = pos + (live ? i : first) * p.n_dims;
-  const int w = p.width, f_out = p.n_scales * p.n_features;
-  float* buf = s_prod + warp * 32 * kMaxValues + sub * lp * p.values;
-  Rows rc[kMaxAxes];
-  float c[kMaxAxes];
-#pragma unroll
-  for (int a = 0; a < kMaxAxes; ++a) {
-    if (a < p.n_axes) {
-      c[a] = __ldg(x + a);
-      rc[a] = coarse_rows(c[a], p.block);
-    }
-  }
-  for (int s = 0; s < p.n_scales; ++s) {
-    float prod[kMaxValues];
-#pragma unroll
-    for (int a = 0; a < kMaxAxes; ++a) {
-      if (a >= p.n_axes) continue;
-      const Rows rp = periodic_rows(c[a], p.freqs[a * kMaxScales + s], p.block);
-      const T* cl = lines + a * p.axis_part + static_cast<long long>(s) * p.block * w;
-      const T* pl = cl + static_cast<long long>(p.n_scales) * p.block * w;
-#pragma unroll
-      for (int v = 0; v < kMaxValues; ++v) {
-        const int e = v * lp + l;
-        if (v >= p.values || e >= w) continue;
-        const float u = axis_value<T, C>(cl, pl, rc[a], rp, w, e);
-        prod[v] = a == 0 ? u : __fmul_rn(prod[v], u);
+// The bits of (bf16(lo), bf16(hi)), rounded to nearest even.
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The block copies slot v (elements [v LP, v LP + LP) of every row) of
+// scale s's lines, every axis, coarse then periodic line, into
+// slice[((axis * 2 + line) * block + row) * LP + l]; elements past W are 0.
+// 16 bytes of the slice a step (cp.async where no rounding is needed) when
+// rows, slots and the lines' pointer allow, else one value a step.
+template <typename T, typename S>
+__device__ void stage_slice(S* slice, const T* __restrict__ lines, int s, int v, int lp,
+                            const MxParams& p) {
+  const int rows = p.n_axes * 2 * p.block;
+  const int first = v * lp;
+  const int valid = min(lp, p.width - first);
+  constexpr int kVec = 16 / static_cast<int>(sizeof(S));
+  const bool vec = lp % kVec == 0 && p.width % kVec == 0 &&
+                   reinterpret_cast<uintptr_t>(lines) % 16 == 0;
+  auto source = [&](int r) {
+    const int al = r / p.block, row = r - al * p.block;
+    return lines + (al >> 1) * p.axis_part +
+           (static_cast<long long>((al & 1) * p.n_scales + s) * p.block + row) * p.width + first;
+  };
+  if (vec) {
+    const int cpr = lp / kVec;  // 16-byte chunks a row
+    for (int k = threadIdx.x; k < rows * cpr; k += blockDim.x) {
+      const int r = k / cpr, c = (k - r * cpr) * kVec;
+      S* dst = slice + r * lp + c;
+      if (c >= valid) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      } else if constexpr (std::is_same_v<T, S>) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_addr(dst)),
+                     "l"(source(r) + c));
+      } else {  // fp32 lines, bf16 slice: 8 values rounded to bf16
+        const float4* src = reinterpret_cast<const float4*>(source(r) + c);
+        const float4 a = __ldg(src), b = __ldg(src + 1);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(bf16_pair(a.x, a.y), bf16_pair(a.z, a.w),
+                                                    bf16_pair(b.x, b.y), bf16_pair(b.z, b.w));
       }
     }
-#pragma unroll
-    for (int v = 0; v < kMaxValues; ++v) {
-      const int e = v * lp + l;
-      if (v < p.values && e < w) buf[e] = prod[v];
+    if constexpr (std::is_same_v<T, S>) asm volatile("cp.async.wait_all;\n" ::);
+  } else {
+    for (int k = threadIdx.x; k < rows * lp; k += blockDim.x) {
+      const int r = k / lp, c = k - r * lp;
+      const float val = c < valid ? emt::load_f(source(r) + c) : 0.f;
+      emt::store_f(slice + k, val);
     }
-    __syncwarp();
-    if (live && l < p.n_features) {
-      float acc = buf[l];
-      for (int k = l + p.n_features; k < w; k += p.n_features) acc = __fadd_rn(acc, buf[k]);
-      out[i * f_out + s * p.n_features + l] = acc;
-    }
-    __syncwarp();
   }
 }
 
-// Line gradients.  Block (chunk, scale s, value slot v): elements v * LP +
-// l; dynamic shared memory n_axes * 2 * block * LP floats of partials,
-// [axis][coarse | periodic][row][lane].
+// Tent entries (point q, axis a) for q < n_q, a lane each, into a table of
+// float4s [word group][axis][point] with `np` points an axis; the points'
+// first coordinates at x, n_dims apart.
+template <typename C, bool kDeriv>
+__device__ __forceinline__ void tent_entries(float4* tbl, int np, const float* __restrict__ x,
+                                             int n_q, int l, int lp, int s, const MxParams& p) {
+  for (int k = l; k < n_q * kMaxAxes; k += lp) {
+    const int q = k / kMaxAxes, a = k % kMaxAxes;
+    if (a < p.n_axes)
+      write_tents<C, kDeriv>(tbl + a * np + q, kMaxAxes * np, __ldg(x + q * p.n_dims + a),
+                             p.freqs[a * kMaxScales + s], p.block);
+  }
+}
+
+// Forward.  Block (chunk, scale s); the slots in order; each group a
+// contiguous run of the chunk's points, tent_points(LP) at a time.
 template <typename T, typename C>
-__global__ void mx_lines_grad_kernel(const T* __restrict__ lines, const float* __restrict__ pos,
-                                     const float* __restrict__ grad, float* __restrict__ d_lines,
-                                     long long n, long long chunk, const MxParams p) {
-  extern __shared__ float s_part[];
-  const int s = blockIdx.y, vslot = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  const int lp = p.lanes, ppw = 32 / lp;
-  const int sub = lane / lp, l = lane % lp;
-  const int w = p.width, e = vslot * lp + l;
-  const int part = p.n_axes * 2 * p.block * lp;
-  for (int k = threadIdx.x; k < part; k += blockDim.x) s_part[k] = 0.f;
-  __syncthreads();
+__global__ void __launch_bounds__(kThreads)
+    mx_encode_kernel(const T* __restrict__ lines, const float* __restrict__ pos,
+                     float* __restrict__ out, long long n, long long chunk, const MxParams p) {
+  using S = Staged<T, C>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lp = p.lanes, s = blockIdx.y, np = tent_points(lp);
+  const Layout L = layout(p, lp, sizeof(S), false);
+  S* slice = reinterpret_cast<S*>(smem);
+  const int l = threadIdx.x % lp, group = threadIdx.x / lp, groups = kThreads / lp;
+  float4* tbl = reinterpret_cast<float4*>(smem + L.tents) + group * np * kMaxAxes * 2;
+  float* buf = reinterpret_cast<float*>(smem + L.vals) + group * lp;
+  const int w = p.width, nf = p.n_features, f_out = p.n_scales * nf;
   const long long first = static_cast<long long>(blockIdx.x) * chunk;
-  const long long end = first + chunk < n ? first + chunk : n;
-  const int f = e % p.n_features, f_out = p.n_scales * p.n_features;
-  if (e < w) {
-    for (long long base = first + warp * ppw; base < end; base += n_warps * ppw) {
-      const long long i = base + sub;
-      if (i >= end) continue;
-      const float* x = pos + i * p.n_dims;
-      Rows rc[kMaxAxes], rp[kMaxAxes];
-      float u[kMaxAxes], du[kMaxAxes];
+  const long long count = min(chunk, n - first);
+  const long long per = (count + groups - 1) / groups;  // the same for every group
+  const long long g0 = first + group * per, g1 = min(g0 + per, first + count);
+  for (int v = 0; v < p.values; ++v) {
+    __syncthreads();  // the previous slot's reads are done
+    stage_slice<T, S>(slice, lines, s, v, lp, p);
+    __syncthreads();
+    const int e = v * lp + l;
+    // lane l < F sums feature l: this slot's lanes k0, k0 + F, ... (its ranks, in order)
+    const int k0 = ((l - v * lp) % nf + nf) % nf;
+    for (long long b = 0; b < per; b += np) {
+      const long long i0 = g0 + b;
+      const int n_q = static_cast<int>(max(0LL, min(static_cast<long long>(np), g1 - i0)));
+      tent_entries<C, false>(tbl, np, pos + i0 * p.n_dims, n_q, l, lp, s, p);
+      float prev[kMaxRun];
 #pragma unroll
-      for (int a = 0; a < kMaxAxes; ++a) {
-        if (a >= p.n_axes) continue;
-        const float c = __ldg(x + a);
-        rc[a] = coarse_rows(c, p.block);
-        rp[a] = periodic_rows(c, p.freqs[a * kMaxScales + s], p.block);
-        const T* cl = lines + a * p.axis_part + static_cast<long long>(s) * p.block * w;
-        u[a] = axis_value<T, C>(cl, cl + static_cast<long long>(p.n_scales) * p.block * w,
-                                rc[a], rp[a], w, e);
+      for (int q = 0; q < kMaxRun; ++q)
+        prev[q] = q < n_q && v > 0 && l < nf ? out[(i0 + q) * f_out + s * nf + l] : 0.f;
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < kMaxRun; ++q) {
+        if (q >= np) break;  // the same for every lane
+        const bool live = q < n_q;
+        if (live && e < w) {
+          float prod = 0.f;
+#pragma unroll
+          for (int a = 0; a < kMaxAxes; ++a) {
+            if (a >= p.n_axes) continue;
+            const S* cl = slice + (a * 2) * p.block * lp + l;
+            const float u = axis_value(cl, cl + p.block * lp, tbl[a * np + q],
+                                       tbl[(kMaxAxes + a) * np + q], lp);
+            prod = a == 0 ? u : __fmul_rn(prod, u);
+          }
+          buf[l] = prod;
+        }
+        __syncwarp();
+        if (live && l < nf) {
+          int k = k0;
+          float acc = prev[q];
+          if (v == 0) {  // the first rank starts the sum, as the plain version's
+            acc = buf[k];
+            k += nf;
+          }
+          for (; k < lp && v * lp + k < w; k += nf) acc = __fadd_rn(acc, buf[k]);
+          out[(i0 + q) * f_out + s * nf + l] = acc;
+        }
+        __syncwarp();
       }
-      axis_cotangents(u, p.n_axes, __ldg(grad + i * f_out + s * p.n_features + f), du);
+    }
+  }
+}
+
+// The position gradient's partial of the group's point: the sum of q[a]
+// over the group's LP lanes, by shuffles in a fixed order.  Returns the axis
+// whose complete sum this lane holds in q[0], kMaxAxes where it holds every
+// axis's in q, or -1.
+__device__ __forceinline__ int group_sums(float (&q)[kMaxAxes], int l, int lp) {
+  if (lp >= 4) {
+    const int h = lp >> 1, h2 = lp >> 2;
+    const bool hi = l & h, hi2 = l & h2;
+    // keep axes {2, 3} (hi) or {0, 1}, add the partner's copy of them
+    const float k0 = hi ? q[2] : q[0], k1 = hi ? q[3] : q[1];
+    const float s0 = hi ? q[0] : q[2], s1 = hi ? q[1] : q[3];
+    const float a0 = __fadd_rn(k0, __shfl_xor_sync(kFullMask, s0, h));
+    const float a1 = __fadd_rn(k1, __shfl_xor_sync(kFullMask, s1, h));
+    float acc = __fadd_rn(hi2 ? a1 : a0, __shfl_xor_sync(kFullMask, hi2 ? a0 : a1, h2));
+    for (int off = h2 >> 1; off > 0; off >>= 1)
+      acc = __fadd_rn(acc, __shfl_xor_sync(kFullMask, acc, off));
+    q[0] = acc;
+    return l % h2 == 0 ? (hi ? 2 : 0) + (hi2 ? 1 : 0) : -1;
+  }
+#pragma unroll
+  for (int a = 0; a < kMaxAxes; ++a)
+    for (int off = lp >> 1; off > 0; off >>= 1)
+      q[a] = __fadd_rn(q[a], __shfl_xor_sync(kFullMask, q[a], off));
+  return l == 0 ? kMaxAxes : -1;
+}
+
+// Backward.  Block (chunk, scale s, slot v); batches of a point a group
+// (phases 1 and 2, see the top).  pos_part: (S * V, n, n_dims) fp32, or
+// NULL.
+template <typename T, typename C>
+__global__ void __launch_bounds__(kThreads)
+    mx_backward_kernel(const T* __restrict__ lines, const float* __restrict__ pos,
+                       const float* __restrict__ grad, float* __restrict__ d_lines,
+                       float* __restrict__ pos_part, long long n, long long chunk,
+                       const MxParams p) {
+  using S = Staged<T, C>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lp = p.bwd_lanes, s = blockIdx.y, v = blockIdx.z;
+  const Layout L = layout(p, lp, sizeof(S), true);
+  S* slice = reinterpret_cast<S*>(smem);
+  float* part = reinterpret_cast<float*>(smem + L.partials);
+  float4* tents = reinterpret_cast<float4*>(smem + L.tents);
+  float* dus = reinterpret_cast<float*>(smem + L.vals);
+  const int batch = batch_points(lp);
+  const int l = threadIdx.x % lp, q = threadIdx.x / lp;  // this group's point of a batch
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned char* tag = smem + L.tags + warp * p.block;
+  const int rows = p.n_axes * 2 * p.block, ds = du_stride(lp);
+  for (int k = threadIdx.x; k < rows * (lp + 1); k += blockDim.x) part[k] = 0.f;
+  stage_slice<T, S>(slice, lines, s, v, lp, p);
+  const int w = p.width, nf = p.n_features, f_out = p.n_scales * nf;
+  const int e = v * lp + l, f = e % nf;
+  const bool on = e < w, want_pos = pos_part != nullptr;
+  const float fb1 = static_cast<float>(p.block - 1);
+  const long long n_pos = n * p.n_dims;
+  float* pos_out = want_pos ? pos_part + (static_cast<long long>(s) * p.bwd_values + v) * n_pos
+                            : nullptr;
+  // phase 2's jobs: (axis, line, row parity, column block), kWarps apart
+  const int cols = job_cols(lp), per_line = lp / cols, jobs = p.n_axes * 4 * per_line;
+  const int passes = p.block % 2 ? 2 : 1;  // an odd block wraps an even row onto row 0
+  const long long first = static_cast<long long>(blockIdx.x) * chunk;
+  const long long end = min(first + chunk, n);
+  for (long long base = first; base < end; base += batch) {
+    const int live_n = static_cast<int>(min(static_cast<long long>(batch), end - base));
+    const bool live = q < live_n;
+    const long long i = base + q;
+    const float g = live && on ? __ldg(grad + i * f_out + s * nf + f) : 0.f;
+    __syncthreads();  // the slice and partials are ready; the previous batch's phase 2 is done
+    // phase 1: the point's tents (lane a computes axis a), u, du and d_pos partial
+    for (int a = l; a < kMaxAxes; a += lp) {
+      if (live && a < p.n_axes) {
+        const float ca = __ldg(pos + i * p.n_dims + a);
+        if (want_pos)
+          write_tents<C, true>(tents + a * batch + q, kMaxAxes * batch, ca,
+                               p.freqs[a * kMaxScales + s], p.block);
+        else
+          write_tents<C, false>(tents + a * batch + q, kMaxAxes * batch, ca,
+                                p.freqs[a * kMaxScales + s], p.block);
+      }
+    }
+    __syncwarp();
+    float du[kMaxAxes] = {0.f, 0.f, 0.f, 0.f}, qa[kMaxAxes] = {0.f, 0.f, 0.f, 0.f};
+    if (live && on) {
+      float u[kMaxAxes];
 #pragma unroll
       for (int a = 0; a < kMaxAxes; ++a) {
+        u[a] = 1.f;
         if (a >= p.n_axes) continue;
-        float* sc = s_part + (a * 2) * p.block * lp + l;
-        float* sp = sc + p.block * lp;
+        const S* cl = slice + (a * 2) * p.block * lp + l;
+        u[a] = axis_value(cl, cl + p.block * lp, tents[a * batch + q],
+                          tents[(kMaxAxes + a) * batch + q], lp);
+      }
+      axis_cotangents(u, p.n_axes, g, du);
+      if (want_pos) {
 #pragma unroll
-        for (int t = 1; t < 3; ++t) {
-          if (rc[a].w[t] != 0.f)
-            atomicAdd(sc + rc[a].row[t] * lp, __fmul_rn(emt::to_compute<C>(rc[a].w[t]), du[a]));
-          if (rp[a].w[t] != 0.f)
-            atomicAdd(sp + rp[a].row[t] * lp, __fmul_rn(emt::to_compute<C>(rp[a].w[t]), du[a]));
+        for (int a = 0; a < kMaxAxes; ++a) {
+          if (a >= p.n_axes) continue;
+          const S* cl = slice + (a * 2) * p.block * lp + l;
+          const S* pl = cl + p.block * lp;
+          const float4 tc = tents[a * batch + q], tp = tents[(kMaxAxes + a) * batch + q];
+          const float4 dc4 = tents[(2 * kMaxAxes + a) * batch + q];
+          const float4 dp4 = tents[(3 * kMaxAxes + a) * batch + q];
+          const int crow[3] = {__float_as_int(tc.w), row_lo(tc.x), row_hi(tc.x)};
+          const int prow[3] = {__float_as_int(tp.w), row_lo(tp.x), row_hi(tp.x)};
+          const float dwc[3] = {dc4.x, dc4.y, dc4.z}, dwp[3] = {dp4.x, dp4.y, dp4.z};
+          float dc = 0.f, dq = 0.f;
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+            if (dwc[t] != 0.f) dc = __fadd_rn(dc, __fmul_rn(dwc[t], sval(cl + crow[t] * lp)));
+            if (dwp[t] != 0.f) dq = __fadd_rn(dq, __fmul_rn(dwp[t], sval(pl + prow[t] * lp)));
+          }
+          const float pscale = __fmul_rn(static_cast<float>(p.block), p.freqs[a * kMaxScales + s]);
+          qa[a] = __fmul_rn(du[a], __fadd_rn(__fmul_rn(dc, fb1), __fmul_rn(dq, pscale)));
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kMaxAxes; ++a) dus[(a * batch + q) * ds + l] = du[a];
+    if (want_pos) {
+      const int axis = group_sums(qa, l, lp);
+      if (live && axis >= 0) {
+        if (axis < kMaxAxes) {
+          if (axis < p.n_axes) pos_out[i * p.n_dims + axis] = qa[0];
+        } else {
+#pragma unroll
+          for (int a = 0; a < kMaxAxes; ++a)
+            if (a < p.n_axes) pos_out[i * p.n_dims + a] = qa[a];
+        }
+      }
+    }
+    __syncthreads();
+    // phase 2
+    for (int job = warp; job < jobs; job += kWarps) {
+      const int c0 = (job % per_line) * cols, rest = job / per_line;
+      const int par = rest & 1, al = rest >> 1, a = al >> 1, li = al & 1;
+      const float* du_a = dus + a * batch * ds + c0;
+      float* pa = part + al * p.block * (lp + 1);
+      for (int qb = 0; qb < live_n; qb += 32) {
+        const int pq = qb + lane;
+        const float4 t = pq < live_n ? tents[(li * kMaxAxes + a) * batch + pq]
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        const int r1 = row_lo(t.x), r2 = row_hi(t.x);
+        const bool m1 = pq < live_n && (r1 & 1) == par && t.y != 0.f;
+        const bool m2 = pq < live_n && (r2 & 1) == par && t.z != 0.f;
+        for (int pass = 0; pass < passes; ++pass) {
+          // the lane's term of this parity (pass 1: the second, where both rows have it)
+          const bool take2 = pass ? m1 && m2 : !m1 && m2;
+          const int key = (pass ? m1 && m2 : m1 || m2) ? (take2 ? r2 : r1) : -1;
+          const float wt = take2 ? t.z : t.y;
+          float val[kCols];
+          const float* dq = du_a + pq * ds;
+          if (cols % 4 == 0) {  // rows of whole float4s
+#pragma unroll
+            for (int k = 0; k < kCols; k += 4) {
+              const float4 d4 = k < cols && key >= 0 ? *reinterpret_cast<const float4*>(dq + k)
+                                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+              val[k] = __fmul_rn(wt, d4.x), val[k + 1] = __fmul_rn(wt, d4.y);
+              val[k + 2] = __fmul_rn(wt, d4.z), val[k + 3] = __fmul_rn(wt, d4.w);
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < kCols; ++k)
+              val[k] = k < cols && key >= 0 ? __fmul_rn(wt, dq[k]) : 0.f;
+          }
+          bool pending = emt::merge_runs<kCols>(key, -1, val, lane);
+          // lanes left with equal rows take turns: a tag names one of them a turn
+          while (__any_sync(kFullMask, pending)) {
+            if (pending) tag[key] = static_cast<unsigned char>(lane);
+            __syncwarp();
+            const bool turn = pending && tag[key] == lane;
+            if (turn) {
+#pragma unroll
+              for (int k = 0; k < kCols; ++k) {
+                if (k >= cols) continue;
+                float* pr = pa + part_at(key, c0 + k, lp);
+                *pr = __fadd_rn(*pr, val[k]);
+              }
+            }
+            __syncwarp();
+            pending = pending && !turn;
+          }
         }
       }
     }
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < part; k += blockDim.x) {
-    const float val = s_part[k];
-    const int kl = k % lp;
-    if (val == 0.f || vslot * lp + kl >= w) continue;
-    const int row = (k / lp) % p.block, line = (k / (lp * p.block)) % 2, a = k / (lp * p.block * 2);
-    atomicAdd(d_lines + a * p.axis_part +
-                  (static_cast<long long>(line * p.n_scales + s) * p.block + row) * w + vslot * lp + kl,
+  const int valid = min(lp, w - v * lp);
+  for (int k = threadIdx.x; k < rows * lp; k += blockDim.x) {
+    const int r = k / lp, c = k - r * lp;
+    const int al = r / p.block, row = r - al * p.block;
+    const float val = part[al * p.block * (lp + 1) + part_at(row, c, lp)];
+    if (val == 0.f || c >= valid) continue;
+    atomicAdd(d_lines + (al >> 1) * p.axis_part +
+                  (static_cast<long long>((al & 1) * p.n_scales + s) * p.block + row) * w +
+                  v * lp + c,
               val);
   }
 }
 
-// Position gradients: a lane group per point, as the forward.
-template <typename T, typename C>
-__global__ void mx_pos_grad_kernel(const T* __restrict__ lines, const float* __restrict__ pos,
-                                   const float* __restrict__ grad, float* __restrict__ d_pos,
-                                   long long n, const MxParams p) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lp = p.lanes, ppw = 32 / lp;
-  const int sub = lane / lp, l = lane % lp;
-  const long long first = (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp) * ppw;
-  if (first >= n) return;
-  const long long i = first + sub;
-  const bool live = i < n;
-  const float* x = pos + (live ? i : first) * p.n_dims;
-  const int w = p.width, f_out = p.n_scales * p.n_features;
-  const float fb = static_cast<float>(p.block), fb1 = static_cast<float>(p.block - 1);
-  Rows rc[kMaxAxes];
-  float c[kMaxAxes], dp[kMaxAxes];
-#pragma unroll
-  for (int a = 0; a < kMaxAxes; ++a) {
-    dp[a] = 0.f;
-    if (a < p.n_axes) {
-      c[a] = __ldg(x + a);
-      rc[a] = coarse_rows(c[a], p.block);
-    }
-  }
-  for (int s = 0; s < p.n_scales; ++s) {
-    float u[kMaxAxes][kMaxValues], dudc[kMaxAxes][kMaxValues];
-#pragma unroll
-    for (int a = 0; a < kMaxAxes; ++a) {
-      if (a >= p.n_axes) continue;
-      const float fr = p.freqs[a * kMaxScales + s];
-      const Rows rp = periodic_rows(c[a], fr, p.block);
-      const float pscale = __fmul_rn(fb, fr);
-      const T* cl = lines + a * p.axis_part + static_cast<long long>(s) * p.block * w;
-      const T* pl = cl + static_cast<long long>(p.n_scales) * p.block * w;
-#pragma unroll
-      for (int v = 0; v < kMaxValues; ++v) {
-        const int e = v * lp + l;
-        if (v >= p.values || e >= w) continue;
-        u[a][v] = axis_value<T, C>(cl, pl, rc[a], rp, w, e);
-        float dc = 0.f, dq = 0.f;
-#pragma unroll
-        for (int t = 0; t < 3; ++t) {
-          if (rc[a].dw[t] != 0.f)
-            dc = __fadd_rn(dc, __fmul_rn(rc[a].dw[t], load_value<T, C>(cl + rc[a].row[t] * w + e)));
-          if (rp.dw[t] != 0.f)
-            dq = __fadd_rn(dq, __fmul_rn(rp.dw[t], load_value<T, C>(pl + rp.row[t] * w + e)));
-        }
-        dudc[a][v] = __fadd_rn(__fmul_rn(dc, fb1), __fmul_rn(dq, pscale));
-      }
-    }
-    const float g = live ? __ldg(grad + i * f_out + s * p.n_features + l % p.n_features) : 0.f;
-    float q[kMaxAxes] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int v = 0; v < kMaxValues; ++v) {
-      if (v >= p.values) break;  // the same for every lane
-      const int e = v * lp + l;
-      // element e's feature is e % F: that lane of the group loaded its cotangent
-      const float ge = __shfl_sync(kFullMask, g, sub * lp + e % p.n_features);
-      if (e >= w) continue;
-      float uv[kMaxAxes], du[kMaxAxes];
-#pragma unroll
-      for (int a = 0; a < kMaxAxes; ++a) uv[a] = a < p.n_axes ? u[a][v] : 1.f;
-      axis_cotangents(uv, p.n_axes, ge, du);
-#pragma unroll
-      for (int a = 0; a < kMaxAxes; ++a)
-        if (a < p.n_axes) q[a] = __fadd_rn(q[a], __fmul_rn(du[a], dudc[a][v]));
-    }
-#pragma unroll
-    for (int a = 0; a < kMaxAxes; ++a) {
-      if (a >= p.n_axes) continue;
-      for (int off = lp >> 1; off > 0; off >>= 1)
-        q[a] = __fadd_rn(q[a], __shfl_xor_sync(kFullMask, q[a], off));
-      dp[a] = __fadd_rn(dp[a], q[a]);
-    }
-  }
-  if (live && l == 0) {
-#pragma unroll
-    for (int a = 0; a < kMaxAxes; ++a)
-      if (a < p.n_axes) d_pos[i * p.n_dims + a] = dp[a];
-  }
-}
-
-// d <- float(bf16(d)) in place, n floats.
-__global__ void mx_round_to_bf16_kernel(float* __restrict__ d, long long n) {
+// d_pos[k] = the partials of (scale, slot) 0, 1, ... added in that order,
+// for k < n_pos; d_lines[k] = float(bf16(d_lines[k])) for k < n_round.
+__global__ void mx_finish_kernel(const float* __restrict__ pos_part, float* __restrict__ d_pos,
+                                 long long n_pos, int n_parts, float* __restrict__ d_lines,
+                                 long long n_round) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; k < n;
-       k += stride)
-    d[k] = emt::to_compute<__nv_bfloat16>(d[k]);
+  const long long most = n_pos > n_round ? n_pos : n_round;
+  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; k < most;
+       k += stride) {
+    if (k < n_pos) {
+      float acc = __ldcs(pos_part + k);
+      for (int j = 1; j < n_parts; ++j) acc = __fadd_rn(acc, __ldcs(pos_part + j * n_pos + k));
+      d_pos[k] = acc;
+    }
+    if (k < n_round) d_lines[k] = emt::to_compute<__nv_bfloat16>(d_lines[k]);
+  }
 }
 
-constexpr int kThreads = 256;      // forward and position gradient
-constexpr int kGradThreads = 512;  // line gradients
-constexpr int kGradBlocks = 4 * 132;
+// Point chunks over (chunks, `per_chunk` blocks each), in as balanced
+// waves of blocks as the count allows.
+template <typename K>
+cudaError_t chunking(K kernel, int threads, size_t smem, long long n, long long per_chunk,
+                     long long* chunk, long long* n_chunks) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // the chunk count whose waves of blocks take the fewest points' time, a
+  // block's set-up counted as 256 points; chunks of at least 256 points
+  const long long wave = static_cast<long long>(sms) * per_sm;
+  const long long most = (n + 255) / 256, top = 16 * wave / per_chunk + 1;
+  long long want = 1, best = -1;
+  for (long long nc = 1; nc <= (most < top ? most : top); ++nc) {
+    const long long ch = (n + nc - 1) / nc, blocks = (n + ch - 1) / ch * per_chunk;
+    const long long cost = (blocks + wave - 1) / wave * (ch + 256);
+    if (best < 0 || cost < best) best = cost, want = nc;
+  }
+  *chunk = (n + want - 1) / want;
+  *n_chunks = (n + *chunk - 1) / *chunk;
+  return cudaSuccess;
+}
 
 template <typename T, typename C>
 cudaError_t forward_typed(const void* lines, const float* pos, float* out, long long n,
                           const MxParams& p, cudaStream_t st) {
-  const long long warps = (n + 32 / p.lanes - 1) / (32 / p.lanes);
-  const unsigned blocks = static_cast<unsigned>((warps + kThreads / 32 - 1) / (kThreads / 32));
-  const size_t smem = sizeof(float) * kThreads * kMaxValues;
-  mx_forward_kernel<T, C><<<blocks, kThreads, smem, st>>>(static_cast<const T*>(lines), pos, out,
-                                                          n, p);
+  const size_t smem = layout(p, p.lanes, sizeof(Staged<T, C>), false).total;
+  long long chunk = 0, n_chunks = 0;
+  cudaError_t err =
+      chunking(mx_encode_kernel<T, C>, kThreads, smem, n, p.n_scales, &chunk, &n_chunks);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(n_chunks), p.n_scales);
+  mx_encode_kernel<T, C><<<grid, kThreads, smem, st>>>(static_cast<const T*>(lines), pos, out, n,
+                                                       chunk, p);
   return cudaGetLastError();
 }
 
 template <typename T, typename C>
 cudaError_t backward_typed(const void* lines, const float* pos, const float* grad, float* d_lines,
-                           float* d_pos, long long n, const MxParams& p, cudaStream_t st) {
-  const T* tab = static_cast<const T*>(lines);
-  // point chunks: about kGradBlocks blocks over (chunks, scales, value slots)
-  const long long per_chunk = static_cast<long long>(p.n_scales) * p.values;
-  long long n_chunks = (kGradBlocks + per_chunk - 1) / per_chunk;
-  const long long most = (n + 255) / 256;
-  if (n_chunks > most) n_chunks = most;
-  if (n_chunks < 1) n_chunks = 1;
-  const long long chunk = (n + n_chunks - 1) / n_chunks;
-  n_chunks = (n + chunk - 1) / chunk;
-  const size_t smem = sizeof(float) * p.n_axes * 2 * p.block * p.lanes;
-  cudaError_t err = cudaFuncSetAttribute(mx_lines_grad_kernel<T, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                           float* pos_part, long long n, const MxParams& p, cudaStream_t st) {
+  const size_t smem = layout(p, p.bwd_lanes, sizeof(Staged<T, C>), true).total;
+  const int threads = kThreads;
+  long long chunk = 0, n_chunks = 0;
+  cudaError_t err = chunking(mx_backward_kernel<T, C>, threads, smem, n,
+                             static_cast<long long>(p.n_scales) * p.bwd_values, &chunk, &n_chunks);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(n_chunks), p.n_scales, p.values);
-  mx_lines_grad_kernel<T, C><<<grid, kGradThreads, smem, st>>>(tab, pos, grad, d_lines, n, chunk,
-                                                               p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || d_pos == nullptr) return err;
-  const long long warps = (n + 32 / p.lanes - 1) / (32 / p.lanes);
-  const unsigned blocks = static_cast<unsigned>((warps + kThreads / 32 - 1) / (kThreads / 32));
-  mx_pos_grad_kernel<T, C><<<blocks, kThreads, 0, st>>>(tab, pos, grad, d_pos, n, p);
+  const dim3 grid(static_cast<unsigned>(n_chunks), p.n_scales, p.bwd_values);
+  mx_backward_kernel<T, C><<<grid, threads, smem, st>>>(static_cast<const T*>(lines), pos, grad,
+                                                        d_lines, pos_part, n, chunk, p);
   return cudaGetLastError();
 }
 
+bool pow2(int x) { return x >= 1 && (x & (x - 1)) == 0; }
+
 bool valid(const MxParams& p) {
-  return p.n_axes >= 1 && p.n_axes <= kMaxAxes && p.n_scales >= 1 && p.n_scales <= kMaxScales &&
-         p.lanes >= 1 && p.lanes <= 32 && (p.lanes & (p.lanes - 1)) == 0 && p.values >= 1 &&
-         p.values <= kMaxValues && p.lanes * p.values >= p.width && p.n_features >= 1 &&
-         p.n_features <= p.lanes && p.width % p.n_features == 0 && p.block >= 4;
+  return p.n_axes >= 1 && p.n_axes <= kMaxAxes && p.n_dims == p.n_axes && p.n_scales >= 1 &&
+         p.n_scales <= kMaxScales && p.block >= 4 && p.block < 65536 && p.n_features >= 1 &&
+         p.width % p.n_features == 0 && pow2(p.lanes) && p.lanes <= 32 &&
+         p.lanes >= p.n_features && p.values == (p.width + p.lanes - 1) / p.lanes &&
+         pow2(p.bwd_lanes) && p.bwd_lanes <= 32 &&
+         p.bwd_values == (p.width + p.bwd_lanes - 1) / p.bwd_lanes;
 }
 
 }  // namespace
@@ -457,11 +739,12 @@ extern "C" int emt_mxgrid_encode(const void* lines, int lines_is_bf16, int compu
 
 // grad: the (n, S * F) fp32 cotangent; d_lines: the zeroed fp32 line
 // gradient, returned rounded to bf16 precision when fp32 lines serve a bf16
-// computation; d_pos: (n, n_dims) fp32 or NULL.
+// computation; d_pos: (n, n_dims) fp32 or NULL, with pos_part its scratch,
+// (S * bwd_values, n, n_dims) fp32.
 extern "C" int emt_mxgrid_backward(const void* lines, int lines_is_bf16, int compute_is_bf16,
                                    const void* positions, const void* grad, void* d_lines,
-                                   void* d_pos, long long n_points, const void* params,
-                                   void* stream) {
+                                   void* d_pos, void* pos_part, long long n_points,
+                                   const void* params, void* stream) {
   const MxParams p = *static_cast<const MxParams*>(params);
   if (!valid(p)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -469,22 +752,24 @@ extern "C" int emt_mxgrid_backward(const void* lines, int lines_is_bf16, int com
   const float* g = static_cast<const float*>(grad);
   float* dl = static_cast<float*>(d_lines);
   float* dp = static_cast<float*>(d_pos);
+  float* pp = d_pos == nullptr ? nullptr : static_cast<float*>(pos_part);
   using bf16 = __nv_bfloat16;
   if (n_points > 0) {
     cudaError_t err;
     if (lines_is_bf16)
-      err = compute_is_bf16 ? backward_typed<bf16, bf16>(lines, pos, g, dl, dp, n_points, p, st)
-                            : backward_typed<bf16, float>(lines, pos, g, dl, dp, n_points, p, st);
+      err = compute_is_bf16 ? backward_typed<bf16, bf16>(lines, pos, g, dl, pp, n_points, p, st)
+                            : backward_typed<bf16, float>(lines, pos, g, dl, pp, n_points, p, st);
     else
-      err = compute_is_bf16 ? backward_typed<float, bf16>(lines, pos, g, dl, dp, n_points, p, st)
-                            : backward_typed<float, float>(lines, pos, g, dl, dp, n_points, p, st);
+      err = compute_is_bf16 ? backward_typed<float, bf16>(lines, pos, g, dl, pp, n_points, p, st)
+                            : backward_typed<float, float>(lines, pos, g, dl, pp, n_points, p, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (!lines_is_bf16 && compute_is_bf16) {
-    const long long numel = p.n_axes * p.axis_part;
-    const long long want = (numel + 255) / 256;
-    const unsigned blocks = static_cast<unsigned>(want < 132 * 8 ? want : 132 * 8);
-    mx_round_to_bf16_kernel<<<blocks, 256, 0, st>>>(dl, numel);
-  }
+  const long long n_pos = dp == nullptr ? 0 : n_points * p.n_dims;
+  const long long n_round = !lines_is_bf16 && compute_is_bf16 ? p.n_axes * p.axis_part : 0;
+  if (n_pos == 0 && n_round == 0) return cudaSuccess;
+  const long long most = n_pos > n_round ? n_pos : n_round;
+  const long long want = (most + 255) / 256;
+  const unsigned blocks = static_cast<unsigned>(want < 132 * 8 ? want : 132 * 8);
+  mx_finish_kernel<<<blocks, 256, 0, st>>>(pp, dp, n_pos, p.n_scales * p.bwd_values, dl, n_round);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,10 +32,15 @@ dtype; products, sums and the output are fp32.  The line gradient is summed
 in fp32 and, for a bf16 computation, rounded once to bf16 (the JAX package
 sums its chunks in the table's dtype).
 
-On the card a group of ``LP`` lanes (32, or the power of two at or above a
-narrower W) holds a line row, element ``e`` in lane ``e % LP``.  The rank
-sum adds the ranks in order, as the plain version does, so the forward
-matches the kernel bit for bit.
+On the card a block copies one value slot (``LP`` consecutive values of
+every row, ``plan_slots``) of one scale's lines into shared memory and a
+group of ``LP`` lanes works on a point, element ``v LP + l`` of slot ``v`` in
+lane ``l``.  The forward walks the slots in order and the rank sum continues
+across them, adding the ranks in order as the plain version does, so the
+forward matches the kernel bit for bit.  The backward gives the line and
+position gradients in one pass; the position gradient's partials per
+(scale, slot) are summed in a fixed order, so it is the same from run to
+run.
 """
 
 from __future__ import annotations
@@ -411,17 +416,22 @@ class _MxParams(ctypes.Structure):
         ("n_features", ctypes.c_int),
         ("lanes", ctypes.c_int),
         ("values", ctypes.c_int),
+        ("bwd_lanes", ctypes.c_int),
+        ("bwd_values", ctypes.c_int),
         ("axis_part", ctypes.c_longlong),
         ("freqs", ctypes.c_float * (4 * MAX_SCALES)),
     ]
 
 
-def _kernel_params(spec: MXGridSpec) -> _MxParams:
+def _kernel_params(spec: MXGridSpec, lines_dtype=torch.float32,
+                   compute_dtype=torch.float32) -> _MxParams:
+    plan = plan_slots(spec, lines_dtype, compute_dtype)
     p = _MxParams()
     p.n_dims, p.n_axes, p.n_scales = spec.n_input_dims, spec.axes_per_scale, spec.n_scales
     p.block, p.width, p.n_features = spec.line_block, spec.factor_width, spec.n_features_per_level
-    p.lanes = spec.lanes
-    p.values = -(-spec.factor_width // spec.lanes)
+    p.lanes, p.bwd_lanes = plan.lanes, plan.bwd_lanes
+    p.values = -(-spec.factor_width // plan.lanes)
+    p.bwd_values = -(-spec.factor_width // plan.bwd_lanes)
     p.axis_part = spec.axis_part
     for a in range(spec.axes_per_scale):
         for s, fr in enumerate(spec.axis_freqs(a)):
@@ -431,21 +441,83 @@ def _kernel_params(spec: MXGridSpec) -> _MxParams:
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
-
-# a block's line-gradient partials (axes x 2 lines x block x lanes fp32) fit
-# in an H100 block's shared memory
+# an H100 block's shared memory, and K12's blocks (kernels/csrc/mxgrid.cu:
+# kThreads, kFwdWords, kBwdWords, layout)
 _SHARED_BYTES = 232_448
+_THREADS = 1024
+_FWD_WORDS, _BWD_WORDS = 8, 16
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def shared_bytes(spec: MXGridSpec, lanes: int, staged_bytes: int, backward: bool) -> int:
+    """Dynamic shared memory of a K12 block with value slots of ``lanes``
+    (``layout`` in kernels/csrc/mxgrid.cu): the slice of the lines (every
+    axis, both lines, every row, ``lanes`` values of ``staged_bytes``);
+    forward: the lane groups' tent tables (``lanes // 4`` points, at least
+    one, by 4 axes by 8 words) and a float a thread; backward (a batch of
+    a point a group of ``lanes``): the fp32 partials (rows of ``lanes + 1``
+    floats), the batch's tent table (4 axes by 16 words a point), its du
+    (4 axes by batch by rows of ``lanes + 4`` floats) and a tag byte a
+    (warp, row)."""
+    rows = spec.axes_per_scale * 2 * spec.line_block
+    groups = _THREADS // lanes
+    total = _align16(rows * lanes * staged_bytes)
+    if backward:
+        du_stride = lanes + 4 if lanes >= 4 else lanes + 1
+        return (total + _align16(rows * (lanes + 1) * 4) + groups * 4 * _BWD_WORDS * 4
+                + 4 * groups * du_stride * 4 + _align16(_THREADS // 32 * spec.line_block))
+    return total + groups * max(lanes // 4, 1) * 4 * _FWD_WORDS * 4 + _THREADS * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class MxPlan:
+    """K12's value slots and shared bytes: the forward's ``lanes`` (at least
+    F: a lane per feature adds the slot's ranks) and the backward's."""
+
+    lanes: int
+    shared: int
+    bwd_lanes: int
+    bwd_shared: int
+
+
+def plan_slots(spec: MXGridSpec, lines_dtype=torch.float32,
+               compute_dtype=torch.float32) -> MxPlan:
+    """The widest value slot (a power of two, at most ``spec.lanes``) whose
+    block fits in shared memory, for the forward and the backward.  The
+    slice is held as bf16 where the lines or the computation are bf16.
+    Raises where no slot fits."""
+    staged = 2 if torch.bfloat16 in (lines_dtype, compute_dtype) else 4
+
+    def widest(backward: bool, least: int):
+        lanes = spec.lanes
+        while lanes >= least:
+            total = shared_bytes(spec, lanes, staged, backward)
+            if total <= _SHARED_BYTES:
+                return lanes, total
+            lanes //= 2
+        raise ValueError(
+            f"mx grid: line_block={spec.line_block}, {spec.axes_per_scale} axes: no value slot "
+            f"of {least} to {spec.lanes} lanes fits a {'backward' if backward else 'forward'} "
+            f"block in {_SHARED_BYTES} bytes of shared memory")
+
+    lanes, shared = widest(False, spec.n_features_per_level)
+    bwd_lanes, bwd_shared = widest(True, 1)
+    return MxPlan(lanes, shared, bwd_lanes, bwd_shared)
 
 
 def check_spec(spec: MXGridSpec) -> None:
     """The lines K12 takes: F <= 32, W <= 256, at most ``MAX_SCALES`` scales,
-    line_block >= 4 and a block's gradient partials in shared memory."""
+    line_block >= 4, and a value slot of fp32 lines that fits a block's
+    shared memory (``plan_slots``)."""
     f, w, blk = spec.n_features_per_level, spec.factor_width, spec.line_block
-    if not (f <= 32 and w <= 256 and spec.n_scales <= MAX_SCALES and blk >= 4
-            and spec.axes_per_scale * 2 * blk * spec.lanes * 4 <= _SHARED_BYTES):
+    if not (f <= 32 and w <= 256 and spec.n_scales <= MAX_SCALES and blk >= 4):
         raise ValueError(f"mx grid: F={f}, W={w}, {spec.n_scales} scales, line_block={blk}: "
-                         f"F <= 32, W <= 256, <= {MAX_SCALES} scales, line_block >= 4 and "
-                         f"{_SHARED_BYTES} bytes of gradient partials per block are supported")
+                         f"F <= 32, W <= 256, <= {MAX_SCALES} scales and line_block >= 4 "
+                         "are supported")
+    plan_slots(spec)
 
 
 def _check_lines_args(name, lines, positions, spec, compute_dtype):
@@ -478,7 +550,7 @@ def mx_lines_encode(lines: torch.Tensor, positions: torch.Tensor, spec: MXGridSp
     if n == 0:
         return out
     lib = kernels.load()
-    params = _kernel_params(spec)
+    params = _kernel_params(spec, lines.dtype, compute_dtype)
     err = lib.emt_mxgrid_encode(lines.data_ptr(), _is_bf16(lines.dtype),
                                 _is_bf16(compute_dtype), positions.data_ptr(), out.data_ptr(),
                                 n, ctypes.addressof(params), kernels.stream_ptr(lines.device))
@@ -494,7 +566,9 @@ def mx_lines_encode_bwd(lines: torch.Tensor, positions: torch.Tensor, grad_out: 
                         spec: MXGridSpec, needs_pos_grad: bool, compute_dtype=None):
     """K12 backward: (d lines in the lines' dtype, d positions or None).
     CPU tensors take the plain version; CUDA tensors launch the kernels
-    (the line gradient, then the position gradient where asked)."""
+    (the line and position gradients in one pass, then one pass that sums
+    the position gradient's partials and rounds a bf16 computation's line
+    gradient)."""
     name = "mx_lines_encode_bwd"
     compute_dtype = compute_dtype or lines.dtype
     _check_lines_args(name, lines, positions, spec, compute_dtype)
@@ -505,14 +579,19 @@ def mx_lines_encode_bwd(lines: torch.Tensor, positions: torch.Tensor, grad_out: 
     kernels.require_cuda_inputs(name, lines, positions, grad_out)
     n = positions.shape[0]
     d_lines = torch.zeros(lines.numel(), dtype=torch.float32, device=lines.device)
-    d_pos = torch.zeros_like(positions) if needs_pos_grad else None
+    # every element of d_pos is written by the kernels' last pass
+    d_pos = torch.empty_like(positions) if needs_pos_grad else None
     if n > 0:
         lib = kernels.load()
-        params = _kernel_params(spec)
+        params = _kernel_params(spec, lines.dtype, compute_dtype)
+        # the position gradient's partials, one per (scale, slot, point)
+        scratch = None if d_pos is None else torch.empty(
+            (spec.n_scales * params.bwd_values, n, spec.n_input_dims), device=lines.device)
         err = lib.emt_mxgrid_backward(
             lines.data_ptr(), _is_bf16(lines.dtype), _is_bf16(compute_dtype),
             positions.data_ptr(), grad_out.data_ptr(), d_lines.data_ptr(),
-            None if d_pos is None else d_pos.data_ptr(), n, ctypes.addressof(params),
+            None if d_pos is None else d_pos.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, ctypes.addressof(params),
             kernels.stream_ptr(lines.device))
         kernels.check(err, name)
         mx_lines_encode_bwd.launches += 1

@@ -459,33 +459,62 @@ def test_brickgrid_coarse_view_and_subsample_on_the_card(cuda, dims, f, bs, pair
 # static, fused dynamic+flow, proposal; and the tiny fused grid's W = 96
 _MX_GRIDS = {"static": (3, 4, 16, 10), "fused": (4, 8, 16, 10), "prop": (3, 1, 16, 8),
              "tiny_fused": (4, 6, 16, 4)}
+# the points K12 is held on: uniform with knots; ray-ordered samples of short
+# segments (long runs on one row of every line); every point equal (one run
+# across every chunk of the backward); a few points, each repeated for a
+# run longer than a chunk; points outside the box on both sides
+_MX_POINTS = ("uniform", "rays", "equal", "runs", "outside")
+_MX_N = 5600
+# every stored / compute pair: bf16 lines with an fp32 computation too
+_MX_TYPES = _K1_TYPES + [(torch.bfloat16, torch.float32)]
+_MX_TYPE_IDS = _K1_TYPE_IDS + ["bf16_stored_fp32_compute"]
 
 
-def _mx_case(cuda, name, seed):
+def _mx_points(cuda, g, dims, kind):
+    if kind == "uniform":
+        vals = torch.tensor([0.0, 1.0, 0.5, 0.25, 1 - 2 ** -24, 7 / 128], device=cuda)
+        knots = vals[torch.randint(0, 6, (600, dims), device=cuda, generator=g)]
+        return torch.cat([torch.rand((_MX_N - 600, dims), device=cuda, generator=g), knots])
+    if kind == "rays":  # 128 samples over 0.1 of the box a ray, each ray at its own time
+        start = torch.rand((_MX_N // 128, 1, dims), device=cuda, generator=g) * 0.9
+        step = torch.rand((_MX_N // 128, 1, dims), device=cuda, generator=g) * 0.1
+        if dims == 4:
+            step[..., 3] = 0.0
+        s = torch.linspace(0.0, 1.0, 128, device=cuda)[None, :, None]
+        return (start + s * step).reshape(-1, dims).contiguous()
+    if kind == "equal":
+        return torch.rand((1, dims), device=cuda, generator=g).expand(_MX_N, dims).contiguous()
+    if kind == "runs":
+        pts = torch.rand((7, dims), device=cuda, generator=g)
+        return pts.repeat_interleave(_MX_N // 7, 0).contiguous()
+    return torch.rand((_MX_N, dims), device=cuda, generator=g) * 2 - 0.5
+
+
+def _mx_case(cuda, name, seed, points="uniform"):
     dims, f, rank, levels = _MX_GRIDS[name]
     spec = MXGridSpec(n_input_dims=dims, n_levels=levels, base_resolution=16,
                       max_resolution=8192, n_features_per_level=f, rank=rank)
     g = torch.Generator(device=cuda).manual_seed(seed)
     table = init_mxgrid_table(spec, device=cuda, generator=g) * 3
     lines = table[spec.part_sizes[0]:spec.num_parameters]
-    vals = torch.tensor([0.0, 1.0, 0.5, 0.25, 1 - 2 ** -24, 7 / 128], device=cuda)
-    knots = vals[torch.randint(0, 6, (600, dims), device=cuda, generator=g)]
-    pos = torch.cat([torch.rand((5000, dims), device=cuda, generator=g), knots])
+    pos = _mx_points(cuda, g, dims, points)
     cot = torch.randn((pos.shape[0], spec.n_scales * f), device=cuda, generator=g)
     return spec, lines, pos, cot
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("points", _MX_POINTS)
 @pytest.mark.parametrize("name", sorted(_MX_GRIDS))
-@pytest.mark.parametrize("stored,compute", _K1_TYPES, ids=_K1_TYPE_IDS)
-def test_mxgrid_kernels_match_plain(cuda, name, stored, compute):
+@pytest.mark.parametrize("stored,compute", _MX_TYPES, ids=_MX_TYPE_IDS)
+def test_mxgrid_kernels_match_plain(cuda, name, stored, compute, points):
     """K12 forward bit for bit with the plain version (the same rounded
     operations, ranks added in order); the backward's line gradient within
-    1e-5 x its largest |grad| (fp32 atomics in another order; for a bf16
-    computation one bf16 rounding, 2^-7), the position gradient within 1e-5
-    x its largest |grad| (the lanes' sums in another order), on random
-    points and on knots."""
-    spec, lines, pos, cot = _mx_case(cuda, name, 25)
+    rtol 1e-5 + 1e-5 x its largest |grad| (fp32 sums in another order; for
+    a bf16 computation or bf16 lines one bf16 rounding, rtol 2^-7), the
+    position gradient within 1e-5 x its largest |grad| (the lanes' sums in
+    another order), on every pattern of points in _MX_POINTS, with and
+    without the position gradient."""
+    spec, lines, pos, cot = _mx_case(cuda, name, 25, points)
     lines = lines.to(stored)
     before = (mx_lines_encode.launches, mx_lines_encode_bwd.launches)
     out = mx_lines_encode(lines, pos, spec, compute)
@@ -497,11 +526,32 @@ def test_mxgrid_kernels_match_plain(cuda, name, stored, compute):
     assert out.dtype == torch.float32 and torch.equal(out, mx_lines_encode_ref(lines, pos, spec,
                                                                                compute))
     assert d_l.dtype == stored
-    rtol = 1e-5 if compute == torch.float32 else 2 ** -7
+    # one bf16 rounding where the gradient is computed or returned in bf16
+    rtol = 1e-5 if torch.bfloat16 not in (stored, compute) else 2 ** -7
     torch.testing.assert_close(d_l.float(), r_l.float(), rtol=rtol,
                                atol=1e-5 * float(r_l.float().abs().max()))
     torch.testing.assert_close(d_x, r_x, rtol=0, atol=1e-5 * float(r_x.abs().max()))
-    assert float(r_x.abs().max()) > 1.0
+    if points == "uniform":
+        assert float(r_x.abs().max()) > 1.0
+    # the line gradient alone, without the position gradient's pass
+    d_l2, none = mx_lines_encode_bwd(lines, pos, cot, spec, False, compute)
+    assert none is None
+    torch.testing.assert_close(d_l2.float(), r_l.float(), rtol=rtol,
+                               atol=1e-5 * float(r_l.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_MX_GRIDS))
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_mxgrid_position_gradient_is_bit_for_bit_between_runs(cuda, name, compute):
+    """K12's position gradient is summed in a fixed order (per point, scale
+    and slot by shuffles, then over the scales and slots), so two runs on
+    the same inputs agree bit for bit, on ray-ordered and uniform points."""
+    for points in ("rays", "uniform"):
+        spec, lines, pos, cot = _mx_case(cuda, name, 26, points)
+        first = mx_lines_encode_bwd(lines, pos, cot, spec, True, compute)[1]
+        second = mx_lines_encode_bwd(lines, pos, cot, spec, True, compute)[1]
+        assert torch.equal(first, second), points
 
 
 def _sampling_rows(cuda, g, r, k1):

@@ -42,11 +42,13 @@ from emernerf_torch.flagship import DEFAULT_PROFILE, build_flagship, flagship_co
 from emernerf_torch.ops.mxgrid import (
     MXGridSpec,
     _kernel_params,
+    check_spec,
     init_mxgrid_table,
     mx_lines_encode,
     mx_lines_encode_bwd_ref,
     mx_lines_encode_ref,
     mxgrid_encode,
+    plan_slots,
 )
 from emernerf_torch.parallel import spmd as tspmd
 from test_torch_brickgrid import bf16_ulp
@@ -152,6 +154,84 @@ def test_flagship_spec_geometry_matches_jax(tiny):
         assert shape == {"static": (3, 8, 64), "dynflow": (4, 10, 128),
                          "prop0": (3, 5, 16), "prop1": (3, 5, 16)}
         assert ours["dynflow"].table_shape == (1_310_720,)
+
+
+# an H100 block's shared memory (227 KB)
+H100_BLOCK_SHARED = 232_448
+_DTYPE_PAIRS = [(a, b) for a in (torch.float32, torch.bfloat16)
+                for b in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "full"])
+def test_slot_plan_fits_every_flagship_spec(tiny):
+    """K12's value slots (``plan_slots``) for every MX flagship grid and
+    every stored / compute pair: powers of two at most the spec's lanes,
+    the forward's at least F, each block within an H100 block's shared
+    memory.  At full width the fused grid's fp32 backward takes 16-lane
+    slots (a slice and its partials of 32 lanes, 256 KB, do not fit) and
+    every other block 32 lanes (16 at the proposal grids' W = 16)."""
+    specs = _flagship_mx_specs(False, tiny)
+    for name, spec in specs.items():
+        check_spec(spec)
+        for stored, compute in _DTYPE_PAIRS:
+            plan = plan_slots(spec, stored, compute)
+            for lanes in (plan.lanes, plan.bwd_lanes):
+                assert lanes & (lanes - 1) == 0 and lanes <= spec.lanes, (name, plan)
+            assert plan.lanes >= spec.n_features_per_level, (name, plan)
+            assert max(plan.shared, plan.bwd_shared) <= H100_BLOCK_SHARED, (name, plan)
+            p = _kernel_params(spec, stored, compute)
+            assert (p.lanes, p.bwd_lanes) == (plan.lanes, plan.bwd_lanes)
+            assert p.values * p.lanes >= spec.factor_width > (p.values - 1) * p.lanes
+            assert p.bwd_values * p.bwd_lanes >= spec.factor_width
+    if not tiny:
+        got = {(k, str(a)[6:], str(b)[6:]): (plan.lanes, plan.bwd_lanes)
+               for k, spec in specs.items() for a, b in _DTYPE_PAIRS
+               for plan in [plan_slots(spec, a, b)]}
+        fp32_fused = ("dynflow", "float32", "float32")
+        assert got[fp32_fused] == (32, 16)
+        assert all(v == (32, 32) for key, v in got.items()
+                   if key[0] in ("static", "dynflow") and key != fp32_fused)
+        assert all(v == (16, 16) for (k, _, _), v in got.items() if k.startswith("prop"))
+
+
+def test_oversized_line_block_raises():
+    """A spec whose slot fits no block's shared memory at any width raises,
+    in ``check_spec`` and in both wrappers (also on the CPU); the largest
+    line_block that fits passes."""
+    kw = _spec4()
+    big = MXGridSpec(**{**kw, "line_block": 4096})
+    with pytest.raises(ValueError, match="shared memory"):
+        check_spec(big)
+    with pytest.raises(ValueError, match="shared memory"):
+        plan_slots(big, torch.bfloat16, torch.bfloat16)
+    lines = torch.zeros(sum(big.part_sizes[1:]))
+    x = torch.rand((4, 4))
+    with pytest.raises(ValueError, match="shared memory"):
+        mx_lines_encode(lines, x, big)
+    check_spec(MXGridSpec(**{**kw, "line_block": 256}))
+
+
+def test_bench_compare_holds_outputs_to_their_tolerances():
+    """``perf/bench_mxgrid.py --compare``: the forward's checksum exactly,
+    the line gradient within rtol 1e-5 (fp32) or 2^-7 (bf16) + 1e-5 x its
+    largest |grad|, the position gradient within 1e-5 x its largest |grad|;
+    every fault named."""
+    from emernerf_torch.perf.bench_mxgrid import checksum, compare
+
+    g = torch.Generator().manual_seed(5)
+    out, d_l, d_x = (torch.randn((64, 8), generator=g) for _ in range(3))
+
+    def row(o, dl, dx):
+        return dict(out=checksum(o), d_lines=dl, d_pos=dx)
+
+    for tag, rtol in (("[fused,N=64,fp32]", 1e-5), ("[fused,N=64,fp32->bf16]", 2 ** -7)):
+        saved = {tag: row(out, d_l, d_x)}
+        assert compare(saved, {tag: row(out.clone(), d_l * (1 + rtol / 2), d_x)}) == []
+        assert compare(saved, {tag: row(out, d_l, None)}) != []
+        faults = compare(saved, {tag: row(out + 1e-7, d_l * (1 + 4 * rtol),
+                                          d_x + 1e-4 * float(d_x.abs().max()))})
+        assert [f.split(":")[0] for f in faults] == [tag, f"{tag}.d_lines", f"{tag}.d_pos"]
+    assert compare({"[a,fp32]": row(out, d_l, None)}, {"[a,fp32]": row(out, d_l, None)}) == []
 
 
 def _encode_pair(spec_kw, x, cot, compute_dtype, seed=0):

@@ -267,6 +267,25 @@ Phases (any failure exits non-zero; nothing is skipped):
      with and without the stride); training.  19d,
      optim.fused_lidar_branch=true: training, launches per iteration
      beside phase 5's.
+  20. training quality.  20a: tests/test_torch_quality.py's run on the
+     card: the tiny flagship in fp32 with every 4th timestep held out
+     trains 300 iterations (optim.num_iters=300; quality_ab's proposal
+     schedule and the staged lidar-K) on the CPU (plain versions) and
+     twice on the card (kernels) from the same parameters, batches and
+     draws (a seeded CPU generator): once with its state set to the CPU's
+     every 10 iterations, once on its own.  The launch counters are zeroed
+     before the training and read after: K1, K2, K3, K5 and K8 must
+     launch, K4 must not.  Held, as in the CPU test: the losses of the
+     first iteration after each setting (rtol 1e-4, the sky loss 1e-3),
+     every run's held-out PSNR at least 3 dB above the untrained model's,
+     and for the set run held-out PSNR within 0.1 dB of the CPU's, SSIM
+     within 2e-3, every recorded training-PSNR point within 0.2 dB; the
+     run on its own is printed beside (K1 backward's atomics drift it from
+     the CPU's).  20b: whether tensorstore imports on this machine.  20c:
+     the CLI, 30 iterations of the full-width flagship with every 4th
+     timestep held out, must write NORTHSTAR_<run>.md into its run
+     directory with the training curve and the test split.  The phase's
+     seconds are printed.
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
@@ -5127,6 +5146,200 @@ def phase_settings(dev, card_line, phase5):
     return entries, runs, lines
 
 
+# phase 20: the tiny fp32 run of tests/test_torch_quality.py, the card
+# (kernels) against the CPU (plain versions), and the run report
+N_QUALITY = 300  # optim.num_iters and iterations of 20a
+QUALITY_SET_EVERY = 10  # iterations from one setting of the card's state to the CPU's to the next
+QUALITY_DOTLIST = TINY_FP32 + ("data.pixel_source.test_image_stride=4",
+                               f"optim.num_iters={N_QUALITY}")
+# tests/test_torch_quality.py's bounds: the held-out rise of each model,
+# the held-out metrics and every recorded training-PSNR point, card vs CPU
+QUALITY_RISE_DB, QUALITY_PSNR_DB, QUALITY_SSIM, QUALITY_CURVE_DB = 3.0, 0.1, 2e-3, 0.2
+N_QUALITY_CLI = 30  # optim.num_iters of 20c's CLI run
+
+
+def copy_train_state(dst, src):
+    """``dst`` set to ``src``'s parameters, Adam moments, counts and step
+    (across devices)."""
+    with torch.no_grad():
+        for d, s in zip(dst.params + dst.prop_params, src.params + src.prop_params):
+            d.copy_(s)
+        for do, so in ((dst.opt_state, src.opt_state), (dst.prop_opt_state, src.prop_opt_state)):
+            for d, s in zip(do.mu + do.nu, so.mu + so.nu):
+                d.copy_(s)
+            do.count = so.count
+    dst.step = src.step
+
+
+def losses_apart(ours, ref):
+    """The losses of ``ours`` outside tests/test_torch_quality.py's
+    tolerances of ``ref``'s: rtol 1e-4, the sky loss 1e-3, the pixel
+    branch's total the sum of its terms' tolerances; (name, relative
+    difference) each."""
+    def atol(k):
+        if k == "total_pixel_loss":
+            return sum(atol(t) for t in ref if "loss" in t
+                       and not t.startswith(("lidar_", "total_", "prop_")))
+        return (1e-3 if k == "sky_loss" else 1e-4) * abs(ref[k])
+
+    return [(k, abs(ours[k] - v) / max(abs(v), 1e-30)) for k, v in ref.items()
+            if "loss" in k and abs(ours[k] - v) > atol(k)]
+
+
+def phase_quality(dev, counted, zero):
+    """Phase 20: 20a the tiny fp32 training run of
+    tests/test_torch_quality.py on the card against the CPU; 20b whether
+    tensorstore imports here; 20c the CLI's run report."""
+    from emernerf_torch.eval.renderer import ImageRenderer
+    from emernerf_torch.flagship import build_flagship
+    from emernerf_torch.perf.quality_ab import Curve, draw_iteration, proposal_rg
+    from emernerf_torch.train.state import init_train_state
+    from emernerf_torch.train.step import build_train_step
+
+    t_phase = time.perf_counter()
+    print(f"phase 20a: {N_QUALITY} fp32 training iterations of the tiny flagship with every 4th "
+          f"timestep held out (tests/test_torch_quality.py's run): the card (kernels) with its "
+          f"state set to the CPU's every {QUALITY_SET_EVERY} iterations, and the card on its "
+          "own, against the CPU (plain versions); same parameters, batches and draws")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for name, device in (("cpu", "cpu"), ("set", dev), ("own", dev)):
+        cfg, dataset, model, props, scfg = build_flagship(tiny=True, overrides=QUALITY_DOTLIST,
+                                                          device=device)
+        if name != "cpu":
+            for g, c in zip([model, *props], [runs["cpu"]["model"], *runs["cpu"]["props"]]):
+                g.load_state_dict(c.state_dict())
+        h, w = dataset.image_hw
+        renderer = ImageRenderer(
+            model, props, num_samples=cfg.nerf.sampling.num_samples,
+            prop_samples=tuple(cfg.nerf.propnet.num_samples_per_prop),
+            near_plane=cfg.nerf.propnet.near_plane, far_plane=cfg.nerf.propnet.far_plane,
+            sampling_type=cfg.nerf.propnet.sampling_type, chunk_size=h * w,
+            return_decomposition=model.has_dynamic, device=device)
+        runs[name] = dict(model=model, props=props, state=init_train_state(model, props),
+                          step=build_train_step(model, props, scfg), curve=Curve(),
+                          renderer=renderer, dataset=dataset, device=device)
+
+    def held_out(run):
+        return run["renderer"].render_split(run["dataset"], run["dataset"].test_indices)[1]
+
+    cpu, card, own = runs["cpu"], runs["set"], runs["own"]
+    before = held_out(cpu), held_out(card)
+    scene = cpu["dataset"].scene_tensors("cpu")
+    gen = torch.Generator().manual_seed(1)
+    to = lambda x: None if x is None else x.to(dev)  # noqa: E731
+    for fn in counted + tuple(zero):
+        fn.launches = 0
+    apart, secs = [], {"cpu": 0.0, "set": 0.0, "own": 0.0}
+    for it in range(N_QUALITY):
+        if it % QUALITY_SET_EVERY == 0:
+            copy_train_state(card["state"], cpu["state"])
+        pixel, lidar, pd, ld, full = draw_iteration(scene, cpu["step"], it,
+                                                    cfg.data.ray_batch_size, gen)
+        rg = proposal_rg(it)
+        on_card = ({k: v.to(dev) for k, v in pixel.items()},
+                   {k: v.to(dev) for k, v in lidar.items()},
+                   *(d._replace(jitters=tuple(map(to, d.jitters)), topk_u=to(d.topk_u),
+                                agg_noise=to(d.agg_noise)) for d in (pd, ld)))
+        metrics = {}
+        for name, run in runs.items():
+            args = (pixel, lidar, pd, ld) if name == "cpu" else on_card
+            t0 = time.perf_counter()
+            m = run["step"](run["state"], *args, rg, rg, full)
+            metrics[name] = {k: float(v) for k, v in m.items()}
+            secs[name] += time.perf_counter() - t0
+            run["curve"].add(it, m)
+        if it % QUALITY_SET_EVERY == 0:
+            apart += [(it, k, d) for k, d in losses_apart(metrics["set"], metrics["cpu"])]
+    launches = {fn.__name__: fn.launches for fn in counted + tuple(zero)}
+    print(f"  {N_QUALITY} iterations: CPU {secs['cpu']:.1f} s, card {secs['set']:.1f} s and "
+          f"{secs['own']:.1f} s; launch counts over both card runs: {launches}")
+    _check_launches(launches, {fn.__name__ for fn in zero}, "training run of phase 20a")
+    after = {name: held_out(run) for name, run in runs.items()}
+    print(f"  held-out (timestep 0), untrained: CPU {before[0]}, card {before[1]}")
+    for name in runs:
+        print(f"  held-out after {N_QUALITY} iterations, {name}: {after[name]}")
+        print(f"  training-PSNR curve, {name}: "
+              f"{[(p['step'], p['psnr'], p['range_rmse']) for p in runs[name]['curve'].points]}")
+    if apart:
+        fail(f"phase 20a: losses of the card set to the CPU's state outside the CPU test's "
+             f"tolerances: {apart[:10]}")
+    for name, m in after.items():
+        if m["psnr"] - before[0]["psnr"] < QUALITY_RISE_DB:
+            fail(f"phase 20a: the {name} run's held-out PSNR rose {m['psnr'] - before[0]['psnr']:.3f}"
+                 f" dB, under {QUALITY_RISE_DB}")
+    for name in ("set", "own"):
+        gaps = {k: after[name][k] - after["cpu"][k] for k in after["cpu"]}
+        curve = [round(p["psnr"] - q["psnr"], 3) for p, q in
+                 zip(runs[name]["curve"].points, cpu["curve"].points)]
+        print(f"  card ({'set to the CPU every ' + str(QUALITY_SET_EVERY) if name == 'set' else 'on its own'})"
+              f" - CPU: held-out {gaps}; curve {curve}")
+        if name == "own":
+            continue  # two runs apart by rounding diverge (tests/test_torch_quality_free.py)
+        if set(gaps) != set(after["cpu"]) or not {"psnr", "ssim"} <= set(gaps):
+            fail(f"phase 20a: held-out metrics {sorted(after[name])} vs {sorted(after['cpu'])}")
+        for k, g in gaps.items():
+            if abs(g) > (QUALITY_SSIM if "ssim" in k else QUALITY_PSNR_DB):
+                fail(f"phase 20a: held-out {k} card vs CPU {g:+.5f}")
+        if len(curve) != N_QUALITY // 100 or max(map(abs, curve)) > QUALITY_CURVE_DB:
+            fail(f"phase 20a: training-PSNR curve card vs CPU {curve}")
+    del runs, cpu, card, own
+    torch.cuda.empty_cache()
+
+    probe = subprocess.run([sys.executable, "-c", "import importlib.metadata, tensorstore; "
+                            "print(importlib.metadata.version('tensorstore'))"],
+                           capture_output=True, text=True, timeout=120)
+    print("phase 20b: import tensorstore " + (
+        f"succeeds on this machine (tensorstore {probe.stdout.strip()})" if probe.returncode == 0
+        else f"fails on this machine: {probe.stderr.strip().splitlines()[-1:]}"))
+
+    phase_run_report(dev)
+    print(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_run_report(dev):
+    """Phase 20c: the CLI on the full-width flagship with every 4th
+    timestep held out writes NORTHSTAR_<run>.md with the test split."""
+    import logging
+    import shutil
+    import tempfile
+
+    from emernerf_torch import train_emernerf
+    from emernerf_torch.flagship import _FLAGSHIP_DOTLIST
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="emernerf_report_")
+    run_dir = os.path.join(root, "p", "quality")
+    os.makedirs(run_dir)
+    log = logging.getLogger("emernerf_torch")
+    handler = logging.FileHandler(os.path.join(run_dir, "log.txt"))
+    log.addHandler(handler)
+    log.propagate = False
+    try:
+        train_emernerf.main(["--output_root", root, "--project", "p", "--run_name", "quality",
+                             *_FLAGSHIP_DOTLIST, f"optim.num_iters={N_QUALITY_CLI}",
+                             "data.pixel_source.test_image_stride=4"])
+        path = os.path.join(run_dir, "NORTHSTAR_quality.md")
+        if not os.path.exists(path):
+            fail(f"phase 20c: the CLI wrote no run report ({sorted(os.listdir(run_dir))})")
+        with open(path) as f:
+            report = f.read()
+        test = f"## Test-split eval (`metrics_test_{N_QUALITY_CLI + 1}.json`)"
+        if test not in report or "## Training curve" not in report:
+            fail(f"phase 20c: the run report lacks the test split or the curve:\n{report}")
+        section = report.split(test)[1].split("##")[0].strip().splitlines()
+        print(f"phase 20c: the CLI ({N_QUALITY_CLI} iterations of the full-width flagship, every "
+              f"4th timestep held out) wrote {os.path.basename(path)} in its run directory "
+              f"({len(report.splitlines())} lines, {time.perf_counter() - t0:.1f} s); its test "
+              f"split: {'; '.join(section)}")
+    finally:
+        log.removeHandler(handler)
+        handler.close()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -5248,6 +5461,8 @@ def main():
         dev, card_line, dict(launches=launches, iterations=17, ms=ms_iter, busy=busy5,
                              peak=peak, share=share))
     entries += settings_entries
+    # training quality: the tiny fp32 run card vs CPU, tensorstore, the run report
+    phase_quality(dev, brick + shared, hashed)
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):

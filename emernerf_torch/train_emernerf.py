@@ -17,6 +17,10 @@ be N); otherwise this command starts the N ranks itself
 r runs on ``cuda:r`` unless ``--device`` names a device (``cpu``, or one
 card for every rank); NCCL on the cards, gloo on the CPU.  Rank 0 writes
 the run directory.
+
+After the end-of-training evaluation (not after a preemption) and after
+``--eval_only``, rank 0 writes the run report
+``<run dir>/NORTHSTAR_<run_name>.md`` (``perf/northstar_report.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from emernerf_torch.eval.video import have_imageio
 from emernerf_torch.eval.voxel_vis import visualize_scene_flow, visualize_voxels
 from emernerf_torch.flagship import DEFAULT_CONFIG
 from emernerf_torch.parallel.mesh import init_data_parallel, world_size
+from emernerf_torch.perf.northstar_report import write_report
 from emernerf_torch.tools.extract_features import delete_features
 from emernerf_torch.train.checkpoints import latest_checkpoint
 from emernerf_torch.train.trainer import Trainer
@@ -141,6 +146,15 @@ def _visualize(trainer, cfg) -> None:
         visualize_scene_flow(engine, trainer.dataset, os.path.join(cfg.log_dir, "scene_flow"))
 
 
+def _write_run_report(cfg) -> None:
+    """The run report (``NORTHSTAR_<run>.md`` in the run directory); a
+    failure is logged, never raised: the run itself is finished."""
+    try:
+        logger.info("Run report: %s", write_report(cfg.log_dir))
+    except Exception as e:
+        logger.warning("run report generation failed: %s", e)
+
+
 def main(argv=None):
     """Train (or with ``--eval_only`` evaluate) one scene; returns the
     ``Trainer`` (None with ``--render_data_video_only``, which builds no
@@ -220,6 +234,8 @@ def run(args, group=None, device=None):
         _visualize(trainer, cfg)
     if args.eval_only:
         trainer.evaluate()
+        if main_rank:
+            _write_run_report(cfg)
         return trainer
 
     t0 = time.time()
@@ -234,6 +250,8 @@ def run(args, group=None, device=None):
     logger.info("Training done: %d iters in %.1fs (%.0f rays/s)", iters, elapsed,
                 iters * rays_per_iter / max(elapsed, 1e-9))
     trainer.evaluate()
+    if main_rank:
+        _write_run_report(cfg)
     # reclaim the disk of the scene's feature maps when asked
     if cfg.data.pixel_source.get("delete_features_after_run", False) and main_rank:
         feat_dir = os.path.join(getattr(trainer.dataset, "data_path", ""),

@@ -459,3 +459,60 @@ def test_proposal_rows_count_the_coarse_views(monkeypatch):
     trainer = Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True))
     read, unskipped = chip_smoke._proposal_rows(trainer, 0)
     assert unskipped > 0 and read == unskipped * 3 // 4
+
+
+def test_phase_20_runs_after_19_with_the_quality_tests_run():
+    """Phase 20 runs after phase 19 on the CPU test's configuration and
+    bounds (tests/test_torch_quality.py)."""
+    import inspect
+
+    import test_torch_quality as q
+
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index("phase_settings(") < main.index("phase_quality(") < main.index(
+        "kernel_only(")
+    assert list(chip_smoke.QUALITY_DOTLIST) == q.OVERRIDES
+    assert chip_smoke.N_QUALITY == q.ITERS and chip_smoke.QUALITY_SET_EVERY == q.SET_EVERY
+    assert (chip_smoke.QUALITY_RISE_DB, chip_smoke.QUALITY_PSNR_DB, chip_smoke.QUALITY_SSIM,
+            chip_smoke.QUALITY_CURVE_DB) == (q.RISE_DB, q.PSNR_DB, q.SSIM_ABS, q.CURVE_DB)
+
+
+def test_copy_train_state_sets_params_moments_counts_and_step():
+    from emernerf_torch.flagship import flagship_config, flagship_flow_spec
+    from emernerf_torch.train.trainer import Trainer
+
+    cfg = flagship_config(tiny=True)
+    a, b = (Trainer(cfg, device="cpu", flow=flagship_flow_spec(cfg, tiny=True)) for _ in "ab")
+    a.train_iteration(0)
+    a.train_iteration(1)
+    assert not torch.equal(a.state.params[0], b.state.params[0])
+    chip_smoke.copy_train_state(b.state, a.state)
+    assert b.state.step == a.state.step == 2
+    for x, y in ((a.state.opt_state, b.state.opt_state),
+                 (a.state.prop_opt_state, b.state.prop_opt_state)):
+        assert x.count == y.count and all(torch.equal(m, n) for m, n in zip(x.mu + x.nu,
+                                                                            y.mu + y.nu))
+    assert all(torch.equal(p, q) for p, q in zip(a.state.params + a.state.prop_params,
+                                                 b.state.params + b.state.prop_params))
+    # the next iteration on the same batches and draws: the same metrics
+    from emernerf_torch.perf.quality_ab import draw_iteration
+
+    got = []
+    for t in (a, b):
+        drawn = draw_iteration(t.scene, t.train_step, 2, 64, torch.Generator().manual_seed(3))
+        m = t.train_step(t.state, *drawn[:4], True, True, drawn[4])
+        got.append({k: float(v) for k, v in m.items()})
+    assert got[0] == got[1]
+
+
+def test_losses_apart_takes_the_quality_tests_tolerances():
+    ref = {"rgb_loss": 0.004, "sky_loss": 0.001, "cycle_loss": 0.002, "prop_loss": 3.0,
+           "lidar_range_loss": 0.02, "total_pixel_loss": 0.007, "total_lidar_loss": 0.02,
+           "psnr": 20.0}
+    ours = dict(ref, psnr=30.0, sky_loss=0.001 * (1 + 9e-4),
+                total_pixel_loss=0.007 + 0.001 * 9e-4)  # within: the sky loss's share
+    assert chip_smoke.losses_apart(ours, ref) == []
+    ours.update(rgb_loss=0.004 * (1 + 2e-4), total_lidar_loss=0.02 * (1 + 2e-4))
+    apart = dict(chip_smoke.losses_apart(ours, ref))
+    assert set(apart) == {"rgb_loss", "total_lidar_loss"}
+    assert apart["rgb_loss"] == pytest.approx(2e-4)

@@ -81,7 +81,9 @@ def test_every_module_imports_without_jax():
             "emernerf_torch.tools.preprocess", "emernerf_torch.tools.waymo_wire",
             "emernerf_torch.tools.scene_lists", "emernerf_torch.tools.extract_features",
             "emernerf_torch.tools.vit_extractor", "emernerf_torch.parallel",
-            "emernerf_torch.parallel.mesh", "emernerf_torch.parallel.spmd"} <= walked
+            "emernerf_torch.parallel.mesh", "emernerf_torch.parallel.spmd",
+            "emernerf_torch.perf.northstar_report", "emernerf_torch.perf.quality_ab",
+            "emernerf_torch.perf.quality_report"} <= walked
 
 
 @pytest.mark.parametrize("tiny", [True, False])

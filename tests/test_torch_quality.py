@@ -1,0 +1,266 @@
+"""Training quality of the port against the JAX package on the CPU.
+
+The tiny flagship (fp32, widened as ``test_torch_train_step.py`` widens it,
+every 4th timestep held out, ``optim.num_iters=300``) trains 300
+iterations from the same parameters, on the same batches (the JAX
+samplers') and the same draws (the JAX step's, through
+``tests/jax_draw_tap.py``), with ``perf/quality_ab.py``'s schedule:
+proposal gradients at ``it < 512 or it % 5 == 0``, and the staged lidar-K
+(the lidar branch unpruned from iteration 270).  Then each package's eval
+renderer renders the held-out view (timestep 0) and its lidar returns.
+
+Two trained models that ran the same arithmetic in another order cannot
+be held to 0.1 dB: training amplifies rounding.  The reference against
+itself shows it (``tests/test_torch_quality_free.py``): JAX trained from
+parameters one fp32 ulp apart ends 0.27 dB apart in held-out PSNR and up
+to 0.32 dB on the training curve, and the port trained on its own ends
+0.118 dB (PSNR), -0.011 (SSIM) and up to 0.41 dB (curve) from JAX.  So
+here the port's state is set to JAX's (parameters, Adam moments, counts)
+every 10 iterations, and the port trains the 9 iterations between on its
+own: a fault of the step, its schedule or its gating shows in the first
+iteration after a setting, where the two start from the same state, and
+in the held-out render of the port's own last 10 iterations.  Even
+within a window the losses drift apart by up to 6.5% (the rgb loss at
+iteration 59; the test prints each loss's largest difference), where
+the top-K selections start to flip.
+
+Held:
+- the first iteration after each setting (30, among them 270, the first
+  unpruned lidar iteration): every loss within rtol 1e-4 of JAX's, the
+  sky loss 1e-3 (``test_torch_train_step.py``'s tolerances), the pixel
+  branch's total within the sum of its terms' tolerances; and one more
+  iteration from JAX's last state set to step 2300, the line-of-sight
+  loss live: the lidar branch's losses at the same tolerances;
+- both models' held-out PSNR at least 3 dB above the untrained model's
+  (measured 14.54 -> 21.81 dB);
+- held-out PSNR within 0.1 dB (measured +0.00024 dB), SSIM within 2e-3
+  (+1.0e-5), the non-masked PSNR ``render_split`` reports within 0.1 dB
+  (the view has no dynamic pixels, so it reports no masked PSNR or SSIM);
+- the training-PSNR curves as ``quality_ab`` records them (the median of
+  the last 50 iterations every 100) within 0.2 dB at every record
+  (measured 0.004 dB at 100, 0 after).
+About 130-140 s on one worker (137 s in a whole tier-1 run): the JAX step
+compiles twice (the pruned and the unpruned lidar branch), and the port's
+plain versions take 0.17 s an iteration.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax_draw_tap import iteration_draws, uniform_tap
+from test_torch_train_step import FP32, WIDE
+
+from emernerf_torch.convert import load_jax_train_state
+from emernerf_torch.eval.metrics import compute_valid_depth_rmse
+from emernerf_torch.eval.renderer import ImageRenderer
+from emernerf_torch.flagship import build_flagship
+from emernerf_torch.perf.quality_ab import Curve, proposal_rg
+from emernerf_torch.train.state import init_train_state
+from emernerf_torch.train.step import build_train_step, lidar_full_at
+from emernerf_tpu.data.scene import sample_lidar_batch as jax_sample_lidar
+from emernerf_tpu.data.scene import sample_pixel_batch as jax_sample_pixel
+from emernerf_tpu.eval.renderer import ImageRenderer as JaxImageRenderer
+from emernerf_tpu.flagship import build_flagship as jax_build_flagship
+from emernerf_tpu.train.step import build_train_step as jax_build_train_step
+from emernerf_tpu.train.step import init_train_state as jax_init_train_state
+
+ITERS = 300
+
+
+def overrides(iters: int = ITERS):
+    """The run's dotlist: fp32, widened, every 4th timestep held out."""
+    return FP32 + WIDE + ["data.pixel_source.test_image_stride=4", f"optim.num_iters={iters}"]
+
+
+OVERRIDES = overrides()
+RISE_DB = 3.0  # held-out PSNR gained by training, each model
+PSNR_DB, SSIM_ABS = 0.1, 2e-3  # held-out metrics, port vs JAX
+CURVE_DB = 0.2  # every recorded training-PSNR point, port vs JAX
+SET_EVERY = 10  # iterations from one setting of the port's state to JAX's to the next
+LOSS_RTOL = {"sky_loss": 1e-3}  # the first iteration after a setting; 1e-4 for the rest
+LOS_STEP = 2300  # a step past the line-of-sight loss's start (2000)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _held_out(render_split, render_lidar, dataset):
+    """The held-out split's metrics and its frames' lidar depth RMSE."""
+    _, metrics = render_split(dataset, dataset.test_indices)
+    rmses = []
+    for f in dataset.test_frames:
+        rays = dataset.get_lidar_render_rays(int(f))
+        gt = rays.pop("ranges")
+        rmses.append(compute_valid_depth_rmse(render_lidar(rays)["depth"][..., 0], gt))
+    return dict(metrics, depth_rmse=float(np.mean(rmses)))
+
+
+def _loss_atol(name, jm):
+    """A loss's tolerance: rtol 1e-4 (the sky loss 1e-3), and a branch's
+    total that of each of its terms."""
+    if name == "total_pixel_loss":
+        return sum(_loss_atol(k, jm) for k in jm if "loss" in k and not k.startswith(
+            ("lidar_", "total_", "prop_")))
+    return LOSS_RTOL.get(name, 1e-4) * abs(float(jm[name]))
+
+
+def set_to_jax(tstate, jstate):
+    """The port's state set to a JAX TrainState's: parameters, Adam
+    moments, counts and step (copied: the jitted step donates its input)."""
+    jstate = jax.tree.map(np.array, jstate)
+    adam, prop_adam = jstate.opt_state[1], jstate.prop_opt_state[1]
+    load_jax_train_state(tstate, jstate.params, jstate.prop_params,
+                         (adam.count, adam.mu, adam.nu),
+                         (prop_adam.count, prop_adam.mu, prop_adam.nu), jstate.step)
+
+
+class Run:
+    """The JAX tiny flagship of :func:`overrides` at its initial state, its
+    batches and step, and a port model loaded with the same state; each
+    package's held-out render."""
+
+    def __init__(self, iters: int = ITERS):
+        cfg, self.dataset, jmodel, jprops, self.step_cfg = jax_build_flagship(
+            tiny=True, overrides=overrides(iters))
+        assert len(self.dataset.test_indices) > 0 and len(self.dataset.train_indices) > 0
+        scene, r = self.dataset.scene_tensors(), cfg.data.ray_batch_size
+
+        @jax.jit  # traced here, outside the tap: the samplers' draws are not the step's
+        def batches(key):
+            kp, kl = jax.random.split(key)
+            return (jax_sample_pixel(scene, kp, r, use_timestamps=True),
+                    jax_sample_lidar(scene, kl, r))
+
+        self.batches = batches
+        pb0, _ = batches(jax.random.PRNGKey(0))
+        self.init = jax.tree.map(np.array, jax.jit(
+            lambda k: jax_init_train_state(jmodel, jprops, self.step_cfg, k, pb0))(
+                jax.random.PRNGKey(1)))
+        self.jstep = None  # built inside the tap
+        self.jmodel, self.jprops = jmodel, jprops
+
+        _, self.tdataset, tmodel, tprops, tcfg = build_flagship(
+            tiny=True, overrides=overrides(iters), device="cpu")
+        assert np.array_equal(self.tdataset.test_indices, self.dataset.test_indices)
+        self.tstate = init_train_state(tmodel, tprops)
+        self.tstep = build_train_step(tmodel, tprops, tcfg)
+        h, w = self.dataset.image_hw
+        kw = dict(num_samples=cfg.nerf.sampling.num_samples,
+                  prop_samples=tuple(cfg.nerf.propnet.num_samples_per_prop),
+                  near_plane=cfg.nerf.propnet.near_plane, far_plane=cfg.nerf.propnet.far_plane,
+                  sampling_type=cfg.nerf.propnet.sampling_type, chunk_size=h * w,
+                  return_decomposition=tmodel.has_dynamic)
+        self.jrender = JaxImageRenderer(jmodel, jprops, **kw)
+        self.trender = ImageRenderer(tmodel, tprops, device="cpu", **kw)
+
+    def jax_state(self, params=None, prop_params=None):
+        """A fresh JAX state at the initial one (or these parameters)."""
+        s = jax.tree.map(jax.numpy.array, self.init)
+        if params is not None:
+            s = s.replace(params=params, prop_params=prop_params)
+        return s
+
+    def iteration(self, it):
+        """Iteration ``it``'s batches (numpy), proposal-gradient flag and
+        staged lidar-K flag."""
+        pb, lb = jax.tree.map(np.asarray, self.batches(jax.random.PRNGKey(100 + it)))
+        return pb, lb, proposal_rg(it), lidar_full_at(self.step_cfg, it)
+
+    def jax_step(self, tap, jstate, it, batch):
+        """JAX's iteration ``it``: (state, metrics, the port's draws)."""
+        if self.jstep is None:
+            self.jstep = jax_build_train_step(self.jmodel, self.jprops, self.step_cfg)
+        pb, lb, rg, full = batch
+        jstate, jm = self.jstep(jstate, pb, lb, jax.random.PRNGKey(10_000 + it),
+                                pixel_rg=rg, lidar_rg=rg, lidar_full=full)
+        return jstate, jm, iteration_draws(tap.take(), self.step_cfg, full)
+
+    def port_step(self, batch, draws):
+        pb, lb, rg, full = batch
+        return self.tstep(self.tstate, {k: torch.from_numpy(np.array(v)) for k, v in pb.items()},
+                          {k: torch.from_numpy(np.array(v)) for k, v in lb.items()}, *draws,
+                          rg, rg, full)
+
+    def held_out_jax(self, jstate):
+        params, props = jstate.params, jstate.prop_params
+        return _held_out(lambda ds, idx: self.jrender.render_split(params, props, ds, idx),
+                         lambda rays: self.jrender.render_rays_chunked(params, props, rays,
+                                                                       is_lidar=True),
+                         self.dataset)
+
+    def held_out_port(self):
+        return _held_out(self.trender.render_split,
+                         lambda rays: self.trender.render_rays_chunked(rays, is_lidar=True),
+                         self.tdataset)
+
+
+def test_trajectory_and_held_out_quality_match_jax():
+    run = Run()
+    jstate = run.jax_state()
+    set_to_jax(run.tstate, jstate)
+    before = run.held_out_jax(jstate), run.held_out_port()
+    jcurve, tcurve = Curve(), Curve()
+    apart = []  # (iteration, loss, relative difference) past its tolerance after a setting
+    worst = {}  # each loss's largest relative difference, and its iteration
+    worst_set = {}  # the same over the first iterations after a setting
+    with uniform_tap() as tap:
+        for it in range(ITERS):
+            if it % SET_EVERY == 0:
+                set_to_jax(run.tstate, jstate)
+            batch = run.iteration(it)
+            jstate, jm, draws = run.jax_step(tap, jstate, it, batch)
+            tm = run.port_step(batch, draws)
+            jcurve.add(it, jm)
+            tcurve.add(it, tm)
+            for k, v in jm.items():
+                if "loss" not in k:
+                    continue
+                d = abs(float(tm[k]) - float(v))
+                rel = d / max(abs(float(v)), 1e-30)
+                if rel > worst.get(k, (0.0,))[0]:
+                    worst[k] = (rel, it)
+                if it % SET_EVERY == 0:
+                    if rel > worst_set.get(k, (0.0,))[0]:
+                        worst_set[k] = (rel, it)
+                    if d > _loss_atol(k, jm):
+                        apart.append((it, k, rel))
+    after = run.held_out_jax(jstate), run.held_out_port()
+    # one more iteration from JAX's last state at step 2300: the
+    # line-of-sight loss live on the unpruned lidar branch
+    jstate = jstate.replace(step=jax.numpy.asarray(LOS_STEP, jax.numpy.int32))
+    set_to_jax(run.tstate, jstate)
+    batch = run.iteration(ITERS)
+    # the step of this branch is compiled (iterations 270-299): its draws
+    # still go to the loop's tap
+    _, jm, draws = run.jax_step(tap, jstate, LOS_STEP, batch)
+    tm = {k: float(v) for k, v in run.port_step(batch, draws).items()}
+    jm = {k: float(v) for k, v in jm.items()}
+    assert batch[3] and jm["lidar_line_of_sight"] > 0 and tm["lidar_line_of_sight"] > 0
+    # the lidar branch's losses: the pixel branch does not read the step,
+    # and the loop holds it after every setting (at this state and batch
+    # its proposal loss is 3.2e-4 apart, 49.797 against JAX's 49.813:
+    # ROADMAP queue 3)
+    apart += [(LOS_STEP, k, abs(tm[k] - v) / abs(v)) for k, v in jm.items()
+              if k.startswith(("lidar_", "total_lidar")) and abs(tm[k] - v) > _loss_atol(k, jm)]
+
+    gaps = {k: after[1][k] - after[0][k] for k in after[0]}
+    print(f"untrained (JAX, port): {before}\ntrained: {after}\nport - JAX: {gaps}\n"
+          f"curves: {jcurve.points}\n{tcurve.points}\nlargest loss differences: {worst}\n"
+          f"after a setting: {worst_set}")
+    assert not apart, apart
+    for (b, a), who in zip(zip(before, after), ("JAX", "port")):
+        assert a["psnr"] - b["psnr"] >= RISE_DB, (who, b["psnr"], a["psnr"])
+    assert set(after[0]) == set(after[1]) >= {"psnr", "ssim", "non_masked_psnr"}
+    for k in after[0]:
+        if "psnr" in k or "ssim" in k:
+            assert abs(gaps[k]) <= (SSIM_ABS if "ssim" in k else PSNR_DB), (k, gaps)
+    assert [p["step"] for p in jcurve.points] == [p["step"] for p in tcurve.points] == [
+        100, 200, 300]
+    for jp, tp in zip(jcurve.points, tcurve.points):
+        assert abs(tp["psnr"] - jp["psnr"]) <= CURVE_DB, (jp, tp)

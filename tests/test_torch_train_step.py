@@ -8,13 +8,12 @@ and dynamic-only (``configs/default_dynamic.yaml``: no flow, no cycle loss,
 no aggregation noise drawn).
 
 The draws: the jitted JAX step runs with ``jax.random.uniform`` wrapped,
-in this test only, so that every draw it makes is passed out through a
-debug callback in program order (per branch: three stratified jitters, the
-top-K Gumbel uniforms, the aggregation noise where there is flow); the
-port's ``StepDraws``
-take the recorded arrays.  The gradients handed to ``apply_update`` are
-recorded the same way on the JAX side and by wrapping ``apply_update`` on
-the port's side.
+in this test only (``tests/jax_draw_tap.py``), so that every draw it makes
+is passed out through a debug callback in program order (per branch: three
+stratified jitters, the top-K Gumbel uniforms, the aggregation noise where
+there is flow); the port's ``StepDraws`` take the recorded arrays.  The
+gradients handed to ``apply_update`` are recorded the same way on the JAX
+side and by wrapping ``apply_update`` on the port's side.
 
 The tiny flagship is widened so that top-K pruning (6 of 8 pixel samples,
 4 lidar samples) and the top-2 temporal aggregation both run, with 32 and
@@ -45,7 +44,6 @@ Tolerances:
 """
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -71,7 +69,9 @@ from emernerf_torch.flagship import (
     build_flagship,
 )
 from emernerf_torch.train.state import init_train_state
-from emernerf_torch.train.step import StepDraws, build_train_step
+from emernerf_torch.train.step import build_train_step
+from jax_draw_tap import Tap, uniform_tap
+from jax_draw_tap import step_draws as _draws
 
 FP32 = ["nerf.model.table_dtype=float32", "nerf.model.mlp_dtype=float32"]
 WIDE = ["nerf.propnet.num_samples_per_prop=[32,16]",
@@ -103,40 +103,6 @@ def _scale_tables(tree):
             for k, v in tree.items()}
 
 
-class _Tap:
-    """Collects values from inside the jitted JAX step through debug
-    callbacks; ``take`` returns those of the last call in program order."""
-
-    def __init__(self):
-        self.slots = []
-
-    def __call__(self, value):  # at trace time
-        i = len(self.slots)
-        self.slots.append(None)
-        jax.debug.callback(functools.partial(self._put, i), value)
-
-    def _put(self, i, value):
-        self.slots[i] = jax.tree.map(np.asarray, value)
-
-    def take(self):
-        out = [v for v in self.slots if v is not None]
-        self.slots = [None] * len(self.slots)
-        return out
-
-
-def _draws(recorded, lidar: bool, step_cfg):
-    """Split one branch's recorded uniforms into StepDraws."""
-    t = [torch.from_numpy(np.array(v)) for v in recorded]
-    topk = step_cfg.lidar_sample_topk if lidar else step_cfg.sample_topk
-    prune = 0 < topk < step_cfg.num_samples
-    n_jit = len(step_cfg.prop_samples) + 1
-    jit, rest = t[:n_jit], t[n_jit:]
-    topk_u = rest.pop(0) if prune and step_cfg.sample_topk_temp > 0 else None
-    agg = rest.pop(0) if step_cfg.has_flow else None  # drawn by the aggregation
-    assert not rest
-    return StepDraws(tuple(jit), topk_u, agg)
-
-
 def _to_torch(batch):
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
@@ -164,20 +130,14 @@ def taps():
     """Taps on every ``jax.random.uniform`` draw and on the gradients the
     JAX step hands to apply_update, for as long as the module runs (one
     step runs between two ``take`` calls, so the profiles can share them)."""
-    draws, grads = _Tap(), _Tap()
-    uniform, apply_update = jax.random.uniform, jax_step_mod.apply_update
-
-    def tapped_uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
-        v = uniform(key, shape, dtype, minval, maxval)
-        draws(v)
-        return v
+    grads = Tap()
+    apply_update = jax_step_mod.apply_update
 
     def tapped_apply_update(tx, g, opt_state, params, lr):
         grads(g)
         return apply_update(tx, g, opt_state, params, lr)
 
-    with pytest.MonkeyPatch.context() as m:
-        m.setattr(jax.random, "uniform", tapped_uniform)
+    with uniform_tap() as draws, pytest.MonkeyPatch.context() as m:
         m.setattr(jax_step_mod, "apply_update", tapped_apply_update)
         yield draws, grads
 

@@ -286,6 +286,26 @@ Phases (any failure exits non-zero; nothing is skipped):
      timestep held out, must write NORTHSTAR_<run>.md into its run
      directory with the training curve and the test split.  The phase's
      seconds are printed.
+  21. the JAX package's line-of-sight step and checkpoints.  21a: the
+     full-width flagship in fp32 with stagedl16's settings
+     (optim.num_iters=2500) at step 2,300 (the line-of-sight loss live,
+     the lidar unpruned): one lidar-branch render and backward on the card
+     with every call of K1 forward and backward, K2, K3 forward and
+     backward and K5 forward and backward recorded on its own inputs and
+     held against its plain version there (K1 forward and position
+     gradients bit for bit, K1's table gradient within k1_drift_bound, K2
+     within 1e-6, K3 and K5 at phase 3's tolerances); then the same branch
+     on the CPU (plain versions) from the same state, batch and draws: every
+     loss term, the branch's total and range_rmse of the card within rtol
+     1e-4 of the CPU's.  21b: the JAX package's orbax checkpoint of
+     tests/data/jax_orbax_tiny/ (the tiny fp32 flagship after 100 JAX
+     iterations) read with the port's reader (OCDBT, zarr, the native
+     zstd decoder, which must run): every leaf's shape, dtype and sum as
+     expected.json records them, and the read's MB/s beside the card
+     line; the CLI's --eval_only on it must meet JAX's held-out PSNR within
+     0.1 dB and SSIM within 2e-3; then --auto_resume in a run directory
+     holding it trains 10 iterations with the launch counters zeroed
+     before and read after (K1, K2, K3, K5 and K8 must launch).
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
@@ -5340,6 +5360,326 @@ def phase_run_report(dev):
         torch.cuda.empty_cache()
 
 
+# phase 21: the full-width line-of-sight step, and a JAX checkpoint on the card
+STAGEDL16 = ("nerf.sampling.sample_topk=32", "nerf.sampling.sample_topk_temp=0.3",
+             "nerf.sampling.lidar_sample_topk=16", "nerf.sampling.lidar_topk_until=0.9",
+             "optim.num_iters=2500")
+LOS_STEP = 2300  # the line-of-sight loss live (from 2,001), the lidar unpruned (from 2,250)
+FIXTURE = os.path.join(REPO, "tests", "data", "jax_orbax_tiny")
+N_RESUMED = 10  # iterations the CLI trains from the JAX checkpoint
+
+
+def _copied(x, keep):
+    """A detached copy of every tensor in ``x`` (nested tuples, lists and
+    named tuples), but the tensors whose storage is in ``keep``."""
+    if isinstance(x, torch.Tensor):
+        return x if x.data_ptr() in keep else x.detach().clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_copied(v, keep) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_copied(v, keep) for v in x)
+    return x
+
+
+class RecordedCalls:
+    """While entered, every call of the named functions (``(module, name)``
+    pairs; each replaced in every emernerf_torch module that holds it)
+    records copies of its arguments and of its result; the parameters'
+    storage (``keep``) is referenced, not copied.  A wrapper that counts its
+    launches under its own name keeps them."""
+
+    def __init__(self, targets, keep=()):
+        self.targets, self.keep = targets, set(keep)
+
+    def __enter__(self):
+        self.calls, self.patched = {}, []
+        for module, name in self.targets:
+            orig = getattr(module, name)
+            rec = self.calls.setdefault(name, [])
+
+            def recorded(*args, _orig=orig, _rec=rec, **kw):
+                ins = _copied((args, kw), self.keep)
+                out = _orig(*args, **kw)
+                _rec.append((ins[0], ins[1], _copied(out, self.keep)))
+                return out
+
+            if hasattr(orig, "launches"):
+                recorded.launches = orig.launches
+            for mod in list(sys.modules.values()):
+                if (getattr(mod, "__name__", "").startswith("emernerf_torch")
+                        and getattr(mod, name, None) is orig):
+                    setattr(mod, name, recorded)
+                    self.patched.append((mod, name, orig, recorded))
+        return self.calls
+
+    def __exit__(self, *exc):
+        for mod, name, orig, recorded in self.patched:
+            setattr(mod, name, orig)
+            if hasattr(orig, "launches"):
+                orig.launches = recorded.launches
+
+
+def _hold_los_calls(calls):
+    """Phase 21a's holds of each recorded kernel call against its plain
+    version on the same inputs (module docstring); the calls per kernel."""
+    from emernerf_torch.ops.brickgrid import brickgrid_encode_bwd_ref, brickgrid_encode_ref
+    from emernerf_torch.ops.stepfuns import (
+        importance_sampling_ref, interlevel_loss_levels_bwd_ref, interlevel_loss_levels_ref)
+    from emernerf_torch.render.volrend import composite_along_rays_bwd_ref, composite_along_rays_ref
+
+    done = {}
+    for i, (args, kw, out) in enumerate(calls.get("_encode_forward", [])):
+        table, pos, spec, compute = args
+        exact = torch.equal(out, brickgrid_encode_ref(table, pos, spec, compute))
+        if not exact:
+            fail(f"phase 21a: K1 forward call {i} (N={pos.numel() // spec.n_input_dims}, "
+                 f"{spec.n_levels} levels) differs from the plain version")
+    done["K1 forward"] = len(calls.get("_encode_forward", []))
+    worst = 0.0
+    for i, (args, kw, out) in enumerate(calls.get("brickgrid_encode_bwd", [])):
+        table, pos, grad_out, spec, needs_pos_grad = args[:5]
+        compute = args[5] if len(args) > 5 else kw.get("compute_dtype")
+        ref = brickgrid_encode_bwd_ref(table, pos, grad_out, spec, needs_pos_grad, compute)
+        bnd, _ = k1_drift_bound([dict(table=table, positions=pos, grad_out=grad_out, spec=spec,
+                                      compute_dtype=compute)])
+        diff = (out[0].double() - ref[0].double()).abs()
+        over = int((diff > bnd).sum())
+        worst = max(worst, float((diff / bnd.clamp_min(1e-300)).max()))
+        if over:
+            fail(f"phase 21a: K1 backward call {i}'s table gradient is over k1_drift_bound at "
+                 f"{over} elements")
+        if needs_pos_grad and not torch.equal(out[1], ref[1]):
+            fail(f"phase 21a: K1 backward call {i}'s position gradient is not bit for bit")
+        del ref, bnd, diff
+    done["K1 backward"] = len(calls.get("brickgrid_encode_bwd", []))
+    print(f"  K1: {done['K1 forward']} forward calls bit for bit, {done['K1 backward']} "
+          f"backward calls within k1_drift_bound (at worst {worst:.3e} of it), their position "
+          "gradients bit for bit")
+    for i, (args, kw, out) in enumerate(calls.get("importance_sampling", [])):
+        s_vals, cdfs, n = args[:3]
+        jitter = args[3] if len(args) > 3 else kw.get("jitter")
+        compare_or_fail(f"phase 21a: importance_sampling call {i} [{tuple(s_vals.shape)}->{n + 1}]",
+                        out, importance_sampling_ref(s_vals, cdfs, n, jitter), 0.0, 1e-6)
+    done["K2"] = len(calls.get("importance_sampling", []))
+    for i, (args, kw, out) in enumerate(calls.get("_composite_forward", [])):
+        ts, te, dens, vals, sets = args
+        ref = composite_along_rays_ref(ts, te, dens, vals, sets)
+        for field, a, b in zip(out._fields, out, ref):
+            if field != "median_depth" and a is not None:
+                compare_or_fail(f"phase 21a: K3 forward call {i} [{tuple(dens.shape)}].{field}",
+                                a, b, 1e-4 if field == "depth" else 1e-5, 1e-5)
+    done["K3 forward"] = len(calls.get("_composite_forward", []))
+    for i, (args, kw, out) in enumerate(calls.get("composite_along_rays_bwd", [])):
+        ref = composite_along_rays_bwd_ref(*args)
+        for j, (a, b) in enumerate(zip(out, ref)):
+            if a is not None:
+                check(f"phase 21a: K3 backward call {i} output {j}", a, b, 1e-4, 1e-5)
+    done["K3 backward"] = len(calls.get("composite_along_rays_bwd", []))
+    for i, (args, kw, out) in enumerate(calls.get("interlevel_loss_levels", [])):
+        caches_s, cdfs, s_final, trans_final, radii = args
+        _, plain = interlevel_loss_levels_ref(caches_s, cdfs, s_final, trans_final, radii)
+        _, exact = interlevel_loss_levels_ref([x.double() for x in caches_s],
+                                              [x.double() for x in cdfs], s_final.double(),
+                                              trans_final.double(), radii)
+        err = float((out.double() - exact).abs().max())
+        plain_err = float((plain.double() - exact).abs().max())
+        print(f"  K5 forward call {i}: kernel vs float64 {err:.3e}, plain vs float64 "
+              f"{plain_err:.3e}")
+        if not err <= 2 * plain_err + 1e-6 * float(exact.abs().max()):
+            fail(f"phase 21a: K5 forward call {i} is further from float64 than the plain version")
+    done["K5 forward"] = len(calls.get("interlevel_loss_levels", []))
+    for i, (args, kw, out) in enumerate(calls.get("interlevel_loss_levels_bwd", [])):
+        for j, (a, b) in enumerate(zip(out, interlevel_loss_levels_bwd_ref(*args))):
+            check(f"phase 21a: K5 backward call {i} level {j}", a, b, 1e-5, 1e-6)
+    done["K5 backward"] = len(calls.get("interlevel_loss_levels_bwd", []))
+    return done
+
+
+def compare_or_fail(tag, out, ref, rtol, atol):
+    _, over = compare(tag, out, ref, rtol, atol)
+    if over:
+        fail(f"{tag}: {over} elements over tolerance")
+
+
+def phase_los_step(dev):
+    """Phase 21a (module docstring)."""
+    import emernerf_torch.ops.brickgrid as bg
+    import emernerf_torch.ops.stepfuns as sf
+    import emernerf_torch.render.prop_sampler as ps
+    import emernerf_torch.render.volrend as vr
+    from emernerf_torch.flagship import flagship_config
+    from emernerf_torch.train.step import lidar_full_at
+    from emernerf_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = flagship_config(overrides=list(FP32_DTYPES + STAGEDL16))
+    trainer = Trainer(cfg, device=dev)
+    trainer.state.step = LOS_STEP
+    step = trainer.train_step
+    full = lidar_full_at(step.cfg, LOS_STEP)
+    if not full or step.cfg.los_start_iter >= LOS_STEP:
+        fail(f"phase 21a: step {LOS_STEP} must have the line of sight live and the lidar "
+             "unpruned")
+    batch, draws = _recorded_batch(trainer, True)
+    draws = step_draws_for(trainer, True, full)
+    params = trainer.state.params + trainer.state.prop_params
+    keep = {p.data_ptr() for p in params}
+    targets = [(bg, "_encode_forward"), (bg, "brickgrid_encode_bwd"),
+               (ps, "importance_sampling"), (vr, "_composite_forward"),
+               (vr, "composite_along_rays_bwd"), (ps, "interlevel_loss_levels"),
+               (sf, "interlevel_loss_levels_bwd")]
+    with RecordedCalls(targets, keep) as calls:
+        total, card = step.lidar_loss(batch, draws, LOS_STEP, True, full)
+        total.backward()
+    torch.cuda.synchronize()
+    for p in params:
+        p.grad = None
+    card = {k: float(v.detach()) for k, v in card.items()}
+    card["total"] = float(total.detach())
+    n_calls = {k: len(v) for k, v in calls.items()}
+    print(f"phase 21a: the full-width flagship in fp32 (stagedl16, optim.num_iters=2500) at "
+          f"step {LOS_STEP}: one lidar-branch render and backward of {N_TRAIN} rays, "
+          f"calls recorded {n_calls}")
+    done = _hold_los_calls(calls)
+    missing = [k for k, n in done.items() if n == 0]
+    if missing:
+        fail(f"phase 21a: the lidar branch launched no {missing}")
+    del calls
+    torch.cuda.empty_cache()
+
+    # the plain path: the same branch on the CPU from the same state
+    cpu = Trainer(cfg, device="cpu")
+    copy_train_state(cpu.state, trainer.state)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    to_cpu = lambda x: None if x is None else x.cpu()  # noqa: E731
+    cpu_draws = draws._replace(jitters=tuple(map(to_cpu, draws.jitters)),
+                               topk_u=to_cpu(draws.topk_u), agg_noise=to_cpu(draws.agg_noise))
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        plain_total, plain = cpu.train_step.lidar_loss(cpu_batch, cpu_draws, LOS_STEP, True,
+                                                       full)
+    plain = {k: float(v) for k, v in plain.items()}
+    plain["total"] = float(plain_total)
+    print(f"  the same branch on the CPU (plain versions, {time.perf_counter() - t1:.1f} s): "
+          f"card {card}\n  CPU {plain}")
+    # every loss term, the branch's total (its proposal loss in it) and
+    # range_rmse: rtol 1e-4
+    rel = {k: abs(card[k] - v) / max(abs(v), 1e-30) for k, v in plain.items()}
+    if set(card) != set(plain) or max(rel.values()) > 1e-4 or card["lidar_line_of_sight"] <= 0:
+        fail(f"phase 21a: card vs CPU {rel} (line of sight {card['lidar_line_of_sight']})")
+    print(f"  card vs CPU, relative: {rel} (tolerance 1e-4); phase 21a took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del cpu, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def step_draws_for(trainer, lidar, full):
+    """One branch's draws from the trainer's generator, for its full (or
+    pruned) render settings."""
+    from emernerf_torch.train.step import draw_step
+
+    return draw_step(trainer.ray_batch_size, trainer.train_step.render_kw(lidar, full),
+                     trainer.model.has_flow, trainer.generator, trainer.device)
+
+
+def _leaf_sums(tree, prefix=()):
+    """(dotted path, shape, dtype, exact float64 sum) of every tensor leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_sums(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_sums(v, prefix + (str(i),))
+    elif tree is not None:
+        yield (".".join(prefix), list(tree.shape), str(tree.dtype).replace("torch.", ""),
+               math.fsum(tree.double().reshape(-1).tolist()))
+
+
+def phase_jax_checkpoint(dev, counted, card_line):
+    """Phase 21b (module docstring)."""
+    import logging
+    import shutil
+    import tempfile
+
+    from emernerf_torch import builders, flagship, train_emernerf
+    from emernerf_torch.native import zstd
+    from emernerf_torch.train import orbax_read
+
+    t0 = time.perf_counter()
+    with open(os.path.join(FIXTURE, "expected.json")) as f:
+        meta = json.load(f)
+    path = os.path.join(FIXTURE, f"checkpoint_{meta['step']:05d}")
+    frames = zstd.frames
+    tree = orbax_read.read_tree(path)
+    stats = dict(orbax_read.last_read)
+    if not zstd.available() or zstd.frames <= frames:
+        fail("phase 21b: the native zstd decoder did not run")
+    got = {name: {"shape": shape, "dtype": dtype, "sum": total}
+           for name, shape, dtype, total in _leaf_sums(tree)}
+    if got != meta["leaves"]:
+        bad = sorted(k for k in set(got) | set(meta["leaves"])
+                     if got.get(k) != meta["leaves"].get(k))
+        fail(f"phase 21b: leaves unlike expected.json: {bad[:10]}")
+    mb_s = stats["decoded_bytes"] / stats["seconds"] / 1e6
+    print(f"phase 21b: {path[len(REPO) + 1:]} read without JAX: {stats['arrays']} arrays, "
+          f"{stats['disk_bytes']} bytes read, {stats['decoded_bytes']} decoded by the native "
+          f"zstd decoder ({zstd.frames - frames} frames) in {stats['seconds']:.4f} s: "
+          f"{mb_s:.1f} MB/s decoded, {stats['disk_bytes'] / stats['seconds'] / 1e6:.1f} MB/s "
+          f"read from disk (warm: the copy was just written) on {card_line}")
+
+    root = tempfile.mkdtemp(prefix="emernerf_jax_")
+    log = logging.getLogger("emernerf_torch")
+    saved_flow = builders.flow_spec
+    builders.flow_spec = flagship.tiny_flow_spec  # the fixture's tiny flow grid
+    flags = ["--output_root", root, "--project", "p"]
+    dots = [*flagship._FLAGSHIP_DOTLIST, *flagship._TINY_DOTLIST, *meta["overrides"],
+            "render.render_low_res=false", "render.render_full=false"]
+    try:
+        run_dir = os.path.join(root, "p", "ev")
+        os.makedirs(run_dir)
+        handler = logging.FileHandler(os.path.join(run_dir, "log.txt"))
+        log.addHandler(handler)
+        log.propagate = False
+        train_emernerf.main([*flags, "--run_name", "ev", "--eval_only", *dots,
+                             f"resume_from={path}"])
+        with open(os.path.join(run_dir, f"metrics_test_{meta['step']}.json")) as f:
+            held = json.load(f)
+        want = meta["held_out"]
+        gaps = {k: held[k] - want[k] for k in ("psnr", "ssim")}
+        print(f"  --eval_only on the card: held-out {held}; JAX's (expected.json) {want}; "
+              f"card - JAX {gaps}")
+        if abs(gaps["psnr"]) > QUALITY_PSNR_DB or abs(gaps["ssim"]) > QUALITY_SSIM:
+            fail(f"phase 21b: held-out metrics card vs JAX {gaps}")
+
+        run_dir = os.path.join(root, "p", "resume")
+        shutil.copytree(path, os.path.join(run_dir, os.path.basename(path)))
+        for fn in counted:
+            fn.launches = 0
+        t1 = time.perf_counter()
+        trainer = train_emernerf.main([*flags, "--run_name", "resume", "--auto_resume", *dots,
+                                       f"optim.num_iters={meta['step'] + N_RESUMED - 1}"])
+        launches = {fn.__name__: fn.launches for fn in counted}
+        trained = trainer.state.step - trainer.start_step
+        print(f"  --auto_resume from step {trainer.start_step}: {trained} iterations and the "
+              f"evaluation in {time.perf_counter() - t1:.1f} s; launches {launches}")
+        if trainer.start_step != meta["step"] or trained != N_RESUMED:
+            fail(f"phase 21b: resumed at {trainer.start_step} for {trained} iterations")
+        _check_launches(launches, set(), "resumed run of phase 21b")
+    finally:
+        builders.flow_spec = saved_flow
+        for h in list(log.handlers):
+            if isinstance(h, logging.FileHandler) and h.baseFilename.startswith(root):
+                log.removeHandler(h)
+                h.close()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"  phase 21b took {time.perf_counter() - t0:.1f} s")
+    return mb_s, stats
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -5463,6 +5803,9 @@ def main():
     entries += settings_entries
     # training quality: the tiny fp32 run card vs CPU, tensorstore, the run report
     phase_quality(dev, brick + shared, hashed)
+    # the JAX package's line-of-sight step at full width, and its checkpoints
+    phase_los_step(dev)
+    jax_mb_s, _ = phase_jax_checkpoint(dev, brick + shared, card_line)
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):
@@ -5509,6 +5852,7 @@ def main():
               f"K1 forward {k1:g} launches per iteration on {card_line}")
     for line in settings_lines:
         print(line)
+    print(f"JAX orbax checkpoint read: {jax_mb_s:.1f} MB/s decoded on {card_line}")
     print(json.dumps({"kernels": report}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

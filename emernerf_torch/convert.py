@@ -12,13 +12,16 @@ does a state dict that does not cover the modules exactly.
 
 :func:`load_jax_train_state` takes a whole JAX ``TrainState`` (params,
 Adam moments and counts, step), so that a JAX-trained run continues in the
-port; the orbax checkpoint itself is read by the JAX package.
+port.  The leaves are numpy arrays (a bfloat16 one through ``ml_dtypes``, as
+JAX hands them out) or CPU tensors, as
+``emernerf_torch/train/orbax_read.py`` reads them from the JAX package's
+orbax checkpoint directory, without JAX.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,12 +40,25 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
+def _as_tensor(leaf) -> torch.Tensor:
+    """A leaf as a CPU tensor of its own dtype (bf16 exactly)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes: through fp32, exact
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    if not (arr.flags.writeable and arr.flags.c_contiguous):  # a JAX array's view
+        arr = np.array(arr)
+    return torch.from_numpy(arr)
+
+
 def _named_leaves(tree: Mapping):
-    """(torch name, numpy array in the torch layout) of every leaf."""
+    """(torch name, tensor in the torch layout and the leaf's dtype) of
+    every leaf."""
     for path, leaf in _flatten(tree):
         if path[-1] not in _LEAVES:
             raise ValueError(f"unmapped JAX param {'/'.join(path)}")
-        arr = np.asarray(leaf)
+        arr = _as_tensor(leaf)
         names = []
         for p in path:
             m = _DENSE.fullmatch(p)
@@ -63,8 +79,8 @@ def _named_leaves(tree: Mapping):
 def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """One flax param tree -> a torch state dict (fp32 tensors; the module's
     ``load_state_dict`` casts to each param's dtype)."""
-    return {name: torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))  # bf16 exact
-            for name, arr in _named_leaves(tree)}
+    return {name: t.to(torch.float32).contiguous()  # bf16 exact
+            for name, t in _named_leaves(tree)}
 
 
 def load_jax_params(model: nn.Module, prop_models: Sequence[nn.Module],
@@ -77,41 +93,55 @@ def load_jax_params(model: nn.Module, prop_models: Sequence[nn.Module],
         pm.load_state_dict(state_dict_from_jax(pp), strict=True)
 
 
-def _load_moments(label: str, moments, names, jax_trees: Sequence[Mapping]) -> None:
-    """Copy JAX moment trees into the port's moment tensors (ordered as
-    ``names``), each in its stored dtype: bf16 stays bf16, exactly."""
+def jax_moments(label: str, names: Sequence[str], jax_trees: Sequence[Tuple[str, Mapping]]
+                ) -> List[torch.Tensor]:
+    """JAX moment trees (``(name prefix, tree)`` pairs) as tensors in the
+    port's layout and their stored dtype, ordered as ``names``."""
     got = {}
     for prefix, tree in jax_trees:
         got.update({prefix + k: v for k, v in _named_leaves(tree)})
     if set(got) != set(names):
-        raise ValueError(f"{label}: JAX moments {sorted(got)} != params {names}")
-    for name, m in zip(names, moments):
-        arr = got[name]
-        if tuple(arr.shape) != tuple(m.shape) or str(arr.dtype) != str(m.dtype)[6:]:
-            raise ValueError(f"{label} {name}: JAX {arr.dtype} {arr.shape}, "
-                             f"port {m.dtype} {tuple(m.shape)}")
-        m.copy_(torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32))))
+        raise ValueError(f"{label}: JAX moments {sorted(got)} != params {list(names)}")
+    return [got[n] for n in names]
+
+
+def adam_states_from_jax(state, adam: Tuple, prop_adam: Tuple) -> Tuple[Dict, Dict]:
+    """The two optax ``ScaleByAdamState``s ``(count, mu, nu)`` (the
+    proposal moments a sequence of trees, one per proposal net) as the
+    port's checkpoint holds its Adam states: ``{"count", "mu", "nu"}``,
+    the moments ordered as ``state``'s parameters."""
+    names = [n for n, _ in state.model.named_parameters()]
+    prop_names = [f"{i}.{n}" for i, pm in enumerate(state.prop_models)
+                  for n, _ in pm.named_parameters()]
+    out = []
+    for label, (count, mu, nu), trees, keys in (
+            ("opt_state", adam, lambda t: [("", t)], names),
+            ("prop_opt_state", prop_adam,
+             lambda t: [(f"{i}.", x) for i, x in enumerate(t)], prop_names)):
+        out.append({"count": int(count), "mu": jax_moments(label + ".mu", keys, trees(mu)),
+                    "nu": jax_moments(label + ".nu", keys, trees(nu))})
+    return out[0], out[1]
 
 
 @torch.no_grad()
 def load_jax_train_state(state, params: Mapping, prop_params: Sequence[Mapping],
                          adam: Tuple, prop_adam: Tuple, step: int):
     """Fill the port's ``TrainState`` from a JAX ``TrainState`` given as
-    numpy trees: ``params`` and ``prop_params`` as for
+    numpy (or tensor) trees: ``params`` and ``prop_params`` as for
     :func:`load_jax_params`; ``adam`` and ``prop_adam`` the ``(count, mu,
     nu)`` of the two optax ``ScaleByAdamState``s (the proposal moments a
     sequence of trees, one per proposal net); ``step`` the iteration.
-    Returns the state."""
+    Each moment keeps its stored dtype: bf16 stays bf16, exactly.  Returns
+    the state."""
     load_jax_params(state.model, state.prop_models, params, prop_params)
-    names = [n for n, _ in state.model.named_parameters()]
-    prop_names = [f"{i}.{n}" for i, pm in enumerate(state.prop_models)
-                  for n, _ in pm.named_parameters()]
-    for label, ours, (count, mu, nu), trees, keys in (
-            ("opt_state", state.opt_state, adam, lambda t: [("", t)], names),
-            ("prop_opt_state", state.prop_opt_state, prop_adam,
-             lambda t: [(f"{i}.", x) for i, x in enumerate(t)], prop_names)):
-        _load_moments(label + ".mu", ours.mu, keys, trees(mu))
-        _load_moments(label + ".nu", ours.nu, keys, trees(nu))
-        ours.count = int(count)
+    for label, ours, saved in zip(("opt_state", "prop_opt_state"),
+                                  (state.opt_state, state.prop_opt_state),
+                                  adam_states_from_jax(state, adam, prop_adam)):
+        for m, t in zip(ours.mu + ours.nu, saved["mu"] + saved["nu"]):
+            if tuple(t.shape) != tuple(m.shape) or t.dtype != m.dtype:
+                raise ValueError(f"{label}: JAX moment {t.dtype} {tuple(t.shape)}, "
+                                 f"port {m.dtype} {tuple(m.shape)}")
+            m.copy_(t)
+        ours.count = saved["count"]
     state.step = int(step)
     return state

@@ -95,14 +95,22 @@ def flagship_config(tiny: bool = False, overrides=(), profile: Profile = DEFAULT
     return load_config(DEFAULT_CONFIG, profile.config_file, dot)
 
 
+def tiny_flow_spec(backend: str, time_pair: bool = True, perf=None):
+    """The tiny flagship's flow grid, of ``backend`` and row pairing, with
+    the signature of ``builders.flow_spec`` (the reference fixes the flow
+    encoder's structure, so no config names it: a tiny CLI run puts this in
+    ``builders.flow_spec``'s place)."""
+    return make_grid_spec(backend, 4, 4, 8, 64, 10, 2, time_pair=time_pair, perf=perf)
+
+
 def flagship_flow_spec(cfg, tiny: bool = False):
     """The flow grid's spec for ``cfg``: the reference's fixed one (None), or
     (tiny) a small one of the config's backend and row pairing that keeps
     the flow branch."""
     if not tiny:
         return None
-    return make_grid_spec(cfg.nerf.model.get("grid_backend", "brick"), 4, 4, 8, 64, 10, 2,
-                          time_pair=cfg_time_pair(cfg), perf=cfg_perf(cfg))
+    return tiny_flow_spec(cfg.nerf.model.get("grid_backend", "brick"), cfg_time_pair(cfg),
+                          cfg_perf(cfg))
 
 
 def build_flagship(tiny: bool = False, overrides=(), *, profile: Profile = DEFAULT_PROFILE,

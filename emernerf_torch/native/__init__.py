@@ -9,6 +9,8 @@ processes may build it at once.  It is an accelerator of the host codec,
 never a hard dependency: with no compiler, a failed build or
 ``EMERNERF_NO_NATIVE`` set, ``available()`` is false and
 ``emernerf_torch/tools/waymo_wire.py`` runs its pure-Python codec.
+``build_library`` builds and loads the package's other native source,
+``zstd.cc`` (``emernerf_torch/native/zstd.py``), the same way.
 
 Public surface (each raises ``RuntimeError`` when the library is
 unavailable):
@@ -45,17 +47,45 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build(out_path: str) -> bool:
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(SRC), "-o", out_path]
+def _build(src: Path, out_path: str) -> bool:
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(src), "-o", out_path]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired):
         return False
     if r.returncode != 0:
-        sys.stderr.write("emernerf_torch.native: build failed, using the pure-Python codec\n"
+        sys.stderr.write(f"emernerf_torch.native: build of {src.name} failed\n"
                          f"{r.stderr[-2000:]}\n")
         return False
     return True
+
+
+def build_library(src: Path, lib_path: Path) -> Optional[ctypes.CDLL]:
+    """Build ``src`` into ``lib_path`` unless the library is newer than its
+    source, then load it; None with no compiler, a failed build or
+    ``EMERNERF_NO_NATIVE`` set."""
+    if os.environ.get("EMERNERF_NO_NATIVE"):
+        return None
+    if not (lib_path.exists() and lib_path.stat().st_mtime >= src.stat().st_mtime):
+        # build into a temporary file beside the target, then rename it
+        # into place: a process that loses the race loads the winner's
+        try:
+            lib_path.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
+            os.close(fd)
+        except OSError:
+            return None
+        try:
+            if not _build(src, tmp):
+                return None
+            os.replace(tmp, lib_path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    try:
+        return ctypes.CDLL(str(lib_path))
+    except OSError:
+        return None
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -77,10 +107,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _fresh() -> bool:
-    return LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= SRC.stat().st_mtime
-
-
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _tried
     if _lib is not None or _tried:
@@ -89,28 +115,8 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if os.environ.get("EMERNERF_NO_NATIVE"):
-            return None
-        if not _fresh():
-            # build into a temporary file beside the target, then rename it
-            # into place: a process that loses the race loads the winner's
-            try:
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-                os.close(fd)
-            except OSError:
-                return None
-            try:
-                if not _build(tmp):
-                    return None
-                os.replace(tmp, LIB_PATH)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        try:
-            _lib = _bind(ctypes.CDLL(str(LIB_PATH)))
-        except OSError:
-            _lib = None
+        lib = build_library(SRC, LIB_PATH)
+        _lib = None if lib is None else _bind(lib)
         return _lib
 
 

@@ -2,7 +2,9 @@
 (params, Adam moments in their stored dtypes, counts, step), the ordering of
 ``latest_checkpoint``, and a JAX ``TrainState`` saved by the JAX package's
 orbax ``save_checkpoint`` entering the port through ``load_jax_train_state``
-and taking the same next step as JAX.
+(from orbax's restore) and through ``load_checkpoint`` (the port's own
+reader of the directory, ``emernerf_torch/train/orbax_read.py``), the two
+equal, and taking the same next step as JAX.
 
 The tiny tables get bf16 Adam moments here: the moment-storage threshold
 (2^20 elements in both packages) is lowered to 2^10 in both, so the
@@ -131,6 +133,14 @@ def test_jax_train_state_continues_in_the_port(tmp_path, taps, bf16_moments,  # 
                                  restored.step)
     assert state is pair.tstate and state.step == 1
     assert state.opt_state.count == int(adam.count) == 2  # pixel and lidar updates
+    # the port's own reader of the directory (no JAX) loads the same state
+    read = load_checkpoint(path, Pair(js).tstate)
+    got, want = _tensors(read), _tensors(state)
+    assert set(got) == set(want) and read.step == state.step
+    assert read.opt_state.count == state.opt_state.count
+    assert read.prop_opt_state.count == state.prop_opt_state.count
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
     jp = {**{f"model.{k}": v for k, v in _named(restored.params, False).items()},
           **{f"prop.{k}": v for k, v in _named(restored.prop_params, True).items()}}
     ours = {**{f"model.{n}": p for n, p in state.model.named_parameters()},

@@ -3,8 +3,12 @@ measurements: the ray-ordered sample batches, the count of distinct rows
 (and runs of equal rows) per warp that K4 backward's warp merge acts on,
 the shares of a training profile, the census of casts of tensors the
 size of a grid table, the grid specs and queries phases 9 and 10 check
-K1 on, and the kernel times alone (a mean per profiler record, none
-under the bound)."""
+K1 on, the kernel times alone (a mean per profiler record, none
+under the bound), and phase 21's call recorder and leaf sums."""
+
+import inspect
+import json
+import os
 
 import numpy as np
 import pytest
@@ -516,3 +520,45 @@ def test_losses_apart_takes_the_quality_tests_tolerances():
     apart = dict(chip_smoke.losses_apart(ours, ref))
     assert set(apart) == {"rgb_loss", "total_lidar_loss"}
     assert apart["rgb_loss"] == pytest.approx(2e-4)
+
+
+def test_phase_21_runs_after_20_with_the_fixture_and_the_staged_settings():
+    """Phase 21 runs after phase 20, at the CPU test's step and settings
+    (tests/test_torch_full_width_step.py), on the committed fixture."""
+    import test_torch_full_width_step as fw
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("phase_quality(") < src.index("phase_los_step(") < src.index(
+        "phase_jax_checkpoint(") < src.index("kernel_only(")
+    assert chip_smoke.LOS_STEP in fw.STEPS and "optim.num_iters=2500" in chip_smoke.STAGEDL16
+    assert set(fw.STAGEDL16) < set(chip_smoke.STAGEDL16)
+    assert os.path.isfile(os.path.join(chip_smoke.FIXTURE, "expected.json"))
+
+
+def test_recorded_calls_copy_the_inputs_and_restore_the_wrappers():
+    import emernerf_torch.ops.stepfuns as sf
+    import emernerf_torch.render.prop_sampler as ps
+
+    orig = sf.importance_sampling
+    launches = orig.launches
+    s = torch.linspace(0, 1, 5).repeat(3, 1)
+    cdf = torch.linspace(0, 1, 5).repeat(3, 1)
+    with chip_smoke.RecordedCalls([(sf, "importance_sampling")]) as calls:
+        assert ps.importance_sampling is not orig and sf.importance_sampling is not orig
+        out = ps.importance_sampling(s, cdf, 4, None)
+        s.add_(1.0)  # the recorded inputs are copies
+    assert ps.importance_sampling is orig and sf.importance_sampling is orig
+    assert orig.launches == launches  # the plain version (a CPU tensor) launches nothing
+    (args, kw, recorded), = calls["importance_sampling"]
+    assert torch.equal(args[0], s - 1.0) and torch.equal(recorded, out) and args[2] == 4
+
+
+def test_leaf_sums_give_the_fixtures_record():
+    from emernerf_torch.train import orbax_read
+
+    with open(os.path.join(chip_smoke.FIXTURE, "expected.json")) as f:
+        meta = json.load(f)
+    tree = orbax_read.read_tree(os.path.join(chip_smoke.FIXTURE, "checkpoint_00100"))
+    got = {n: {"shape": sh, "dtype": dt, "sum": total}
+           for n, sh, dt, total in chip_smoke._leaf_sums(tree)}
+    assert got == meta["leaves"]

@@ -43,8 +43,12 @@ from emernerf_torch.utils import visualization
 from emernerf_torch.flagship import REFERENCE_HASH, flagship_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# and the repository's perf/ scripts (the TPU probes the port counterparts)
-_BLOCKED = ("jax", "jaxlib", "flax", "optax", "emernerf_tpu", "perf")
+# and the repository's perf/ scripts (the TPU probes the port counterparts);
+# and what the JAX package's checkpoints are written with (the card's machine
+# has none of them: the port reads those directories on its own)
+_BLOCKED = ("jax", "jaxlib", "flax", "optax", "emernerf_tpu", "perf", "orbax", "tensorstore",
+            "zstandard")
+_FIXTURE = os.path.join(REPO, "tests", "data", "jax_orbax_tiny", "checkpoint_00100")
 
 
 def test_every_module_imports_without_jax():
@@ -57,6 +61,8 @@ def test_every_module_imports_without_jax():
         names = [m.name for m in pkgutil.walk_packages(emernerf_torch.__path__, "emernerf_torch.")]
         for name in names:
             importlib.import_module(name)
+        from emernerf_torch.train.orbax_read import read_jax_train_state
+        assert read_jax_train_state({_FIXTURE!r})["step"] == 100  # a JAX checkpoint, read
         leaked = [m for m in sys.modules if m.split(".")[0] in blocked
                   and sys.modules[m] is not None]
         assert not leaked, leaked
@@ -83,7 +89,8 @@ def test_every_module_imports_without_jax():
             "emernerf_torch.tools.vit_extractor", "emernerf_torch.parallel",
             "emernerf_torch.parallel.mesh", "emernerf_torch.parallel.spmd",
             "emernerf_torch.perf.northstar_report", "emernerf_torch.perf.quality_ab",
-            "emernerf_torch.perf.quality_report"} <= walked
+            "emernerf_torch.perf.quality_report", "emernerf_torch.native.zstd",
+            "emernerf_torch.native.zstd_plain", "emernerf_torch.train.orbax_read"} <= walked
 
 
 @pytest.mark.parametrize("tiny", [True, False])

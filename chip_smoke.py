@@ -297,15 +297,28 @@ Phases (any failure exits non-zero; nothing is skipped):
      within 1e-6, K3 and K5 at phase 3's tolerances); then the same branch
      on the CPU (plain versions) from the same state, batch and draws: every
      loss term, the branch's total and range_rmse of the card within rtol
-     1e-4 of the CPU's.  21b: the JAX package's orbax checkpoint of
-     tests/data/jax_orbax_tiny/ (the tiny fp32 flagship after 100 JAX
-     iterations) read with the port's reader (OCDBT, zarr, the native
-     zstd decoder, which must run): every leaf's shape, dtype and sum as
-     expected.json records them, and the read's MB/s beside the card
-     line; the CLI's --eval_only on it must meet JAX's held-out PSNR within
-     0.1 dB and SSIM within 2e-3; then --auto_resume in a run directory
-     holding it trains 10 iterations with the launch counters zeroed
-     before and read after (K1, K2, K3, K5 and K8 must launch).
+     1e-4 of the CPU's, and every flow_mlp gradient within 1e-1 of the
+     leaf's largest CPU gradient (FLOW_MLP_CARD_ATOL: the same branch on
+     the CPU with the ray origins one ulp apart, run here and printed
+     beside the card line, moves these leaves by up to 9.7e-2; the card
+     reads 8.9e-3 to 1.9e-2: the lidar branch's flow MLP learns only
+     through the fused grid read at the flow-warped points, whose position
+     gradient jumps at every cell face).  21b: the JAX package's orbax
+     checkpoints of tests/data/jax_orbax_tiny/ (the tiny
+     fp32 flagship after 100 JAX iterations), jax_orbax_hash/
+     (reference-hash), jax_orbax_mx/ (grid_backend=mx) and
+     jax_orbax_dynamic/ (dynamic-only), each read with the port's reader
+     (OCDBT, zarr, the native zstd decoder, which must run): every leaf's
+     shape, dtype and sum as its expected.json records them, and the
+     read's MB/s beside the card line; the CLI's --eval_only on it must
+     meet JAX's held-out PSNR within 0.1 dB, SSIM within 2e-3 and held-out
+     lidar depth RMSE within 1e-4 relative; then --auto_resume in a run
+     directory holding it trains 10 iterations with the launch counters of
+     the kernels it must launch and of those it must not both zeroed before
+     and read after (counted_run): K2, K3, K5 and K8 and the profile's grid
+     kernels must launch (K1 and not K4 for the brick fixture, K4 and not
+     K1 for the hash one, K1 and K12 and not K4 for the MX one, K1 and not
+     K4 for the dynamic one).
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
@@ -332,6 +345,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1310,6 +1324,19 @@ def _check_launches(launches, zero, what):
             fail(f"kernel {name} was launched {n} times by the {what}; its path must not run it")
         if name not in zero and n <= 0:
             fail(f"kernel {name} was not launched by the {what}")
+
+
+def counted_run(counted, zero, what, run):
+    """``run()`` with every count of ``counted`` and ``zero`` set to 0 just
+    before and read just after, held by :func:`_check_launches`; returns
+    (its result, the counts)."""
+    wrappers = tuple(counted) + tuple(zero)
+    for fn in wrappers:
+        fn.launches = 0
+    out = run()
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    _check_launches(launches, {fn.__name__ for fn in zero}, what)
+    return out, launches
 
 
 def phase_slice(dev, counted, zero=(), profile=None, label="phase 4", flow=True, overrides=()):
@@ -5366,7 +5393,16 @@ STAGEDL16 = ("nerf.sampling.sample_topk=32", "nerf.sampling.sample_topk_temp=0.3
              "optim.num_iters=2500")
 LOS_STEP = 2300  # the line-of-sight loss live (from 2,001), the lidar unpruned (from 2,250)
 FIXTURE = os.path.join(REPO, "tests", "data", "jax_orbax_tiny")
-N_RESUMED = 10  # iterations the CLI trains from the JAX checkpoint
+# the JAX package's orbax fixtures of phase 21b, the brick flagship's first
+JAX_FIXTURES = ("jax_orbax_tiny", "jax_orbax_hash", "jax_orbax_mx", "jax_orbax_dynamic")
+N_RESUMED = 10  # iterations the CLI trains from each JAX checkpoint
+# the flow MLP's gradients, card vs CPU, x the leaf's largest |CPU grad|:
+# the CPU against itself with the ray origins one ulp apart moves them by
+# up to 9.7e-2 at 8,192 rays (phase 21a prints it), so a difference inside
+# 1e-1 is rounding's (module docstring)
+FLOW_MLP_CARD_ATOL = 1e-1
+# the held-out lidar depth RMSE, card vs JAX (tests/test_torch_orbax.py's DEPTH_RTOL)
+JAX_DEPTH_RTOL = 1e-4
 
 
 def _copied(x, keep):
@@ -5501,7 +5537,7 @@ def compare_or_fail(tag, out, ref, rtol, atol):
         fail(f"{tag}: {over} elements over tolerance")
 
 
-def phase_los_step(dev):
+def phase_los_step(dev, card_line):
     """Phase 21a (module docstring)."""
     import emernerf_torch.ops.brickgrid as bg
     import emernerf_torch.ops.stepfuns as sf
@@ -5534,6 +5570,9 @@ def phase_los_step(dev):
         total, card = step.lidar_loss(batch, draws, LOS_STEP, True, full)
         total.backward()
     torch.cuda.synchronize()
+    flow_names = [n for n, _ in trainer.model.named_parameters() if n.startswith("flow_mlp.")]
+    card_flow = {n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()
+                 if n in flow_names}
     for p in params:
         p.grad = None
     card = {k: float(v.detach()) for k, v in card.items()}
@@ -5557,13 +5596,39 @@ def phase_los_step(dev):
     cpu_draws = draws._replace(jitters=tuple(map(to_cpu, draws.jitters)),
                                topk_u=to_cpu(draws.topk_u), agg_noise=to_cpu(draws.agg_noise))
     t1 = time.perf_counter()
-    with torch.no_grad():
-        plain_total, plain = cpu.train_step.lidar_loss(cpu_batch, cpu_draws, LOS_STEP, True,
-                                                       full)
-    plain = {k: float(v) for k, v in plain.items()}
-    plain["total"] = float(plain_total)
-    print(f"  the same branch on the CPU (plain versions, {time.perf_counter() - t1:.1f} s): "
-          f"card {card}\n  CPU {plain}")
+    plain_total, plain = cpu.train_step.lidar_loss(cpu_batch, cpu_draws, LOS_STEP, True, full)
+    plain_total.backward()
+    plain = {k: float(v.detach()) for k, v in plain.items()}
+    plain["total"] = float(plain_total.detach())
+    print(f"  the same branch on the CPU (plain versions, forward and backward "
+          f"{time.perf_counter() - t1:.1f} s): card {card}\n  CPU {plain}")
+    cpu_flow = {n: p.grad.detach().clone() for n, p in cpu.model.named_parameters()
+                if n in card_flow}
+    # the CPU's own spread: the same branch with the ray origins one ulp apart
+    cpu_params = cpu.state.params + cpu.state.prop_params
+    for p in cpu_params:
+        p.grad = None
+    inf = torch.full_like(cpu_batch["origins"], float("inf"))
+    nudged = dict(cpu_batch, origins=torch.nextafter(cpu_batch["origins"], inf))
+    nudged_total, _ = cpu.train_step.lidar_loss(nudged, cpu_draws, LOS_STEP, True, full)
+    nudged_total.backward()
+    nudged_flow = {n: p.grad.detach() for n, p in cpu.model.named_parameters() if n in card_flow}
+    # the flow MLP's gradients, which the lidar branch takes only through
+    # the fused grid read at the flow-warped points, each leaf's largest
+    # |difference| over its largest |CPU grad|: card vs CPU held at
+    # FLOW_MLP_CARD_ATOL (module docstring)
+    flow_apart = {n: float((card_flow[n] - r).abs().max() / r.abs().max())
+                  for n, r in cpu_flow.items()}
+    spread = {n: float((nudged_flow[n] - r).abs().max() / r.abs().max())
+              for n, r in cpu_flow.items()}
+    worst = max(flow_apart.items(), key=lambda kv: kv[1])
+    print(f"  flow_mlp gradients, largest |difference| / max |CPU grad|: card vs CPU "
+          f"{flow_apart}; the CPU against itself with the ray origins one ulp apart {spread}; "
+          f"card vs CPU at most {worst[1]:.3e} ({worst[0]}), the CPU's spread at most "
+          f"{max(spread.values()):.3e} on {card_line}")
+    if len(flow_apart) != len(flow_names) or worst[1] > FLOW_MLP_CARD_ATOL:
+        fail(f"phase 21a: flow_mlp gradients card vs CPU {flow_apart} (tolerance "
+             f"{FLOW_MLP_CARD_ATOL})")
     # every loss term, the branch's total (its proposal loss in it) and
     # range_rmse: rtol 1e-4
     rel = {k: abs(card[k] - v) / max(abs(v), 1e-30) for k, v in plain.items()}
@@ -5598,76 +5663,24 @@ def _leaf_sums(tree, prefix=()):
                math.fsum(tree.double().reshape(-1).tolist()))
 
 
-def phase_jax_checkpoint(dev, counted, card_line):
-    """Phase 21b (module docstring)."""
+def phase_jax_checkpoint(dev, fixtures, card_line):
+    """Phase 21b (module docstring): each of ``fixtures``, (directory name
+    under tests/data, the kernels its resumed run must launch, those it
+    must not).  Returns each read's (name, decoded MB/s, stats)."""
     import logging
-    import shutil
     import tempfile
 
-    from emernerf_torch import builders, flagship, train_emernerf
-    from emernerf_torch.native import zstd
-    from emernerf_torch.train import orbax_read
+    from emernerf_torch import builders, flagship
 
     t0 = time.perf_counter()
-    with open(os.path.join(FIXTURE, "expected.json")) as f:
-        meta = json.load(f)
-    path = os.path.join(FIXTURE, f"checkpoint_{meta['step']:05d}")
-    frames = zstd.frames
-    tree = orbax_read.read_tree(path)
-    stats = dict(orbax_read.last_read)
-    if not zstd.available() or zstd.frames <= frames:
-        fail("phase 21b: the native zstd decoder did not run")
-    got = {name: {"shape": shape, "dtype": dtype, "sum": total}
-           for name, shape, dtype, total in _leaf_sums(tree)}
-    if got != meta["leaves"]:
-        bad = sorted(k for k in set(got) | set(meta["leaves"])
-                     if got.get(k) != meta["leaves"].get(k))
-        fail(f"phase 21b: leaves unlike expected.json: {bad[:10]}")
-    mb_s = stats["decoded_bytes"] / stats["seconds"] / 1e6
-    print(f"phase 21b: {path[len(REPO) + 1:]} read without JAX: {stats['arrays']} arrays, "
-          f"{stats['disk_bytes']} bytes read, {stats['decoded_bytes']} decoded by the native "
-          f"zstd decoder ({zstd.frames - frames} frames) in {stats['seconds']:.4f} s: "
-          f"{mb_s:.1f} MB/s decoded, {stats['disk_bytes'] / stats['seconds'] / 1e6:.1f} MB/s "
-          f"read from disk (warm: the copy was just written) on {card_line}")
-
     root = tempfile.mkdtemp(prefix="emernerf_jax_")
     log = logging.getLogger("emernerf_torch")
     saved_flow = builders.flow_spec
-    builders.flow_spec = flagship.tiny_flow_spec  # the fixture's tiny flow grid
-    flags = ["--output_root", root, "--project", "p"]
-    dots = [*flagship._FLAGSHIP_DOTLIST, *flagship._TINY_DOTLIST, *meta["overrides"],
-            "render.render_low_res=false", "render.render_full=false"]
+    builders.flow_spec = flagship.tiny_flow_spec  # the fixtures' tiny flow grid
+    reads = []
     try:
-        run_dir = os.path.join(root, "p", "ev")
-        os.makedirs(run_dir)
-        handler = logging.FileHandler(os.path.join(run_dir, "log.txt"))
-        log.addHandler(handler)
-        log.propagate = False
-        train_emernerf.main([*flags, "--run_name", "ev", "--eval_only", *dots,
-                             f"resume_from={path}"])
-        with open(os.path.join(run_dir, f"metrics_test_{meta['step']}.json")) as f:
-            held = json.load(f)
-        want = meta["held_out"]
-        gaps = {k: held[k] - want[k] for k in ("psnr", "ssim")}
-        print(f"  --eval_only on the card: held-out {held}; JAX's (expected.json) {want}; "
-              f"card - JAX {gaps}")
-        if abs(gaps["psnr"]) > QUALITY_PSNR_DB or abs(gaps["ssim"]) > QUALITY_SSIM:
-            fail(f"phase 21b: held-out metrics card vs JAX {gaps}")
-
-        run_dir = os.path.join(root, "p", "resume")
-        shutil.copytree(path, os.path.join(run_dir, os.path.basename(path)))
-        for fn in counted:
-            fn.launches = 0
-        t1 = time.perf_counter()
-        trainer = train_emernerf.main([*flags, "--run_name", "resume", "--auto_resume", *dots,
-                                       f"optim.num_iters={meta['step'] + N_RESUMED - 1}"])
-        launches = {fn.__name__: fn.launches for fn in counted}
-        trained = trainer.state.step - trainer.start_step
-        print(f"  --auto_resume from step {trainer.start_step}: {trained} iterations and the "
-              f"evaluation in {time.perf_counter() - t1:.1f} s; launches {launches}")
-        if trainer.start_step != meta["step"] or trained != N_RESUMED:
-            fail(f"phase 21b: resumed at {trainer.start_step} for {trained} iterations")
-        _check_launches(launches, set(), "resumed run of phase 21b")
+        for name, counted, zero in fixtures:
+            reads.append(_jax_fixture(name, counted, zero, card_line, root, log))
     finally:
         builders.flow_spec = saved_flow
         for h in list(log.handlers):
@@ -5677,7 +5690,81 @@ def phase_jax_checkpoint(dev, counted, card_line):
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
     print(f"  phase 21b took {time.perf_counter() - t0:.1f} s")
-    return mb_s, stats
+    return reads
+
+
+def _jax_fixture(name, counted, zero, card_line, root, log):
+    """Phase 21b on one fixture: the read, --eval_only, --auto_resume."""
+    import logging
+
+    from emernerf_torch import flagship, train_emernerf
+    from emernerf_torch.eval.metrics import held_out_depth_rmse
+    from emernerf_torch.native import zstd
+    from emernerf_torch.train import orbax_read
+
+    fixture = os.path.join(REPO, "tests", "data", name)
+    with open(os.path.join(fixture, "expected.json")) as f:
+        meta = json.load(f)
+    path = os.path.join(fixture, f"checkpoint_{meta['step']:05d}")
+    frames = zstd.frames
+    tree = orbax_read.read_tree(path)
+    stats = dict(orbax_read.last_read)
+    if not zstd.available() or zstd.frames <= frames:
+        fail(f"phase 21b ({name}): the native zstd decoder did not run")
+    got = {leaf: {"shape": shape, "dtype": dtype, "sum": total}
+           for leaf, shape, dtype, total in _leaf_sums(tree)}
+    if got != meta["leaves"]:
+        bad = sorted(k for k in set(got) | set(meta["leaves"])
+                     if got.get(k) != meta["leaves"].get(k))
+        fail(f"phase 21b ({name}): leaves unlike expected.json: {bad[:10]}")
+    mb_s = stats["decoded_bytes"] / stats["seconds"] / 1e6
+    print(f"phase 21b: {path[len(REPO) + 1:]} read without JAX: {stats['arrays']} arrays, "
+          f"{stats['disk_bytes']} bytes read, {stats['decoded_bytes']} decoded by the native "
+          f"zstd decoder ({zstd.frames - frames} frames) in {stats['seconds']:.4f} s: "
+          f"{mb_s:.1f} MB/s decoded, {stats['disk_bytes'] / stats['seconds'] / 1e6:.1f} MB/s "
+          f"read from disk (warm: the copy was just written) on {card_line}")
+
+    profile = meta.get("profile", {"config_file": None, "overrides": []})
+    flags = ["--output_root", root, "--project", name]
+    if profile["config_file"]:
+        flags += ["--config_file", os.path.join(REPO, profile["config_file"])]
+    dots = [*flagship._FLAGSHIP_DOTLIST, *flagship._TINY_DOTLIST, *profile["overrides"],
+            *meta["overrides"], "render.render_low_res=false", "render.render_full=false"]
+    run_dir = os.path.join(root, name, "ev")
+    os.makedirs(run_dir)
+    handler = logging.FileHandler(os.path.join(run_dir, "log.txt"))
+    log.addHandler(handler)
+    log.propagate = False
+    trainer = train_emernerf.main([*flags, "--run_name", "ev", "--eval_only", *dots,
+                                   f"resume_from={path}"])
+    with open(os.path.join(run_dir, f"metrics_test_{meta['step']}.json")) as f:
+        held = json.load(f)
+    held["depth_rmse"] = held_out_depth_rmse(
+        trainer.dataset, lambda rays: trainer.renderer.render_rays_chunked(rays, is_lidar=True))
+    del trainer
+    want = meta["held_out"]
+    gaps = {k: held[k] - want[k] for k in ("psnr", "ssim", "depth_rmse")}
+    print(f"  --eval_only on the card: held-out {held}; JAX's (expected.json) {want}; "
+          f"card - JAX {gaps} on {card_line}")
+    if (abs(gaps["psnr"]) > QUALITY_PSNR_DB or abs(gaps["ssim"]) > QUALITY_SSIM
+            or abs(gaps["depth_rmse"]) > JAX_DEPTH_RTOL * want["depth_rmse"]):
+        fail(f"phase 21b ({name}): held-out metrics card vs JAX {gaps}")
+
+    run_dir = os.path.join(root, name, "resume")
+    shutil.copytree(path, os.path.join(run_dir, os.path.basename(path)))
+    t1 = time.perf_counter()
+    trainer, launches = counted_run(
+        counted, zero, f"resumed run of phase 21b ({name})",
+        lambda: train_emernerf.main([*flags, "--run_name", "resume", "--auto_resume", *dots,
+                                     f"optim.num_iters={meta['step'] + N_RESUMED - 1}"]))
+    trained = trainer.state.step - trainer.start_step
+    print(f"  --auto_resume from step {trainer.start_step}: {trained} iterations and the "
+          f"evaluation in {time.perf_counter() - t1:.1f} s; launches {launches}")
+    if trainer.start_step != meta["step"] or trained != N_RESUMED:
+        fail(f"phase 21b ({name}): resumed at {trainer.start_step} for {trained} iterations")
+    del trainer
+    torch.cuda.empty_cache()
+    return name, mb_s, stats
 
 
 def main():
@@ -5699,6 +5786,7 @@ def main():
     from emernerf_torch.flagship import DEFAULT_PROFILE, DYNAMIC, REFERENCE_BRICK, REFERENCE_HASH
     from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
     from emernerf_torch.ops.hashgrid import features_minor, hashgrid_encode, hashgrid_encode_bwd
+    from emernerf_torch.ops.mxgrid import mx_lines_encode, mx_lines_encode_bwd
     from emernerf_torch.ops.stepfuns import (
         importance_sampling, interlevel_loss_levels, interlevel_loss_levels_bwd)
     from emernerf_torch.render.volrend import composite_along_rays, composite_along_rays_bwd
@@ -5804,8 +5892,11 @@ def main():
     # training quality: the tiny fp32 run card vs CPU, tensorstore, the run report
     phase_quality(dev, brick + shared, hashed)
     # the JAX package's line-of-sight step at full width, and its checkpoints
-    phase_los_step(dev)
-    jax_mb_s, _ = phase_jax_checkpoint(dev, brick + shared, card_line)
+    phase_los_step(dev, card_line)
+    mx = (mx_lines_encode, mx_lines_encode_bwd)
+    jax_reads = phase_jax_checkpoint(dev, list(zip(JAX_FIXTURES, (
+        brick + shared, hashed + shared, brick + mx + shared, brick + shared), (
+        hashed, brick, hashed, hashed))), card_line)
     kernel_only(after_timed)
     if "jax" in sys.modules or any(m.split(".")[0] in ("emernerf_tpu", "perf")
                                    for m in sys.modules):
@@ -5852,7 +5943,8 @@ def main():
               f"K1 forward {k1:g} launches per iteration on {card_line}")
     for line in settings_lines:
         print(line)
-    print(f"JAX orbax checkpoint read: {jax_mb_s:.1f} MB/s decoded on {card_line}")
+    for name, mb_s, _ in jax_reads:
+        print(f"JAX orbax checkpoint read ({name}): {mb_s:.1f} MB/s decoded on {card_line}")
     print(json.dumps({"kernels": report}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

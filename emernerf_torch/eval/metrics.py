@@ -33,6 +33,17 @@ def compute_valid_depth_rmse(pred, gt) -> float:
     return float(np.sqrt(np.mean((pred[mask] - gt[mask]) ** 2)))
 
 
+def held_out_depth_rmse(dataset, render_lidar) -> float:
+    """The lidar depth RMSE over ``dataset``'s held-out frames (the mean of
+    the frames'); ``render_lidar(rays)`` renders one frame's lidar rays."""
+    rmses = []
+    for f in dataset.test_frames:
+        rays = dataset.get_lidar_render_rays(int(f))
+        gt = rays.pop("ranges")
+        rmses.append(compute_valid_depth_rmse(render_lidar(rays)["depth"][..., 0], gt))
+    return float(np.mean(rmses))
+
+
 def _uniform_filter_2d(img: np.ndarray, win: int) -> np.ndarray:
     """Mean filter via integral images; 'valid' region only."""
     pad = np.zeros((img.shape[0] + 1, img.shape[1] + 1), np.float64)

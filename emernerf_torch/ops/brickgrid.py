@@ -278,28 +278,30 @@ def _corners(spec: BrickGridSpec, offs, fracs):
 
 
 def brickgrid_encode_ref(table: torch.Tensor, positions: torch.Tensor,
-                         spec: BrickGridSpec, compute_dtype=None) -> torch.Tensor:
+                         spec: BrickGridSpec, compute_dtype=None,
+                         accum_dtype=torch.float32) -> torch.Tensor:
     """Plain version: positions (..., D) in [0,1] -> (..., L*F) features in
-    the compute dtype (default: the table's), accumulated in fp32 over the
-    8 live corners of ``table.to(compute_dtype)``."""
+    the compute dtype (default: the table's), accumulated in ``accum_dtype``
+    (fp32, as the kernel; float64 gives an exact reference) over the 8 live
+    corners of ``table.to(compute_dtype)``."""
     if compute_dtype is not None:
         table = table.to(compute_dtype)
     d, f = spec.n_input_dims, spec.n_features_per_level
     batch = positions.shape[:-1]
-    x = positions.reshape(-1, d).float()
+    x = positions.reshape(-1, d).to(accum_dtype)
     consts = level_constants(spec)
     flat = table.reshape(-1)
     lanes = torch.arange(f, device=table.device)
     outs = []
     for lvl in range(spec.n_levels_used):
         offs, fracs, t_frac, base0, base1 = _level_geometry(x, spec, lvl, consts)
-        acc0 = torch.zeros(x.shape[0], f, device=x.device)
+        acc0 = torch.zeros(x.shape[0], f, device=x.device, dtype=accum_dtype)
         acc1 = torch.zeros_like(acc0) if base1 is not None else None
         for *_, w, lane in _corners(spec, offs, fracs):
             lane = lane[:, None] + lanes
-            acc0 = acc0 + w[:, None] * flat[base0[:, None] + lane].float()
+            acc0 = acc0 + w[:, None] * flat[base0[:, None] + lane].to(accum_dtype)
             if acc1 is not None:
-                acc1 = acc1 + w[:, None] * flat[base1[:, None] + lane].float()
+                acc1 = acc1 + w[:, None] * flat[base1[:, None] + lane].to(accum_dtype)
         if acc1 is not None:
             tw = t_frac[:, None]
             acc0 = acc0 * (1.0 - tw) + acc1 * tw

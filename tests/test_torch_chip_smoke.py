@@ -562,3 +562,61 @@ def test_leaf_sums_give_the_fixtures_record():
     got = {n: {"shape": sh, "dtype": dt, "sum": total}
            for n, sh, dt, total in chip_smoke._leaf_sums(tree)}
     assert got == meta["leaves"]
+
+
+def test_phase_21b_reads_every_profile_fixture_as_recorded():
+    """Phase 21b's fixtures: the brick flagship's first, then the hash, MX
+    and dynamic profiles' (tests/test_torch_orbax_profiles.py); each read
+    as its expected.json records it."""
+    from test_torch_orbax import DEPTH_RTOL
+
+    from emernerf_torch.train import orbax_read
+
+    assert chip_smoke.JAX_DEPTH_RTOL == DEPTH_RTOL
+    assert chip_smoke.JAX_FIXTURES[0] == os.path.basename(chip_smoke.FIXTURE)
+    assert len(chip_smoke.JAX_FIXTURES) == 4
+    for name in chip_smoke.JAX_FIXTURES[1:]:
+        root = os.path.join(chip_smoke.REPO, "tests", "data", name)
+        with open(os.path.join(root, "expected.json")) as f:
+            meta = json.load(f)
+        tree = orbax_read.read_tree(os.path.join(root, f"checkpoint_{meta['step']:05d}"))
+        got = {n: {"shape": sh, "dtype": dt, "sum": total}
+               for n, sh, dt, total in chip_smoke._leaf_sums(tree)}
+        assert got == meta["leaves"], name
+        assert meta["profile"]["overrides"] or meta["profile"]["config_file"], name
+
+
+def _fake_wrapper(name):
+    def wrapper():
+        wrapper.launches += 1
+
+    wrapper.__name__, wrapper.launches = name, 7  # a count left by an earlier phase
+    return wrapper
+
+
+@pytest.mark.parametrize("launched, ok", [
+    (("k_a", "k_b"), True),  # every counted kernel, none of ``zero``
+    (("k_a", "k_b", "k_z"), False),  # a kernel of ``zero`` launched
+    (("k_a",), False),  # a counted kernel not launched
+])
+def test_counted_run_holds_the_counted_and_the_zero_wrappers(launched, ok):
+    """Phase 21b's launch bookkeeping (``counted_run``, which
+    ``_jax_fixture`` runs the resumed CLI through): the counts of both
+    ``counted`` and ``zero`` are set to 0 before the run and read after, so a
+    kernel of ``zero`` that launched fails the phase."""
+    fns = {n: _fake_wrapper(n) for n in ("k_a", "k_b", "k_z")}
+    counted, zero = (fns["k_a"], fns["k_b"]), (fns["k_z"],)
+
+    def run():
+        for n in launched:
+            fns[n]()
+        return "done"
+
+    if ok:
+        out, launches = chip_smoke.counted_run(counted, zero, "fake run", run)
+        assert out == "done" and launches == {"k_a": 1, "k_b": 1, "k_z": 0}
+    else:
+        with pytest.raises(SystemExit, match="fake run"):
+            chip_smoke.counted_run(counted, zero, "fake run", run)
+    src = inspect.getsource(chip_smoke._jax_fixture)
+    assert "counted_run(\n        counted, zero," in src and ".launches" not in src

@@ -48,6 +48,7 @@ import torch
 import emernerf_torch.builders as port_builders
 import emernerf_tpu.train.optim as jax_optim
 from emernerf_torch.convert import load_jax_train_state
+from emernerf_torch.eval.metrics import held_out_depth_rmse
 from emernerf_torch import flagship
 from emernerf_torch.flagship import build_flagship
 from emernerf_torch.native import zstd as native_zstd
@@ -62,6 +63,9 @@ REPO = os.path.dirname(HERE)
 FIXTURE = os.path.join(HERE, "data", "jax_orbax_tiny")
 FIXTURE_STEP = 100
 PSNR_DB, SSIM_ABS = 0.1, 2e-3  # tests/test_torch_quality.py's held-out tolerances
+# the held-out lidar depth RMSE, port vs JAX, relative (measured at most
+# 1.5e-7 over the four fixtures; tests/test_torch_orbax_profiles.py)
+DEPTH_RTOL = 1e-4
 SMALL_BF16_MOMENTS = 1 << 10  # both packages' bf16-moment threshold, lowered for tiny tables
 
 
@@ -452,17 +456,29 @@ def fixture_argv(out_root, run_name, *flags):
 
 
 def test_cli_eval_only_on_the_fixture_meets_jax(tmp_path):
+    """The held-out PSNR and SSIM the CLI writes, and the evaluated model's
+    held-out lidar depth RMSE, against JAX's (``expected.json``)."""
     from emernerf_torch.train_emernerf import main
 
     meta = _fixture_meta()
     with tiny_flow_spec():
-        main(fixture_argv(tmp_path, "ev", "--eval_only", f"resume_from={_fixture_path()}"))
+        trainer = main(fixture_argv(tmp_path, "ev", "--eval_only",
+                                    f"resume_from={_fixture_path()}"))
     run = tmp_path / "p" / "ev"
     got = json.load(open(run / f"metrics_test_{FIXTURE_STEP}.json"))
     want = meta["held_out"]
-    print(f"port {got}\nJAX {want}")
+    depth = trainer_depth_rmse(trainer)
+    print(f"port {got}, depth_rmse {depth!r}\nJAX {want}")
     assert abs(got["psnr"] - want["psnr"]) <= PSNR_DB, (got, want)
     assert abs(got["ssim"] - want["ssim"]) <= SSIM_ABS, (got, want)
+    assert abs(depth - want["depth_rmse"]) <= DEPTH_RTOL * want["depth_rmse"], (depth, want)
+
+
+def trainer_depth_rmse(trainer):
+    """The evaluated model's held-out lidar depth RMSE, taken as
+    ``test_torch_quality.py:_held_out`` takes it."""
+    return held_out_depth_rmse(
+        trainer.dataset, lambda rays: trainer.renderer.render_rays_chunked(rays, is_lidar=True))
 
 
 def test_auto_resume_takes_the_newest_jax_checkpoint(tmp_path):
@@ -486,17 +502,21 @@ def test_auto_resume_takes_the_newest_jax_checkpoint(tmp_path):
 
 
 # ------------------------------------------------------------ the writer
-def write_fixture(root: str = FIXTURE, iters: int = FIXTURE_STEP):
+def write_fixture(root: str = FIXTURE, iters: int = FIXTURE_STEP, profile=None, widen=None):
     """Train the tiny fp32 flagship of ``test_torch_quality.py`` ``iters``
     JAX iterations (its batches, schedule and keys), save the state with
     the JAX package's checkpointer and record JAX's held-out metrics and
-    each leaf's shape, dtype and float64 sum."""
-    from test_torch_quality import Run, overrides
+    each leaf's shape, dtype and float64 sum.  ``profile`` (a
+    ``flagship.Profile``) and ``widen`` (its sample counts): another
+    profile's tiny flagship, recorded in ``expected.json`` as its config
+    file (relative to the repository) and dotlist."""
+    from test_torch_quality import WIDE, Run, overrides
 
     from emernerf_tpu.train.checkpoints import load_checkpoint as jax_load
     from emernerf_tpu.train.step import build_train_step as jax_build_train_step
 
-    run = Run(iters=iters)
+    widen = WIDE if widen is None else widen
+    run = Run(iters, profile or flagship.DEFAULT_PROFILE, widen)
     jstate = run.jax_state()
     jstep = jax_build_train_step(run.jmodel, run.jprops, run.step_cfg)
     for it in range(iters):
@@ -509,9 +529,12 @@ def write_fixture(root: str = FIXTURE, iters: int = FIXTURE_STEP):
     os.makedirs(root)
     path = jax_save_checkpoint(root, jstate)
     restored = _orbax_tree(jax_load(path, jstate))
-    meta = {"overrides": overrides(iters), "step": int(restored["step"]),
+    meta = {"overrides": overrides(iters, widen), "step": int(restored["step"]),
             "held_out": {k: float(v) for k, v in held_out.items()},
             "leaves": leaf_summary(restored)}
+    if profile is not None:
+        meta["profile"] = {"config_file": profile.config_file and os.path.relpath(
+            profile.config_file, REPO), "overrides": list(profile.overrides)}
     with open(os.path.join(root, "expected.json"), "w") as f:
         json.dump(meta, f, indent=1, sort_keys=True)
     print(path, meta["held_out"])

@@ -49,28 +49,29 @@ import numpy as np
 import pytest
 import torch
 from jax_draw_tap import iteration_draws, uniform_tap
-from test_torch_train_step import FP32, WIDE
+from test_torch_train_step import FP32, WIDE, jax_build_profile
 
 from emernerf_torch.convert import load_jax_train_state
-from emernerf_torch.eval.metrics import compute_valid_depth_rmse
+from emernerf_torch.eval.metrics import held_out_depth_rmse
 from emernerf_torch.eval.renderer import ImageRenderer
-from emernerf_torch.flagship import build_flagship
+from emernerf_torch.flagship import DEFAULT_PROFILE, build_flagship
 from emernerf_torch.perf.quality_ab import Curve, proposal_rg
 from emernerf_torch.train.state import init_train_state
 from emernerf_torch.train.step import build_train_step, lidar_full_at
 from emernerf_tpu.data.scene import sample_lidar_batch as jax_sample_lidar
 from emernerf_tpu.data.scene import sample_pixel_batch as jax_sample_pixel
 from emernerf_tpu.eval.renderer import ImageRenderer as JaxImageRenderer
-from emernerf_tpu.flagship import build_flagship as jax_build_flagship
 from emernerf_tpu.train.step import build_train_step as jax_build_train_step
 from emernerf_tpu.train.step import init_train_state as jax_init_train_state
 
 ITERS = 300
 
 
-def overrides(iters: int = ITERS):
-    """The run's dotlist: fp32, widened, every 4th timestep held out."""
-    return FP32 + WIDE + ["data.pixel_source.test_image_stride=4", f"optim.num_iters={iters}"]
+def overrides(iters: int = ITERS, widen=WIDE):
+    """The run's dotlist: fp32, widened (``widen``: the sample counts of
+    ``test_torch_train_step.py``'s profile), every 4th timestep held out."""
+    return (FP32 + list(widen)
+            + ["data.pixel_source.test_image_stride=4", f"optim.num_iters={iters}"])
 
 
 OVERRIDES = overrides()
@@ -93,12 +94,7 @@ def _one_torch_thread():
 def _held_out(render_split, render_lidar, dataset):
     """The held-out split's metrics and its frames' lidar depth RMSE."""
     _, metrics = render_split(dataset, dataset.test_indices)
-    rmses = []
-    for f in dataset.test_frames:
-        rays = dataset.get_lidar_render_rays(int(f))
-        gt = rays.pop("ranges")
-        rmses.append(compute_valid_depth_rmse(render_lidar(rays)["depth"][..., 0], gt))
-    return dict(metrics, depth_rmse=float(np.mean(rmses)))
+    return dict(metrics, depth_rmse=held_out_depth_rmse(dataset, render_lidar))
 
 
 def _loss_atol(name, jm):
@@ -123,11 +119,12 @@ def set_to_jax(tstate, jstate):
 class Run:
     """The JAX tiny flagship of :func:`overrides` at its initial state, its
     batches and step, and a port model loaded with the same state; each
-    package's held-out render."""
+    package's held-out render.  ``profile`` and ``widen``: another profile
+    of ``emernerf_torch.flagship`` and its widening dotlist."""
 
-    def __init__(self, iters: int = ITERS):
-        cfg, self.dataset, jmodel, jprops, self.step_cfg = jax_build_flagship(
-            tiny=True, overrides=overrides(iters))
+    def __init__(self, iters: int = ITERS, profile=DEFAULT_PROFILE, widen=WIDE):
+        ov = overrides(iters, widen)
+        cfg, self.dataset, jmodel, jprops, self.step_cfg = jax_build_profile(profile, ov)
         assert len(self.dataset.test_indices) > 0 and len(self.dataset.train_indices) > 0
         scene, r = self.dataset.scene_tensors(), cfg.data.ray_batch_size
 
@@ -146,7 +143,7 @@ class Run:
         self.jmodel, self.jprops = jmodel, jprops
 
         _, self.tdataset, tmodel, tprops, tcfg = build_flagship(
-            tiny=True, overrides=overrides(iters), device="cpu")
+            tiny=True, overrides=ov, profile=profile, device="cpu")
         assert np.array_equal(self.tdataset.test_indices, self.dataset.test_indices)
         self.tstate = init_train_state(tmodel, tprops)
         self.tstep = build_train_step(tmodel, tprops, tcfg)

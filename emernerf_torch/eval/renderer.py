@@ -23,6 +23,7 @@ from emernerf_torch import resolve_device
 from emernerf_torch.eval import metrics
 from emernerf_torch.parallel import mesh
 from emernerf_torch.render.renderer import render_ray_batch
+from emernerf_torch.utils.trace import span
 
 # per-ray outputs worth reshaping into image maps
 _MAP_KEYS = (
@@ -97,17 +98,23 @@ class ImageRenderer:
         n_chunks = max((n + chunk - 1) // chunk, 1)
         pad = n_chunks * chunk - n
         padded = {}
-        for k in _RAY_KEYS:
-            if k in rays:
-                v = np.asarray(rays[k])
-                if pad:
-                    v = np.concatenate([v, np.repeat(v[-1:], pad, axis=0)], axis=0)
-                padded[k] = torch.from_numpy(np.ascontiguousarray(v))
+        with span("eval.rays"):
+            for k in _RAY_KEYS:
+                if k in rays:
+                    v = np.asarray(rays[k])
+                    if pad:
+                        v = np.concatenate([v, np.repeat(v[-1:], pad, axis=0)], axis=0)
+                    padded[k] = torch.from_numpy(np.ascontiguousarray(v))
         outs: List[Dict[str, np.ndarray]] = []
         for i in range(n_chunks):
-            sl = {k: v[i * chunk:(i + 1) * chunk].to(self.device) for k, v in padded.items()}
-            out = self._chunk(sl, is_lidar)
-            outs.append({k: v.cpu().numpy() for k, v in out.items()})
+            with span("eval.chunk"):
+                with span("eval.upload"):
+                    sl = {k: v[i * chunk:(i + 1) * chunk].to(self.device)
+                          for k, v in padded.items()}
+                out = self._chunk(sl, is_lidar)
+                # the first copy waits for the chunk's kernels
+                with span("eval.fetch"):
+                    outs.append({k: v.cpu().numpy() for k, v in out.items()})
         return {k: np.concatenate([o[k] for o in outs], axis=0)[:n] for k in outs[0]}
 
     def render_image(self, rays: Dict[str, np.ndarray], hw) -> Dict[str, np.ndarray]:
@@ -130,33 +137,39 @@ class ImageRenderer:
         psnrs, ssims, dyn_psnrs, stat_psnrs, dyn_ssims = [], [], [], [], []
         feat_psnrs, masked_feat_psnrs = [], []
         for idx in indices:
-            rays, gt = dataset.get_image_rays(int(idx), downscale=downscale)
-            maps = self.render_image(rays, gt["hw"])
-            maps["gt_rgb"] = gt["pixels"]
-            if "dynamic_masks" in gt:
-                maps["gt_dynamic_mask"] = gt["dynamic_masks"]
-            if "sky_masks" in gt:
-                maps["gt_sky_mask"] = gt["sky_masks"]
-            frames.append(maps)
-            if compute_metrics and "rgb" in maps:
-                psnrs.append(metrics.compute_psnr(maps["rgb"], gt["pixels"]))
-                ssim_mean, ssim_map = metrics.compute_ssim(
-                    np.clip(maps["rgb"], 0, 1), np.clip(gt["pixels"], 0, 1), full=True)
-                ssims.append(ssim_mean)
+            with span("eval.frame"):
+                with span("eval.rays"):
+                    rays, gt = dataset.get_image_rays(int(idx), downscale=downscale)
+                maps = self.render_image(rays, gt["hw"])
+                maps["gt_rgb"] = gt["pixels"]
                 if "dynamic_masks" in gt:
-                    m = gt["dynamic_masks"] > 0.5
-                    if m.sum() > 0:
-                        dyn_psnrs.append(metrics.compute_psnr(maps["rgb"][m], gt["pixels"][m]))
-                        dyn_ssims.append(float(ssim_map[m].mean()))
-                    if (~m).sum() > 0:
-                        stat_psnrs.append(metrics.compute_psnr(maps["rgb"][~m], gt["pixels"][~m]))
-                if "dino_feat" in maps and "features" in gt:
-                    feat_psnrs.append(metrics.compute_psnr(maps["dino_feat"], gt["features"]))
-                    if "dynamic_masks" in gt:
-                        m = gt["dynamic_masks"] > 0.5
-                        if m.sum() > 0:
-                            masked_feat_psnrs.append(metrics.compute_psnr(
-                                maps["dino_feat"][m], gt["features"][m]))
+                    maps["gt_dynamic_mask"] = gt["dynamic_masks"]
+                if "sky_masks" in gt:
+                    maps["gt_sky_mask"] = gt["sky_masks"]
+                frames.append(maps)
+                if compute_metrics and "rgb" in maps:
+                    with span("eval.metrics"):
+                        psnrs.append(metrics.compute_psnr(maps["rgb"], gt["pixels"]))
+                        ssim_mean, ssim_map = metrics.compute_ssim(
+                            np.clip(maps["rgb"], 0, 1), np.clip(gt["pixels"], 0, 1), full=True)
+                        ssims.append(ssim_mean)
+                        if "dynamic_masks" in gt:
+                            m = gt["dynamic_masks"] > 0.5
+                            if m.sum() > 0:
+                                dyn_psnrs.append(metrics.compute_psnr(maps["rgb"][m],
+                                                                      gt["pixels"][m]))
+                                dyn_ssims.append(float(ssim_map[m].mean()))
+                            if (~m).sum() > 0:
+                                stat_psnrs.append(metrics.compute_psnr(maps["rgb"][~m],
+                                                                       gt["pixels"][~m]))
+                        if "dino_feat" in maps and "features" in gt:
+                            feat_psnrs.append(metrics.compute_psnr(maps["dino_feat"],
+                                                                   gt["features"]))
+                            if "dynamic_masks" in gt:
+                                m = gt["dynamic_masks"] > 0.5
+                                if m.sum() > 0:
+                                    masked_feat_psnrs.append(metrics.compute_psnr(
+                                        maps["dino_feat"][m], gt["features"][m]))
         out = {}
         if psnrs:
             out["psnr"] = float(np.mean(psnrs))

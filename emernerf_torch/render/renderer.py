@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from emernerf_torch.render.prop_sampler import PropCache, sample_along_rays
 from emernerf_torch.render.volrend import composite_rays
+from emernerf_torch.utils.trace import span
 
 # per-ray keys the field consumes, expanded to (R, S)
 _EXPAND_KEYS = ("normed_timestamps", "img_idx", "cam_idx")
@@ -116,43 +117,48 @@ def render_ray_batch(
 
         return fn
 
-    prop_fns = [make_prop_fn(pm) for pm in prop_models]
-    t_starts, t_ends, s_vals, caches = sample_along_rays(
-        prop_fns, prop_samples, num_samples, n_rays, near_plane, far_plane,
-        sampling_type=sampling_type, jitters=jitters, requires_grad=requires_grad,
-        device=origins.device,
-    )
-    s = t_starts.shape[-1]
-    mid = (t_starts + t_ends) / 2.0
-    prune = bool(sample_topk) and 0 < sample_topk < s and bool(prop_fns)
-    idx = None
-    if prune:
-        idx = topk_sample_select(prop_fns[-1], t_starts, t_ends, sample_topk,
-                                 sample_topk_temp, topk_u)
-        mid = torch.gather(mid, 1, idx)
-    s_q = mid.shape[-1]
-    positions = origins[:, None, :] + viewdirs[:, None, :] * mid[..., None]
-    directions = viewdirs[:, None, :].expand(positions.shape)
-    data = {}
-    for k in _EXPAND_KEYS:
-        if rays.get(k) is not None:
-            data[k] = rays[k][:, None].expand(n_rays, s_q)
-    if rays.get("pixel_coords") is not None:
-        data["pixel_coords"] = rays["pixel_coords"]
-    def query(positions, directions, agg_noise):
-        return model(positions, directions, data, return_density_only=is_lidar,
-                     agg_noise=agg_noise, train=train)
+    with span("render"):
+        with span("render.sampler"):
+            prop_fns = [make_prop_fn(pm) for pm in prop_models]
+            t_starts, t_ends, s_vals, caches = sample_along_rays(
+                prop_fns, prop_samples, num_samples, n_rays, near_plane, far_plane,
+                sampling_type=sampling_type, jitters=jitters, requires_grad=requires_grad,
+                device=origins.device,
+            )
+            s = t_starts.shape[-1]
+            mid = (t_starts + t_ends) / 2.0
+            prune = bool(sample_topk) and 0 < sample_topk < s and bool(prop_fns)
+            idx = None
+            if prune:
+                idx = topk_sample_select(prop_fns[-1], t_starts, t_ends, sample_topk,
+                                         sample_topk_temp, topk_u)
+                mid = torch.gather(mid, 1, idx)
+        s_q = mid.shape[-1]
+        with span("render.field"):
+            positions = origins[:, None, :] + viewdirs[:, None, :] * mid[..., None]
+            directions = viewdirs[:, None, :].expand(positions.shape)
+            data = {}
+            for k in _EXPAND_KEYS:
+                if rays.get(k) is not None:
+                    data[k] = rays[k][:, None].expand(n_rays, s_q)
+            if rays.get("pixel_coords") is not None:
+                data["pixel_coords"] = rays["pixel_coords"]
 
-    if remat:
-        # every draw is an input, so the recomputation repeats the forward
-        # exactly and no RNG state needs keeping; the non-reentrant variant
-        # gives the parameters their gradients though no input requires one
-        field_out = checkpoint(query, positions, directions, agg_noise, use_reentrant=False,
-                               preserve_rng_state=False)
-    else:
-        field_out = query(positions, directions, agg_noise)
-    if prune:
-        field_out = scatter_back(field_out, idx, s)
-    out = composite_rays(t_starts, t_ends, field_out,
-                         return_decomposition=return_decomposition)
+            def query(positions, directions, agg_noise):
+                return model(positions, directions, data, return_density_only=is_lidar,
+                             agg_noise=agg_noise, train=train)
+
+            if remat:
+                # every draw is an input, so the recomputation repeats the forward
+                # exactly and no RNG state needs keeping; the non-reentrant variant
+                # gives the parameters their gradients though no input requires one
+                field_out = checkpoint(query, positions, directions, agg_noise,
+                                       use_reentrant=False, preserve_rng_state=False)
+            else:
+                field_out = query(positions, directions, agg_noise)
+            if prune:
+                field_out = scatter_back(field_out, idx, s)
+        with span("render.composite"):
+            out = composite_rays(t_starts, t_ends, field_out,
+                                 return_decomposition=return_decomposition)
     return RenderResult(out, caches, s_vals)

@@ -59,6 +59,7 @@ from emernerf_torch.render.prop_sampler import compute_prop_loss
 from emernerf_torch.render.renderer import render_ray_batch
 from emernerf_torch.train.optim import apply_update, chained_lr_schedule, make_adam
 from emernerf_torch.train.state import TrainState
+from emernerf_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,15 +265,16 @@ class TrainStep:
     def pixel_loss(self, batch, draws: StepDraws, step: int, requires_grad: bool):
         """(total loss, aux metrics) of the pixel branch."""
         res = self._render(batch, draws, requires_grad, lidar=False)
-        out = res.out
-        losses = self._pixel_losses(out, out["extras"], batch)
-        prop_loss = self._prop_loss(res, requires_grad)
-        total = sum(losses.values()) + prop_loss
-        aux = dict(losses)
-        aux["prop_loss"] = prop_loss
-        mse = ((out["rgb"] - batch["pixels"]) ** 2).mean()
-        aux["psnr"] = psnr_of_mse(self._whole_batch_mean(mse))
-        aux["total_pixel_loss"] = sum(losses.values())
+        with span("step.loss"):
+            out = res.out
+            losses = self._pixel_losses(out, out["extras"], batch)
+            prop_loss = self._prop_loss(res, requires_grad)
+            total = sum(losses.values()) + prop_loss
+            aux = dict(losses)
+            aux["prop_loss"] = prop_loss
+            mse = ((out["rgb"] - batch["pixels"]) ** 2).mean()
+            aux["psnr"] = psnr_of_mse(self._whole_batch_mean(mse))
+            aux["total_pixel_loss"] = sum(losses.values())
         return total, aux
 
     # ---------------- lidar branch ---------------- #
@@ -313,13 +315,14 @@ class TrainStep:
                    full: bool = False):
         """(total loss, aux metrics) of the lidar branch."""
         res = self._render(batch, draws, requires_grad, lidar=True, full=full)
-        out = res.out
-        losses = self._lidar_losses(out, out["extras"], batch, step)
-        total = sum(losses.values()) + self._prop_loss(res, requires_grad)
-        aux = dict(losses)
-        aux["total_lidar_loss"] = sum(losses.values())
-        aux["range_rmse"] = torch.sqrt(self._whole_batch_mean(
-            ((out["depth"][..., 0] - batch["ranges"]) ** 2).mean()))
+        with span("step.loss"):
+            out = res.out
+            losses = self._lidar_losses(out, out["extras"], batch, step)
+            total = sum(losses.values()) + self._prop_loss(res, requires_grad)
+            aux = dict(losses)
+            aux["total_lidar_loss"] = sum(losses.values())
+            aux["range_rmse"] = torch.sqrt(self._whole_batch_mean(
+                ((out["depth"][..., 0] - batch["ranges"]) ** 2).mean()))
         return total, aux
 
     # ---------------- fused pixel + lidar branch ---------------- #
@@ -328,29 +331,31 @@ class TrainStep:
         """(total loss, aux metrics) of one render of both batches."""
         comb, rp = combined_batch(pixel_batch, lidar_batch)
         res = self._render(comb, draws, requires_grad, lidar=False)
-        out = dict(res.out)
-        extras = out.pop("extras")
-        out_p, out_l = _split_rays(out, rp)
-        ex_p, ex_l = _split_rays(extras, rp)
-        losses = self._pixel_losses(out_p, ex_p, pixel_batch)
-        lidar_losses = self._lidar_losses(out_l, ex_l, lidar_batch, step)
-        prop_loss = self._prop_loss(res, requires_grad)
-        total = sum(losses.values()) + sum(lidar_losses.values()) + prop_loss
-        aux = dict(losses)
-        aux.update(lidar_losses)
-        aux["prop_loss"] = prop_loss
-        mse = ((out_p["rgb"] - pixel_batch["pixels"]) ** 2).mean()
-        aux["psnr"] = psnr_of_mse(self._whole_batch_mean(mse))
-        aux["total_pixel_loss"] = sum(losses.values())
-        aux["total_lidar_loss"] = sum(lidar_losses.values())
-        aux["range_rmse"] = torch.sqrt(self._whole_batch_mean(
-            ((out_l["depth"][..., 0] - lidar_batch["ranges"]) ** 2).mean()))
+        with span("step.loss"):
+            out = dict(res.out)
+            extras = out.pop("extras")
+            out_p, out_l = _split_rays(out, rp)
+            ex_p, ex_l = _split_rays(extras, rp)
+            losses = self._pixel_losses(out_p, ex_p, pixel_batch)
+            lidar_losses = self._lidar_losses(out_l, ex_l, lidar_batch, step)
+            prop_loss = self._prop_loss(res, requires_grad)
+            total = sum(losses.values()) + sum(lidar_losses.values()) + prop_loss
+            aux = dict(losses)
+            aux.update(lidar_losses)
+            aux["prop_loss"] = prop_loss
+            mse = ((out_p["rgb"] - pixel_batch["pixels"]) ** 2).mean()
+            aux["psnr"] = psnr_of_mse(self._whole_batch_mean(mse))
+            aux["total_pixel_loss"] = sum(losses.values())
+            aux["total_lidar_loss"] = sum(lidar_losses.values())
+            aux["range_rmse"] = torch.sqrt(self._whole_batch_mean(
+                ((out_l["depth"][..., 0] - lidar_batch["ranges"]) ** 2).mean()))
         return total, aux
 
     # ---------------- one branch: backward + updates ---------------- #
     def _apply_branch(self, state: TrainState, total, requires_grad: bool, count: int) -> float:
         params, prop_params = state.params, state.prop_params
-        total.backward()
+        with span("step.backward"):
+            total.backward()
         lr = self.lr_fn(count)
         # (params, moments, ZeRO routing): the proposal nets only on
         # requires-grad renders
@@ -359,13 +364,15 @@ class TrainStep:
             (params, state.opt_state, state.zero and state.zero.model)]
         grads = [[p.grad for p in ps] for ps, _, _ in parts]
         if self.group is not None:
-            grads = self._reduce(state, parts, grads)
-        for (ps, opt, route), gs in zip(parts, grads):
-            if self.spmd is None:
-                apply_update(self.tx, gs, opt, ps, lr)
-            else:
-                route = route or Routing((False,) * len(ps), (False,) * len(ps))
-                spmd_apply_update(gs, opt, ps, lr, route, self.spmd, self.group, self.tx)
+            with span("step.reduce"):
+                grads = self._reduce(state, parts, grads)
+        with span("optim.update"):
+            for (ps, opt, route), gs in zip(parts, grads):
+                if self.spmd is None:
+                    apply_update(self.tx, gs, opt, ps, lr)
+                else:
+                    route = route or Routing((False,) * len(ps), (False,) * len(ps))
+                    spmd_apply_update(gs, opt, ps, lr, route, self.spmd, self.group, self.tx)
         for p in params + prop_params:
             p.grad = None
         return lr
@@ -392,11 +399,12 @@ class TrainStep:
         path's PSNR and range RMSE are the whole batch's already."""
         if self.group is None:
             return metrics
-        whole = ("psnr", "range_rmse") if self.implicit else ()
-        keys = [k for k, v in metrics.items() if torch.is_tensor(v) and k not in whole]
-        vec = mesh.all_reduce_(torch.stack([metrics[k].float() for k in keys]), self.group)
-        vec = vec / self.n_ranks
-        metrics.update(zip(keys, vec.unbind(0)))
+        with span("step.finalize"):
+            whole = ("psnr", "range_rmse") if self.implicit else ()
+            keys = [k for k, v in metrics.items() if torch.is_tensor(v) and k not in whole]
+            vec = mesh.all_reduce_(torch.stack([metrics[k].float() for k in keys]), self.group)
+            vec = vec / self.n_ranks
+            metrics.update(zip(keys, vec.unbind(0)))
         return metrics
 
     def __call__(self, state: TrainState, pixel_batch, lidar_batch, pixel_draws: StepDraws,
@@ -408,18 +416,22 @@ class TrainStep:
             p.grad = None
         if self.cfg.fused_branches and self.cfg.has_lidar:
             rg = pixel_rg or lidar_rg
-            total, aux = self.joint_loss(pixel_batch, lidar_batch, pixel_draws, step, rg)
-            metrics = {k: v.detach() for k, v in aux.items()}
-            metrics["lr"] = self._apply_branch(state, total, rg, count)
+            with span("step.joint"):
+                total, aux = self.joint_loss(pixel_batch, lidar_batch, pixel_draws, step, rg)
+                metrics = {k: v.detach() for k, v in aux.items()}
+                metrics["lr"] = self._apply_branch(state, total, rg, count)
             state.step = step + 1
             return self._finalize(metrics)
-        total, aux = self.pixel_loss(pixel_batch, pixel_draws, step, pixel_rg)
-        lr = self._apply_branch(state, total, pixel_rg, count)
+        with span("step.pixel"):
+            total, aux = self.pixel_loss(pixel_batch, pixel_draws, step, pixel_rg)
+            lr = self._apply_branch(state, total, pixel_rg, count)
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics["lr"] = lr
         if self.cfg.has_lidar:
-            total, laux = self.lidar_loss(lidar_batch, lidar_draws, step, lidar_rg, lidar_full)
-            self._apply_branch(state, total, lidar_rg, count + 1)
+            with span("step.lidar"):
+                total, laux = self.lidar_loss(lidar_batch, lidar_draws, step, lidar_rg,
+                                              lidar_full)
+                self._apply_branch(state, total, lidar_rg, count + 1)
             metrics.update({k: v.detach() for k, v in laux.items()})
         state.step = step + 1
         return self._finalize(metrics)

@@ -6,7 +6,8 @@ sampling from an explicit ``torch.Generator``, the proposal requires-grad
 schedule (called once per branch), the staged lidar top-K, the step, the
 metric log and NaN tripwire at the print steps, periodic checkpoints, the
 pixel-error-buffer refresh every ``optim.cache_rgb_freq`` steps through the
-eval ``ImageRenderer``, a ``torch.profiler`` window, and SIGTERM/SIGINT
+eval ``ImageRenderer``, a ``torch.profiler`` window (with the port's spans,
+``utils/trace.py``, as ``record_function`` rows), and SIGTERM/SIGINT
 checkpoint-and-exit.  ``evaluate`` runs the few-shot occupancy evaluation
 and the lidar scene-flow evaluation, renders the configured splits and the
 novel trajectory, and writes the metric JSONs, the lidar depth RMSE and
@@ -57,6 +58,7 @@ from emernerf_torch.train.checkpoints import load_checkpoint, save_checkpoint
 from emernerf_torch.train.state import init_train_state
 from emernerf_torch.train.step import StepDraws, build_train_step, draw_step, lidar_full_at
 from emernerf_torch.utils.logging import MetricLogger
+from emernerf_torch.utils import trace
 
 logger = logging.getLogger("emernerf_torch")
 
@@ -231,41 +233,45 @@ class Trainer:
 
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         """One loop body at iteration ``step`` (the state's step)."""
-        cfg = self.cfg
-        gen = self.generator
-        pixel_rg = self.rg_fn(step)
-        ratio = self.buffer_ratio if self.error_map_buffered else 0.0
-        pixel_batch = sample_pixel_batch(
-            self.scene, draw_pixel(self.scene, self.ray_batch_size, gen, ratio,
-                                   self.buffer_downscale),
-            self.buffer_downscale, use_timestamps=self.model.has_dynamic)
-        pixel_batch = {k: self._slice(v) for k, v in pixel_batch.items()}
-        lidar_rg, lidar_batch, lidar_draws = False, None, None
-        full = lidar_full_at(self.step_cfg, step)
-        # the fused branch renders both batches at once, with one set of draws
-        fused = self.step_cfg.fused_branches and self.step_cfg.has_lidar
-        if self.step_cfg.has_lidar:
-            lidar_rg = self.rg_fn(step)
-            lidar_batch = sample_lidar_batch(self.scene,
-                                             draw_lidar(self.scene, self.ray_batch_size, gen))
-            lidar_batch = {k: self._slice(v) for k, v in lidar_batch.items()}
-            if not fused:
-                lidar_draws = self._branch_draws(lidar=True, full=full)
-        metrics = self.train_step(self.state, pixel_batch, lidar_batch,
-                                  self._branch_draws(lidar=False, batches=2 if fused else 1),
-                                  lidar_draws, pixel_rg, lidar_rg, full)
-        metrics["pixel_rg"], metrics["lidar_rg"] = pixel_rg, lidar_rg
-        if step % cfg.logging.print_freq == 0 or step == cfg.optim.num_iters:
-            scalars = {k: float(v) for k, v in metrics.items()}
-            logger.info("step %d: %s", step, scalars)
-            self.metric_logger.update(**scalars)
-            if self.wandb is not None:
-                self.wandb.log(scalars, step=int(step))
-            if bool(cfg.optim.get("check_nan", False)):
-                raise_on_nonfinite(scalars, step)
-        if self.buffer_ratio > 0 and step > 0 and step % cfg.optim.cache_rgb_freq == 0:
-            self._refresh_error_map()
-        return metrics
+        with trace.span("trainer.iteration"):
+            cfg = self.cfg
+            gen = self.generator
+            with trace.span("trainer.sample"):
+                pixel_rg = self.rg_fn(step)
+                ratio = self.buffer_ratio if self.error_map_buffered else 0.0
+                pixel_batch = sample_pixel_batch(
+                    self.scene, draw_pixel(self.scene, self.ray_batch_size, gen, ratio,
+                                           self.buffer_downscale),
+                    self.buffer_downscale, use_timestamps=self.model.has_dynamic)
+                pixel_batch = {k: self._slice(v) for k, v in pixel_batch.items()}
+                lidar_rg, lidar_batch, lidar_draws = False, None, None
+                full = lidar_full_at(self.step_cfg, step)
+                # the fused branch renders both batches at once, with one set of draws
+                fused = self.step_cfg.fused_branches and self.step_cfg.has_lidar
+                if self.step_cfg.has_lidar:
+                    lidar_rg = self.rg_fn(step)
+                    lidar_batch = sample_lidar_batch(
+                        self.scene, draw_lidar(self.scene, self.ray_batch_size, gen))
+                    lidar_batch = {k: self._slice(v) for k, v in lidar_batch.items()}
+                    if not fused:
+                        lidar_draws = self._branch_draws(lidar=True, full=full)
+                pixel_draws = self._branch_draws(lidar=False, batches=2 if fused else 1)
+            metrics = self.train_step(self.state, pixel_batch, lidar_batch, pixel_draws,
+                                      lidar_draws, pixel_rg, lidar_rg, full)
+            metrics["pixel_rg"], metrics["lidar_rg"] = pixel_rg, lidar_rg
+            if step % cfg.logging.print_freq == 0 or step == cfg.optim.num_iters:
+                with trace.span("trainer.log"):
+                    scalars = {k: float(v) for k, v in metrics.items()}
+                    logger.info("step %d: %s", step, scalars)
+                    self.metric_logger.update(**scalars)
+                    if self.wandb is not None:
+                        self.wandb.log(scalars, step=int(step))
+                    if bool(cfg.optim.get("check_nan", False)):
+                        raise_on_nonfinite(scalars, step)
+            if self.buffer_ratio > 0 and step > 0 and step % cfg.optim.cache_rgb_freq == 0:
+                with trace.span("trainer.refresh"):
+                    self._refresh_error_map()
+            return metrics
 
     def train(self, num_iters: Optional[int] = None):
         """Iterate from the state's step to ``num_iters`` (default
@@ -335,6 +341,8 @@ class Trainer:
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
             if profiler is not None:
+                if self._profiler_spans:
+                    trace.disable()
                 profiler.stop()
 
     def _stop_requested(self, stop_signal: list) -> bool:
@@ -355,12 +363,19 @@ class Trainer:
             activities.append(ProfilerActivity.CUDA)
         prof = profile(activities=activities)
         prof.start()
+        # the spans over the kernels in the chrome trace, unless their
+        # records belong to a caller that turned tracing on already
+        self._profiler_spans = not trace.enabled()
+        if self._profiler_spans:
+            trace.enable(annotate=True)
         logger.info("Started torch.profiler -> %s", self._path("profile"))
         return prof
 
     def _stop_profiler(self, prof, step: int):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self._profiler_spans:
+            trace.disable()
         prof.stop()
         os.makedirs(self._path("profile"), exist_ok=True)
         path = self._path("profile", f"trace_{step:05d}.json")

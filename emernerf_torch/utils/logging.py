@@ -2,8 +2,8 @@
 ``emernerf_tpu/utils/logging.py``; the logger is named ``emernerf_torch``).
 
 A console/file logger in glog format, ``SmoothedValue`` windowed meters, and
-``MetricLogger`` with a ``log_every`` generator printing iter/data times, ETA,
-and writing JSON-lines metric records.
+``MetricLogger`` with a ``log_every`` generator printing iteration and
+dispatch times and the ETA, and writing JSON-lines metric records.
 """
 
 from __future__ import annotations
@@ -120,13 +120,10 @@ class MetricLogger:
             return self.meters[attr]
         raise AttributeError(attr)
 
-    def dump_in_output_file(self, iteration, iter_time, data_time,
-                            dispatch_time=None):
+    def dump_in_output_file(self, iteration, iter_time, dispatch_time=None):
         if self.output_file is None:
             return
-        record = dict(
-            iteration=iteration, iter_time=iter_time, data_time=data_time,
-        )
+        record = dict(iteration=iteration, iter_time=iter_time)
         if dispatch_time is not None:
             record["dispatch_time"] = dispatch_time
         record.update({k: v.median for k, v in self.meters.items()})
@@ -145,13 +142,11 @@ class MetricLogger:
         start_time = time.time()
         end = time.time()
         dispatch_time = SmoothedValue(fmt="{avg:.4f}")
-        data_time = SmoothedValue(fmt="{avg:.4f}")
         n = len(iterable)
         last_print_t = start_time
         last_print_i = -1
 
         for i, obj in enumerate(iterable):
-            data_time.update(time.time() - end)
             yield obj
             dispatch_time.update(time.time() - end)
             if i % print_freq == 0 or i == n - 1:
@@ -160,7 +155,6 @@ class MetricLogger:
                 last_print_t, last_print_i = now, i
                 self.dump_in_output_file(
                     iteration=i, iter_time=wall_step,
-                    data_time=data_time.avg,
                     dispatch_time=dispatch_time.avg,
                 )
                 # ETA from the global wall average (honest under async)
@@ -175,7 +169,6 @@ class MetricLogger:
                             header, f"[{i}/{n}]", f"eta: {eta}", meters,
                             f"time: {wall_step:.4f}",
                             f"disp: {dispatch_time}",
-                            f"data: {data_time}",
                         ]
                     ).strip()
                 )

@@ -7,7 +7,8 @@ the signal handlers, the wall-clock ``log_every``, wandb's retries), run
 through
 ``emernerf_torch.train_emernerf.main(["--device", "cpu", ...])`` on the
 tiny synthetic config of ``tests/test_cli.py``.  ``utils/logging.py`` is
-held to the JAX package's original.
+held to the JAX package's original, less its ``data_time`` (the time of
+``next()`` on the step range: the port samples inside the iteration).
 """
 
 import inspect
@@ -90,7 +91,10 @@ def test_cli_train_eval_and_eval_only(tmp_path):
     assert records and all("iter_time" in r for r in records)
     assert "rgb_loss" in records[-1]
     assert _ckpts(run_dir) == ["checkpoint_00005"]  # saveckpt_freq=0: the final one only
-    assert (run_dir / "profile" / "trace_00002.json").exists()
+    chrome = json.loads((run_dir / "profile" / "trace_00002.json").read_text())
+    # the port's spans over the window's kernels, one iteration a step
+    names = [e.get("name") for e in chrome["traceEvents"]]
+    assert names.count("trainer.iteration") == 2 and "step.backward" in names
     assert sorted(p.name for p in (run_dir / "buffer_maps").glob("*.npy")) == [
         "buffer_00003.npy", "buffer_00005.npy"]
     results = json.loads((run_dir / "metrics_all_5.json").read_text())
@@ -430,11 +434,32 @@ def test_log_every_reports_wall_clock(tmp_path):
     assert "dispatch_time" in rec
 
 
+# the JAX package's lines of data_time, and what the port has in their place
+_DATA_TIME = (
+    ("""    def dump_in_output_file(self, iteration, iter_time, data_time,
+                            dispatch_time=None):
+""", "    def dump_in_output_file(self, iteration, iter_time, dispatch_time=None):\n"),
+    ("""        record = dict(
+            iteration=iteration, iter_time=iter_time, data_time=data_time,
+        )
+""", "        record = dict(iteration=iteration, iter_time=iter_time)\n"),
+    ("""        data_time = SmoothedValue(fmt="{avg:.4f}")\n""", ""),
+    ("""            data_time.update(time.time() - end)\n""", ""),
+    ("""                    data_time=data_time.avg,\n""", ""),
+    ("""                            f"data: {data_time}",\n""", ""),
+)
+
+
 def test_logging_copy_equals_jax():
-    """utils/logging.py is the JAX package's, but for the logger's name."""
+    """utils/logging.py is the JAX package's, but for the logger's name and
+    ``MetricLogger``'s data time."""
     for name in ("_GlogFormatter", "setup_logging", "SmoothedValue", "MetricLogger"):
         ours = inspect.getsource(getattr(port_logging, name))
         ref = inspect.getsource(getattr(jax_logging, name))
+        if name == "MetricLogger":
+            for jax_lines, port_lines in _DATA_TIME:
+                assert ref.count(jax_lines) == 1, jax_lines
+                ref = ref.replace(jax_lines, port_lines)
         assert ours == ref.replace('"emernerf_tpu"', '"emernerf_torch"'), name
     name = inspect.signature(port_logging.setup_logging).parameters["name"]
     assert name.default == "emernerf_torch"

@@ -41,6 +41,7 @@ from emernerf_torch.train import trainer as trainer_mod
 from emernerf_torch.train.optim import AdamState, make_adam, spmd_adam_update_ref
 from emernerf_torch.train.step import StepDraws
 from emernerf_torch.train.trainer import Trainer
+from emernerf_torch.utils import trace
 from emernerf_tpu.parallel import spmd as jspmd
 from emernerf_tpu.train import optim as joptim
 
@@ -173,6 +174,11 @@ def _rank(rank, init, out_dir):
     implicit = _masked(_trainer(group, overrides=IMPLICIT + FUSED))
     res["fused_implicit"] = [{k: float(v) for k, v in implicit.train_iteration(s).items()}
                              for s in range(2)]
+    # the spans of one explicit-collective iteration
+    t = _trainer(group, cfg("float32", True))
+    trace.enable()
+    t.train_iteration(0)
+    res["spans"] = [(r.id, r.parent, r.name) for r in trace.disable()]
     res["render"] = _render(group, 32)
     try:
         _render(group, 33)
@@ -405,6 +411,22 @@ def _single(overrides=()):
 
 def _max_rel(a, b):
     return max(float(np.max(np.abs(x - y) / np.maximum(np.abs(x), 1e-3))) for x, y in zip(a, b))
+
+
+def test_a_data_parallel_iteration_opens_the_collective_spans(ranks):
+    """Each branch reduces its gradients in ``step.reduce`` before its
+    update, and the metrics' all-reduce is ``step.finalize`` (step 0 logs),
+    on every rank."""
+    for r in ranks:
+        name = {i: n for i, _, n in r["spans"]}
+        kids = {}
+        for i, parent, n in r["spans"]:
+            kids.setdefault(name.get(parent), []).append(n)
+        assert kids[None] == ["trainer.iteration"]
+        assert kids["trainer.iteration"] == ["trainer.sample", "step.pixel", "step.lidar",
+                                             "step.finalize", "trainer.log"]
+        assert kids["step.pixel"] + kids["step.lidar"] == 2 * [
+            "render", "step.loss", "step.backward", "step.reduce", "optim.update"]
 
 
 @pytest.mark.parametrize("run", ["zero_f32", "rep_f32"])

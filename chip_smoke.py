@@ -33,6 +33,15 @@ Phases (any failure exits non-zero; nothing is skipped):
      above 0; the K3 forward calls of one more image by (R, S, D, C);
      then a 2,048-ray chunk in fp32 on the card (kernels) against the same
      params on the CPU (plain versions);
+  4c. M1 (the eval render's PSNR and SSIM sums, image_metrics.cu): it must
+     have launched once a frame in phase 4's render_split (its counter
+     zeroed before that render and read after); then at flagship-eval's
+     640x960 frame with a dynamic mask, once with 3 channels and the SSIM
+     window of 7 and once with the feature head's 64 channels and no SSIM,
+     against its plain float64 version on the same card tensors: the six
+     sums within rtol 1e-12, the mask's count exact, two calls bit for bit;
+     both timed (its bound: the bytes over the HBM rate or its float64
+     operations over the float64 rate, the larger);
   5. train: emernerf_torch.train.trainer.Trainer trains the full-width
      flagship (bf16 default config, seed 0): 3 warm-up and 12 timed
      iterations, then iterations 2000 (an error-map refresh) and 2001 (the
@@ -322,9 +331,10 @@ Phases (any failure exits non-zero; nothing is skipped):
 Every kernel's entry in the {"kernels": ...} line carries its bound: the
 larger of the bytes the call must move (inputs read once, outputs written
 once; for a grid, the table entries these points touch) over the HBM rate
-and its operations over the fp32 rate (H100 SXM data sheet).  Its launches
-are those of the training run of its path (phase 5, phase 6 for K4, phase
-7's probe run for P1-P4, phase 9 or 10 for the rows of those profiles'
+and its operations over the fp32 rate (float64's for M1; H100 SXM data
+sheet).  Its launches are those of the training run of its path (phase 5,
+phase 6 for K4, phase 4's render for M1, none for its 64-channel row,
+phase 7's probe run for P1-P4, phase 9 or 10 for the rows of those profiles'
 grids and K3 shapes, phase 12's runs for the "points" rows of 12b, phase
 13's for the "waymo" rows of 13b, phase 15b's interpolated renders for
 the "interp" and "interp_hash" rows, phase 17a's explicit run (rank 0)
@@ -332,7 +342,7 @@ for K11's "dp" rows, phase 19's training runs for the "mx", "skip" and
 "subsample" rows; a K3 forward call past 64 channels
 counts its two kernels).
 The kernels' device times alone (torch.profiler, each kernel's mean over
-its records: K2, K3 forward and backward, K5, P1, P3; for K3 past 64
+its records: K2, K3 forward and backward, K5, M1, P1, P3; for K3 past 64
 channels, CUDA events around calls queued behind a sleep kernel are
 printed beside) are taken last, so that no profiler session precedes a
 timed phase; a time under its bound is not reported.
@@ -375,6 +385,7 @@ HASH_TINY_FP32 = TINY_FP32[:4]
 # rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores (M1's sums)
 # kernels by name in a profiler table (the grid kernels of
 # kernels/csrc/brickgrid.cu and hashgrid.cu, Adam, the GEMMs, copies):
 # the share of each in phases 5 and 6
@@ -455,18 +466,18 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the operations over the fp32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    the operations over the fp32 rate (``ops_per_s``: float64's for M1)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def add_entry(entries, name, source, replaces, fn, mx, ms, plain_ms, n_bytes, n_ops,
-              library_ms=None, path="brick"):
+              library_ms=None, path="brick", ops_per_s=FP32_OPS_PER_S):
     """One kernel line: its times, its bound, and the training run (path)
     whose launches it reports."""
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = bound(n_bytes, n_ops, ops_per_s)
     print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} Gop)"
           + ("" if library_ms is None else f", library {library_ms:.3f} ms"))
@@ -1459,6 +1470,82 @@ def phase_fp32_chunk(dev, overrides=(), profile=None, label="phase 4b", time_=No
     if not (rgb_err <= 1e-3 and depth_rel <= 1e-3):
         fail(f"{label}: fp32 chunk on the card disagrees with the CPU plain render")
     return dataset, (gmodel, gprops), (cmodel, cprops), kw, rays
+
+
+# phase 4c: M1 (kernels/csrc/image_metrics.cu) at flagship-eval's frame, the
+# rgb with a dynamic mask and SSIM, and the feature head's channels without it
+M1_FRAME = (640, 960)
+M1_FEATURES = 64
+M1_KERNELS = ("image_metrics_kernel", "image_metrics_finish_kernel")
+M1_RTOL = 1e-12  # the sums against the plain float64 version: summation order
+
+
+def image_metric_inputs(dev, seed, h, w, c):
+    """(pred, gt, mask) of an (h, w, c) frame from ``seed``: gt in [0, 1],
+    pred gt plus noise that leaves [0, 1] (the clipping acts), a mask over
+    a fifth of the pixels."""
+    g = torch.Generator().manual_seed(seed)
+    gt = torch.rand((h, w, c), generator=g)
+    pred = gt + 0.1 * torch.randn((h, w, c), generator=g)
+    mask = torch.rand((h, w), generator=g) < 0.2
+    return pred.to(dev), gt.to(dev), mask.to(dev)
+
+
+def image_metric_ops(h, w, c, win):
+    """float64 operations of M1's sums formed directly, each window term
+    once (the kernel's row and column passes less the halo its tiles
+    recompute): a difference and a multiply-add a pixel and channel for the
+    squared errors; with SSIM (``win`` not None), a channel's row pass over
+    the (h, w - win + 1) row positions, three products and five adds a
+    term, its column pass over the valid positions, five adds a row, and
+    compute_ssim's formula, 29 a position."""
+    ops = 3.0 * h * w * c
+    if win is not None:
+        wv, hv = w - win + 1, h - win + 1
+        ops += c * (h * wv * 8.0 * win + hv * wv * (5.0 * win + 29))
+    return ops
+
+
+def phase_image_metrics(dev, entries, after_timed, eval_launches, n_frames):
+    """4c: M1 on the card against its plain float64 version on the same
+    inputs (the sums within M1_RTOL, the mask's count exact, two calls bit
+    for bit), timed beside it; its launches are phase 4's render_split's,
+    one a frame."""
+    from emernerf_torch.ops.image_metrics import (
+        image_metric_sums, image_metric_sums_plain, ssim_window)
+
+    h, w = M1_FRAME
+    n = eval_launches["image_metric_sums"]
+    print(f"phase 4c: M1 (image_metrics.cu) at flagship-eval's {h}x{w} frame against its plain "
+          f"float64 version on the card; {n} launches in phase 4's render_split of {n_frames} "
+          f"frames")
+    if n != n_frames:
+        fail(f"phase 4c: M1 launched {n} times in phase 4's render of {n_frames} frames")
+    for c, win, name in ((3, ssim_window(h, w), "M1"),
+                         (M1_FEATURES, None, f"M1 ({M1_FEATURES} channels, no SSIM)")):
+        pred, gt, mask = image_metric_inputs(dev, 25 + c, h, w, c)
+
+        def run(pred=pred, gt=gt, mask=mask, win=win):
+            return image_metric_sums(pred, gt, mask, win)
+
+        def plain(pred=pred, gt=gt, mask=mask, win=win):
+            return image_metric_sums_plain(pred, gt, mask, win)
+
+        out, again, ref = run(), run(), plain()
+        if not torch.equal(out, again):
+            fail(f"phase 4c: {name}: two calls differ")
+        if not float(out[3]) == float(ref[3]) == float(mask.sum()):
+            fail(f"phase 4c: {name}: mask count {float(out[3])}, plain {float(ref[3])}")
+        mx, over = compare(f"{name} sums vs plain", out, ref, M1_RTOL, 0.0)
+        if over:
+            fail(f"phase 4c: {name}: {over} sums over rtol {M1_RTOL}")
+        ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 3)
+        add_entry(entries, name, "image_metrics.cu",
+                  "emernerf_tpu/eval/metrics.py:compute_psnr, compute_ssim (no TPU kernel)",
+                  image_metric_sums, mx, ms, plain_ms, nbytes(pred, gt, mask, out),
+                  image_metric_ops(h, w, c, win), path="eval" if win else None,
+                  ops_per_s=FP64_OPS_PER_S)
+        after_timed.append((entries[-1], M1_KERNELS, run))
 
 
 def _losses(metrics):
@@ -5786,6 +5873,7 @@ def main():
     from emernerf_torch.flagship import DEFAULT_PROFILE, DYNAMIC, REFERENCE_BRICK, REFERENCE_HASH
     from emernerf_torch.ops.brickgrid import brickgrid_encode, brickgrid_encode_bwd
     from emernerf_torch.ops.hashgrid import features_minor, hashgrid_encode, hashgrid_encode_bwd
+    from emernerf_torch.ops.image_metrics import image_metric_sums
     from emernerf_torch.ops.mxgrid import mx_lines_encode, mx_lines_encode_bwd
     from emernerf_torch.ops.stepfuns import (
         importance_sampling, interlevel_loss_levels, interlevel_loss_levels_bwd)
@@ -5809,9 +5897,10 @@ def main():
     brick = (brickgrid_encode, brickgrid_encode_bwd)
     hashed = (hashgrid_encode, hashgrid_encode_bwd, features_minor)
     forward = (importance_sampling, composite_along_rays)
-    exact_launches, rays_per_s, eval_tally = phase_slice(dev, (brickgrid_encode,) + forward,
-                                                         zero=hashed)
+    exact_launches, rays_per_s, eval_tally = phase_slice(
+        dev, (brickgrid_encode,) + forward + (image_metric_sums,), zero=hashed)
     phase_fp32_chunk(dev)
+    phase_image_metrics(dev, entries, after_timed, exact_launches, n_frames=2)
     shared = forward + (composite_along_rays_bwd, interlevel_loss_levels,
                         interlevel_loss_levels_bwd, adam_update)
     launches, ms_iter, train_rays_per_s, peak, share, tally = phase_train(
@@ -5903,12 +5992,14 @@ def main():
         fail("jax, the JAX package or the repository's perf/ scripts were imported")
 
     # launches: the counts of the training run of each kernel's path
-    runs = {"brick": launches, "hash": hash_launches, "probe": probe_launches,
+    runs = {"brick": launches, "eval": exact_launches, "hash": hash_launches,
+            "probe": probe_launches,
             "dynamic": dyn[0], "reference_brick": ref[0], "points": point_launches,
             "waymo": waymo[0], "interp": interp_launches, "interp_hash": interp_hash_launches,
             "dp": dp["launches"], **settings_runs}
     report = [dict({k: v for k, v in e.items() if k not in ("fn", "path")},
-                   launches=runs[e["path"]][e["fn"].__name__]) for e in entries]
+                   launches=None if e["path"] is None else runs[e["path"]][e["fn"].__name__])
+              for e in entries]
     print(f"eval: {rays_per_s:.1f} rays/s; train: {ms_iter:.2f} ms/iteration, "
           f"{train_rays_per_s:.1f} rays/s, peak {peak:.2f} GiB, K1 backward "
           f"{share['K1 backward']:.1%}, K1 forward {share['K1 forward']:.1%}, copies, casts and "

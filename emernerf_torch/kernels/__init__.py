@@ -89,6 +89,9 @@ _SIGNATURES = {
     # rows (int32), upd (fp32), out (zeroed fp32), n, t, w, tile_n,
     # shared_table, stream
     "emt_scatter_onehot": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # pred, gt (h, w, c) fp32, mask (h, w) bytes|NULL, h, w, c, win, ssim,
+    # partials (float64 scratch), out (6 float64), stream
+    "emt_image_metrics": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

@@ -620,3 +620,70 @@ def test_counted_run_holds_the_counted_and_the_zero_wrappers(launched, ok):
             chip_smoke.counted_run(counted, zero, "fake run", run)
     src = inspect.getsource(chip_smoke._jax_fixture)
     assert "counted_run(\n        counted, zero," in src and ".launches" not in src
+
+
+def test_m1_ops_count_the_direct_window_sums():
+    """A hand count at 9x11, 2 channels, window 3: the squared errors, then
+    a channel's row pass (9 rows x 9 positions x 3 terms x 8), column pass
+    (7 x 9 positions x 15 adds) and formula (29 a position)."""
+    assert chip_smoke.image_metric_ops(9, 11, 2, None) == 3 * 9 * 11 * 2
+    per_channel = 9 * 9 * 3 * 8 + 7 * 9 * (15 + 29)
+    assert chip_smoke.image_metric_ops(9, 11, 2, 3) == 3 * 9 * 11 * 2 + 2 * per_channel
+
+
+def test_m1_bound_at_the_eval_frame_is_its_operations_then_its_bytes():
+    """At flagship-eval's frame the rgb row is bound by its float64
+    operations (2.24e8: 6.6 us against 4.6 us of bytes), the 64-channel row
+    by its bytes."""
+    h, w = chip_smoke.M1_FRAME
+    rgb = 2 * h * w * 3 * 4 + h * w + 48
+    ms, by = chip_smoke.bound(rgb, chip_smoke.image_metric_ops(h, w, 3, 7),
+                              chip_smoke.FP64_OPS_PER_S)
+    assert by == "operations" and ms == pytest.approx(0.0066, abs=1e-4)
+    assert rgb / chip_smoke.HBM_BYTES_PER_S * 1e3 == pytest.approx(0.00459, abs=1e-5)
+    feat = 2 * h * w * 64 * 4 + h * w + 48
+    ms, by = chip_smoke.bound(feat, chip_smoke.image_metric_ops(h, w, 64, None),
+                              chip_smoke.FP64_OPS_PER_S)
+    assert by == "bytes" and ms == pytest.approx(0.0941, abs=1e-4)
+
+
+def test_image_metric_inputs_are_seeded_and_leave_the_unit_range():
+    a = chip_smoke.image_metric_inputs("cpu", 3, 32, 48, 3)
+    b = chip_smoke.image_metric_inputs("cpu", 3, 32, 48, 3)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    pred, gt, mask = a
+    assert pred.shape == gt.shape == (32, 48, 3) and mask.shape == (32, 48)
+    assert pred.dtype == gt.dtype == torch.float32 and mask.dtype == torch.bool
+    assert float(gt.min()) >= 0.0 and float(gt.max()) <= 1.0
+    assert float(pred.min()) < 0.0 and float(pred.max()) > 1.0  # the clipping acts
+    assert 0.1 < float(mask.float().mean()) < 0.3
+
+
+def test_phase_4c_holds_m1_to_its_plain_version_and_phase_4s_launches(monkeypatch):
+    """On the CPU the wrapper is the plain version, so the phase's checks
+    pass; its rows carry the float64 bound, the 3-channel row phase 4's
+    launches and the 64-channel row none; a launch count other than one a
+    frame fails it."""
+    monkeypatch.setattr(chip_smoke, "M1_FRAME", (24, 40))
+    monkeypatch.setattr(chip_smoke, "M1_FEATURES", 8)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, iters: (fn(), 0.5)[1])
+    entries, after = [], []
+    chip_smoke.phase_image_metrics("cpu", entries, after, {"image_metric_sums": 2}, n_frames=2)
+    assert [e["name"] for e in entries] == ["M1", "M1 (8 channels, no SSIM)"]
+    assert [e["path"] for e in entries] == ["eval", None]
+    assert all(e["max_abs_err"] == 0.0 and e["ms"] == e["plain_ms"] == 0.5 for e in entries)
+    rgb = 2 * 24 * 40 * 3 * 4 + 24 * 40 + 6 * 8
+    assert entries[0]["bound_ms"] == chip_smoke.bound(
+        rgb, chip_smoke.image_metric_ops(24, 40, 3, 7), chip_smoke.FP64_OPS_PER_S)[0]
+    assert [a[:2] for a in after] == [(e, chip_smoke.M1_KERNELS) for e in entries]
+    with pytest.raises(SystemExit, match="M1 launched 1 times"):
+        chip_smoke.phase_image_metrics("cpu", [], [], {"image_metric_sums": 1}, n_frames=2)
+
+
+def test_phase_4c_reads_the_launches_of_phase_4s_render():
+    src = inspect.getsource(chip_smoke.main)
+    assert "from emernerf_torch.ops.image_metrics import image_metric_sums" in src
+    start = src.index("phase_slice(")
+    assert "image_metric_sums" in src[start:src.index(")", src.index("forward +", start))]
+    assert start < src.index("phase_image_metrics(") < src.index("kernel_only(")
+    assert '"eval": exact_launches' in src

@@ -18,6 +18,11 @@ warped copies of the A most dynamic samples (A = temporal_agg_topk where
 current and both warped queries in one 3Q call, the flow grid the two
 warped); then, unless the render is lidar (density only), the rgb head
 twice (static, dynamic), the shadow head, and the sky head once a ray.
+With the feature head, the same renders add the DINO head at each shaded
+sample of each branch (static, dynamic) and, once a ray, its sky head and
+the learnable PE map's head (the map's bilinear sample is not counted);
+their backward only where the configuration loads features, since without
+the feature loss no gradient reaches them.
 A training iteration is a pixel and a lidar render, each with its
 backward; the proposal nets' backward runs on the share of renders that
 carries proposal gradients (``rg_share``).
@@ -84,6 +89,16 @@ def _mlps(cfg, static, dyn, flow, fused) -> Dict[str, List[Tuple[int, int]]]:
         out["shadow"] = [(gf, bw), (bw, 1)]
     if head.enable_sky_head:
         out["sky"] = [(hin, hw), (hw + hin, hw), (hw, 3)]
+    if head.enable_feature_head:
+        # the head's output width is the feature maps' where the scene has them
+        pix = cfg.data.pixel_source
+        fw = head.feature_mlp_layer_width
+        fe = int(pix.target_feature_dim if pix.load_features else head.feature_embedding_dim)
+        out["dino"] = [(sf, fw), (fw, fw), (fw, fe)]
+        if head.enable_sky_head:
+            out["dino_sky"] = [(hin, fw), (fw, fw), (fw, fe)]
+        if head.enable_learnable_pe:
+            out["pe"] = [(fe // 2, fe)]
     return out
 
 
@@ -142,6 +157,12 @@ def _render(cfg, rays: int, samples: int, topk: int, lidar: bool, grad: bool,
         per_sample = 2 * _mlp_flops(mlps["rgb"]) + _mlp_flops(mlps.get("shadow", []))
         mlp += per_sample * nq * (1 + bwd)
         mlp += _mlp_flops(mlps.get("sky", [])) * rays * (1 + bwd)
+        if "dino" in mlps:
+            fbwd = bwd if cfg.data.pixel_source.load_features else 0.0
+            branches = 2 if dyn is not None else 1
+            mlp += branches * _mlp_flops(mlps["dino"]) * nq * (1 + fbwd)
+            mlp += (_mlp_flops(mlps.get("dino_sky", [])) + _mlp_flops(mlps.get("pe", []))) \
+                * rays * (1 + fbwd)
     return mlp, grid
 
 

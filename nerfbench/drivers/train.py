@@ -89,7 +89,7 @@ def compared_setup(ctx: harness.Ctx) -> Dict[str, Any]:
         trainer.rg_fn(step)
     rec = _FeedRecorder(trainer.train_step, trainer.state)
     trainer.train_step = rec
-    losses, grads, sums = [], None, None
+    losses, feature_losses, grads, sums = [], [], None, None
     with _LidarDrawRecorder(trainer_mod) as lidar_draws:
         for i in range(int(wl["compared_iterations"])):
             t_it = time.perf_counter()
@@ -99,6 +99,8 @@ def compared_setup(ctx: harness.Ctx) -> Dict[str, Any]:
                 metrics = trainer.train_iteration(step)
             step += 1
             losses.append(compare.step_loss(metrics))
+            if "feature_loss" in metrics:
+                feature_losses.append(float(metrics["feature_loss"]))
             if i == 0:
                 grads, sums = rec_grads.norms(), rec_grads.sums
             print(f"nerfbench: set-up: compared iteration {i} (step {step - 1}) in "
@@ -109,7 +111,9 @@ def compared_setup(ctx: harness.Ctx) -> Dict[str, Any]:
     change_norms = compare.change_norms(leaves, p0)
     del p0
     return dict(trainer=trainer, step=step, names=[n for n, _ in leaves], feeds=rec.feeds,
-                prog=dict(losses=losses, grad=grads, grad_sum=sums, change=change_norms),
+                lidar_draws=lidar_draws.draws,
+                prog=dict(losses=losses, grad=grads, grad_sum=sums, change=change_norms,
+                          feature_loss=feature_losses),
                 reasons=compare.check_feeds(rec.feeds, lidar_draws.draws, facts.tables,
                                             trainer.ray_batch_size),
                 facts=facts)
@@ -174,6 +178,10 @@ def run(ctx: harness.Ctx) -> harness.Outcome:
     ref = compare.follow_train(ctx.config, wl, s["facts"], s["names"], ctx.seed, dev,
                                s["feeds"])
     nums = compare.train_numbers(s["prog"], ref, float(wl["grad_diff_quantile"]))
+    if s["prog"]["feature_loss"]:
+        print(f"nerfbench: feature_loss of the compared iterations: program "
+              f"{s['prog']['feature_loss']!r}, reference {ref['feature_loss']!r}",
+              file=sys.stderr)
     print("nerfbench: readings (not all compared): "
           + ", ".join(f"{k} {v!r}" for k, v in nums.items()), file=sys.stderr)
     out.checks = compare.train_checks(nums, wl["limits"])

@@ -29,7 +29,8 @@ def port_config(config: Dict[str, Any], workload: Dict[str, Any]):
 
 def scene_dataset(scene: Dict[str, Any], cfg):
     """The port's SceneDataset of the benchmark's scene, as a loader builds
-    one from the scene it read."""
+    one from the scene it read (the feature maps where the configuration
+    loads features)."""
     from emernerf_torch.data.dataset import SceneDataset
 
     pix = cfg.data.pixel_source
@@ -39,6 +40,7 @@ def scene_dataset(scene: Dict[str, Any], cfg):
         frame_idx=scene["frame_idx"], cam_ids=scene["cam_ids"],
         sky_masks=scene["sky_masks"] if pix.load_sky_mask else None,
         dynamic_masks=scene["dynamic_masks"] if pix.load_dynamic_mask else None,
+        features=scene["features"] if pix.load_features else None,
         lidar=None if lidar is None else dict(lidar), aabb=scene["aabb"],
         test_image_stride=pix.test_image_stride,
         buffer_downscale=pix.sampler.buffer_downscale, buffer_ratio=pix.sampler.buffer_ratio)

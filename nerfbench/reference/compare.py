@@ -3,8 +3,9 @@ in ``plain/``, with TF32 off) follows what the timed path produced, from
 the benchmark's weights and the program's recorded feeds, and each number
 compared is held to its limit.
 
-Nothing here imports the program.  The scene (images, poses, lidar) is the
-input both sides read; every batch row the program fed its steps is first
+Nothing here imports the program.  The scene (images, poses, lidar, and
+feature maps where the configuration loads features) is the input both
+sides read; every batch row the program fed its steps is first
 checked against it, so the sampling that the reference takes as given is
 checked by itself.
 
@@ -136,7 +137,8 @@ def reference_mode(round_dtype=None):
 def check_feeds(feeds, lidar_idx, scene, batch_size: int) -> List[str]:
     """Every fed batch row is a row of the scene (``scene``: the benchmark's
     scene's tables on the CPU, ``nerfbench/scene.py:facts``), and every
-    batch is whole."""
+    batch is whole.  With feature maps, each pixel row's feature target is
+    its image's map at cell (floor(y Hf / H), floor(x Wf / W))."""
     from nerfbench.reference.plain.data.rays import get_rays
 
     bad = []
@@ -163,6 +165,14 @@ def check_feeds(feeds, lidar_idx, scene, batch_size: int) -> List[str]:
             bad.append(f"iteration {i}: pixel timestamps that are not the scene's")
         if "sky_masks" in px and not torch.equal(px["sky_masks"], scene.sky_masks[img, y, x]):
             bad.append(f"iteration {i}: sky masks that are not the scene's")
+        if scene.features is not None:
+            fh, fw = scene.features.shape[1:3]
+            if "features" not in px:
+                bad.append(f"iteration {i}: a scene with feature maps and a batch without "
+                           f"feature targets")
+            elif not torch.equal(px["features"],
+                                 scene.features[img, (y * fh) // h, (x * fw) // w]):
+                bad.append(f"iteration {i}: feature targets that are not the scene's")
         if feed["lidar"] is None:
             continue
         lb = {k: v.cpu() for k, v in feed["lidar"].items()}
@@ -209,9 +219,9 @@ def build_plain(config, workload, facts, names, seed: int, device):
 
 def follow_train(config, workload, facts, names, seed: int, device, feeds,
                  round_dtype=None) -> Dict[str, Any]:
-    """The reference through the recorded feeds: each iteration's loss, the
-    first iteration's gradient norms and summed gradients, the change's
-    norms after all."""
+    """The reference through the recorded feeds: each iteration's loss (and
+    feature loss, with the feature head's), the first iteration's gradient
+    norms and summed gradients, the change's norms after all."""
     from nerfbench.reference.plain import builders
     from nerfbench.reference.plain.train.state import init_train_state
     from nerfbench.reference.plain.train.step import StepDraws, build_train_step
@@ -220,7 +230,7 @@ def follow_train(config, workload, facts, names, seed: int, device, feeds,
         cfg, model, props, leaves = build_plain(config, workload, facts, names, seed, device)
         step_fn = build_train_step(model, props, builders.build_train_step_config(cfg, facts))
         state = init_train_state(model, props)
-        losses, grads, sums = [], None, None
+        losses, feature_losses, grads, sums = [], [], None, None
         for i, f in enumerate(feeds):
             state.step = f["step"]
             ld = None if f["lidar_draws"] is None else StepDraws(*f["lidar_draws"])
@@ -228,12 +238,15 @@ def follow_train(config, workload, facts, names, seed: int, device, feeds,
                 metrics = step_fn(state, f["pixel"], f["lidar"], StepDraws(*f["pixel_draws"]),
                                   ld, f["pixel_rg"], f["lidar_rg"], f["lidar_full"])
             losses.append(step_loss(metrics))
+            if "feature_loss" in metrics:
+                feature_losses.append(float(metrics["feature_loss"]))
             if i == 0:
                 grads, sums = rec.norms(), rec.sums
         p0 = weights.make_weights([(n, tuple(p.shape)) for n, p in leaves], config["init"],
                                   seed, device)
         change = change_norms(leaves, p0)
-    return {"losses": losses, "grad": grads, "grad_sum": sums, "change": change}
+    return {"losses": losses, "feature_loss": feature_losses, "grad": grads, "grad_sum": sums,
+            "change": change}
 
 
 def leaf_gaps(prog: Sequence[float], ref: Sequence[float],

@@ -70,6 +70,54 @@ def test_model_flops_scale_with_the_traffic():
     assert half["mlp"] == pytest.approx(frame["mlp"] / 2)
 
 
+# {mlp, grid, least_s} of each cell's iteration or frame before the feature
+# heads were counted: the cells load no features, so nothing may move
+PARENT_FLOPS = {
+    "flagship-train": (163190931456.0, 9607053312.0, 0.0003083948528306898),
+    "hash-train": (436793769984.0, 43117445120.0, 0.0010851958983536514),
+    "flagship-eval": (5564556902400.0, 266443161600.0, 0.0096032114344838),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(PARENT_FLOPS))
+def test_the_cells_counts_are_the_ones_they_were(cell):
+    from nerfbench import harness
+
+    wl = harness.load_workload(cell)
+    cfg = harness.load_json("configs", f"{wl['config']}.json")
+    got = flops.train_iteration(cfg, wl) if wl["kind"] == "train" else flops.eval_frame(cfg, wl)
+    assert (got["mlp"], got["grid"], got["least_s"]) == PARENT_FLOPS[cell]
+
+
+def test_the_feature_heads_by_hand():
+    """The tiny flagship with and without the feature head: the base MLPs'
+    64 semantic outputs, the DINO head (64 -> 64 -> 64 -> 16) at both
+    branches' shaded samples, its sky head (33 + 16 -> 64 -> 64 -> 16) and
+    the PE head (8 -> 16) once a ray, all with their backward, in the pixel
+    render; the base MLPs' outputs alone in the lidar render (density only);
+    the grids unchanged."""
+    from nerfbench.tests import tiny
+
+    wl_on, cfg = tiny.tiny_cell("flagship-train", tiny.TINY_FEATURES)
+    wl_off, _ = tiny.tiny_cell("flagship-train")
+    on, off = flops.train_iteration(cfg, wl_on), flops.train_iteration(cfg, wl_off)
+    rays, bw, sf, fw, fe, hin = 64, 16, 64, 64, 16, 33 + 16
+    q, w = rays * 6, 2 * rays * 2  # top-6 shaded; two warps of the top-2 dynamic
+    ql, wl = rays * 4, 2 * rays * 2  # the lidar render: top-4 shaded
+    fb = 3  # forward, and twice that backward
+    base = 2 * bw * sf * fb * ((q + (q + w)) + (ql + (ql + wl)))
+    dino = 2 * (sf * fw + fw * fw + fw * fe) * 2 * q * fb
+    per_ray = 2 * ((hin * fw + fw * fw + fw * fe) + (fe // 2) * fe) * rays * fb
+    assert on["mlp"] - off["mlp"] == base + dino + per_ray
+    assert on["grid"] == off["grid"]
+    # without the maps the heads run forward only
+    wl_fwd, _ = tiny.tiny_cell("flagship-train", dict(
+        tiny.TINY_FEATURES, **{"data.pixel_source.load_features": False,
+                               "nerf.model.head.feature_embedding_dim": 16}))
+    fwd = flops.train_iteration(cfg, wl_fwd)
+    assert on["mlp"] - fwd["mlp"] == (dino + per_ray) * 2 / 3
+
+
 def test_the_reference_is_the_ports_plain_path(monkeypatch):
     """At the tiny size in float32 on the CPU the frozen reference follows
     the program's plain path to rounding: training and eval."""

@@ -12,7 +12,6 @@ import pytest
 import torch
 
 from nerfbench import harness
-from nerfbench.reference import compare
 from nerfbench.tests import tiny
 
 ROOT = tiny.harness.HERE.rsplit(os.sep, 1)[0]
@@ -130,24 +129,7 @@ def test_a_fault_in_the_timed_path_is_not_correct(monkeypatch, cell, fault):
 def test_the_control_is_not_correct(monkeypatch, cell):
     """The reference computed in fp8 (e4m3 forward, e5m2 backward), put in
     the program's place, fails the cell's limits."""
-    wl, cfg = tiny.tiny_cell(cell)
-    ctx = harness.Ctx(cell, wl, cfg, 2 ** 31 + 11, 0.0, False, torch.device("cpu"), 0.0)
-    driver = harness.load_module("drivers", f"{wl['kind']}.py")
-    control = (torch.float8_e4m3fn, torch.float8_e5m2)
-    if wl["kind"] == "train":
-        s = driver.compared_setup(ctx)
-        args = (cfg, wl, s["facts"], s["names"], ctx.seed, ctx.device, s["feeds"])
-        ref = compare.follow_train(*args)
-        low = compare.follow_train(*args, round_dtype=control)
-        checks = compare.train_checks(
-            compare.train_numbers(low, ref, wl["grad_diff_quantile"]), wl["limits"])
-    else:
-        samples, names, facts = driver.sampled_frames(ctx, 2)
-        args = (cfg, wl, facts, names, ctx.seed, ctx.device, samples)
-        ref = compare.follow_eval(*args)
-        low = compare.follow_eval(*args, round_dtype=control)
-        checks = compare.eval_checks([dict(s, maps=m) for s, m in zip(samples, low)], ref,
-                                     wl["limits"])
+    checks = tiny.control_checks(cell)
     assert not all(c.ok for c in checks), checks
 
 

@@ -43,10 +43,18 @@ TINY_TOPK = {"nerf.sampling.sample_topk": 6, "nerf.sampling.lidar_sample_topk": 
 TINY_LIDAR = {"lidar_beams": 8, "lidar_azimuths": 48}
 # the eval scene: 2 frames x 3 cameras, still tiny
 TINY_EVAL = {"data.synthetic.num_frames": 2, "data.pixel_source.num_cams": 3}
+# EmerNeRF's feature lifting on a cell: feature maps of a (3, 5) patch grid
+# (a 28 x 42 resize at stride 7) and 16 channels, the DINO, DINO-sky and
+# learnable-PE heads with their feature loss
+TINY_FEATURES = {"data.pixel_source.load_features": True,
+                 "nerf.model.head.enable_feature_head": True,
+                 "data.pixel_source.feature_extraction_size": [28, 42],
+                 "data.pixel_source.target_feature_dim": 16}
 
 
-def tiny_cell(cell: str):
-    """(workload, config) of ``cell`` at the tiny size."""
+def tiny_cell(cell: str, extra=None):
+    """(workload, config) of ``cell`` at the tiny size, with ``extra``
+    overrides (dotted keys) on top."""
     wl = copy.deepcopy(harness.load_workload(cell))
     cfg = copy.deepcopy(harness.load_json("configs", f"{wl['config']}.json"))
     over = dict(TINY)
@@ -55,7 +63,7 @@ def tiny_cell(cell: str):
     if wl["kind"] == "eval":
         over.update(TINY_EVAL)
         wl["sampled_rays_per_frame"] = 32
-    wl["overrides"] = {**wl.get("overrides", {}), **over}
+    wl["overrides"] = {**wl.get("overrides", {}), **over, **(extra or {})}
     wl.pop("n_params", None)
     cfg["n_params"] = None
     cfg["scene"] = {**cfg["scene"], **TINY_LIDAR}
@@ -63,10 +71,10 @@ def tiny_cell(cell: str):
 
 
 def run_tiny(monkeypatch, cell: str, trace: int = 0, seed: int = 2 ** 31 + 7,
-             seconds: float = 1.0, device="cpu"):
-    """One run of ``cell`` at the tiny size on the CPU, the harness's look for
-    a card skipped: (exit code, the last line of stdout as a dict or None,
-    stderr)."""
+             seconds: float = 1.0, device="cpu", extra=None):
+    """One run of ``cell`` at the tiny size (``extra``: overrides on top) on
+    the CPU, the harness's look for a card skipped: (exit code, the last
+    line of stdout as a dict or None, stderr)."""
     import io
     import json
     import time
@@ -74,7 +82,7 @@ def run_tiny(monkeypatch, cell: str, trace: int = 0, seed: int = 2 ** 31 + 7,
 
     import torch
 
-    wl, cfg = tiny_cell(cell)
+    wl, cfg = tiny_cell(cell, extra)
     orig_json = harness.load_json
     monkeypatch.setattr(harness, "load_workload", lambda c: wl)
     monkeypatch.setattr(harness, "load_json",
@@ -85,3 +93,30 @@ def run_tiny(monkeypatch, cell: str, trace: int = 0, seed: int = 2 ** 31 + 7,
                      device=None if device is None else torch.device(device), out=out, err=err)
     lines = out.getvalue().strip().splitlines()
     return rc, (json.loads(lines[-1]) if lines else None), err.getvalue()
+
+
+def control_checks(cell: str, extra=None):
+    """The checks of ``cell`` at the tiny size (``extra``: overrides on top)
+    with the control in the program's place: the reference computed in fp8
+    (e4m3 forward, e5m2 backward), against the float32 reference."""
+    import torch
+
+    from nerfbench.reference import compare
+
+    wl, cfg = tiny_cell(cell, extra)
+    ctx = harness.Ctx(cell, wl, cfg, 2 ** 31 + 11, 0.0, False, torch.device("cpu"), 0.0)
+    driver = harness.load_module("drivers", f"{wl['kind']}.py")
+    control = (torch.float8_e4m3fn, torch.float8_e5m2)
+    if wl["kind"] == "train":
+        s = driver.compared_setup(ctx)
+        args = (cfg, wl, s["facts"], s["names"], ctx.seed, ctx.device, s["feeds"])
+        ref = compare.follow_train(*args)
+        low = compare.follow_train(*args, round_dtype=control)
+        return compare.train_checks(
+            compare.train_numbers(low, ref, wl["grad_diff_quantile"]), wl["limits"])
+    samples, names, facts = driver.sampled_frames(ctx, 2)
+    args = (cfg, wl, facts, names, ctx.seed, ctx.device, samples)
+    ref = compare.follow_eval(*args)
+    low = compare.follow_eval(*args, round_dtype=control)
+    return compare.eval_checks([dict(s, maps=m) for s, m in zip(samples, low)], ref,
+                               wl["limits"])

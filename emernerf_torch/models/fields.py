@@ -12,7 +12,8 @@ and sky heads, and the appearance embedding with its mean-embedding
 fallback; the feature head: the base MLPs' output split into geometry and
 semantic features, the DINO head over the semantic ones (and its sky
 head), and the learnable positional-embedding map, sampled at the ray's
-pixel and lifted by its own head.  ``DensityField``:
+pixel and lifted by its own head, each inside a ``field.feature`` span
+(``utils/trace.py``).  ``DensityField``:
 the proposal network, optionally with fine-level skipping.
 
 Positions are (R, S, 3) and per-ray data is expanded to (R, S) by the
@@ -56,6 +57,7 @@ from emernerf_torch.ops.grid import grid_encode, init_grid_table
 from emernerf_torch.ops.interp import grid_sample_2d
 from emernerf_torch.ops.sh import sh_encode, sh_output_dim
 from emernerf_torch.ops.sinusoidal import sinusoidal_encode, sinusoidal_output_dim
+from emernerf_torch.utils.trace import span
 
 
 # the learnable PE map's (height, width): the reference's, which no config sets
@@ -431,7 +433,8 @@ class RadianceField(nn.Module):
             dd = torch.cat([dd, app], dim=-1)
         results = {"rgb_sky": torch.sigmoid(self.sky_head(dd))}
         if self.enable_feature_head:
-            results["dino_sky_feat"] = self.dino_sky_head(dd)
+            with span("field.feature"):
+                results["dino_sky_feat"] = self.dino_sky_head(dd)
         return results
 
     def temporal_aggregation(self, positions, normed_positions, normed_timestamps,
@@ -645,19 +648,20 @@ class RadianceField(nn.Module):
             results["shadow_ratio"] = self.shadow_head(dynamic_geo_feats)
 
         if self.enable_feature_head:
-            if self.enable_learnable_pe and "pixel_coords" in data:
-                # pixel_coords is (y/H, x/W) and is fed to the sampler as-is,
-                # as the reference does: coordinate 0 indexes the map's width
-                # axis and coordinate 1 its height axis
-                pc = data["pixel_coords"] * 2.0 - 1.0
-                pe = grid_sample_2d(self.learnable_pe_map, pc[..., 0], pc[..., 1])
-                results["dino_pe"] = self.pe_head(pe)
-            dino_feats = self.dino_head(semantic_feats)
-            if dynamic_semantic_feats is None:
-                results["dino_feat"] = dino_feats
-            else:
-                results["static_dino_feat"] = dino_feats
-                results["dynamic_dino_feat"] = self.dino_head(dynamic_semantic_feats)
+            with span("field.feature"):
+                if self.enable_learnable_pe and "pixel_coords" in data:
+                    # pixel_coords is (y/H, x/W) and is fed to the sampler as-is,
+                    # as the reference does: coordinate 0 indexes the map's width
+                    # axis and coordinate 1 its height axis
+                    pc = data["pixel_coords"] * 2.0 - 1.0
+                    pe = grid_sample_2d(self.learnable_pe_map, pc[..., 0], pc[..., 1])
+                    results["dino_pe"] = self.pe_head(pe)
+                dino_feats = self.dino_head(semantic_feats)
+                if dynamic_semantic_feats is None:
+                    results["dino_feat"] = dino_feats
+                else:
+                    results["static_dino_feat"] = dino_feats
+                    results["dynamic_dino_feat"] = self.dino_head(dynamic_semantic_feats)
 
         if self.enable_sky_head and directions is not None:
             per_ray_data = {k: v[:, 0] for k, v in data.items()
